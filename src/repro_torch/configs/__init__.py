@@ -1,0 +1,25 @@
+"""Architecture registry: ``--arch <id>`` resolves here."""
+from __future__ import annotations
+
+from typing import List
+
+from repro_torch.configs import granite_3_8b, internlm2_1_8b
+from repro_torch.configs.base import ArchConfig
+
+_MODULES = {
+    "granite-3-8b": granite_3_8b,
+    "internlm2-1.8b": internlm2_1_8b,
+}
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ArchConfig:
+    if arch_id not in _MODULES:
+        raise ValueError(f"unknown arch {arch_id!r}; the port serves "
+                         f"{ARCH_IDS}")
+    mod = _MODULES[arch_id]
+    return mod.SMOKE if smoke else mod.FULL
+
+
+__all__ = ["ArchConfig", "ARCH_IDS", "get_config"]

@@ -1,0 +1,397 @@
+// K4 and K5 on Hopper: online-softmax flash prefill, and split-K flash
+// decode over a dense KV cache with its deterministic combine.
+//
+// K4 replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
+// (_prefill_kernel).  One block per (batch, q head, 64-row q tile), four
+// warps of 16 q rows each, looping over 64-slot KV tiles with the running
+// (m, l, acc) in fp32, under the causal mask (query row i attends slots
+// <= i).  q head h reads kv head h / (H / KV): the grouped K/V are never
+// repeated.  Scores and P.V run on the tensor cores (WMMA
+// bf16, fp32 accumulation); P is rounded to bf16 for P.V, the usual flash
+// trade, which the tests and chip_smoke.py bound by a stated tolerance.
+// What bounds it: at S = 256 the causal work is small and each K/V tile
+// is re-read by the 4 q tiles of a head, so launch and latency dominate;
+// at long S it is bound by tensor-core operations.  The design keeps the
+// S x S scores out of device memory and the causal tile loop stops at the
+// diagonal, so no masked-out tile is loaded.
+//
+// K5 replaces flash_decode_pallas (_decode_kernel) and
+// combine_tile_partials.  k5_decode_partials: one block per (batch, kv
+// head, tile group); each fixed 32-slot tile anchored at slot 0 yields an
+// independent partial (m_t, l_t, acc_t) that the G query heads of the kv
+// head share a K/V tile for.  A tile past the current position is fully
+// masked and is written as (_NEG, 0, 0) without reading the cache.
+// k5_decode_combine: a global max, alpha_t = exp(m_t - m) and an ASCENDING
+// fp32 fold over tiles.  A partial depends only on its tile index, and the
+// combine never sees the grouping, so the output is bitwise identical for
+// every n_splits.  What bounds it: the bytes of the live cache (each K/V
+// row read once), so tiles past the position are skipped.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr float NEG = -1e30f;
+constexpr int THREADS = 128;
+
+// ---------------------------------------------------------------------------
+// K4: prefill
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;
+constexpr int BKV = 64;
+
+template <int HD>
+struct PrefillSmem {
+  static constexpr int QLD = HD + 8;                   // bf16 rows, 16 B mult
+  static constexpr int SLD = (HD > BKV ? HD : BKV) + 4;  // fp32 scratch
+  static constexpr int PLD = BKV + 8;
+  static constexpr size_t Q = BQ * QLD * sizeof(bf16);
+  static constexpr size_t KV = BKV * QLD * sizeof(bf16);
+  static constexpr size_t S = 4 * 16 * SLD * sizeof(float);
+  static constexpr size_t P = 4 * 16 * PLD * sizeof(bf16);
+  static constexpr size_t BYTES = Q + 2 * KV + S + P;
+};
+
+// copy `rows` rows of HD bf16 (row r at src + r * stride) into shared rows
+// of ld elements, zero-filling rows at or past `valid`
+template <int HD>
+__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
+                                          size_t stride, int rows,
+                                          int valid) {
+  constexpr int CH = HD / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < rows * CH; c += THREADS) {
+    int r = c / CH, cc = (c % CH) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * stride + cc);
+    *reinterpret_cast<uint4*>(dst + r * ld + cc) = v;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
+               int Skv, int H, int KV, float scale) {
+  using L = PrefillSmem<HD>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::Q);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::Q + L::KV);
+  float* Ss = reinterpret_cast<float*>(smem + L::Q + 2 * L::KV);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::Q + 2 * L::KV + L::S);
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = lane / 2, half = lane % 2;  // this lane's row and half
+  const int qrow = q0 + warp * 16 + r;  // also its position (causal)
+  float* Sw = Ss + warp * 16 * L::SLD;
+  bf16* Pw = Ps + warp * 16 * L::PLD;
+
+  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
+  load_rows<HD>(Qs, L::QLD, q + ((size_t)b * Sq + q0) * q_stride + h * HD,
+                q_stride, BQ, Sq - q0);
+
+  float m = NEG, l = 0.0f;
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+
+  const int kv_end = min(Skv, q0 + BQ);  // no tile past the diagonal
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
+    __syncthreads();  // previous tile fully consumed
+    const bf16* kb = k + ((size_t)b * Skv + kv0) * kv_stride + kvh * HD;
+    const bf16* vb = v + ((size_t)b * Skv + kv0) * kv_stride + kvh * HD;
+    load_rows<HD>(Ks, L::QLD, kb, kv_stride, BKV, Skv - kv0);
+    load_rows<HD>(Vs, L::QLD, vb, kv_stride, BKV, Skv - kv0);
+    __syncthreads();
+
+    // S_w [16 x 64] = Q_w [16 x HD] . K^T
+#pragma unroll
+    for (int j = 0; j < BKV / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < HD; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+        wmma::load_matrix_sync(fa, Qs + (warp * 16) * L::QLD + kk, L::QLD);
+        wmma::load_matrix_sync(fb, Ks + (j * 16) * L::QLD + kk, L::QLD);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(Sw + j * 16, acc, L::SLD, wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // online softmax on this lane's 32 columns of its row
+    float s[BKV / 2];
+    float mx = NEG;
+#pragma unroll
+    for (int c = 0; c < BKV / 2; ++c) {
+      const int kpos = kv0 + half * (BKV / 2) + c;
+      const bool ok = kpos < Skv && kpos <= qrow;
+      s[c] = ok ? Sw[r * L::SLD + half * (BKV / 2) + c] * scale : NEG;
+      mx = fmaxf(mx, s[c]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    const float m_new = fmaxf(m, mx);
+    // guard fully masked rows: exp(_NEG - _NEG) would be 1
+    const float alpha = expf(fminf(m - m_new, 0.0f));
+    float psum = 0.0f;
+#pragma unroll
+    for (int c = 0; c < BKV / 2; ++c) {
+      const int kpos = kv0 + half * (BKV / 2) + c;
+      const bool ok = kpos < Skv && kpos <= qrow;
+      const float p = ok ? expf(s[c] - m_new) : 0.0f;
+      psum += p;
+      Pw[r * L::PLD + half * (BKV / 2) + c] = __float2bfloat16(p);
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    l = l * alpha + psum;
+    m = m_new;
+    __syncwarp();
+
+    // PV_w [16 x HD] = P_w [16 x 64] . V, then o = o * alpha + PV_w
+#pragma unroll
+    for (int n = 0; n < HD / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < BKV; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fa, Pw + kk, L::PLD);
+        wmma::load_matrix_sync(fb, Vs + kk * L::QLD + n * 16, L::QLD);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(Sw + n * 16, acc, L::SLD, wmma::mem_row_major);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i)
+      o[i] = o[i] * alpha + Sw[r * L::SLD + half * (HD / 2) + i];
+    __syncwarp();
+  }
+
+  if (qrow < Sq) {
+    const float inv = 1.0f / fmaxf(l, 1e-30f);
+    bf16* orow = out + ((size_t)b * Sq + qrow) * q_stride + h * HD +
+                 half * (HD / 2);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) orow[i] = __float2bfloat16(o[i] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: split-K decode partials and combine
+// ---------------------------------------------------------------------------
+
+constexpr int TILE = 32;  // DEFAULT_KV_TILE of the reference
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+decode_partials_kernel(const bf16* __restrict__ q,
+                       const bf16* __restrict__ kc,
+                       const bf16* __restrict__ vc, float* __restrict__ m_t,
+                       float* __restrict__ l_t, float* __restrict__ acc_t,
+                       int KV, int G, int cache_len, int pos, int n_tiles,
+                       int tiles_per_split, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + TILE * HD;
+  float* qs = reinterpret_cast<float*>(Vs + TILE * HD);
+  float* ps = qs + G * HD;
+
+  const int row = blockIdx.x;  // b * KV + kv head
+  const int b = row / KV, kvh = row % KV;
+  const size_t kv_stride = (size_t)KV * HD;
+  for (int i = threadIdx.x; i < G * HD; i += THREADS)
+    qs[i] = __bfloat162float(q[(size_t)row * G * HD + i]);
+
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int t0 = t * TILE;
+    const size_t pm = ((size_t)row * n_tiles + t) * G;
+    if (t0 > pos) {  // fully masked tile: exact (_NEG, 0, 0)
+      for (int i = threadIdx.x; i < G; i += THREADS) {
+        m_t[pm + i] = NEG;
+        l_t[pm + i] = 0.0f;
+      }
+      for (int i = threadIdx.x; i < G * HD; i += THREADS)
+        acc_t[pm * HD + i] = 0.0f;
+      continue;
+    }
+    __syncthreads();  // qs loaded / previous tile consumed
+    const bf16* kb = kc + ((size_t)b * cache_len + t0) * kv_stride + kvh * HD;
+    const bf16* vb = vc + ((size_t)b * cache_len + t0) * kv_stride + kvh * HD;
+    // K is stored transposed (slot fastest) so the threads of a warp,
+    // one slot each, read neighbouring shared-memory words
+    constexpr int CH = HD / 8;
+    for (int c = threadIdx.x; c < TILE * CH; c += THREADS) {
+      const int j = c / CH, cc = (c % CH) * 8;
+      uint4 w = make_uint4(0, 0, 0, 0);
+      if (j < cache_len - t0)
+        w = *reinterpret_cast<const uint4*>(kb + j * kv_stride + cc);
+      const bf16* e = reinterpret_cast<const bf16*>(&w);
+#pragma unroll
+      for (int x = 0; x < 8; ++x) Ks[(cc + x) * TILE + j] = e[x];
+    }
+    load_rows<HD>(Vs, HD, vb, kv_stride, TILE, cache_len - t0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * TILE; i += THREADS) {
+      const int g = i / TILE, j = i % TILE;
+      const int slot = t0 + j;
+      float dot = 0.0f;
+      for (int d = 0; d < HD; ++d)
+        dot += qs[g * HD + d] * __bfloat162float(Ks[d * TILE + j]);
+      ps[i] = (slot < cache_len && slot <= pos) ? dot * scale : NEG;
+    }
+    __syncthreads();
+    for (int g = threadIdx.x; g < G; g += THREADS) {
+      float mx = NEG;
+      for (int j = 0; j < TILE; ++j) mx = fmaxf(mx, ps[g * TILE + j]);
+      float sum = 0.0f;
+      for (int j = 0; j < TILE; ++j) {
+        const int slot = t0 + j;
+        const float p = (slot < cache_len && slot <= pos)
+                            ? expf(ps[g * TILE + j] - mx) : 0.0f;
+        ps[g * TILE + j] = p;
+        sum += p;
+      }
+      m_t[pm + g] = mx;
+      l_t[pm + g] = sum;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * HD; i += THREADS) {
+      const int g = i / HD, d = i % HD;
+      float a = 0.0f;
+      for (int j = 0; j < TILE; ++j)
+        a += ps[g * TILE + j] * __bfloat162float(Vs[j * HD + d]);
+      acc_t[pm * HD + i] = a;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+decode_combine_kernel(const float* __restrict__ m_t,
+                      const float* __restrict__ l_t,
+                      const float* __restrict__ acc_t, bf16* __restrict__ out,
+                      int n_tiles, int G, int HD) {
+  const int row = blockIdx.x;
+  for (int i = threadIdx.x; i < G * HD; i += THREADS) {
+    const int g = i / HD, d = i % HD;
+    const size_t base = (size_t)row * n_tiles * G + g;  // tile 0, head g
+    float m = NEG;
+    for (int t = 0; t < n_tiles; ++t) m = fmaxf(m, m_t[base + t * G]);
+    // ascending rank-order fold at fp32 (core/maxeva_matmul._rank_order_sum)
+    float alpha = expf(m_t[base] - m);
+    float l = l_t[base] * alpha;
+    float a = acc_t[base * HD + d] * alpha;
+    for (int t = 1; t < n_tiles; ++t) {
+      alpha = expf(m_t[base + t * G] - m);
+      l = l + l_t[base + t * G] * alpha;
+      a = a + acc_t[(base + t * G) * HD + d] * alpha;
+    }
+    out[((size_t)row * G + g) * HD + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+  }
+}
+
+template <int HD>
+int launch_prefill(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Skv, int H, int KV, float scale,
+                   cudaStream_t st) {
+  const size_t bytes = PrefillSmem<HD>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  prefill_kernel<HD><<<grid, THREADS, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, KV,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_partials(const void* q, const void* k, const void* v, void* m,
+                    void* l, void* acc, int B, int KV, int G, int cache_len,
+                    int pos, int n_tiles, int tiles_per_split, int n_splits,
+                    float scale, cudaStream_t st) {
+  const size_t bytes =
+      2 * TILE * HD * sizeof(bf16) + (size_t)G * (HD + TILE) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_partials_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * KV, n_splits);
+  decode_partials_kernel<HD><<<grid, THREADS, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<float*>(m),
+      static_cast<float*>(l), static_cast<float*>(acc), KV, G, cache_len, pos,
+      n_tiles, tiles_per_split, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int k4_flash_prefill(const void* q, const void* k, const void* v,
+                                void* out, int B, int Sq, int Skv, int H,
+                                int KV, int hd, float scale,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_prefill<16>(q, k, v, out, B, Sq, Skv, H, KV,
+                                       scale, st);
+    case 32: return launch_prefill<32>(q, k, v, out, B, Sq, Skv, H, KV,
+                                       scale, st);
+    case 64: return launch_prefill<64>(q, k, v, out, B, Sq, Skv, H, KV,
+                                       scale, st);
+    case 128: return launch_prefill<128>(q, k, v, out, B, Sq, Skv, H, KV,
+                                         scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int k5_decode_partials(const void* q, const void* k, const void* v,
+                                  void* m, void* l, void* acc, int B, int KV,
+                                  int G, int hd, int cache_len, int pos,
+                                  int n_tiles, int tiles_per_split,
+                                  int n_splits, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_partials<16>(q, k, v, m, l, acc, B, KV, G,
+                                        cache_len, pos, n_tiles,
+                                        tiles_per_split, n_splits, scale, st);
+    case 32: return launch_partials<32>(q, k, v, m, l, acc, B, KV, G,
+                                        cache_len, pos, n_tiles,
+                                        tiles_per_split, n_splits, scale, st);
+    case 64: return launch_partials<64>(q, k, v, m, l, acc, B, KV, G,
+                                        cache_len, pos, n_tiles,
+                                        tiles_per_split, n_splits, scale, st);
+    case 128: return launch_partials<128>(q, k, v, m, l, acc, B, KV, G,
+                                          cache_len, pos, n_tiles,
+                                          tiles_per_split, n_splits, scale,
+                                          st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int k5_decode_combine(const void* m, const void* l,
+                                 const void* acc, void* out, int rows,
+                                 int n_tiles, int G, int hd, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  decode_combine_kernel<<<rows, THREADS, 0, st>>>(
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(acc), static_cast<bf16*>(out), n_tiles, G,
+      hd);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,154 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded through ``ctypes``.
+Nothing is built when a module is imported: the first CUDA launch (or
+``build_all``) builds, into ``build/repro_torch/`` under the checkout, and
+the library's file name carries a hash of its source, so an edited source
+is rebuilt and an unchanged one is reused.
+
+``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds
+one exactly where it launches its kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of every exported launcher: (argtypes); each returns the
+# cudaError_t of its launch
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "matmul": {
+        # a, b, out, residual, operand2, M, N, K, gate_silu, stream
+        "k1_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, scale, out, M, N, eps, stream
+        "k1_rmsnorm_rows": [_P, _P, _P, _I, _I, _F, _P],
+    },
+    "flash_attention": {
+        # q, k, v, out, B, Sq, Skv, H, KV, hd, scale, stream
+        "k4_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, m, l, acc, B, KV, G, hd, cache_len, pos, n_tiles,
+        # tiles_per_split, n_splits, scale, stream
+        "k5_decode_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _P],
+        # m, l, acc, out, rows, n_tiles, G, hd, stream
+        "k5_decode_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
+LAUNCHES: Dict[str, int] = {"matmul": 0, "rmsnorm": 0,
+                            "flash_attention": 0, "decode_partials": 0,
+                            "decode_combine": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "with the CUDA toolkit on the machine with the "
+                           "card")
+    return found
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source unless its library exists; returns the
+    process (or None) and the library path."""
+    so = _target(name)
+    if so.exists():
+        return None, so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.tmp = tmp
+    return proc, so
+
+
+def _finish_build(proc, so: Path) -> None:
+    if proc is None:
+        return
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {so.name}:\n{out}")
+    os.replace(proc.tmp, so)
+
+
+def _load(name: str, so: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def build_all() -> Dict[str, Path]:
+    """Build every kernel library at once (one nvcc per source, all
+    started together) and load them.  Returns the library paths."""
+    started = {name: _start_build(name) for name in SIGNATURES}
+    for name, (proc, so) in started.items():
+        _finish_build(proc, so)
+        if name not in _LIBS:
+            _load(name, so)
+    return {name: so for name, (_, so) in started.items()}
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library ``csrc/<name>.cu``, built on first use."""
+    if name not in _LIBS:
+        proc, so = _start_build(name)
+        _finish_build(proc, so)
+        _load(name, so)
+    return _LIBS[name]
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call one exported launcher on PyTorch's current stream and raise if
+    the launch was refused."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(name), fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {fn} failed with cudaError {err}")
+
+
+def check(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None) -> None:
+    """Wrapper-side validation before a pointer reaches a kernel."""
+    if not t.is_cuda:
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must be 16-byte aligned")

@@ -1,0 +1,74 @@
+"""Dispatch over the serving kernels, by the device of the tensors.
+
+A CUDA tensor goes to the hand-written kernel, which launches or raises;
+a CPU tensor goes to the kernel's plain PyTorch version.  There is no mode
+switch, no environment variable and no fallback: the device of the data
+is the whole policy.  Launch counts live in ``kernels._cuda.LAUNCHES``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.epilogue import Epilogue, rms_normalize
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_decode_cuda,
+                                                 flash_decode_tiled)
+from repro_torch.kernels.matmul import matmul_cuda, rmsnorm_cuda
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
+           epilogue: Optional[Epilogue] = None,
+           residual: Optional[torch.Tensor] = None,
+           operand2: Optional[torch.Tensor] = None,
+           norm_scale: Optional[torch.Tensor] = None):
+    """``epilogue(a @ b)`` for 2-D ``a [M, K]`` and ``b [K, N]``; callers
+    flatten leading dims.  ``out_dtype`` fills ``epilogue.out_dtype`` when
+    that is unset (default: the fp32 accumulator).  Returns
+    ``(value, normed)`` under ``norm='rmsnorm'``."""
+    if epilogue is None and any(x is not None for x in
+                                (residual, operand2, norm_scale)):
+        raise ValueError("residual/operand2/norm_scale operands require an "
+                         "Epilogue spec")
+    ep = epilogue or Epilogue()
+    if out_dtype is not None and ep.out_dtype is None:
+        ep = dataclasses.replace(ep, out_dtype=out_dtype)
+    if a.is_cuda:
+        return matmul_cuda(a, b, ep, residual=residual, operand2=operand2,
+                           norm_scale=norm_scale)
+    return ref.matmul_fused_ref(a, b, ep, residual=residual,
+                                operand2=operand2, norm_scale=norm_scale)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """Row rmsnorm over the last axis (fp32 math, ``sum / n``,
+    ``(1 + scale)``), cast back to ``x.dtype``.  On the card this is the
+    K1 row-norm kernel, the same routine that completes the fused down
+    GEMM's normed output."""
+    if x.is_cuda:
+        return rmsnorm_cuda(x.reshape(-1, x.shape[-1]), scale,
+                            eps).reshape(x.shape)
+    return rms_normalize(x, scale, eps)
+
+
+def flash_attention(q, k, v):
+    """Causal prefill attention: q [B, Sq, H, hd], k/v [B, Skv, KV, hd]
+    -> [B, Sq, H, hd]."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v)
+    return ref.flash_attention_ref(q, k, v)
+
+
+def flash_decode(q, k_cache, v_cache, pos: int, *,
+                 n_splits: Optional[int] = None):
+    """Decode attention over slots <= ``pos``: q [B, 1, KV, G, hd]
+    against dense caches [B, K, KV, hd] -> [B, 1, KV, G, hd].
+    ``n_splits`` (on the card; default: enough tile groups to fill the
+    SMs) changes no bit of the result."""
+    if q.is_cuda:
+        return flash_decode_cuda(q, k_cache, v_cache, pos, n_splits)
+    return flash_decode_tiled(q, k_cache, v_cache, pos)

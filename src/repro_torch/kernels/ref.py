@@ -1,0 +1,83 @@
+"""Plain PyTorch versions of the serving kernels, and the f64 oracles.
+
+These are what a kernel wrapper runs for a tensor on the CPU, and what
+``chip_smoke.py`` holds each CUDA kernel against on the card.  With f64
+inputs every function keeps its whole chain at f64 (the oracle runs).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_NEG_REF = -1e30
+
+
+def accum_dtype(*dtypes: torch.dtype) -> torch.dtype:
+    """The GEMM accumulator of the promoted input dtype: fp32 for every
+    float input up to 32 bits, f64 for f64 (an oracle run must not
+    silently accumulate at fp32)."""
+    return (torch.float64 if torch.float64 in dtypes else torch.float32)
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """C = A @ B with fp32 (f64) accumulation; mixed inputs promote the
+    way ``jnp.dot`` does (a bf16 activation against fp32 weights runs an
+    fp32 product)."""
+    acc = accum_dtype(a.dtype, b.dtype)
+    out = torch.matmul(a.to(acc), b.to(acc))
+    return out.to(out_dtype or acc)
+
+
+def matmul_fused_ref(a: torch.Tensor, b: torch.Tensor, epilogue,
+                     residual: Optional[torch.Tensor] = None,
+                     operand2: Optional[torch.Tensor] = None,
+                     norm_scale: Optional[torch.Tensor] = None):
+    """epilogue(A @ B): the plain version of the fused-epilogue GEMM.
+    Returns ``(value, normed)`` under ``epilogue.norm``, else one tensor."""
+    from repro_torch.kernels.epilogue import apply_epilogue
+    return apply_epilogue(matmul_ref(a, b), epilogue, residual=residual,
+                          operand2=operand2, norm_scale=norm_scale)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Causal prefill attention (query row i attends slots <= i), plain
+    masked softmax at the accumulator width.  q [B, Sq, H, hd]; k/v
+    [B, Skv, KV, hd] with KV | H: q head h reads kv head h // (H // KV) —
+    grouped in the einsum, never repeated."""
+    b, sq, n_h, hd = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    acc = accum_dtype(q.dtype)
+    qg = q.reshape(b, sq, n_kv, n_h // n_kv, hd).to(acc)
+    s = torch.einsum("bqkgd,bKkd->bkgqK", qg, k.to(acc))
+    s = s * hd ** -0.5
+    qpos = torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    mask = qpos[:, None] >= kpos[None, :]
+    s = s.masked_fill(~mask, _NEG_REF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~mask, 0.0)
+    out = torch.einsum("bkgqK,bKkd->bkgqd", p, v.to(acc))
+    out = out / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, n_h, hd).to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """Decode oracle: q [B, 1, KV, G, hd] against dense caches
+    [B, K, KV, hd], slots <= pos live.  Plain (untiled) masked softmax at
+    the accumulator width."""
+    hd = q.shape[-1]
+    acc = accum_dtype(q.dtype)
+    s = torch.einsum("bqkgd,bKkd->bkgqK", q.to(acc), k_cache.to(acc))
+    s = s * hd ** -0.5
+    slots = torch.arange(k_cache.shape[1], device=q.device)
+    valid = slots <= pos
+    s = s.masked_fill(~valid, _NEG_REF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~valid, 0.0)
+    out = torch.einsum("bkgqK,bKkd->bkgqd", p, v_cache.to(acc))
+    out = out / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
