@@ -11,25 +11,37 @@ line):
    one compiler per source, all started together.
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at granite-3-8b's full-width shapes, each row of the output within a
-   stated tolerance of that row's own scale; the fused rmsnorm output must
-   be bitwise the standalone rmsnorm of the stored value, and split-K
-   decode bitwise the same for n_splits 1/2/4.  Each kernel's time, its
-   plain version's time, one PyTorch library call's time where one
-   computes the same function (a yardstick only; the port never calls it)
-   and the least time the card could take (the bound) are recorded.
+   stated tolerance of that row's own scale.  Bitwise: the fused rmsnorm
+   output against the standalone rmsnorm of the stored value, split-K
+   decode across n_splits 1/2/4, K3 (rowwise quantize), every fp32-out
+   int8 product of K2, and K6 (paged decode) against K5 over the same
+   history in a dense cache.  K1 and K2 are checked at the rows of both
+   driven paths (the fixed loop's 4 and 1024, the scheduler's 8 and 512).
+   Each kernel's device time (its kernels' durations in a profiler
+   trace), its wrapper's time (CUDA events, host work inside included),
+   its plain version's and one PyTorch library call's device time where
+   one computes the same function (a yardstick only; the port never calls
+   it) and the least time the card could take (the bound) are recorded.
 3. smoke: the whole path on granite-3-8b-smoke (bf16 parameters, as the
    full model has) on the CPU (plain versions) and on the card (kernels):
-   greedy tokens must match over 8 steps, and the card's teacher-forced
-   logits must sit within twice the CPU pipeline's own bf16 rounding
-   noise (its distance from an fp32-compute run on the same tokens).
+   greedy tokens through the scheduler must match over 8 steps, bf16 and
+   int8, and the card's teacher-forced logits must sit within twice the
+   CPU pipeline's own bf16 rounding noise (its distance from an
+   fp32-compute run on the same tokens).
 4. serve: granite-3-8b at full width and all 40 layers, random weights
-   from a seed (varied as in phase 3): ``ServeEngine.generate_with_status``
-   answers 4 requests of 256 prompt tokens with 16 greedy tokens each.
-   Launch counts are set to 0 just before and read just after; every
-   kernel must have launched, and no lane may repeat one token.  Before
-   the weights are varied, a witness: three decode steps' logits against
-   the last-position logits of a prefill over the same tokens
-   (``WITNESS_TOL``).
+   from a seed.  At the init scales two witnesses: three decode steps'
+   logits against prefills over the same tokens (``WITNESS_TOL``), and
+   the int8 copy's first logits against the bf16 model's
+   (``INT8_WITNESS_TOL``).  Then, on weights varied as in phase 3, three
+   driven paths, each with the launch counts set to 0 just before it and
+   read just after, every kernel of the path launched: the fixed loop
+   (``generate_with_status_fixed``, 4 requests of 256 prompt tokens, 16
+   greedy tokens each; K1, K4, K5), and continuous batching through
+   ``ServeEngine.submit/step`` with 16 requests of 32-448 prompt tokens
+   and 16-32 new tokens on 8 lanes (page size 16, chunk 64), once bf16
+   (K1, K6) and once int8 (K2, K3, K6).  Every status ok, no request
+   repeating one token, and request 0 served alone emitting bitwise the
+   tokens it emits amid the churn.
 
 Then one JSON line listing every ported kernel, the card line again, and
 last ``{"ok": true, "device": {...}}``.
@@ -49,10 +61,24 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM data sheet (dense): HBM rate and peak operation rates
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 FP32_FLOPS_PER_S = 67e12     # outside the tensor cores
 L2_FLUSH_BYTES = 64 << 20   # more than the 50 MB L2
 BATCH, PROMPT, NEW = 4, 256, 16
 SEED = 0
+# the paged kernel's shapes follow the scheduler's geometry
+# (repro_torch.launch.serve.GEOMETRY): 8 lanes, 16-slot pages, 64-token
+# chunks; N_REQ requests are served through it
+LANES, PAGE, CHUNK, N_REQ = 8, 16, 64, 16
+# kernels each driven path must launch (the counts are read per path)
+PATH_KERNELS = {
+    "fixed": ("matmul", "rmsnorm", "flash_attention", "decode_partials",
+              "decode_combine"),
+    "scheduler_bf16": ("matmul", "rmsnorm", "paged_partials",
+                       "decode_combine"),
+    "scheduler_int8": ("int8_matmul", "int8_quantize", "quantize",
+                       "rmsnorm", "paged_partials", "decode_combine"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -82,21 +108,72 @@ def bound(nbytes: float, flops: float, flops_per_s: float = None):
 
 
 class Timer:
-    """Device time of one call, averaged over ``reps`` calls, each after
-    an L2 flush (the serving path meets its weights and caches cold)."""
+    """Time of one call, averaged over ``reps`` calls, each after an L2
+    flush (the serving path meets its weights and caches cold).
+
+    Calling it gives the device time: the sum of the card's kernel (and
+    copy) durations in a ``torch.profiler`` trace of the calls, with the
+    flush's own kernel left out.  ``wall`` gives CUDA events around each
+    call instead, which also hold the host's time inside the wrapper
+    (argument checks, allocation, the ctypes call)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                  device="cuda")
+        # the flush's kernel, told apart in a trace by its full name
+        events = self._events(lambda: [self._flush() for _ in range(3)])
+        self.flush_names = {n for n, _ in events}
+        require(len(events) == 3 and len(self.flush_names) == 1,
+                f"the flush is not one kernel per call: {events}")
 
-    def __call__(self, fn, reps: int = 10) -> float:
+    def _flush(self):
+        self.torch.bitwise_not(self.flush, out=self.flush)
+
+    def _events(self, body):
+        """(name, device us) of every device event while ``body`` runs."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return [(ev.name, ev.device_time_total) for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+    def __call__(self, fn, reps: int = 10, tries: int = 5) -> float:
+        fn()
+        self.torch.cuda.synchronize()
+
+        def body():
+            for _ in range(reps):
+                self._flush()
+                fn()
+
+        # a trace counts only when it is complete: one flush per call and
+        # as many events per call as one call alone shows (the profiler
+        # has been seen to drop events from a trace)
+        for _ in range(tries):
+            own = self._events(fn)
+            require(not {n for n, _ in own} & self.flush_names,
+                    f"a timed call launches the flush's kernel: {own}")
+            events = self._events(body)
+            rest = [us for n, us in events if n not in self.flush_names]
+            if (len(events) - len(rest) == reps
+                    and len(rest) == reps * len(own)):
+                return sum(rest) / reps / 1e3
+            print(f"  timer: incomplete trace ({len(events) - len(rest)} "
+                  f"flushes and {len(rest)} other events for {reps} calls "
+                  f"of {len(own)} events), again", flush=True)
+        raise SmokeFailure(f"no complete trace in {tries} tries")
+
+    def wall(self, fn, reps: int = 10) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(reps):
-            self.flush.zero_()
+            self._flush()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -147,12 +224,13 @@ def check_kernels(torch, timer):
     d, ff, qkv_n = 4096, 12800, 6144
     results = {}
     shapes = []
-    # K1 GEMM: each output row within 2 bf16 ulps of its scale (fp32 sums
-    # in another order may flip a rounding, and the normed output inherits
-    # one flip of the value); the rmsnorm output is bitwise the standalone
-    # norm of the stored value.
+    # K1 GEMM, at the fixed loop's decode and prefill rows (4, 1024) and
+    # the scheduler's (LANES, LANES * CHUNK): each output row within 2 bf16
+    # ulps of its scale (fp32 sums in another order may flip a rounding,
+    # and the normed output inherits one flip of the value); the rmsnorm
+    # output is bitwise the standalone norm of the stored value.
     k1_tol = 2 * eps_bf16
-    for m in (4, 1024):
+    for m in (BATCH, LANES, 1024, LANES * CHUNK):
         x = rand(m, d)
         h = rand(m, ff)
         res = rand(m, d)
@@ -199,6 +277,8 @@ def check_kernels(torch, timer):
                 "shape": f"{name} M={mm} K={kk} N={nn}",
                 "max_abs_err": abs_err, "max_row_err": err,
                 "ms": timer(lambda: ops.matmul(a, b, epilogue=ep, **kw)),
+                "wrapper_ms": timer.wall(
+                    lambda: ops.matmul(a, b, epilogue=ep, **kw)),
                 "plain_ms": timer(
                     lambda: ref.matmul_fused_ref(a, b, ep, **kw)),
                 "library_ms": timer(lambda: torch.matmul(a, b)),
@@ -206,32 +286,43 @@ def check_kernels(torch, timer):
             row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * mm * kk * nn)
             shapes.append(row)
             print("  k1", json.dumps(row))
-    dec = [r for r in shapes if " M=4 " in r["shape"]]
+    # reported at the scheduler's decode rows, the path generate runs
+    dec = [r for r in shapes if f" M={LANES} " in r["shape"]]
     results["k1_matmul"] = dict(
-        work="one decoder block's five projections at decode (M=4): "
-             "qkv, o, gate, up+silu gate, down+residual (+rmsnorm pass)",
+        work=f"one decoder block's five projections at decode (M={LANES}): "
+             f"qkv, o, gate, up+silu gate, down+residual (+rmsnorm pass); "
+             f"also checked at M={BATCH}, 1024 and {LANES * CHUNK}",
         max_abs_err=max(r["max_abs_err"] for r in shapes),
         max_row_err=max(r["max_row_err"] for r in shapes), tol=k1_tol,
-        ms=sum(r["ms"] for r in dec), plain_ms=sum(r["plain_ms"] for r in dec),
+        ms=sum(r["ms"] for r in dec),
+        wrapper_ms=sum(r["wrapper_ms"] for r in dec),
+        plain_ms=sum(r["plain_ms"] for r in dec),
         bound_ms=sum(r["bound_ms"] for r in dec),
         bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in dec)
                   else "operations"),
         library_ms=sum(r["library_ms"] for r in dec),
         shapes=shapes)
 
-    # K1 row-norm pass (decode shape): each row within 1 bf16 ulp of its
-    # scale
-    x = rand(BATCH, d)
+    # K1 row-norm pass at the same rows: each row within 1 bf16 ulp of its
+    # scale; reported at the scheduler's decode rows
     nscale = rand(d, dtype=torch.float32, scale=0.1)
-    got, want = ops.rmsnorm(x, nscale), rms_normalize(x, nscale, 1e-6)
-    err = row_err(got, want)
-    require(err <= eps_bf16, f"rmsnorm: a row is off by {err:.3e}")
     w1 = (1.0 + nscale).to(bf)
+    norm_rows = {}
+    for m in (BATCH, LANES, 1024, LANES * CHUNK):
+        x = rand(m, d)
+        got, want = ops.rmsnorm(x, nscale), rms_normalize(x, nscale, 1e-6)
+        norm_rows[m] = (x, row_err(got, want), max_err(got, want))
+    err = max(e for _, e, _ in norm_rows.values())
+    require(err <= eps_bf16, f"rmsnorm: a row is off by {err:.3e}")
+    x = norm_rows[LANES][0]
     t_b, by = bound(2 * 2 * x.numel() + 4 * d, 0)
     results["k1_rmsnorm"] = dict(
-        work=f"rmsnorm rows [{BATCH}, {d}] bf16",
-        max_abs_err=max_err(got, want), max_row_err=err, tol=eps_bf16,
+        work=f"rmsnorm rows [{LANES}, {d}] bf16 (also checked at "
+             f"{BATCH}, 1024 and {LANES * CHUNK} rows)",
+        max_abs_err=max(a for _, _, a in norm_rows.values()),
+        max_row_err=err, tol=eps_bf16,
         ms=timer(lambda: ops.rmsnorm(x, nscale)),
+        wrapper_ms=timer.wall(lambda: ops.rmsnorm(x, nscale)),
         plain_ms=timer(lambda: rms_normalize(x, nscale, 1e-6)),
         bound_ms=t_b, bound_by=by,
         library_ms=(timer(lambda: F.rms_norm(x, (d,), w1, 1e-6))
@@ -256,6 +347,7 @@ def check_kernels(torch, timer):
         work=f"causal prefill B={b} S={s} H={nh} KV={nkv} hd={hd}",
         max_abs_err=max_err(got, want), max_row_err=err, tol=4 * eps_bf16,
         ms=timer(lambda: ops.flash_attention(q, k, v)),
+        wrapper_ms=timer.wall(lambda: ops.flash_attention(q, k, v)),
         plain_ms=timer(lambda: ref.flash_attention_ref(q, k, v)),
         bound_ms=t_b, bound_by=by,
         library_ms=timer(lambda: F.scaled_dot_product_attention(
@@ -297,6 +389,7 @@ def check_kernels(torch, timer):
         max_abs_err=max(max_err(x, y) for x, y in zip(parts, plain)),
         max_row_err=p_err, tol=1e-5,
         ms=timer(lambda: decode_partials_cuda(q, kc, vc, pos)),
+        wrapper_ms=timer.wall(lambda: decode_partials_cuda(q, kc, vc, pos)),
         plain_ms=timer(lambda: decode_tile_partials(q, kc, vc, pos)),
         bound_ms=t_b, bound_by=by, library_ms=None)
 
@@ -314,6 +407,7 @@ def check_kernels(torch, timer):
              f"hd={hd}",
         max_abs_err=max_err(got, want), max_row_err=c_err, tol=eps_bf16,
         ms=timer(lambda: decode_combine_cuda(*parts)),
+        wrapper_ms=timer.wall(lambda: decode_combine_cuda(*parts)),
         plain_ms=timer(lambda: combine_tile_partials(*stacked)),
         bound_ms=t_b, bound_by=by, library_ms=None)
 
@@ -328,6 +422,250 @@ def check_kernels(torch, timer):
         library_ms=timer(lambda: F.scaled_dot_product_attention(qd, kd,
                                                                 vd)))
     return results
+
+
+def _int_mm_ms(torch, timer, qa, qb):
+    """One cuBLASLt int8 product (no scales, no epilogue), the yardstick
+    of K2; None where ``torch._int_mm`` refuses the shape (some versions
+    refuse M <= 16)."""
+    try:
+        torch._int_mm(qa, qb)
+    except RuntimeError:
+        return None
+    return timer(lambda: torch._int_mm(qa, qb))
+
+
+def check_int8_kernels(torch, timer):
+    """K2 (int8 GEMM), its (q, scale) row pass and K3 (rowwise quantize)
+    against their plain versions at granite-3-8b's widths, at decode
+    (M = 8 lanes) and at a prefill chunk (M = 8 x 64).  K3 and every
+    fp32-out product are bitwise.  bf16 outputs: every row within one bf16
+    ulp of its scale (the same fp32 values, so in practice bitwise).  The
+    up GEMM's (q, scale): q within +-1 and the scale within 2 fp32 ulps
+    (the silu may differ by an ulp).  The normed output is bitwise the
+    standalone rmsnorm of the stored value."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.epilogue import Epilogue
+    from repro_torch.kernels.quantize import quantize_rowwise_cuda
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    eps_f32 = float(torch.finfo(torch.float32).eps)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    d, ff, qkv_n = 4096, 12800, 6144
+    results, shapes = {}, []
+    # K3: bitwise, both instantiations
+    k3 = {}
+    for shape, dt in (((LANES, d), bf), ((LANES * CHUNK, ff), torch.float32)):
+        x = rand(*shape).to(dt)
+        got, want = ops.quantize_rowwise(x), ref.quantize_rowwise_ref(x)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"K3 {shape} {dt} is not bitwise its plain version")
+        k3[shape] = x
+    x = k3[(LANES, d)]
+    t_b, by = bound(2 * x.numel() + x.numel() + 4 * LANES, 0)
+    results["k3_quantize"] = dict(
+        work=f"rowwise quantize of the normed stream [{LANES}, {d}] bf16 "
+             f"(also bitwise at [{LANES * CHUNK}, {ff}] fp32)",
+        max_abs_err=0.0, max_row_err=0.0, tol=0.0,
+        ms=timer(lambda: ops.quantize_rowwise(x)),
+        wrapper_ms=timer.wall(lambda: ops.quantize_rowwise(x)),
+        plain_ms=timer(lambda: ref.quantize_rowwise_ref(x)),
+        bound_ms=t_b, bound_by=by, library_ms=None)
+    # K2's row pass: the up GEMM's fp32 workspace -> (q, scale)
+    w32 = rand(LANES, ff)
+    got = quantize_rowwise_cuda(w32, count="int8_quantize")
+    want = ref.quantize_rowwise_ref(w32)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "the K2 row pass is not bitwise its plain version")
+    t_b, by = bound(4 * w32.numel() + w32.numel() + 4 * LANES, 0)
+    results["k2_quantize_rows"] = dict(
+        work=f"the up GEMM's (q, scale) row pass over [{LANES}, {ff}] fp32",
+        max_abs_err=0.0, max_row_err=0.0, tol=0.0,
+        ms=timer(lambda: quantize_rowwise_cuda(w32, count="int8_quantize")),
+        wrapper_ms=timer.wall(
+            lambda: quantize_rowwise_cuda(w32, count="int8_quantize")),
+        plain_ms=timer(lambda: ref.quantize_rowwise_ref(w32)),
+        bound_ms=t_b, bound_by=by, library_ms=None)
+
+    # K2: the five projections of one block with their epilogues
+    for m in (LANES, LANES * CHUNK):
+        qx, sx = ref.quantize_rowwise_ref(rand(m, d))
+        qh, sh = ref.quantize_rowwise_ref(rand(m, ff))
+        w = {name: ref.quantize_colwise_ref(rand(k, n, scale=k ** -0.5))
+             for name, (k, n) in (("qkv", (d, qkv_n)), ("o", (d, d)),
+                                  ("gate", (d, ff)), ("up", (d, ff)),
+                                  ("down", (ff, d)))}
+        g = rand(m, ff).to(bf)
+        res = rand(m, d).to(bf)
+        nscale = rand(d, scale=0.1)
+        cases = {
+            "qkv": ((qx, sx), Epilogue(out_dtype=bf), {}),
+            "o": ((qx, sx), Epilogue(out_dtype=bf), {}),
+            "gate": ((qx, sx), Epilogue(out_dtype=bf), {}),
+            "up": ((qx, sx), Epilogue(gate="silu", quantize=True),
+                   {"operand2": g}),
+            "down": ((qh, sh), Epilogue(residual=True, norm="rmsnorm",
+                                        out_dtype=bf),
+                     {"residual": res, "norm_scale": nscale}),
+        }
+        for name, ((qa, sa), ep, kw) in cases.items():
+            qb, sb = w[name]
+            f32 = ops.int8_matmul(qa, sa, qb, sb)
+            require(torch.equal(f32, ref.int8_matmul_ref(qa, sa, qb, sb)),
+                    f"K2 {name} M={m}: fp32 out is not bitwise")
+            got = ops.int8_matmul(qa, sa, qb, sb, epilogue=ep, **kw)
+            want = ref.int8_matmul_ref(qa, sa, qb, sb, ep, **kw)
+            if ep.quantize:
+                q_err = int((got[0].int() - want[0].int()).abs().max())
+                s_err = float(((got[1] - want[1]).abs() / want[1]).max())
+                require(q_err <= 1 and s_err <= 2 * eps_f32,
+                        f"K2 up M={m}: q off by {q_err}, scale by {s_err}")
+                err, abs_err = s_err, float(q_err)
+            elif ep.norm != "none":
+                require(torch.equal(got[1], ops.rmsnorm(got[0], nscale,
+                                                        ep.norm_eps)),
+                        "K2 normed output is not store-then-rmsnorm")
+                err = max(row_err(got[0], want[0]), row_err(got[1], want[1]))
+                abs_err = max(max_err(got[0], want[0]),
+                              max_err(got[1], want[1]))
+            else:
+                err, abs_err = row_err(got, want), max_err(got, want)
+            require(err <= eps_bf16,
+                    f"K2 {name} M={m}: a row is off by {err:.3e}")
+            mm, kk = qa.shape
+            nn = qb.shape[1]
+            nbytes = mm * kk + kk * nn + 4 * (mm + nn)
+            if ep.quantize:        # operand2 in; q and its row scales out
+                nbytes += 2 * mm * nn + mm * nn + 4 * mm
+            elif ep.norm != "none":  # residual and norm scale in, two out
+                nbytes += 3 * 2 * mm * nn + 4 * nn
+            else:
+                nbytes += 2 * mm * nn
+            row = {"shape": f"{name} M={mm} K={kk} N={nn}",
+                   "max_abs_err": abs_err, "max_row_err": err,
+                   "ms": timer(lambda: ops.int8_matmul(qa, sa, qb, sb,
+                                                       epilogue=ep, **kw)),
+                   "wrapper_ms": timer.wall(lambda: ops.int8_matmul(
+                       qa, sa, qb, sb, epilogue=ep, **kw)),
+                   "plain_ms": timer(lambda: ref.int8_matmul_ref(
+                       qa, sa, qb, sb, ep, **kw)),
+                   "library_ms": _int_mm_ms(torch, timer, qa, qb)}
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, 2 * mm * kk * nn, INT8_OPS_PER_S)
+            shapes.append(row)
+            print("  k2", json.dumps(row), flush=True)
+    dec = [r for r in shapes if f" M={LANES} " in r["shape"]]
+    lib = [r["library_ms"] for r in dec]
+    results["k2_int8_matmul"] = dict(
+        work=f"one decoder block's five int8 projections at decode "
+             f"(M={LANES}): qkv, o, gate, up+silu gate+quantize (with its "
+             f"row pass), down+residual (+rmsnorm pass)",
+        max_abs_err=max(r["max_abs_err"] for r in shapes),
+        max_row_err=max(r["max_row_err"] for r in shapes), tol=eps_bf16,
+        ms=sum(r["ms"] for r in dec),
+        wrapper_ms=sum(r["wrapper_ms"] for r in dec),
+        plain_ms=sum(r["plain_ms"] for r in dec),
+        bound_ms=sum(r["bound_ms"] for r in dec),
+        bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in dec)
+                  else "operations"),
+        library_ms=None if None in lib else sum(lib),
+        library_note="torch._int_mm (cuBLASLt int8, no epilogue); null "
+                     "where it refuses M <= 16",
+        shapes=shapes)
+    return results
+
+
+def check_paged_kernel(torch, timer):
+    """K6 at L = 8 lanes, KV = 8, G = 4, hd = 128, page_size 16, P = 32
+    pages (16 tiles of 32 slots), shuffled pages, mixed positions and one
+    idle lane.  Decode: bitwise K5 over each lane's history in a dense
+    cache, and the idle lane exactly 0.0; partials within 1e-5 of each
+    row's scale of the plain version (fp32, another summation order); the
+    S = 64 prefill chunk within 2 bf16 ulps of each row's scale."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (paged_flash_decode_tiled,
+                                                     paged_partials_cuda,
+                                                     paged_tile_partials)
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    bf = torch.bfloat16
+    L, KV, G, hd, ps, P = LANES, 8, 4, 128, PAGE, 32
+    n_pages = L * P
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    kp, vp = rand(n_pages + 1, ps, KV, hd), rand(n_pages + 1, ps, KV, hd)
+    pos = torch.tensor([0, 31, 32, 100, 255, 300, 511, -1],
+                       dtype=torch.int32)
+    table = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        SEED)).reshape(L, P).to(torch.int32)
+    for lane in range(L):
+        table[lane, max(int(pos[lane]), 0) // ps + 1:] = -1
+    table = table.cuda()
+    posd = pos.cuda()[:, None].contiguous()
+    q = rand(L, 1, KV, G, hd)
+    got = ops.paged_flash_decode(q, kp, vp, table, posd)
+    require(bool((got[L - 1] == 0).all()), "K6: the idle lane is not 0.0")
+    for lane in range(L - 1):
+        kd = torch.zeros((1, P * ps, KV, hd), dtype=bf, device="cuda")
+        vd = torch.zeros_like(kd)
+        for page, phys in enumerate(table[lane].tolist()):
+            if phys >= 0:
+                kd[0, page * ps:(page + 1) * ps] = kp[phys]
+                vd[0, page * ps:(page + 1) * ps] = vp[phys]
+        require(torch.equal(got[lane:lane + 1], ops.flash_decode(
+            q[lane:lane + 1], kd, vd, int(pos[lane]))),
+            f"K6 lane {lane} is not bitwise K5 over the same history")
+    pair_err = row_err(got, paged_flash_decode_tiled(q, kp, vp, table, posd))
+    require(pair_err <= 2 * eps_bf16, f"K6 decode: a row is off by "
+                                      f"{pair_err:.3e}")
+    rows, n_tiles = L * KV, P * ps // 32
+    parts = paged_partials_cuda(q, kp, vp, table, posd)
+    plain = paged_tile_partials(q, kp, vp, table, posd)  # [T, L, KV, G, 1]
+    plain = (plain[0][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
+             plain[1][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
+             plain[2][..., 0, :].permute(1, 2, 0, 3, 4).reshape(
+                 rows, n_tiles, G, hd))
+    p_err = max(row_err(x, y) for x, y in zip(parts, plain))
+    require(p_err <= 1e-5, f"K6 partials: a row is off by {p_err:.3e}")
+    # the S = 64 prefill chunk ending at each lane's position
+    s_q = CHUNK
+    qc = rand(L, s_q, KV, G, hd)
+    pc = (pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None])
+    pc = torch.where((pc >= 0) & (pos[:, None] >= 0), pc, -1)
+    pc = pc.to(torch.int32).cuda().contiguous()
+    chunk_err = row_err(ops.paged_flash_decode(qc, kp, vp, table, pc),
+                        paged_flash_decode_tiled(qc, kp, vp, table, pc))
+    require(chunk_err <= 2 * eps_bf16,
+            f"K6 chunk: a row is off by {chunk_err:.3e}")
+    live = int((pos.clamp(min=-1) + 1).sum())
+    t_b, by = bound(2 * q.numel() + 2 * 2 * live * KV * hd
+                    + 4 * (L * P + L)
+                    + 4 * (2 * rows * n_tiles * G + rows * n_tiles * G * hd),
+                    4 * live * KV * G * hd, FP32_FLOPS_PER_S)
+    return {"k6_paged_partials": dict(
+        work=f"paged decode partials L={L} KV={KV} G={G} hd={hd} "
+             f"page_size={ps} P={P} ({n_tiles} tiles), positions "
+             f"{pos.tolist()}; chunk S={s_q} checked",
+        max_abs_err=max(max_err(x, y) for x, y in zip(parts, plain)),
+        max_row_err=p_err, tol=1e-5, decode_row_err=pair_err,
+        chunk_row_err=chunk_err,
+        ms=timer(lambda: paged_partials_cuda(q, kp, vp, table, posd)),
+        wrapper_ms=timer.wall(
+            lambda: paged_partials_cuda(q, kp, vp, table, posd)),
+        plain_ms=timer(lambda: paged_tile_partials(q, kp, vp, table, posd)),
+        pair_ms=timer(lambda: ops.paged_flash_decode(q, kp, vp, table, posd)),
+        chunk_ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table,
+                                                      pc)),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        library_note="no one PyTorch call attends through a page table")}
 
 
 def vary(torch, model, seed):
@@ -368,6 +706,14 @@ def check_smoke_path(torch):
         {"tokens": toks})
     require(got.shape == (BATCH, steps) and (got == want).all(),
             f"greedy tokens differ: card {got.tolist()} cpu {want.tolist()}")
+    # the int8 copies: K2 and K3 on the card, their plain versions here
+    want8 = ServeEngine(cpu, ServeConfig(max_new_tokens=steps, int8=True)
+                        ).generate({"tokens": toks})
+    got8 = ServeEngine(card, ServeConfig(max_new_tokens=steps, int8=True)
+                       ).generate({"tokens": toks})
+    require(got8.shape == (BATCH, steps) and (got8 == want8).all(),
+            f"int8 greedy tokens differ: card {got8.tolist()} cpu "
+            f"{want8.tolist()}")
 
     def rel(a, b):
         return float((a.double().cpu() - b.double().cpu()).abs().max()
@@ -387,8 +733,8 @@ def check_smoke_path(torch):
     require(max(err) <= 2 * max(noise),
             f"card logits off by {max(err):.3e} of scale, budget "
             f"{2 * max(noise):.3e}")
-    return dict(tokens=got.tolist(), logit_err=max(err),
-                budget=2 * max(noise),
+    return dict(tokens=got.tolist(), int8_tokens=got8.tolist(),
+                logit_err=max(err), budget=2 * max(noise),
                 distinct_tokens=len(set(got.reshape(-1).tolist())))
 
 
@@ -440,6 +786,91 @@ def decode_witness(torch, model, toks):
     return witness
 
 
+# Phase 4's int8 witness: the int8 copy's first logits (a prefill through
+# K3 and K2) against the bf16 model's on the same tokens, at the
+# reference's init scales.  Quantizing every projection's weights and
+# inputs to int8 moves the logits by a few percent of their scale (the CPU
+# test test_int8_witness_at_init_scales holds the plain versions to the
+# same bound at 2 and 40 layers); a changed last token must move the bf16
+# logits by more than 4x the tolerance, so the check tells a fault apart.
+INT8_WITNESS_TOL = 0.10
+
+
+def int8_witness(torch, model, toks):
+    q8 = model.quantize_params_for_serving()
+    want, _ = model.prefill(toks)
+    got, _ = q8.prefill(toks)
+    other = toks.clone()
+    other[:, -1] = (other[:, -1] + 1) % model.cfg.vocab
+    off, _ = model.prefill(other)
+    w = dict(err=rel_rows(got, want), other_token=rel_rows(off, want),
+             tol=INT8_WITNESS_TOL)
+    require(w["err"] <= INT8_WITNESS_TOL,
+            f"int8 first logits are off the bf16 ones by {w['err']:.3e} of "
+            f"the logit scale")
+    require(w["other_token"] > 4 * INT8_WITNESS_TOL,
+            f"the int8 witness cannot tell a changed token apart: {w}")
+    return w
+
+
+def serve_scheduler(torch, model, int8: bool):
+    """Continuous batching on the full model: N_REQ requests submitted at
+    once to ServeEngine.submit/step, prompt lengths and budgets drawn from
+    SEED, lanes admitting and retiring during the run.  Request 0 first
+    runs alone on the same scheduler (also the warm-up); amid the churn it
+    must emit bitwise the same tokens."""
+    import numpy as np
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import (GEOMETRY, NEW_RANGE, PROMPT_RANGE,
+                                          make_requests, serve_requests)
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    require((GEOMETRY["n_lanes"], GEOMETRY["page_size"],
+             GEOMETRY["prefill_chunk"]) == (LANES, PAGE, CHUNK),
+            f"the kernel phase's shapes {LANES, PAGE, CHUNK} are not the "
+            f"scheduler's {GEOMETRY}")
+    name = "scheduler_int8" if int8 else "scheduler_bf16"
+    eng = ServeEngine(model, ServeConfig(int8=int8, **GEOMETRY))
+    reqs = make_requests(model.cfg.vocab, N_REQ, SEED, PROMPT_RANGE,
+                         NEW_RANGE)
+    alone = serve_requests(eng, reqs[:1])["outputs"][0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    run = serve_requests(eng, reqs)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    outs = run["outputs"]
+    require(sorted(outs) == list(range(N_REQ)), f"{name}: outputs "
+                                                f"{sorted(outs)}")
+    require(all(o.status == "ok" for o in outs.values()),
+            f"{name}: statuses {[o.status for o in outs.values()]}")
+    require(all(o.tokens.size == r.sampling.max_new_tokens
+                and len(set(o.tokens.tolist())) > 1
+                for r, o in zip(reqs, (outs[r.id] for r in reqs))),
+            f"{name}: a request ran short or repeats one token")
+    require(np.array_equal(alone.tokens, outs[0].tokens),
+            f"{name}: request 0 alone {alone.tokens.tolist()} != amid "
+            f"churn {outs[0].tokens.tolist()}")
+    require(all(launches[k] > 0 for k in PATH_KERNELS[name]),
+            f"{name}: a kernel never launched: {launches}")
+    ttft = np.array([run["ttft_s"][r.id] for r in reqs])
+    del eng
+    torch.cuda.empty_cache()
+    return dict(
+        requests=N_REQ, **GEOMETRY, prompt_lens=[len(r.tokens) for r in reqs],
+        max_new=[r.sampling.max_new_tokens for r in reqs],
+        iterations=run["iterations"],
+        chunk_iterations=run["chunk_iterations"],
+        ttft_ms_median=float(np.median(ttft)) * 1e3,
+        ttft_ms_max=float(ttft.max()) * 1e3,
+        decode_ms_per_iter=run["decode_ms_per_iter"],
+        generated=run["generated"], wall_s=run["wall_s"],
+        tokens_per_s=run["tokens_per_s"], peak_bytes=peak,
+        launches=launches, alone_equals_churn=True,
+        tokens0=outs[0].tokens.tolist())
+
+
 def serve_full(torch):
     """Phase 4: full-width, 40-layer granite-3-8b through the engine."""
     from repro_torch.configs import get_config
@@ -455,23 +886,24 @@ def serve_full(torch):
     toks = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                          generator=torch.Generator().manual_seed(SEED))
     witness = decode_witness(torch, model, toks)
+    witness8 = int8_witness(torch, model, toks)
     vary(torch, model, SEED)
     engine = ServeEngine(model, ServeConfig(max_new_tokens=NEW))
-    engine.generate_with_status({"tokens": toks})      # warm-up
+    engine.generate_with_status_fixed({"tokens": toks})      # warm-up
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    res = engine.generate_with_status({"tokens": toks})
+    res = engine.generate_with_status_fixed({"tokens": toks})
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     require(res.tokens.shape == (BATCH, NEW), f"tokens {res.tokens.shape}")
     require(all(st == "ok" for st in res.status), f"statuses {res.status}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel never launched on the main path: {launches}")
+    require(all(launches[k] > 0 for k in PATH_KERNELS["fixed"]),
+            f"a kernel never launched on the fixed path: {launches}")
     require(all(len(set(lane.tolist())) > 1 for lane in res.tokens),
             f"a lane repeats one token: {res.tokens.tolist()}")
 
@@ -495,14 +927,24 @@ def serve_full(torch):
     dec_ms = (time.perf_counter() - t) / (NEW - 1) * 1e3
     require(bool(torch.isfinite(logits).all()), "non-finite decode logits")
 
-    return dict(
+    fixed = dict(
         params=cfg.param_count(), init_s=init_s,
         prefill_ms=sorted(pre)[1] * 1e3, decode_ms_per_step=dec_ms,
         generate_s=gen_s, tokens_per_s=BATCH * NEW / gen_s,
         decode_tokens_per_s=BATCH / dec_ms * 1e3,
         statuses=list(res.status), launches=launches, peak_bytes=peak,
         tokens=res.tokens.tolist(), witness=witness,
-        witness_tol=WITNESS_TOL)
+        witness_tol=WITNESS_TOL, int8_witness=witness8)
+    del engine, cache, logits
+    torch.cuda.empty_cache()
+    print("serve fixed: " + json.dumps(fixed), flush=True)
+    out = {"fixed": fixed}
+    for int8 in (False, True):
+        r = serve_scheduler(torch, model, int8)
+        name = "scheduler_int8" if int8 else "scheduler_bf16"
+        print(f"serve {name}: " + json.dumps(r), flush=True)
+        out[name] = r
+    return out
 
 
 SOURCES = {
@@ -510,6 +952,12 @@ SOURCES = {
                   "src/repro/kernels/matmul.py:293"),
     "k1_rmsnorm": ("rmsnorm", "src/repro_torch/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:180"),
+    "k2_int8_matmul": ("int8_matmul", "src/repro_torch/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:293"),
+    "k2_quantize_rows": ("int8_quantize", "src/repro_torch/csrc/matmul.cu",
+                         "src/repro/kernels/matmul.py:108"),
+    "k3_quantize": ("quantize", "src/repro_torch/csrc/matmul.cu",
+                    "src/repro/kernels/quantize.py:131"),
     "k4_flash_prefill": ("flash_attention",
                          "src/repro_torch/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:331"),
@@ -519,6 +967,9 @@ SOURCES = {
     "k5_decode_combine": ("decode_combine",
                           "src/repro_torch/csrc/flash_attention.cu",
                           "src/repro/kernels/flash_attention.py:77"),
+    "k6_paged_partials": ("paged_partials",
+                          "src/repro_torch/csrc/flash_attention.cu",
+                          "src/repro/kernels/flash_attention.py:563"),
 }
 
 
@@ -541,22 +992,32 @@ def main() -> int:
     print(f"card: {card}; built {sorted(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    kernels = check_kernels(torch, Timer(torch))
+    timer = Timer(torch)
+    kernels = check_kernels(torch, timer)
+    kernels.update(check_int8_kernels(torch, timer))
+    kernels.update(check_paged_kernel(torch, timer))
+    del timer
+    torch.cuda.empty_cache()
     print("kernels: " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk != "shapes"}
          for k, v in kernels.items()}), flush=True)
     smoke = check_smoke_path(torch)
     print("smoke: " + json.dumps(smoke), flush=True)
     serve = serve_full(torch)
-    print("serve: " + json.dumps(serve), flush=True)
 
     line = []
     for name, (counter, source, replaces) in SOURCES.items():
         k = kernels[name]
+        # launches on the driven paths: the fixed loop, then the scheduler
+        # bf16 and int8 (each path's counts were set to 0 just before it)
+        launches = {path: serve[path]["launches"][counter]
+                    for path in PATH_KERNELS}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": serve["launches"][counter],
+                     "launches": sum(launches.values()),
+                     "launches_by_path": launches,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "wrapper_ms": k["wrapper_ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"],

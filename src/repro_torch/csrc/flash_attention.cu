@@ -1,5 +1,6 @@
-// K4 and K5 on Hopper: online-softmax flash prefill, and split-K flash
-// decode over a dense KV cache with its deterministic combine.
+// K4, K5 and K6 on Hopper: online-softmax flash prefill, split-K flash
+// decode over a dense KV cache with its deterministic combine, and the
+// same decode over a paged KV cache.
 //
 // K4 replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (_prefill_kernel).  One block per (batch, q head, 64-row q tile), four
@@ -25,7 +26,21 @@
 // fp32 fold over tiles.  A partial depends only on its tile index, and the
 // combine never sees the grouping, so the output is bitwise identical for
 // every n_splits.  What bounds it: the bytes of the live cache (each K/V
-// row read once), so tiles past the position are skipped.
+// row read once), so tiles past the position are skipped and slots past it
+// are not read.
+//
+// K6 replaces paged_flash_decode_pallas (_paged_decode_kernel) and, for
+// prefill chunks (S > 1), its tiled XLA mirror paged_flash_decode_xla.
+// k6_paged_partials is the K5 partials kernel instantiated on a paged
+// slot address: each row is (lane, s, kv head) with its own position
+// (-1 = idle, every tile masked, output exactly 0.0); slot j of a lane
+// lives at pool[table[lane, j / PS], j % PS]; an unmapped page (-1) is
+// masked and never read.  Tiles are the same 32 slots anchored at logical
+// position 0 as the dense path, not one page per tile, and the partials go
+// through k5_decode_combine unchanged, so a paged lane is bitwise the same
+// history decoded from a dense cache and a neighbour's page mapping
+// changes no bit of it.  What bounds it: the bytes of each row's live
+// pages at decode; at a prefill chunk the fp32 partials of every tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -195,23 +210,61 @@ prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 constexpr int TILE = 32;  // DEFAULT_KV_TILE of the reference
 
-template <int HD>
+// Where a decode row's K/V slots live.  slot_row returns the index of the
+// slot's [hd] row in the K and V arrays, or -1 when the slot holds nothing
+// (past a dense cache's end, or an unmapped page); position gives the
+// row's query position (-1: an idle row).  The partials kernel is written
+// once against this interface, so K6 runs K5's dot order, exp and mask on
+// every tile, and a paged lane is bitwise the same history in a dense
+// cache.
+struct DenseKV {
+  const bf16* k;
+  const bf16* v;
+  int KV, cache_len, pos;
+  __device__ int position(int) const { return pos; }
+  __device__ long long slot_row(int row, int slot) const {
+    if (slot >= cache_len) return -1;
+    const int b = row / KV, kvh = row % KV;
+    return ((long long)b * cache_len + slot) * KV + kvh;
+  }
+};
+
+// Rows are (lane, s, kv head); pools [NP + 1, PS, KV, hd] with the trash
+// page last; table [L, P] (-1 = unmapped); positions [L, S] (-1 = idle).
+// An unmapped slot is never read: it is masked, so what the trash page
+// holds cannot reach the output.
+struct PagedKV {
+  const bf16* k;
+  const bf16* v;
+  const int* table;
+  const int* positions;
+  int KV, S, P, PS;
+  __device__ int position(int row) const { return positions[row / KV]; }
+  __device__ long long slot_row(int row, int slot) const {
+    const int page = slot / PS;
+    if (page >= P) return -1;
+    const int lane = row / (S * KV), kvh = row % KV;
+    const int phys = table[lane * P + page];
+    if (phys < 0) return -1;
+    return ((long long)phys * PS + slot % PS) * KV + kvh;
+  }
+};
+
+template <int HD, class Rows>
 __global__ void __launch_bounds__(THREADS)
-decode_partials_kernel(const bf16* __restrict__ q,
-                       const bf16* __restrict__ kc,
-                       const bf16* __restrict__ vc, float* __restrict__ m_t,
-                       float* __restrict__ l_t, float* __restrict__ acc_t,
-                       int KV, int G, int cache_len, int pos, int n_tiles,
+decode_partials_kernel(Rows kv, const bf16* __restrict__ q,
+                       float* __restrict__ m_t, float* __restrict__ l_t,
+                       float* __restrict__ acc_t, int G, int n_tiles,
                        int tiles_per_split, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + TILE * HD;
   float* qs = reinterpret_cast<float*>(Vs + TILE * HD);
   float* ps = qs + G * HD;
+  __shared__ int live[TILE];  // slot stored and <= pos
 
-  const int row = blockIdx.x;  // b * KV + kv head
-  const int b = row / KV, kvh = row % KV;
-  const size_t kv_stride = (size_t)KV * HD;
+  const int row = blockIdx.x;  // one query row's kv head
+  const int pos = kv.position(row);
   for (int i = threadIdx.x; i < G * HD; i += THREADS)
     qs[i] = __bfloat162float(q[(size_t)row * G * HD + i]);
 
@@ -230,29 +283,31 @@ decode_partials_kernel(const bf16* __restrict__ q,
       continue;
     }
     __syncthreads();  // qs loaded / previous tile consumed
-    const bf16* kb = kc + ((size_t)b * cache_len + t0) * kv_stride + kvh * HD;
-    const bf16* vb = vc + ((size_t)b * cache_len + t0) * kv_stride + kvh * HD;
     // K is stored transposed (slot fastest) so the threads of a warp,
-    // one slot each, read neighbouring shared-memory words
+    // one slot each, read neighbouring shared-memory words.  A masked
+    // slot is not read: its K and V are zero in shared memory.
     constexpr int CH = HD / 8;
     for (int c = threadIdx.x; c < TILE * CH; c += THREADS) {
       const int j = c / CH, cc = (c % CH) * 8;
-      uint4 w = make_uint4(0, 0, 0, 0);
-      if (j < cache_len - t0)
-        w = *reinterpret_cast<const uint4*>(kb + j * kv_stride + cc);
-      const bf16* e = reinterpret_cast<const bf16*>(&w);
+      const long long sr = t0 + j <= pos ? kv.slot_row(row, t0 + j) : -1;
+      uint4 wk = make_uint4(0, 0, 0, 0), wv = make_uint4(0, 0, 0, 0);
+      if (sr >= 0) {
+        wk = *reinterpret_cast<const uint4*>(kv.k + sr * HD + cc);
+        wv = *reinterpret_cast<const uint4*>(kv.v + sr * HD + cc);
+      }
+      if (cc == 0) live[j] = sr >= 0;
+      const bf16* e = reinterpret_cast<const bf16*>(&wk);
 #pragma unroll
       for (int x = 0; x < 8; ++x) Ks[(cc + x) * TILE + j] = e[x];
+      *reinterpret_cast<uint4*>(Vs + j * HD + cc) = wv;
     }
-    load_rows<HD>(Vs, HD, vb, kv_stride, TILE, cache_len - t0);
     __syncthreads();
     for (int i = threadIdx.x; i < G * TILE; i += THREADS) {
       const int g = i / TILE, j = i % TILE;
-      const int slot = t0 + j;
       float dot = 0.0f;
       for (int d = 0; d < HD; ++d)
         dot += qs[g * HD + d] * __bfloat162float(Ks[d * TILE + j]);
-      ps[i] = (slot < cache_len && slot <= pos) ? dot * scale : NEG;
+      ps[i] = live[j] ? dot * scale : NEG;
     }
     __syncthreads();
     for (int g = threadIdx.x; g < G; g += THREADS) {
@@ -260,9 +315,7 @@ decode_partials_kernel(const bf16* __restrict__ q,
       for (int j = 0; j < TILE; ++j) mx = fmaxf(mx, ps[g * TILE + j]);
       float sum = 0.0f;
       for (int j = 0; j < TILE; ++j) {
-        const int slot = t0 + j;
-        const float p = (slot < cache_len && slot <= pos)
-                            ? expf(ps[g * TILE + j] - mx) : 0.0f;
+        const float p = live[j] ? expf(ps[g * TILE + j] - mx) : 0.0f;
         ps[g * TILE + j] = p;
         sum += p;
       }
@@ -321,24 +374,42 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_partials(const void* q, const void* k, const void* v, void* m,
-                    void* l, void* acc, int B, int KV, int G, int cache_len,
-                    int pos, int n_tiles, int tiles_per_split, int n_splits,
-                    float scale, cudaStream_t st) {
+template <int HD, class Rows>
+int launch_partials(const Rows& kv, const void* q, void* m, void* l,
+                    void* acc, int rows, int G, int n_tiles,
+                    int tiles_per_split, int n_splits, float scale,
+                    cudaStream_t st) {
   const size_t bytes =
       2 * TILE * HD * sizeof(bf16) + (size_t)G * (HD + TILE) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      decode_partials_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      decode_partials_kernel<HD, Rows>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * KV, n_splits);
-  decode_partials_kernel<HD><<<grid, THREADS, bytes, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<float*>(m),
-      static_cast<float*>(l), static_cast<float*>(acc), KV, G, cache_len, pos,
-      n_tiles, tiles_per_split, scale);
+  dim3 grid(rows, n_splits);
+  decode_partials_kernel<HD, Rows><<<grid, THREADS, bytes, st>>>(
+      kv, static_cast<const bf16*>(q), static_cast<float*>(m),
+      static_cast<float*>(l), static_cast<float*>(acc), G, n_tiles,
+      tiles_per_split, scale);
   return (int)cudaGetLastError();
+}
+
+template <class Rows>
+int launch_partials_hd(const Rows& kv, int hd, const void* q, void* m,
+                       void* l, void* acc, int rows, int G, int n_tiles,
+                       int tiles_per_split, int n_splits, float scale,
+                       cudaStream_t st) {
+  switch (hd) {
+    case 16: return launch_partials<16>(kv, q, m, l, acc, rows, G, n_tiles,
+                                        tiles_per_split, n_splits, scale, st);
+    case 32: return launch_partials<32>(kv, q, m, l, acc, rows, G, n_tiles,
+                                        tiles_per_split, n_splits, scale, st);
+    case 64: return launch_partials<64>(kv, q, m, l, acc, rows, G, n_tiles,
+                                        tiles_per_split, n_splits, scale, st);
+    case 128: return launch_partials<128>(kv, q, m, l, acc, rows, G, n_tiles,
+                                          tiles_per_split, n_splits, scale,
+                                          st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -366,23 +437,27 @@ extern "C" int k5_decode_partials(const void* q, const void* k, const void* v,
                                   int G, int hd, int cache_len, int pos,
                                   int n_tiles, int tiles_per_split,
                                   int n_splits, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_partials<16>(q, k, v, m, l, acc, B, KV, G,
-                                        cache_len, pos, n_tiles,
-                                        tiles_per_split, n_splits, scale, st);
-    case 32: return launch_partials<32>(q, k, v, m, l, acc, B, KV, G,
-                                        cache_len, pos, n_tiles,
-                                        tiles_per_split, n_splits, scale, st);
-    case 64: return launch_partials<64>(q, k, v, m, l, acc, B, KV, G,
-                                        cache_len, pos, n_tiles,
-                                        tiles_per_split, n_splits, scale, st);
-    case 128: return launch_partials<128>(q, k, v, m, l, acc, B, KV, G,
-                                          cache_len, pos, n_tiles,
-                                          tiles_per_split, n_splits, scale,
-                                          st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), KV,
+             cache_len, pos};
+  return launch_partials_hd(kv, hd, q, m, l, acc, B * KV, G, n_tiles,
+                            tiles_per_split, n_splits, scale,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int k6_paged_partials(const void* q, const void* k_pool,
+                                 const void* v_pool, const void* table,
+                                 const void* positions, void* m, void* l,
+                                 void* acc, int L, int S, int KV, int G,
+                                 int hd, int P, int PS, int n_tiles,
+                                 int tiles_per_split, int n_splits,
+                                 float scale, void* stream) {
+  PagedKV kv{static_cast<const bf16*>(k_pool),
+             static_cast<const bf16*>(v_pool),
+             static_cast<const int*>(table),
+             static_cast<const int*>(positions), KV, S, P, PS};
+  return launch_partials_hd(kv, hd, q, m, l, acc, L * S * KV, G, n_tiles,
+                            tiles_per_split, n_splits, scale,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int k5_decode_combine(const void* m, const void* l,

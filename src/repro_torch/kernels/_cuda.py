@@ -36,6 +36,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "k1_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # x, scale, out, M, N, eps, stream
         "k1_rmsnorm_rows": [_P, _P, _P, _I, _I, _F, _P],
+        # a, b, a_scale, b_scale, out_f32, out_bf16, residual, operand2,
+        # M, N, K, gate_silu, stream
+        "k2_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P],
+        # x, q, scale, M, N, x_is_f32, stream
+        "k3_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
         # q, k, v, out, B, Sq, Skv, H, KV, hd, scale, stream
@@ -46,12 +52,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                _I, _I, _I, _I, _F, _P],
         # m, l, acc, out, rows, n_tiles, G, hd, stream
         "k5_decode_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # q, k_pool, v_pool, table, positions, m, l, acc, L, S, KV, G, hd,
+        # P, PS, n_tiles, tiles_per_split, n_splits, scale, stream
+        "k6_paged_partials": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
 }
 
 LAUNCHES: Dict[str, int] = {"matmul": 0, "rmsnorm": 0,
-                            "flash_attention": 0, "decode_partials": 0,
-                            "decode_combine": 0}
+                            "int8_matmul": 0, "int8_quantize": 0,
+                            "quantize": 0, "flash_attention": 0,
+                            "decode_partials": 0, "decode_combine": 0,
+                            "paged_partials": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,17 +1,21 @@
 """Declarative fused-GEMM epilogue spec and its plain PyTorch semantics.
 
 The port of ``repro.kernels.epilogue``: the same fields, the same
-``ValueError`` checks and the same stage order on the fp32 accumulator:
+``ValueError`` checks and the same stage order on the fp32 (or int32)
+accumulator:
 
-    acc -> (+ bias) -> activation -> (* gate(operand2)) -> (+ residual)
-        -> cast -> rmsnorm of the CAST value (sum / n, not mean)
+    acc -> (* row_scale) -> (* col_scale) -> (+ bias) -> activation
+        -> (* gate(operand2)) -> (+ residual)
+        -> quantize -> (q, scale)
+         | cast -> rmsnorm of the CAST value (sum / n, not mean)
 
 The normed output is computed from the cast value, so a fused
 ``(value, normed)`` is bitwise what storing ``value`` and re-reading it
 through ``models.layers.rmsnorm`` gives.  ``apply_epilogue`` implements
-the stages the serving path uses (``gate='silu'``, the residual, the cast,
-the rmsnorm); the others (bias, an activation, the other gates, the int8
-``quantize``) keep their fields and raise ``NotImplementedError`` until a
+the stages the serving path uses (the int8 row and column scales,
+``gate='silu'``, the residual, the rowwise quantize, the cast, the
+rmsnorm); the others (bias, an activation, the other gates, the colwise
+quantize) keep their fields and raise ``NotImplementedError`` until a
 later slice has a caller for them.
 """
 from __future__ import annotations
@@ -88,27 +92,61 @@ def rms_normalize(value: torch.Tensor, scale: torch.Tensor, eps: float,
     return out.to(value.dtype)
 
 
+def quantize_symmetric(x: torch.Tensor, dim: int, compiled: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization along ``dim`` (the reduced axis):
+    ``scale = max(absmax, 1e-12) / 127`` in f32, ``q = clip(round(x /
+    scale), +-127)`` with an IEEE division and round-half-even; ``dim=-1``
+    gives per-row scales, ``dim=-2`` per-column scales.
+
+    The reference divides by the constant 127 in two ways: inside a
+    compiled program (every activation quantize, the kernels) XLA turns it
+    into a multiply by the rounded reciprocal ``fl(1/127)``, while its
+    one-shot weight pass runs op by op and divides.  ``compiled`` picks
+    the first, the K3 kernel's; ``False`` the second."""
+    absmax = torch.clamp(torch.amax(torch.abs(x), dim=dim, keepdim=True),
+                         min=1e-12)
+    if compiled:
+        scale = absmax * (1.0 / 127.0)
+    else:  # a tensor divisor: CUDA takes a scalar one as a reciprocal
+        scale = absmax / torch.full_like(absmax, 127.0)
+    scale = scale.to(torch.float32)
+    q = torch.clamp(torch.round(x / scale.to(x.dtype)), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def apply_epilogue(
     acc: torch.Tensor,
     ep: Epilogue,
     residual: Optional[torch.Tensor] = None,
     operand2: Optional[torch.Tensor] = None,
     norm_scale: Optional[torch.Tensor] = None,
+    row_scale: Optional[torch.Tensor] = None,
+    col_scale: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Apply ``ep`` to a GEMM accumulator ``[M, N]`` (fp32, or f64 for the
-    oracles, which keeps the whole chain at f64).  Returns the cast value,
-    or ``(value, normed)`` under ``norm='rmsnorm'``."""
-    if ep.quantize:
+    """Apply ``ep`` to a GEMM accumulator ``[M, N]`` (fp32 or int32, or f64
+    for the oracles, which keeps the whole chain at f64).  ``row_scale
+    [M, 1]`` and ``col_scale [1, N]`` dequantize an int8 GEMM's int32
+    accumulator first, in that order.  Returns the cast value, ``(q,
+    scale)`` under ``quantize``, or ``(value, normed)`` under
+    ``norm='rmsnorm'``.  A scaled accumulator defaults to fp32 output."""
+    if ep.quantize and ep.quantize_axis != "row":
         raise NotImplementedError(
-            "the quantize epilogue belongs to the int8 serving slice")
+            "the colwise quantize epilogue belongs to the training slice")
     if ep.bias or ep.activation != "none" or ep.gate not in ("none", "silu"):
         raise NotImplementedError(
-            f"the serving slice runs gate='silu', the residual and the "
-            f"rmsnorm; {ep} needs a later slice")
-    if ep.is_identity:
+            f"the serving slice runs the int8 scales, gate='silu', the "
+            f"residual, the row quantize and the rmsnorm; {ep} needs a "
+            f"later slice")
+    scaled = row_scale is not None or col_scale is not None
+    if ep.is_identity and not scaled:
         return acc.to(ep.out_dtype) if ep.out_dtype else acc
     wide = torch.float64 if acc.dtype == torch.float64 else torch.float32
     x = acc.to(wide)
+    if row_scale is not None:
+        x = x * row_scale.to(wide)
+    if col_scale is not None:
+        x = x * col_scale.to(wide)
     if ep.gate == "silu":
         if operand2 is None:
             raise ValueError("Epilogue.gate set but no operand2")
@@ -117,7 +155,9 @@ def apply_epilogue(
         if residual is None:
             raise ValueError("Epilogue.residual set but no residual operand")
         x = x + residual.to(wide)
-    value = x.to(ep.out_dtype or acc.dtype)
+    if ep.quantize:
+        return quantize_symmetric(x, dim=-1)
+    value = x.to(ep.out_dtype or (torch.float32 if scaled else acc.dtype))
     if ep.norm == "rmsnorm":
         if norm_scale is None:
             raise ValueError("Epilogue.norm set but no norm_scale operand")

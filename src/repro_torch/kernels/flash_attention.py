@@ -1,5 +1,6 @@
-"""K4 (flash prefill) and K5 (split-K flash decode), launched on the card,
-beside the plain tiled decode and its deterministic combine.
+"""K4 (flash prefill), K5 (split-K flash decode) and K6 (paged flash
+decode), launched on the card, beside the plain tiled decodes and their
+deterministic combine.
 
 Determinism contract (the reference's rank-order rule applied to the
 softmax): decode reduces the KV axis in fixed ``DEFAULT_KV_TILE``-slot
@@ -17,6 +18,17 @@ and its plain version is ``flash_decode_tiled``, a tile-for-tile copy of
 the reference's XLA mirror.  The plain version of K4 is
 ``ref.flash_attention_ref`` (causal masked softmax, GQA grouped in the
 einsum).  ``kernels.ops`` takes the plain versions for tensors on the CPU.
+
+K6 is one kernel, ``paged_partials_cuda`` (plain version
+``paged_tile_partials``, the twin of the reference's
+``_paged_tile_partials_xla``), followed by K5's combine:
+``paged_flash_decode_cuda`` / ``paged_flash_decode_tiled``.  It tiles a
+lane's logical view in the same 32-slot tiles from position 0 as the
+dense path (not one page per tile, see ROADMAP F2), so a paged lane is
+bitwise the same history in a dense cache.  Its rows are (lane, s, kv
+head), each with its own position, so prefill chunks (S > 1) and decode
+(S == 1) take the same kernel; an idle row (position -1) gives exactly
+0.0.
 """
 from __future__ import annotations
 
@@ -181,3 +193,97 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     m_t, l_t, acc_t = decode_partials_cuda(q, k_cache, v_cache, pos,
                                            n_splits)
     return decode_combine_cuda(m_t, l_t, acc_t).reshape(q.shape)
+
+
+# ---------------------------------------------------------------------------
+# K6: paged decode (and prefill chunks)
+# ---------------------------------------------------------------------------
+
+def paged_tile_partials(q, k_pool, v_pool, page_table, positions):
+    """Per-tile partials over a lane's gathered logical view: q
+    [L, S, KV, G, hd], pools [NP + 1, PS, KV, hd] (the last row is the
+    trash page), ``page_table`` [L, P] (-1 = unmapped: read from the trash
+    page and masked), ``positions`` [L, S] (-1 = idle row).  Returns
+    (m_t, l_t, acc_t) stacked on axis 0 with inner layout
+    [L, KV, G, S(, hd)], tile for tile the reference's mirror."""
+    n_pool, ps = k_pool.shape[0], k_pool.shape[1]
+    n_lanes, p_max = page_table.shape
+    hd = q.shape[-1]
+    mapped = page_table >= 0
+    ptc = torch.where(mapped, page_table, n_pool - 1).long()
+    kl = k_pool[ptc].reshape(n_lanes, p_max * ps, *k_pool.shape[2:])
+    vl = v_pool[ptc].reshape(n_lanes, p_max * ps, *v_pool.shape[2:])
+    kvalid = mapped.repeat_interleave(ps, dim=1)            # [L, P*PS]
+    qpos = positions.to(torch.long)                         # [L, S]
+    acc = accum_dtype(q.dtype, k_pool.dtype)
+    qa = q.to(acc)
+    ms, ls, accs = [], [], []
+    for t0 in range(0, p_max * ps, DEFAULT_KV_TILE):
+        kt = kl[:, t0:t0 + DEFAULT_KV_TILE].to(acc)
+        vt = vl[:, t0:t0 + DEFAULT_KV_TILE].to(acc)
+        s = torch.einsum("bqkgd,bKkd->bkgqK", qa, kt) * hd ** -0.5
+        kvpos = t0 + torch.arange(kt.shape[1], device=q.device)
+        mask = (kvalid[:, None, t0:t0 + DEFAULT_KV_TILE]
+                & (kvpos[None, None, :] <= qpos[:, :, None])
+                & (qpos[:, :, None] >= 0))[:, None, None]   # [L,1,1,S,T]
+        s = s.masked_fill(~mask, _NEG)
+        m_t = torch.amax(s, dim=-1)
+        p = torch.exp(s - m_t[..., None]).masked_fill(~mask, 0.0)
+        ms.append(m_t)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgqK,bKkd->bkgqd", p, vt))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def paged_flash_decode_tiled(q, k_pool, v_pool, page_table,
+                             positions) -> torch.Tensor:
+    """Plain paged flash decode: q [L, S, KV, G, hd] through the page table
+    -> [L, S, KV, G, hd] in q's dtype."""
+    out = combine_tile_partials(*paged_tile_partials(
+        q, k_pool, v_pool, page_table, positions))
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def paged_partials_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, page_table: torch.Tensor,
+                        positions: torch.Tensor):
+    """K6 partials kernel: q [L, S, KV, G, hd] bf16, pools [NP + 1, PS, KV,
+    hd] bf16, ``page_table`` [L, P] and ``positions`` [L, S] int32, all
+    contiguous; table entries must be -1 or a page below NP.  Returns fp32
+    ``m_t``/``l_t`` [L*S*KV, T, G] and ``acc_t`` [L*S*KV, T, G, hd] for
+    the T 32-slot tiles of the logical view, in ``default_splits`` tile
+    groups per row."""
+    n_lanes, s_q, n_kv, g, hd = q.shape
+    n_pool, ps = k_pool.shape[0], k_pool.shape[1]
+    p_max = page_table.shape[1]
+    _check_head_dim(hd)
+    _cuda.check(q, "q", torch.bfloat16)
+    _cuda.check(k_pool, "k_pool", torch.bfloat16, (n_pool, ps, n_kv, hd))
+    _cuda.check(v_pool, "v_pool", torch.bfloat16, (n_pool, ps, n_kv, hd))
+    _cuda.check(page_table, "page_table", torch.int32, (n_lanes, p_max))
+    _cuda.check(positions, "positions", torch.int32, (n_lanes, s_q))
+    rows = n_lanes * s_q * n_kv
+    n_tiles = math.ceil(p_max * ps / DEFAULT_KV_TILE)
+    n_splits = default_splits(rows, n_tiles, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_t = torch.empty((rows, n_tiles, g), **f32)
+    l_t = torch.empty((rows, n_tiles, g), **f32)
+    acc_t = torch.empty((rows, n_tiles, g, hd), **f32)
+    if m_t.numel():
+        _cuda.LAUNCHES["paged_partials"] += 1
+        _cuda.launch("flash_attention", "k6_paged_partials", q.data_ptr(),
+                     k_pool.data_ptr(), v_pool.data_ptr(),
+                     page_table.data_ptr(), positions.data_ptr(),
+                     m_t.data_ptr(), l_t.data_ptr(), acc_t.data_ptr(),
+                     n_lanes, s_q, n_kv, g, hd, p_max, ps, n_tiles,
+                     math.ceil(n_tiles / n_splits), n_splits, hd ** -0.5)
+    return m_t, l_t, acc_t
+
+
+def paged_flash_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, page_table: torch.Tensor,
+                            positions: torch.Tensor) -> torch.Tensor:
+    """K6: the paged partials kernel, then K5's combine.
+    -> [L, S, KV, G, hd] bf16."""
+    parts = paged_partials_cuda(q, k_pool, v_pool, page_table, positions)
+    return decode_combine_cuda(*parts).reshape(q.shape)

@@ -16,8 +16,13 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.epilogue import Epilogue, rms_normalize
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_decode_cuda,
-                                                 flash_decode_tiled)
-from repro_torch.kernels.matmul import matmul_cuda, rmsnorm_cuda
+                                                 flash_decode_tiled,
+                                                 paged_flash_decode_cuda,
+                                                 paged_flash_decode_tiled)
+from repro_torch.kernels.matmul import (int8_matmul_cuda, matmul_cuda,
+                                        rmsnorm_cuda)
+from repro_torch.kernels.quantize import (QuantizedWeight,
+                                          quantize_rowwise_cuda)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
@@ -28,11 +33,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     """``epilogue(a @ b)`` for 2-D ``a [M, K]`` and ``b [K, N]``; callers
     flatten leading dims.  ``out_dtype`` fills ``epilogue.out_dtype`` when
     that is unset (default: the fp32 accumulator).  Returns
-    ``(value, normed)`` under ``norm='rmsnorm'``."""
+    ``(value, normed)`` under ``norm='rmsnorm'``.
+
+    ``b`` may be a ``QuantizedWeight`` (the int8 serving path): ``a`` is
+    then rowwise-quantized and the GEMM runs int8 x int8 -> int32 with both
+    scales applied in the epilogue."""
     if epilogue is None and any(x is not None for x in
                                 (residual, operand2, norm_scale)):
         raise ValueError("residual/operand2/norm_scale operands require an "
                          "Epilogue spec")
+    if isinstance(b, QuantizedWeight):
+        qa, sa = quantize_rowwise(a)
+        return int8_matmul(qa, sa, *b.as_matrix(), out_dtype=out_dtype,
+                           epilogue=epilogue, residual=residual,
+                           operand2=operand2, norm_scale=norm_scale)
     ep = epilogue or Epilogue()
     if out_dtype is not None and ep.out_dtype is None:
         ep = dataclasses.replace(ep, out_dtype=out_dtype)
@@ -41,6 +55,50 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
                            norm_scale=norm_scale)
     return ref.matmul_fused_ref(a, b, ep, residual=residual,
                                 operand2=operand2, norm_scale=norm_scale)
+
+
+def int8_matmul(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
+                sb: torch.Tensor, *, out_dtype=None,
+                epilogue: Optional[Epilogue] = None,
+                residual: Optional[torch.Tensor] = None,
+                operand2: Optional[torch.Tensor] = None,
+                norm_scale: Optional[torch.Tensor] = None):
+    """``epilogue(sa * sb * (qa @ qb))``: int8 ``qa [M, K]`` with row
+    scales ``sa [M, 1]`` (what ``quantize_rowwise`` or the previous GEMM's
+    quantize epilogue emits) against int8 ``qb [K, N]`` with column scales
+    ``sb [1, N]``, int32 accumulation, scales applied first in the
+    epilogue.  Default output fp32; ``(q, scale)`` under ``quantize``,
+    ``(value, normed)`` under ``norm='rmsnorm'``."""
+    if qa.dtype != torch.int8 or qb.dtype != torch.int8:
+        raise TypeError(f"int8_matmul takes int8 x int8, got {qa.dtype} x "
+                        f"{qb.dtype}")
+    ep = epilogue or Epilogue()
+    if not ep.residual and residual is not None:
+        raise ValueError("a residual operand requires Epilogue(residual=True)")
+    if ep.gate == "none" and operand2 is not None:
+        raise ValueError("an operand2 requires Epilogue(gate=...)")
+    if out_dtype is not None and ep.out_dtype is None:
+        ep = dataclasses.replace(ep, out_dtype=out_dtype)
+    if qa.is_cuda:
+        return int8_matmul_cuda(qa, sa, qb, sb, ep, residual=residual,
+                                operand2=operand2, norm_scale=norm_scale)
+    return ref.int8_matmul_ref(qa, sa, qb, sb, ep, residual=residual,
+                               operand2=operand2, norm_scale=norm_scale)
+
+
+def quantize_rowwise(x: torch.Tensor):
+    """``(q int8 [M, N], scale f32 [M, 1])`` of ``x [M, N]``: K3 on the
+    card."""
+    if x.is_cuda:
+        return quantize_rowwise_cuda(x)
+    return ref.quantize_rowwise_ref(x)
+
+
+def quantize_colwise(x: torch.Tensor):
+    """``(q int8 [K, N], scale f32 [1, N])``: K3 on the transpose, as the
+    reference reuses its rowwise kernel."""
+    q_t, s_t = quantize_rowwise(x.t().contiguous())
+    return q_t.t(), s_t.reshape(1, -1)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -72,3 +130,13 @@ def flash_decode(q, k_cache, v_cache, pos: int, *,
     if q.is_cuda:
         return flash_decode_cuda(q, k_cache, v_cache, pos, n_splits)
     return flash_decode_tiled(q, k_cache, v_cache, pos)
+
+
+def paged_flash_decode(q, k_pool, v_pool, page_table, positions):
+    """Paged decode and prefill-chunk attention: q [L, S, KV, G, hd]
+    through ``page_table`` [L, P] against the pools [NP + 1, PS, KV, hd]
+    at per-token ``positions`` [L, S] (-1 = idle) -> [L, S, KV, G, hd]."""
+    if q.is_cuda:
+        return paged_flash_decode_cuda(q, k_pool, v_pool, page_table,
+                                       positions)
+    return paged_flash_decode_tiled(q, k_pool, v_pool, page_table, positions)

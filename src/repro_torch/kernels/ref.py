@@ -35,10 +35,49 @@ def matmul_fused_ref(a: torch.Tensor, b: torch.Tensor, epilogue,
                      operand2: Optional[torch.Tensor] = None,
                      norm_scale: Optional[torch.Tensor] = None):
     """epilogue(A @ B): the plain version of the fused-epilogue GEMM.
-    Returns ``(value, normed)`` under ``epilogue.norm``, else one tensor."""
+    Returns ``(value, normed)`` under ``epilogue.norm``, else one tensor.
+    The quantize stage belongs to the int8 GEMM (``int8_matmul_ref``); the
+    float GEMM refuses it, as its kernel does."""
     from repro_torch.kernels.epilogue import apply_epilogue
+    if epilogue.quantize:
+        raise NotImplementedError(
+            "the float GEMM has no quantize stage; the int8 GEMM does")
     return apply_epilogue(matmul_ref(a, b), epilogue, residual=residual,
                           operand2=operand2, norm_scale=norm_scale)
+
+
+def quantize_rowwise_ref(x: torch.Tensor):
+    """Row-wise symmetric int8 quantization of ``x [M, N]`` at fp32:
+    ``(q int8 [M, N], scale f32 [M, 1])``, the plain version of K3."""
+    from repro_torch.kernels.epilogue import quantize_symmetric
+    return quantize_symmetric(x.to(torch.float32), dim=-1)
+
+
+def quantize_colwise_ref(x: torch.Tensor):
+    """Column-wise symmetric int8 quantization (the weight layout):
+    ``(q int8 [..., K, N], scale f32 [..., 1, N])``, dividing by 127 as
+    the reference's op-by-op weight pass does."""
+    from repro_torch.kernels.epilogue import quantize_symmetric
+    return quantize_symmetric(x.to(torch.float32), dim=-2, compiled=False)
+
+
+def int8_matmul_ref(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
+                    sb: torch.Tensor, epilogue=None,
+                    residual: Optional[torch.Tensor] = None,
+                    operand2: Optional[torch.Tensor] = None,
+                    norm_scale: Optional[torch.Tensor] = None):
+    """epilogue(sa * sb * (QA @ QB)): the plain version of K2.  ``qa
+    [M, K]`` int8 with row scales ``sa [M, 1]``, ``qb [K, N]`` int8 with
+    column scales ``sb [1, N]``.  The int8 operands are upcast before the
+    product (an int8 ``torch.mm`` returns int8 and wraps): to f64, whose
+    53-bit mantissa holds every partial sum exactly (|sum| <= K * 127^2),
+    so the int32 accumulator is exact on any device and in any order."""
+    from repro_torch.kernels.epilogue import Epilogue, apply_epilogue
+    acc = torch.matmul(qa.to(torch.float64), qb.to(torch.float64)
+                       ).to(torch.int32)
+    return apply_epilogue(acc, epilogue or Epilogue(), residual=residual,
+                          operand2=operand2, norm_scale=norm_scale,
+                          row_scale=sa, col_scale=sb)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,

@@ -1,28 +1,39 @@
-"""Where the serving time goes on the card: a ``torch.profiler`` trace of
-one prefill and a few decode steps of the fixed-batch path.
+"""Where the serving time goes on the card: ``torch.profiler`` traces of
+the fixed-batch path (one prefill, a few decode steps) and of the
+continuous-batching scheduler's iterations, bf16 and int8.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch granite-3-8b --out profile_serve.json
 
-Prints, for prefill and for the mean decode step: the host wall time
-(synchronized, profiler off), the device busy time (sum of kernel times
-from a profiled run of the same calls; one stream, so kernels do not
-overlap), the idle share, and the kernels by device time.
-Needs the card: the timings are device metrics.
+Prints, for each window (fixed prefill, fixed decode step, and per engine
+a scheduler iteration that prefills one chunk on every lane and one that
+only decodes): the host wall time (synchronized, profiler off), the device
+busy time (sum of kernel times from a profiled run of the same calls from
+the same starting state; one stream, so kernels do not overlap), the idle
+share, and the kernels by device time.  Needs the card: the timings are device metrics.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import time
 from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch.serve import GEOMETRY
 from repro_torch.models.lm import Model
+from repro_torch.serve.api import Request, SamplingParams
+from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+
+# the scheduler windows' prompts: 7 chunks of 64 on every lane
+SCHED_PROMPT = 448
 
 
 def _kernel_times(prof) -> dict:
@@ -35,15 +46,20 @@ def _kernel_times(prof) -> dict:
     return dict(out)
 
 
-def _window(fn, reps: int):
+def _window(fn, reps: int, setup):
     """Host wall time per call without the profiler (synchronized), then
-    device kernel times per call from a profiled run of the same calls."""
+    device kernel times per call from a profiled run of the same calls:
+    ``setup`` brings the state to the window's start before each half, so
+    both halves do the same work."""
+    setup()
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6 / reps
+    setup()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -57,6 +73,66 @@ def _window(fn, reps: int):
             "kernels_ms": {k: v / 1e3 for k, v in top}}
 
 
+def _fixed(model, cfg, args) -> dict:
+    toks = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                         generator=torch.Generator().manual_seed(args.seed))
+    max_len = args.prompt_len + args.steps + 2
+    model.prefill(toks, max_len)                                # warm-up
+    prefill = _window(lambda: model.prefill(toks, max_len), 2, lambda: None)
+    state = {}
+
+    def start():
+        """A fresh cache after the prompt, and one decode step."""
+        logits, state["cache"] = model.prefill(toks, max_len)
+        state["tok"] = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        state["pos"] = args.prompt_len
+        step()
+
+    def step():
+        model.decode_step(state["cache"], state["tok"], state["pos"])
+        state["pos"] += 1
+
+    return {"prefill": prefill,
+            "decode_step": _window(step, args.steps, start)}
+
+
+def _scheduler(model, cfg, args, int8: bool) -> dict:
+    """One lane per request, every prompt SCHED_PROMPT long: the first
+    iterations prefill a 64-token chunk on every lane, the later ones only
+    decode.  Each window starts from a fresh wave of the same requests."""
+    eng = ServeEngine(model, ServeConfig(int8=int8, **GEOMETRY))
+    sched = eng.scheduler
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab, SCHED_PROMPT)
+               for _ in range(GEOMETRY["n_lanes"])]
+    waves = itertools.count()
+
+    def fill():
+        """Retire what runs, submit a new wave and run the iteration that
+        admits it and prefills its first chunk."""
+        eng.drain()
+        base = next(waves) * len(prompts)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(id=base + i, tokens=p, sampling=SamplingParams(
+                max_new_tokens=args.steps + 4)))
+        eng.step()
+
+    def to_decode():
+        fill()
+        while any(a is None or not a.prefilled for a in sched.lanes):
+            eng.step()
+        eng.step()                                 # the first decode
+
+    fill()                                         # warm-up
+    to_decode()
+    out = {"chunk_iteration": _window(eng.step, 2, fill),
+           "decode_iteration": _window(eng.step, args.steps, to_decode)}
+    if not all(a is not None and a.prefilled for a in sched.lanes):
+        raise RuntimeError("a lane retired inside the decode window")
+    eng.drain()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-8b", choices=ARCH_IDS)
@@ -68,31 +144,25 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card; none is present")
+    if SCHED_PROMPT + args.steps + 4 > GEOMETRY["max_seq_len"]:
+        raise SystemExit("--steps too large for the scheduler's lanes")
 
     cfg = get_config(args.arch)
     model = Model(cfg).init_weights(args.seed)
-    toks = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                         generator=torch.Generator().manual_seed(args.seed))
-    max_len = args.prompt_len + 3 * args.steps + 2
-    model.prefill(toks, max_len)                                # warm-up
-    prefill = _window(lambda: model.prefill(toks, max_len), 2)
-    logits, cache = model.prefill(toks, max_len)
-    tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
-    state = {"pos": args.prompt_len}
-
-    def step():
-        model.decode_step(cache, tok, state["pos"])
-        state["pos"] += 1
-
-    step()                                                      # warm-up
-    decode = _window(step, args.steps)
-    card = torch.cuda.get_device_name(0)
-    report = {"card": card, "arch": cfg.name, "batch": args.batch,
-              "prompt_len": args.prompt_len, "prefill": prefill,
-              "decode_step": decode}
-    for phase in ("prefill", "decode_step"):
-        r = report[phase]
-        print(f"{phase}: wall {r['wall_ms']:.3f} ms, device busy "
+    report = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
+              "batch": args.batch, "prompt_len": args.prompt_len,
+              "lanes": GEOMETRY["n_lanes"], "sched_prompt": SCHED_PROMPT,
+              "fixed": _fixed(model, cfg, args)}
+    for int8 in (False, True):
+        name = "scheduler_int8" if int8 else "scheduler_bf16"
+        report[name] = _scheduler(model, cfg, args, int8)
+        torch.cuda.empty_cache()
+    windows = [(group, phase) for group in
+               ("fixed", "scheduler_bf16", "scheduler_int8")
+               for phase in report[group]]
+    for group, phase in windows:
+        r = report[group][phase]
+        print(f"{group} {phase}: wall {r['wall_ms']:.3f} ms, device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share "
               f"{r['idle_share']:.3f}")
         for name, ms in list(r["kernels_ms"].items())[:12]:

@@ -1,23 +1,34 @@
-"""Serving launcher: fixed-batch greedy generation with a dense KV cache.
+"""Serving launcher: fixed-batch greedy generation over a dense KV cache,
+or continuous batching over the paged KV cache (``--requests N``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
-        --smoke --device cpu
+        --requests 16 [--int8]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
+        --smoke --device cpu [--requests 6]
 
 Runs on the CUDA card unless ``--device cpu``; weights are random, drawn
-from ``--seed`` on the device.  Prints the prefill time, the decode time
-per step, tokens/s and every request's status.
+from ``--seed`` on the device.  The fixed mode prints the prefill time,
+the decode time per step, tokens/s and every lane's status.  The
+continuous mode submits ``--requests`` requests at once, prompt lengths
+and token budgets drawn from ``--seed``, to a scheduler of 8 lanes
+(``GEOMETRY``), steps it until every request has finished, and prints the time to
+first token, the time per decode-only iteration, tokens/s and every
+request's status.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Dict, List
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.lm import Model
+from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 
@@ -26,45 +37,141 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_requests(vocab: int, n: int, seed: int, prompt_range=(32, 448),
+                  new_range=(16, 32)) -> List[Request]:
+    """``n`` greedy requests with prompt lengths and token budgets drawn
+    uniformly (inclusive) from the ranges, tokens from ``seed``."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(prompt_range[0], prompt_range[1] + 1))
+        new = int(rng.integers(new_range[0], new_range[1] + 1))
+        reqs.append(Request(id=i, tokens=rng.integers(0, vocab, plen),
+                            sampling=SamplingParams(max_new_tokens=new)))
+    return reqs
+
+
+def serve_requests(engine: ServeEngine, requests: List[Request]) -> Dict:
+    """Submit every request at once and step the engine's scheduler until
+    all have finished.  Host clock around synchronized iterations: each
+    request's time to first token (from the submit), the wall time of
+    every iteration and whether it ran a prefill chunk.  Returns those
+    with the outputs by request id."""
+    dev = engine.model.device
+    sched = engine.scheduler
+    _sync(dev)
+    t0 = time.perf_counter()
+    for r in requests:
+        engine.submit(r)
+    ttft: Dict = {}
+    iters = []
+    outs = {}
+    while engine.pending:
+        chunk = any(a is not None and not a.prefilled
+                    for a in sched.lanes) or (
+            bool(sched.queue) and any(a is None for a in sched.lanes))
+        t = time.perf_counter()
+        for o in engine.step():
+            outs[o.id] = o
+        _sync(dev)
+        now = time.perf_counter()
+        iters.append((now - t, chunk))
+        for a in sched.lanes:
+            if a is not None and a.tokens and a.req.id not in ttft:
+                ttft[a.req.id] = now - t0
+        for rid, o in outs.items():
+            if o.tokens.size and rid not in ttft:
+                ttft[rid] = now - t0
+    wall = time.perf_counter() - t0
+    engine.collect()
+    decode = [s for s, c in iters if not c]
+    n_tok = sum(o.tokens.size for o in outs.values())
+    return dict(outputs=outs, ttft_s=ttft, wall_s=wall, iterations=len(iters),
+                decode_ms_per_iter=(1e3 * sum(decode) / len(decode)
+                                    if decode else None),
+                chunk_iterations=len(iters) - len(decode),
+                generated=n_tok, tokens_per_s=n_tok / wall)
+
+
+# continuous batching: 8 lanes of up to 512 positions, 16-slot pages,
+# 64-token prefill chunks; prompts of 32-448 tokens, budgets of 16-32
+GEOMETRY = dict(n_lanes=8, page_size=16, prefill_chunk=64, max_seq_len=512)
+PROMPT_RANGE, NEW_RANGE = (32, 448), (16, 32)
+
+
+def _continuous(args, model, cfg) -> None:
+    eng = ServeEngine(model, ServeConfig(int8=args.int8, **GEOMETRY))
+    reqs = make_requests(cfg.vocab, args.requests, args.seed, PROMPT_RANGE,
+                         NEW_RANGE)
+    r = serve_requests(eng, reqs)
+    ttft = np.array([r["ttft_s"][q.id] for q in reqs if q.id in r["ttft_s"]])
+    dec = r["decode_ms_per_iter"]
+    print(f"{cfg.name}{' int8' if args.int8 else ''} on {model.device}: "
+          f"{len(reqs)} requests on {GEOMETRY['n_lanes']} lanes, "
+          f"{r['iterations']} "
+          f"iterations ({r['chunk_iterations']} with a prefill chunk), "
+          f"{r['generated']} tokens in {r['wall_s']:.3f} s = "
+          f"{r['tokens_per_s']:.1f} tok/s")
+    if ttft.size:
+        print(f"  time to first token: median {1e3 * np.median(ttft):.1f} "
+              f"ms, max {1e3 * ttft.max():.1f} ms")
+    if dec is not None:
+        print(f"  decode-only iteration: {dec:.3f} ms")
+    for q in reqs:
+        o = r["outputs"][q.id]
+        print(f"  request {q.id}: prompt {len(q.tokens)}, {o.tokens.size} "
+              f"tokens, {o.status}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve int8 weights (column-wise scales)")
+    ap.add_argument("--seed", type=int, default=0)
+    # fixed-batch mode
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--seed", type=int, default=0)
+    # continuous batching
+    ap.add_argument("--requests", type=int, default=0,
+                    help="continuous batching: serve this many requests")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     model = Model(cfg, device=device).init_weights(args.seed)
+    if args.requests:
+        return _continuous(args, model, cfg)
+
     gen = torch.Generator().manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen)
-    eng = ServeEngine(model, ServeConfig(max_new_tokens=args.max_new))
-
+    eng = ServeEngine(model, ServeConfig(max_new_tokens=args.max_new,
+                                         int8=args.int8))
+    served = eng.model
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(tokens, max_len=args.prompt_len
-                                  + args.max_new)
+    logits, cache = served.prefill(tokens, max_len=args.prompt_len
+                                   + args.max_new)
     _sync(device)
     t1 = time.perf_counter()
     tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
     for i in range(args.max_new - 1):
-        logits, cache = model.decode_step(cache, tok, args.prompt_len + i)
+        logits, cache = served.decode_step(cache, tok, args.prompt_len + i)
         tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
     _sync(device)
     t2 = time.perf_counter()
-    res = eng.generate_with_status({"tokens": tokens})
+    res = eng.generate_with_status_fixed({"tokens": tokens})
     _sync(device)
     t3 = time.perf_counter()
     steps = max(args.max_new - 1, 1)
-    print(f"{cfg.name} on {device}: prefill {1e3 * (t1 - t0):.3f} ms, "
-          f"decode {1e3 * (t2 - t1) / steps:.3f} ms/step, "
-          f"generate {res.tokens.size / (t3 - t2):.1f} tok/s")
+    print(f"{cfg.name}{' int8' if args.int8 else ''} on {device}: prefill "
+          f"{1e3 * (t1 - t0):.3f} ms, decode {1e3 * (t2 - t1) / steps:.3f} "
+          f"ms/step, generate {res.tokens.size / (t3 - t2):.1f} tok/s")
     for lane, (st, fs) in enumerate(zip(res.status, res.fault_step)):
         extra = f" (at step {fs})" if fs >= 0 else ""
         print(f"  lane {lane}: {st}{extra}")

@@ -1,13 +1,24 @@
-"""Fixed-batch greedy serving: prefill every lane, then decode in lockstep.
+"""Request-level serving engine: continuous batching over a paged KV
+cache behind ``submit()/step()/collect()``, and the fixed-batch loop.
 
-The port of the reference's ``generate_with_status_fixed`` loop with its
-health guards: a non-finite logit quarantines THAT lane (structured
-status, pad tokens from then on) while its peers keep decoding, or raises
-under ``on_nonfinite='raise'``; batch rows past ``max_lanes`` are shed at
-the door.  The reference routes paged-capable models to its
-continuous-batching scheduler, whose greedy outputs it holds bitwise equal
-to this loop; until the paged slice is ported, ``generate`` here runs this
-fixed loop for every model.
+  * the PAGED path (``serve.scheduler.PagedScheduler``): requests admit
+    into recycled decode lanes backed by page pools, prompts prefill in
+    fixed-size chunks interleaved with decode steps, and every model call
+    has one of two shapes, ``[n_lanes, 1]`` or ``[n_lanes, chunk]``;
+  * the FIXED path (``generate_with_status_fixed``): prefill every lane,
+    then decode in lockstep over a dense cache.
+
+``generate()`` / ``generate_with_status()`` are shims over a cached
+fixed-geometry scheduler, as in the reference, whose greedy tokens equal
+the fixed loop's.  With ``ServeConfig(int8=True)`` the engine serves the
+model's int8 copy (``Model.quantize_params_for_serving``); a saturation
+probe, calibrated on each request's first logits, marks requests whose
+logits drift past the int8 envelope as ``degraded_fp32`` and, with
+``fp32_fallback``, finishes them on the retained bf16 model over the same
+pools.  A non-finite logit quarantines that request (or raises under
+``on_nonfinite='raise'``); a wall-clock budget gives ``timeout``; a
+request that can never fit is ``shed``.  This slice picks greedily; a
+request asking to sample is refused at submit.
 """
 from __future__ import annotations
 
@@ -17,10 +28,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.quantize import (quantize_fixed_scale,
+                                          saturation_fraction)
 from repro_torch.models.lm import Model
 from repro_torch.robust.guards import (STATUS_NONFINITE, STATUS_OK,
                                        STATUS_SHED, GenerateResult,
                                        NumericalHealthError)
+from repro_torch.serve.api import Request, RequestOutput, SamplingParams
+from repro_torch.serve.scheduler import PagedScheduler
 
 _ON_NONFINITE = ("quarantine", "raise", "off")
 
@@ -28,7 +43,10 @@ _ON_NONFINITE = ("quarantine", "raise", "off")
 @dataclasses.dataclass
 class ServeConfig:
     max_new_tokens: int = 32
-    # per-lane finite-logit guard, computed in the token pick
+    # stop token (None = run to max_new_tokens)
+    eos_id: Optional[int] = None
+    # per-lane health guards (finite logits; int8 saturation probe),
+    # computed in the token pick
     guards: bool = True
     # 'quarantine' the lane, 'raise' NumericalHealthError, or 'off'
     on_nonfinite: str = "quarantine"
@@ -38,11 +56,28 @@ class ServeConfig:
     logits_dtype: str = "float32"
     # admission control: lanes beyond this are shed (None = admit all)
     max_lanes: Optional[int] = None
+    # serve the int8 copy of the model (projection weights quantized once,
+    # column-wise scales)
+    int8: bool = False
+    # int8 only: keep the bf16 model and finish saturated lanes on it
+    fp32_fallback: bool = False
+    # int8 only: fraction of a lane's logits past its calibrated int8
+    # envelope above which the lane degrades
+    saturation_threshold: float = 0.25
+    # wall-clock budget per request (None = no budget)
+    request_timeout_s: Optional[float] = None
+    # -- paged scheduler geometry (shape constants) ---------------------------
+    n_lanes: int = 4
+    page_size: int = 16
+    prefill_chunk: int = 32
+    # per-request position ceiling (prompt + max_new); sets the table width
+    max_seq_len: int = 256
+    # pages in the pool (None = n_lanes full lanes' worth)
+    n_pages: Optional[int] = None
 
     def __post_init__(self):
-        if self.max_new_tokens < 1:
-            raise ValueError(
-                f"max_new_tokens must be >= 1, got {self.max_new_tokens}")
+        SamplingParams(max_new_tokens=self.max_new_tokens,
+                       eos_id=self.eos_id)
         if self.pad_id < 0:
             raise ValueError(f"pad_id must be >= 0, got {self.pad_id}")
         if self.on_nonfinite not in _ON_NONFINITE:
@@ -56,13 +91,54 @@ class ServeConfig:
         if self.max_lanes is not None and self.max_lanes < 1:
             raise ValueError(
                 f"max_lanes must be >= 1 (or None), got {self.max_lanes}")
+        if self.request_timeout_s is not None \
+                and not (self.request_timeout_s > 0):
+            raise ValueError(
+                f"request_timeout_s must be > 0 (or None), got "
+                f"{self.request_timeout_s}")
+        if not (0.0 < self.saturation_threshold <= 1.0):
+            raise ValueError(
+                f"saturation_threshold must be in (0, 1], got "
+                f"{self.saturation_threshold}")
+        if self.fp32_fallback and not self.int8:
+            raise ValueError(
+                "fp32_fallback without int8 is meaningless: the engine "
+                "already serves full precision")
+        if self.n_lanes < 1:
+            raise ValueError(f"n_lanes must be >= 1, got {self.n_lanes}")
+        if self.page_size < 1:
+            raise ValueError(
+                f"page_size must be >= 1, got {self.page_size}")
+        if self.prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.max_seq_len < 2:
+            raise ValueError(
+                f"max_seq_len must be >= 2, got {self.max_seq_len}")
+        if self.n_pages is not None and self.n_pages < 1:
+            raise ValueError(
+                f"n_pages must be >= 1 (or None), got {self.n_pages}")
+
+    def sampling_defaults(self) -> SamplingParams:
+        """The SamplingParams of requests that carry none."""
+        return SamplingParams(max_new_tokens=self.max_new_tokens,
+                              eos_id=self.eos_id)
 
 
 class ServeEngine:
     def __init__(self, model: Model, scfg: ServeConfig = ServeConfig()):
-        self.model = model
         self.scfg = scfg
+        # int8: the one-shot quantized copy serves; the bf16 model stays
+        # only under fp32_fallback
+        self.model = model.quantize_params_for_serving() if scfg.int8 \
+            else model
+        self.fp_model = model if scfg.fp32_fallback else None
         self._ldtype = getattr(torch, scfg.logits_dtype)
+        self._sched: Optional[PagedScheduler] = None
+        self._finished: List[RequestOutput] = []
+        self._shim_cache: Dict[tuple, PagedScheduler] = {}
+
+    # -- token pick + health probes ---------------------------------------------
 
     def _pick_and_probe(self, logits: torch.Tensor):
         """Greedy pick over the real vocab plus the per-lane finite probe:
@@ -71,18 +147,140 @@ class ServeEngine:
         tok = torch.argmax(real.to(self._ldtype), dim=-1).to(torch.int32)
         return tok, torch.isfinite(real).all(dim=-1)
 
+    def _pick_and_probe_lanes(self, logits: torch.Tensor,
+                              calib: torch.Tensor):
+        """Greedy pick + the per-lane probes over ``logits [L, Vp]``:
+        ``finite`` (all real-vocab logits finite), ``absmax`` (the
+        calibration source of a request's first pick) and ``sat`` (the
+        fraction of the lane's logits that saturate a fixed int8 scale
+        calibrated to ``calib [L]``)."""
+        tok, finite = self._pick_and_probe(logits)
+        real = logits[:, :self.model.cfg.vocab]
+        absmax = torch.amax(torch.abs(real), dim=-1)
+        scale = torch.clamp(calib, min=1e-6)[:, None] * (1.0 / 127.0)
+        sat = saturation_fraction(quantize_fixed_scale(real, scale))
+        return tok, finite, absmax, sat
+
+    # -- request-level API -----------------------------------------------------
+
+    def _new_scheduler(self, n_lanes: int, max_len: int,
+                       n_pages: Optional[int] = None) -> PagedScheduler:
+        scfg = self.scfg
+        if not self.model.supports_paged_serving:
+            raise NotImplementedError(
+                "paged serving needs a decoder of global attention blocks; "
+                "use generate_with_status_fixed() for this model")
+        ppl = -(-max_len // scfg.page_size)
+        return PagedScheduler(
+            self, n_lanes=n_lanes, pages_per_lane=ppl,
+            n_pages=n_pages if n_pages is not None else n_lanes * ppl,
+            page_size=scfg.page_size, chunk=scfg.prefill_chunk)
+
+    @property
+    def scheduler(self) -> PagedScheduler:
+        """The engine's continuous-batching scheduler, built at first use
+        from the ServeConfig geometry."""
+        if self._sched is None:
+            scfg = self.scfg
+            self._sched = self._new_scheduler(scfg.n_lanes, scfg.max_seq_len,
+                                              scfg.n_pages)
+        return self._sched
+
+    def submit(self, request: Request) -> None:
+        """Queue one request (admitted into a lane as capacity frees)."""
+        self.scheduler.submit(request)
+
+    def step(self) -> List[RequestOutput]:
+        """One scheduler iteration: admissions, at most one prefill chunk
+        per prefilling lane, one decode call, one pick.  Returns the
+        requests finished now (also buffered for ``collect()``)."""
+        outs = self.scheduler.step()
+        self._finished.extend(outs)
+        return outs
+
+    def collect(self) -> List[RequestOutput]:
+        """Every finished request not collected yet."""
+        out, self._finished = self._finished, []
+        return out
+
+    @property
+    def pending(self) -> bool:
+        """True while the scheduler holds queued or active work."""
+        return self._sched is not None and self._sched.has_work
+
+    def drain(self) -> List[RequestOutput]:
+        """Step until idle; returns every output finished along the way
+        (buffered ones included)."""
+        self._finished.extend(self.scheduler.run_to_completion())
+        return self.collect()
+
+    def _shim_scheduler(self, n_lanes: int, prompt_len: int,
+                        max_new: int) -> PagedScheduler:
+        """Fixed-geometry scheduler for the ``generate(batch)`` shim: one
+        lane per batch row and a pool every row admits into at once,
+        cached per (lanes, prompt, budget)."""
+        key = (n_lanes, prompt_len, max_new)
+        sched = self._shim_cache.get(key)
+        if sched is None:
+            sched = self._new_scheduler(n_lanes, prompt_len + max_new)
+            while len(self._shim_cache) >= 4:
+                self._shim_cache.pop(next(iter(self._shim_cache)))
+            self._shim_cache[key] = sched
+        return sched
+
+    # -- batch-shaped generation -------------------------------------------------
+
     def generate(self, batch: Dict[str, torch.Tensor]) -> np.ndarray:
         """batch['tokens'] [B, S] -> generated tokens [B, <= max_new]."""
         return self.generate_with_status(batch).tokens
 
     def generate_with_status(self, batch: Dict[str, torch.Tensor]
                              ) -> GenerateResult:
-        """Guarded generation with structured per-lane outcomes (the fixed
-        loop until the paged slice lands)."""
-        return self.generate_with_status_fixed(batch)
+        """Guarded generation with structured per-lane outcomes: each batch
+        row becomes a Request on a cached fixed-geometry scheduler and the
+        RequestOutputs are reassembled into a GenerateResult."""
+        scfg = self.scfg
+        toks = np.asarray(batch["tokens"])
+        b_full = toks.shape[0]
+        if toks.ndim != 2 or toks.shape[1] == 0:
+            # a zero-length prompt can never seed a pick: shed the batch
+            return GenerateResult(
+                tokens=np.zeros((b_full, 0), np.int32),
+                status=[STATUS_SHED] * b_full,
+                fault_step=np.full((b_full,), -1, np.int64),
+                n_steps=0, timed_out=False, admitted=0)
+        admit = b_full if scfg.max_lanes is None \
+            else min(b_full, scfg.max_lanes)
+        sp = scfg.sampling_defaults()
+        sched = self._shim_scheduler(admit, toks.shape[1],
+                                     sp.max_new_tokens)
+        sched.timed_out = False
+        for r in range(admit):
+            sched.submit(Request(id=r, tokens=toks[r], sampling=sp))
+        try:
+            outs = sched.run_to_completion()
+        except Exception:
+            # a raise mid-drain leaves lanes mapped: drop the scheduler
+            self._shim_cache = {k: v for k, v in self._shim_cache.items()
+                                if v is not sched}
+            raise
+        n_steps = max((len(o.tokens) for o in outs), default=0)
+        tokens = np.full((b_full, n_steps), scfg.pad_id, np.int32)
+        status = np.array([STATUS_SHED] * b_full, dtype=object)
+        fault_step = np.full((b_full,), -1, np.int64)
+        for o in outs:
+            tokens[o.id, :len(o.tokens)] = o.tokens
+            status[o.id] = o.status
+            fault_step[o.id] = o.fault_step
+        return GenerateResult(tokens=tokens, status=list(status),
+                              fault_step=fault_step, n_steps=n_steps,
+                              timed_out=sched.timed_out, admitted=admit)
 
     def generate_with_status_fixed(self, batch: Dict[str, torch.Tensor]
                                    ) -> GenerateResult:
+        """The lockstep fixed-batch loop over a dense cache: every lane
+        prefills (K4) and decodes (K5) in step.  Kept as the reference the
+        scheduler shim's greedy tokens are held equal to."""
         scfg = self.scfg
         toks = torch.as_tensor(batch["tokens"])
         b_full = toks.shape[0]
@@ -123,6 +321,8 @@ class ServeEngine:
                 tok_np = np.where(quarantined, scfg.pad_id,
                                   tok_np).astype(tok_np.dtype)
             out.append(tok_np)
+            if scfg.eos_id is not None:
+                done = done | (tok_np == scfg.eos_id)
             done = done | quarantined
             if done.all() or i == scfg.max_new_tokens - 1:
                 break
