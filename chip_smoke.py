@@ -17,8 +17,9 @@ line):
    int8 product of K2, and K6 (paged decode) against K5 over the same
    history in a dense cache.  K1 and K2 are checked at the rows of both
    driven paths (the fixed loop's 4 and 1024, the scheduler's 8 and 512).
-   Each kernel's device time (its kernels' durations in a profiler
-   trace), its wrapper's time (CUDA events, host work inside included),
+   Each kernel's device time (CUDA events behind a spin kernel that hides
+   the host's launch), its wrapper's time (CUDA events, host work inside
+   included),
    its plain version's and one PyTorch library call's device time where
    one computes the same function (a yardstick only; the port never calls
    it) and the least time the card could take (the bound) are recorded.
@@ -41,10 +42,23 @@ line):
    and 16-32 new tokens on 8 lanes (page size 16, chunk 64), once bf16
    (K1, K6) and once int8 (K2, K3, K6).  Every status ok, no request
    repeating one token, and request 0 served alone emitting bitwise the
-   tokens it emits amid the churn.
+   tokens it emits amid the churn.  Then K7's one entry point,
+   ``ops.addertree``, as the row-parallel reduction of a K-split
+   o-projection (``addertree_path``).
+5. gemma2: after the granite models are freed, full-width 46-layer
+   gemma2-27b (bf16, local and global layers alternating, window 4096,
+   softcaps 50 and 30) from seed 0, built once: a decode-vs-prefill
+   witness at init scales past the window, then, on varied weights, the
+   fixed loop (batch 2, prompt 4160, 16 tokens; K1, K4 local and global
+   with softcap, the ring, K5 softcap) and the scheduler (8 requests, one
+   with a 4160-token prompt that decodes past position 4096, the others
+   32-448; K1, K6 local and global with softcap), every status ok.
+   Phases 2 and 3 hold gemma2's kernel variants at its full shapes and
+   its smoke config card against CPU (``check_gemma2_kernels``,
+   ``check_gemma2_smoke``).
 
-Then one JSON line listing every ported kernel, the card line again, and
-last ``{"ok": true, "device": {...}}``.
+Then one JSON line listing every ported kernel and variant, the card line
+again, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -78,6 +92,13 @@ PATH_KERNELS = {
                        "decode_combine"),
     "scheduler_int8": ("int8_matmul", "int8_quantize", "quantize",
                        "rmsnorm", "paged_partials", "decode_combine"),
+    "addertree": ("matmul", "addertree"),
+    # a variant's launches are counted under "<kernel>:<variant>"
+    "gemma2_fixed": ("matmul", "rmsnorm", "flash_attention:local+softcap",
+                     "flash_attention:softcap", "decode_partials:softcap",
+                     "decode_combine"),
+    "gemma2_scheduler": ("matmul", "rmsnorm", "paged_partials:local+softcap",
+                         "paged_partials:softcap", "decode_combine"),
 }
 
 
@@ -111,61 +132,58 @@ class Timer:
     """Time of one call, averaged over ``reps`` calls, each after an L2
     flush (the serving path meets its weights and caches cold).
 
-    Calling it gives the device time: the sum of the card's kernel (and
-    copy) durations in a ``torch.profiler`` trace of the calls, with the
-    flush's own kernel left out.  ``wall`` gives CUDA events around each
-    call instead, which also hold the host's time inside the wrapper
+    Calling it gives the device time: CUDA events recorded just before
+    and after the call, behind a spin kernel (``torch.cuda._sleep``) that
+    keeps the card busy while the host enqueues the flush, the events and
+    the call's kernels, so the time runs from the start of the call's
+    first kernel to the end of its last, with no wait for the host in it.
+    (``torch.profiler`` traces of the same calls have been seen to lose a
+    device event per trace, in every try, once a process had taken a few
+    hundred traces.)  ``wall`` gives CUDA events around each call without
+    the spin, so it also holds the host's time inside the wrapper
     (argument checks, allocation, the ctypes call)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                  device="cuda")
-        # the flush's kernel, told apart in a trace by its full name
-        events = self._events(lambda: [self._flush() for _ in range(3)])
-        self.flush_names = {n for n, _ in events}
-        require(len(events) == 3 and len(self.flush_names) == 1,
-                f"the flush is not one kernel per call: {events}")
+        # the spin's cycles per ms, from one timed spin
+        cycles = 10_000_000
+        start, end = self._event(), self._event()
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        self.cycles_per_ms = cycles / start.elapsed_time(end)
+
+    def _event(self):
+        return self.torch.cuda.Event(enable_timing=True)
 
     def _flush(self):
         self.torch.bitwise_not(self.flush, out=self.flush)
 
-    def _events(self, body):
-        """(name, device us) of every device event while ``body`` runs."""
+    def __call__(self, fn, reps: int = 10) -> float:
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            body()
-            torch.cuda.synchronize()
-        return [(ev.name, ev.device_time_total) for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA]
-
-    def __call__(self, fn, reps: int = 10, tries: int = 5) -> float:
         fn()
-        self.torch.cuda.synchronize()
-
-        def body():
-            for _ in range(reps):
-                self._flush()
-                fn()
-
-        # a trace counts only when it is complete: one flush per call and
-        # as many events per call as one call alone shows (the profiler
-        # has been seen to drop events from a trace)
-        for _ in range(tries):
-            own = self._events(fn)
-            require(not {n for n, _ in own} & self.flush_names,
-                    f"a timed call launches the flush's kernel: {own}")
-            events = self._events(body)
-            rest = [us for n, us in events if n not in self.flush_names]
-            if (len(events) - len(rest) == reps
-                    and len(rest) == reps * len(own)):
-                return sum(rest) / reps / 1e3
-            print(f"  timer: incomplete trace ({len(events) - len(rest)} "
-                  f"flushes and {len(rest)} other events for {reps} calls "
-                  f"of {len(own)} events), again", flush=True)
-        raise SmokeFailure(f"no complete trace in {tries} tries")
+        torch.cuda.synchronize()
+        # the spin outlasts the host's enqueue of one call 4x (at least
+        # 2 ms)
+        t = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        spin = int(self.cycles_per_ms * max(2.0, 4 * host_ms))
+        total = 0.0
+        for _ in range(reps):
+            start, end = self._event(), self._event()
+            torch.cuda._sleep(spin)
+            self._flush()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / reps
 
     def wall(self, fn, reps: int = 10) -> float:
         torch = self.torch
@@ -174,8 +192,7 @@ class Timer:
         total = 0.0
         for _ in range(reps):
             self._flush()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+            start, end = self._event(), self._event()
             start.record()
             fn()
             end.record()
@@ -947,6 +964,611 @@ def serve_full(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# gemma2-27b: the local and softcap variants of K4, K5 and K6, and K7
+# ---------------------------------------------------------------------------
+
+# gemma2-27b's attention (src/repro_torch/configs/gemma2_27b.py)
+G2_H, G2_KV, G2_HD, G2_WINDOW, G2_SOFTCAP = 32, 16, 128, 4096, 50.0
+# phase 5: the fixed loop's batch, prompt (past the 4096 window, so K4's
+# window and the local ring's wrap both run) and new tokens; the
+# scheduler's requests, the first of them with the long prompt
+G2_BATCH, G2_PROMPT, G2_NEW, G2_REQ = 2, 4160, 16, 8
+
+
+def _sdpa_ms(torch, timer, q, k, v, mask=None, causal=False):
+    """One SDPA call on the same q/k/v, heads repeated to H (the library
+    yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
+    return timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal))
+
+
+def check_gemma2_kernels(torch, timer):
+    """Phase 2, gemma2: each new variant against its plain version on the
+    card at gemma2-27b's shapes (H 32, KV 16, hd 128, window 4096, softcap
+    50).  K4 (local + softcap, 4 bf16 ulps of each row's scale as for the
+    global K4) over the fixed loop's prefill, B = 2 x S = 4160, and at a
+    window of 16 (smaller than one 64-slot block) and global + softcap;
+    K5 with softcap (partials within 1e-5 of each row's scale, the pair
+    within 2 bf16 ulps and bitwise across n_splits); K6 local + softcap at
+    decode and at an S = 64 chunk (2 bf16 ulps) with lanes past position
+    4096, the idle lane exactly 0.0, and K6 == K5 bitwise on global lanes
+    with softcap; K7 bitwise at S = 4 over [1024, 4096] for every pair
+    of dtypes it takes (fp32 and bf16 into fp32 and bf16, int8 into
+    int32 and int8)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (decode_partials_cuda,
+                                                     decode_tile_partials,
+                                                     flash_decode_tiled,
+                                                     paged_flash_decode_tiled,
+                                                     paged_partials_cuda,
+                                                     paged_tile_partials)
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bf = torch.bfloat16
+    H, KV, hd, W, sc = G2_H, G2_KV, G2_HD, G2_WINDOW, G2_SOFTCAP
+    G = H // KV
+
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    results = {}
+    # K4: local + softcap at the fixed loop's prefill; q and k at 3x scale
+    # so that scores reach the softcap's curve
+    b, s = G2_BATCH, G2_PROMPT
+    q, k, v = rand(b, s, H, hd, scale=3.0), rand(b, s, KV, hd, scale=3.0), \
+        rand(b, s, KV, hd)
+    var = dict(kind="local", window=W, softcap=sc)
+    got = ops.flash_attention(q, k, v, **var)
+    want = ref.flash_attention_ref(q, k, v, **var)
+    err, abs_err = row_err(got, want), max_err(got, want)
+    extra = {}
+    for name, shape, kw in (
+            ("small_window", (1, 320), dict(kind="local", window=16,
+                                            softcap=sc)),
+            ("global_softcap", (1, 512), dict(kind="global", softcap=sc))):
+        qs = rand(*shape, H, hd, scale=3.0)
+        ks, vs = rand(*shape, KV, hd, scale=3.0), rand(*shape, KV, hd)
+        extra[name] = row_err(ops.flash_attention(qs, ks, vs, **kw),
+                              ref.flash_attention_ref(qs, ks, vs, **kw))
+    worst = max(err, *extra.values())
+    require(worst <= 4 * eps_bf16, f"K4 local/softcap: a row is off by "
+                                   f"{err:.3e} ({extra}) of its scale")
+    live = sum(min(i + 1, W) for i in range(s))      # keys per head
+    t_b, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                    4 * b * H * hd * live)
+    pos_q = torch.arange(s, device="cuda")
+    lmask = ((pos_q[None, :] <= pos_q[:, None])
+             & (pos_q[:, None] - pos_q[None, :] < W))
+    results["k4_flash_prefill_local_softcap"] = dict(
+        work=f"local prefill window={W} softcap={sc} B={b} S={s} H={H} "
+             f"KV={KV} hd={hd}; also window 16 at S=320 and global + "
+             f"softcap at S=512",
+        max_abs_err=abs_err, max_row_err=worst, tol=4 * eps_bf16,
+        small_window_row_err=extra["small_window"],
+        global_softcap_row_err=extra["global_softcap"],
+        ms=timer(lambda: ops.flash_attention(q, k, v, **var), reps=3),
+        wrapper_ms=timer.wall(lambda: ops.flash_attention(q, k, v, **var),
+                              reps=3),
+        plain_ms=timer(lambda: ref.flash_attention_ref(q, k, v, **var),
+                       reps=3),
+        bound_ms=t_b, bound_by=by,
+        library_ms=_sdpa_ms(torch, timer, q, k, v, mask=lmask),
+        library_note="SDPA with the local window as a bool mask, no "
+                     "softcap, heads repeated")
+    del q, k, v, lmask
+    torch.cuda.empty_cache()
+
+    # K5 with softcap: the global layers' decode at the fixed loop's last
+    # step
+    length = G2_PROMPT + G2_NEW
+    pos = length - 1
+    q = rand(b, 1, KV, G, hd, scale=3.0)
+    kc, vc = rand(b, length, KV, hd, scale=3.0), rand(b, length, KV, hd)
+    outs = [ops.flash_decode(q, kc, vc, pos, softcap=sc, n_splits=n)
+            for n in (None, 1, 2, 4)]
+    require(all(torch.equal(outs[0], o) for o in outs[1:]),
+            "K5 softcap output changes with n_splits")
+    pair_err = row_err(outs[0], flash_decode_tiled(q, kc, vc, pos, sc))
+    require(pair_err <= 2 * eps_bf16,
+            f"K5 softcap: a row is off by {pair_err:.3e} of its scale")
+    rows, n_tiles = b * KV, -(-length // 32)
+    parts = decode_partials_cuda(q, kc, vc, pos, softcap=sc)
+    plain = decode_tile_partials(q, kc, vc, pos, sc)
+    plain = (plain[0][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
+             plain[1][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
+             plain[2][..., 0, :].permute(1, 2, 0, 3, 4).reshape(
+                 rows, n_tiles, G, hd))
+    p_err = max(row_err(x, y) for x, y in zip(parts, plain))
+    require(p_err <= 1e-5, f"K5 softcap partials: a row is off by "
+                           f"{p_err:.3e}")
+    t_b, by = bound(2 * q.numel() + 2 * 2 * b * length * KV * hd
+                    + 4 * (2 * rows * n_tiles * G + rows * n_tiles * G * hd),
+                    4 * b * H * hd * length, FP32_FLOPS_PER_S)
+    results["k5_decode_partials_softcap"] = dict(
+        work=f"decode partials softcap={sc} B={b} cache={length} pos={pos} "
+             f"KV={KV} G={G} hd={hd}, {n_tiles} tiles",
+        max_abs_err=max(max_err(x, y) for x, y in zip(parts, plain)),
+        max_row_err=p_err, tol=1e-5, pair_row_err=pair_err,
+        ms=timer(lambda: decode_partials_cuda(q, kc, vc, pos, softcap=sc)),
+        wrapper_ms=timer.wall(
+            lambda: decode_partials_cuda(q, kc, vc, pos, softcap=sc)),
+        plain_ms=timer(lambda: decode_tile_partials(q, kc, vc, pos, sc)),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        library_note="no one PyTorch call emits per-tile softmax partials")
+    del q, kc, vc, parts, plain, outs
+
+    # K6 local + softcap: the scheduler's geometry for gemma2 (8 lanes,
+    # 16-slot pages, 262 pages per lane), lanes on both sides of 4096
+    L, ps, P = LANES, PAGE, 262
+    n_pages = L * P
+    kp, vp = rand(n_pages + 1, ps, KV, hd, scale=3.0), \
+        rand(n_pages + 1, ps, KV, hd)
+    lane_pos = torch.tensor([0, 31, 100, 4095, 4096, 4170, 4191, -1],
+                            dtype=torch.int32)
+    table = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        SEED)).reshape(L, P).to(torch.int32)
+    for lane in range(L):
+        table[lane, max(int(lane_pos[lane]), 0) // ps + 1:] = -1
+    table = table.cuda()
+    posd = lane_pos.cuda()[:, None].contiguous()
+    q = rand(L, 1, KV, G, hd, scale=3.0)
+    lvar = dict(kind="local", window=W, softcap=sc)
+    got = ops.paged_flash_decode(q, kp, vp, table, posd, **lvar)
+    require(bool((got[L - 1] == 0).all()), "K6 local: the idle lane is not "
+                                           "0.0")
+    dec_err = row_err(got, paged_flash_decode_tiled(q, kp, vp, table, posd,
+                                                    **lvar))
+    rows, n_tiles = L * KV, P * ps // 32
+    parts = paged_partials_cuda(q, kp, vp, table, posd, **lvar)
+    plain = paged_tile_partials(q, kp, vp, table, posd, **lvar)
+    plain = (plain[0][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
+             plain[1][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
+             plain[2][..., 0, :].permute(1, 2, 0, 3, 4).reshape(
+                 rows, n_tiles, G, hd))
+    p_err = max(row_err(x, y) for x, y in zip(parts, plain))
+    p_abs = max(max_err(x, y) for x, y in zip(parts, plain))
+    del plain
+    # the S = 64 prefill chunk ending at each lane's position
+    s_q = CHUNK
+    qc = rand(L, s_q, KV, G, hd, scale=3.0)
+    pc = (lane_pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None])
+    pc = torch.where((pc >= 0) & (lane_pos[:, None] >= 0), pc, -1)
+    pc = pc.to(torch.int32).cuda().contiguous()
+    chunk_err = row_err(ops.paged_flash_decode(qc, kp, vp, table, pc, **lvar),
+                        paged_flash_decode_tiled(qc, kp, vp, table, pc,
+                                                 **lvar))
+    gchunk_err = row_err(
+        ops.paged_flash_decode(qc, kp, vp, table, pc, softcap=sc),
+        paged_flash_decode_tiled(qc, kp, vp, table, pc, softcap=sc))
+    # a window of 16, smaller than one 32-slot tile
+    svar = dict(kind="local", window=16, softcap=sc)
+    small_err = max(
+        row_err(ops.paged_flash_decode(qc, kp, vp, table, pc, **svar),
+                paged_flash_decode_tiled(qc, kp, vp, table, pc, **svar)),
+        row_err(ops.paged_flash_decode(q, kp, vp, table, posd, **svar),
+                paged_flash_decode_tiled(q, kp, vp, table, posd, **svar)))
+    worst = max(dec_err, chunk_err, gchunk_err, small_err)
+    require(p_err <= 1e-5 and worst <= 2 * eps_bf16,
+            f"K6 local/softcap: partials {p_err:.3e}, decode {dec_err:.3e}, "
+            f"chunk {chunk_err:.3e}, global chunk {gchunk_err:.3e}, window "
+            f"16 {small_err:.3e}")
+    # global + softcap: each lane bitwise K5 over the same history
+    gglob = ops.paged_flash_decode(q, kp, vp, table, posd, softcap=sc)
+    for lane in range(L - 1):
+        kd = torch.zeros((1, P * ps, KV, hd), dtype=bf, device="cuda")
+        vd = torch.zeros_like(kd)
+        for page, phys in enumerate(table[lane].tolist()):
+            if phys >= 0:
+                kd[0, page * ps:(page + 1) * ps] = kp[phys]
+                vd[0, page * ps:(page + 1) * ps] = vp[phys]
+        require(torch.equal(gglob[lane:lane + 1], ops.flash_decode(
+            q[lane:lane + 1], kd, vd, int(lane_pos[lane]), softcap=sc)),
+            f"K6 global softcap lane {lane} is not bitwise K5 over the same "
+            f"history")
+    live = int(sum(min(int(p) + 1, W) for p in lane_pos if p >= 0))
+    t_b, by = bound(2 * q.numel() + 2 * 2 * live * KV * hd
+                    + 4 * (L * P + L)
+                    + 4 * (2 * rows * n_tiles * G + rows * n_tiles * G * hd),
+                    4 * live * KV * G * hd, FP32_FLOPS_PER_S)
+    results["k6_paged_partials_local_softcap"] = dict(
+        work=f"paged decode partials local window={W} softcap={sc} L={L} "
+             f"KV={KV} G={G} hd={hd} page_size={ps} P={P} ({n_tiles} "
+             f"tiles), positions {lane_pos.tolist()}; chunk S={s_q} local "
+             f"and global, and window 16, checked; global lanes bitwise K5",
+        max_abs_err=p_abs, max_row_err=p_err, tol=1e-5,
+        decode_row_err=dec_err, chunk_row_err=chunk_err,
+        global_chunk_row_err=gchunk_err, small_window_row_err=small_err,
+        ms=timer(lambda: paged_partials_cuda(q, kp, vp, table, posd,
+                                             **lvar)),
+        wrapper_ms=timer.wall(lambda: paged_partials_cuda(
+            q, kp, vp, table, posd, **lvar)),
+        plain_ms=timer(lambda: paged_tile_partials(q, kp, vp, table, posd,
+                                                   **lvar), reps=3),
+        pair_ms=timer(lambda: ops.paged_flash_decode(q, kp, vp, table, posd,
+                                                     **lvar)),
+        chunk_ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table, pc,
+                                                      **lvar), reps=3),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        library_note="no one PyTorch call attends through a page table")
+    del kp, vp, q, qc, parts
+    torch.cuda.empty_cache()
+
+    # K7: bitwise, fp32, bf16 and int8 -> int32
+    s, m, n = 4, 1024, 4096
+    k7 = {}
+    for dt, out in ((torch.float32, torch.float32), (torch.float32, bf),
+                    (bf, bf), (bf, torch.float32), (torch.int8, torch.int32),
+                    (torch.int8, torch.int8)):
+        p = (rand(s, m, n, dtype=torch.float32) if dt != torch.int8 else
+             torch.randint(-128, 128, (s, m, n), generator=gen,
+                           device="cuda", dtype=torch.int8)).to(dt)
+        got = ops.addertree(p, out_dtype=out)
+        require(torch.equal(got, ref.addertree_ref(p, out)),
+                f"K7 {dt} -> {out} is not bitwise its plain version")
+        k7[dt, out] = p
+    p = k7[torch.float32, torch.float32]
+    t_b, by = bound(4 * p.numel() + 4 * m * n, (s - 1) * m * n,
+                    FP32_FLOPS_PER_S)
+    results["k7_addertree"] = dict(
+        work=f"adder tree S={s} [{m}, {n}] fp32 -> fp32 (bitwise; also "
+             f"fp32 -> bf16, bf16 -> bf16 and fp32, int8 -> int32 and "
+             f"int8)",
+        max_abs_err=0.0, max_row_err=0.0, tol=0.0,
+        ms=timer(lambda: ops.addertree(p, out_dtype=torch.float32)),
+        wrapper_ms=timer.wall(lambda: ops.addertree(p,
+                                                    out_dtype=torch.float32)),
+        plain_ms=timer(lambda: ref.addertree_ref(p, torch.float32)),
+        bound_ms=t_b, bound_by=by,
+        library_ms=timer(lambda: p.sum(0)),
+        library_note="partials.sum(0)")
+    del k7, p
+    torch.cuda.empty_cache()
+    return results
+
+
+def addertree_path(torch):
+    """K7's one entry point, ``ops.addertree``, driven as the row-parallel
+    reduction of a K-split product (the reference's adder tree over the
+    model axis, here on one card): gemma2's o-projection at the scheduler's
+    chunk rows (512 x 4096 -> 4608) in Y = 4 K-slices, each partial a K1
+    GEMM stored in bf16, summed by K7 at fp32.  The sum is bitwise the
+    plain adder tree of the same partials and within 4 bf16 ulps of each
+    row's scale of the unsplit product (each partial rounded once)."""
+    from repro_torch.kernels import _cuda, ops, ref
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    bf = torch.bfloat16
+    m, k, n, y = LANES * CHUNK, G2_H * G2_HD, 4608, 4
+    x = torch.randn((m, k), generator=gen, device="cuda").to(bf)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+         ).to(bf)
+    whole = ops.matmul(x, w, out_dtype=bf)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    ks = k // y
+    partials = torch.stack([ops.matmul(x[:, i * ks:(i + 1) * ks].contiguous(),
+                                       w[i * ks:(i + 1) * ks], out_dtype=bf)
+                            for i in range(y)])
+    got = ops.addertree(partials, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    require(launches["addertree"] > 0, f"K7 never launched: {launches}")
+    require(torch.equal(got, ref.addertree_ref(partials, torch.float32)),
+            "K7 on the path is not bitwise its plain version")
+    err = row_err(got, whole)
+    require(err <= 4 * eps_bf16, f"the K-split o-projection is off the "
+                                 f"unsplit one by {err:.3e} of a row")
+    return dict(rows=m, k=k, n=n, y=y, row_err=err, tol=4 * eps_bf16,
+                launches=launches)
+
+
+def paged_forced(torch, model, toks, picks, chunk):
+    """The scheduler's math teacher-forced: every row of ``toks [B, S]``
+    prefilled on its own lane in chunks of ``chunk`` (``prefill_chunk``),
+    then ``decode_step_paged`` fed ``picks [B, n]``.  Returns the n steps'
+    logits [B, V] (the first from the last chunk), on the CPU."""
+    b, s = toks.shape
+    ps, steps = PAGE, picks.shape[1]
+    p_max = -(-(s + steps) // ps)
+    cache = model.new_paged_cache(b * p_max, ps)
+    table = torch.arange(b * p_max, dtype=torch.int32).reshape(b, p_max)
+    for c0 in range(0, s, chunk):
+        n = min(chunk, s - c0)
+        tk = torch.zeros((b, chunk), dtype=torch.int32)
+        tk[:, :n] = toks[:, c0:c0 + n]
+        pos = torch.full((b, chunk), -1, dtype=torch.int32)
+        pos[:, :n] = torch.arange(c0, c0 + n, dtype=torch.int32)
+        logits, _ = model.prefill_chunk(cache, tk, pos, table, torch.full(
+            (b,), n - 1, dtype=torch.int32))
+    out = [logits.float().cpu()]
+    for i in range(steps - 1):
+        logits, _ = model.decode_step_paged(
+            cache, torch.as_tensor(picks[:, i:i + 1]),
+            torch.full((b,), s + i, dtype=torch.int32), table)
+        out.append(logits.float().cpu())
+    return [o[:, :model.cfg.vocab] for o in out]
+
+
+def check_gemma2_smoke(torch):
+    """Phase 3, gemma2: the whole path on gemma2-27b-smoke (bf16
+    parameters, 4 layers alternating local and global, window 16) with
+    prompts of 40 tokens, longer than the window; card against CPU.
+
+    The scheduler (K6 local and global with softcap): greedy tokens
+    through ``ServeEngine.generate`` on both, and the same math
+    teacher-forced on the CPU's tokens (``paged_forced``).  Each forced
+    step's logits are within twice the CPU pipeline's own bf16 rounding
+    noise (its distance from an fp32-compute run on the same tokens), and
+    the card's pick is the CPU's, or, at a near tie, a token whose CPU
+    logit is within twice the step's largest card-CPU logit difference of
+    the CPU's maximum: a flip that difference explains.  The free-running
+    tokens are equal up to the first such flip.  The fixed loop (K4 local
+    and global with softcap, the ring, K5 softcap, the final softcap):
+    teacher-forced logits within the same budget."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config("gemma2-27b", smoke=True),
+                              param_dtype="bfloat16")
+    cpu = Model(cfg, device="cpu").init_weights(SEED)
+    vary(torch, cpu, SEED)
+    card = Model(cfg)
+    card.load_state_dict(cpu.state_dict())
+    ref32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                  device="cpu")
+    ref32.load_state_dict(cpu.state_dict())
+    plen, steps = 40, 8
+    require(plen > cfg.window, "the smoke prompts must pass the window")
+    toks = torch.randint(0, cfg.vocab, (BATCH, plen),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    scfg = ServeConfig(max_new_tokens=steps)
+    want = ServeEngine(cpu, scfg).generate({"tokens": toks})
+    got = ServeEngine(card, scfg).generate({"tokens": toks})
+    require(got.shape == want.shape == (BATCH, steps), "gemma2 token shape")
+
+    def rel(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max()
+                     / max(1.0, float(b.abs().max())))
+
+    lc = paged_forced(torch, cpu, toks, want, scfg.prefill_chunk)
+    lg = paged_forced(torch, card, toks, want, scfg.prefill_chunk)
+    l3 = paged_forced(torch, ref32, toks, want, scfg.prefill_chunk)
+    err = [rel(g, c) for g, c in zip(lg, lc)]
+    noise = [rel(c, r) for c, r in zip(lc, l3)]
+    require(max(err) <= 2 * max(noise),
+            f"gemma2 scheduler logits off by {max(err):.3e} of scale, "
+            f"budget {2 * max(noise):.3e}")
+    flips, first_flip = [], steps
+    for i, (g, c) in enumerate(zip(lg, lc)):
+        require(bool((c.argmax(-1).numpy() == want[:, i]).all()),
+                "the forced CPU run does not reproduce the CPU's picks")
+        diff = float((g - c).abs().max())
+        for lane in range(BATCH):
+            pick = int(g[lane].argmax())
+            if pick == int(want[lane, i]):
+                continue
+            gap = float(c[lane].max() - c[lane, pick])
+            require(gap <= 2 * diff,
+                    f"gemma2 lane {lane} step {i}: the card picks {pick}, "
+                    f"{gap:.3e} under the CPU's maximum, more than twice "
+                    f"the logit difference {diff:.3e}")
+            flips.append(dict(lane=lane, step=i, gap=gap, diff=diff))
+            first_flip = min(first_flip, i)
+    require(np.array_equal(got[:, :first_flip], want[:, :first_flip]),
+            f"gemma2 greedy tokens differ before any near tie: card "
+            f"{got.tolist()} cpu {want.tolist()}")
+    # the fixed loop, teacher-forced on the same picks
+    fc = cpu.prefill(toks, plen + steps)
+    fg = card.prefill(toks, plen + steps)
+    f3 = ref32.prefill(toks, plen + steps)
+    ferr, fnoise = [rel(fg[0], fc[0])], [rel(fc[0], f3[0])]
+    for i in range(steps - 1):
+        tok = torch.from_numpy(want[:, i:i + 1])
+        fc = cpu.decode_step(fc[1], tok, plen + i)
+        fg = card.decode_step(fg[1], tok, plen + i)
+        f3 = ref32.decode_step(f3[1], tok, plen + i)
+        ferr.append(rel(fg[0], fc[0]))
+        fnoise.append(rel(fc[0], f3[0]))
+        require(float(fg[0].abs().max()) <= cfg.final_softcap,
+                "a logit is outside the final softcap")
+    require(max(ferr) <= 2 * max(fnoise),
+            f"gemma2 fixed-loop logits off by {max(ferr):.3e} of scale, "
+            f"budget {2 * max(fnoise):.3e}")
+    return dict(tokens=got.tolist(), cpu_tokens=want.tolist(),
+                equal_steps=first_flip, near_tie_flips=flips,
+                logit_err=max(err), budget=2 * max(noise),
+                fixed_logit_err=max(ferr), fixed_budget=2 * max(fnoise),
+                distinct_tokens=len(set(got.reshape(-1).tolist())))
+
+
+def gemma2_witness(torch, model, toks):
+    """Phase 5's witness at the reference's init scales: the fixed loop's
+    decode step at position G2_PROMPT + G2_NEW - 2 (the local layers' ring
+    has wrapped, K5 with softcap over the global caches) against the last
+    logits of a prefill over the same tokens (K4 local and global), each
+    lane within WITNESS_TOL of its logit scale; the same step against a
+    prefill whose last token was changed must differ by more than 4x
+    that."""
+    cfg = model.cfg
+    logits, cache = model.prefill(toks, G2_PROMPT + G2_NEW)
+    seq = toks.to(logits.device)
+    for i in range(G2_NEW - 1):
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        seq = torch.cat([seq, tok], dim=1)
+        logits, cache = model.decode_step(cache, tok, G2_PROMPT + i)
+    del cache
+    want, _ = model.prefill(seq)
+    other = seq.clone()
+    other[:, -1] = (other[:, -1] + 1) % cfg.vocab
+    off, _ = model.prefill(other)
+    w = dict(position=G2_PROMPT + G2_NEW - 2, err=rel_rows(logits, want),
+             other_token=rel_rows(logits, off), tol=WITNESS_TOL)
+    require(w["err"] <= WITNESS_TOL,
+            f"gemma2 decode is off its prefill by {w['err']:.3e} of the "
+            f"logit scale")
+    require(w["other_token"] > 4 * WITNESS_TOL,
+            f"the gemma2 witness cannot tell a changed token apart: {w}")
+    return w
+
+
+def serve_gemma2(torch):
+    """Phase 5: full-width, 46-layer gemma2-27b (bf16, random weights from
+    SEED) through the fixed loop and the scheduler, once built for both.
+    The granite models are gone by now (their phase returned; the caches
+    are emptied and the peak reset here)."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import (GEMMA2_GEOMETRY, NEW_RANGE,
+                                          PROMPT_RANGE, make_requests,
+                                          serve_requests)
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.api import Request
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("gemma2-27b")
+    t0 = time.perf_counter()
+    model = Model(cfg).init_weights(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    toks = torch.randint(0, cfg.vocab, (G2_BATCH, G2_PROMPT),
+                         generator=torch.Generator().manual_seed(SEED))
+    witness = gemma2_witness(torch, model, toks)
+    print("gemma2 witness: " + json.dumps(witness), flush=True)
+    vary(torch, model, SEED)
+
+    # the fixed loop: generate_with_status_fixed, launches counted from 0
+    engine = ServeEngine(model, ServeConfig(max_new_tokens=G2_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.generate_with_status_fixed({"tokens": toks})
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(res.tokens.shape == (G2_BATCH, G2_NEW),
+            f"gemma2 tokens {res.tokens.shape}")
+    require(all(st == "ok" for st in res.status),
+            f"gemma2 fixed statuses {res.status}")
+    require(all(launches.get(key, 0) > 0
+                for key in PATH_KERNELS["gemma2_fixed"]),
+            f"a kernel never launched on gemma2's fixed path: {launches}")
+    # its prefill (the time to first token) and decode step times
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = model.prefill(toks, G2_PROMPT + G2_NEW)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    require(bool(torch.isfinite(logits).all())
+            and logits.shape == (G2_BATCH, cfg.padded_vocab()),
+            "gemma2 prefill logits")
+    tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(G2_NEW - 1):
+        logits, cache = model.decode_step(cache, tok, G2_PROMPT + i)
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t) / (G2_NEW - 1) * 1e3
+    require(bool(torch.isfinite(logits).all())
+            and float(logits.abs().max()) <= cfg.final_softcap,
+            "gemma2 decode logits")
+    # the logits' cost per iteration: the sliced fp32 product against the
+    # 256000-row embedding, at the scheduler's 8 lanes
+    from repro_torch.models.loss import vocab_parallel_logits
+    h = torch.randn((LANES, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    vocab_parallel_logits(h, model.embed, cfg.final_softcap)
+    start.record()
+    for _ in range(5):
+        vocab_parallel_logits(h, model.embed, cfg.final_softcap)
+    end.record()
+    end.synchronize()
+    logits_ms = start.elapsed_time(end) / 5
+    fixed = dict(
+        params=cfg.param_count(), init_s=init_s, weights_gb=weights_gb,
+        batch=G2_BATCH, prompt=G2_PROMPT, new=G2_NEW,
+        ttft_ms=prefill_s * 1e3, decode_ms_per_step=dec_ms,
+        generate_s=gen_s, tokens_per_s=G2_BATCH * G2_NEW / gen_s,
+        statuses=list(res.status), launches=launches, peak_gb=peak / 1e9,
+        logits_ms_8_rows=logits_ms,
+        distinct_tokens=[len(set(lane.tolist())) for lane in res.tokens],
+        tokens=res.tokens.tolist())
+    del engine, cache, logits, h
+    torch.cuda.empty_cache()
+    print("serve gemma2 fixed: " + json.dumps(fixed), flush=True)
+
+    # the scheduler: 8 requests on 8 lanes, request 0 with the long prompt
+    geom = GEMMA2_GEOMETRY
+    require((geom["n_lanes"], geom["page_size"], geom["prefill_chunk"])
+            == (LANES, PAGE, CHUNK), f"gemma2 geometry {geom}")
+    eng = ServeEngine(model, ServeConfig(**geom))
+    reqs = make_requests(cfg.vocab, G2_REQ, SEED, PROMPT_RANGE, NEW_RANGE)
+    long_toks = np.random.default_rng(SEED).integers(0, cfg.vocab, G2_PROMPT)
+    reqs[0] = Request(id=0, tokens=long_toks, sampling=reqs[0].sampling)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    run = serve_requests(eng, reqs)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    outs = run["outputs"]
+    require(sorted(outs) == list(range(G2_REQ)), f"gemma2 outputs "
+                                                 f"{sorted(outs)}")
+    require(all(o.status == "ok" for o in outs.values()),
+            f"gemma2 statuses {[o.status for o in outs.values()]}")
+    require(all(outs[r.id].tokens.size == r.sampling.max_new_tokens
+                for r in reqs), "a gemma2 request ran short")
+    last_pos = len(reqs[0].tokens) + outs[0].tokens.size - 1
+    require(last_pos > G2_WINDOW, f"request 0 stopped at {last_pos}")
+    require(all(launches.get(key, 0) > 0
+                for key in PATH_KERNELS["gemma2_scheduler"]),
+            f"a kernel never launched on gemma2's scheduler: {launches}")
+    ttft = np.array([run["ttft_s"][r.id] for r in reqs])
+    sched = dict(
+        requests=G2_REQ, **geom, prompt_lens=[len(r.tokens) for r in reqs],
+        max_new=[r.sampling.max_new_tokens for r in reqs],
+        last_position_of_request_0=last_pos,
+        iterations=run["iterations"],
+        chunk_iterations=run["chunk_iterations"],
+        ttft_ms_median=float(np.median(ttft)) * 1e3,
+        ttft_ms_max=float(ttft.max()) * 1e3,
+        ttft_ms_request_0=float(ttft[0]) * 1e3,
+        decode_ms_per_iter=run["decode_ms_per_iter"],
+        generated=run["generated"], wall_s=run["wall_s"],
+        tokens_per_s=run["tokens_per_s"], peak_gb=peak / 1e9,
+        launches=launches,
+        distinct_tokens=[len(set(outs[r.id].tokens.tolist())) for r in reqs])
+    print("serve gemma2 scheduler: " + json.dumps(sched), flush=True)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gemma2_fixed": fixed, "gemma2_scheduler": sched,
+            "gemma2_witness": witness}
+
+
 SOURCES = {
     "k1_matmul": ("matmul", "src/repro_torch/csrc/matmul.cu",
                   "src/repro/kernels/matmul.py:293"),
@@ -970,6 +1592,19 @@ SOURCES = {
     "k6_paged_partials": ("paged_partials",
                           "src/repro_torch/csrc/flash_attention.cu",
                           "src/repro/kernels/flash_attention.py:563"),
+    "k4_flash_prefill_local_softcap": (
+        "flash_attention:local+softcap",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
+    "k5_decode_partials_softcap": (
+        "decode_partials:softcap", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:447"),
+    "k6_paged_partials_local_softcap": (
+        "paged_partials:local+softcap",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:563"),
+    "k7_addertree": ("addertree", "src/repro_torch/csrc/addertree.cu",
+                     "src/repro/kernels/addertree.py:59"),
 }
 
 
@@ -996,6 +1631,7 @@ def main() -> int:
     kernels = check_kernels(torch, timer)
     kernels.update(check_int8_kernels(torch, timer))
     kernels.update(check_paged_kernel(torch, timer))
+    kernels.update(check_gemma2_kernels(torch, timer))
     del timer
     torch.cuda.empty_cache()
     print("kernels: " + json.dumps(
@@ -1003,14 +1639,19 @@ def main() -> int:
          for k, v in kernels.items()}), flush=True)
     smoke = check_smoke_path(torch)
     print("smoke: " + json.dumps(smoke), flush=True)
+    smoke2 = check_gemma2_smoke(torch)
+    print("smoke gemma2: " + json.dumps(smoke2), flush=True)
     serve = serve_full(torch)
+    serve["addertree"] = addertree_path(torch)
+    print("addertree path: " + json.dumps(serve["addertree"]), flush=True)
+    serve.update(serve_gemma2(torch))
 
     line = []
     for name, (counter, source, replaces) in SOURCES.items():
         k = kernels[name]
-        # launches on the driven paths: the fixed loop, then the scheduler
-        # bf16 and int8 (each path's counts were set to 0 just before it)
-        launches = {path: serve[path]["launches"][counter]
+        # launches on the driven paths (each path's counts were set to 0
+        # just before it)
+        launches = {path: serve[path]["launches"].get(counter, 0)
                     for path in PATH_KERNELS}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,

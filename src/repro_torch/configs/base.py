@@ -1,6 +1,6 @@
 """Architecture configuration schema (the dense-decoder subset the port
 serves).  A copy of the JAX package's ``ArchConfig`` fields that the
-fixed-batch serving path reads; the port never imports that package."""
+serving path reads; the port never imports that package."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,8 +19,13 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None
+    # cycled over layers: 'global' or 'local' (sliding window) attention
     block_pattern: Tuple[str, ...] = ("global",)
+    window: int = 1024           # local attention window
+    attn_softcap: Optional[float] = None   # gemma2 attention logit softcap
+    final_softcap: Optional[float] = None  # gemma2 final logit softcap
     rope_theta: float = 10_000.0
+    rope_theta_global: Optional[float] = None  # gemma3 dual-theta
     gated_mlp: bool = True
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
@@ -41,6 +46,23 @@ class ArchConfig:
 
     def padded_vocab(self, multiple: int = 128) -> int:
         return multiple * math.ceil(self.vocab / multiple)
+
+    @property
+    def pattern_period(self) -> int:
+        return len(self.block_pattern)
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // self.pattern_period
+
+    @property
+    def tail_blocks(self) -> Tuple[str, ...]:
+        """Remainder layers when n_layers % pattern_period != 0."""
+        return self.block_pattern[:self.n_layers % self.pattern_period]
+
+    def kind(self, layer: int) -> str:
+        """Attention kind of layer ``layer``: the pattern, cycled."""
+        return self.block_pattern[layer % self.pattern_period]
 
     def param_count(self) -> int:
         """Parameters of the dense gated decoder with tied embeddings."""

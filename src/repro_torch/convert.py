@@ -2,11 +2,16 @@
 
 ``from_jax_params`` takes the reference ``Model.init_params`` tree with its
 leaves as numpy arrays (``np.asarray`` of each leaf; no JAX needed here)
-and returns the port's ``state_dict``.  The reference stacks the repeating
-block group on a leading ``[G]`` axis (``groups/b0/...``); that axis is
-unstacked into ``blocks.<i>``.  MLP weights arrive in the single-device
-xyz layout ``[1, K, N]`` and become ``[K, N]``; the packed ``wqkv`` stays
-packed and interleaved.
+and returns the port's ``state_dict``.  The reference stacks one pattern
+period of blocks on a leading ``[G]`` axis (``groups/b<i>/...``, i <
+period) and keeps the remainder unstacked (``tail/t<i>``); group g's
+block i becomes layer ``g * period + i`` and tail block i layer ``G *
+period + i``.  Each layer takes its own ``ln1``: the reference's scan
+carries the NEXT block's ``ln1`` into a block's fused down GEMM (the
+shifted stack), and the port's forward reads ``blocks[i + 1].ln1`` for
+the same fold.  MLP weights arrive in the single-device xyz layout
+``[1, K, N]`` and become ``[K, N]``; the packed ``wqkv`` stays packed and
+interleaved.
 """
 from __future__ import annotations
 
@@ -29,22 +34,31 @@ def _tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
+def _block(sd: Dict[str, torch.Tensor], layer: int, blk: Dict[str, Any],
+           g=None) -> None:
+    """One reference block (entry ``g`` of a stacked group, or an unstacked
+    tail block for ``g`` None) into ``blocks.<layer>``."""
+    def leaf(a):
+        return _tensor(a if g is None else a[g])
+    p = f"blocks.{layer}."
+    sd[p + "ln1"] = leaf(blk["ln1"])
+    sd[p + "ln2"] = leaf(blk["ln2"])
+    sd[p + "attn.wqkv"] = leaf(blk["attn"]["wqkv"])
+    sd[p + "attn.wo"] = leaf(blk["attn"]["wo"])
+    for name in ("gate", "up", "down"):
+        sd[p + "ffn." + name] = unshard_weight_xyz(
+            leaf(blk["ffn"][name]), 1).contiguous()
+
+
 def from_jax_params(cfg: ArchConfig, params: Dict[str, Any]
                     ) -> Dict[str, torch.Tensor]:
     """Reference parameter tree -> the port's ``Model.state_dict()``."""
-    if params.get("tail"):
-        raise NotImplementedError("tail blocks belong to patterns this "
-                                  "slice does not serve")
-    grp = params["groups"]["b0"]
     sd = {"embed": _tensor(params["embed"]),
           "final_norm": _tensor(params["final_norm"])}
-    for i in range(cfg.n_layers):
-        p = f"blocks.{i}."
-        sd[p + "ln1"] = _tensor(grp["ln1"][i])
-        sd[p + "ln2"] = _tensor(grp["ln2"][i])
-        sd[p + "attn.wqkv"] = _tensor(grp["attn"]["wqkv"][i])
-        sd[p + "attn.wo"] = _tensor(grp["attn"]["wo"][i])
-        for name in ("gate", "up", "down"):
-            sd[p + "ffn." + name] = unshard_weight_xyz(
-                _tensor(grp["ffn"][name][i]), 1).contiguous()
+    period = cfg.pattern_period
+    for g in range(cfg.n_groups):
+        for i in range(period):
+            _block(sd, g * period + i, params["groups"][f"b{i}"], g)
+    for i in range(len(cfg.tail_blocks)):
+        _block(sd, cfg.n_groups * period + i, params["tail"][f"t{i}"])
     return sd

@@ -49,9 +49,12 @@ def unshard_weight_xyz(w_xyz: torch.Tensor, y: int) -> torch.Tensor:
 
 def rank_order_sum(buf: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """Fold ``buf`` over axis 0 in ascending order at fp32 (f64 stays
-    f64), then cast to ``dtype``: the association that makes split counts
-    and schedules bitwise-equal."""
-    wide = torch.float64 if buf.dtype == torch.float64 else torch.float32
+    f64; integers fold exactly at int32), then cast to ``dtype``: the
+    association that makes split counts and schedules bitwise-equal."""
+    if not buf.dtype.is_floating_point:
+        wide = torch.int32
+    else:
+        wide = torch.float64 if buf.dtype == torch.float64 else torch.float32
     acc = buf[0].to(wide)
     for i in range(1, buf.shape[0]):
         acc = acc + buf[i].to(wide)

@@ -15,6 +15,14 @@
 // at long S it is bound by tensor-core operations.  The design keeps the
 // S x S scores out of device memory and the causal tile loop stops at the
 // diagonal, so no masked-out tile is loaded.
+// Variants (gemma2): `window` > 0 is the 'local' kind, query row i
+// attending keys i - window < k <= i, and the kv loop starts at the first
+// 64-slot tile that meets the window of the q tile's first row, so a tile
+// before every row's window is never loaded; a later row whose first
+// visited tile is wholly masked adds exactly nothing (p = 0 there, and
+// alpha = exp(min(m - m_new, 0)) keeps o and l at 0 until its first live
+// key).  `softcap` > 0 caps the scaled scores, s = softcap * tanh(s /
+// softcap) with an IEEE division, before the mask.
 //
 // K5 replaces flash_decode_pallas (_decode_kernel) and
 // combine_tile_partials.  k5_decode_partials: one block per (batch, kv
@@ -27,7 +35,7 @@
 // combine never sees the grouping, so the output is bitwise identical for
 // every n_splits.  What bounds it: the bytes of the live cache (each K/V
 // row read once), so tiles past the position are skipped and slots past it
-// are not read.
+// are not read.  `softcap` > 0 caps the scores as in K4.
 //
 // K6 replaces paged_flash_decode_pallas (_paged_decode_kernel) and, for
 // prefill chunks (S > 1), its tiled XLA mirror paged_flash_decode_xla.
@@ -41,6 +49,9 @@
 // history decoded from a dense cache and a neighbour's page mapping
 // changes no bit of it.  What bounds it: the bytes of each row's live
 // pages at decode; at a prefill chunk the fp32 partials of every tile.
+// 'local' rows (`window` > 0) also mask keys at or before pos - window,
+// and a tile wholly before the window is written as (_NEG, 0, 0) without
+// reading the cache, as a tile past the position is.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -88,11 +99,19 @@ __device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
   }
 }
 
+// key kpos is attended by query row qrow: stored, causal, and inside the
+// window ('local', window > 0)
+__device__ __forceinline__ bool prefill_live(int kpos, int qrow, int Skv,
+                                             int window) {
+  return kpos < Skv && kpos <= qrow && (window == 0 || qrow - kpos < window);
+}
+
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-               int Skv, int H, int KV, float scale) {
+               int Skv, int H, int KV, float scale, int window,
+               float softcap) {
   using L = PrefillSmem<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -120,7 +139,9 @@ prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
 
   const int kv_end = min(Skv, q0 + BQ);  // no tile past the diagonal
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
+  // no tile before the window of the q tile's first row
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // previous tile fully consumed
     const bf16* kb = k + ((size_t)b * Skv + kv0) * kv_stride + kvh * HD;
     const bf16* vb = v + ((size_t)b * Skv + kv0) * kv_stride + kvh * HD;
@@ -151,8 +172,9 @@ prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < BKV / 2; ++c) {
       const int kpos = kv0 + half * (BKV / 2) + c;
-      const bool ok = kpos < Skv && kpos <= qrow;
-      s[c] = ok ? Sw[r * L::SLD + half * (BKV / 2) + c] * scale : NEG;
+      float x = Sw[r * L::SLD + half * (BKV / 2) + c] * scale;
+      if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+      s[c] = prefill_live(kpos, qrow, Skv, window) ? x : NEG;
       mx = fmaxf(mx, s[c]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -163,8 +185,8 @@ prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < BKV / 2; ++c) {
       const int kpos = kv0 + half * (BKV / 2) + c;
-      const bool ok = kpos < Skv && kpos <= qrow;
-      const float p = ok ? expf(s[c] - m_new) : 0.0f;
+      const float p =
+          prefill_live(kpos, qrow, Skv, window) ? expf(s[c] - m_new) : 0.0f;
       psum += p;
       Pw[r * L::PLD + half * (BKV / 2) + c] = __float2bfloat16(p);
     }
@@ -255,13 +277,14 @@ __global__ void __launch_bounds__(THREADS)
 decode_partials_kernel(Rows kv, const bf16* __restrict__ q,
                        float* __restrict__ m_t, float* __restrict__ l_t,
                        float* __restrict__ acc_t, int G, int n_tiles,
-                       int tiles_per_split, float scale) {
+                       int tiles_per_split, float scale, int window,
+                       float softcap) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + TILE * HD;
   float* qs = reinterpret_cast<float*>(Vs + TILE * HD);
   float* ps = qs + G * HD;
-  __shared__ int live[TILE];  // slot stored and <= pos
+  __shared__ int live[TILE];  // slot stored, <= pos and in the window
 
   const int row = blockIdx.x;  // one query row's kv head
   const int pos = kv.position(row);
@@ -273,7 +296,9 @@ decode_partials_kernel(Rows kv, const bf16* __restrict__ q,
   for (int t = t_begin; t < t_end; ++t) {
     const int t0 = t * TILE;
     const size_t pm = ((size_t)row * n_tiles + t) * G;
-    if (t0 > pos) {  // fully masked tile: exact (_NEG, 0, 0)
+    // fully masked tile (past the position, or wholly before the window):
+    // exact (_NEG, 0, 0)
+    if (t0 > pos || (window > 0 && pos - (t0 + TILE - 1) >= window)) {
       for (int i = threadIdx.x; i < G; i += THREADS) {
         m_t[pm + i] = NEG;
         l_t[pm + i] = 0.0f;
@@ -289,7 +314,9 @@ decode_partials_kernel(Rows kv, const bf16* __restrict__ q,
     constexpr int CH = HD / 8;
     for (int c = threadIdx.x; c < TILE * CH; c += THREADS) {
       const int j = c / CH, cc = (c % CH) * 8;
-      const long long sr = t0 + j <= pos ? kv.slot_row(row, t0 + j) : -1;
+      const int slot = t0 + j;
+      const bool in_mask = slot <= pos && (window == 0 || pos - slot < window);
+      const long long sr = in_mask ? kv.slot_row(row, slot) : -1;
       uint4 wk = make_uint4(0, 0, 0, 0), wv = make_uint4(0, 0, 0, 0);
       if (sr >= 0) {
         wk = *reinterpret_cast<const uint4*>(kv.k + sr * HD + cc);
@@ -307,7 +334,9 @@ decode_partials_kernel(Rows kv, const bf16* __restrict__ q,
       float dot = 0.0f;
       for (int d = 0; d < HD; ++d)
         dot += qs[g * HD + d] * __bfloat162float(Ks[d * TILE + j]);
-      ps[i] = live[j] ? dot * scale : NEG;
+      float x = dot * scale;
+      if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+      ps[i] = live[j] ? x : NEG;
     }
     __syncthreads();
     for (int g = threadIdx.x; g < G; g += THREADS) {
@@ -360,7 +389,7 @@ decode_combine_kernel(const float* __restrict__ m_t,
 template <int HD>
 int launch_prefill(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Skv, int H, int KV, float scale,
-                   cudaStream_t st) {
+                   int window, float softcap, cudaStream_t st) {
   const size_t bytes = PrefillSmem<HD>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -370,7 +399,7 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out,
   prefill_kernel<HD><<<grid, THREADS, bytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, KV,
-      scale);
+      scale, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -378,7 +407,7 @@ template <int HD, class Rows>
 int launch_partials(const Rows& kv, const void* q, void* m, void* l,
                     void* acc, int rows, int G, int n_tiles,
                     int tiles_per_split, int n_splits, float scale,
-                    cudaStream_t st) {
+                    int window, float softcap, cudaStream_t st) {
   const size_t bytes =
       2 * TILE * HD * sizeof(bf16) + (size_t)G * (HD + TILE) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
@@ -389,7 +418,7 @@ int launch_partials(const Rows& kv, const void* q, void* m, void* l,
   decode_partials_kernel<HD, Rows><<<grid, THREADS, bytes, st>>>(
       kv, static_cast<const bf16*>(q), static_cast<float*>(m),
       static_cast<float*>(l), static_cast<float*>(acc), G, n_tiles,
-      tiles_per_split, scale);
+      tiles_per_split, scale, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -397,17 +426,14 @@ template <class Rows>
 int launch_partials_hd(const Rows& kv, int hd, const void* q, void* m,
                        void* l, void* acc, int rows, int G, int n_tiles,
                        int tiles_per_split, int n_splits, float scale,
-                       cudaStream_t st) {
+                       int window, float softcap, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_partials<16>(kv, q, m, l, acc, rows, G, n_tiles,
-                                        tiles_per_split, n_splits, scale, st);
-    case 32: return launch_partials<32>(kv, q, m, l, acc, rows, G, n_tiles,
-                                        tiles_per_split, n_splits, scale, st);
-    case 64: return launch_partials<64>(kv, q, m, l, acc, rows, G, n_tiles,
-                                        tiles_per_split, n_splits, scale, st);
-    case 128: return launch_partials<128>(kv, q, m, l, acc, rows, G, n_tiles,
-                                          tiles_per_split, n_splits, scale,
-                                          st);
+#define K5_CASE(HD)                                                         \
+    case HD: return launch_partials<HD>(kv, q, m, l, acc, rows, G, n_tiles, \
+                                        tiles_per_split, n_splits, scale,   \
+                                        window, softcap, st);
+    K5_CASE(16) K5_CASE(32) K5_CASE(64) K5_CASE(128)
+#undef K5_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -416,18 +442,15 @@ int launch_partials_hd(const Rows& kv, int hd, const void* q, void* m,
 
 extern "C" int k4_flash_prefill(const void* q, const void* k, const void* v,
                                 void* out, int B, int Sq, int Skv, int H,
-                                int KV, int hd, float scale,
-                                void* stream) {
+                                int KV, int hd, float scale, int window,
+                                float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_prefill<16>(q, k, v, out, B, Sq, Skv, H, KV,
-                                       scale, st);
-    case 32: return launch_prefill<32>(q, k, v, out, B, Sq, Skv, H, KV,
-                                       scale, st);
-    case 64: return launch_prefill<64>(q, k, v, out, B, Sq, Skv, H, KV,
-                                       scale, st);
-    case 128: return launch_prefill<128>(q, k, v, out, B, Sq, Skv, H, KV,
-                                         scale, st);
+#define K4_CASE(HD)                                                        \
+    case HD: return launch_prefill<HD>(q, k, v, out, B, Sq, Skv, H, KV,    \
+                                       scale, window, softcap, st);
+    K4_CASE(16) K4_CASE(32) K4_CASE(64) K4_CASE(128)
+#undef K4_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -436,11 +459,12 @@ extern "C" int k5_decode_partials(const void* q, const void* k, const void* v,
                                   void* m, void* l, void* acc, int B, int KV,
                                   int G, int hd, int cache_len, int pos,
                                   int n_tiles, int tiles_per_split,
-                                  int n_splits, float scale, void* stream) {
+                                  int n_splits, float scale, float softcap,
+                                  void* stream) {
   DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), KV,
              cache_len, pos};
   return launch_partials_hd(kv, hd, q, m, l, acc, B * KV, G, n_tiles,
-                            tiles_per_split, n_splits, scale,
+                            tiles_per_split, n_splits, scale, 0, softcap,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -450,13 +474,14 @@ extern "C" int k6_paged_partials(const void* q, const void* k_pool,
                                  void* acc, int L, int S, int KV, int G,
                                  int hd, int P, int PS, int n_tiles,
                                  int tiles_per_split, int n_splits,
-                                 float scale, void* stream) {
+                                 float scale, int window, float softcap,
+                                 void* stream) {
   PagedKV kv{static_cast<const bf16*>(k_pool),
              static_cast<const bf16*>(v_pool),
              static_cast<const int*>(table),
              static_cast<const int*>(positions), KV, S, P, PS};
   return launch_partials_hd(kv, hd, q, m, l, acc, L * S * KV, G, n_tiles,
-                            tiles_per_split, n_splits, scale,
+                            tiles_per_split, n_splits, scale, window, softcap,
                             static_cast<cudaStream_t>(stream));
 }
 

@@ -8,7 +8,10 @@ the library's file name carries a hash of its source, so an edited source
 is rebuilt and an unchanged one is reused.
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds
-one exactly where it launches its kernel.
+one exactly where it launches its kernel (``count``).  A launch of a
+variant (gemma2's 'local' window, the softcap) also adds one to the
+variant's own key, ``"<kernel>:<variant>"``, e.g.
+``"paged_partials:local+softcap"``.
 """
 from __future__ import annotations
 
@@ -44,18 +47,25 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "k3_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
-        # q, k, v, out, B, Sq, Skv, H, KV, hd, scale, stream
-        "k4_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, out, B, Sq, Skv, H, KV, hd, scale, window, softcap,
+        # stream
+        "k4_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                             _F, _P],
         # q, k, v, m, l, acc, B, KV, G, hd, cache_len, pos, n_tiles,
-        # tiles_per_split, n_splits, scale, stream
+        # tiles_per_split, n_splits, scale, softcap, stream
         "k5_decode_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _P],
+                               _I, _I, _I, _I, _F, _F, _P],
         # m, l, acc, out, rows, n_tiles, G, hd, stream
         "k5_decode_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         # q, k_pool, v_pool, table, positions, m, l, acc, L, S, KV, G, hd,
-        # P, PS, n_tiles, tiles_per_split, n_splits, scale, stream
+        # P, PS, n_tiles, tiles_per_split, n_splits, scale, window,
+        # softcap, stream
         "k6_paged_partials": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
+    },
+    "addertree": {
+        # partials, out, S, n, in_kind, out_kind, stream
+        "k7_addertree": [_P, _P, _I, ctypes.c_longlong, _I, _I, _P],
     },
 }
 
@@ -63,7 +73,7 @@ LAUNCHES: Dict[str, int] = {"matmul": 0, "rmsnorm": 0,
                             "int8_matmul": 0, "int8_quantize": 0,
                             "quantize": 0, "flash_attention": 0,
                             "decode_partials": 0, "decode_combine": 0,
-                            "paged_partials": 0}
+                            "paged_partials": 0, "addertree": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -71,6 +81,16 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count(name: str, **variants: bool) -> None:
+    """One launch of kernel ``name``; where variants are on, also one of
+    ``"<name>:<variant>+..."`` (in the order given)."""
+    LAUNCHES[name] += 1
+    on = [v for v, flag in variants.items() if flag]
+    if on:
+        key = f"{name}:{'+'.join(on)}"
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
 
 
 def _nvcc() -> str:

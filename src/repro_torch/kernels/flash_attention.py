@@ -29,6 +29,14 @@ bitwise the same history in a dense cache.  Its rows are (lane, s, kv
 head), each with its own position, so prefill chunks (S > 1) and decode
 (S == 1) take the same kernel; an idle row (position -1) gives exactly
 0.0.
+
+Variants (gemma2): K4 and K6 take the ``'local'`` kind, a sliding window
+in which query position p attends keys p - window < k <= p, and all three
+take ``softcap``: the scaled scores become ``softcap * tanh(s /
+softcap)`` (an IEEE division, ``ref.softcap_scores``) before the mask.
+K5 serves ``'global'`` only: a local layer's dense cache is a ring buffer,
+decoded outside the kernels (``models.attention.decode_attention_ring``).
+Any other kind raises (``ref.check_kind``) on every device.
 """
 from __future__ import annotations
 
@@ -38,7 +46,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.ref import accum_dtype
+from repro_torch.kernels.ref import (accum_dtype, attention_mask, check_kind,
+                                     softcap_scores)
 
 _NEG = -1e30
 
@@ -60,7 +69,8 @@ def combine_tile_partials(m_t: torch.Tensor, l_t: torch.Tensor,
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
-def decode_tile_partials(q, k_cache, v_cache, pos: int):
+def decode_tile_partials(q, k_cache, v_cache, pos: int,
+                         softcap: Optional[float] = None):
     """Per-tile partials over a dense cache, slots <= ``pos`` live: q
     [B, S, KV, G, hd], caches [B, K, KV, hd].  Returns (m_t, l_t, acc_t)
     stacked on axis 0 with inner layout [B, KV, G, S(, hd)].  One product
@@ -75,6 +85,7 @@ def decode_tile_partials(q, k_cache, v_cache, pos: int):
         kt = k_cache[:, t0:t0 + DEFAULT_KV_TILE].to(acc)
         vt = v_cache[:, t0:t0 + DEFAULT_KV_TILE].to(acc)
         s = torch.einsum("bqkgd,bKkd->bkgqK", qa, kt) * hd ** -0.5
+        s = softcap_scores(s, softcap)
         valid = t0 + torch.arange(kt.shape[1], device=q.device) <= pos
         s = s.masked_fill(~valid, _NEG)
         m_t = torch.amax(s, dim=-1)
@@ -85,12 +96,13 @@ def decode_tile_partials(q, k_cache, v_cache, pos: int):
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
 
 
-def flash_decode_tiled(q, k_cache, v_cache, pos: int) -> torch.Tensor:
+def flash_decode_tiled(q, k_cache, v_cache, pos: int,
+                       softcap: Optional[float] = None) -> torch.Tensor:
     """Plain tiled flash decode: q [B, S, KV, G, hd] against dense caches
     [B, K, KV, hd], slots <= ``pos`` live -> [B, S, KV, G, hd] in q's
     dtype."""
     out = combine_tile_partials(*decode_tile_partials(q, k_cache, v_cache,
-                                                      pos))
+                                                      pos, softcap))
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
@@ -100,12 +112,27 @@ def _check_head_dim(hd: int) -> None:
                          f"got {hd}")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
-    """K4: causal online-softmax prefill.  q [B, Sq, H, hd], k/v
-    [B, Skv, KV, hd] bf16 contiguous, KV | H -> [B, Sq, H, hd] bf16."""
+def _window_arg(kind: str, window: int) -> int:
+    """The kernels' window argument: the window for 'local', 0 (none) for
+    'global'."""
+    check_kind(kind)
+    if kind != "local":
+        return 0
+    if window < 1:
+        raise ValueError(f"a local window must be >= 1, got {window}")
+    return int(window)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, kind: str = "global", window: int = 0,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """K4: causal online-softmax prefill ('local': the last ``window``
+    keys of each query only), scores softcapped when ``softcap`` is set.
+    q [B, Sq, H, hd], k/v [B, Skv, KV, hd] bf16 contiguous, KV | H ->
+    [B, Sq, H, hd] bf16."""
     b, sq, n_h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
+    win = _window_arg(kind, window)
     _check_head_dim(hd)
     if n_h % n_kv:
         raise ValueError(f"{n_h} q heads do not group over {n_kv} kv heads")
@@ -115,10 +142,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    _cuda.LAUNCHES["flash_attention"] += 1
+    _cuda.count("flash_attention", local=win > 0, softcap=bool(softcap))
     _cuda.launch("flash_attention", "k4_flash_prefill", q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, n_h,
-                 n_kv, hd, hd ** -0.5)
+                 n_kv, hd, hd ** -0.5, win, float(softcap or 0.0))
     return out
 
 
@@ -131,12 +158,14 @@ def default_splits(rows: int, n_tiles: int, device: torch.device) -> int:
 
 def decode_partials_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, pos: int,
-                         n_splits: Optional[int] = None):
+                         n_splits: Optional[int] = None,
+                         softcap: Optional[float] = None):
     """K5 partials kernel: q [B, 1, KV, G, hd], caches [B, K, KV, hd] bf16
-    contiguous, slots <= ``pos`` live.  Returns fp32 ``m_t``/``l_t``
-    [B*KV, T, G] and ``acc_t`` [B*KV, T, G, hd] for the T 32-slot tiles.
-    ``n_splits`` tile groups run as separate blocks (default: enough to
-    fill the SMs); no bit of the partials depends on it."""
+    contiguous, slots <= ``pos`` live, scores softcapped when ``softcap``
+    is set.  Returns fp32 ``m_t``/``l_t`` [B*KV, T, G] and ``acc_t``
+    [B*KV, T, G, hd] for the T 32-slot tiles.  ``n_splits`` tile groups
+    run as separate blocks (default: enough to fill the SMs); no bit of
+    the partials depends on it."""
     b, s_q, n_kv, g, hd = q.shape
     if s_q != 1:
         raise ValueError("flash decode is single-token (S == 1)")
@@ -156,12 +185,13 @@ def decode_partials_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     l_t = torch.empty((rows, n_tiles, g), **f32)
     acc_t = torch.empty((rows, n_tiles, g, hd), **f32)
     if m_t.numel():
-        _cuda.LAUNCHES["decode_partials"] += 1
+        _cuda.count("decode_partials", softcap=bool(softcap))
         _cuda.launch("flash_attention", "k5_decode_partials", q.data_ptr(),
                      k_cache.data_ptr(), v_cache.data_ptr(), m_t.data_ptr(),
                      l_t.data_ptr(), acc_t.data_ptr(), b, n_kv, g, hd,
                      kv_len, int(pos), n_tiles,
-                     math.ceil(n_tiles / n_splits), n_splits, hd ** -0.5)
+                     math.ceil(n_tiles / n_splits), n_splits, hd ** -0.5,
+                     float(softcap or 0.0))
     return m_t, l_t, acc_t
 
 
@@ -177,7 +207,7 @@ def decode_combine_cuda(m_t: torch.Tensor, l_t: torch.Tensor,
     out = torch.empty((rows, g, hd), dtype=torch.bfloat16,
                       device=acc_t.device)
     if out.numel() and n_tiles:
-        _cuda.LAUNCHES["decode_combine"] += 1
+        _cuda.count("decode_combine")
         _cuda.launch("flash_attention", "k5_decode_combine", m_t.data_ptr(),
                      l_t.data_ptr(), acc_t.data_ptr(), out.data_ptr(), rows,
                      n_tiles, g, hd)
@@ -186,12 +216,13 @@ def decode_combine_cuda(m_t: torch.Tensor, l_t: torch.Tensor,
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, pos: int,
-                      n_splits: Optional[int] = None) -> torch.Tensor:
+                      n_splits: Optional[int] = None,
+                      softcap: Optional[float] = None) -> torch.Tensor:
     """K5: split-K flash decode, the partials kernel then the combine.
     q [B, 1, KV, G, hd], caches [B, K, KV, hd] bf16 contiguous ->
     [B, 1, KV, G, hd] bf16, bitwise the same for any ``n_splits``."""
     m_t, l_t, acc_t = decode_partials_cuda(q, k_cache, v_cache, pos,
-                                           n_splits)
+                                           n_splits, softcap)
     return decode_combine_cuda(m_t, l_t, acc_t).reshape(q.shape)
 
 
@@ -199,13 +230,16 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
 # K6: paged decode (and prefill chunks)
 # ---------------------------------------------------------------------------
 
-def paged_tile_partials(q, k_pool, v_pool, page_table, positions):
+def paged_tile_partials(q, k_pool, v_pool, page_table, positions, *,
+                        kind: str = "global", window: int = 0,
+                        softcap: Optional[float] = None):
     """Per-tile partials over a lane's gathered logical view: q
     [L, S, KV, G, hd], pools [NP + 1, PS, KV, hd] (the last row is the
     trash page), ``page_table`` [L, P] (-1 = unmapped: read from the trash
     page and masked), ``positions`` [L, S] (-1 = idle row).  Returns
     (m_t, l_t, acc_t) stacked on axis 0 with inner layout
     [L, KV, G, S(, hd)], tile for tile the reference's mirror."""
+    check_kind(kind)
     n_pool, ps = k_pool.shape[0], k_pool.shape[1]
     n_lanes, p_max = page_table.shape
     hd = q.shape[-1]
@@ -222,9 +256,10 @@ def paged_tile_partials(q, k_pool, v_pool, page_table, positions):
         kt = kl[:, t0:t0 + DEFAULT_KV_TILE].to(acc)
         vt = vl[:, t0:t0 + DEFAULT_KV_TILE].to(acc)
         s = torch.einsum("bqkgd,bKkd->bkgqK", qa, kt) * hd ** -0.5
+        s = softcap_scores(s, softcap)
         kvpos = t0 + torch.arange(kt.shape[1], device=q.device)
         mask = (kvalid[:, None, t0:t0 + DEFAULT_KV_TILE]
-                & (kvpos[None, None, :] <= qpos[:, :, None])
+                & attention_mask(qpos, kvpos, kind, window)
                 & (qpos[:, :, None] >= 0))[:, None, None]   # [L,1,1,S,T]
         s = s.masked_fill(~mask, _NEG)
         m_t = torch.amax(s, dim=-1)
@@ -235,27 +270,34 @@ def paged_tile_partials(q, k_pool, v_pool, page_table, positions):
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
 
 
-def paged_flash_decode_tiled(q, k_pool, v_pool, page_table,
-                             positions) -> torch.Tensor:
+def paged_flash_decode_tiled(q, k_pool, v_pool, page_table, positions, *,
+                             kind: str = "global", window: int = 0,
+                             softcap: Optional[float] = None
+                             ) -> torch.Tensor:
     """Plain paged flash decode: q [L, S, KV, G, hd] through the page table
     -> [L, S, KV, G, hd] in q's dtype."""
     out = combine_tile_partials(*paged_tile_partials(
-        q, k_pool, v_pool, page_table, positions))
+        q, k_pool, v_pool, page_table, positions, kind=kind, window=window,
+        softcap=softcap))
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
 def paged_partials_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, page_table: torch.Tensor,
-                        positions: torch.Tensor):
+                        positions: torch.Tensor, *, kind: str = "global",
+                        window: int = 0, softcap: Optional[float] = None):
     """K6 partials kernel: q [L, S, KV, G, hd] bf16, pools [NP + 1, PS, KV,
     hd] bf16, ``page_table`` [L, P] and ``positions`` [L, S] int32, all
-    contiguous; table entries must be -1 or a page below NP.  Returns fp32
-    ``m_t``/``l_t`` [L*S*KV, T, G] and ``acc_t`` [L*S*KV, T, G, hd] for
-    the T 32-slot tiles of the logical view, in ``default_splits`` tile
-    groups per row."""
+    contiguous; table entries must be -1 or a page below NP.  'local'
+    masks keys at or before position - window; a tile wholly outside a
+    row's keys is written as (_NEG, 0, 0) without reading K or V.  Returns
+    fp32 ``m_t``/``l_t`` [L*S*KV, T, G] and ``acc_t`` [L*S*KV, T, G, hd]
+    for the T 32-slot tiles of the logical view, in ``default_splits``
+    tile groups per row."""
     n_lanes, s_q, n_kv, g, hd = q.shape
     n_pool, ps = k_pool.shape[0], k_pool.shape[1]
     p_max = page_table.shape[1]
+    win = _window_arg(kind, window)
     _check_head_dim(hd)
     _cuda.check(q, "q", torch.bfloat16)
     _cuda.check(k_pool, "k_pool", torch.bfloat16, (n_pool, ps, n_kv, hd))
@@ -270,20 +312,25 @@ def paged_partials_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     l_t = torch.empty((rows, n_tiles, g), **f32)
     acc_t = torch.empty((rows, n_tiles, g, hd), **f32)
     if m_t.numel():
-        _cuda.LAUNCHES["paged_partials"] += 1
+        _cuda.count("paged_partials", local=win > 0,
+                    softcap=bool(softcap))
         _cuda.launch("flash_attention", "k6_paged_partials", q.data_ptr(),
                      k_pool.data_ptr(), v_pool.data_ptr(),
                      page_table.data_ptr(), positions.data_ptr(),
                      m_t.data_ptr(), l_t.data_ptr(), acc_t.data_ptr(),
                      n_lanes, s_q, n_kv, g, hd, p_max, ps, n_tiles,
-                     math.ceil(n_tiles / n_splits), n_splits, hd ** -0.5)
+                     math.ceil(n_tiles / n_splits), n_splits, hd ** -0.5,
+                     win, float(softcap or 0.0))
     return m_t, l_t, acc_t
 
 
 def paged_flash_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, page_table: torch.Tensor,
-                            positions: torch.Tensor) -> torch.Tensor:
+                            positions: torch.Tensor, *, kind: str = "global",
+                            window: int = 0,
+                            softcap: Optional[float] = None) -> torch.Tensor:
     """K6: the paged partials kernel, then K5's combine.
     -> [L, S, KV, G, hd] bf16."""
-    parts = paged_partials_cuda(q, k_pool, v_pool, page_table, positions)
+    parts = paged_partials_cuda(q, k_pool, v_pool, page_table, positions,
+                                kind=kind, window=window, softcap=softcap)
     return decode_combine_cuda(*parts).reshape(q.shape)

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.addertree import addertree_cuda
 from repro_torch.kernels.epilogue import Epilogue, rms_normalize
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_decode_cuda,
@@ -113,30 +114,58 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return rms_normalize(x, scale, eps)
 
 
-def flash_attention(q, k, v):
-    """Causal prefill attention: q [B, Sq, H, hd], k/v [B, Skv, KV, hd]
-    -> [B, Sq, H, hd]."""
+def flash_attention(q, k, v, *, kind: str = "global", window: int = 0,
+                    softcap: Optional[float] = None):
+    """Prefill attention: q [B, Sq, H, hd], k/v [B, Skv, KV, hd] ->
+    [B, Sq, H, hd].  'global' is causal, 'local' attends the last
+    ``window`` keys; ``softcap`` caps the scores.  Other kinds raise."""
+    ref.check_kind(kind)
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v)
-    return ref.flash_attention_ref(q, k, v)
+        return flash_attention_cuda(q, k, v, kind=kind, window=window,
+                                    softcap=softcap)
+    return ref.flash_attention_ref(q, k, v, kind=kind, window=window,
+                                   softcap=softcap)
 
 
-def flash_decode(q, k_cache, v_cache, pos: int, *,
+def flash_decode(q, k_cache, v_cache, pos: int, *, kind: str = "global",
+                 softcap: Optional[float] = None,
                  n_splits: Optional[int] = None):
     """Decode attention over slots <= ``pos``: q [B, 1, KV, G, hd]
-    against dense caches [B, K, KV, hd] -> [B, 1, KV, G, hd].
-    ``n_splits`` (on the card; default: enough tile groups to fill the
-    SMs) changes no bit of the result."""
+    against dense caches [B, K, KV, hd] -> [B, 1, KV, G, hd].  Only
+    'global' (a local layer's ring buffer is decoded by
+    ``models.attention.decode_attention_ring``).  ``n_splits`` (on the
+    card; default: enough tile groups to fill the SMs) changes no bit of
+    the result."""
+    ref.check_kind(kind, ("global",))
     if q.is_cuda:
-        return flash_decode_cuda(q, k_cache, v_cache, pos, n_splits)
-    return flash_decode_tiled(q, k_cache, v_cache, pos)
+        return flash_decode_cuda(q, k_cache, v_cache, pos, n_splits,
+                                 softcap)
+    return flash_decode_tiled(q, k_cache, v_cache, pos, softcap)
 
 
-def paged_flash_decode(q, k_pool, v_pool, page_table, positions):
+def paged_flash_decode(q, k_pool, v_pool, page_table, positions, *,
+                       kind: str = "global", window: int = 0,
+                       softcap: Optional[float] = None):
     """Paged decode and prefill-chunk attention: q [L, S, KV, G, hd]
     through ``page_table`` [L, P] against the pools [NP + 1, PS, KV, hd]
-    at per-token ``positions`` [L, S] (-1 = idle) -> [L, S, KV, G, hd]."""
+    at per-token ``positions`` [L, S] (-1 = idle) -> [L, S, KV, G, hd].
+    'global' or 'local' (``window``); ``softcap`` caps the scores."""
+    ref.check_kind(kind)
     if q.is_cuda:
         return paged_flash_decode_cuda(q, k_pool, v_pool, page_table,
-                                       positions)
-    return paged_flash_decode_tiled(q, k_pool, v_pool, page_table, positions)
+                                       positions, kind=kind, window=window,
+                                       softcap=softcap)
+    return paged_flash_decode_tiled(q, k_pool, v_pool, page_table, positions,
+                                    kind=kind, window=window, softcap=softcap)
+
+
+def addertree(partials: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """``out[M, N] = sum_s partials[s, M, N]`` folded in ascending s at 32
+    bits, cast to ``out_dtype`` (default: the partials' dtype): K7 on the
+    card."""
+    if partials.dim() != 3:
+        raise ValueError(f"partials must be [S, M, N], got "
+                         f"{tuple(partials.shape)}")
+    if partials.is_cuda:
+        return addertree_cuda(partials, out_dtype)
+    return ref.addertree_ref(partials, out_dtype)

@@ -80,21 +80,58 @@ def int8_matmul_ref(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
                           row_scale=sa, col_scale=sb)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
-    """Causal prefill attention (query row i attends slots <= i), plain
-    masked softmax at the accumulator width.  q [B, Sq, H, hd]; k/v
-    [B, Skv, KV, hd] with KV | H: q head h reads kv head h // (H // KV) —
-    grouped in the einsum, never repeated."""
+_ATTN_KINDS = ("global", "local")
+
+
+def check_kind(kind: str, kinds=_ATTN_KINDS) -> None:
+    """Refuse an attention kind the kernels do not implement ('chunked',
+    'prefix', 'full'): it raises on every device, never falls through."""
+    if kind not in kinds:
+        raise NotImplementedError(
+            f"attention kind {kind!r} is not ported; the kernels take "
+            f"{kinds}")
+
+
+def softcap_scores(s: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+    """``softcap * tanh(s / softcap)`` (gemma2's logit softcap), identity
+    for None or 0.  The division is an IEEE division, as in the CUDA
+    kernels: the divisor is a 0-d tensor, because torch on CUDA divides by
+    a Python scalar as a multiply by its rounded reciprocal."""
+    if not softcap:
+        return s
+    c = torch.tensor(softcap, dtype=s.dtype, device=s.device)
+    return c * torch.tanh(s / c)
+
+
+def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, kind: str,
+                   window: int) -> torch.Tensor:
+    """[..., Sq, Skv] bool from query positions [..., Sq] and key
+    positions [Skv]: causal (key <= query) for 'global', and in the last
+    ``window`` positions (query - key < window) for 'local'
+    (``models/attention.py``'s masks in the reference)."""
+    check_kind(kind)
+    mask = kpos <= qpos[..., None]
+    if kind == "local":
+        mask &= (qpos[..., None] - kpos) < window
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, kind: str = "global", window: int = 0,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """Prefill attention (query row i attends slots <= i; 'local' only the
+    last ``window`` of them), plain masked softmax at the accumulator
+    width, the scaled scores softcapped before the mask.  q [B, Sq, H, hd];
+    k/v [B, Skv, KV, hd] with KV | H: q head h reads kv head h // (H // KV)
+    — grouped in the einsum, never repeated."""
     b, sq, n_h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     acc = accum_dtype(q.dtype)
     qg = q.reshape(b, sq, n_kv, n_h // n_kv, hd).to(acc)
     s = torch.einsum("bqkgd,bKkd->bkgqK", qg, k.to(acc))
-    s = s * hd ** -0.5
-    qpos = torch.arange(sq, device=q.device)
-    kpos = torch.arange(skv, device=q.device)
-    mask = qpos[:, None] >= kpos[None, :]
+    s = softcap_scores(s * hd ** -0.5, softcap)
+    mask = attention_mask(torch.arange(sq, device=q.device),
+                          torch.arange(skv, device=q.device), kind, window)
     s = s.masked_fill(~mask, _NEG_REF)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~mask, 0.0)
@@ -104,14 +141,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos: int, *,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """Decode oracle: q [B, 1, KV, G, hd] against dense caches
     [B, K, KV, hd], slots <= pos live.  Plain (untiled) masked softmax at
-    the accumulator width."""
+    the accumulator width, the scaled scores softcapped."""
     hd = q.shape[-1]
     acc = accum_dtype(q.dtype)
     s = torch.einsum("bqkgd,bKkd->bkgqK", q.to(acc), k_cache.to(acc))
-    s = s * hd ** -0.5
+    s = softcap_scores(s * hd ** -0.5, softcap)
     slots = torch.arange(k_cache.shape[1], device=q.device)
     valid = slots <= pos
     s = s.masked_fill(~valid, _NEG_REF)
@@ -120,3 +158,13 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgqK,bKkd->bkgqd", p, v_cache.to(acc))
     out = out / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def addertree_ref(partials: torch.Tensor,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``out[M, N] = sum_s partials[s, M, N]``, the paper's adder tree:
+    folded in ascending s at 32 bits (fp32 for float partials, int32 for
+    int8, which is exact), then cast to ``out_dtype`` (default: the
+    partials' dtype), the plain version of K7."""
+    from repro_torch.core.maxeva_matmul import rank_order_sum
+    return rank_order_sum(partials, out_dtype or partials.dtype)

@@ -1,9 +1,12 @@
 """Where the serving time goes on the card: ``torch.profiler`` traces of
 the fixed-batch path (one prefill, a few decode steps) and of the
-continuous-batching scheduler's iterations, bf16 and int8.
+continuous-batching scheduler's iterations, bf16 and int8 (bf16 only
+where the int8 copy does not fit beside the model: gemma2-27b).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch granite-3-8b --out profile_serve.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch gemma2-27b --out profile_serve_gemma2.json
 
 Prints, for each window (fixed prefill, fixed decode step, and per engine
 a scheduler iteration that prefills one chunk on every lane and one that
@@ -26,7 +29,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.launch.serve import GEOMETRY
+from repro_torch.launch.serve import geometry, int8_fits
 from repro_torch.models.lm import Model
 from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -100,11 +103,12 @@ def _scheduler(model, cfg, args, int8: bool) -> dict:
     """One lane per request, every prompt SCHED_PROMPT long: the first
     iterations prefill a 64-token chunk on every lane, the later ones only
     decode.  Each window starts from a fresh wave of the same requests."""
-    eng = ServeEngine(model, ServeConfig(int8=int8, **GEOMETRY))
+    geom = geometry(cfg.name)
+    eng = ServeEngine(model, ServeConfig(int8=int8, **geom))
     sched = eng.scheduler
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab, SCHED_PROMPT)
-               for _ in range(GEOMETRY["n_lanes"])]
+               for _ in range(geom["n_lanes"])]
     waves = itertools.count()
 
     def fill():
@@ -144,22 +148,24 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card; none is present")
-    if SCHED_PROMPT + args.steps + 4 > GEOMETRY["max_seq_len"]:
+    geom = geometry(args.arch)
+    if SCHED_PROMPT + args.steps + 4 > geom["max_seq_len"]:
         raise SystemExit("--steps too large for the scheduler's lanes")
 
     cfg = get_config(args.arch)
     model = Model(cfg).init_weights(args.seed)
     report = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
               "batch": args.batch, "prompt_len": args.prompt_len,
-              "lanes": GEOMETRY["n_lanes"], "sched_prompt": SCHED_PROMPT,
+              "lanes": geom["n_lanes"], "sched_prompt": SCHED_PROMPT,
               "fixed": _fixed(model, cfg, args)}
-    for int8 in (False, True):
+    int8s = (False, True) if int8_fits(cfg, model.device) else (False,)
+    for int8 in int8s:
         name = "scheduler_int8" if int8 else "scheduler_bf16"
         report[name] = _scheduler(model, cfg, args, int8)
         torch.cuda.empty_cache()
     windows = [(group, phase) for group in
                ("fixed", "scheduler_bf16", "scheduler_int8")
-               for phase in report[group]]
+               if group in report for phase in report[group]]
     for group, phase in windows:
         r = report[group][phase]
         print(f"{group} {phase}: wall {r['wall_ms']:.3f} ms, device busy "

@@ -6,15 +6,19 @@ or continuous batching over the paged KV cache (``--requests N``).
         --requests 16 [--int8]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --smoke --device cpu [--requests 6]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
+        [--requests 8] [--smoke --device cpu]
 
 Runs on the CUDA card unless ``--device cpu``; weights are random, drawn
 from ``--seed`` on the device.  The fixed mode prints the prefill time,
 the decode time per step, tokens/s and every lane's status.  The
 continuous mode submits ``--requests`` requests at once, prompt lengths
 and token budgets drawn from ``--seed``, to a scheduler of 8 lanes
-(``GEOMETRY``), steps it until every request has finished, and prints the time to
-first token, the time per decode-only iteration, tokens/s and every
-request's status.
+(``geometry(arch)``), steps it until every request has finished, and
+prints the time to first token, the time per decode-only iteration,
+tokens/s and every request's status.  gemma2-27b's 27.2 B bf16 parameters
+(54.4 GB) leave no room on an 80 GB card for its int8 copy beside them,
+so ``--int8`` is granite's.
 """
 from __future__ import annotations
 
@@ -96,18 +100,39 @@ def serve_requests(engine: ServeEngine, requests: List[Request]) -> Dict:
 # continuous batching: 8 lanes of up to 512 positions, 16-slot pages,
 # 64-token prefill chunks; prompts of 32-448 tokens, budgets of 16-32
 GEOMETRY = dict(n_lanes=8, page_size=16, prefill_chunk=64, max_seq_len=512)
+# gemma2-27b: the same lanes, pages and chunks; lanes of up to 4192
+# positions (a 4160-token prompt past its 4096 window, and 32 new tokens),
+# and a pool of 512 pages shared by them (3.1 GB over 46 layers) instead
+# of eight full lanes' 2096
+GEMMA2_GEOMETRY = dict(GEOMETRY, max_seq_len=4192, n_pages=512)
 PROMPT_RANGE, NEW_RANGE = (32, 448), (16, 32)
 
 
+def geometry(arch: str) -> dict:
+    """The scheduler geometry ``--arch`` is served with."""
+    return GEMMA2_GEOMETRY if arch.startswith("gemma2") else GEOMETRY
+
+
+def int8_fits(cfg, device: torch.device) -> bool:
+    """Whether the int8 copy (one byte per parameter) fits on the card
+    beside the bf16 model (two), with a fifth of the card left for caches
+    and activations.  The CPU has no such limit here."""
+    if device.type != "cuda":
+        return True
+    total = torch.cuda.get_device_properties(device).total_memory
+    return 3 * cfg.param_count() < 0.8 * total
+
+
 def _continuous(args, model, cfg) -> None:
-    eng = ServeEngine(model, ServeConfig(int8=args.int8, **GEOMETRY))
+    geom = geometry(cfg.name)
+    eng = ServeEngine(model, ServeConfig(int8=args.int8, **geom))
     reqs = make_requests(cfg.vocab, args.requests, args.seed, PROMPT_RANGE,
                          NEW_RANGE)
     r = serve_requests(eng, reqs)
     ttft = np.array([r["ttft_s"][q.id] for q in reqs if q.id in r["ttft_s"]])
     dec = r["decode_ms_per_iter"]
     print(f"{cfg.name}{' int8' if args.int8 else ''} on {model.device}: "
-          f"{len(reqs)} requests on {GEOMETRY['n_lanes']} lanes, "
+          f"{len(reqs)} requests on {geom['n_lanes']} lanes, "
           f"{r['iterations']} "
           f"iterations ({r['chunk_iterations']} with a prefill chunk), "
           f"{r['generated']} tokens in {r['wall_s']:.3f} s = "
@@ -143,6 +168,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.int8 and not int8_fits(cfg, device):
+        raise SystemExit(f"{cfg.name}: the int8 copy does not fit on the "
+                         f"card beside the bf16 model")
     model = Model(cfg, device=device).init_weights(args.seed)
     if args.requests:
         return _continuous(args, model, cfg)

@@ -2,7 +2,15 @@
 int8 against a ``QuantizedWeight``), RoPE, flash prefill (K4) over the
 grouped K/V, cached decode through split-K flash decode (K5), and paged
 serving: K/V scattered through a page table into shared pools, then paged
-flash decode (K6) for decode steps and prefill chunks alike."""
+flash decode (K6) for decode steps and prefill chunks alike.
+
+Two kinds, as in the reference: 'global' (causal) and 'local' (sliding
+window of ``cfg.window`` positions); ``cfg.attn_softcap`` caps the scores
+of both.  A local layer's dense cache is a ring buffer of ``min(window,
+max_len)`` slots (position p at slot p % W), decoded by
+``decode_attention_ring``, plain torch as the reference's einsum path is
+plain XLA; its paged lanes keep their full history and K6 masks by
+position."""
 from __future__ import annotations
 
 import math
@@ -14,6 +22,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.quantize import QuantizedWeight
+from repro_torch.kernels.ref import accum_dtype, softcap_scores
 from repro_torch.models.layers import rope
 from repro_torch.models.param import split_packed_columns
 
@@ -71,21 +80,75 @@ def project_qkv(attn: Attention, x: torch.Tensor, cfg: ArchConfig,
             v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
 
 
-def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:
-    """q [B, 1, KV, G, hd] against dense caches [B, K, KV, hd], slots <=
-    ``pos`` live: the tiled flash-decode path (K5 on the card)."""
-    return kops.flash_decode(q, k_cache, v_cache, pos)
+_NEG = -1e30
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, kind: str = "global",
+                     window: int = 0,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """q [B, 1, KV, G, hd] against dense caches [B, K, KV, hd] (global,
+    slots <= ``pos`` live: the tiled flash-decode path, K5 on the card) or
+    ring buffers [B, W, KV, hd] (local: ``decode_attention_ring``)."""
+    if kind == "local":
+        return decode_attention_ring(q, k_cache, v_cache, pos,
+                                     window=window, softcap=softcap)
+    return kops.flash_decode(q, k_cache, v_cache, pos, kind=kind,
+                             softcap=softcap)
+
+
+def decode_attention_ring(q, k_cache, v_cache, pos: int, *, window: int,
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """Local decode over a ring buffer [B, W, KV, hd], the reference's
+    ``decode_attention_einsum``: slot j holds position pos - ((pos - j)
+    mod W), live where that position is >= 0 and within ``window`` of
+    ``pos``.  q is rounded to the cache dtype and the scores summed at
+    fp32; the probabilities are rounded to the cache dtype for the value
+    product and normalized by their fp32 sum."""
+    hd = q.shape[-1]
+    acc = accum_dtype(k_cache.dtype)
+    s = torch.einsum("bqkgd,bKkd->bkgqK", q.to(k_cache.dtype).to(acc),
+                     k_cache.to(acc)) * hd ** -0.5
+    s = softcap_scores(s, softcap)
+    w = k_cache.shape[1]
+    slots = torch.arange(w, device=q.device)
+    kpos = pos - torch.remainder(pos - slots, w)
+    valid = (kpos >= 0) & (kpos <= pos) & (pos - kpos < window)
+    s = s.masked_fill(~valid, _NEG)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~valid, 0.0)
+    out = torch.einsum("bkgqK,bKkd->bkgqd", p.to(v_cache.dtype).to(acc),
+                       v_cache.to(acc))
+    out = out / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
 def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: int) -> None:
-    """Write [B, S, KV, hd] at slots ``pos .. pos+S-1``.  The caches are
-    updated IN PLACE (the reference returns new arrays; here the cache
-    buffers are owned by the serving loop and never aliased)."""
-    s = k_new.shape[1]
-    k_cache[:, pos:pos + s] = k_new.to(k_cache.dtype)
-    v_cache[:, pos:pos + s] = v_new.to(v_cache.dtype)
+                 k_new: torch.Tensor, v_new: torch.Tensor, pos: int, *,
+                 ring: bool = False) -> None:
+    """Write one token's [B, 1, KV, hd] at slot ``pos`` (``pos % W`` for a
+    ring buffer).  The caches are updated IN PLACE (the reference returns
+    new arrays; here the cache buffers are owned by the serving loop and
+    never aliased)."""
+    slot = pos % k_cache.shape[1] if ring else pos
+    k_cache[:, slot:slot + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, slot:slot + 1] = v_new.to(v_cache.dtype)
+
+
+def fill_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor, *, ring: bool) -> None:
+    """After a prefill of S positions: the post-rope K/V [B, S, KV, hd] at
+    slots 0..S-1, or, in a ring buffer of W slots, the last min(S, W)
+    positions p at slots p % W (the reference's ``_prefill_attention``).
+    In place."""
+    s, w = k.shape[1], k_cache.shape[1]
+    if not ring:
+        k_cache[:, :s] = k.to(k_cache.dtype)
+        v_cache[:, :s] = v.to(v_cache.dtype)
+        return
+    n = min(s, w)
+    slots = torch.remainder(torch.arange(s - n, s, device=k.device), w)
+    k_cache[:, slots] = k[:, s - n:].to(k_cache.dtype)
+    v_cache[:, slots] = v[:, s - n:].to(v_cache.dtype)
 
 
 def paged_update(k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -111,44 +174,50 @@ def paged_update(k_pool: torch.Tensor, v_pool: torch.Tensor,
     v_pool[pf, sf] = v_new.reshape(b * s, *v_new.shape[2:]).to(v_pool.dtype)
 
 
-def paged_attention(q, k_pool, v_pool, page_table,
-                    positions) -> torch.Tensor:
+def paged_attention(q, k_pool, v_pool, page_table, positions, *,
+                    kind: str = "global", window: int = 0,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """q [L, S, KV, G, hd] against the paged pools -> [L, S, KV, G, hd]:
     the paged flash-decode path (K6 on the card) for decode steps (S == 1)
-    and prefill chunks (S > 1) alike."""
-    return kops.paged_flash_decode(q, k_pool, v_pool, page_table, positions)
+    and prefill chunks (S > 1) alike; local lanes keep their full history
+    and are masked by position."""
+    return kops.paged_flash_decode(q, k_pool, v_pool, page_table, positions,
+                                   kind=kind, window=window, softcap=softcap)
 
 
 def attention_apply(attn: Attention, x: torch.Tensor, cfg: ArchConfig,
-                    compute_dtype: torch.dtype, *, theta: float,
+                    compute_dtype: torch.dtype, *, kind: str, theta: float,
                     positions: torch.Tensor, cache: dict,
                     pos: Optional[int] = None,
                     page_table: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Global causal attention sub-block.  With ``page_table`` [L, P] the
-    cache is the layer's page pools (``{"kp", "vp"}``) and ``positions``
-    [L, S] holds per-token positions (-1 = inactive): the K/V are written
-    first, then attended (paged serving, decode step or prefill chunk).
-    Otherwise the cache is dense (``{"k", "v"}``): ``pos`` None is prefill
-    over the whole sequence, the post-rope K/V written from slot 0; else
-    single-token decode at position ``pos``."""
+    """The attention sub-block of kind ``kind`` ('global' or 'local').
+    With ``page_table`` [L, P] the cache is the layer's page pools
+    (``{"kp", "vp"}``) and ``positions`` [L, S] holds per-token positions
+    (-1 = inactive): the K/V are written first, then attended (paged
+    serving, decode step or prefill chunk).  Otherwise the cache is dense
+    (``{"k", "v"}``, a ring buffer for 'local'): ``pos`` None is prefill
+    over the whole sequence, the post-rope K/V written to the cache after;
+    else single-token decode at position ``pos``."""
     b, s, _ = x.shape
     n_kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    mask = dict(kind=kind, window=cfg.window, softcap=cfg.attn_softcap)
+    ring = kind == "local"
     q, k, v = project_qkv(attn, x, cfg, compute_dtype)
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
     if page_table is not None:
         paged_update(cache["kp"], cache["vp"], k, v, positions, page_table)
         out = paged_attention(q.reshape(b, s, n_kv, g, hd), cache["kp"],
-                              cache["vp"], page_table, positions)
+                              cache["vp"], page_table, positions, **mask)
     elif pos is None:
         # prefill: GQA K/V consumed grouped (head h reads kv head h // g)
-        out = kops.flash_attention(q, k, v.contiguous())
-        update_cache(cache["k"], cache["v"], k, v, 0)
+        out = kops.flash_attention(q, k, v.contiguous(), **mask)
+        fill_cache(cache["k"], cache["v"], k, v, ring=ring)
     else:
-        update_cache(cache["k"], cache["v"], k, v, pos)
+        update_cache(cache["k"], cache["v"], k, v, pos, ring=ring)
         out = decode_attention(q.reshape(b, s, n_kv, g, hd), cache["k"],
-                               cache["v"], pos)
+                               cache["v"], pos, **mask)
     out = out.reshape(b, s, cfg.q_dim).to(compute_dtype)
     return kops.matmul(out.reshape(b * s, -1), attn.wo,
                        out_dtype=compute_dtype).reshape(b, s, -1)

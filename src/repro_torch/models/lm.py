@@ -1,12 +1,17 @@
-"""The dense GQA decoder (global attention + gated MLP, tied embeddings):
-parameters, forward in ``prefill``, ``decode`` and ``paged`` modes, the
-dense KV cache and the paged KV pools, and the int8 serving copy.
+"""The dense GQA decoder (global or sliding-window attention + gated MLP,
+tied embeddings): parameters, forward in ``prefill``, ``decode`` and
+``paged`` modes, the dense KV cache and the paged KV pools, and the int8
+serving copy.
 
-The reference scans one stacked parameter group; here the 40 blocks are an
-``nn.ModuleList``.  The rmsnorm chain is the reference's: the entry norm
-is the only standalone ``ln1``; every block's down GEMM folds the residual
-add and the NEXT block's ``ln1`` (the last block's folds ``final_norm``)
-into its epilogue, while ``ln2`` stays a standalone rmsnorm.
+Layer i's attention kind is ``cfg.block_pattern[i % period]`` (gemma2
+alternates 'local' and 'global'); its RoPE theta is ``rope_theta``, or
+``rope_theta_global`` for a global layer where that is set.  The
+reference scans a stacked parameter group of one pattern period (plus an
+unrolled tail); here the blocks are one ``nn.ModuleList``.  The rmsnorm
+chain is the reference's: the entry norm is the only standalone ``ln1``;
+every block's down GEMM folds the residual add and the NEXT block's
+``ln1`` (the last block's folds ``final_norm``) into its epilogue, while
+``ln2`` stays a standalone rmsnorm.  ``final_softcap`` caps the logits.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.quantize import quantize_weight_colwise
+from repro_torch.kernels.ref import check_kind
 from repro_torch.models.attention import Attention, attention_apply
 from repro_torch.models.layers import mlp_apply, rmsnorm, vocab_parallel_embed
 from repro_torch.models.loss import vocab_parallel_logits
@@ -79,11 +85,12 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        if cfg.block_pattern != ("global",) or not cfg.gated_mlp \
-                or not cfg.tie_embeddings:
+        for kind in cfg.block_pattern:
+            check_kind(kind)
+        if not cfg.gated_mlp or not cfg.tie_embeddings:
             raise NotImplementedError(
-                f"{cfg.name}: this slice serves dense global-attention "
-                f"decoders with a gated MLP and tied embeddings")
+                f"{cfg.name}: the port serves dense attention decoders "
+                f"with a gated MLP and tied embeddings")
         self.cfg = cfg
         self.int8 = False
         self.device = resolve_device(device)
@@ -137,20 +144,34 @@ class Model(nn.Module):
 
     @property
     def supports_paged_serving(self) -> bool:
-        """Every model this slice builds (a single-device stack of global
-        attention blocks) is served by the paged scheduler."""
-        return self.cfg.block_pattern == ("global",)
+        """The paged scheduler serves single-device stacks of the attention
+        kinds K6 takes ('global', 'local'): every model the port builds."""
+        return all(kind in ("global", "local")
+                   for kind in self.cfg.block_pattern)
+
+    def _theta(self, kind: str) -> float:
+        cfg = self.cfg
+        if kind == "global" and cfg.rope_theta_global:
+            return cfg.rope_theta_global
+        return cfg.rope_theta
 
     # -- cache -----------------------------------------------------------------
 
     def new_cache(self, batch: int, max_len: int) -> Cache:
-        """Zeroed dense K/V caches [B, max_len, KV, hd] in bf16, one dict per
-        layer (the reference's ``cache_defs`` for the global kind)."""
+        """Zeroed dense K/V caches in bf16, one dict per layer (the
+        reference's ``cache_defs``): [B, max_len, KV, hd] for a global
+        layer, a ring buffer of min(window, max_len) slots for a local
+        one."""
         cfg = self.cfg
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
         kw = dict(dtype=torch.bfloat16, device=self.device)
-        return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
-                for _ in range(cfg.n_layers)]
+        out = []
+        for i in range(cfg.n_layers):
+            slots = (min(cfg.window, max_len) if cfg.kind(i) == "local"
+                     else max_len)
+            shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
+            out.append({"k": torch.zeros(shape, **kw),
+                        "v": torch.zeros(shape, **kw)})
+        return out
 
     def new_paged_cache(self, n_pages: int, page_size: int) -> Cache:
         """Zeroed K/V page pools ``[n_pages + 1, page_size, KV, hd]`` bf16,
@@ -166,12 +187,12 @@ class Model(nn.Module):
 
     # -- forward ----------------------------------------------------------------
 
-    def _block(self, blk: Block, h, xn, next_scale, *, positions, cache, pos,
-               page_table):
+    def _block(self, blk: Block, kind: str, h, xn, next_scale, *, positions,
+               cache, pos, page_table):
         cfg, cd = self.cfg, self.compute_dtype
-        out = attention_apply(blk.attn, xn, cfg, cd, theta=cfg.rope_theta,
-                              positions=positions, cache=cache, pos=pos,
-                              page_table=page_table)
+        out = attention_apply(blk.attn, xn, cfg, cd, kind=kind,
+                              theta=self._theta(kind), positions=positions,
+                              cache=cache, pos=pos, page_table=page_table)
         h = h + out
         xn2 = rmsnorm(h, blk.ln2, cfg.norm_eps)
         ffn = {"gate": blk.ffn.gate, "up": blk.ffn.up, "down": blk.ffn.down}
@@ -200,7 +221,8 @@ class Model(nn.Module):
         for i, blk in enumerate(self.blocks):
             nxt = (self.blocks[i + 1].ln1 if i + 1 < len(self.blocks)
                    else self.final_norm)
-            h, xn = self._block(blk, h, xn, nxt, positions=positions,
+            h, xn = self._block(blk, cfg.kind(i), h, xn, nxt,
+                                positions=positions,
                                 cache=cache[i], pos=pos,
                                 page_table=page_table)
         return xn  # the last block's fold produced rmsnorm(h, final_norm)
@@ -215,7 +237,9 @@ class Model(nn.Module):
         b, s = tokens.shape
         cache = self.new_cache(b, max(max_len or s, s, 1))
         h = self.forward(tokens.to(self.device), cache=cache)
-        return vocab_parallel_logits(h[:, -1:], self.embed)[:, 0], cache
+        logits = vocab_parallel_logits(h[:, -1:], self.embed,
+                                       self.cfg.final_softcap)
+        return logits[:, 0], cache
 
     @torch.inference_mode()
     def decode_step(self, cache: Cache, token: torch.Tensor,
@@ -223,7 +247,8 @@ class Model(nn.Module):
         """token [B, 1] at position ``pos`` -> (logits [B, Vp] fp32, cache
         updated in place)."""
         h = self.forward(token.to(self.device), cache=cache, pos=int(pos))
-        return vocab_parallel_logits(h, self.embed)[:, 0], cache
+        logits = vocab_parallel_logits(h, self.embed, self.cfg.final_softcap)
+        return logits[:, 0], cache
 
     @torch.inference_mode()
     def decode_step_paged(self, cache: Cache, token: torch.Tensor,
@@ -240,7 +265,8 @@ class Model(nn.Module):
         h = self.forward(token.to(dev), cache=cache,
                          positions=positions.to(dev, torch.int32)[:, None],
                          page_table=page_table.to(dev, torch.int32))
-        return vocab_parallel_logits(h, self.embed)[:, 0], cache
+        logits = vocab_parallel_logits(h, self.embed, self.cfg.final_softcap)
+        return logits[:, 0], cache
 
     @torch.inference_mode()
     def prefill_chunk(self, cache: Cache, tokens: torch.Tensor,
@@ -260,4 +286,5 @@ class Model(nn.Module):
                          page_table=page_table.to(dev, torch.int32))
         idx = torch.clamp(last_idx.to(dev, torch.long), min=0)
         hl = h[torch.arange(h.shape[0], device=dev), idx][:, None]
-        return vocab_parallel_logits(hl, self.embed)[:, 0], cache
+        logits = vocab_parallel_logits(hl, self.embed, self.cfg.final_softcap)
+        return logits[:, 0], cache

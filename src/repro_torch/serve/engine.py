@@ -168,8 +168,9 @@ class ServeEngine:
         scfg = self.scfg
         if not self.model.supports_paged_serving:
             raise NotImplementedError(
-                "paged serving needs a decoder of global attention blocks; "
-                "use generate_with_status_fixed() for this model")
+                "paged serving needs a decoder of global and local "
+                "attention blocks; use generate_with_status_fixed() for "
+                "this model")
         ppl = -(-max_len // scfg.page_size)
         return PagedScheduler(
             self, n_lanes=n_lanes, pages_per_lane=ppl,
@@ -279,8 +280,11 @@ class ServeEngine:
     def generate_with_status_fixed(self, batch: Dict[str, torch.Tensor]
                                    ) -> GenerateResult:
         """The lockstep fixed-batch loop over a dense cache: every lane
-        prefills (K4) and decodes (K5) in step.  Kept as the reference the
-        scheduler shim's greedy tokens are held equal to."""
+        prefills (K4) and decodes (K5; a local layer's ring buffer
+        outside the kernels) in step.  Kept as the reference the scheduler
+        shim's greedy tokens are held equal to (bitwise for global-only
+        models; with local layers the ring and the paged lane sum in other
+        orders, so only the tokens are held equal)."""
         scfg = self.scfg
         toks = torch.as_tensor(batch["tokens"])
         b_full = toks.shape[0]
