@@ -8,15 +8,19 @@ line):
 
 1. card: name and power limit (``nvidia-smi``), then ``nvcc`` builds every
    kernel of the serving path from ``src/repro_torch/csrc/`` for sm_90a,
-   one compiler per source, all started together.
+   one compiler per source, all started together; ptxas's report of each
+   kernel (registers, shared memory, spills) is printed.
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at granite-3-8b's full-width shapes, each row of the output within a
    stated tolerance of that row's own scale.  Bitwise: the fused rmsnorm
    output against the standalone rmsnorm of the stored value, split-K
    decode across n_splits 1/2/4, K3 (rowwise quantize), every fp32-out
    int8 product of K2, and K6 (paged decode) against K5 over the same
-   history in a dense cache.  K1 and K2 are checked at the rows of both
-   driven paths (the fixed loop's 4 and 1024, the scheduler's 8 and 512).
+   history in a dense cache.  K1 is checked and timed at both models'
+   five projections and at the rows of every driven path (granite 4, 8,
+   512 and 1024; gemma2 2, 8, 512 and 8320), and is deterministic: the
+   same call twice is bitwise equal, and row 0 is bitwise the same when
+   the other rows change.  K2 at the scheduler's rows (8, 512).
    Each kernel's device time (CUDA events behind a spin kernel that hides
    the host's launch), its wrapper's time (CUDA events, host work inside
    included),
@@ -53,8 +57,9 @@ line):
    with softcap, the ring, K5 softcap) and the scheduler (8 requests, one
    with a 4160-token prompt that decodes past position 4096, the others
    32-448; K1, K6 local and global with softcap), every status ok.
-   Phases 2 and 3 hold gemma2's kernel variants at its full shapes and
-   its smoke config card against CPU (``check_gemma2_kernels``,
+   Phases 2 and 3 hold gemma2's kernel variants at its full shapes (K4
+   local and global with softcap at the fixed loop's prefill, timed beside
+   SDPA) and its smoke config card against CPU (``check_gemma2_kernels``,
    ``check_gemma2_smoke``).
 
 Then one JSON line listing every ported kernel and variant, the card line
@@ -84,6 +89,12 @@ SEED = 0
 # (repro_torch.launch.serve.GEOMETRY): 8 lanes, 16-slot pages, 64-token
 # chunks; N_REQ requests are served through it
 LANES, PAGE, CHUNK, N_REQ = 8, 16, 64, 16
+# gemma2-27b's attention (src/repro_torch/configs/gemma2_27b.py)
+G2_H, G2_KV, G2_HD, G2_WINDOW, G2_SOFTCAP = 32, 16, 128, 4096, 50.0
+# phase 5: the fixed loop's batch, prompt (past the 4096 window, so K4's
+# window and the local ring's wrap both run) and new tokens; the
+# scheduler's requests, the first of them with the long prompt
+G2_BATCH, G2_PROMPT, G2_NEW, G2_REQ = 2, 4160, 16, 8
 # kernels each driven path must launch (the counts are read per path)
 PATH_KERNELS = {
     "fixed": ("matmul", "rmsnorm", "flash_attention", "decode_partials",
@@ -216,6 +227,112 @@ def row_err(got, want, floor: float = 1e-3) -> float:
     return float((diff / scale).max())
 
 
+# K1's widths per model: d_model, the packed qkv N, the o-projection's K
+# (heads x head_dim), d_ff, and the rows of the driven paths
+K1_WIDTHS = {
+    "granite": (4096, 6144, 4096, 12800, (BATCH, LANES, 1024, LANES * CHUNK)),
+    "gemma2": (4608, 8192, 4096, 36864,
+               (G2_BATCH, LANES, LANES * CHUNK, G2_BATCH * G2_PROMPT)),
+}
+
+
+def k1_rows(torch, timer, rand, model, m, d, qkv_n, o_k, ff, tol):
+    """K1 at one model's five projections for M rows: each against its
+    plain version (``tol`` of each row's scale; the fused rmsnorm bitwise
+    store-then-rmsnorm), timed beside its bound, its plain version and one
+    ``torch.matmul``; returns one row per projection."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.epilogue import Epilogue
+    from repro_torch.kernels.matmul import k1_plan, sm_count
+    bf = torch.bfloat16
+    x, h, res = rand(m, d), rand(m, ff), rand(m, d)
+    nscale = rand(d, dtype=torch.float32, scale=0.1)
+    w = {"qkv": rand(d, qkv_n, scale=d ** -0.5),
+         "o": rand(o_k, d, scale=o_k ** -0.5),
+         "gate": rand(d, ff, scale=d ** -0.5),
+         "up": rand(d, ff, scale=d ** -0.5),
+         "down": rand(ff, d, scale=ff ** -0.5)}
+    g = ops.matmul(x, w["gate"], out_dtype=bf)
+    cases = {
+        "qkv": (x, w["qkv"], Epilogue(out_dtype=bf), {}),
+        "o": (x[:, :o_k].contiguous(), w["o"], Epilogue(out_dtype=bf), {}),
+        "gate": (x, w["gate"], Epilogue(out_dtype=bf), {}),
+        "up": (x, w["up"], Epilogue(gate="silu", out_dtype=bf),
+               {"operand2": g}),
+        "down": (h, w["down"], Epilogue(residual=True, norm="rmsnorm",
+                                       out_dtype=bf),
+                 {"residual": res, "norm_scale": nscale}),
+    }
+    out = []
+    for name, (a, b, ep, kw) in cases.items():
+        got = ops.matmul(a, b, epilogue=ep, **kw)
+        want = ref.matmul_fused_ref(a, b, ep, **kw)
+        if ep.norm != "none":
+            require(torch.equal(got[1], ops.rmsnorm(got[0], nscale,
+                                                    ep.norm_eps)),
+                    "fused rmsnorm is not bitwise store-then-rmsnorm")
+            err = max(row_err(got[0], want[0]), row_err(got[1], want[1]))
+            abs_err = max(max_err(got[0], want[0]),
+                          max_err(got[1], want[1]))
+        else:
+            err = row_err(got, want)
+            abs_err = max_err(got, want)
+        del got, want
+        require(err <= tol, f"K1 {model} {name} M={m}: a row is off by "
+                            f"{err:.3e} of its scale")
+        mm, kk = a.shape
+        nn = b.shape[1]
+        nbytes = 2 * (mm * kk + kk * nn + mm * nn)
+        nbytes += 2 * mm * nn * (("operand2" in kw) + ("residual" in kw))
+        if ep.norm != "none":   # the normed output and its scale
+            nbytes += 2 * mm * nn + 4 * nn
+        plan = k1_plan(mm, nn, kk, sm_count(a.device.index))
+        row = {
+            "model": model, "shape": f"{name} M={mm} K={kk} N={nn}",
+            "regime": plan.regime, "splits": plan.splits,
+            "max_abs_err": abs_err, "max_row_err": err,
+            "ms": timer(lambda: ops.matmul(a, b, epilogue=ep, **kw)),
+            "wrapper_ms": timer.wall(
+                lambda: ops.matmul(a, b, epilogue=ep, **kw)),
+            "plain_ms": timer(lambda: ref.matmul_fused_ref(a, b, ep, **kw),
+                              reps=3 if mm * kk * nn > 1e11 else 10),
+            "library_ms": timer(lambda: torch.matmul(a, b)),
+        }
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * mm * kk * nn)
+        row["tflops"] = 2 * mm * kk * nn / row["ms"] / 1e9
+        row["tb_per_s"] = nbytes / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        out.append(row)
+        print("  k1", json.dumps(row), flush=True)
+    return out
+
+
+def k1_determinism(torch, rand):
+    """K1 is deterministic: at gemma2's five decode projections (M = 8,
+    every one split over K) and one chunk projection (M = 512), the same
+    call twice is bitwise equal, and row 0 is bitwise the same when the
+    other rows change (no row reads another's values, and the summation
+    order depends on the shape alone)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.epilogue import Epilogue
+    bf = torch.bfloat16
+    d, qkv_n, o_k, ff, _ = K1_WIDTHS["gemma2"]
+    for m, (k, n) in [(LANES, kn) for kn in ((d, qkv_n), (o_k, d), (d, ff),
+                                             (ff, d))] \
+            + [(LANES * CHUNK, (o_k, d))]:
+        a, b, res = rand(m, k), rand(k, n, scale=k ** -0.5), rand(m, n)
+        ep = Epilogue(residual=True, out_dtype=bf)
+        first = ops.matmul(a, b, epilogue=ep, residual=res)
+        require(torch.equal(first, ops.matmul(a, b, epilogue=ep,
+                                              residual=res)),
+                f"K1 M={m} K={k} N={n}: two calls differ")
+        a2, res2 = a.clone(), res.clone()
+        a2[1:], res2[1:] = rand(m - 1, k), rand(m - 1, n)
+        require(torch.equal(first[0], ops.matmul(a2, b, epilogue=ep,
+                                                 residual=res2)[0]),
+                f"K1 M={m} K={k} N={n}: row 0 depends on the other rows")
+
+
 def check_kernels(torch, timer):
     """Phase 2: every kernel against its plain version at full width.
     Tolerances are per row (``row_err``): a bf16 output may differ from
@@ -223,7 +340,7 @@ def check_kernels(torch, timer):
     is at most eps * the row's largest magnitude."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.epilogue import Epilogue, rms_normalize
+    from repro_torch.kernels.epilogue import rms_normalize
     from repro_torch.kernels.flash_attention import (combine_tile_partials,
                                                      decode_combine_cuda,
                                                      decode_partials_cuda,
@@ -238,87 +355,58 @@ def check_kernels(torch, timer):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 ).to(dtype)
 
-    d, ff, qkv_n = 4096, 12800, 6144
+    d = 4096
     results = {}
-    shapes = []
-    # K1 GEMM, at the fixed loop's decode and prefill rows (4, 1024) and
-    # the scheduler's (LANES, LANES * CHUNK): each output row within 2 bf16
-    # ulps of its scale (fp32 sums in another order may flip a rounding,
-    # and the normed output inherits one flip of the value); the rmsnorm
-    # output is bitwise the standalone norm of the stored value.
+    # K1 GEMM at both models' widths and the rows of every driven path
+    # (granite: the fixed loop's decode and prefill, 4 and 1024, the
+    # scheduler's 8 and 512; gemma2: 2 and 8320, 8 and 512): each output
+    # row within 2 bf16 ulps of its scale (fp32 sums in another order may
+    # flip a rounding, and the normed output inherits one flip of the
+    # value); the rmsnorm output is bitwise the standalone norm of the
+    # stored value.
     k1_tol = 2 * eps_bf16
-    for m in (BATCH, LANES, 1024, LANES * CHUNK):
-        x = rand(m, d)
-        h = rand(m, ff)
-        res = rand(m, d)
-        nscale = rand(d, dtype=torch.float32, scale=0.1)
-        w = {"qkv": rand(d, qkv_n, scale=d ** -0.5),
-             "o": rand(d, d, scale=d ** -0.5),
-             "gate": rand(d, ff, scale=d ** -0.5),
-             "up": rand(d, ff, scale=d ** -0.5),
-             "down": rand(ff, d, scale=ff ** -0.5)}
-        g = ops.matmul(x, w["gate"], out_dtype=bf)
-        cases = {
-            "qkv": (x, w["qkv"], Epilogue(out_dtype=bf), {}),
-            "o": (x, w["o"], Epilogue(out_dtype=bf), {}),
-            "gate": (x, w["gate"], Epilogue(out_dtype=bf), {}),
-            "up": (x, w["up"], Epilogue(gate="silu", out_dtype=bf),
-                   {"operand2": g}),
-            "down": (h, w["down"], Epilogue(residual=True, norm="rmsnorm",
-                                           out_dtype=bf),
-                     {"residual": res, "norm_scale": nscale}),
-        }
-        for name, (a, b, ep, kw) in cases.items():
-            got = ops.matmul(a, b, epilogue=ep, **kw)
-            want = ref.matmul_fused_ref(a, b, ep, **kw)
-            if ep.norm != "none":
-                require(torch.equal(got[1], ops.rmsnorm(got[0], nscale,
-                                                        ep.norm_eps)),
-                        "fused rmsnorm is not bitwise store-then-rmsnorm")
-                err = max(row_err(got[0], want[0]), row_err(got[1], want[1]))
-                abs_err = max(max_err(got[0], want[0]),
-                              max_err(got[1], want[1]))
-            else:
-                err = row_err(got, want)
-                abs_err = max_err(got, want)
-            require(err <= k1_tol,
-                    f"K1 {name} M={m}: a row is off by {err:.3e} of its "
-                    f"scale")
-            mm, kk = a.shape
-            nn = b.shape[1]
-            nbytes = 2 * (mm * kk + kk * nn + mm * nn)
-            nbytes += 2 * mm * nn * (("operand2" in kw) + ("residual" in kw))
-            if ep.norm != "none":   # the normed output and its scale
-                nbytes += 2 * mm * nn + 4 * nn
-            row = {
-                "shape": f"{name} M={mm} K={kk} N={nn}",
-                "max_abs_err": abs_err, "max_row_err": err,
-                "ms": timer(lambda: ops.matmul(a, b, epilogue=ep, **kw)),
-                "wrapper_ms": timer.wall(
-                    lambda: ops.matmul(a, b, epilogue=ep, **kw)),
-                "plain_ms": timer(
-                    lambda: ref.matmul_fused_ref(a, b, ep, **kw)),
-                "library_ms": timer(lambda: torch.matmul(a, b)),
-            }
-            row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * mm * kk * nn)
-            shapes.append(row)
-            print("  k1", json.dumps(row))
-    # reported at the scheduler's decode rows, the path generate runs
-    dec = [r for r in shapes if f" M={LANES} " in r["shape"]]
+    shapes = []
+    for model, (dm, qkv_n, o_k, ff, rows) in K1_WIDTHS.items():
+        for m in rows:
+            shapes += k1_rows(torch, timer, rand, model, m, dm, qkv_n, o_k,
+                              ff, k1_tol)
+    k1_determinism(torch, rand)
+
+    def k1_entry(model, m, work):
+        sel = [r for r in shapes
+               if r["model"] == model and r["shape"].split()[1] == f"M={m}"]
+        return dict(
+            work=work,
+            max_abs_err=max(r["max_abs_err"] for r in sel),
+            max_row_err=max(r["max_row_err"] for r in sel), tol=k1_tol,
+            ms=sum(r["ms"] for r in sel),
+            wrapper_ms=sum(r["wrapper_ms"] for r in sel),
+            plain_ms=sum(r["plain_ms"] for r in sel),
+            bound_ms=sum(r["bound_ms"] for r in sel),
+            bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in sel)
+                      else "operations"),
+            library_ms=sum(r["library_ms"] for r in sel),
+            regime=sel[0]["regime"], deterministic=True)
+
+    five = ("five projections: qkv, o, gate, up+silu gate, "
+            "down+residual (+rmsnorm pass)")
+    # the decode regime at the scheduler's rows, the path generate runs
     results["k1_matmul"] = dict(
-        work=f"one decoder block's five projections at decode (M={LANES}): "
-             f"qkv, o, gate, up+silu gate, down+residual (+rmsnorm pass); "
-             f"also checked at M={BATCH}, 1024 and {LANES * CHUNK}",
-        max_abs_err=max(r["max_abs_err"] for r in shapes),
-        max_row_err=max(r["max_row_err"] for r in shapes), tol=k1_tol,
-        ms=sum(r["ms"] for r in dec),
-        wrapper_ms=sum(r["wrapper_ms"] for r in dec),
-        plain_ms=sum(r["plain_ms"] for r in dec),
-        bound_ms=sum(r["bound_ms"] for r in dec),
-        bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in dec)
-                  else "operations"),
-        library_ms=sum(r["library_ms"] for r in dec),
+        k1_entry("granite", LANES,
+                 f"granite-3-8b's {five} at decode (M={LANES}); every "
+                 f"shape of both models is in 'shapes'; bitwise the same "
+                 f"twice, and row 0 unchanged when the other rows change"),
         shapes=shapes)
+    results["k1_matmul_gemma2_m8"] = k1_entry(
+        "gemma2", LANES, f"gemma2-27b's {five} at decode (M={LANES})")
+    results["k1_matmul_m512"] = k1_entry(
+        "gemma2", LANES * CHUNK,
+        f"gemma2-27b's {five} at a scheduler chunk (M={LANES * CHUNK}), "
+        f"the operations regime")
+    results["k1_matmul_m8320"] = k1_entry(
+        "gemma2", G2_BATCH * G2_PROMPT,
+        f"gemma2-27b's {five} at the fixed loop's prefill "
+        f"(M={G2_BATCH * G2_PROMPT})")
 
     # K1 row-norm pass at the same rows: each row within 1 bf16 ulp of its
     # scale; reported at the scheduler's decode rows
@@ -968,12 +1056,6 @@ def serve_full(torch):
 # gemma2-27b: the local and softcap variants of K4, K5 and K6, and K7
 # ---------------------------------------------------------------------------
 
-# gemma2-27b's attention (src/repro_torch/configs/gemma2_27b.py)
-G2_H, G2_KV, G2_HD, G2_WINDOW, G2_SOFTCAP = 32, 16, 128, 4096, 50.0
-# phase 5: the fixed loop's batch, prompt (past the 4096 window, so K4's
-# window and the local ring's wrap both run) and new tokens; the
-# scheduler's requests, the first of them with the long prompt
-G2_BATCH, G2_PROMPT, G2_NEW, G2_REQ = 2, 4160, 16, 8
 
 
 def _sdpa_ms(torch, timer, q, k, v, mask=None, causal=False):
@@ -1063,6 +1145,28 @@ def check_gemma2_kernels(torch, timer):
         library_ms=_sdpa_ms(torch, timer, q, k, v, mask=lmask),
         library_note="SDPA with the local window as a bool mask, no "
                      "softcap, heads repeated")
+    # K4 global + softcap: gemma2's global layers at the same prefill
+    gvar = dict(kind="global", softcap=sc)
+    got = ops.flash_attention(q, k, v, **gvar)
+    want = ref.flash_attention_ref(q, k, v, **gvar)
+    err, abs_err = row_err(got, want), max_err(got, want)
+    del got, want
+    require(err <= 4 * eps_bf16, f"K4 global/softcap at S={s}: a row is "
+                                 f"off by {err:.3e} of its scale")
+    t_b, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                    4 * b * H * hd * s * (s + 1) / 2)
+    results["k4_flash_prefill_global_softcap"] = dict(
+        work=f"causal prefill softcap={sc} B={b} S={s} H={H} KV={KV} "
+             f"hd={hd}",
+        max_abs_err=abs_err, max_row_err=err, tol=4 * eps_bf16,
+        ms=timer(lambda: ops.flash_attention(q, k, v, **gvar), reps=3),
+        wrapper_ms=timer.wall(lambda: ops.flash_attention(q, k, v, **gvar),
+                              reps=3),
+        plain_ms=timer(lambda: ref.flash_attention_ref(q, k, v, **gvar),
+                       reps=3),
+        bound_ms=t_b, bound_by=by,
+        library_ms=_sdpa_ms(torch, timer, q, k, v, causal=True),
+        library_note="SDPA causal, no softcap, heads repeated")
     del q, k, v, lmask
     torch.cuda.empty_cache()
 
@@ -1572,6 +1676,12 @@ def serve_gemma2(torch):
 SOURCES = {
     "k1_matmul": ("matmul", "src/repro_torch/csrc/matmul.cu",
                   "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_gemma2_m8": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                            "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_m512": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_m8320": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                        "src/repro/kernels/matmul.py:293"),
     "k1_rmsnorm": ("rmsnorm", "src/repro_torch/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:180"),
     "k2_int8_matmul": ("int8_matmul", "src/repro_torch/csrc/matmul.cu",
@@ -1594,6 +1704,10 @@ SOURCES = {
                           "src/repro/kernels/flash_attention.py:563"),
     "k4_flash_prefill_local_softcap": (
         "flash_attention:local+softcap",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
+    "k4_flash_prefill_global_softcap": (
+        "flash_attention:softcap",
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:331"),
     "k5_decode_partials_softcap": (
@@ -1626,6 +1740,9 @@ def main() -> int:
     libs = _cuda.build_all()
     print(f"card: {card}; built {sorted(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, so in libs.items():   # registers, shared memory, spills
+        for line in _cuda.ptxas_report(so):
+            print(f"  ptxas {name}: {line}")
 
     timer = Timer(torch)
     kernels = check_kernels(torch, timer)

@@ -3,22 +3,30 @@
 // same decode over a paged KV cache.
 //
 // K4 replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
-// (_prefill_kernel).  One block per (batch, q head, 64-row q tile), four
-// warps of 16 q rows each, looping over 64-slot KV tiles with the running
-// (m, l, acc) in fp32, under the causal mask (query row i attends slots
-// <= i).  q head h reads kv head h / (H / KV): the grouped K/V are never
-// repeated.  Scores and P.V run on the tensor cores (WMMA
-// bf16, fp32 accumulation); P is rounded to bf16 for P.V, the usual flash
-// trade, which the tests and chip_smoke.py bound by a stated tolerance.
-// What bounds it: at S = 256 the causal work is small and each K/V tile
-// is re-read by the 4 q tiles of a head, so launch and latency dominate;
-// at long S it is bound by tensor-core operations.  The design keeps the
-// S x S scores out of device memory and the causal tile loop stops at the
-// diagonal, so no masked-out tile is loaded.
+// (_prefill_kernel), in the shape of FlashAttention-3.  One block per
+// (q head, batch, 128-row q tile), the longest tiles first: a producer
+// warpgroup (one thread issuing TMA, its registers handed to the
+// consumers by setmaxnreg) loads the Q tile once and streams 128-slot K
+// and V tiles through a TMA ring (full/empty mbarriers; 3 stages at hd
+// 128, 4 below, as many as fit beside Q in shared memory); two consumer
+// warpgroups of 64 q rows each compute S = Q K^T with wgmma (Q and K
+// K-major from shared memory), run the online softmax in registers on the
+// accumulator's fragments (row max and sum over the four threads of a
+// quad), round P to bf16 in registers and feed it as wgmma's register A
+// operand against V (MN-major, the transpose bit), rescaling the running
+// output by alpha in registers; the output is written once.  Under the
+// causal mask query row i attends slots <= i; q head h reads kv head h /
+// (H / KV), so the grouped K/V are never repeated.  Swizzled rows of 32,
+// 64 or 128 bytes serve head dims 16, 32, 64 and 128.  What bounds it:
+// at S = 256 the causal work is small, so launch and latency dominate; at
+// long S it is bound by tensor-core operations and the softmax's exps.
+// The S x S scores never reach device memory and the kv loop stops at the
+// diagonal, so no tile past it is loaded; masks are evaluated only on
+// tiles that meet the diagonal, the end of the keys or the window's edge.
 // Variants (gemma2): `window` > 0 is the 'local' kind, query row i
 // attending keys i - window < k <= i, and the kv loop starts at the first
-// 64-slot tile that meets the window of the q tile's first row, so a tile
-// before every row's window is never loaded; a later row whose first
+// 128-slot tile that meets the window of the q tile's first row, so a
+// tile before every row's window is never loaded; a later row whose first
 // visited tile is wholly masked adds exactly nothing (p = 0 there, and
 // alpha = exp(min(m - m_new, 0)) keeps o and l at 0 until its first live
 // key).  `softcap` > 0 caps the scaled scores, s = softcap * tanh(s /
@@ -54,10 +62,11 @@
 // reading the cache, as a tile past the position is.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -66,38 +75,31 @@ constexpr float NEG = -1e30f;
 constexpr int THREADS = 128;
 
 // ---------------------------------------------------------------------------
-// K4: prefill
+// K4: prefill, wgmma + TMA
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
+constexpr int BQ = 128;   // q rows per block: two consumer warpgroups of 64
+constexpr int BKV = 128;  // kv slots per tile
+// two consumer warpgroups and a producer warpgroup, whose registers go to
+// the consumers (240 a thread; 168 without the rebalancing)
+constexpr int PREFILL_THREADS = 3 * 128;
+constexpr float LOG2E = 1.4426950408889634f;
 
+// Shared-memory plan for head dim HD: rows of SPAN bytes (the swizzle
+// span, at most 128), CH column boxes of SPAN / 2 elements per row.
 template <int HD>
-struct PrefillSmem {
-  static constexpr int QLD = HD + 8;                   // bf16 rows, 16 B mult
-  static constexpr int SLD = (HD > BKV ? HD : BKV) + 4;  // fp32 scratch
-  static constexpr int PLD = BKV + 8;
-  static constexpr size_t Q = BQ * QLD * sizeof(bf16);
-  static constexpr size_t KV = BKV * QLD * sizeof(bf16);
-  static constexpr size_t S = 4 * 16 * SLD * sizeof(float);
-  static constexpr size_t P = 4 * 16 * PLD * sizeof(bf16);
-  static constexpr size_t BYTES = Q + 2 * KV + S + P;
+struct PrefillLayout {
+  static constexpr int SPAN = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int CH = HD * 2 / SPAN;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BKV * HD * 2;
+  static constexpr int STAGE = 2 * KV_BYTES;  // K, then V
+  // as many K/V stages as fit beside Q (3 at HD 128), at most 4
+  static constexpr int STAGES_FIT = (232448 - 2048 - Q_BYTES) / STAGE;
+  static constexpr int STAGES = STAGES_FIT < 4 ? STAGES_FIT : 4;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE +
+                              (1 + 2 * STAGES) * 8;
 };
-
-// copy `rows` rows of HD bf16 (row r at src + r * stride) into shared rows
-// of ld elements, zero-filling rows at or past `valid`
-template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
-                                          size_t stride, int rows,
-                                          int valid) {
-  constexpr int CH = HD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * CH; c += THREADS) {
-    int r = c / CH, cc = (c % CH) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * stride + cc);
-    *reinterpret_cast<uint4*>(dst + r * ld + cc) = v;
-  }
-}
 
 // key kpos is attended by query row qrow: stored, causal, and inside the
 // window ('local', window > 0)
@@ -106,123 +108,266 @@ __device__ __forceinline__ bool prefill_live(int kpos, int qrow, int Skv,
   return kpos < Skv && kpos <= qrow && (window == 0 || qrow - kpos < window);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-               int Skv, int H, int KV, float scale, int window,
-               float softcap) {
-  using L = PrefillSmem<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::Q + L::KV);
-  float* Ss = reinterpret_cast<float*>(smem + L::Q + 2 * L::KV);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::Q + 2 * L::KV + L::S);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+// softcap * tanh(x / softcap).  The division is IEEE-rounded without the
+// division routine: with r = RN(1 / softcap) rounded once per thread, q0 =
+// RN(x r) and the exact residual x - softcap q0 (an fma), RN(q0 + residual
+// r) is the correctly rounded x / softcap for every x of normal magnitude
+// (Markstein's theorem), in three FMA-pipe instructions.  tanh(y) = 1 - 2
+// / (exp(2 y) + 1) with the fast exp and division (absolute error about
+// 1e-7, far inside the bf16 rounding of P).  The softcap is on every
+// score, and tanhf and the division routine would triple the special-
+// function work of the tile.
+__device__ __forceinline__ float softcap_score(float x, float softcap,
+                                               float rcp) {
+  const float q0 = __fmul_rn(x, rcp);
+  const float y = fmaf(fmaf(-softcap, q0, x), rcp, q0);
+  return softcap * (1.0f - __fdividef(2.0f, __expf(2.0f * y) + 1.0f));
+}
+
+// S [64 x BKV] = Q_wg [64 x HD] . K^T for warpgroup wg, both operands
+// K-major in shared memory; issued and committed, not waited for
+template <int HD, int SPAN>
+__device__ __forceinline__ void issue_scores(float (&sc)[BKV / 2],
+                                             const uint8_t* Qs,
+                                             const uint8_t* ks, int wg) {
+  constexpr int KSTEPS_PER_BOX = SPAN / 32;  // k16 steps along one row
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int c = kk / KSTEPS_PER_BOX, w = kk % KSTEPS_PER_BOX;
+    const uint64_t dq = make_desc(
+        Qs + c * BQ * SPAN + wg * 64 * SPAN + w * 32, 16, 8 * SPAN, SPAN);
+    const uint64_t dk = make_desc(ks + c * BKV * SPAN + w * 32, 16, 8 * SPAN,
+                                  SPAN);
+    wgmma_ss<0, 0>(sc, dq, dk, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O [64 x HD] += P [64 x BKV] . V with P in registers (bf16 pairs in the
+// accumulator's fragment layout, which is the A operand's) and V MN-major;
+// issued and committed, not waited for
+template <int HD, int SPAN>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pa)[BKV / 16][4],
+                                         const uint8_t* vs) {
+  wgmma_fence();
+  fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    const uint64_t dv = make_desc(vs + kk * 16 * SPAN, BKV * SPAN, 8 * SPAN,
+                                  SPAN);
+    wgmma_rs<1>(o, pa[kk], dv, 1);
+  }
+  wgmma_commit();
+}
+
+// P rounded to bf16 pairs: the A fragment of k16 step kk is the
+// accumulator's elements 8 kk .. 8 kk + 7
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4],
+                                       const float (&sc)[BKV / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      pa[kk][q] = pack_bf16(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1]);
+}
+
+// One kv tile's online softmax on this thread's accumulator fragments
+// (rows r0 and r0 + 8; element 4 j + e at key k0 + 8 j + (e & 1) of row
+// r0 + 8 (e >> 1)): scale, softcap, mask (EDGE tiles only), the row max
+// over the quad, alpha, p = exp(s - m_new) in place, and the running m
+// and l.  Masked keys give p = 0 exactly.
+template <bool EDGE, bool SOFTCAP, int N>
+__device__ __forceinline__ void tile_softmax(float (&sc)[N], float (&alpha)[2],
+                                             float (&m_run)[2],
+                                             float (&l_run)[2], int k0,
+                                             int r0, int Skv, int window,
+                                             float scale, float softcap,
+                                             float softcap_rcp) {
+  uint64_t live = ~0ull;  // bit 4 j + e: fragment element 4 j + e
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * scale;
+      if (SOFTCAP) x = softcap_score(x, softcap, softcap_rcp);
+      if (EDGE && !prefill_live(k0 + 8 * j + (e & 1), r0 + 8 * (e >> 1),
+                                Skv, window)) {
+        x = NEG;
+        live &= ~(1ull << (4 * j + e));
+      }
+      sc[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float mneg[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    // guard fully masked rows: exp(_NEG - _NEG) would be 1
+    alpha[r] = expf(fminf(m_run[r] - m_new, 0.0f));
+    m_run[r] = m_new;
+    mneg[r] = -m_new * LOG2E;
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2f(fmaf(sc[4 * j + e], LOG2E, mneg[e >> 1]));
+      if (EDGE && !((live >> (4 * j + e)) & 1)) p = 0.0f;
+      psum[e >> 1] += p;
+      sc[4 * j + e] = p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+    psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+    l_run[r] = l_run[r] * alpha[r] + psum[r];
+  }
+}
+
+template <int HD, bool SOFTCAP>
+__global__ void __launch_bounds__(PREFILL_THREADS, 1)
+prefill_kernel(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               bf16* __restrict__ out, int Sq, int Skv, int H, int KV,
+               int n_qt, float scale, int window, float softcap) {
+  using L = PrefillLayout<HD>;
+  constexpr int SPAN = L::SPAN, COLS = SPAN / 2;
+  constexpr int KV_STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = smem;
+  uint8_t* KVs = smem + L::Q_BYTES;
+  uint64_t* qbar =
+      reinterpret_cast<uint64_t*>(KVs + KV_STAGES * L::STAGE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + KV_STAGES;
+
+  // the longest q tiles (most kv tiles under the causal mask) start first
+  const int qt = n_qt - 1 - blockIdx.z, h = blockIdx.x, b = blockIdx.y;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
+  const int kv_end = min(Skv, q0 + BQ);  // no tile past the diagonal
+  // no tile before the window of the q tile's first row
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV
+                                        : 0;
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = lane / 2, half = lane % 2;  // this lane's row and half
-  const int qrow = q0 + warp * 16 + r;  // also its position (causal)
-  float* Sw = Ss + warp * 16 * L::SLD;
-  bf16* Pw = Ps + warp * 16 * L::PLD;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
-  load_rows<HD>(Qs, L::QLD, q + ((size_t)b * Sq + q0) * q_stride + h * HD,
-                q_stride, BQ, Sq - q0);
+  if (warp >= 8) {  // producer: Q once, then K and V tiles into the ring
+    setmaxnreg_dec<24>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(qbar, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < L::CH; ++c)
+        tma_load_3d(Qs + c * BQ * SPAN, &map_q, qbar, h * HD + c * COLS, q0,
+                    b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % KV_STAGES, kv0 = kv_begin + i * BKV;
+        mbar_wait(&empty[s], ((i / KV_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::STAGE);
+        uint8_t* ks = KVs + s * L::STAGE;
+#pragma unroll
+        for (int c = 0; c < L::CH; ++c) {
+          tma_load_3d(ks + c * BKV * SPAN, &map_k, &full[s],
+                      kvh * HD + c * COLS, kv0, b);
+          tma_load_3d(ks + L::KV_BYTES + c * BKV * SPAN, &map_v, &full[s],
+                      kvh * HD + c * COLS, kv0, b);
+        }
+      }
+    }
+    return;
+  }
 
-  float m = NEG, l = 0.0f;
+  // consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64); in
+  // the accumulator fragments this thread holds rows r0 and r0 + 8, and of
+  // each 8-column block j the columns 8 j + 2 (lane % 4) + {0, 1}
+  setmaxnreg_inc<240>();
+  const int wg = warp / 4;
+  const int qw0 = q0 + wg * 64;
+  const int r0 = qw0 + (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float softcap_rcp = SOFTCAP ? __frcp_rn(softcap) : 0.0f;
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.0f, 0.0f};
   float o[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
 
-  const int kv_end = min(Skv, q0 + BQ);  // no tile past the diagonal
-  // no tile before the window of the q tile's first row
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BKV) {
-    __syncthreads();  // previous tile fully consumed
-    const bf16* kb = k + ((size_t)b * Skv + kv0) * kv_stride + kvh * HD;
-    const bf16* vb = v + ((size_t)b * Skv + kv0) * kv_stride + kvh * HD;
-    load_rows<HD>(Ks, L::QLD, kb, kv_stride, BKV, Skv - kv0);
-    load_rows<HD>(Vs, L::QLD, vb, kv_stride, BKV, Skv - kv0);
-    __syncthreads();
+  // per kv tile: S = Q K^T, the online softmax in registers, P rounded to
+  // bf16 in registers, O += P V.  (Issuing tile i + 1's scores before tile
+  // i's P.V, FlashAttention-3's overlap within a warpgroup, keeps S, P and
+  // O live at once; ptxas serialized the products (C7514), with the
+  // registers rebalanced too, and the kernel ran slower.)
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % KV_STAGES, kv0 = kv_begin + i * BKV;
+    mbar_wait(&full[s], (i / KV_STAGES) & 1);
+    const uint8_t* ks = KVs + s * L::STAGE;
+    float sc[BKV / 2];
+    issue_scores<HD, SPAN>(sc, Qs, ks, wg);
+    wgmma_wait<0>();
+    fence_regs(sc);
 
-    // S_w [16 x 64] = Q_w [16 x HD] . K^T
+    // masks only on tiles that meet the diagonal, the end of the keys or
+    // the window's lower edge of some row of this warpgroup
+    const bool edge = kv0 + BKV - 1 > qw0 || kv0 + BKV > Skv ||
+                      (window > 0 && qw0 + 63 - kv0 >= window);
+    float alpha[2];
+    if (edge)
+      tile_softmax<true, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq, r0, Skv,
+                                  window, scale, softcap, softcap_rcp);
+    else
+      tile_softmax<false, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq, r0,
+                                   Skv, window, scale, softcap, softcap_rcp);
 #pragma unroll
-    for (int j = 0; j < BKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + (warp * 16) * L::QLD + kk, L::QLD);
-        wmma::load_matrix_sync(fb, Ks + (j * 16) * L::QLD + kk, L::QLD);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Sw + j * 16, acc, L::SLD, wmma::mem_row_major);
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
     }
+    uint32_t pa[BKV / 16][4];
+    pack_p(pa, sc);
+    issue_pv<HD, SPAN>(o, pa, ks + L::KV_BYTES);
+    wgmma_wait<0>();
+    fence_regs(o);
     __syncwarp();
-
-    // online softmax on this lane's 32 columns of its row
-    float s[BKV / 2];
-    float mx = NEG;
-#pragma unroll
-    for (int c = 0; c < BKV / 2; ++c) {
-      const int kpos = kv0 + half * (BKV / 2) + c;
-      float x = Sw[r * L::SLD + half * (BKV / 2) + c] * scale;
-      if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-      s[c] = prefill_live(kpos, qrow, Skv, window) ? x : NEG;
-      mx = fmaxf(mx, s[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    // guard fully masked rows: exp(_NEG - _NEG) would be 1
-    const float alpha = expf(fminf(m - m_new, 0.0f));
-    float psum = 0.0f;
-#pragma unroll
-    for (int c = 0; c < BKV / 2; ++c) {
-      const int kpos = kv0 + half * (BKV / 2) + c;
-      const float p =
-          prefill_live(kpos, qrow, Skv, window) ? expf(s[c] - m_new) : 0.0f;
-      psum += p;
-      Pw[r * L::PLD + half * (BKV / 2) + c] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();
-
-    // PV_w [16 x HD] = P_w [16 x 64] . V, then o = o * alpha + PV_w
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Pw + kk, L::PLD);
-        wmma::load_matrix_sync(fb, Vs + kk * L::QLD + n * 16, L::QLD);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Sw + n * 16, acc, L::SLD, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i)
-      o[i] = o[i] * alpha + Sw[r * L::SLD + half * (HD / 2) + i];
-    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  if (qrow < Sq) {
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-    bf16* orow = out + ((size_t)b * Sq + qrow) * q_stride + h * HD +
-                 half * (HD / 2);
+  const size_t q_stride = (size_t)H * HD;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) orow[i] = __float2bfloat16(o[i] * inv);
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= Sq) continue;
+    const float inv = 1.0f / fmaxf(l_run[r], 1e-30f);
+    bf16* orow = out + ((size_t)b * Sq + row) * q_stride + h * HD + cq;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                o[4 * j + 2 * r + 1] * inv);
   }
 }
 
@@ -390,16 +535,45 @@ template <int HD>
 int launch_prefill(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Skv, int H, int KV, float scale,
                    int window, float softcap, cudaStream_t st) {
-  const size_t bytes = PrefillSmem<HD>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  prefill_kernel<HD><<<grid, THREADS, bytes, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, KV,
-      scale, window, softcap);
+  using L = PrefillLayout<HD>;
+  // q [B, Sq, H * HD] and k, v [B, Skv, KV * HD] as 3-D maps, so a box
+  // past a sequence's end is zero-filled rather than read from the next
+  CUtensorMap mq, mk, mv;
+  const uint32_t box_q[3] = {L::SPAN / 2, BQ, 1};
+  const uint32_t box_kv[3] = {L::SPAN / 2, BKV, 1};
+  const uint64_t dims_q[3] = {(uint64_t)H * HD, (uint64_t)Sq, (uint64_t)B};
+  const uint64_t strides_q[2] = {(uint64_t)H * HD * 2,
+                                 (uint64_t)Sq * H * HD * 2};
+  const uint64_t dims_kv[3] = {(uint64_t)KV * HD, (uint64_t)Skv,
+                               (uint64_t)B};
+  const uint64_t strides_kv[2] = {(uint64_t)KV * HD * 2,
+                                  (uint64_t)Skv * KV * HD * 2};
+  int e = make_map(&mq, q, 3, dims_q, strides_q, box_q, L::SPAN);
+  if (!e) e = make_map(&mk, k, 3, dims_kv, strides_kv, box_kv, L::SPAN);
+  if (!e) e = make_map(&mv, v, 3, dims_kv, strides_kv, box_kv, L::SPAN);
+  if (e) return e;
+  static int smem_set = 0;
+  if (!smem_set) {
+    e = (int)cudaFuncSetAttribute(prefill_kernel<HD, false>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  L::SMEM);
+    if (!e)
+      e = (int)cudaFuncSetAttribute(
+          prefill_kernel<HD, true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (e) return e;
+    smem_set = 1;
+  }
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  dim3 grid(H, B, n_qt);
+  if (softcap > 0.0f)
+    prefill_kernel<HD, true><<<grid, PREFILL_THREADS, L::SMEM, st>>>(
+        mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KV, n_qt, scale,
+        window, softcap);
+  else
+    prefill_kernel<HD, false><<<grid, PREFILL_THREADS, L::SMEM, st>>>(
+        mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KV, n_qt, scale,
+        window, softcap);
   return (int)cudaGetLastError();
 }
 

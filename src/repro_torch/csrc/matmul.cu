@@ -1,26 +1,45 @@
-// K1 on Hopper: blocked bf16 GEMM with a fused epilogue, and the
-// fixed-order row-norm pass that completes its rmsnorm output.
+// K1 on Hopper: bf16 GEMM with a fused epilogue, and the fixed-order
+// row-norm pass that completes its rmsnorm output.
 //
 // Replaces: src/repro/kernels/matmul.py::matmul_pallas (_matmul_kernel),
 // float path — C = epilogue(A @ B) with an fp32 accumulator, the epilogue
 // applied in the store phase so the accumulator never reaches device
-// memory.
+// memory.  A [M, K] and B [K, N] are row-major bf16, K % 8 == 0 and N % 8
+// == 0 (TMA needs 16-byte row strides); the wrapper checks this and
+// raises otherwise.  Tiles past an edge are zero-filled by TMA.
 //
-// What bounds it: at decode (M = 4) every weight byte is read once and
-// used for 4 rows, far below the ~295 flop/byte the card needs to be
-// compute bound, so it is bound by the bytes of B.  At prefill (M = 1024)
-// the big projections are bound by tensor-core operations.
+// The regime is chosen by the shape alone (kernels/matmul.py::k1_plan
+// mirrors it and picks the split count):
 //
-// Design: one block per (64-column, BM-row) output tile, four warps, the
-// K loop inside the block (blocks run in parallel, so the TPU's
-// sequential K grid axis becomes a loop).  A and B tiles stream through
-// shared memory in a two-stage cp.async ring so the next tile's loads
-// overlap this tile's tensor-core work (WMMA bf16 16x16x16 with fp32
-// accumulation).  Small M takes BM = 16 so decode wastes less of each
-// tensor-core tile.  The epilogue runs on the fp32 accumulator tile in
-// shared memory before the single store: silu(g) * u with g read from
-// operand2, then the residual add, then the cast to bf16 (the one output
-// type the serving path stores).
+// Operations regime (M >= 64: prefill, scheduler chunks).  Bound by the
+// tensor cores.  One block per 128 x BN output tile (BN 128, 192 or 256,
+// the width of least estimated time for the shape), in groups of 8 row
+// tiles so that a wave of blocks shares its A and B tiles in L2.  A
+// producer warp keeps TMA loads of A [128 x 64] and B [64 x BN] in flight
+// in a ring of 4 to 7 stages (full/empty mbarrier pairs); two consumer
+// warpgroups each issue wgmma m64nBNk16 on 64 rows, keeping one product
+// group in flight while the next stage lands.  B is [K, N] with N
+// contiguous, so it is read MN-major (the descriptor's transpose bit).
+// The width changes no element's summation order: every element sums the
+// same k16 products in the same order.  The epilogue runs from the
+// accumulator registers: silu(g) * x with g from operand2, then the
+// residual, then the bf16 store, the gate and residual pairs of 8 column
+// blocks loaded ahead of their stores.
+//
+// Bytes regime (M < 64: decode).  Bound by the weight stream, so the
+// operands are swapped: C^T = B^T A^T, with weight columns on wgmma's
+// 64-row side (MN-major A) and the few activation rows as its n (8, 16,
+// 32 or 64, zero-filled past M), so no tensor-core row is wasted on
+// padding the weight.  Each block streams 128 columns (two 64-column
+// boxes, 256 contiguous bytes of each weight row) x a range of K through
+// a 4-stage TMA ring of 16 KB weight tiles (plus the activation tile).  K
+// is split so that the grid reaches at least two blocks per SM at every
+// decode projection; each split writes its fp32 partial to a workspace,
+// and the last split of a column block to arrive (an arrival counter per
+// block, reset by that block) folds the partials in ascending split order
+// (the reference's _rank_order_sum, K7's rule) before the epilogue.  No
+// value atomics: an element's summation order depends only on (regime,
+// N, K), and a row's result never depends on the other rows.
 //
 // rmsnorm: a full row of N = 4096 does not fit one block at a useful
 // tile height, so the GEMM stores the value (residual already added) and
@@ -29,10 +48,6 @@
 // so a fused (value, normed) is bitwise store-then-rmsnorm on the card by
 // construction.
 //
-// Shapes it takes: A [M, K], B [K, N] row-major bf16, K % 8 == 0 and
-// N % 8 == 0 (every 16-byte chunk is wholly inside or outside the matrix);
-// the wrapper checks this and raises otherwise.
-//
 // K2 on Hopper: the int8 path of the same matmul_pallas (a_scale,
 // b_scale): int8 A [M, K] x int8 B [K, N] into an int32 accumulator on the
 // int8 tensor cores (WMMA signed char 16x16x16), then in the store phase
@@ -40,8 +55,8 @@
 // with explicit round-to-nearest multiplies so the compiler cannot fuse a
 // stage into its neighbour -- then the gate or the residual, then a bf16
 // or fp32 store.  Integer accumulation is exact, so the fp32-out product
-// is bitwise equal to its plain version.  The same cp.async two-stage
-// ring as K1; shared tiles are cut in 16-byte chunks (A along k, B along
+// is bitwise equal to its plain version.  A two-stage cp.async ring
+// (the design K1 had before wgmma and TMA); shared tiles are cut in 16-byte chunks (A along k, B along
 // n) so every fragment pointer is 256-bit aligned.  What bounds it: at
 // decode the int8 weight bytes (half of K1's); at M = 512 the tensor-core
 // operations.  The up GEMM's (q, scale) output needs the absmax of the
@@ -56,25 +71,25 @@
 // scale = max(absmax, 1e-12) * fl(1/127) (XLA turns the reference's
 // division by the constant 127 into that multiply), q = clip(rint(x /
 // scale), +-127) with an IEEE division and round-half-even, so it is
-// bitwise its plain version and the reference.  Bound by bytes: each element read twice
-// from L2-resident rows, written once as int8.
+// bitwise its plain version and the reference.  Bound by bytes: each
+// element read twice from L2-resident rows, written once as int8.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 #include <math.h>
 
+#include "hopper.cuh"
+
 using namespace nvcuda;
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
+// K2's tiles (WMMA s8)
 constexpr int BN = 64;
-constexpr int BK = 32;
 constexpr int THREADS = 128;
-constexpr int A_LD = BK + 8;  // padded rows: 80 B, a multiple of 16 B
-constexpr int B_LD = BN + 8;  // 144 B
-constexpr int C_LD = BN + 4;  // fp32 accumulator tile
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
@@ -93,109 +108,437 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int BM>
-__device__ __forceinline__ void load_tiles(bf16 (*As)[A_LD], bf16 (*Bs)[B_LD],
-                                           const bf16* A, const bf16* B,
-                                           int M, int N, int K, int m0,
-                                           int n0, int k0) {
-  const int tid = threadIdx.x;
-  for (int c = tid; c < BM * BK / 8; c += THREADS) {
-    int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-    int gr = m0 + r, gc = k0 + cc;
-    bool ok = gr < M && gc < K;
-    cp_async16(&As[r][cc], ok ? A + (size_t)gr * K + gc : A, ok);
+// ---------------------------------------------------------------------------
+// K1: bf16 GEMM, wgmma + TMA
+// ---------------------------------------------------------------------------
+
+// silu(g) = g / (1 + exp(-g)) with the fast exp and division (relative
+// error about 1e-6, far inside the bf16 store, in a fraction of the
+// instructions of expf and an IEEE division on every gated element)
+__device__ __forceinline__ float silu(float g) {
+  return __fdividef(g, 1.0f + __expf(-g));
+}
+
+// x -> silu(g) * x (gate), then + r (residual), at fp32
+__device__ __forceinline__ float k1_epilogue(float x, const bf16* residual,
+                                             const bf16* operand2, size_t o,
+                                             int gate_silu) {
+  if (gate_silu) x = silu(__bfloat162float(operand2[o])) * x;
+  if (residual) x += __bfloat162float(residual[o]);
+  return x;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// operations regime: 128 x BN tiles, BN in {128, 192, 256} (k1_plan
+// picks the width)
+constexpr int OPS_BM = 128, OPS_BK = 64;
+constexpr int OPS_GROUP_M = 8;              // row tiles per raster group
+constexpr int OPS_THREADS = 2 * 128 + 32;   // two consumer warpgroups + a
+                                            // producer warp
+constexpr int OPS_A_BYTES = OPS_BM * OPS_BK * 2;     // 16 KB
+constexpr int OPS_B_CHUNK = OPS_BK * 64 * 2;         // 8 KB: 64 columns
+
+template <int BN>
+struct OpsLayout {
+  static constexpr int STAGE = OPS_A_BYTES + BN / 64 * OPS_B_CHUNK;
+  // as many stages as fit beside the barriers (4 at BN 256, 7 at 128)
+  static constexpr int STAGES_FIT = (232448 - 2048) / STAGE;
+  static constexpr int STAGES = STAGES_FIT < 8 ? STAGES_FIT : 8;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + (2 * STAGES + 1) * 8;
+};
+
+// the operations regime's epilogue tiles: [128 x BN] bf16 as BN / 64
+// boxes of [128 rows x 64 columns], 128-byte swizzled like every TMA tile
+template <int BN>
+struct OpsEpilogue {
+  static constexpr int BOX = OPS_BM * 128;
+  static constexpr int TILE = BN / 64 * BOX;
+  // byte offset of columns (c, c + 1), c = 8 j + 2 q, of tile row r
+  static __device__ __forceinline__ uint32_t offset(int r, int j, int q) {
+    return (j / 8) * BOX + r * 128 + (((j % 8) ^ (r % 8)) << 4) + 4 * q;
   }
-  for (int c = tid; c < BK * BN / 8; c += THREADS) {
-    int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-    int gr = k0 + r, gc = n0 + cc;
-    bool ok = gr < K && gc < N;
-    cp_async16(&Bs[r][cc], ok ? B + (size_t)gr * N + gc : B, ok);
+};
+
+template <int BN>
+__global__ void __launch_bounds__(OPS_THREADS, 1)
+k1_ops_kernel(const __grid_constant__ CUtensorMap map_a,
+              const __grid_constant__ CUtensorMap map_b,
+              const __grid_constant__ CUtensorMap map_out,
+              const __grid_constant__ CUtensorMap map_gate,
+              const __grid_constant__ CUtensorMap map_res, int M, int N,
+              int K, int gate_silu, int has_residual) {
+  using L = OpsLayout<BN>;
+  using E = OpsEpilogue<BN>;
+  constexpr int STAGES = L::STAGES;
+  static_assert(3 * E::TILE <= STAGES * L::STAGE,
+                "the epilogue tiles reuse the ring");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * L::STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* epi = empty + STAGES;
+
+  // grouped raster: consecutive blocks walk OPS_GROUP_M row tiles, then
+  // the next BN columns
+  const int tiles_m = (M + OPS_BM - 1) / OPS_BM;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int per_group = OPS_GROUP_M * tiles_n;
+  const int group = blockIdx.x / per_group;
+  const int first_m = group * OPS_GROUP_M;
+  const int group_m = min(tiles_m - first_m, OPS_GROUP_M);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first_m + in_group % group_m) * OPS_BM;
+  const int n0 = (in_group / group_m) * BN;
+  const int ktiles = (K + OPS_BK - 1) / OPS_BK;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init(epi, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      tma_prefetch_map(&map_a);
+      tma_prefetch_map(&map_b);
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::STAGE);
+        uint8_t* st = smem + s * L::STAGE;
+        tma_load_2d(st, &map_a, &full[s], kt * OPS_BK, m0);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_load_2d(st + OPS_A_BYTES + c * OPS_B_CHUNK, &map_b, &full[s],
+                      n0 + 64 * c, kt * OPS_BK);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  const int wg = warp / 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint8_t* st = smem + s * L::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < OPS_BK / 16; ++kk) {
+      // A: K-major rows of 128 B; B: MN-major, 64-column blocks 8 KB apart
+      const uint64_t da = make_desc(st + wg * 64 * 128 + kk * 32, 16, 1024,
+                                    128);
+      const uint64_t db = make_desc(st + OPS_A_BYTES + kk * 16 * 128,
+                                    OPS_B_CHUNK, 1024, 128);
+      wgmma_ss<0, 1>(acc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue through shared memory: once both warpgroups are done with
+  // the ring, it holds the output tile, and the gate and residual tiles,
+  // loaded by TMA; the output leaves by TMA stores, so no global access
+  // of the epilogue is scattered
+  named_sync(1, 256);
+  uint8_t* t_out = smem;
+  const uint8_t* t_gate = smem + E::TILE;
+  const uint8_t* t_res = smem + 2 * E::TILE;
+  if (gate_silu || has_residual) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(epi, ((gate_silu != 0) + (has_residual != 0)) *
+                              E::TILE);
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c) {
+        if (gate_silu)
+          tma_load_2d(smem + E::TILE + c * E::BOX, &map_gate, epi,
+                      n0 + 64 * c, m0);
+        if (has_residual)
+          tma_load_2d(smem + 2 * E::TILE + c * E::BOX, &map_res, epi,
+                      n0 + 64 * c, m0);
+      }
+    }
+    mbar_wait(epi, 0);
+  }
+  // fragment 4 j + 2 h + c holds tile row r0 + 8 h, column 8 j + 2 (lane %
+  // 4) + c
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4, q = lane % 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t off = E::offset(r0 + 8 * h, j, q);
+      float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+      if (gate_silu) {
+        const __nv_bfloat162 g =
+            *reinterpret_cast<const __nv_bfloat162*>(t_gate + off);
+        x0 = silu(__low2float(g)) * x0;
+        x1 = silu(__high2float(g)) * x1;
+      }
+      if (has_residual) {
+        const __nv_bfloat162 r =
+            *reinterpret_cast<const __nv_bfloat162*>(t_res + off);
+        x0 += __low2float(r);
+        x1 += __high2float(r);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(t_out + off) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  fence_async_shared();
+  named_sync(1, 256);
+  if (threadIdx.x == 0) {  // rows past M and columns past N are clipped
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c)
+      tma_store_2d(&map_out, t_out + c * E::BOX, n0 + 64 * c, m0);
+    tma_store_wait();
   }
 }
 
-template <int BM, int WARPS_M>
-__global__ void __launch_bounds__(THREADS)
-matmul_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-              bf16* __restrict__ out, const bf16* __restrict__ residual,
-              const bf16* __restrict__ operand2, int M, int N, int K,
-              int gate_silu) {
-  constexpr int WARPS_N = 4 / WARPS_M;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int FM = WM / 16, FN = WN / 16;
-  constexpr int AB_BYTES = 2 * (BM * A_LD + BK * B_LD) * sizeof(bf16);
-  constexpr int C_BYTES = BM * C_LD * sizeof(float);
-  constexpr int SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  bf16(*As)[BM][A_LD] = reinterpret_cast<bf16(*)[BM][A_LD]>(smem);
-  bf16(*Bs)[BK][B_LD] = reinterpret_cast<bf16(*)[BK][B_LD]>(
-      smem + 2 * BM * A_LD * sizeof(bf16));
-  float(*Cs)[C_LD] = reinterpret_cast<float(*)[C_LD]>(smem);
+// bytes regime: blocks of 128 weight columns (two 64-column TMA boxes, so
+// each weight row is read 256 contiguous bytes at a time) and 64 k per
+// stage
+constexpr int DEC_BN = 128, DEC_BK = 64, DEC_STAGES = 4;
+constexpr int DEC_THREADS = 128 + 32;  // one consumer warpgroup + producer
+constexpr int DEC_W_BOX = DEC_BK * 64 * 2;        // 8 KB: 64 columns
+constexpr int DEC_W_BYTES = DEC_BN / 64 * DEC_W_BOX;  // 16 KB of weight
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+template <int NR>
+struct DecLayout {
+  static constexpr int X_BOX = NR * 128;  // [NR rows x 64 k] bf16
+  static constexpr int STAGE = DEC_W_BYTES + X_BOX;
+  static constexpr int SMEM = 1024 + DEC_STAGES * STAGE + 2 * DEC_STAGES * 8;
+};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+// first k tile of split s of `ktiles` tiles in `splits` contiguous ranges
+__host__ __device__ __forceinline__ int split_begin(int s, int ktiles,
+                                                    int splits) {
+  return (int)((long long)s * ktiles / splits);
+}
 
-  const int ktiles = (K + BK - 1) / BK;
-  load_tiles<BM>(As[0], Bs[0], A, B, M, N, K, m0, n0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < ktiles)
-      load_tiles<BM>(As[st ^ 1], Bs[st ^ 1], A, B, M, N, K, m0, n0,
-                     (kt + 1) * BK);
-    cp_async_commit();  // possibly empty group keeps the count uniform
-    cp_async_wait<1>();  // tile kt has landed
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], &As[st][wm * WM + i * 16][kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[st][kk][wn * WN + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+template <int NR>
+__global__ void __launch_bounds__(DEC_THREADS)
+k1_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
+                const __grid_constant__ CUtensorMap map_x,
+                float* __restrict__ partial, int* __restrict__ counters,
+                bf16* __restrict__ out, const bf16* __restrict__ residual,
+                const bf16* __restrict__ operand2, int M, int N, int K,
+                int splits, int gate_silu) {
+  __shared__ int last_split;
+  using L = DecLayout<NR>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DEC_STAGES * L::STAGE);
+  uint64_t* empty = full + DEC_STAGES;
+
+  const int n0 = blockIdx.x * DEC_BN, split = blockIdx.y;
+  const int ktiles = (K + DEC_BK - 1) / DEC_BK;
+  const int t0 = split_begin(split, ktiles, splits);
+  const int t1 = split_begin(split + 1, ktiles, splits);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DEC_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
     }
-    __syncthreads();  // stage st is refilled by the next iteration
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
   __syncthreads();
 
-  // store phase: accumulator tile -> shared memory -> epilogue -> one store
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      tma_prefetch_map(&map_w);
+      tma_prefetch_map(&map_x);
+      for (int t = t0; t < t1; ++t) {
+        const int i = t - t0, s = i % DEC_STAGES;
+        mbar_wait(&empty[s], ((i / DEC_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::STAGE);
+        uint8_t* st = smem + s * L::STAGE;
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(&Cs[wm * WM + i * 16][wn * WN + j * 16],
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN, c = idx % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M || gn >= N) continue;
-    const size_t o = (size_t)gm * N + gn;
-    float x = Cs[r][c];
-    if (gate_silu) {
-      float g = __bfloat162float(operand2[o]);
-      x = (g / (1.0f + expf(-g))) * x;
+        for (int c = 0; c < DEC_BN / 64; ++c)
+          tma_load_2d(st + c * DEC_W_BOX, &map_w, &full[s], n0 + 64 * c,
+                      t * DEC_BK);
+        tma_load_2d(st + DEC_W_BYTES, &map_x, &full[s], t * DEC_BK, 0);
+      }
     }
-    if (residual) x += __bfloat162float(residual[o]);
-    out[o] = __float2bfloat16(x);
+    return;
   }
+
+  // D^T [64 weight columns x NR rows] = W^T [64 x k] . X^T [k x NR] for
+  // each 64-column box c
+  float acc[DEC_BN / 64][NR / 2];
+#pragma unroll
+  for (int c = 0; c < DEC_BN / 64; ++c)
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) acc[c][i] = 0.0f;
+  for (int t = t0; t < t1; ++t) {
+    const int i = t - t0, s = i % DEC_STAGES;
+    mbar_wait(&full[s], (i / DEC_STAGES) & 1);
+    const uint8_t* st = smem + s * L::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DEC_BK / 16; ++kk) {
+      // X box [NR rows x 64 k]: K-major B
+      const uint64_t db = make_desc(st + DEC_W_BYTES + kk * 32, 16, 1024,
+                                    128);
+#pragma unroll
+      for (int c = 0; c < DEC_BN / 64; ++c) {
+        // W box [64 k rows x 64 columns]: MN-major A
+        const uint64_t da = make_desc(st + c * DEC_W_BOX + kk * 16 * 128,
+                                      DEC_W_BOX, 1024, 128);
+        wgmma_ss<1, 0>(acc[c], da, db, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(i - 1) % DEC_STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < DEC_BN / 64; ++c) fence_regs(acc[c]);
+
+  // fragment 4 j + 2 h + e of box c: weight column 64 c + 16 warp + lane
+  // / 4 + 8 h, activation row 8 j + 2 (lane % 4) + e
+#pragma unroll
+  for (int c = 0; c < DEC_BN / 64; ++c)
+#pragma unroll
+    for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 64 * c + warp * 16 + lane / 4 + 8 * h;
+          const int m = 8 * j + 2 * (lane % 4) + e;
+          if (n >= N || m >= M) continue;
+          const size_t o = (size_t)m * N + n;
+          const float x = acc[c][4 * j + 2 * h + e];
+          if (splits > 1)
+            partial[(size_t)split * M * N + o] = x;
+          else
+            out[o] = __float2bfloat16(
+                k1_epilogue(x, residual, operand2, o, gate_silu));
+        }
+  if (splits == 1) return;
+
+  // the last split of this column block to arrive folds the partials of
+  // all splits in ascending split order, applies the epilogue and stores;
+  // it resets the block's arrival counter for the next call
+  __threadfence();
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warps
+  if (threadIdx.x == 0)
+    last_split = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  if (!last_split) return;
+  __threadfence();
+  // FE elements per thread at once, FS splits of each loaded together, so
+  // FE * FS loads from L2 are in flight per round
+  constexpr int FE = 8, FS = 4;
+  const int cols = min(DEC_BN, N - n0), count = M * cols;
+  const size_t mn = (size_t)M * N;
+  for (int base = threadIdx.x; base < count; base += 128 * FE) {
+    size_t o[FE];
+    float x[FE];
+#pragma unroll
+    for (int u = 0; u < FE; ++u) {
+      const int idx = min(base + 128 * u, count - 1);
+      o[u] = (size_t)(idx / cols) * N + n0 + idx % cols;
+      x[u] = 0.0f;
+    }
+    for (int s0 = 0; s0 < splits; s0 += FS) {
+      float v[FS][FE];
+#pragma unroll
+      for (int t = 0; t < FS; ++t)
+#pragma unroll
+        for (int u = 0; u < FE; ++u)
+          v[t][u] = s0 + t < splits ? __ldcg(partial + (s0 + t) * mn + o[u])
+                                    : 0.0f;
+#pragma unroll
+      for (int t = 0; t < FS; ++t)
+#pragma unroll
+        for (int u = 0; u < FE; ++u)
+          if (s0 + t < splits) x[u] = s0 + t == 0 ? v[t][u] : x[u] + v[t][u];
+    }
+#pragma unroll
+    for (int u = 0; u < FE; ++u)
+      if (base + 128 * u < count)
+        out[o[u]] = __float2bfloat16(
+            k1_epilogue(x[u], residual, operand2, o[u], gate_silu));
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+}
+
+template <class F>
+int set_smem(F* kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int NR>
+int launch_bytes(const bf16* A, const bf16* B, float* partial, int* counters,
+                 bf16* C, const bf16* R, const bf16* G, int M, int N, int K,
+                 int splits, int gate_silu, cudaStream_t st) {
+  CUtensorMap map_w, map_x;
+  int e = make_map_2d(&map_w, B, K, N, DEC_BK, 64);
+  if (e) return e;
+  e = make_map_2d(&map_x, A, M, K, NR, 64);
+  if (e) return e;
+  static int smem_set = 0;
+  if (!smem_set) {
+    e = set_smem(k1_bytes_kernel<NR>, DecLayout<NR>::SMEM);
+    if (e) return e;
+    smem_set = 1;
+  }
+  dim3 grid((N + DEC_BN - 1) / DEC_BN, splits);
+  k1_bytes_kernel<NR><<<grid, DEC_THREADS, DecLayout<NR>::SMEM, st>>>(
+      map_w, map_x, partial, counters, C, R, G, M, N, K, splits, gate_silu);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_ops(const bf16* A, const bf16* B, bf16* C, const bf16* R,
+               const bf16* G, int M, int N, int K, int gate_silu,
+               cudaStream_t st) {
+  // the output, gate and residual tiles move as [128 x 64] boxes; an
+  // absent operand's map is the output's, never read
+  CUtensorMap map_a, map_b, map_out, map_gate, map_res;
+  int e = make_map_2d(&map_a, A, M, K, OPS_BM, OPS_BK);
+  if (!e) e = make_map_2d(&map_b, B, K, N, OPS_BK, 64);
+  if (!e) e = make_map_2d(&map_out, C, M, N, OPS_BM, 64);
+  if (!e) e = make_map_2d(&map_gate, gate_silu ? G : C, M, N, OPS_BM, 64);
+  if (!e) e = make_map_2d(&map_res, R ? R : C, M, N, OPS_BM, 64);
+  if (e) return e;
+  static int smem_set = 0;
+  if (!smem_set) {
+    e = set_smem(k1_ops_kernel<BN>, OpsLayout<BN>::SMEM);
+    if (e) return e;
+    smem_set = 1;
+  }
+  const int tiles = ((M + OPS_BM - 1) / OPS_BM) * ((N + BN - 1) / BN);
+  k1_ops_kernel<BN><<<tiles, OPS_THREADS, OpsLayout<BN>::SMEM, st>>>(
+      map_a, map_b, map_out, map_gate, map_res, M, N, K, gate_silu,
+      R != nullptr);
+  return (int)cudaGetLastError();
 }
 
 constexpr int NORM_THREADS = 256;
@@ -401,25 +744,48 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
 
 }  // namespace
 
+// M >= 64: the operations regime, 128 x tile_n output tiles (tile_n 128,
+// 192 or 256; splits must be 1); M < 64: the bytes regime (tile_n 128),
+// K split `splits` ways: with splits > 1 a [splits, M, N] fp32 workspace
+// for the partials and one zeroed int32 arrival counter per 128-column
+// block (left zeroed).  kernels/matmul.py's k1_plan chooses tile_n and
+// splits.
 extern "C" int k1_matmul(const void* a, const void* b, void* out,
-                         const void* residual, const void* operand2, int M,
-                         int N, int K, int gate_silu, void* stream) {
+                         const void* residual, const void* operand2,
+                         void* workspace, void* counters, int M, int N,
+                         int K, int splits, int tile_n, int gate_silu,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* B = static_cast<const bf16*>(b);
   const bf16* R = static_cast<const bf16*>(residual);
   const bf16* G = static_cast<const bf16*>(operand2);
   bf16* C = static_cast<bf16*>(out);
-  if (M <= 16) {
-    dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
-    matmul_kernel<16, 1><<<grid, THREADS, 0, st>>>(A, B, C, R, G, M, N,
-                                                    K, gate_silu);
-  } else {
-    dim3 grid((N + BN - 1) / BN, (M + 63) / 64);
-    matmul_kernel<64, 2><<<grid, THREADS, 0, st>>>(A, B, C, R, G, M, N,
-                                                    K, gate_silu);
+  float* P = static_cast<float*>(workspace);
+  int* cnt = static_cast<int*>(counters);
+  if (splits < 1 || (splits > 1 && (P == nullptr || cnt == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (M >= 64) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    switch (tile_n) {
+      case 128: return launch_ops<128>(A, B, C, R, G, M, N, K, gate_silu, st);
+      case 192: return launch_ops<192>(A, B, C, R, G, M, N, K, gate_silu, st);
+      case 256: return launch_ops<256>(A, B, C, R, G, M, N, K, gate_silu, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  if (tile_n != DEC_BN) return (int)cudaErrorInvalidValue;
+  if (M <= 8)
+    return launch_bytes<8>(A, B, P, cnt, C, R, G, M, N, K, splits,
+                           gate_silu, st);
+  if (M <= 16)
+    return launch_bytes<16>(A, B, P, cnt, C, R, G, M, N, K, splits,
+                            gate_silu, st);
+  if (M <= 32)
+    return launch_bytes<32>(A, B, P, cnt, C, R, G, M, N, K, splits,
+                            gate_silu, st);
+  return launch_bytes<64>(A, B, P, cnt, C, R, G, M, N, K, splits, gate_silu,
+                          st);
 }
 
 extern "C" int k1_rmsnorm_rows(const void* x, const void* scale, void* out,

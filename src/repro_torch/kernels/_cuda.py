@@ -7,6 +7,11 @@ Nothing is built when a module is imported: the first CUDA launch (or
 the library's file name carries a hash of its source, so an edited source
 is rebuilt and an unchanged one is reused.
 
+K1 and K4 include ``csrc/hopper.cuh`` (mbarriers, TMA, wgmma), so the
+hash covers the headers too.  ``nvcc`` runs with ``-Xptxas -v``; its
+report (registers, shared memory and spills of each kernel) is kept
+beside the library as ``lib<name>-<hash>.log`` (``ptxas_report``).
+
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds
 one exactly where it launches its kernel (``count``).  A launch of a
 variant (gemma2's 'local' window, the softcap) also adds one to the
@@ -28,15 +33,17 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every exported launcher: (argtypes); each returns the
 # cudaError_t of its launch
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "matmul": {
-        # a, b, out, residual, operand2, M, N, K, gate_silu, stream
-        "k1_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # a, b, out, residual, operand2, workspace, counters, M, N, K,
+        # splits, tile_n, gate_silu, stream
+        "k1_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P],
         # x, scale, out, M, N, eps, stream
         "k1_rmsnorm_rows": [_P, _P, _P, _I, _I, _F, _P],
         # a, b, a_scale, b_scale, out_f32, out_bf16, residual, operand2,
@@ -103,8 +110,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -129,7 +139,19 @@ def _finish_build(proc, so: Path) -> None:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {so.name}:\n{out}")
+    so.with_suffix(".log").write_text(out)
     os.replace(proc.tmp, so)
+
+
+def ptxas_report(so: Path) -> List[str]:
+    """The ptxas lines of a library's build: per kernel, its registers,
+    shared memory and spill stores/loads (empty if the log is gone)."""
+    log = so.with_suffix(".log")
+    if not log.exists():
+        return []
+    return [line.strip() for line in log.read_text().splitlines()
+            if "Compiling entry" in line or "registers" in line
+            or "spill" in line]
 
 
 def _load(name: str, so: Path) -> ctypes.CDLL:
@@ -162,11 +184,26 @@ def lib(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
+# the current stream's handle without building a Stream object (the
+# decode loop is host-bound, and every launch asks for it); absent from
+# CPU builds, where nothing launches
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream() -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
+
+
 def launch(name: str, fn: str, *args) -> None:
     """Call one exported launcher on PyTorch's current stream and raise if
     the launch was refused."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(name), fn)(*args, stream)
+    f = _FNS.get((name, fn))
+    if f is None:
+        f = _FNS[name, fn] = getattr(lib(name), fn)
+    err = f(*args, _stream())
     if err != 0:
         raise RuntimeError(f"CUDA launch of {fn} failed with cudaError {err}")
 

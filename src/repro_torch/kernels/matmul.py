@@ -1,6 +1,15 @@
 """K1 and K2: the blocked GEMM with a fused epilogue, float and int8,
 launched on the card.
 
+K1 (``csrc/matmul.cu``, wgmma + TMA) has two regimes, chosen by the shape
+alone (``k1_plan``): M >= 64 runs 128-row output tiles, 128 to 256 wide,
+on the tensor cores; M < 64 swaps the operands so the weight fills
+wgmma's 64-row side, streams it through a deep TMA ring and splits K
+until the grid holds two blocks per SM; the last split of each column
+block to arrive folds the fp32 split partials in ascending split order
+before the epilogue (``split_scratch``).  ``ref.matmul_splitk_ref`` is
+the plain version of that arithmetic.
+
 ``matmul_cuda`` and ``rmsnorm_cuda`` are the wrappers of the two kernels
 in ``csrc/matmul.cu``; their plain PyTorch versions are
 ``ref.matmul_fused_ref`` and ``epilogue.rms_normalize``, which
@@ -21,13 +30,113 @@ normed)``, as for K1.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.quantize import quantize_rowwise_cuda
+
+
+# K1's tiles (csrc/matmul.cu): the operations regime's rows and k per
+# stage, and its column widths with their relative rates per column (a
+# 128 x 256 tile carries the most work per byte loaded; the rates are
+# launch/k1_widths.py's at 8320 rows on an H100, where every width fills
+# its waves); the bytes regime's weight columns and k per stage, and the
+# activation rows it rounds M up to
+K1_OPS_MIN_M = 64
+K1_OPS_ROWS, K1_OPS_K = 128, 64
+K1_OPS_COLS = {256: 1.0, 192: 0.88, 128: 0.71}
+K1_DEC_TILE = (128, 64)
+K1_DEC_ROWS = (8, 16, 32, 64)
+K1_BLOCKS_PER_SM = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """K1's launch for one shape: the regime, the block's output tile
+    (``rows`` x ``cols``), k per stage, the blocks of the main kernel and
+    the K split (bytes regime; 1 means no fold)."""
+
+    regime: str
+    rows: int
+    cols: int
+    k_tile: int
+    k_tiles: int
+    blocks: int
+    splits: int
+
+    def k_ranges(self, k: int) -> List[Tuple[int, int]]:
+        """[begin, end) of K that each split sums, in ascending split order:
+        split i takes k tiles [i kt / s, (i + 1) kt / s) (the kernel's
+        ``split_begin``)."""
+        kt, s, bk = self.k_tiles, self.splits, self.k_tile
+        return [(i * kt // s * bk, min((i + 1) * kt // s * bk, k))
+                for i in range(s)]
+
+
+def k1_plan(m: int, n: int, k: int, sms: int) -> K1Plan:
+    """K1's launch plan, from the shape and the card's SM count only (never
+    from data).  M >= 64 is the operations regime: one block per 128 x
+    ``cols`` output tile, no split, ``cols`` the width of least estimated
+    time, the waves of one-per-SM blocks its tiles take times its columns
+    over its rate (the widest on a tie); no width changes the order in
+    which an element's products are summed, so every M of the regime sums
+    in one order.  M < 64 is the bytes regime: one block
+    per 128 weight columns and per split, with K split into contiguous
+    ranges of 64-deep tiles until the grid reaches ``K1_BLOCKS_PER_SM``
+    blocks per SM (at most one split per k tile).  The split count does not
+    depend on M, so every row of a bytes-regime call sums in the same
+    order."""
+    if m >= K1_OPS_MIN_M:
+        row_tiles = -(-m // K1_OPS_ROWS)
+        cols = min(K1_OPS_COLS, key=lambda c: (
+            -(-row_tiles * -(-n // c) // sms) * c / K1_OPS_COLS[c]))
+        kt = -(-k // K1_OPS_K)
+        return K1Plan("operations", K1_OPS_ROWS, cols, K1_OPS_K, kt,
+                      -(-m // K1_OPS_ROWS) * -(-n // cols), 1)
+    bn, bk = K1_DEC_TILE
+    rows = next(r for r in K1_DEC_ROWS if m <= r)
+    kt = -(-k // bk)
+    n_tiles = -(-n // bn)
+    splits = max(1, min(kt, -(-K1_BLOCKS_PER_SM * sms // n_tiles)))
+    return K1Plan("bytes", rows, bn, bk, kt, n_tiles * splits, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def _device_plan(m: int, n: int, k: int, index: int) -> K1Plan:
+    return k1_plan(m, n, k, sm_count(index))
+
+
+_SPLIT_SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def split_scratch(device: torch.device, partials: int,
+                  blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scratch of a split K1 call on ``device``: an fp32 workspace of at
+    least ``partials`` elements for the split partials, and at least
+    ``blocks`` zeroed int32 arrival counters, one per column block.  The
+    block that folds a column resets its counter, so the counters are zero
+    again when the kernel ends.  K1 calls on one device share both buffers
+    and must therefore run on one stream (the port's only one)."""
+    ws, cnt = _SPLIT_SCRATCH.get(device.index, (None, None))
+    if ws is None or ws.numel() < partials:
+        ws = torch.empty(max(partials, 1 << 20), dtype=torch.float32,
+                         device=device)
+    if cnt is None or cnt.numel() < blocks:
+        cnt = torch.zeros(max(blocks, 1024), dtype=torch.int32,
+                          device=device)
+    _SPLIT_SCRATCH[device.index] = (ws, cnt)
+    return ws, cnt
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
@@ -44,6 +153,23 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     _cuda.launch("matmul", "k1_rmsnorm_rows", x.data_ptr(), scale.data_ptr(),
                  out.data_ptr(), m, n, float(eps))
     return out
+
+
+def _epilogue_operands(ep: Epilogue, m: int, n: int,
+                       residual: Optional[torch.Tensor],
+                       operand2: Optional[torch.Tensor]) -> bool:
+    """Check the gate and residual operands the GEMM kernels read; True if
+    gated."""
+    gate = ep.gate == "silu"
+    if gate:
+        if operand2 is None:
+            raise ValueError("Epilogue.gate set but no operand2")
+        _cuda.check(operand2, "operand2", torch.bfloat16, (m, n))
+    if ep.residual:
+        if residual is None:
+            raise ValueError("Epilogue.residual set but no residual operand")
+        _cuda.check(residual, "residual", torch.bfloat16, (m, n))
+    return gate
 
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
@@ -75,23 +201,20 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
     if ep.out_dtype != torch.bfloat16:
         raise TypeError(f"the K1 kernel stores bf16, got out_dtype "
                         f"{ep.out_dtype}")
-    gate = ep.gate == "silu"
-    if gate:
-        if operand2 is None:
-            raise ValueError("Epilogue.gate set but no operand2")
-        _cuda.check(operand2, "operand2", torch.bfloat16, (m, n))
-    if ep.residual:
-        if residual is None:
-            raise ValueError("Epilogue.residual set but no residual operand")
-        _cuda.check(residual, "residual", torch.bfloat16, (m, n))
+    gate = _epilogue_operands(ep, m, n, residual, operand2)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     if m and n:
+        plan = _device_plan(m, n, k, a.device.index)
+        ws = counters = None
+        if plan.splits > 1:
+            ws, counters = (t.data_ptr() for t in split_scratch(
+                a.device, plan.splits * m * n, -(-n // plan.cols)))
         _cuda.LAUNCHES["matmul"] += 1
         _cuda.launch("matmul", "k1_matmul", a.data_ptr(), b.data_ptr(),
                      out.data_ptr(),
                      residual.data_ptr() if ep.residual else None,
-                     operand2.data_ptr() if gate else None,
-                     m, n, k, int(gate))
+                     operand2.data_ptr() if gate else None, ws, counters,
+                     m, n, k, plan.splits, plan.cols, int(gate))
     if ep.norm == "rmsnorm":
         if norm_scale is None:
             raise ValueError("Epilogue.norm set but no norm_scale operand")
@@ -134,15 +257,7 @@ def int8_matmul_cuda(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
         raise TypeError(f"the K2 kernel stores bf16 or fp32, got {out_dtype}")
     if ep.norm == "rmsnorm" and out_dtype != torch.bfloat16:
         raise TypeError("the K2 rmsnorm output is bf16")
-    gate = ep.gate == "silu"
-    if gate:
-        if operand2 is None:
-            raise ValueError("Epilogue.gate set but no operand2")
-        _cuda.check(operand2, "operand2", torch.bfloat16, (m, n))
-    if ep.residual:
-        if residual is None:
-            raise ValueError("Epilogue.residual set but no residual operand")
-        _cuda.check(residual, "residual", torch.bfloat16, (m, n))
+    gate = _epilogue_operands(ep, m, n, residual, operand2)
     out = torch.empty((m, n), dtype=out_dtype, device=qa.device)
     f32 = out_dtype == torch.float32
     if m and n:

@@ -168,3 +168,41 @@ def addertree_ref(partials: torch.Tensor,
     partials' dtype), the plain version of K7."""
     from repro_torch.core.maxeva_matmul import rank_order_sum
     return rank_order_sum(partials, out_dtype or partials.dtype)
+
+
+def splitk_partials_ref(a: torch.Tensor, b: torch.Tensor,
+                        k_ranges) -> torch.Tensor:
+    """``[S, M, N]`` partial products of A @ B over the K ranges
+    ``k_ranges`` ([begin, end) each, at the accumulator width): what the
+    bytes regime of the K1 kernel writes to its workspace."""
+    acc = accum_dtype(a.dtype, b.dtype)
+    return torch.stack([torch.matmul(a[:, k0:k1].to(acc), b[k0:k1].to(acc))
+                        for k0, k1 in k_ranges])
+
+
+def matmul_splitk_ref(a: torch.Tensor, b: torch.Tensor, epilogue, k_ranges,
+                      residual: Optional[torch.Tensor] = None,
+                      operand2: Optional[torch.Tensor] = None,
+                      norm_scale: Optional[torch.Tensor] = None):
+    """epilogue(A @ B) as the K1 kernel computes it at M < 64: the partial
+    product of each K range, folded in ascending range order at the
+    accumulator width, then the epilogue.  The plain version of the split-K
+    arithmetic (``kernels.matmul.k1_plan`` gives the ranges)."""
+    return splitk_fold_ref(splitk_partials_ref(a, b, k_ranges), epilogue,
+                           residual=residual, operand2=operand2,
+                           norm_scale=norm_scale)
+
+
+def splitk_fold_ref(partials: torch.Tensor, epilogue,
+                    residual: Optional[torch.Tensor] = None,
+                    operand2: Optional[torch.Tensor] = None,
+                    norm_scale: Optional[torch.Tensor] = None):
+    """epilogue(sum_s partials[s]) with the partials ``[S, M, N]`` folded
+    in ascending s at their own width: the plain version of the fold that
+    the last split of each column block does in the K1 kernel."""
+    from repro_torch.kernels.epilogue import apply_epilogue
+    acc = partials[0]
+    for p in partials[1:]:
+        acc = acc + p
+    return apply_epilogue(acc, epilogue, residual=residual,
+                          operand2=operand2, norm_scale=norm_scale)
