@@ -14,9 +14,12 @@ line):
    at granite-3-8b's full-width shapes, each row of the output within a
    stated tolerance of that row's own scale.  Bitwise: the fused rmsnorm
    output against the standalone rmsnorm of the stored value, split-K
-   decode across n_splits 1/2/4, K3 (rowwise quantize), every fp32-out
-   int8 product of K2, and K6 (paged decode) against K5 over the same
-   history in a dense cache.  K1 is checked and timed at both models'
+   decode (K5, one launch with its fold) across split counts 1, 2, 4, the
+   default and one per tile, K3 (rowwise quantize), every fp32-out int8
+   product of K2, K6 (paged decode) against K5 over the same history in a
+   dense cache, and K7.  K5's and K6's partials (the kernel without its
+   fold) within 1e-5 of each row's scale; K6 also at an S = 64 prefill
+   chunk.  K1 is checked and timed at both models'
    five projections and at the rows of every driven path (granite 4, 8,
    512 and 1024; gemma2 2, 8, 512 and 8320), and is deterministic: the
    same call twice is bitwise equal, and row 0 is bitwise the same when
@@ -97,19 +100,19 @@ G2_H, G2_KV, G2_HD, G2_WINDOW, G2_SOFTCAP = 32, 16, 128, 4096, 50.0
 G2_BATCH, G2_PROMPT, G2_NEW, G2_REQ = 2, 4160, 16, 8
 # kernels each driven path must launch (the counts are read per path)
 PATH_KERNELS = {
-    "fixed": ("matmul", "rmsnorm", "flash_attention", "decode_partials",
-              "decode_combine"),
-    "scheduler_bf16": ("matmul", "rmsnorm", "paged_partials",
-                       "decode_combine"),
+    "fixed": ("matmul", "rmsnorm", "flash_attention", "flash_decode"),
+    "scheduler_bf16": ("matmul", "rmsnorm", "paged_decode",
+                       "paged_decode:chunk"),
     "scheduler_int8": ("int8_matmul", "int8_quantize", "quantize",
-                       "rmsnorm", "paged_partials", "decode_combine"),
+                       "rmsnorm", "paged_decode", "paged_decode:chunk"),
     "addertree": ("matmul", "addertree"),
     # a variant's launches are counted under "<kernel>:<variant>"
     "gemma2_fixed": ("matmul", "rmsnorm", "flash_attention:local+softcap",
-                     "flash_attention:softcap", "decode_partials:softcap",
-                     "decode_combine"),
-    "gemma2_scheduler": ("matmul", "rmsnorm", "paged_partials:local+softcap",
-                         "paged_partials:softcap", "decode_combine"),
+                     "flash_attention:softcap", "flash_decode:softcap"),
+    "gemma2_scheduler": ("matmul", "rmsnorm", "paged_decode:local+softcap",
+                         "paged_decode:softcap",
+                         "paged_decode:local+softcap+chunk",
+                         "paged_decode:softcap+chunk"),
 }
 
 
@@ -333,6 +336,115 @@ def k1_determinism(torch, rand):
                 f"K1 M={m} K={k} N={n}: row 0 depends on the other rows")
 
 
+def plain_partials(plain, rows, n_tiles, g, hd):
+    """The plain version's partials, stacked on tile [T, R.., G, 1(, hd)],
+    in the kernel's layout: m_t, l_t [rows, T, G] and acc_t [rows, T, G,
+    hd]."""
+    return (plain[0][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, g),
+            plain[1][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, g),
+            plain[2][..., 0, :].permute(1, 2, 0, 3, 4).reshape(
+                rows, n_tiles, g, hd))
+
+
+def record_err(torch, ws, plain, rows, n_tiles, g, hd):
+    """The serving launch's workspace records of the live tiles against the
+    plain version's partials (``plain``, stacked on tile): the worst row's
+    error against its own scale.  A dead tile (the plain l_t is exactly 0;
+    a live tile's is >= 1) is never written by the kernel and not
+    compared."""
+    from repro_torch.kernels.flash_attention import record_views
+    want = plain_partials(plain, rows, n_tiles, g, hd)
+    live = want[1] > 0
+    require(bool(live.any()), "no live tile to compare")
+    return max(row_err(torch.where(sel, x, y), y) for sel, x, y in
+               zip((live, live, live[..., None]), record_views(ws, g, hd),
+                   want))
+
+
+def sdpa_ms(torch, timer, q, k, v, **kw):
+    """The library yardstick (the port never calls it): one SDPA call on
+    the same q [B, Sq, H, hd] and k/v [B, Skv, KV, hd], the fastest of
+    three forms of its operands made outside the timing: the heads-first
+    views of these tensors and contiguous copies, both with the kv heads
+    grouped by ``enable_gqa`` (read once, as the kernel reads them), and
+    the kv heads repeated to H (G times the K/V bytes, but some backends
+    take a mask only without ``enable_gqa``)."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
+    kr, vr = (x.repeat_interleave(g, dim=1) for x in (kc, vc))
+    return min(
+        timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     enable_gqa=True, **kw)),
+        timer(lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                     enable_gqa=True, **kw)),
+        timer(lambda: F.scaled_dot_product_attention(qc, kr, vr, **kw)))
+
+
+def k5_row(torch, timer, rand, b, length, pos, kv, g, hd, softcap, scale,
+           where):
+    """K5 at one shape (caches of ``length`` slots, position ``pos``; q and
+    K at ``scale``): the output bitwise the same at split counts 1, 2, 4,
+    the default and n_tiles, each (b, kv, g) row within 2 bf16 ulps of its
+    scale of ``flash_decode_tiled``; the live tiles' partials, as the
+    serving launch leaves them in its workspace (fp32, the same math in
+    another summation order), within 1e-5 of each row's scale of
+    ``decode_tile_partials``.  Timed beside its bound (q, the live K/V rows
+    and the output), its plain version and, without a softcap, one SDPA
+    call on the live slots (``sdpa_ms``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (dense_decode_launch,
+                                                     decode_tile_partials,
+                                                     default_splits,
+                                                     flash_decode_tiled)
+    from repro_torch.kernels.matmul import sm_count
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    q = rand(b, 1, kv, g, hd, scale=scale)
+    kc, vc = rand(b, length, kv, hd, scale=scale), rand(b, length, kv, hd)
+    rows, n_tiles = b * kv, -(-length // 32)
+    splits = (None, 1, 2, 4, n_tiles)
+    outs = [ops.flash_decode(q, kc, vc, pos, softcap=softcap, n_splits=n)
+            for n in splits]
+    require(all(torch.equal(outs[0], o) for o in outs[1:]),
+            f"K5 ({where}) output changes with n_splits")
+    want = flash_decode_tiled(q, kc, vc, pos, softcap)
+    err = row_err(outs[0], want)
+    require(err <= 2 * eps_bf16,
+            f"K5 ({where}): a row is off by {err:.3e} of its scale")
+    out, ws = dense_decode_launch(q, kc, vc, pos, softcap=softcap)
+    require(torch.equal(out, outs[0]), f"K5 ({where}): two launches differ")
+    p_err = record_err(torch, ws, decode_tile_partials(q, kc, vc, pos,
+                                                       softcap),
+                       rows, n_tiles, g, hd)
+    del out, ws
+    require(p_err <= 1e-5, f"K5 ({where}) partials: a row is off by "
+                           f"{p_err:.3e}")
+    live = pos + 1
+    t_b, by = bound(2 * 2 * q.numel() + 2 * 2 * b * live * kv * hd,
+                    4 * b * kv * g * hd * live)
+    row = dict(
+        work=f"{where}: decode B={b} cache={length} pos={pos} KV={kv} G={g} "
+             f"hd={hd} softcap={softcap}, {n_tiles} tiles, "
+             f"{default_splits(rows, n_tiles, sm_count(q.device.index))} "
+             f"splits by default; bitwise at n_splits {list(splits)}",
+        max_abs_err=max_err(outs[0], want), max_row_err=err,
+        tol=2 * eps_bf16, partials_row_err=p_err, partials_tol=1e-5,
+        ms=timer(lambda: ops.flash_decode(q, kc, vc, pos, softcap=softcap)),
+        wrapper_ms=timer.wall(
+            lambda: ops.flash_decode(q, kc, vc, pos, softcap=softcap)),
+        plain_ms=timer(lambda: flash_decode_tiled(q, kc, vc, pos, softcap),
+                       reps=3),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        library_note="no one PyTorch call has a softcap")
+    if softcap is None:
+        row["library_ms"] = sdpa_ms(torch, timer, q.reshape(b, 1, kv * g, hd),
+                                    kc[:, :live], vc[:, :live])
+        row["library_note"] = "SDPA on the live slots (sdpa_ms)"
+    print("  k5", json.dumps(row), flush=True)
+    return row
+
+
 def check_kernels(torch, timer):
     """Phase 2: every kernel against its plain version at full width.
     Tolerances are per row (``row_err``): a bf16 output may differ from
@@ -341,11 +453,6 @@ def check_kernels(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.epilogue import rms_normalize
-    from repro_torch.kernels.flash_attention import (combine_tile_partials,
-                                                     decode_combine_cuda,
-                                                     decode_partials_cuda,
-                                                     decode_tile_partials,
-                                                     flash_decode_tiled)
 
     eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -443,9 +550,6 @@ def check_kernels(torch, timer):
     err = row_err(got, want)
     require(err <= 4 * eps_bf16, f"K4: a row is off by {err:.3e} of its "
                                  f"scale")
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(nh // nkv, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(nh // nkv, dim=2).transpose(1, 2)
     t_b, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
                     4 * b * nh * hd * s * (s + 1) / 2)
     results["k4_flash_prefill"] = dict(
@@ -455,77 +559,15 @@ def check_kernels(torch, timer):
         wrapper_ms=timer.wall(lambda: ops.flash_attention(q, k, v)),
         plain_ms=timer(lambda: ref.flash_attention_ref(q, k, v)),
         bound_ms=t_b, bound_by=by,
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)))
+        library_ms=sdpa_ms(torch, timer, q, k, v, is_causal=True),
+        library_note="SDPA causal (sdpa_ms)")
 
-    # K5 split-K flash decode, two kernels.  The pair: each (b, kv, g) row
-    # within 2 bf16 ulps of its scale, bitwise the same for n_splits 1, 2,
-    # 4 and the default.  Partials (fp32, same math, other summation
-    # order): each row within 1e-5 of its scale.  Combine (the same
-    # ascending fold at fp32 as the plain version, then one cast): each row
-    # within 1 bf16 ulp.
-    length, pos, g = PROMPT + NEW, PROMPT + NEW - 1, nh // nkv
-    q = rand(b, 1, nkv, g, hd)
-    kc, vc = rand(b, length, nkv, hd), rand(b, length, nkv, hd)
-    outs = [ops.flash_decode(q, kc, vc, pos, n_splits=n)
-            for n in (None, 1, 2, 4)]
-    require(all(torch.equal(outs[0], o) for o in outs[1:]),
-            "K5 output changes with n_splits")
-    pair_err = row_err(outs[0], flash_decode_tiled(q, kc, vc, pos))
-    require(pair_err <= 2 * eps_bf16,
-            f"K5: a row is off by {pair_err:.3e} of its scale")
-
-    rows, n_tiles = b * nkv, -(-length // 32)
-    parts = decode_partials_cuda(q, kc, vc, pos)
-    plain = decode_tile_partials(q, kc, vc, pos)   # [T, B, KV, G, 1(, hd)]
-    plain = (plain[0][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, g),
-             plain[1][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, g),
-             plain[2][..., 0, :].permute(1, 2, 0, 3, 4).reshape(
-                 rows, n_tiles, g, hd))
-    p_err = max(row_err(x, y) for x, y in zip(parts, plain))
-    require(p_err <= 1e-5, f"K5 partials: a row is off by {p_err:.3e}")
-    live = pos + 1
-    t_b, by = bound(2 * q.numel() + 2 * 2 * b * live * nkv * hd
-                    + 4 * (2 * rows * n_tiles * g + rows * n_tiles * g * hd),
-                    4 * b * nh * hd * live)
-    results["k5_decode_partials"] = dict(
-        work=f"decode partials B={b} cache={length} pos={pos} KV={nkv} "
-             f"G={g} hd={hd}, {n_tiles} tiles",
-        max_abs_err=max(max_err(x, y) for x, y in zip(parts, plain)),
-        max_row_err=p_err, tol=1e-5,
-        ms=timer(lambda: decode_partials_cuda(q, kc, vc, pos)),
-        wrapper_ms=timer.wall(lambda: decode_partials_cuda(q, kc, vc, pos)),
-        plain_ms=timer(lambda: decode_tile_partials(q, kc, vc, pos)),
-        bound_ms=t_b, bound_by=by, library_ms=None)
-
-    stacked = (parts[0].transpose(0, 1), parts[1].transpose(0, 1),
-               parts[2].transpose(0, 1))
-    got = decode_combine_cuda(*parts)
-    want = combine_tile_partials(*stacked).to(bf)
-    c_err = row_err(got, want)
-    require(c_err <= eps_bf16, f"K5 combine: a row is off by {c_err:.3e}")
-    t_b, by = bound(4 * (2 * rows * n_tiles * g + rows * n_tiles * g * hd)
-                    + 2 * rows * g * hd, 3 * rows * n_tiles * g * hd,
-                    FP32_FLOPS_PER_S)
-    results["k5_decode_combine"] = dict(
-        work=f"decode combine of {n_tiles} tiles, {rows} rows x G={g} x "
-             f"hd={hd}",
-        max_abs_err=max_err(got, want), max_row_err=c_err, tol=eps_bf16,
-        ms=timer(lambda: decode_combine_cuda(*parts)),
-        wrapper_ms=timer.wall(lambda: decode_combine_cuda(*parts)),
-        plain_ms=timer(lambda: combine_tile_partials(*stacked)),
-        bound_ms=t_b, bound_by=by, library_ms=None)
-
-    qd = q.reshape(b, nh, 1, hd)
-    kd = kc[:, :live].repeat_interleave(g, dim=2).transpose(1, 2)
-    vd = vc[:, :live].repeat_interleave(g, dim=2).transpose(1, 2)
-    results["k5_pair"] = dict(
-        work="partials + combine against one SDPA call on the live slots",
-        max_row_err=pair_err, tol=2 * eps_bf16,
-        ms=timer(lambda: ops.flash_decode(q, kc, vc, pos)),
-        plain_ms=timer(lambda: flash_decode_tiled(q, kc, vc, pos)),
-        library_ms=timer(lambda: F.scaled_dot_product_attention(qd, kd,
-                                                                vd)))
+    # K5 split-K flash decode, one launch with its fold, at granite's
+    # fixed loop's last step
+    length, pos = PROMPT + NEW, PROMPT + NEW - 1
+    results["k5_flash_decode"] = k5_row(
+        torch, timer, rand, b, length, pos, nkv, nh // nkv, hd, None, 1.0,
+        "granite-3-8b's fixed loop")
     return results
 
 
@@ -693,8 +735,8 @@ def check_paged_kernel(torch, timer):
     row's scale of the plain version (fp32, another summation order); the
     S = 64 prefill chunk within 2 bf16 ulps of each row's scale."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (paged_flash_decode_tiled,
-                                                     paged_partials_cuda,
+    from repro_torch.kernels.flash_attention import (paged_decode_launch,
+                                                     paged_flash_decode_tiled,
                                                      paged_tile_partials)
 
     eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
@@ -732,13 +774,10 @@ def check_paged_kernel(torch, timer):
     require(pair_err <= 2 * eps_bf16, f"K6 decode: a row is off by "
                                       f"{pair_err:.3e}")
     rows, n_tiles = L * KV, P * ps // 32
-    parts = paged_partials_cuda(q, kp, vp, table, posd)
-    plain = paged_tile_partials(q, kp, vp, table, posd)  # [T, L, KV, G, 1]
-    plain = (plain[0][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
-             plain[1][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
-             plain[2][..., 0, :].permute(1, 2, 0, 3, 4).reshape(
-                 rows, n_tiles, G, hd))
-    p_err = max(row_err(x, y) for x, y in zip(parts, plain))
+    out, ws = paged_decode_launch(q, kp, vp, table, posd)
+    require(torch.equal(out, got), "K6: two launches differ")
+    p_err = record_err(torch, ws, paged_tile_partials(q, kp, vp, table, posd),
+                       rows, n_tiles, G, hd)
     require(p_err <= 1e-5, f"K6 partials: a row is off by {p_err:.3e}")
     # the S = 64 prefill chunk ending at each lane's position
     s_q = CHUNK
@@ -746,31 +785,133 @@ def check_paged_kernel(torch, timer):
     pc = (pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None])
     pc = torch.where((pc >= 0) & (pos[:, None] >= 0), pc, -1)
     pc = pc.to(torch.int32).cuda().contiguous()
-    chunk_err = row_err(ops.paged_flash_decode(qc, kp, vp, table, pc),
-                        paged_flash_decode_tiled(qc, kp, vp, table, pc))
+    chunk = ops.paged_flash_decode(qc, kp, vp, table, pc)
+    chunk_want = paged_flash_decode_tiled(qc, kp, vp, table, pc)
+    chunk_err = row_err(chunk, chunk_want)
     require(chunk_err <= 2 * eps_bf16,
             f"K6 chunk: a row is off by {chunk_err:.3e}")
-    live = int((pos.clamp(min=-1) + 1).sum())
-    t_b, by = bound(2 * q.numel() + 2 * 2 * live * KV * hd
-                    + 4 * (L * P + L)
-                    + 4 * (2 * rows * n_tiles * G + rows * n_tiles * G * hd),
-                    4 * live * KV * G * hd, FP32_FLOPS_PER_S)
-    return {"k6_paged_partials": dict(
-        work=f"paged decode partials L={L} KV={KV} G={G} hd={hd} "
-             f"page_size={ps} P={P} ({n_tiles} tiles), positions "
-             f"{pos.tolist()}; chunk S={s_q} checked",
-        max_abs_err=max(max_err(x, y) for x, y in zip(parts, plain)),
-        max_row_err=p_err, tol=1e-5, decode_row_err=pair_err,
-        chunk_row_err=chunk_err,
-        ms=timer(lambda: paged_partials_cuda(q, kp, vp, table, posd)),
+    where = (f"L={L} KV={KV} G={G} hd={hd} page_size={ps} P={P} "
+             f"({n_tiles} tiles)")
+    dec = dict(
+        work=f"paged decode {where}, positions {pos.tolist()}; each lane "
+             f"bitwise K5 over its dense history, the idle lane 0.0",
+        max_abs_err=max_err(got, paged_flash_decode_tiled(q, kp, vp, table,
+                                                          posd)),
+        max_row_err=pair_err, tol=2 * eps_bf16, partials_row_err=p_err,
+        partials_tol=1e-5,
+        ms=timer(lambda: ops.paged_flash_decode(q, kp, vp, table, posd)),
         wrapper_ms=timer.wall(
-            lambda: paged_partials_cuda(q, kp, vp, table, posd)),
-        plain_ms=timer(lambda: paged_tile_partials(q, kp, vp, table, posd)),
-        pair_ms=timer(lambda: ops.paged_flash_decode(q, kp, vp, table, posd)),
-        chunk_ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table,
-                                                      pc)),
-        bound_ms=t_b, bound_by=by, library_ms=None,
-        library_note="no one PyTorch call attends through a page table")}
+            lambda: ops.paged_flash_decode(q, kp, vp, table, posd)),
+        plain_ms=timer(lambda: paged_flash_decode_tiled(q, kp, vp, table,
+                                                        posd)),
+        library_ms=None,
+        library_note="no one PyTorch call attends through a page table")
+    dec["bound_ms"], dec["bound_by"] = k6_bound(q, table, posd, KV, 0)
+    chk = dict(
+        work=f"paged prefill chunk S={s_q} {where}, each lane's chunk "
+             f"ending at its position",
+        max_abs_err=max_err(chunk, chunk_want), max_row_err=chunk_err,
+        tol=2 * eps_bf16,
+        ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table, pc)),
+        wrapper_ms=timer.wall(
+            lambda: ops.paged_flash_decode(qc, kp, vp, table, pc)),
+        plain_ms=timer(lambda: paged_flash_decode_tiled(qc, kp, vp, table,
+                                                        pc), reps=3),
+        library_ms=None,
+        library_note="no one PyTorch call attends through a page table")
+    chk["bound_ms"], chk["bound_by"] = k6_bound(qc, table, pc, KV, 0)
+    return {"k6_paged_decode": dec, "k6_paged_decode_chunk": chk}
+
+
+def check_wide_groups(torch):
+    """K5 and K6 at G = 16 query heads per kv head (recurrentgemma-9b's 16
+    heads over one kv head; at hd 128, the widest head dim the kernels
+    take), which the kernel serves as two rows of 8 heads per kv head
+    (``head_groups``): K5 bitwise the same at split counts 1, 2, the
+    default and n_tiles and within 2 bf16 ulps of each row's scale of
+    ``flash_decode_tiled``, its live records within 1e-5; K6 with 4 lanes
+    (one idle) bitwise K5 over each lane's history in a dense cache, the
+    idle lane exactly 0.0, within 2 bf16 ulps of
+    ``paged_flash_decode_tiled``, its records within 1e-5."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (decode_tile_partials,
+                                                     dense_decode_launch,
+                                                     flash_decode_tiled,
+                                                     head_groups,
+                                                     paged_decode_launch,
+                                                     paged_flash_decode_tiled,
+                                                     paged_tile_partials)
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    b, length, pos, kv, g, hd = 2, 300, 290, 2, 16, 128
+    rows, n_tiles = b * kv, -(-length // 32)
+    q, kc, vc = rand(b, 1, kv, g, hd), rand(b, length, kv, hd), \
+        rand(b, length, kv, hd)
+    out, ws = dense_decode_launch(q, kc, vc, pos)
+    require(all(torch.equal(out, ops.flash_decode(q, kc, vc, pos, n_splits=n))
+                for n in (1, 2, n_tiles)),
+            "K5 at G = 16: the output changes with n_splits")
+    dense_err = row_err(out, flash_decode_tiled(q, kc, vc, pos))
+    dense_rec = record_err(torch, ws, decode_tile_partials(q, kc, vc, pos),
+                           rows, n_tiles, g, hd)
+    L, ps, P = 4, PAGE, 16
+    kp, vp = rand(L * P + 1, ps, kv, hd), rand(L * P + 1, ps, kv, hd)
+    lane_pos = torch.tensor([0, 77, 255, -1], dtype=torch.int32)
+    table = torch.randperm(L * P, generator=torch.Generator().manual_seed(
+        SEED)).reshape(L, P).to(torch.int32)
+    for lane in range(L):
+        table[lane, max(int(lane_pos[lane]), 0) // ps + 1:] = -1
+    table, posd = table.cuda(), lane_pos.cuda()[:, None].contiguous()
+    qp = rand(L, 1, kv, g, hd)
+    got, pws = paged_decode_launch(qp, kp, vp, table, posd)
+    require(bool((got[L - 1] == 0).all()),
+            "K6 at G = 16: the idle lane is not 0.0")
+    for lane in range(L - 1):
+        ph = table[lane].clamp(min=0).long()
+        kd = kp[ph].reshape(1, P * ps, kv, hd)
+        vd = vp[ph].reshape(1, P * ps, kv, hd)
+        require(torch.equal(got[lane:lane + 1], ops.flash_decode(
+            qp[lane:lane + 1], kd, vd, int(lane_pos[lane]))),
+            f"K6 lane {lane} at G = 16 is not bitwise K5 over its history")
+    paged_err = row_err(got, paged_flash_decode_tiled(qp, kp, vp, table,
+                                                      posd))
+    paged_rec = record_err(torch, pws, paged_tile_partials(
+        qp, kp, vp, table, posd), L * kv, P * ps // 32, g, hd)
+    require(max(dense_err, paged_err) <= 2 * eps_bf16
+            and max(dense_rec, paged_rec) <= 1e-5,
+            f"K5/K6 at G = 16: rows off by {dense_err:.3e}/{paged_err:.3e}, "
+            f"records by {dense_rec:.3e}/{paged_rec:.3e}")
+    return dict(work=f"G={g} KV={kv} hd={hd}: {head_groups(g)[0]} kernel "
+                     f"rows per kv head; K5 B={b} cache={length} pos={pos}, "
+                     f"K6 lanes at {lane_pos.tolist()}",
+                k5_row_err=dense_err, k6_row_err=paged_err, tol=2 * eps_bf16,
+                k5_records_err=dense_rec, k6_records_err=paged_rec,
+                records_tol=1e-5)
+
+
+def k6_bound(q, table, positions, kv, window):
+    """K6's bound for q [L, S, KV, G, hd] at ``positions`` [L, S]: the
+    bytes of q, the output, the table, the positions and each lane's
+    attended K/V rows (read once), and the operations of the rows' scores
+    and P.V (bf16 inputs)."""
+    hd, g = q.shape[-1], q.shape[-2]
+    keys, slots = 0, 0
+    for lane in positions.cpu().tolist():
+        live = [p for p in lane if p >= 0]
+        if not live:
+            continue
+        span = [min(p + 1, window) if window else p + 1 for p in live]
+        keys += sum(span)
+        first = max(0, min(live) - window + 1) if window else 0
+        slots += max(live) + 1 - first
+    nbytes = (2 * 2 * q.numel() + 2 * 2 * slots * kv * hd
+              + 4 * (table.numel() + positions.numel()))
+    return bound(nbytes, 4 * keys * kv * g * hd)
 
 
 def vary(torch, model, seed):
@@ -1058,37 +1199,22 @@ def serve_full(torch):
 
 
 
-def _sdpa_ms(torch, timer, q, k, v, mask=None, causal=False):
-    """One SDPA call on the same q/k/v, heads repeated to H (the library
-    yardstick; the port never calls it)."""
-    import torch.nn.functional as F
-    g = q.shape[2] // k.shape[2]
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
-    return timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal))
-
-
 def check_gemma2_kernels(torch, timer):
-    """Phase 2, gemma2: each new variant against its plain version on the
+    """Phase 2, gemma2: each variant against its plain version on the
     card at gemma2-27b's shapes (H 32, KV 16, hd 128, window 4096, softcap
     50).  K4 (local + softcap, 4 bf16 ulps of each row's scale as for the
     global K4) over the fixed loop's prefill, B = 2 x S = 4160, and at a
     window of 16 (smaller than one 64-slot block) and global + softcap;
-    K5 with softcap (partials within 1e-5 of each row's scale, the pair
-    within 2 bf16 ulps and bitwise across n_splits); K6 local + softcap at
-    decode and at an S = 64 chunk (2 bf16 ulps) with lanes past position
-    4096, the idle lane exactly 0.0, and K6 == K5 bitwise on global lanes
-    with softcap; K7 bitwise at S = 4 over [1024, 4096] for every pair
-    of dtypes it takes (fp32 and bf16 into fp32 and bf16, int8 into
-    int32 and int8)."""
+    K5 with softcap, and without it beside SDPA (``k5_row``); K6 local +
+    softcap at decode and at an S = 64 chunk (2 bf16 ulps; partials within
+    1e-5 of each row's scale) with lanes past position 4096, the idle lane
+    exactly 0.0, and K6 == K5 bitwise on global lanes with softcap; K7
+    bitwise at S = 4 over [1024, 4096] for every pair of dtypes it takes
+    (fp32 and bf16 into fp32 and bf16, int8 into int32 and int8), and at
+    shapes and bases its vector kernel does not take."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import (decode_partials_cuda,
-                                                     decode_tile_partials,
-                                                     flash_decode_tiled,
+    from repro_torch.kernels.flash_attention import (paged_decode_launch,
                                                      paged_flash_decode_tiled,
-                                                     paged_partials_cuda,
                                                      paged_tile_partials)
 
     eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
@@ -1142,9 +1268,9 @@ def check_gemma2_kernels(torch, timer):
         plain_ms=timer(lambda: ref.flash_attention_ref(q, k, v, **var),
                        reps=3),
         bound_ms=t_b, bound_by=by,
-        library_ms=_sdpa_ms(torch, timer, q, k, v, mask=lmask),
+        library_ms=sdpa_ms(torch, timer, q, k, v, attn_mask=lmask),
         library_note="SDPA with the local window as a bool mask, no "
-                     "softcap, heads repeated")
+                     "softcap (sdpa_ms)")
     # K4 global + softcap: gemma2's global layers at the same prefill
     gvar = dict(kind="global", softcap=sc)
     got = ops.flash_attention(q, k, v, **gvar)
@@ -1165,49 +1291,21 @@ def check_gemma2_kernels(torch, timer):
         plain_ms=timer(lambda: ref.flash_attention_ref(q, k, v, **gvar),
                        reps=3),
         bound_ms=t_b, bound_by=by,
-        library_ms=_sdpa_ms(torch, timer, q, k, v, causal=True),
-        library_note="SDPA causal, no softcap, heads repeated")
+        library_ms=sdpa_ms(torch, timer, q, k, v, is_causal=True),
+        library_note="SDPA causal, no softcap (sdpa_ms)")
     del q, k, v, lmask
     torch.cuda.empty_cache()
 
-    # K5 with softcap: the global layers' decode at the fixed loop's last
-    # step
+    # K5 at the global layers' decode at the fixed loop's last step, with
+    # the softcap, and without it beside one SDPA call (the long-history
+    # regime's library yardstick)
     length = G2_PROMPT + G2_NEW
-    pos = length - 1
-    q = rand(b, 1, KV, G, hd, scale=3.0)
-    kc, vc = rand(b, length, KV, hd, scale=3.0), rand(b, length, KV, hd)
-    outs = [ops.flash_decode(q, kc, vc, pos, softcap=sc, n_splits=n)
-            for n in (None, 1, 2, 4)]
-    require(all(torch.equal(outs[0], o) for o in outs[1:]),
-            "K5 softcap output changes with n_splits")
-    pair_err = row_err(outs[0], flash_decode_tiled(q, kc, vc, pos, sc))
-    require(pair_err <= 2 * eps_bf16,
-            f"K5 softcap: a row is off by {pair_err:.3e} of its scale")
-    rows, n_tiles = b * KV, -(-length // 32)
-    parts = decode_partials_cuda(q, kc, vc, pos, softcap=sc)
-    plain = decode_tile_partials(q, kc, vc, pos, sc)
-    plain = (plain[0][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
-             plain[1][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
-             plain[2][..., 0, :].permute(1, 2, 0, 3, 4).reshape(
-                 rows, n_tiles, G, hd))
-    p_err = max(row_err(x, y) for x, y in zip(parts, plain))
-    require(p_err <= 1e-5, f"K5 softcap partials: a row is off by "
-                           f"{p_err:.3e}")
-    t_b, by = bound(2 * q.numel() + 2 * 2 * b * length * KV * hd
-                    + 4 * (2 * rows * n_tiles * G + rows * n_tiles * G * hd),
-                    4 * b * H * hd * length, FP32_FLOPS_PER_S)
-    results["k5_decode_partials_softcap"] = dict(
-        work=f"decode partials softcap={sc} B={b} cache={length} pos={pos} "
-             f"KV={KV} G={G} hd={hd}, {n_tiles} tiles",
-        max_abs_err=max(max_err(x, y) for x, y in zip(parts, plain)),
-        max_row_err=p_err, tol=1e-5, pair_row_err=pair_err,
-        ms=timer(lambda: decode_partials_cuda(q, kc, vc, pos, softcap=sc)),
-        wrapper_ms=timer.wall(
-            lambda: decode_partials_cuda(q, kc, vc, pos, softcap=sc)),
-        plain_ms=timer(lambda: decode_tile_partials(q, kc, vc, pos, sc)),
-        bound_ms=t_b, bound_by=by, library_ms=None,
-        library_note="no one PyTorch call emits per-tile softmax partials")
-    del q, kc, vc, parts, plain, outs
+    for name, softcap in (("k5_flash_decode_softcap", sc),
+                          ("k5_flash_decode_gemma2", None)):
+        results[name] = k5_row(torch, timer, rand, b, length, length - 1,
+                               KV, G, hd, softcap, 3.0,
+                               "gemma2-27b's global layers, fixed loop")
+    torch.cuda.empty_cache()
 
     # K6 local + softcap: the scheduler's geometry for gemma2 (8 lanes,
     # 16-slot pages, 262 pages per lane), lanes on both sides of 4096
@@ -1231,24 +1329,21 @@ def check_gemma2_kernels(torch, timer):
     dec_err = row_err(got, paged_flash_decode_tiled(q, kp, vp, table, posd,
                                                     **lvar))
     rows, n_tiles = L * KV, P * ps // 32
-    parts = paged_partials_cuda(q, kp, vp, table, posd, **lvar)
-    plain = paged_tile_partials(q, kp, vp, table, posd, **lvar)
-    plain = (plain[0][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
-             plain[1][..., 0].permute(1, 2, 0, 3).reshape(rows, n_tiles, G),
-             plain[2][..., 0, :].permute(1, 2, 0, 3, 4).reshape(
-                 rows, n_tiles, G, hd))
-    p_err = max(row_err(x, y) for x, y in zip(parts, plain))
-    p_abs = max(max_err(x, y) for x, y in zip(parts, plain))
-    del plain
+    out, ws = paged_decode_launch(q, kp, vp, table, posd, **lvar)
+    require(torch.equal(out, got), "K6 local: two launches differ")
+    p_err = record_err(torch, ws, paged_tile_partials(q, kp, vp, table, posd,
+                                                      **lvar),
+                       rows, n_tiles, G, hd)
+    del out, ws
     # the S = 64 prefill chunk ending at each lane's position
     s_q = CHUNK
     qc = rand(L, s_q, KV, G, hd, scale=3.0)
     pc = (lane_pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None])
     pc = torch.where((pc >= 0) & (lane_pos[:, None] >= 0), pc, -1)
     pc = pc.to(torch.int32).cuda().contiguous()
-    chunk_err = row_err(ops.paged_flash_decode(qc, kp, vp, table, pc, **lvar),
-                        paged_flash_decode_tiled(qc, kp, vp, table, pc,
-                                                 **lvar))
+    chunk = ops.paged_flash_decode(qc, kp, vp, table, pc, **lvar)
+    chunk_want = paged_flash_decode_tiled(qc, kp, vp, table, pc, **lvar)
+    chunk_err = row_err(chunk, chunk_want)
     gchunk_err = row_err(
         ops.paged_flash_decode(qc, kp, vp, table, pc, softcap=sc),
         paged_flash_decode_tiled(qc, kp, vp, table, pc, softcap=sc))
@@ -1277,32 +1372,41 @@ def check_gemma2_kernels(torch, timer):
             q[lane:lane + 1], kd, vd, int(lane_pos[lane]), softcap=sc)),
             f"K6 global softcap lane {lane} is not bitwise K5 over the same "
             f"history")
-    live = int(sum(min(int(p) + 1, W) for p in lane_pos if p >= 0))
-    t_b, by = bound(2 * q.numel() + 2 * 2 * live * KV * hd
-                    + 4 * (L * P + L)
-                    + 4 * (2 * rows * n_tiles * G + rows * n_tiles * G * hd),
-                    4 * live * KV * G * hd, FP32_FLOPS_PER_S)
-    results["k6_paged_partials_local_softcap"] = dict(
-        work=f"paged decode partials local window={W} softcap={sc} L={L} "
-             f"KV={KV} G={G} hd={hd} page_size={ps} P={P} ({n_tiles} "
-             f"tiles), positions {lane_pos.tolist()}; chunk S={s_q} local "
-             f"and global, and window 16, checked; global lanes bitwise K5",
-        max_abs_err=p_abs, max_row_err=p_err, tol=1e-5,
-        decode_row_err=dec_err, chunk_row_err=chunk_err,
-        global_chunk_row_err=gchunk_err, small_window_row_err=small_err,
-        ms=timer(lambda: paged_partials_cuda(q, kp, vp, table, posd,
-                                             **lvar)),
-        wrapper_ms=timer.wall(lambda: paged_partials_cuda(
+    where = (f"local window={W} softcap={sc} L={L} KV={KV} G={G} hd={hd} "
+             f"page_size={ps} P={P} ({n_tiles} tiles)")
+    dec = dict(
+        work=f"paged decode {where}, positions {lane_pos.tolist()}; the "
+             f"idle lane 0.0, window 16 checked, global lanes bitwise K5",
+        max_abs_err=max_err(got, paged_flash_decode_tiled(
             q, kp, vp, table, posd, **lvar)),
-        plain_ms=timer(lambda: paged_tile_partials(q, kp, vp, table, posd,
-                                                   **lvar), reps=3),
-        pair_ms=timer(lambda: ops.paged_flash_decode(q, kp, vp, table, posd,
-                                                     **lvar)),
-        chunk_ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table, pc,
-                                                      **lvar), reps=3),
-        bound_ms=t_b, bound_by=by, library_ms=None,
+        max_row_err=dec_err, tol=2 * eps_bf16, partials_row_err=p_err,
+        partials_tol=1e-5, small_window_row_err=small_err,
+        ms=timer(lambda: ops.paged_flash_decode(q, kp, vp, table, posd,
+                                                **lvar)),
+        wrapper_ms=timer.wall(lambda: ops.paged_flash_decode(
+            q, kp, vp, table, posd, **lvar)),
+        plain_ms=timer(lambda: paged_flash_decode_tiled(
+            q, kp, vp, table, posd, **lvar), reps=3),
+        library_ms=None,
         library_note="no one PyTorch call attends through a page table")
-    del kp, vp, q, qc, parts
+    dec["bound_ms"], dec["bound_by"] = k6_bound(q, table, posd, KV, W)
+    chk = dict(
+        work=f"paged prefill chunk S={s_q} {where}, each lane's chunk "
+             f"ending at its position; global + softcap chunk checked",
+        max_abs_err=max_err(chunk, chunk_want), max_row_err=chunk_err,
+        tol=2 * eps_bf16, global_chunk_row_err=gchunk_err,
+        ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table, pc,
+                                                **lvar), reps=3),
+        wrapper_ms=timer.wall(lambda: ops.paged_flash_decode(
+            qc, kp, vp, table, pc, **lvar), reps=3),
+        plain_ms=timer(lambda: paged_flash_decode_tiled(
+            qc, kp, vp, table, pc, **lvar), reps=1),
+        library_ms=None,
+        library_note="no one PyTorch call attends through a page table")
+    chk["bound_ms"], chk["bound_by"] = k6_bound(qc, table, pc, KV, W)
+    results["k6_paged_decode_local_softcap"] = dec
+    results["k6_paged_decode_chunk_local_softcap"] = chk
+    del kp, vp, q, qc, chunk, chunk_want
     torch.cuda.empty_cache()
 
     # K7: bitwise, fp32, bf16 and int8 -> int32
@@ -1318,13 +1422,29 @@ def check_gemma2_kernels(torch, timer):
         require(torch.equal(got, ref.addertree_ref(p, out)),
                 f"K7 {dt} -> {out} is not bitwise its plain version")
         k7[dt, out] = p
+        # the scalar kernel: n not a multiple of 16 (nor of the vector
+        # width), and a base 1 element past 16-byte alignment; S = 11 runs
+        # past one round of 8 loads
+        for ss, mm, nn, off in ((s, 33, 17, 0), (s, 64, 96, 1),
+                                (11, 8, 200, 0)):
+            flat = (rand(ss * mm * nn + off, dtype=torch.float32)
+                    if dt != torch.int8 else
+                    torch.randint(-128, 128, (ss * mm * nn + off,),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int8)).to(dt)
+            po = flat[off:].view(ss, mm, nn)
+            require(torch.equal(ops.addertree(po, out_dtype=out),
+                                ref.addertree_ref(po, out)),
+                    f"K7 {dt} -> {out} S={ss} [{mm}, {nn}] offset {off} is "
+                    f"not bitwise its plain version")
     p = k7[torch.float32, torch.float32]
     t_b, by = bound(4 * p.numel() + 4 * m * n, (s - 1) * m * n,
                     FP32_FLOPS_PER_S)
     results["k7_addertree"] = dict(
         work=f"adder tree S={s} [{m}, {n}] fp32 -> fp32 (bitwise; also "
              f"fp32 -> bf16, bf16 -> bf16 and fp32, int8 -> int32 and "
-             f"int8)",
+             f"int8, each also at n = 17, at a base off 16-byte alignment "
+             f"and at S = 11)",
         max_abs_err=0.0, max_row_err=0.0, tol=0.0,
         ms=timer(lambda: ops.addertree(p, out_dtype=torch.float32)),
         wrapper_ms=timer.wall(lambda: ops.addertree(p,
@@ -1693,15 +1813,15 @@ SOURCES = {
     "k4_flash_prefill": ("flash_attention",
                          "src/repro_torch/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:331"),
-    "k5_decode_partials": ("decode_partials",
-                           "src/repro_torch/csrc/flash_attention.cu",
-                           "src/repro/kernels/flash_attention.py:447"),
-    "k5_decode_combine": ("decode_combine",
-                          "src/repro_torch/csrc/flash_attention.cu",
-                          "src/repro/kernels/flash_attention.py:77"),
-    "k6_paged_partials": ("paged_partials",
-                          "src/repro_torch/csrc/flash_attention.cu",
-                          "src/repro/kernels/flash_attention.py:563"),
+    "k5_flash_decode": ("flash_decode",
+                        "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:447"),
+    "k6_paged_decode": ("paged_decode",
+                        "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:563"),
+    "k6_paged_decode_chunk": ("paged_decode:chunk",
+                              "src/repro_torch/csrc/flash_attention.cu",
+                              "src/repro/kernels/flash_attention.py:563"),
     "k4_flash_prefill_local_softcap": (
         "flash_attention:local+softcap",
         "src/repro_torch/csrc/flash_attention.cu",
@@ -1710,16 +1830,41 @@ SOURCES = {
         "flash_attention:softcap",
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:331"),
-    "k5_decode_partials_softcap": (
-        "decode_partials:softcap", "src/repro_torch/csrc/flash_attention.cu",
+    "k5_flash_decode_softcap": (
+        "flash_decode:softcap", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:447"),
-    "k6_paged_partials_local_softcap": (
-        "paged_partials:local+softcap",
+    "k5_flash_decode_gemma2": (
+        "flash_decode", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:447"),
+    "k6_paged_decode_local_softcap": (
+        "paged_decode:local+softcap",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:563"),
+    "k6_paged_decode_chunk_local_softcap": (
+        "paged_decode:local+softcap+chunk",
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:563"),
     "k7_addertree": ("addertree", "src/repro_torch/csrc/addertree.cu",
                      "src/repro/kernels/addertree.py:59"),
 }
+
+
+# rows whose launches on the driven paths are not at the row's own shape
+LAUNCH_NOTES = {
+    "k5_flash_decode_gemma2": "the no-softcap variant's launches, all at "
+                              "granite's shapes: gemma2 runs K5 with its "
+                              "softcap only",
+}
+
+
+def variant_launches(counts, counter):
+    """Launches of one variant: a ``"<kernel>:<variant>"`` key as counted;
+    a bare kernel name counts the launches with no variant on (every
+    launch adds to its kernel's key and to at most one variant key)."""
+    if ":" in counter:
+        return counts.get(counter, 0)
+    return counts.get(counter, 0) - sum(
+        n for key, n in counts.items() if key.startswith(counter + ":"))
 
 
 def main() -> int:
@@ -1748,6 +1893,8 @@ def main() -> int:
     kernels = check_kernels(torch, timer)
     kernels.update(check_int8_kernels(torch, timer))
     kernels.update(check_paged_kernel(torch, timer))
+    wide = check_wide_groups(torch)
+    print("  wide groups " + json.dumps(wide), flush=True)
     kernels.update(check_gemma2_kernels(torch, timer))
     del timer
     torch.cuda.empty_cache()
@@ -1767,13 +1914,15 @@ def main() -> int:
     for name, (counter, source, replaces) in SOURCES.items():
         k = kernels[name]
         # launches on the driven paths (each path's counts were set to 0
-        # just before it)
-        launches = {path: serve[path]["launches"].get(counter, 0)
+        # just before it) of this row's variant only
+        launches = {path: variant_launches(serve[path]["launches"], counter)
                     for path in PATH_KERNELS}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": sum(launches.values()),
                      "launches_by_path": launches,
+                     **({"launches_note": LAUNCH_NOTES[name]}
+                        if name in LAUNCH_NOTES else {}),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "wrapper_ms": k["wrapper_ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

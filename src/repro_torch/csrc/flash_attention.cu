@@ -1,6 +1,6 @@
 // K4, K5 and K6 on Hopper: online-softmax flash prefill, split-K flash
-// decode over a dense KV cache with its deterministic combine, and the
-// same decode over a paged KV cache.
+// decode over a dense KV cache with its deterministic fold in the same
+// launch, and the same decode over a paged KV cache.
 //
 // K4 replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (_prefill_kernel), in the shape of FlashAttention-3.  One block per
@@ -33,33 +33,43 @@
 // softcap) with an IEEE division, before the mask.
 //
 // K5 replaces flash_decode_pallas (_decode_kernel) and
-// combine_tile_partials.  k5_decode_partials: one block per (batch, kv
-// head, tile group); each fixed 32-slot tile anchored at slot 0 yields an
-// independent partial (m_t, l_t, acc_t) that the G query heads of the kv
-// head share a K/V tile for.  A tile past the current position is fully
-// masked and is written as (_NEG, 0, 0) without reading the cache.
-// k5_decode_combine: a global max, alpha_t = exp(m_t - m) and an ASCENDING
-// fp32 fold over tiles.  A partial depends only on its tile index, and the
-// combine never sees the grouping, so the output is bitwise identical for
-// every n_splits.  What bounds it: the bytes of the live cache (each K/V
-// row read once), so tiles past the position are skipped and slots past it
-// are not read.  `softcap` > 0 caps the scores as in K4.
+// combine_tile_partials, in one launch (k5_flash_decode): one block per
+// (batch, kv head, split); the 32-slot tiles anchored at slot 0 that hold
+// a key of the row go to the splits in contiguous ranges, each tile yields
+// an independent partial (m_t, l_t, acc_t) that the G query heads of the
+// kv head share a K/V tile for, and the last split of a row to arrive
+// folds the row (a global max, alpha_t = exp(m_t - m) and an ASCENDING
+// fp32 fold over its tiles; an arrival counter per row, no value atomics;
+// a row with one split folds in its own block).  A partial depends only on
+// its tile, and the fold never sees the splits, so the output is bitwise
+// the same for every split count.  K and V stream through a 3-stage
+// cp.async ring, the scores are warp dots reduced by shuffles, the
+// softmax's max and sum warp reductions, P.V fp32 FMAs.  What bounds it:
+// the bytes of the live cache (each K/V row read once); a tile past the
+// position is neither read, written nor folded, and slots past it are not
+// read.  `softcap` > 0 caps the scores, softcap * tanhf(s / softcap).
+// A block holds at most G_MAX query heads: with more, each kv head's G
+// query heads are served as `rep` rows of G / rep heads each (the caller
+// picks rep), rows that read the same K/V.  A query head's arithmetic
+// never depends on the heads beside it, so the grouping changes no bit.
+// Each live tile's record stays in the workspace after the fold, which is
+// how the partials are checked.
 //
 // K6 replaces paged_flash_decode_pallas (_paged_decode_kernel) and, for
 // prefill chunks (S > 1), its tiled XLA mirror paged_flash_decode_xla.
-// k6_paged_partials is the K5 partials kernel instantiated on a paged
-// slot address: each row is (lane, s, kv head) with its own position
-// (-1 = idle, every tile masked, output exactly 0.0); slot j of a lane
-// lives at pool[table[lane, j / PS], j % PS]; an unmapped page (-1) is
-// masked and never read.  Tiles are the same 32 slots anchored at logical
-// position 0 as the dense path, not one page per tile, and the partials go
-// through k5_decode_combine unchanged, so a paged lane is bitwise the same
-// history decoded from a dense cache and a neighbour's page mapping
-// changes no bit of it.  What bounds it: the bytes of each row's live
-// pages at decode; at a prefill chunk the fp32 partials of every tile.
-// 'local' rows (`window` > 0) also mask keys at or before pos - window,
-// and a tile wholly before the window is written as (_NEG, 0, 0) without
-// reading the cache, as a tile past the position is.
+// k6_paged_decode is the K5 kernel instantiated on a paged slot address:
+// each row is (lane, s, kv head) with its own position (-1 = idle, no
+// tile live, output exactly 0.0); slot j of a lane lives at
+// pool[table[lane, j / PS], j % PS]; an unmapped page (-1) is masked and
+// never read.  Tiles are the same 32 slots anchored at logical position 0
+// as the dense path, not one page per tile, and the fold is K5's, so a
+// paged lane is bitwise the same history decoded from a dense cache and a
+// neighbour's page mapping changes no bit of it.  'local' rows (`window`
+// > 0) also mask keys at or before pos - window, and a tile wholly before
+// the window is skipped as a tile past the position is.  What bounds it:
+// the bytes of each row's live pages at decode; at a prefill chunk each of
+// a lane's rows reloads its live tiles (from L2) and writes their fp32
+// partials.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -372,162 +382,356 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
-// K5: split-K decode partials and combine
+// K5 / K6: split-K flash decode and its fold, one launch
 // ---------------------------------------------------------------------------
 
-constexpr int TILE = 32;  // DEFAULT_KV_TILE of the reference
+constexpr int TILE = 32;       // DEFAULT_KV_TILE of the reference
+constexpr int G_MAX = 8;       // query rows per kv head
+constexpr int DEC_STAGES = 3;  // K/V tiles in the ring: 48 KB at hd 128
 
 // Where a decode row's K/V slots live.  slot_row returns the index of the
 // slot's [hd] row in the K and V arrays, or -1 when the slot holds nothing
 // (past a dense cache's end, or an unmapped page); position gives the
-// row's query position (-1: an idle row).  The partials kernel is written
-// once against this interface, so K6 runs K5's dot order, exp and mask on
-// every tile, and a paged lane is bitwise the same history in a dense
-// cache.
+// row's query position (-1: an idle row).  The decode kernel is written
+// once against this interface, so K6 runs K5's dot order, exp, mask and
+// fold on every tile, and a paged lane is bitwise the same history in a
+// dense cache.  A row is (..., kv head, r) with r < rep: the rep rows of
+// a kv head each hold G / rep of its query heads.
 struct DenseKV {
+  static constexpr bool ARITHMETIC = true;  // slot_row reads no memory
   const bf16* k;
   const bf16* v;
-  int KV, cache_len, pos;
+  int KV, rep, cache_len, pos;
   __device__ int position(int) const { return pos; }
   __device__ long long slot_row(int row, int slot) const {
     if (slot >= cache_len) return -1;
-    const int b = row / KV, kvh = row % KV;
+    const int kr = row / rep, b = kr / KV, kvh = kr % KV;
     return ((long long)b * cache_len + slot) * KV + kvh;
   }
 };
 
-// Rows are (lane, s, kv head); pools [NP + 1, PS, KV, hd] with the trash
-// page last; table [L, P] (-1 = unmapped); positions [L, S] (-1 = idle).
-// An unmapped slot is never read: it is masked, so what the trash page
-// holds cannot reach the output.
+// Rows are (lane, s, kv head, r); pools [NP + 1, PS, KV, hd] with the
+// trash page last; table [L, P] (-1 = unmapped); positions [L, S] (-1 =
+// idle).  An unmapped slot is never read: it is masked, so what the trash
+// page holds cannot reach the output.
 struct PagedKV {
+  static constexpr bool ARITHMETIC = false;  // slot_row reads the table
   const bf16* k;
   const bf16* v;
   const int* table;
   const int* positions;
-  int KV, S, P, PS;
-  __device__ int position(int row) const { return positions[row / KV]; }
+  int KV, rep, S, P, PS;
+  __device__ int position(int row) const {
+    return positions[row / (KV * rep)];
+  }
   __device__ long long slot_row(int row, int slot) const {
     const int page = slot / PS;
     if (page >= P) return -1;
-    const int lane = row / (S * KV), kvh = row % KV;
+    const int lane = row / (S * KV * rep), kvh = row / rep % KV;
     const int phys = table[lane * P + page];
     if (phys < 0) return -1;
     return ((long long)phys * PS + slot % PS) * KV + kvh;
   }
 };
 
-template <int HD, class Rows>
-__global__ void __launch_bounds__(THREADS)
-decode_partials_kernel(Rows kv, const bf16* __restrict__ q,
-                       float* __restrict__ m_t, float* __restrict__ l_t,
-                       float* __restrict__ acc_t, int G, int n_tiles,
-                       int tiles_per_split, float scale, int window,
-                       float softcap) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + TILE * HD;
-  float* qs = reinterpret_cast<float*>(Vs + TILE * HD);
-  float* ps = qs + G * HD;
-  __shared__ int live[TILE];  // slot stored, <= pos and in the window
+template <int HD>
+struct DecodeLayout {
+  static constexpr int KV_BYTES = TILE * HD * 2;  // one tile of K (or V)
+  static constexpr int STAGE = 2 * KV_BYTES;      // K, then V
+  static constexpr int SMEM = DEC_STAGES * STAGE;
+  static constexpr int LG = HD / 8;    // scores: lanes per slot, 8 dims each
+  static constexpr int SPW = 32 / LG;  // scores: slots per warp and pass
+  static constexpr int PAIRS = HD / 2;        // P.V and fold: dims d, d + 1
+  static constexpr int NG = THREADS / PAIRS;  // query rows side by side
+  static constexpr int GPT = (G_MAX + NG - 1) / NG;  // query rows a thread
+};
 
-  const int row = blockIdx.x;  // one query row's kv head
-  const int pos = kv.position(row);
-  for (int i = threadIdx.x; i < G * HD; i += THREADS)
-    qs[i] = __bfloat162float(q[(size_t)row * G * HD + i]);
-
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  for (int t = t_begin; t < t_end; ++t) {
-    const int t0 = t * TILE;
-    const size_t pm = ((size_t)row * n_tiles + t) * G;
-    // fully masked tile (past the position, or wholly before the window):
-    // exact (_NEG, 0, 0)
-    if (t0 > pos || (window > 0 && pos - (t0 + TILE - 1) >= window)) {
-      for (int i = threadIdx.x; i < G; i += THREADS) {
-        m_t[pm + i] = NEG;
-        l_t[pm + i] = 0.0f;
-      }
-      for (int i = threadIdx.x; i < G * HD; i += THREADS)
-        acc_t[pm * HD + i] = 0.0f;
-      continue;
-    }
-    __syncthreads();  // qs loaded / previous tile consumed
-    // K is stored transposed (slot fastest) so the threads of a warp,
-    // one slot each, read neighbouring shared-memory words.  A masked
-    // slot is not read: its K and V are zero in shared memory.
-    constexpr int CH = HD / 8;
-    for (int c = threadIdx.x; c < TILE * CH; c += THREADS) {
-      const int j = c / CH, cc = (c % CH) * 8;
-      const int slot = t0 + j;
-      const bool in_mask = slot <= pos && (window == 0 || pos - slot < window);
-      const long long sr = in_mask ? kv.slot_row(row, slot) : -1;
-      uint4 wk = make_uint4(0, 0, 0, 0), wv = make_uint4(0, 0, 0, 0);
-      if (sr >= 0) {
-        wk = *reinterpret_cast<const uint4*>(kv.k + sr * HD + cc);
-        wv = *reinterpret_cast<const uint4*>(kv.v + sr * HD + cc);
-      }
-      if (cc == 0) live[j] = sr >= 0;
-      const bf16* e = reinterpret_cast<const bf16*>(&wk);
+__device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
-      for (int x = 0; x < 8; ++x) Ks[(cc + x) * TILE + j] = e[x];
-      *reinterpret_cast<uint4*>(Vs + j * HD + cc) = wv;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * TILE; i += THREADS) {
-      const int g = i / TILE, j = i % TILE;
-      float dot = 0.0f;
-      for (int d = 0; d < HD; ++d)
-        dot += qs[g * HD + d] * __bfloat162float(Ks[d * TILE + j]);
-      float x = dot * scale;
-      if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-      ps[i] = live[j] ? x : NEG;
-    }
-    __syncthreads();
-    for (int g = threadIdx.x; g < G; g += THREADS) {
-      float mx = NEG;
-      for (int j = 0; j < TILE; ++j) mx = fmaxf(mx, ps[g * TILE + j]);
-      float sum = 0.0f;
-      for (int j = 0; j < TILE; ++j) {
-        const float p = live[j] ? expf(ps[g * TILE + j] - mx) : 0.0f;
-        ps[g * TILE + j] = p;
-        sum += p;
-      }
-      m_t[pm + g] = mx;
-      l_t[pm + g] = sum;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * HD; i += THREADS) {
-      const int g = i / HD, d = i % HD;
-      float a = 0.0f;
-      for (int j = 0; j < TILE; ++j)
-        a += ps[g * TILE + j] * __bfloat162float(Vs[j * HD + d]);
-      acc_t[pm * HD + i] = a;
-    }
+  for (int o = 16; o > 0; o /= 2)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
 }
 
+// Floats of one tile's record in the workspace: acc [G][HD], then m [G]
+// and l [G], padded to 16 bytes so that a run of records is copied in
+// 16-byte pieces.
+__host__ __device__ constexpr int record_floats(int G, int HD) {
+  return (G * (HD + 2) + 3) / 4 * 4;
+}
+
+// One block per (row, split), gridDim.y splits.  A row's live tiles, the
+// 32-slot tiles from slot 0 that hold a key of the row, are lo..hi: a
+// tile past the position, wholly before the window or of an idle row is
+// neither read, written nor folded.  The splits take contiguous ranges of
+// the live tiles.  Per tile: its K and V arrive through a DEC_STAGES-deep
+// cp.async ring (a masked slot is zero-filled, never read); the scores
+// are warp dots, HD / 8 lanes of 8 dims (one 16-byte shared load) per
+// slot, reduced by shuffles; one warp per query row takes the scale, the
+// softcap, the mask, the max and the sum over the 32 slots by shuffles;
+// P.V runs at fp32, a thread per (query row, pair of dims), ascending
+// slots.  The tile's partial (m_t, l_t, acc_t) is its record in the row's
+// workspace.  The last block of the row to arrive (an int32 counter per
+// row, taken after a __threadfence and reset by the block that folds; no
+// counter with one split) folds the row's live tiles: the max over them
+// from NEG, then the records stream back through the ring (cp.async, two
+// halves, one folded while the next arrives) into alpha = exp(m_t - m)
+// and an ascending fp32 fold, a / max(l, 1e-30).  A partial depends on its
+// tile alone and the fold sees no split, so the output is bitwise the same
+// for every split count; a row with no key writes exactly 0.0.
+template <int HD, class Rows>
 __global__ void __launch_bounds__(THREADS)
-decode_combine_kernel(const float* __restrict__ m_t,
-                      const float* __restrict__ l_t,
-                      const float* __restrict__ acc_t, bf16* __restrict__ out,
-                      int n_tiles, int G, int HD) {
-  const int row = blockIdx.x;
-  for (int i = threadIdx.x; i < G * HD; i += THREADS) {
-    const int g = i / HD, d = i % HD;
-    const size_t base = (size_t)row * n_tiles * G + g;  // tile 0, head g
-    float m = NEG;
-    for (int t = 0; t < n_tiles; ++t) m = fmaxf(m, m_t[base + t * G]);
-    // ascending rank-order fold at fp32 (core/maxeva_matmul._rank_order_sum)
-    float alpha = expf(m_t[base] - m);
-    float l = l_t[base] * alpha;
-    float a = acc_t[base * HD + d] * alpha;
-    for (int t = 1; t < n_tiles; ++t) {
-      alpha = expf(m_t[base + t * G] - m);
-      l = l + l_t[base + t * G] * alpha;
-      a = a + acc_t[(base + t * G) * HD + d] * alpha;
+decode_kernel(Rows kv, const bf16* __restrict__ q, float* __restrict__ ws,
+              bf16* __restrict__ out, int* __restrict__ counters, int G,
+              int n_tiles, float scale, int window, float softcap) {
+  using L = DecodeLayout<HD>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float sp[G_MAX][TILE];           // a tile's scores, then p
+  __shared__ uint8_t live[DEC_STAGES][TILE];  // slot stored and in the mask
+  __shared__ float m_row[G_MAX];
+  __shared__ int last;
+
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int pos = kv.position(row);
+  const int hi = pos < 0 ? -1 : min(pos / TILE, n_tiles - 1);
+  const int lo = window > 0 ? max(0, pos - window + 1) / TILE : 0;
+  const int n_live = hi - lo + 1;
+  if (n_live <= 0) {  // no key: exactly 0.0
+    if (blockIdx.y == 0)
+      for (int i = tid; i < G * HD; i += THREADS)
+        out[(size_t)row * G * HD + i] = __float2bfloat16(0.0f);
+    return;
+  }
+  const int per = (n_live + gridDim.y - 1) / gridDim.y;
+  const int b_lo = lo + blockIdx.y * per;
+  const int b_n = max(0, min(hi + 1, b_lo + per) - b_lo);
+  const int rec = record_floats(G, HD);
+  float* const recs = ws + (size_t)row * n_tiles * rec;  // the row's tile 0
+
+  // this lane's 8 dims of each query row, for the scores
+  const int li = lane % L::LG;
+  float qf[G_MAX][8];
+#pragma unroll
+  for (int g = 0; g < G_MAX; ++g)
+    if (g < G && b_n > 0)
+      unpack8(*reinterpret_cast<const uint4*>(q + ((size_t)row * G + g) * HD +
+                                              li * 8),
+              qf[g]);
+
+  // tile b_lo + i into stage i % DEC_STAGES.  Dense rows (a slot's row is
+  // arithmetic): HD / 8 threads copy a slot's K row, then its V row, 16
+  // contiguous bytes each, so a warp copies whole rows.  Paged rows (a
+  // slot's row is a page-table load): 4 threads per slot, one lookup each,
+  // each taking every 4th 16-byte chunk of the slot's K row, then its V
+  // row.
+  auto issue = [&](int i) {
+    const int s = i % DEC_STAGES;
+    unsigned char* st = smem + s * L::STAGE;
+    if constexpr (Rows::ARITHMETIC) {
+      constexpr int CPR = HD / 8;          // 16-byte chunks a row
+      constexpr int RPP = THREADS / CPR;   // rows a pass
+      const int c = tid % CPR;
+#pragma unroll
+      for (int j = tid / CPR; j < TILE; j += RPP) {
+        const int slot = (b_lo + i) * TILE + j;
+        const bool in_mask =
+            slot <= pos && (window == 0 || pos - slot < window);
+        const long long sr = in_mask ? kv.slot_row(row, slot) : -1;
+        if (c == 0) live[s][j] = sr >= 0;
+        const long long o = sr >= 0 ? sr * HD + c * 8 : 0;
+        cp_async16(st + (j * HD + c * 8) * 2, kv.k + o, sr >= 0);
+        cp_async16(st + L::KV_BYTES + (j * HD + c * 8) * 2, kv.v + o,
+                   sr >= 0);
+      }
+    } else {
+      const int j = tid / 4, part = tid % 4;
+      const int slot = (b_lo + i) * TILE + j;
+      const bool in_mask =
+          slot <= pos && (window == 0 || pos - slot < window);
+      const long long sr = in_mask ? kv.slot_row(row, slot) : -1;
+      if (part == 0) live[s][j] = sr >= 0;
+#pragma unroll
+      for (int c = part; c < 2 * (HD / 8); c += 4) {
+        const bool is_v = c >= HD / 8;
+        const int d = (is_v ? c - HD / 8 : c) * 8;
+        const bf16* src = is_v ? kv.v : kv.k;
+        cp_async16(st + (is_v ? L::KV_BYTES : 0) + (j * HD + d) * 2,
+                   sr >= 0 ? src + sr * HD + d : src, sr >= 0);
+      }
     }
-    out[((size_t)row * G + g) * HD + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+  };
+#pragma unroll
+  for (int i = 0; i < DEC_STAGES - 1; ++i) {
+    if (i < b_n) issue(i);
+    cp_async_commit();
+  }
+
+  const int dp = tid % L::PAIRS, g0 = tid / L::PAIRS;
+  for (int i = 0; i < b_n; ++i) {
+    cp_async_wait<DEC_STAGES - 2>();
+    __syncthreads();  // tile i landed; tile i - 1's stage and sp are free
+    if (i + DEC_STAGES - 1 < b_n) issue(i + DEC_STAGES - 1);
+    cp_async_commit();
+    const int s = i % DEC_STAGES;
+    float* const r = recs + (size_t)(b_lo + i) * rec;
+    const bf16* Ks = reinterpret_cast<const bf16*>(smem + s * L::STAGE);
+    const bf16* Vs = Ks + TILE * HD;
+
+    for (int j = warp * L::SPW + lane / L::LG; j < TILE; j += 4 * L::SPW) {
+      float kf[8];
+      unpack8(*reinterpret_cast<const uint4*>(Ks + j * HD + li * 8), kf);
+#pragma unroll
+      for (int g = 0; g < G_MAX; ++g) {
+        if (g >= G) break;
+        float d = 0.0f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d = fmaf(qf[g][e], kf[e], d);
+#pragma unroll
+        for (int o = L::LG / 2; o > 0; o /= 2)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        if (li == 0) sp[g][j] = d;
+      }
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += 4) {
+      const bool ok = live[s][lane];
+      float x = sp[g][lane] * scale;
+      if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+      x = ok ? x : NEG;
+      const float mx = warp_max(x);
+      const float p = ok ? expf(x - mx) : 0.0f;
+      const float sum = warp_sum(p);
+      sp[g][lane] = p;
+      if (lane == 0) {
+        r[G * HD + g] = mx;
+        r[G * HD + G + g] = sum;
+      }
+    }
+    __syncthreads();
+
+    float a[L::GPT][2];
+#pragma unroll
+    for (int u = 0; u < L::GPT; ++u) a[u][0] = a[u][1] = 0.0f;
+#pragma unroll 8
+    for (int j = 0; j < TILE; ++j) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(Vs + j * HD + 2 * dp));
+#pragma unroll
+      for (int u = 0; u < L::GPT; ++u) {
+        const int g = g0 + u * L::NG;
+        if (g < G) {
+          const float p = sp[g][j];
+          a[u][0] = fmaf(p, v.x, a[u][0]);
+          a[u][1] = fmaf(p, v.y, a[u][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < L::GPT; ++u) {
+      const int g = g0 + u * L::NG;
+      if (g < G)
+        *reinterpret_cast<float2*>(r + g * HD + 2 * dp) =
+            make_float2(a[u][0], a[u][1]);
+    }
+  }
+
+  // the last split of the row to arrive folds it
+  if (gridDim.y > 1) {
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(&counters[row], 1) == (int)gridDim.y - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (tid == 0) counters[row] = 0;
+  } else {
+    __threadfence();  // the records reach L2, where the fold reads them
+    __syncthreads();  // and the ring is free
+  }
+  // the live records, a chunk of whole records per half of the ring (L2
+  // reads: cp.async.cg does not allocate in L1)
+  float* const stage = reinterpret_cast<float*>(smem);
+  constexpr int HALF = L::SMEM / 2 / 4;  // floats
+  const int per_chunk = HALF / rec;
+  const int n_chunks = (n_live + per_chunk - 1) / per_chunk;
+  auto fetch = [&](int c) {
+    const int t0 = lo + c * per_chunk;
+    const int n4 = min(per_chunk, hi + 1 - t0) * rec / 4;
+    const float* src = recs + (size_t)t0 * rec;
+    float* dst = stage + (c % 2) * HALF;
+    for (int i = tid; i < n4; i += THREADS)
+      cp_async16(dst + 4 * i, src + 4 * i, true);
+  };
+  fetch(0);
+  cp_async_commit();
+  if (n_chunks > 1) fetch(1);
+  cp_async_commit();
+  for (int g = warp; g < G; g += 4) {
+    float mx = NEG;
+    for (int t = lo + lane; t <= hi; t += 32)
+      mx = fmaxf(mx, __ldcg(recs + (size_t)t * rec + G * HD + g));
+    mx = warp_max(mx);
+    if (lane == 0) m_row[g] = mx;
+  }
+  // ascending rank-order fold at fp32 (core/maxeva_matmul.rank_order_sum)
+  float l[L::GPT] = {}, ax[L::GPT] = {}, ay[L::GPT] = {};
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<1>();
+    __syncthreads();  // chunk c landed (and m_row is set)
+    const int t0 = lo + c * per_chunk, nt = min(per_chunk, hi + 1 - t0);
+    const float* base = stage + (c % 2) * HALF;
+#pragma unroll
+    for (int u = 0; u < L::GPT; ++u) {
+      const int g = g0 + u * L::NG;
+      if (g >= G) break;
+      const float m = m_row[g];
+      for (int k = 0; k < nt; ++k) {
+        const float* r = base + k * rec;
+        const float alpha = expf(r[G * HD + g] - m);
+        const float lt = r[G * HD + G + g];
+        const float2 at = *reinterpret_cast<const float2*>(r + g * HD +
+                                                           2 * dp);
+        if (c == 0 && k == 0) {
+          l[u] = lt * alpha;
+          ax[u] = at.x * alpha;
+          ay[u] = at.y * alpha;
+        } else {
+          l[u] = l[u] + lt * alpha;
+          ax[u] = ax[u] + at.x * alpha;
+          ay[u] = ay[u] + at.y * alpha;
+        }
+      }
+    }
+    __syncthreads();  // half c % 2 is free
+    if (c + 2 < n_chunks) fetch(c + 2);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int u = 0; u < L::GPT; ++u) {
+    const int g = g0 + u * L::NG;
+    if (g >= G) break;
+    const float den = fmaxf(l[u], 1e-30f);
+    *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)row * G + g) * HD +
+                                       2 * dp) =
+        __floats2bfloat162_rn(ax[u] / den, ay[u] / den);
   }
 }
 
@@ -578,34 +782,39 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out,
 }
 
 template <int HD, class Rows>
-int launch_partials(const Rows& kv, const void* q, void* m, void* l,
-                    void* acc, int rows, int G, int n_tiles,
-                    int tiles_per_split, int n_splits, float scale,
-                    int window, float softcap, cudaStream_t st) {
-  const size_t bytes =
-      2 * TILE * HD * sizeof(bf16) + (size_t)G * (HD + TILE) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_partials_kernel<HD, Rows>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
+int launch_decode(const Rows& kv, const void* q, void* ws, void* out,
+                  void* counters, int rows, int G, int n_tiles, int n_splits,
+                  float scale, int window, float softcap, cudaStream_t st) {
+  using L = DecodeLayout<HD>;
+  if (G < 1 || G > G_MAX || kv.rep < 1 || n_splits < 1 ||
+      (n_splits > 1 && counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;  // once per instantiation, not per launch
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_kernel<HD, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = 1;
+  }
   dim3 grid(rows, n_splits);
-  decode_partials_kernel<HD, Rows><<<grid, THREADS, bytes, st>>>(
-      kv, static_cast<const bf16*>(q), static_cast<float*>(m),
-      static_cast<float*>(l), static_cast<float*>(acc), G, n_tiles,
-      tiles_per_split, scale, window, softcap);
+  decode_kernel<HD, Rows><<<grid, THREADS, L::SMEM, st>>>(
+      kv, static_cast<const bf16*>(q), static_cast<float*>(ws),
+      static_cast<bf16*>(out), static_cast<int*>(counters), G, n_tiles,
+      scale, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <class Rows>
-int launch_partials_hd(const Rows& kv, int hd, const void* q, void* m,
-                       void* l, void* acc, int rows, int G, int n_tiles,
-                       int tiles_per_split, int n_splits, float scale,
-                       int window, float softcap, cudaStream_t st) {
+int launch_decode_hd(const Rows& kv, int hd, const void* q, void* ws,
+                     void* out, void* counters, int rows, int G, int n_tiles,
+                     int n_splits, float scale, int window, float softcap,
+                     cudaStream_t st) {
   switch (hd) {
-#define K5_CASE(HD)                                                         \
-    case HD: return launch_partials<HD>(kv, q, m, l, acc, rows, G, n_tiles, \
-                                        tiles_per_split, n_splits, scale,   \
-                                        window, softcap, st);
+#define K5_CASE(HD)                                                       \
+    case HD: return launch_decode<HD, Rows>(                              \
+        kv, q, ws, out, counters, rows, G, n_tiles, n_splits, scale,      \
+        window, softcap, st);
     K5_CASE(16) K5_CASE(32) K5_CASE(64) K5_CASE(128)
 #undef K5_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -629,43 +838,36 @@ extern "C" int k4_flash_prefill(const void* q, const void* k, const void* v,
   }
 }
 
-extern "C" int k5_decode_partials(const void* q, const void* k, const void* v,
-                                  void* m, void* l, void* acc, int B, int KV,
-                                  int G, int hd, int cache_len, int pos,
-                                  int n_tiles, int tiles_per_split,
-                                  int n_splits, float scale, float softcap,
-                                  void* stream) {
+// K5: partials and fold in one launch.  A kv head's G * rep query heads
+// are rep rows of G; ws holds B*KV*rep x n_tiles records of
+// record_floats(G, hd) fp32 (acc [G][hd], m [G], l [G]), and the live
+// tiles' records are left there; counters (B*KV*rep int32, zero) are
+// needed when n_splits > 1.
+extern "C" int k5_flash_decode(const void* q, const void* k, const void* v,
+                               void* ws, void* out, void* counters, int B,
+                               int KV, int rep, int G, int hd, int cache_len,
+                               int pos, int n_tiles, int n_splits,
+                               float scale, float softcap, void* stream) {
   DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), KV,
-             cache_len, pos};
-  return launch_partials_hd(kv, hd, q, m, l, acc, B * KV, G, n_tiles,
-                            tiles_per_split, n_splits, scale, 0, softcap,
-                            static_cast<cudaStream_t>(stream));
+             rep, cache_len, pos};
+  return launch_decode_hd(kv, hd, q, ws, out, counters, B * KV * rep, G,
+                          n_tiles, n_splits, scale, 0, softcap,
+                          static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int k6_paged_partials(const void* q, const void* k_pool,
-                                 const void* v_pool, const void* table,
-                                 const void* positions, void* m, void* l,
-                                 void* acc, int L, int S, int KV, int G,
-                                 int hd, int P, int PS, int n_tiles,
-                                 int tiles_per_split, int n_splits,
-                                 float scale, int window, float softcap,
-                                 void* stream) {
+// K6: K5's kernel on the page table, rows (lane, s, kv head, r).
+extern "C" int k6_paged_decode(const void* q, const void* k_pool,
+                               const void* v_pool, const void* table,
+                               const void* positions, void* ws, void* out,
+                               void* counters, int L, int S, int KV, int rep,
+                               int G, int hd, int P, int PS, int n_tiles,
+                               int n_splits, float scale, int window,
+                               float softcap, void* stream) {
   PagedKV kv{static_cast<const bf16*>(k_pool),
              static_cast<const bf16*>(v_pool),
              static_cast<const int*>(table),
-             static_cast<const int*>(positions), KV, S, P, PS};
-  return launch_partials_hd(kv, hd, q, m, l, acc, L * S * KV, G, n_tiles,
-                            tiles_per_split, n_splits, scale, window, softcap,
-                            static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int k5_decode_combine(const void* m, const void* l,
-                                 const void* acc, void* out, int rows,
-                                 int n_tiles, int G, int hd, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decode_combine_kernel<<<rows, THREADS, 0, st>>>(
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(acc), static_cast<bf16*>(out), n_tiles, G,
-      hd);
-  return (int)cudaGetLastError();
+             static_cast<const int*>(positions), KV, rep, S, P, PS};
+  return launch_decode_hd(kv, hd, q, ws, out, counters, L * S * KV * rep, G,
+                          n_tiles, n_splits, scale, window, softcap,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
-// Building blocks of the Hopper kernels (sm_90a): mbarrier rings, 2-D and
-// 3-D TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma.mma_async products, plus the host-side tensor-map encoder.
+// Building blocks of the Hopper kernels (sm_90a): per-thread cp.async
+// copies, mbarrier rings, 2-D and 3-D TMA tile loads, wgmma shared-memory
+// descriptors and the wgmma.mma_async products, plus the host-side
+// tensor-map encoder.
 //
 // Shared-memory tiles are written by TMA with a 32/64/128-byte swizzle
 // whose span equals the tile's row (its inner box) in bytes, and read by
@@ -105,6 +106,27 @@ inline int make_map_2d(CUtensorMap* map, const void* base, uint64_t rows,
                            (int)box_cols * 2);
   if (err == 0) e = Entry{base, rows, cols, box_rows, box_cols, *map};
   return err;
+}
+
+// ---------------------------------------------------------------------------
+// device: cp.async (16-byte copies, global to shared, per thread)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // ---------------------------------------------------------------------------

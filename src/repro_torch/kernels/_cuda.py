@@ -16,7 +16,7 @@ beside the library as ``lib<name>-<hash>.log`` (``ptxas_report``).
 one exactly where it launches its kernel (``count``).  A launch of a
 variant (gemma2's 'local' window, the softcap) also adds one to the
 variant's own key, ``"<kernel>:<variant>"``, e.g.
-``"paged_partials:local+softcap"``.
+``"paged_decode:local+softcap"``.
 """
 from __future__ import annotations
 
@@ -58,17 +58,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # stream
         "k4_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                              _F, _P],
-        # q, k, v, m, l, acc, B, KV, G, hd, cache_len, pos, n_tiles,
-        # tiles_per_split, n_splits, scale, softcap, stream
-        "k5_decode_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _F, _P],
-        # m, l, acc, out, rows, n_tiles, G, hd, stream
-        "k5_decode_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # q, k_pool, v_pool, table, positions, m, l, acc, L, S, KV, G, hd,
-        # P, PS, n_tiles, tiles_per_split, n_splits, scale, window,
-        # softcap, stream
-        "k6_paged_partials": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
+        # q, k, v, ws, out, counters, B, KV, rep, G, hd, cache_len, pos,
+        # n_tiles, n_splits, scale, softcap, stream
+        "k5_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _F, _P],
+        # q, k_pool, v_pool, table, positions, ws, out, counters, L, S, KV,
+        # rep, G, hd, P, PS, n_tiles, n_splits, scale, window, softcap,
+        # stream
+        "k6_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
     },
     "addertree": {
         # partials, out, S, n, in_kind, out_kind, stream
@@ -79,8 +77,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
 LAUNCHES: Dict[str, int] = {"matmul": 0, "rmsnorm": 0,
                             "int8_matmul": 0, "int8_quantize": 0,
                             "quantize": 0, "flash_attention": 0,
-                            "decode_partials": 0, "decode_combine": 0,
-                            "paged_partials": 0, "addertree": 0}
+                            "flash_decode": 0, "paged_decode": 0,
+                            "addertree": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -208,8 +206,10 @@ def launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"CUDA launch of {fn} failed with cudaError {err}")
 
 
-def check(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None) -> None:
-    """Wrapper-side validation before a pointer reaches a kernel."""
+def check(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None,
+          align: int = 16) -> None:
+    """Wrapper-side validation before a pointer reaches a kernel: device,
+    dtype, shape, contiguity and ``align``-byte alignment."""
     if not t.is_cuda:
         raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -219,5 +219,5 @@ def check(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{what} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{what} must be {align}-byte aligned")

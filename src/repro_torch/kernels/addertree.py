@@ -23,7 +23,8 @@ def addertree_cuda(partials: torch.Tensor,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """K7: ``partials [S, M, N]`` contiguous (fp32 or bf16 into an fp32 or
     bf16 output; int8 into an int32 or int8 output) -> ``[M, N]`` in
-    ``out_dtype`` (default: the partials' dtype)."""
+    ``out_dtype`` (default: the partials' dtype), bitwise
+    ``ref.addertree_ref``."""
     if partials.dim() != 3:
         raise ValueError(f"partials must be [S, M, N], got "
                          f"{tuple(partials.shape)}")
@@ -36,7 +37,10 @@ def addertree_cuda(partials: torch.Tensor,
     s = partials.shape[0]
     if s < 1:
         raise ValueError("the adder tree needs at least one partial")
-    _cuda.check(partials, "partials", partials.dtype)
+    # any base: the kernel vectorizes 16-byte-aligned partials and takes
+    # the rest element by element
+    _cuda.check(partials, "partials", partials.dtype,
+                align=partials.element_size())
     out = torch.empty(partials.shape[1:], dtype=out_dtype,
                       device=partials.device)
     if out.numel():

@@ -11,24 +11,31 @@ never depends on which program computed it, so the CUDA kernel's output
 is bitwise identical for every ``n_splits``.  A fully masked tile is
 ``(_NEG, 0, 0)`` and folds in as +0.0.
 
-K5 is two kernels with a wrapper each: ``decode_partials_cuda`` (plain
-version ``decode_tile_partials``) and ``decode_combine_cuda`` (plain
-version ``combine_tile_partials``); ``flash_decode_cuda`` runs the pair,
-and its plain version is ``flash_decode_tiled``, a tile-for-tile copy of
-the reference's XLA mirror.  The plain version of K4 is
-``ref.flash_attention_ref`` (causal masked softmax, GQA grouped in the
-einsum).  ``kernels.ops`` takes the plain versions for tensors on the CPU.
+K5 is one kernel, one launch per decode: ``flash_decode_cuda`` computes
+the partials of each row's live tiles and the last split of the row to
+arrive folds them (an arrival counter per row in ``split_scratch``'s
+counters, shared with K1); its plain version is ``flash_decode_tiled``, a
+tile-for-tile copy of the reference's XLA mirror (``decode_tile_partials``
+then ``combine_tile_partials``).  A tile that holds no key of its row is
+neither computed nor folded; it would have been (_NEG, 0, 0), which folds
+in as +0.0, so skipping it changes no bit.  The live tiles' partials stay
+in the launch's workspace (``dense_decode_launch`` returns it,
+``record_views`` reads it), which is how they are checked.  A block holds
+at most ``_G_MAX`` query heads; a kv head with more is served as
+``head_groups(G)`` rows that read the same K/V.  The plain
+version of K4 is ``ref.flash_attention_ref`` (causal masked softmax, GQA
+grouped in the einsum).  ``kernels.ops`` takes the plain versions for
+tensors on the CPU.
 
-K6 is one kernel, ``paged_partials_cuda`` (plain version
-``paged_tile_partials``, the twin of the reference's
-``_paged_tile_partials_xla``), followed by K5's combine:
-``paged_flash_decode_cuda`` / ``paged_flash_decode_tiled``.  It tiles a
-lane's logical view in the same 32-slot tiles from position 0 as the
-dense path (not one page per tile, see ROADMAP F2), so a paged lane is
-bitwise the same history in a dense cache.  Its rows are (lane, s, kv
-head), each with its own position, so prefill chunks (S > 1) and decode
-(S == 1) take the same kernel; an idle row (position -1) gives exactly
-0.0.
+K6 is K5's kernel on the page table, ``paged_flash_decode_cuda`` (plain
+version ``paged_flash_decode_tiled``; its partials ``paged_tile_partials``,
+the twin of the reference's ``_paged_tile_partials_xla``, and the
+workspace of ``paged_decode_launch``).  It tiles a lane's logical view in
+the same 32-slot tiles from position 0 as the dense path (not one page
+per tile, see ROADMAP F2), so a paged lane is bitwise the same history in
+a dense cache.  Its rows are (lane, s, kv head), each with its own position, so
+prefill chunks (S > 1) and decode (S == 1) take the same kernel; an idle
+row (position -1) gives exactly 0.0.
 
 Variants (gemma2): K4 and K6 take the ``'local'`` kind, a sliding window
 in which query position p attends keys p - window < k <= p, and all three
@@ -46,6 +53,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _cuda
+from repro_torch.kernels.matmul import sm_count, split_scratch
 from repro_torch.kernels.ref import (accum_dtype, attention_mask, check_kind,
                                      softcap_scores)
 
@@ -54,6 +62,12 @@ _NEG = -1e30
 # KV tile of the decode path; the CUDA kernel's TILE is the same constant
 DEFAULT_KV_TILE = 32
 _HEAD_DIMS = (16, 32, 64, 128)
+# query heads a block of the decode kernel holds (G_MAX)
+_G_MAX = 8
+# blocks per SM the decode grid aims at: one wave, as many as fit an SM
+# at hd 128 (the 3-stage ring's 48 KB of shared memory, and 122 registers
+# a thread, each allow 4)
+DECODE_BLOCKS_PER_SM = 4
 
 
 def combine_tile_partials(m_t: torch.Tensor, l_t: torch.Tensor,
@@ -149,81 +163,104 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def default_splits(rows: int, n_tiles: int, device: torch.device) -> int:
-    """Tile groups per (batch, kv head) row that fill the card's SMs: the
-    SM count over the rows, at most one group per tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_tiles, math.ceil(sms / max(rows, 1))))
+def default_splits(rows: int, n_tiles: int, sms: int) -> int:
+    """Splits per row of the K5/K6 kernel, from the shape alone: enough
+    blocks for ``DECODE_BLOCKS_PER_SM`` on each of ``sms`` SMs, at most
+    one per tile.  No bit of the output depends on it."""
+    want = -(-DECODE_BLOCKS_PER_SM * sms // max(rows, 1))
+    return max(1, min(n_tiles, want))
 
 
-def decode_partials_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, pos: int,
-                         n_splits: Optional[int] = None,
-                         softcap: Optional[float] = None):
-    """K5 partials kernel: q [B, 1, KV, G, hd], caches [B, K, KV, hd] bf16
-    contiguous, slots <= ``pos`` live, scores softcapped when ``softcap``
-    is set.  Returns fp32 ``m_t``/``l_t`` [B*KV, T, G] and ``acc_t``
-    [B*KV, T, G, hd] for the T 32-slot tiles.  ``n_splits`` tile groups
-    run as separate blocks (default: enough to fill the SMs); no bit of
-    the partials depends on it."""
+def head_groups(g: int):
+    """(rep, G / rep): the kernel serves a kv head's ``g`` query heads as
+    ``rep`` rows of ``g / rep`` heads, the fewest rows that hold at most
+    ``_G_MAX`` heads each.  The rows read the same K/V; no bit of a head's
+    output depends on the grouping."""
+    if g < 1:
+        raise ValueError(f"the decode kernel takes >= 1 query heads per kv "
+                         f"head, got {g}")
+    rep = next(r for r in range(1, g + 1) if g % r == 0 and g // r <= _G_MAX)
+    return rep, g // rep
+
+
+def _check_decode(q: torch.Tensor, g: int, hd: int):
+    """Checks q and the head dim; returns ``head_groups(g)``."""
+    _check_head_dim(hd)
+    groups = head_groups(g)
+    _cuda.check(q, "q", torch.bfloat16)
+    return groups
+
+
+def _workspace(rows: int, n_tiles: int, g: int, hd: int,
+               device: torch.device) -> torch.Tensor:
+    """The kernel's workspace [rows, T, record]: one fp32 record per (row,
+    tile) of ``acc_t`` [G, hd], ``m_t`` [G] and ``l_t`` [G], padded to 16
+    bytes (``record_floats`` in the source).  The kernel writes the
+    records of live tiles only; the others are never written."""
+    rec = -(-g * (hd + 2) // 4) * 4
+    return torch.empty((rows, n_tiles, rec), dtype=torch.float32,
+                       device=device)
+
+
+def record_views(ws: torch.Tensor, g: int, hd: int):
+    """``m_t``/``l_t`` [rows, T, G] and ``acc_t`` [rows, T, G, hd] from the
+    workspace of a launch whose rows hold ``g`` query heads each (in
+    ``head_groups(g)`` kernel rows).  Only the live tiles' records were
+    written."""
+    rep, gk = head_groups(g)
+    w = ws.unflatten(0, (-1, rep))            # [rows, rep, T, record]
+
+    def heads(x):                             # [rows, rep, T, gk, ...]
+        x = x.transpose(1, 2)
+        return x.reshape(*x.shape[:2], g, *x.shape[4:])
+    return (heads(w[..., gk * hd:gk * hd + gk]),
+            heads(w[..., gk * hd + gk:gk * hd + 2 * gk]),
+            heads(w[..., :gk * hd].unflatten(-1, (gk, hd))))
+
+
+def dense_decode_launch(q, k_cache, v_cache, pos: int,
+                        n_splits: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """One launch of ``k5_flash_decode``; returns (out, workspace).  The
+    workspace holds each live tile's partial (``record_views``)."""
     b, s_q, n_kv, g, hd = q.shape
     if s_q != 1:
         raise ValueError("flash decode is single-token (S == 1)")
     kv_len = k_cache.shape[1]
-    _check_head_dim(hd)
-    _cuda.check(q, "q", torch.bfloat16)
+    rep, gk = _check_decode(q, g, hd)
     _cuda.check(k_cache, "k_cache", torch.bfloat16, (b, kv_len, n_kv, hd))
     _cuda.check(v_cache, "v_cache", torch.bfloat16, (b, kv_len, n_kv, hd))
-    rows = b * n_kv
+    rows = b * n_kv * rep
     n_tiles = math.ceil(kv_len / DEFAULT_KV_TILE)
     if n_splits is None:
-        n_splits = default_splits(rows, n_tiles, q.device)
+        n_splits = default_splits(rows, n_tiles, sm_count(q.device.index))
     if n_splits < 1:
         raise ValueError(f"n_splits must be >= 1, got {n_splits}")
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_t = torch.empty((rows, n_tiles, g), **f32)
-    l_t = torch.empty((rows, n_tiles, g), **f32)
-    acc_t = torch.empty((rows, n_tiles, g, hd), **f32)
-    if m_t.numel():
-        _cuda.count("decode_partials", softcap=bool(softcap))
-        _cuda.launch("flash_attention", "k5_decode_partials", q.data_ptr(),
-                     k_cache.data_ptr(), v_cache.data_ptr(), m_t.data_ptr(),
-                     l_t.data_ptr(), acc_t.data_ptr(), b, n_kv, g, hd,
-                     kv_len, int(pos), n_tiles,
-                     math.ceil(n_tiles / n_splits), n_splits, hd ** -0.5,
-                     float(softcap or 0.0))
-    return m_t, l_t, acc_t
-
-
-def decode_combine_cuda(m_t: torch.Tensor, l_t: torch.Tensor,
-                        acc_t: torch.Tensor) -> torch.Tensor:
-    """K5 combine kernel: fp32 partials ``m_t``/``l_t`` [R, T, G] and
-    ``acc_t`` [R, T, G, hd] -> [R, G, hd] bf16, the global max and the
-    ascending fold over T."""
-    rows, n_tiles, g, hd = acc_t.shape
-    _cuda.check(m_t, "m_t", torch.float32, (rows, n_tiles, g))
-    _cuda.check(l_t, "l_t", torch.float32, (rows, n_tiles, g))
-    _cuda.check(acc_t, "acc_t", torch.float32)
-    out = torch.empty((rows, g, hd), dtype=torch.bfloat16,
-                      device=acc_t.device)
-    if out.numel() and n_tiles:
-        _cuda.count("decode_combine")
-        _cuda.launch("flash_attention", "k5_decode_combine", m_t.data_ptr(),
-                     l_t.data_ptr(), acc_t.data_ptr(), out.data_ptr(), rows,
-                     n_tiles, g, hd)
-    return out
+    out = torch.empty_like(q)
+    ws = _workspace(rows, n_tiles, gk, hd, q.device)
+    if rows == 0 or n_tiles == 0:
+        return out.zero_(), ws
+    counters = (split_scratch(q.device, 0, rows)[1].data_ptr()
+                if n_splits > 1 else None)
+    _cuda.count("flash_decode", softcap=bool(softcap))
+    _cuda.launch("flash_attention", "k5_flash_decode", q.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(), ws.data_ptr(),
+                 out.data_ptr(), counters, b, n_kv, rep, gk, hd, kv_len,
+                 int(pos), n_tiles, n_splits, hd ** -0.5,
+                 float(softcap or 0.0))
+    return out, ws
 
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, pos: int,
                       n_splits: Optional[int] = None,
                       softcap: Optional[float] = None) -> torch.Tensor:
-    """K5: split-K flash decode, the partials kernel then the combine.
+    """K5: split-K flash decode, partials and fold in one launch.
     q [B, 1, KV, G, hd], caches [B, K, KV, hd] bf16 contiguous ->
-    [B, 1, KV, G, hd] bf16, bitwise the same for any ``n_splits``."""
-    m_t, l_t, acc_t = decode_partials_cuda(q, k_cache, v_cache, pos,
-                                           n_splits, softcap)
-    return decode_combine_cuda(m_t, l_t, acc_t).reshape(q.shape)
+    [B, 1, KV, G, hd] bf16, bitwise the same for any ``n_splits`` (tile
+    groups per kernel row; default ``default_splits``)."""
+    return dense_decode_launch(q, k_cache, v_cache, pos, n_splits,
+                               softcap)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -282,46 +319,37 @@ def paged_flash_decode_tiled(q, k_pool, v_pool, page_table, positions, *,
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
-def paged_partials_cuda(q: torch.Tensor, k_pool: torch.Tensor,
-                        v_pool: torch.Tensor, page_table: torch.Tensor,
-                        positions: torch.Tensor, *, kind: str = "global",
-                        window: int = 0, softcap: Optional[float] = None):
-    """K6 partials kernel: q [L, S, KV, G, hd] bf16, pools [NP + 1, PS, KV,
-    hd] bf16, ``page_table`` [L, P] and ``positions`` [L, S] int32, all
-    contiguous; table entries must be -1 or a page below NP.  'local'
-    masks keys at or before position - window; a tile wholly outside a
-    row's keys is written as (_NEG, 0, 0) without reading K or V.  Returns
-    fp32 ``m_t``/``l_t`` [L*S*KV, T, G] and ``acc_t`` [L*S*KV, T, G, hd]
-    for the T 32-slot tiles of the logical view, in ``default_splits``
-    tile groups per row."""
+def paged_decode_launch(q, k_pool, v_pool, page_table, positions, *,
+                        kind: str = "global", window: int = 0,
+                        softcap: Optional[float] = None):
+    """One launch of ``k6_paged_decode``; returns (out, workspace).  The
+    workspace holds each live tile's partial (``record_views``)."""
     n_lanes, s_q, n_kv, g, hd = q.shape
     n_pool, ps = k_pool.shape[0], k_pool.shape[1]
     p_max = page_table.shape[1]
     win = _window_arg(kind, window)
-    _check_head_dim(hd)
-    _cuda.check(q, "q", torch.bfloat16)
+    rep, gk = _check_decode(q, g, hd)
     _cuda.check(k_pool, "k_pool", torch.bfloat16, (n_pool, ps, n_kv, hd))
     _cuda.check(v_pool, "v_pool", torch.bfloat16, (n_pool, ps, n_kv, hd))
     _cuda.check(page_table, "page_table", torch.int32, (n_lanes, p_max))
     _cuda.check(positions, "positions", torch.int32, (n_lanes, s_q))
-    rows = n_lanes * s_q * n_kv
+    rows = n_lanes * s_q * n_kv * rep
     n_tiles = math.ceil(p_max * ps / DEFAULT_KV_TILE)
-    n_splits = default_splits(rows, n_tiles, q.device)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_t = torch.empty((rows, n_tiles, g), **f32)
-    l_t = torch.empty((rows, n_tiles, g), **f32)
-    acc_t = torch.empty((rows, n_tiles, g, hd), **f32)
-    if m_t.numel():
-        _cuda.count("paged_partials", local=win > 0,
-                    softcap=bool(softcap))
-        _cuda.launch("flash_attention", "k6_paged_partials", q.data_ptr(),
-                     k_pool.data_ptr(), v_pool.data_ptr(),
-                     page_table.data_ptr(), positions.data_ptr(),
-                     m_t.data_ptr(), l_t.data_ptr(), acc_t.data_ptr(),
-                     n_lanes, s_q, n_kv, g, hd, p_max, ps, n_tiles,
-                     math.ceil(n_tiles / n_splits), n_splits, hd ** -0.5,
-                     win, float(softcap or 0.0))
-    return m_t, l_t, acc_t
+    n_splits = default_splits(rows, n_tiles, sm_count(q.device.index))
+    out = torch.empty_like(q)
+    ws = _workspace(rows, n_tiles, gk, hd, q.device)
+    if rows == 0 or n_tiles == 0:
+        return out.zero_(), ws
+    counters = (split_scratch(q.device, 0, rows)[1].data_ptr()
+                if n_splits > 1 else None)
+    _cuda.count("paged_decode", local=win > 0, softcap=bool(softcap),
+                chunk=s_q > 1)
+    _cuda.launch("flash_attention", "k6_paged_decode", q.data_ptr(),
+                 k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+                 positions.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                 counters, n_lanes, s_q, n_kv, rep, gk, hd, p_max, ps,
+                 n_tiles, n_splits, hd ** -0.5, win, float(softcap or 0.0))
+    return out, ws
 
 
 def paged_flash_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -329,8 +357,11 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                             positions: torch.Tensor, *, kind: str = "global",
                             window: int = 0,
                             softcap: Optional[float] = None) -> torch.Tensor:
-    """K6: the paged partials kernel, then K5's combine.
-    -> [L, S, KV, G, hd] bf16."""
-    parts = paged_partials_cuda(q, k_pool, v_pool, page_table, positions,
-                                kind=kind, window=window, softcap=softcap)
-    return decode_combine_cuda(*parts).reshape(q.shape)
+    """K6, one launch: q [L, S, KV, G, hd] bf16, pools [NP + 1, PS, KV, hd]
+    bf16, ``page_table`` [L, P] and ``positions`` [L, S] int32, all
+    contiguous; table entries must be -1 or a page below NP.  'local'
+    masks keys at or before position - window; a tile wholly outside a
+    row's keys is never read.  -> [L, S, KV, G, hd] bf16, an idle row
+    exactly 0.0."""
+    return paged_decode_launch(q, k_pool, v_pool, page_table, positions,
+                               kind=kind, window=window, softcap=softcap)[0]

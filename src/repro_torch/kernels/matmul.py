@@ -127,7 +127,9 @@ def split_scratch(device: torch.device, partials: int,
     ``blocks`` zeroed int32 arrival counters, one per column block.  The
     block that folds a column resets its counter, so the counters are zero
     again when the kernel ends.  K1 calls on one device share both buffers
-    and must therefore run on one stream (the port's only one)."""
+    and must therefore run on one stream (the port's only one).  K5 and
+    K6 take the same counters, one per row they split
+    (``flash_attention.default_splits``)."""
     ws, cnt = _SPLIT_SCRATCH.get(device.index, (None, None))
     if ws is None or ws.numel() < partials:
         ws = torch.empty(max(partials, 1 << 20), dtype=torch.float32,

@@ -607,14 +607,14 @@ def test_ring_cache_sizes_and_launch_variant_keys():
         assert [c["k"].shape[1] for c in cache] == [ring, max_len] * 2
     before = dict(_cuda.LAUNCHES)
     try:
-        _cuda.count("paged_partials", local=True, softcap=True)
-        _cuda.count("paged_partials", local=False, softcap=True)
-        assert _cuda.LAUNCHES["paged_partials"] == \
-            before["paged_partials"] + 2
-        assert _cuda.LAUNCHES["paged_partials:local+softcap"] == \
-            before.get("paged_partials:local+softcap", 0) + 1
-        assert _cuda.LAUNCHES["paged_partials:softcap"] == \
-            before.get("paged_partials:softcap", 0) + 1
+        _cuda.count("paged_decode", local=True, softcap=True)
+        _cuda.count("paged_decode", local=False, softcap=True)
+        assert _cuda.LAUNCHES["paged_decode"] == \
+            before["paged_decode"] + 2
+        assert _cuda.LAUNCHES["paged_decode:local+softcap"] == \
+            before.get("paged_decode:local+softcap", 0) + 1
+        assert _cuda.LAUNCHES["paged_decode:softcap"] == \
+            before.get("paged_decode:softcap", 0) + 1
     finally:
         _cuda.LAUNCHES.clear()
         _cuda.LAUNCHES.update(before)
