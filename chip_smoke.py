@@ -16,14 +16,21 @@ line):
    output against the standalone rmsnorm of the stored value, split-K
    decode (K5, one launch with its fold) across split counts 1, 2, 4, the
    default and one per tile, K3 (rowwise quantize), every fp32-out int8
-   product of K2, K6 (paged decode) against K5 over the same history in a
-   dense cache, and K7.  K5's and K6's partials (the kernel without its
-   fold) within 1e-5 of each row's scale; K6 also at an S = 64 prefill
-   chunk.  K1 is checked and timed at both models'
+   product of K2 (on the s8 wgmma, fed the K-major [N, K] weight; also at
+   a 64 x 32 tile, M = 64 and ragged M), K6's decode body against K5 over
+   the same history in a dense cache, and K7.  K5's and K6's decode
+   partials within 1e-5 of each row's scale.  K6's prefill-chunk body (S
+   = 64, the flash-prefill body) within 2 bf16 ulps of each row's scale
+   at granite's and gemma2's shapes (local and global with softcap), at G
+   = 16 and at every head dim, and ``chunk_contracts``: two launches
+   bitwise equal, idle rows and padded tails exactly 0.0, a lane bitwise
+   the same when its neighbours' pages and positions move.  K1 is checked
+   and timed at both models'
    five projections and at the rows of every driven path (granite 4, 8,
    512 and 1024; gemma2 2, 8, 512 and 8320), and is deterministic: the
    same call twice is bitwise equal, and row 0 is bitwise the same when
-   the other rows change.  K2 at the scheduler's rows (8, 512).
+   the other rows change.  K2 timed at the scheduler's rows (8, 512),
+   beside ``torch._int_mm`` in its faster operand form.
    Each kernel's device time (CUDA events behind a spin kernel that hides
    the host's launch), its wrapper's time (CUDA events, host work inside
    included),
@@ -573,21 +580,33 @@ def check_kernels(torch, timer):
 
 def _int_mm_ms(torch, timer, qa, qb):
     """One cuBLASLt int8 product (no scales, no epilogue), the yardstick
-    of K2; None where ``torch._int_mm`` refuses the shape (some versions
-    refuse M <= 16)."""
-    try:
-        torch._int_mm(qa, qb)
-    except RuntimeError:
-        return None
-    return timer(lambda: torch._int_mm(qa, qb))
+    of K2, in the fastest of two operand forms: ``qb`` [K, N] as K2 gets
+    it (the transposed view of the [N, K] weight, column-major) and its
+    row-major copy.  Returns (ms, form), (None, None) where
+    ``torch._int_mm`` refuses the shape (it refuses M <= 16)."""
+    forms = {"[N, K] weight's .t() view": qb,
+             "[K, N] row-major": qb.contiguous()}
+    best = (None, None)
+    for form, b in forms.items():
+        try:
+            torch._int_mm(qa, b)
+        except RuntimeError:
+            continue
+        ms = timer(lambda: torch._int_mm(qa, b))
+        if best[0] is None or ms < best[0]:
+            best = (ms, form)
+    return best
 
 
 def check_int8_kernels(torch, timer):
     """K2 (int8 GEMM), its (q, scale) row pass and K3 (rowwise quantize)
     against their plain versions at granite-3-8b's widths, at decode
-    (M = 8 lanes) and at a prefill chunk (M = 8 x 64).  K3 and every
-    fp32-out product are bitwise.  bf16 outputs: every row within one bf16
-    ulp of its scale (the same fp32 values, so in practice bitwise).  The
+    (M = 8 lanes) and at a prefill chunk (M = 8 x 64), the weights in
+    ``QuantizedWeight``'s K-major [N, K] storage.  K3 and every fp32-out
+    product are bitwise (also at a 64 x 32 tile, K and N below one
+    128-value box, M = 64 and ragged M in both regimes).  bf16 outputs:
+    every row within one bf16 ulp of its scale (the same fp32 values, so
+    in practice bitwise).  The
     up GEMM's (q, scale): q within +-1 and the scale within 2 fp32 ulps
     (the silu may differ by an ulp).  The normed output is bitwise the
     standalone rmsnorm of the stored value."""
@@ -639,14 +658,33 @@ def check_int8_kernels(torch, timer):
         plain_ms=timer(lambda: ref.quantize_rowwise_ref(w32)),
         bound_ms=t_b, bound_by=by, library_ms=None)
 
+    # K2 on the s8 wgmma: the fp32-out product bitwise its plain version at
+    # a 64 x 32 tile, at M = 8, 64 and 512 and at ragged M in both regimes,
+    # fed the [N, K] weight's [K, N] view (QuantizedWeight's layout); K and
+    # N shorter than one 128-value box (the smoke configs') are zero-filled
+    def kmajor(q):
+        return q.t().contiguous().t()
+
+    for m, k, n in ((64, 32, 64), (8, 64, 192), (LANES, d, qkv_n),
+                    (64, d, qkv_n), (LANES * CHUNK, d, qkv_n), (37, ff, d),
+                    (200, d, 272)):
+        qa, sa = ref.quantize_rowwise_ref(rand(m, k))
+        qb, sb = ref.quantize_colwise_ref(rand(k, n, scale=k ** -0.5))
+        qb = kmajor(qb)
+        require(torch.equal(ops.int8_matmul(qa, sa, qb, sb),
+                            ref.int8_matmul_ref(qa, sa, qb, sb)),
+                f"K2 M={m} K={k} N={n}: fp32 out is not bitwise")
+
     # K2: the five projections of one block with their epilogues
     for m in (LANES, LANES * CHUNK):
         qx, sx = ref.quantize_rowwise_ref(rand(m, d))
         qh, sh = ref.quantize_rowwise_ref(rand(m, ff))
-        w = {name: ref.quantize_colwise_ref(rand(k, n, scale=k ** -0.5))
-             for name, (k, n) in (("qkv", (d, qkv_n)), ("o", (d, d)),
-                                  ("gate", (d, ff)), ("up", (d, ff)),
-                                  ("down", (ff, d)))}
+        w = {}
+        for name, (k, n) in (("qkv", (d, qkv_n)), ("o", (d, d)),
+                             ("gate", (d, ff)), ("up", (d, ff)),
+                             ("down", (ff, d))):
+            qb, sb = ref.quantize_colwise_ref(rand(k, n, scale=k ** -0.5))
+            w[name] = (kmajor(qb), sb)
         g = rand(m, ff).to(bf)
         res = rand(m, d).to(bf)
         nscale = rand(d, scale=0.1)
@@ -693,6 +731,7 @@ def check_int8_kernels(torch, timer):
                 nbytes += 3 * 2 * mm * nn + 4 * nn
             else:
                 nbytes += 2 * mm * nn
+            lib, form = _int_mm_ms(torch, timer, qa, qb)
             row = {"shape": f"{name} M={mm} K={kk} N={nn}",
                    "max_abs_err": abs_err, "max_row_err": err,
                    "ms": timer(lambda: ops.int8_matmul(qa, sa, qb, sb,
@@ -701,30 +740,110 @@ def check_int8_kernels(torch, timer):
                        qa, sa, qb, sb, epilogue=ep, **kw)),
                    "plain_ms": timer(lambda: ref.int8_matmul_ref(
                        qa, sa, qb, sb, ep, **kw)),
-                   "library_ms": _int_mm_ms(torch, timer, qa, qb)}
+                   "library_ms": lib, "library_form": form}
+            if lib is None:
+                # _int_mm refuses M <= 16: its time on the rows zero-padded
+                # to 32 (another shape, recorded as such)
+                pad = torch.zeros((32, kk), dtype=torch.int8, device="cuda")
+                pad[:mm] = qa
+                row["library_ms"], row["library_form"] = _int_mm_ms(
+                    torch, timer, pad, qb)
+                row["library_padded_rows"] = 32
             row["bound_ms"], row["bound_by"] = bound(
                 nbytes, 2 * mm * kk * nn, INT8_OPS_PER_S)
             shapes.append(row)
             print("  k2", json.dumps(row), flush=True)
-    dec = [r for r in shapes if f" M={LANES} " in r["shape"]]
-    lib = [r["library_ms"] for r in dec]
-    results["k2_int8_matmul"] = dict(
-        work=f"one decoder block's five int8 projections at decode "
-             f"(M={LANES}): qkv, o, gate, up+silu gate+quantize (with its "
-             f"row pass), down+residual (+rmsnorm pass)",
-        max_abs_err=max(r["max_abs_err"] for r in shapes),
-        max_row_err=max(r["max_row_err"] for r in shapes), tol=eps_bf16,
-        ms=sum(r["ms"] for r in dec),
-        wrapper_ms=sum(r["wrapper_ms"] for r in dec),
-        plain_ms=sum(r["plain_ms"] for r in dec),
-        bound_ms=sum(r["bound_ms"] for r in dec),
-        bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in dec)
-                  else "operations"),
-        library_ms=None if None in lib else sum(lib),
-        library_note="torch._int_mm (cuBLASLt int8, no epilogue); null "
-                     "where it refuses M <= 16",
-        shapes=shapes)
+    for key, m in (("k2_int8_matmul", LANES),
+                   ("k2_int8_matmul_m512", LANES * CHUNK)):
+        rows = [r for r in shapes if f" M={m} " in r["shape"]]
+        lib = [r["library_ms"] for r in rows]
+        padded = any("library_padded_rows" in r for r in rows)
+        results[key] = dict(
+            work=f"one decoder block's five int8 projections at M={m}: "
+                 f"qkv, o, gate, up+silu gate+quantize (with its row pass), "
+                 f"down+residual (+rmsnorm pass); fp32 out also bitwise at a "
+                 f"64 x 32 tile, M = 8, 37, 64, 200 and 512",
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            max_row_err=max(r["max_row_err"] for r in rows), tol=eps_bf16,
+            ms=sum(r["ms"] for r in rows),
+            wrapper_ms=sum(r["wrapper_ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=sum(r["bound_ms"] for r in rows),
+            bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                      else "operations"),
+            library_ms=None if None in lib else sum(lib),
+            library_forms=[r["library_form"] for r in rows],
+            library_note=(
+                "torch._int_mm (cuBLASLt int8, no epilogue), the fastest of "
+                "the [N, K] weight's .t() view and a [K, N] row-major copy"
+                + ("; it refuses M <= 16, so it ran on the rows zero-padded "
+                   "to 32, another shape" if padded else "")),
+            shapes=rows)
     return results
+
+
+def chunk_contracts(torch, q, kp, vp, table, positions, lane, **var):
+    """K6's prefill-chunk body (S > 1): no records, two launches bitwise
+    equal, every row at position -1 (idle lanes, a padded tail) exactly
+    0.0, and ``lane``'s output bitwise the same after every other lane's
+    pages are remapped and its positions changed.  Raises on a miss;
+    returns the body's output."""
+    from repro_torch.kernels.flash_attention import paged_decode_launch
+    out, ws = paged_decode_launch(q, kp, vp, table, positions, **var)
+    require(ws is None, "K6 chunk: the chunk body returned records")
+    again, _ = paged_decode_launch(q, kp, vp, table, positions, **var)
+    require(torch.equal(out, again), "K6 chunk: two launches differ")
+    require(bool((out[positions < 0] == 0).all()),
+            "K6 chunk: an idle row or a padded tail is not 0.0")
+    others = torch.arange(table.shape[0], device=table.device) != lane
+    table2, pos2 = table.clone(), positions.clone()
+    table2[others] = torch.roll(table[others], 1, dims=1)
+    pos2[others] = torch.where(positions[others] >= 0,
+                               positions[others] // 2, -1)
+    moved, _ = paged_decode_launch(q, kp, vp, table2, pos2, **var)
+    require(torch.equal(moved[lane], out[lane]),
+            f"K6 chunk: lane {lane} changed when its neighbours moved")
+    return out
+
+
+def check_chunk_head_dims(torch):
+    """K6's chunk body once at each head dim it takes, at a small size (4
+    lanes, 2 kv heads, G = 2, 16-slot pages, S = 32, one lane idle, a
+    padded tail, an unmapped page inside a lane's range), local window 16
+    with softcap: each row within 2 bf16 ulps of its scale of the plain
+    version, and ``chunk_contracts``."""
+    from repro_torch.kernels.flash_attention import (_HEAD_DIMS,
+                                                     paged_flash_decode_tiled)
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    L, KV, G, ps, P, s_q = 4, 2, 2, PAGE, 8, 32
+    var = dict(kind="local", window=16, softcap=G2_SOFTCAP)
+    lane_pos = torch.tensor([5, 40, 127, -1], dtype=torch.int32)
+    table = torch.randperm(L * P, generator=torch.Generator().manual_seed(
+        SEED)).reshape(L, P).to(torch.int32)
+    for lane in range(L):
+        table[lane, max(int(lane_pos[lane]), 0) // ps + 1:] = -1
+    table[2, 6] = -1     # a hole inside lane 2's window
+    pc = lane_pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None]
+    pc = torch.where((pc >= 0) & (lane_pos[:, None] >= 0), pc, -1)
+    pc[1, -3:] = -1      # a final chunk's padded tail
+    table, pc = table.cuda(), pc.to(torch.int32).cuda().contiguous()
+    errs = {}
+    for hd in _HEAD_DIMS:
+        def rand(*shape):
+            return (torch.randn(shape, generator=gen, device="cuda") * 3.0
+                    ).to(torch.bfloat16)
+        kp, vp = rand(L * P + 1, ps, KV, hd), rand(L * P + 1, ps, KV, hd)
+        q = rand(L, s_q, KV, G, hd)
+        out = chunk_contracts(torch, q, kp, vp, table, pc, 2, **var)
+        errs[hd] = row_err(out, paged_flash_decode_tiled(q, kp, vp, table,
+                                                         pc, **var))
+    require(max(errs.values()) <= 2 * eps_bf16,
+            f"K6 chunk by head dim: rows off by {errs}")
+    return dict(work=f"K6 chunk body L={L} KV={KV} G={G} S={s_q} "
+                     f"page_size={ps}, window 16 + softcap, positions "
+                     f"{lane_pos.tolist()}, a padded tail and a hole",
+                row_err_by_head_dim=errs, tol=2 * eps_bf16)
 
 
 def check_paged_kernel(torch, timer):
@@ -780,16 +899,24 @@ def check_paged_kernel(torch, timer):
                        rows, n_tiles, G, hd)
     require(p_err <= 1e-5, f"K6 partials: a row is off by {p_err:.3e}")
     # the S = 64 prefill chunk ending at each lane's position
+    # (the flash-prefill body), lane 3's with a padded tail as a prompt's
+    # last chunk has; then with an unmapped page inside lane 5's range
     s_q = CHUNK
     qc = rand(L, s_q, KV, G, hd)
     pc = (pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None])
     pc = torch.where((pc >= 0) & (pos[:, None] >= 0), pc, -1)
+    pc[3, -5:] = -1
     pc = pc.to(torch.int32).cuda().contiguous()
-    chunk = ops.paged_flash_decode(qc, kp, vp, table, pc)
+    chunk = chunk_contracts(torch, qc, kp, vp, table, pc, 4)
     chunk_want = paged_flash_decode_tiled(qc, kp, vp, table, pc)
     chunk_err = row_err(chunk, chunk_want)
-    require(chunk_err <= 2 * eps_bf16,
-            f"K6 chunk: a row is off by {chunk_err:.3e}")
+    holed = table.clone()
+    holed[5, 10] = -1
+    hole_err = row_err(ops.paged_flash_decode(qc, kp, vp, holed, pc),
+                       paged_flash_decode_tiled(qc, kp, vp, holed, pc))
+    require(max(chunk_err, hole_err) <= 2 * eps_bf16,
+            f"K6 chunk: a row is off by {chunk_err:.3e} ({hole_err:.3e} "
+            f"with a hole)")
     where = (f"L={L} KV={KV} G={G} hd={hd} page_size={ps} P={P} "
              f"({n_tiles} tiles)")
     dec = dict(
@@ -809,9 +936,11 @@ def check_paged_kernel(torch, timer):
     dec["bound_ms"], dec["bound_by"] = k6_bound(q, table, posd, KV, 0)
     chk = dict(
         work=f"paged prefill chunk S={s_q} {where}, each lane's chunk "
-             f"ending at its position",
-        max_abs_err=max_err(chunk, chunk_want), max_row_err=chunk_err,
-        tol=2 * eps_bf16,
+             f"ending at its position (a padded tail; a hole checked), on "
+             f"the flash-prefill body: deterministic, idle rows 0.0, a "
+             f"lane unmoved by its neighbours",
+        max_abs_err=max_err(chunk, chunk_want),
+        max_row_err=max(chunk_err, hole_err), tol=2 * eps_bf16,
         ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table, pc)),
         wrapper_ms=timer.wall(
             lambda: ops.paged_flash_decode(qc, kp, vp, table, pc)),
@@ -832,7 +961,9 @@ def check_wide_groups(torch):
     ``flash_decode_tiled``, its live records within 1e-5; K6 with 4 lanes
     (one idle) bitwise K5 over each lane's history in a dense cache, the
     idle lane exactly 0.0, within 2 bf16 ulps of
-    ``paged_flash_decode_tiled``, its records within 1e-5."""
+    ``paged_flash_decode_tiled``, its records within 1e-5; an S = 64
+    chunk on K6's chunk body (8 q tiles of 8 positions x 16 heads) within
+    2 bf16 ulps, with ``chunk_contracts``."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (decode_tile_partials,
                                                      dense_decode_launch,
@@ -882,14 +1013,26 @@ def check_wide_groups(torch):
                                                       posd))
     paged_rec = record_err(torch, pws, paged_tile_partials(
         qp, kp, vp, table, posd), L * kv, P * ps // 32, g, hd)
-    require(max(dense_err, paged_err) <= 2 * eps_bf16
+    # K6's chunk body at G = 16: a q tile holds 8 chunk positions x 16
+    # heads, so the S = 64 chunk is 8 q tiles
+    s_q = CHUNK
+    qc = rand(L, s_q, kv, g, hd)
+    pc = lane_pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None]
+    pc = torch.where((pc >= 0) & (lane_pos[:, None] >= 0), pc, -1)
+    pc = pc.to(torch.int32).cuda().contiguous()
+    chunk_err = row_err(chunk_contracts(torch, qc, kp, vp, table, pc, 1),
+                        paged_flash_decode_tiled(qc, kp, vp, table, pc))
+    require(max(dense_err, paged_err, chunk_err) <= 2 * eps_bf16
             and max(dense_rec, paged_rec) <= 1e-5,
-            f"K5/K6 at G = 16: rows off by {dense_err:.3e}/{paged_err:.3e}, "
-            f"records by {dense_rec:.3e}/{paged_rec:.3e}")
+            f"K5/K6 at G = 16: rows off by {dense_err:.3e}/{paged_err:.3e}/"
+            f"{chunk_err:.3e} (chunk), records by "
+            f"{dense_rec:.3e}/{paged_rec:.3e}")
     return dict(work=f"G={g} KV={kv} hd={hd}: {head_groups(g)[0]} kernel "
                      f"rows per kv head; K5 B={b} cache={length} pos={pos}, "
-                     f"K6 lanes at {lane_pos.tolist()}",
-                k5_row_err=dense_err, k6_row_err=paged_err, tol=2 * eps_bf16,
+                     f"K6 lanes at {lane_pos.tolist()}, also an S={s_q} "
+                     f"chunk on the chunk body",
+                k5_row_err=dense_err, k6_row_err=paged_err,
+                k6_chunk_row_err=chunk_err, tol=2 * eps_bf16,
                 k5_records_err=dense_rec, k6_records_err=paged_rec,
                 records_tol=1e-5)
 
@@ -1340,12 +1483,13 @@ def check_gemma2_kernels(torch, timer):
     qc = rand(L, s_q, KV, G, hd, scale=3.0)
     pc = (lane_pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None])
     pc = torch.where((pc >= 0) & (lane_pos[:, None] >= 0), pc, -1)
+    pc[2, -7:] = -1      # a final chunk's padded tail
     pc = pc.to(torch.int32).cuda().contiguous()
-    chunk = ops.paged_flash_decode(qc, kp, vp, table, pc, **lvar)
+    chunk = chunk_contracts(torch, qc, kp, vp, table, pc, 5, **lvar)
     chunk_want = paged_flash_decode_tiled(qc, kp, vp, table, pc, **lvar)
     chunk_err = row_err(chunk, chunk_want)
     gchunk_err = row_err(
-        ops.paged_flash_decode(qc, kp, vp, table, pc, softcap=sc),
+        chunk_contracts(torch, qc, kp, vp, table, pc, 5, softcap=sc),
         paged_flash_decode_tiled(qc, kp, vp, table, pc, softcap=sc))
     # a window of 16, smaller than one 32-slot tile
     svar = dict(kind="local", window=16, softcap=sc)
@@ -1392,7 +1536,10 @@ def check_gemma2_kernels(torch, timer):
     dec["bound_ms"], dec["bound_by"] = k6_bound(q, table, posd, KV, W)
     chk = dict(
         work=f"paged prefill chunk S={s_q} {where}, each lane's chunk "
-             f"ending at its position; global + softcap chunk checked",
+             f"ending at its position (a padded tail), on the "
+             f"flash-prefill body: deterministic, idle rows 0.0, a lane "
+             f"unmoved by its neighbours; global + softcap chunk checked "
+             f"alike",
         max_abs_err=max_err(chunk, chunk_want), max_row_err=chunk_err,
         tol=2 * eps_bf16, global_chunk_row_err=gchunk_err,
         ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table, pc,
@@ -1806,6 +1953,8 @@ SOURCES = {
                    "src/repro/kernels/matmul.py:180"),
     "k2_int8_matmul": ("int8_matmul", "src/repro_torch/csrc/matmul.cu",
                        "src/repro/kernels/matmul.py:293"),
+    "k2_int8_matmul_m512": ("int8_matmul", "src/repro_torch/csrc/matmul.cu",
+                            "src/repro/kernels/matmul.py:293"),
     "k2_quantize_rows": ("int8_quantize", "src/repro_torch/csrc/matmul.cu",
                          "src/repro/kernels/matmul.py:108"),
     "k3_quantize": ("quantize", "src/repro_torch/csrc/matmul.cu",
@@ -1895,6 +2044,8 @@ def main() -> int:
     kernels.update(check_paged_kernel(torch, timer))
     wide = check_wide_groups(torch)
     print("  wide groups " + json.dumps(wide), flush=True)
+    print("  chunk head dims " + json.dumps(check_chunk_head_dims(torch)),
+          flush=True)
     kernels.update(check_gemma2_kernels(torch, timer))
     del timer
     torch.cuda.empty_cache()
@@ -1928,6 +2079,8 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"],
+                     **({"library_note": k["library_note"]}
+                        if "library_note" in k else {}),
                      "max_row_err": k["max_row_err"], "tol": k["tol"],
                      "work": k["work"]})
     print(json.dumps({"kernels": line}))

@@ -56,10 +56,11 @@
 // how the partials are checked.
 //
 // K6 replaces paged_flash_decode_pallas (_paged_decode_kernel) and, for
-// prefill chunks (S > 1), its tiled XLA mirror paged_flash_decode_xla.
-// k6_paged_decode is the K5 kernel instantiated on a paged slot address:
-// each row is (lane, s, kv head) with its own position (-1 = idle, no
-// tile live, output exactly 0.0); slot j of a lane lives at
+// prefill chunks (S > 1), its tiled XLA mirror paged_flash_decode_xla,
+// with two bodies chosen by the shape (kernels/flash_attention.py's
+// paged_body).  Decode, k6_paged_decode: the K5 kernel instantiated on a
+// paged slot address, each row (lane, kv head) with its lane's position
+// (-1 = idle, no tile live, output exactly 0.0); slot j of a lane lives at
 // pool[table[lane, j / PS], j % PS]; an unmapped page (-1) is masked and
 // never read.  Tiles are the same 32 slots anchored at logical position 0
 // as the dense path, not one page per tile, and the fold is K5's, so a
@@ -67,9 +68,13 @@
 // neighbour's page mapping changes no bit of it.  'local' rows (`window`
 // > 0) also mask keys at or before pos - window, and a tile wholly before
 // the window is skipped as a tile past the position is.  What bounds it:
-// the bytes of each row's live pages at decode; at a prefill chunk each of
-// a lane's rows reloads its live tiles (from L2) and writes their fp32
-// partials.
+// the bytes of each row's live pages.  Prefill chunks, k6_paged_chunk:
+// K4's body over the page table (chunk_kernel below), one block holding a
+// lane's S x G query rows of a kv head, so each K/V tile of the lane is
+// loaded once per block instead of once per query row, and both products
+// run on the tensor cores.  What bounds it: the bytes of the lanes' live
+// pages at short histories, the tensor cores and the softmax past a few
+// thousand positions.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -190,14 +195,15 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4],
 
 // One kv tile's online softmax on this thread's accumulator fragments
 // (rows r0 and r0 + 8; element 4 j + e at key k0 + 8 j + (e & 1) of row
-// r0 + 8 (e >> 1)): scale, softcap, mask (EDGE tiles only), the row max
-// over the quad, alpha, p = exp(s - m_new) in place, and the running m
-// and l.  Masked keys give p = 0 exactly.
-template <bool EDGE, bool SOFTCAP, int N>
+// r0 + 8 (e >> 1)): scale, softcap, mask (EDGE tiles only: live(key, e >>
+// 1) says whether the key is attended by the row), the row max over the
+// quad, alpha, p = exp(s - m_new) in place, and the running m and l.
+// Masked keys give p = 0 exactly.
+template <bool EDGE, bool SOFTCAP, int N, class Live>
 __device__ __forceinline__ void tile_softmax(float (&sc)[N], float (&alpha)[2],
                                              float (&m_run)[2],
                                              float (&l_run)[2], int k0,
-                                             int r0, int Skv, int window,
+                                             const Live& live_key,
                                              float scale, float softcap,
                                              float softcap_rcp) {
   uint64_t live = ~0ull;  // bit 4 j + e: fragment element 4 j + e
@@ -208,8 +214,7 @@ __device__ __forceinline__ void tile_softmax(float (&sc)[N], float (&alpha)[2],
     for (int e = 0; e < 4; ++e) {
       float x = sc[4 * j + e] * scale;
       if (SOFTCAP) x = softcap_score(x, softcap, softcap_rcp);
-      if (EDGE && !prefill_live(k0 + 8 * j + (e & 1), r0 + 8 * (e >> 1),
-                                Skv, window)) {
+      if (EDGE && !live_key(k0 + 8 * j + (e & 1), e >> 1)) {
         x = NEG;
         live &= ~(1ull << (4 * j + e));
       }
@@ -344,12 +349,15 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
     const bool edge = kv0 + BKV - 1 > qw0 || kv0 + BKV > Skv ||
                       (window > 0 && qw0 + 63 - kv0 >= window);
     float alpha[2];
+    const auto live_key = [&](int key, int r) {
+      return prefill_live(key, r0 + 8 * r, Skv, window);
+    };
     if (edge)
-      tile_softmax<true, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq, r0, Skv,
-                                  window, scale, softcap, softcap_rcp);
+      tile_softmax<true, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq, live_key,
+                                  scale, softcap, softcap_rcp);
     else
-      tile_softmax<false, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq, r0,
-                                   Skv, window, scale, softcap, softcap_rcp);
+      tile_softmax<false, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq,
+                                   live_key, scale, softcap, softcap_rcp);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       o[4 * j] *= alpha[0];
@@ -382,6 +390,243 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
+// K6, prefill chunks (S > 1): K4's body over the page table
+// ---------------------------------------------------------------------------
+
+// two consumer warpgroups and a producer warp.  ptxas caps the kernel at
+// 168 registers a thread either way; rebalancing them to the consumers
+// with setmaxnreg (K4's way) spilled more at hd 128, not less
+constexpr int CHUNK_THREADS = 2 * 128 + 32;
+
+// Shared memory of the chunk body: K4's Q tile, K/V ring and barriers,
+// then per stage the mask of the tile's pages that were loaded, and the
+// q tile's positions
+template <int HD>
+struct ChunkLayout {
+  using P = PrefillLayout<HD>;
+  // byte offsets from the 1024-aligned base
+  static constexpr int BARS = P::Q_BYTES + P::STAGES * P::STAGE;
+  static constexpr int MASKS = BARS + (1 + 2 * P::STAGES) * 8;
+  static constexpr int POS = MASKS + P::STAGES * 4;
+  static constexpr int SMEM = 1024 + POS + (BQ + 2) * 4;
+};
+
+// One block per (q tile, kv head, lane).  The q tile is QS of the lane's
+// chunk positions times the kv head's G query heads, rows in (s, g) order
+// (QS = 128 / G, at most S), loaded by one 4-D TMA box per 64 columns.
+// The producer warp streams the lane's 128-slot K/V tiles from the first
+// slot any row of the tile can see to the last row's position: each
+// 128-slot tile is BKV / PS pages, each page one TMA box per 64 columns of
+// K and of V, at the physical page from one table lookup by one lane of
+// the warp.  A page that holds no key of the tile's rows (unmapped, past
+// the table, or outside [first, last]) is not read: its box is issued past
+// the pool's last row, which TMA zero-fills, and its bit in the stage's
+// page mask is clear.  Consumers run K4's arithmetic: S = Q K^T and O += P
+// V on wgmma, the online softmax in registers, each row masked by its own
+// position (causal; 'local' keys at or before position - window; the
+// page mask) on tiles that meet an edge.  Rows at position -1 (idle
+// lanes, a short chunk's padded tail) store exactly 0.0.  No atomics: a
+// row's keys are summed in one fixed order, and a block reads its lane's
+// pages only.
+template <int HD, bool SOFTCAP>
+__global__ void __launch_bounds__(CHUNK_THREADS, 1)
+chunk_kernel(const __grid_constant__ CUtensorMap map_q,
+             const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v,
+             const int* __restrict__ table, const int* __restrict__ positions,
+             bf16* __restrict__ out, int S, int KV, int G, int QS, int P,
+             int ps_shift, int pool_rows, float scale, int window,
+             float softcap) {
+  using L = PrefillLayout<HD>;
+  using C = ChunkLayout<HD>;
+  constexpr int SPAN = L::SPAN, COLS = SPAN / 2;
+  constexpr int KV_STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = smem;
+  uint8_t* KVs = smem + L::Q_BYTES;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + C::BARS);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + KV_STAGES;
+  uint32_t* page_mask = reinterpret_cast<uint32_t*>(smem + C::MASKS);
+  int* spos = reinterpret_cast<int*>(smem + C::POS);
+
+  const int qt = blockIdx.x, kvh = blockIdx.y, ln = blockIdx.z;
+  const int s0 = qt * QS, n_s = min(QS, S - s0), rows = n_s * G;
+  const int PS = 1 << ps_shift, npages = BKV / PS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // the tile's positions (-1 past the chunk) and the live rows' range
+  if (threadIdx.x < BQ)
+    spos[threadIdx.x] =
+        threadIdx.x < n_s ? positions[(size_t)ln * S + s0 + threadIdx.x] : -1;
+  __syncthreads();
+  if (warp == 0) {
+    int lo = 0x7fffffff, hi = -1;
+    for (int t = lane; t < n_s; t += 32) {
+      const int p = spos[t];
+      if (p >= 0) {
+        lo = min(lo, p);
+        hi = max(hi, p);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    if (lane == 0) {
+      spos[BQ] = lo;
+      spos[BQ + 1] = hi;
+      mbar_init(qbar, 1);
+      for (int s = 0; s < KV_STAGES; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      }
+      mbar_fence_init();
+    }
+  }
+  __syncthreads();
+  const int min_pos = spos[BQ], max_pos = spos[BQ + 1];
+  const size_t row_stride = (size_t)KV * G * HD;  // one chunk position
+  bf16* const out_tile = out + ((size_t)ln * S + s0) * row_stride +
+                         (size_t)kvh * G * HD;
+  if (max_pos < 0) {  // every row idle: exactly 0.0
+    for (int i = threadIdx.x; i < rows * (HD / 8); i += CHUNK_THREADS) {
+      const int r = i / (HD / 8), c = i % (HD / 8);
+      *reinterpret_cast<uint4*>(out_tile + (size_t)(r / G) * row_stride +
+                                (r % G) * HD + c * 8) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  // the slots any row of the tile attends: [first, max_pos]
+  const int first = window > 0 ? max(0, min_pos - window + 1) : 0;
+  const int t_lo = first / BKV;
+  const int n_tiles = max_pos / BKV - t_lo + 1;
+
+  if (warp == 8) {  // producer: Q once, then the K/V pages
+    if (lane == 0) {
+      mbar_expect_tx(qbar, G * QS * HD * 2);
+#pragma unroll
+      for (int c = 0; c < L::CH; ++c)
+        tma_load_4d(Qs + c * BQ * SPAN, &map_q, qbar, c * COLS, 0, kvh,
+                    ln * S + s0);
+    }
+    const int items = npages * L::CH * 2;  // (page, column box, K or V)
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % KV_STAGES, kv0 = (t_lo + i) * BKV;
+      // page p of the tile is loaded when it holds a slot of [first,
+      // max_pos] and is mapped
+      bool ok = false;
+      if (lane < npages) {
+        const int gp = (kv0 >> ps_shift) + lane;
+        const int lo = gp << ps_shift;
+        ok = gp < P && lo + PS > first && lo <= max_pos &&
+             table[(size_t)ln * P + gp] >= 0;
+      }
+      const uint32_t mask = __ballot_sync(0xffffffffu, ok);
+      if (lane == 0) {
+        mbar_wait(&empty[s], ((i / KV_STAGES) & 1) ^ 1);
+        page_mask[s] = mask;
+        mbar_expect_tx(&full[s], L::STAGE);
+      }
+      __syncwarp();
+      uint8_t* ks = KVs + s * L::STAGE;
+      for (int it = lane; it < items; it += 32) {
+        const int p = it / (2 * L::CH), c = it / 2 % L::CH, is_v = it % 2;
+        const int gp = (kv0 >> ps_shift) + p;
+        // a page not loaded: a box past the pool's end, zero-filled
+        const int row = (mask >> p) & 1
+                            ? table[(size_t)ln * P + gp] << ps_shift
+                            : pool_rows;
+        tma_load_3d(ks + is_v * L::KV_BYTES + c * BKV * SPAN +
+                        (p << ps_shift) * SPAN,
+                    is_v ? &map_v : &map_k, &full[s], c * COLS, kvh, row);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns tile rows [64 wg, 64 wg + 64); this
+  // thread holds rows tr0 and tr0 + 8 of the accumulator fragments
+  const int wg = warp / 4;
+  const int tr0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  int pos_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tr = tr0 + 8 * r;
+    pos_r[r] = tr < rows ? spos[tr / G] : -1;
+  }
+  const uint32_t all_pages = npages == 32 ? 0xffffffffu : (1u << npages) - 1;
+  const float softcap_rcp = SOFTCAP ? __frcp_rn(softcap) : 0.0f;
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.0f, 0.0f};
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % KV_STAGES, kv0 = (t_lo + i) * BKV;
+    mbar_wait(&full[s], (i / KV_STAGES) & 1);
+    const uint32_t pm = page_mask[s];
+    const uint8_t* ks = KVs + s * L::STAGE;
+    float sc[BKV / 2];
+    issue_scores<HD, SPAN>(sc, Qs, ks, wg);
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // masks only on tiles that meet the causal edge or the window's lower
+    // edge of some live row of the tile, or hold a page not loaded; rows
+    // at position -1 compute unmasked and store zeros
+    const bool edge = pm != all_pages || kv0 + BKV - 1 > min_pos ||
+                      (window > 0 && max_pos - kv0 >= window);
+    float alpha[2];
+    const auto live_key = [&](int key, int r) {
+      const int p = pos_r[r];
+      return p >= 0 && key <= p && (window == 0 || p - key < window) &&
+             ((pm >> ((key - kv0) >> ps_shift)) & 1);
+    };
+    if (edge)
+      tile_softmax<true, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq, live_key,
+                                  scale, softcap, softcap_rcp);
+    else
+      tile_softmax<false, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq,
+                                   live_key, scale, softcap, softcap_rcp);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+    uint32_t pa[BKV / 16][4];
+    pack_p(pa, sc);
+    issue_pv<HD, SPAN>(o, pa, ks + L::KV_BYTES);
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tr = tr0 + 8 * r;
+    if (tr >= rows) continue;
+    const float inv = 1.0f / fmaxf(l_run[r], 1e-30f);
+    const bool idle = pos_r[r] < 0;
+    bf16* orow = out_tile + (size_t)(tr / G) * row_stride + (tr % G) * HD + cq;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          idle ? __floats2bfloat162_rn(0.0f, 0.0f)
+               : __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                       o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K5 / K6: split-K flash decode and its fold, one launch
 // ---------------------------------------------------------------------------
 
@@ -410,24 +655,24 @@ struct DenseKV {
   }
 };
 
-// Rows are (lane, s, kv head, r); pools [NP + 1, PS, KV, hd] with the
-// trash page last; table [L, P] (-1 = unmapped); positions [L, S] (-1 =
-// idle).  An unmapped slot is never read: it is masked, so what the trash
-// page holds cannot reach the output.
+// Rows are (lane, kv head, r) of a decode step; pools [NP + 1, PS, KV,
+// hd] with the trash page last; table [L, P] (-1 = unmapped); positions
+// [L, 1] (-1 = idle).  An unmapped slot is never read: it is masked, so
+// what the trash page holds cannot reach the output.
 struct PagedKV {
   static constexpr bool ARITHMETIC = false;  // slot_row reads the table
   const bf16* k;
   const bf16* v;
   const int* table;
   const int* positions;
-  int KV, rep, S, P, PS;
+  int KV, rep, P, PS;
   __device__ int position(int row) const {
     return positions[row / (KV * rep)];
   }
   __device__ long long slot_row(int row, int slot) const {
     const int page = slot / PS;
     if (page >= P) return -1;
-    const int lane = row / (S * KV * rep), kvh = row / rep % KV;
+    const int lane = row / (KV * rep), kvh = row / rep % KV;
     const int phys = table[lane * P + page];
     if (phys < 0) return -1;
     return ((long long)phys * PS + slot % PS) * KV + kvh;
@@ -781,6 +1026,59 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch_chunk(const void* q, const void* k_pool, const void* v_pool,
+                 const int* table, const int* positions, void* out, int L,
+                 int S, int KV, int G, int P, int ps_shift, int n_pool,
+                 float scale, int window, float softcap, cudaStream_t st) {
+  using Lay = PrefillLayout<HD>;
+  const int PS = 1 << ps_shift;
+  if (G < 1 || G > BQ || PS < 4 || PS > BKV) return (int)cudaErrorInvalidValue;
+  const int QS = min(BQ / G, S);
+  // q [L * S, KV, G, HD] as a 4-D map whose box is QS chunk positions x G
+  // heads x 64 columns, rows in (s, g) order; the pools [n_pool * PS, KV,
+  // HD] as 3-D maps whose box is one page of one kv head
+  CUtensorMap mq, mk, mv;
+  const uint64_t dims_q[4] = {(uint64_t)HD, (uint64_t)G, (uint64_t)KV,
+                              (uint64_t)L * S};
+  const uint64_t strides_q[3] = {(uint64_t)HD * 2, (uint64_t)G * HD * 2,
+                                 (uint64_t)KV * G * HD * 2};
+  const uint32_t box_q[4] = {Lay::SPAN / 2, (uint32_t)G, 1, (uint32_t)QS};
+  const uint64_t dims_kv[3] = {(uint64_t)HD, (uint64_t)KV,
+                               (uint64_t)n_pool * PS};
+  const uint64_t strides_kv[2] = {(uint64_t)HD * 2, (uint64_t)KV * HD * 2};
+  const uint32_t box_kv[3] = {Lay::SPAN / 2, 1, (uint32_t)PS};
+  int e = make_map(&mq, q, 4, dims_q, strides_q, box_q, Lay::SPAN);
+  if (!e) e = make_map(&mk, k_pool, 3, dims_kv, strides_kv, box_kv, Lay::SPAN);
+  if (!e) e = make_map(&mv, v_pool, 3, dims_kv, strides_kv, box_kv, Lay::SPAN);
+  if (e) return e;
+  static int smem_set = 0;
+  if (!smem_set) {
+    e = (int)cudaFuncSetAttribute(chunk_kernel<HD, false>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  ChunkLayout<HD>::SMEM);
+    if (!e)
+      e = (int)cudaFuncSetAttribute(
+          chunk_kernel<HD, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          ChunkLayout<HD>::SMEM);
+    if (e) return e;
+    smem_set = 1;
+  }
+  dim3 grid((S + QS - 1) / QS, KV, L);
+  bf16* o = static_cast<bf16*>(out);
+  if (softcap > 0.0f)
+    chunk_kernel<HD, true><<<grid, CHUNK_THREADS, ChunkLayout<HD>::SMEM,
+                             st>>>(mq, mk, mv, table, positions, o, S, KV, G,
+                                   QS, P, ps_shift, n_pool * PS, scale,
+                                   window, softcap);
+  else
+    chunk_kernel<HD, false><<<grid, CHUNK_THREADS, ChunkLayout<HD>::SMEM,
+                              st>>>(mq, mk, mv, table, positions, o, S, KV,
+                                    G, QS, P, ps_shift, n_pool * PS, scale,
+                                    window, softcap);
+  return (int)cudaGetLastError();
+}
+
 template <int HD, class Rows>
 int launch_decode(const Rows& kv, const void* q, void* ws, void* out,
                   void* counters, int rows, int G, int n_tiles, int n_splits,
@@ -855,19 +1153,44 @@ extern "C" int k5_flash_decode(const void* q, const void* k, const void* v,
                           static_cast<cudaStream_t>(stream));
 }
 
-// K6: K5's kernel on the page table, rows (lane, s, kv head, r).
+// K6 at decode (S == 1): K5's kernel on the page table, rows (lane, kv
+// head, r).
 extern "C" int k6_paged_decode(const void* q, const void* k_pool,
                                const void* v_pool, const void* table,
                                const void* positions, void* ws, void* out,
-                               void* counters, int L, int S, int KV, int rep,
-                               int G, int hd, int P, int PS, int n_tiles,
+                               void* counters, int L, int KV, int rep, int G,
+                               int hd, int P, int PS, int n_tiles,
                                int n_splits, float scale, int window,
                                float softcap, void* stream) {
   PagedKV kv{static_cast<const bf16*>(k_pool),
              static_cast<const bf16*>(v_pool),
              static_cast<const int*>(table),
-             static_cast<const int*>(positions), KV, rep, S, P, PS};
-  return launch_decode_hd(kv, hd, q, ws, out, counters, L * S * KV * rep, G,
+             static_cast<const int*>(positions), KV, rep, P, PS};
+  return launch_decode_hd(kv, hd, q, ws, out, counters, L * KV * rep, G,
                           n_tiles, n_splits, scale, window, softcap,
                           static_cast<cudaStream_t>(stream));
+}
+
+// K6's prefill-chunk body (S > 1): one block per (q tile, kv head, lane),
+// K4's arithmetic over the page table.  q and out [L, S, KV, G, hd]; pools
+// [n_pool, PS, KV, hd] (the trash page included), PS a power of two from 4
+// to 128; table [L, P]; positions [L, S] (-1 = idle row, output 0.0).
+extern "C" int k6_paged_chunk(const void* q, const void* k_pool,
+                              const void* v_pool, const void* table,
+                              const void* positions, void* out, int L, int S,
+                              int KV, int G, int hd, int P, int ps_shift,
+                              int n_pool, float scale, int window,
+                              float softcap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* T = static_cast<const int*>(table);
+  const int* Pos = static_cast<const int*>(positions);
+  switch (hd) {
+#define K6C_CASE(HD)                                                        \
+    case HD: return launch_chunk<HD>(q, k_pool, v_pool, T, Pos, out, L, S,  \
+                                     KV, G, P, ps_shift, n_pool, scale,     \
+                                     window, softcap, st);
+    K6C_CASE(16) K6C_CASE(32) K6C_CASE(64) K6C_CASE(128)
+#undef K6C_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -49,22 +49,33 @@
 // construction.
 //
 // K2 on Hopper: the int8 path of the same matmul_pallas (a_scale,
-// b_scale): int8 A [M, K] x int8 B [K, N] into an int32 accumulator on the
-// int8 tensor cores (WMMA signed char 16x16x16), then in the store phase
-// x = (float(acc) * a_scale[m]) * b_scale[n] -- the reference's order,
-// with explicit round-to-nearest multiplies so the compiler cannot fuse a
-// stage into its neighbour -- then the gate or the residual, then a bf16
-// or fp32 store.  Integer accumulation is exact, so the fp32-out product
-// is bitwise equal to its plain version.  A two-stage cp.async ring
-// (the design K1 had before wgmma and TMA); shared tiles are cut in 16-byte chunks (A along k, B along
-// n) so every fragment pointer is 256-bit aligned.  What bounds it: at
-// decode the int8 weight bytes (half of K1's); at M = 512 the tensor-core
-// operations.  The up GEMM's (q, scale) output needs the absmax of the
-// whole row (N = 12800): the GEMM stores the gated value at fp32 in a
-// workspace and k3_quantize_rows finishes the rows (split-N, as for the
-// rmsnorm), so the handoff is bitwise the reference's fused quantize of
-// the same fp32 values (max is exact in any order).  The down GEMM's
-// (value, normed) output reuses k1_rmsnorm_rows.
+// b_scale): int8 A [M, K] x int8 B into an int32 accumulator on the s8
+// tensor cores (wgmma m64nNk32.s32.s8.s8), then in the store phase x =
+// (float(acc) * a_scale[m]) * b_scale[n] -- the reference's order, with
+// explicit round-to-nearest multiplies so the compiler cannot fuse a stage
+// into its neighbour -- then the gate or the residual, then a bf16 or fp32
+// store.  The s8 wgmma reads both operands K-major from shared memory, so
+// the weight arrives as [N, K] (QuantizedWeight stores it so, transposed
+// once when the model is quantized); a K-major int8 row of 128 values is
+// 128 bytes, the swizzle span, so the tiles, descriptors and TMA boxes are
+// K1's with 128 k a stage (and one k32 step where K1 takes a k16 one).
+// Both of K1's regimes, by the shape alone (k2_plan): M >= 64, tensor-core
+// operations, K1's 128 x {128, 192, 256} tiles, producer warp and two
+// consumer warpgroups, the epilogue stored from the registers; M < 64, the
+// int8 weight stream (half of K1's bytes), swapped operands with the
+// weight's N on wgmma's 64-row side and the rows as n (8 to 64), a
+// 6-stage ring, K split until the grid holds a block per two SMs (longer
+// splits than K1's: a split streams enough stages to amortize filling its
+// ring), int32 partials folded ascending by the last split to arrive.
+// TMA zero-fills a ragged edge: K and N need only be multiples of 16 (the
+// 16-byte row stride TMA needs).  Integer sums are exact in any order, so
+// the fp32-out product is bitwise its plain version.  The
+// up GEMM's (q, scale) output needs the absmax of the whole row (N =
+// 12800): the GEMM stores the gated value at fp32 in a workspace and
+// k3_quantize_rows finishes the rows (split-N, as for the rmsnorm), so the
+// handoff is bitwise the reference's fused quantize of the same fp32
+// values (max is exact in any order).  The down GEMM's (value, normed)
+// output reuses k1_rmsnorm_rows.
 //
 // K3 on Hopper: src/repro/kernels/quantize.py::quantize_rowwise_pallas
 // (_quantize_kernel): one block per row, absmax by a shared-memory tree,
@@ -75,21 +86,15 @@
 // element read twice from L2-resident rows, written once as int8.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 #include <math.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 namespace {
-
-// K2's tiles (WMMA s8)
-constexpr int BN = 64;
-constexpr int THREADS = 128;
 
 // ---------------------------------------------------------------------------
 // K1: bf16 GEMM, wgmma + TMA
@@ -558,133 +563,366 @@ rmsnorm_rows_kernel(const bf16* __restrict__ x,
 
 
 // ---------------------------------------------------------------------------
-// K2: int8 GEMM
+// K2: int8 GEMM, s8 wgmma + TMA
 // ---------------------------------------------------------------------------
 
-constexpr int I8_BK = 64;   // k per tile: four 16-byte chunks
-constexpr int I8_C_LD = BN + 4;
+constexpr int I8_BK = 128;  // k per stage: one 128-byte swizzled row of int8
+constexpr int I8_A_BYTES = OPS_BM * I8_BK;  // 16 KB
 
-// A tile: [I8_BK / 16][BM][16] (chunk kc holds k in [16 kc, 16 kc + 16));
-// B tile: [BN / 16][I8_BK][16] (chunk nc holds n in [16 nc, 16 nc + 16)).
-template <int BM>
-__device__ __forceinline__ void load_tiles_i8(int8_t* As, int8_t* Bs,
-                                              const int8_t* A,
-                                              const int8_t* B, int M, int N,
-                                              int K, int m0, int n0,
-                                              int k0) {
-  const int tid = threadIdx.x;
-  for (int c = tid; c < BM * (I8_BK / 16); c += THREADS) {
-    const int r = c / (I8_BK / 16), kc = c % (I8_BK / 16);
-    const int gr = m0 + r, gk = k0 + kc * 16;
-    const bool ok = gr < M && gk < K;
-    cp_async16(As + (kc * BM + r) * 16, ok ? A + (size_t)gr * K + gk : A,
-               ok);
+template <int BN>
+struct I8OpsLayout {
+  static constexpr int STAGE = I8_A_BYTES + BN * I8_BK;
+  // as many stages as fit beside the barriers (4 at BN 256, 7 at 128)
+  static constexpr int STAGES_FIT = (232448 - 2048) / STAGE;
+  static constexpr int STAGES = STAGES_FIT < 8 ? STAGES_FIT : 8;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+};
+
+// the store phase of output element o = (m, n) from its int32 sum: the
+// reference's order, each product and sum rounded on its own, so the
+// compiler cannot fuse a stage into its neighbour
+__device__ __forceinline__ float k2_value(int acc, float sa, float sb,
+                                          size_t o, const bf16* residual,
+                                          const bf16* operand2,
+                                          int gate_silu) {
+  float x = __fmul_rn(__fmul_rn(__int2float_rn(acc), sa), sb);
+  if (gate_silu) {
+    const float g = __bfloat162float(operand2[o]);
+    x = __fmul_rn(g / (1.0f + expf(-g)), x);
   }
-  for (int c = tid; c < I8_BK * (BN / 16); c += THREADS) {
-    const int r = c / (BN / 16), nc = c % (BN / 16);
-    const int gk = k0 + r, gn = n0 + nc * 16;
-    const bool ok = gk < K && gn < N;
-    cp_async16(Bs + (nc * I8_BK + r) * 16, ok ? B + (size_t)gk * N + gn : B,
-               ok);
+  if (residual) x = __fadd_rn(x, __bfloat162float(residual[o]));
+  return x;
+}
+
+__device__ __forceinline__ void k2_store(float x, size_t o, float* out_f32,
+                                         bf16* out_bf16) {
+  if (out_f32)
+    out_f32[o] = x;
+  else
+    out_bf16[o] = __float2bfloat16(x);
+}
+
+// operations regime: K1's grid, raster and ring; A [128 x 128 k] and B
+// [BN n x 128 k] both K-major (B is the [N, K] weight), four k32 steps a
+// stage; the epilogue stores from the accumulator registers
+template <int BN>
+__global__ void __launch_bounds__(OPS_THREADS, 1)
+k2_ops_kernel(const __grid_constant__ CUtensorMap map_a,
+              const __grid_constant__ CUtensorMap map_b,
+              const float* __restrict__ a_scale,
+              const float* __restrict__ b_scale, float* __restrict__ out_f32,
+              bf16* __restrict__ out_bf16, const bf16* __restrict__ residual,
+              const bf16* __restrict__ operand2, int M, int N, int K,
+              int gate_silu) {
+  using L = I8OpsLayout<BN>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * L::STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int tiles_m = (M + OPS_BM - 1) / OPS_BM;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int per_group = OPS_GROUP_M * tiles_n;
+  const int group = blockIdx.x / per_group;
+  const int first_m = group * OPS_GROUP_M;
+  const int group_m = min(tiles_m - first_m, OPS_GROUP_M);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first_m + in_group % group_m) * OPS_BM;
+  const int n0 = (in_group / group_m) * BN;
+  const int ktiles = (K + I8_BK - 1) / I8_BK;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      tma_prefetch_map(&map_a);
+      tma_prefetch_map(&map_b);
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::STAGE);
+        uint8_t* st = smem + s * L::STAGE;
+        tma_load_2d(st, &map_a, &full[s], kt * I8_BK, m0);
+        tma_load_2d(st + I8_A_BYTES, &map_b, &full[s], kt * I8_BK, n0);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  const int wg = warp / 4;
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint8_t* st = smem + s * L::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < I8_BK / 32; ++kk) {
+      const uint64_t da = make_desc(st + wg * 64 * 128 + kk * 32, 16, 1024,
+                                    128);
+      const uint64_t db = make_desc(st + I8_A_BYTES + kk * 32, 16, 1024,
+                                    128);
+      wgmma_s8(acc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // fragment 4 j + 2 h + e holds tile row r0 + 8 h, column 8 j + 2 (lane %
+  // 4) + e; N % 16 == 0, so a pair of columns is in or out together
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4, q = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + r0 + 8 * h;
+    if (m >= M) continue;
+    const float sa = a_scale[m];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * q;
+      if (n >= N) continue;
+      const float2 sb = *reinterpret_cast<const float2*>(b_scale + n);
+      const size_t o = (size_t)m * N + n;
+      const float x0 = k2_value(acc[4 * j + 2 * h], sa, sb.x, o, residual,
+                                operand2, gate_silu);
+      const float x1 = k2_value(acc[4 * j + 2 * h + 1], sa, sb.y, o + 1,
+                                residual, operand2, gate_silu);
+      if (out_f32)
+        *reinterpret_cast<float2*>(out_f32 + o) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(out_bf16 + o) =
+            __floats2bfloat162_rn(x0, x1);
+    }
   }
 }
 
-template <int BM, int WARPS_M>
-__global__ void __launch_bounds__(THREADS)
-int8_matmul_kernel(const int8_t* __restrict__ A,
-                   const int8_t* __restrict__ B,
-                   const float* __restrict__ a_scale,
-                   const float* __restrict__ b_scale,
-                   float* __restrict__ out_f32, bf16* __restrict__ out_bf16,
-                   const bf16* __restrict__ residual,
-                   const bf16* __restrict__ operand2, int M, int N, int K,
-                   int gate_silu) {
-  constexpr int WARPS_N = 4 / WARPS_M;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int FM = WM / 16, FN = WN / 16;
-  constexpr int A_BYTES = BM * I8_BK, B_BYTES = I8_BK * BN;
-  constexpr int AB_BYTES = 2 * (A_BYTES + B_BYTES);
-  constexpr int C_BYTES = BM * I8_C_LD * sizeof(int);
-  constexpr int SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  int8_t* As[2] = {reinterpret_cast<int8_t*>(smem),
-                   reinterpret_cast<int8_t*>(smem + A_BYTES)};
-  int8_t* Bs[2] = {reinterpret_cast<int8_t*>(smem + 2 * A_BYTES),
-                   reinterpret_cast<int8_t*>(smem + 2 * A_BYTES + B_BYTES)};
-  int(*Cs)[I8_C_LD] = reinterpret_cast<int(*)[I8_C_LD]>(smem);
+// bytes regime: K1's swapped operands, split and fold with int32
+// partials; blocks of 128 weight rows of [N, K] (one 16 KB TMA box of
+// 128 x 128 k) and the activation rows as wgmma's n
+constexpr int I8_DEC_STAGES = 6;  // 104 KB at NR 8: two blocks an SM
+constexpr int I8_DEC_W_BYTES = DEC_BN * I8_BK;  // 16 KB of weight
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+template <int NR>
+struct I8DecLayout {
+  static constexpr int X_BOX = NR * I8_BK;  // [NR rows x 128 k] int8
+  static constexpr int STAGE = I8_DEC_W_BYTES + X_BOX;
+  static constexpr int SMEM = 1024 + I8_DEC_STAGES * STAGE +
+                              2 * I8_DEC_STAGES * 8;
+};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0);
+template <int NR>
+__global__ void __launch_bounds__(DEC_THREADS)
+k2_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
+                const __grid_constant__ CUtensorMap map_x,
+                int* __restrict__ partial, int* __restrict__ counters,
+                const float* __restrict__ a_scale,
+                const float* __restrict__ b_scale, float* __restrict__ out_f32,
+                bf16* __restrict__ out_bf16, const bf16* __restrict__ residual,
+                const bf16* __restrict__ operand2, int M, int N, int K,
+                int splits, int gate_silu) {
+  __shared__ int last_split;
+  using L = I8DecLayout<NR>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + I8_DEC_STAGES * L::STAGE);
+  uint64_t* empty = full + I8_DEC_STAGES;
 
+  const int n0 = blockIdx.x * DEC_BN, split = blockIdx.y;
   const int ktiles = (K + I8_BK - 1) / I8_BK;
-  load_tiles_i8<BM>(As[0], Bs[0], A, B, M, N, K, m0, n0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < ktiles)
-      load_tiles_i8<BM>(As[st ^ 1], Bs[st ^ 1], A, B, M, N, K, m0, n0,
-                        (kt + 1) * I8_BK);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < I8_BK / 16; ++kc) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                     wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(
-            fa[i], As[st] + (kc * BM + wm * WM + i * 16) * 16, 16);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(
-            fb[j], Bs[st] + (((wn * WN + j * 16) / 16) * I8_BK + kc * 16) * 16,
-            16);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  const int t0 = split_begin(split, ktiles, splits);
+  const int t1 = split_begin(split + 1, ktiles, splits);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < I8_DEC_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
     }
-    __syncthreads();
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
   __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(&Cs[wm * WM + i * 16][wn * WN + j * 16],
-                              acc[i][j], I8_C_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN, c = idx % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M || gn >= N) continue;
-    const size_t o = (size_t)gm * N + gn;
-    // (acc * row) * col, each product rounded on its own
-    float x = __fmul_rn(__fmul_rn(__int2float_rn(Cs[r][c]), a_scale[gm]),
-                        b_scale[gn]);
-    if (gate_silu) {
-      const float g = __bfloat162float(operand2[o]);
-      x = __fmul_rn(g / (1.0f + expf(-g)), x);
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      tma_prefetch_map(&map_w);
+      tma_prefetch_map(&map_x);
+      for (int t = t0; t < t1; ++t) {
+        const int i = t - t0, s = i % I8_DEC_STAGES;
+        mbar_wait(&empty[s], ((i / I8_DEC_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::STAGE);
+        uint8_t* st = smem + s * L::STAGE;
+        tma_load_2d(st, &map_w, &full[s], t * I8_BK, n0);
+        tma_load_2d(st + I8_DEC_W_BYTES, &map_x, &full[s], t * I8_BK, 0);
+      }
     }
-    if (residual) x = __fadd_rn(x, __bfloat162float(residual[o]));
-    if (out_f32)
-      out_f32[o] = x;
-    else
-      out_bf16[o] = __float2bfloat16(x);
+    return;
   }
+
+  // D^T [64 weight rows x NR activation rows] = W [64 x k] . X^T [k x NR]
+  // for each 64-row half c of the weight box, both K-major
+  int acc[DEC_BN / 64][NR / 2];
+#pragma unroll
+  for (int c = 0; c < DEC_BN / 64; ++c)
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) acc[c][i] = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int i = t - t0, s = i % I8_DEC_STAGES;
+    mbar_wait(&full[s], (i / I8_DEC_STAGES) & 1);
+    const uint8_t* st = smem + s * L::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < I8_BK / 32; ++kk) {
+      const uint64_t db = make_desc(st + I8_DEC_W_BYTES + kk * 32, 16, 1024,
+                                    128);
+#pragma unroll
+      for (int c = 0; c < DEC_BN / 64; ++c) {
+        const uint64_t da = make_desc(st + c * 64 * 128 + kk * 32, 16, 1024,
+                                      128);
+        wgmma_s8(acc[c], da, db, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(i - 1) % I8_DEC_STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < DEC_BN / 64; ++c) fence_regs(acc[c]);
+
+  // fragment 4 j + 2 h + e of half c: weight row (output column) 64 c + 16
+  // warp + lane / 4 + 8 h, activation row 8 j + 2 (lane % 4) + e
+#pragma unroll
+  for (int c = 0; c < DEC_BN / 64; ++c)
+#pragma unroll
+    for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 64 * c + warp * 16 + lane / 4 + 8 * h;
+          const int m = 8 * j + 2 * (lane % 4) + e;
+          if (n >= N || m >= M) continue;
+          const size_t o = (size_t)m * N + n;
+          const int x = acc[c][4 * j + 2 * h + e];
+          if (splits > 1)
+            partial[(size_t)split * M * N + o] = x;
+          else
+            k2_store(k2_value(x, a_scale[m], b_scale[n], o, residual,
+                              operand2, gate_silu),
+                     o, out_f32, out_bf16);
+        }
+  if (splits == 1) return;
+
+  // the last split of this column block to arrive folds the partials of
+  // all splits in ascending split order (exact in int32), applies the
+  // store phase and resets the block's arrival counter
+  __threadfence();
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warps
+  if (threadIdx.x == 0)
+    last_split = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  if (!last_split) return;
+  __threadfence();
+  constexpr int FE = 8, FS = 4;
+  const int cols = min(DEC_BN, N - n0), count = M * cols;
+  const size_t mn = (size_t)M * N;
+  for (int base = threadIdx.x; base < count; base += 128 * FE) {
+    size_t o[FE];
+    int x[FE];
+#pragma unroll
+    for (int u = 0; u < FE; ++u) {
+      const int idx = min(base + 128 * u, count - 1);
+      o[u] = (size_t)(idx / cols) * N + n0 + idx % cols;
+      x[u] = 0;
+    }
+    for (int s0 = 0; s0 < splits; s0 += FS) {
+      int v[FS][FE];
+#pragma unroll
+      for (int t = 0; t < FS; ++t)
+#pragma unroll
+        for (int u = 0; u < FE; ++u)
+          v[t][u] = s0 + t < splits ? __ldcg(partial + (s0 + t) * mn + o[u])
+                                    : 0;
+#pragma unroll
+      for (int t = 0; t < FS; ++t)
+#pragma unroll
+        for (int u = 0; u < FE; ++u) x[u] += v[t][u];
+    }
+#pragma unroll
+    for (int u = 0; u < FE; ++u)
+      if (base + 128 * u < count) {
+        const int m = (int)(o[u] / N), n = (int)(o[u] % N);
+        k2_store(k2_value(x[u], a_scale[m], b_scale[n], o[u], residual,
+                          operand2, gate_silu),
+                 o[u], out_f32, out_bf16);
+      }
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+}
+
+template <int NR>
+int launch_k2_bytes(const int8_t* A, const int8_t* B, int* partial,
+                    int* counters, const float* SA, const float* SB,
+                    float* OF, bf16* OB, const bf16* R, const bf16* G, int M,
+                    int N, int K, int splits, int gate_silu,
+                    cudaStream_t st) {
+  CUtensorMap map_w, map_x;
+  int e = make_map_2d(&map_w, B, N, K, DEC_BN, I8_BK, 1);
+  if (!e) e = make_map_2d(&map_x, A, M, K, NR, I8_BK, 1);
+  if (e) return e;
+  static int smem_set = 0;
+  if (!smem_set) {
+    e = set_smem(k2_bytes_kernel<NR>, I8DecLayout<NR>::SMEM);
+    if (e) return e;
+    smem_set = 1;
+  }
+  dim3 grid((N + DEC_BN - 1) / DEC_BN, splits);
+  k2_bytes_kernel<NR><<<grid, DEC_THREADS, I8DecLayout<NR>::SMEM, st>>>(
+      map_w, map_x, partial, counters, SA, SB, OF, OB, R, G, M, N, K,
+      splits, gate_silu);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_k2_ops(const int8_t* A, const int8_t* B, const float* SA,
+                  const float* SB, float* OF, bf16* OB, const bf16* R,
+                  const bf16* G, int M, int N, int K, int gate_silu,
+                  cudaStream_t st) {
+  CUtensorMap map_a, map_b;
+  int e = make_map_2d(&map_a, A, M, K, OPS_BM, I8_BK, 1);
+  if (!e) e = make_map_2d(&map_b, B, N, K, BN, I8_BK, 1);
+  if (e) return e;
+  static int smem_set = 0;
+  if (!smem_set) {
+    e = set_smem(k2_ops_kernel<BN>, I8OpsLayout<BN>::SMEM);
+    if (e) return e;
+    smem_set = 1;
+  }
+  const int tiles = ((M + OPS_BM - 1) / OPS_BM) * ((N + BN - 1) / BN);
+  k2_ops_kernel<BN><<<tiles, OPS_THREADS, I8OpsLayout<BN>::SMEM, st>>>(
+      map_a, map_b, SA, SB, OF, OB, R, G, M, N, K, gate_silu);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -780,11 +1018,18 @@ extern "C" int k1_rmsnorm_rows(const void* x, const void* scale, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// M >= 64: the operations regime, 128 x tile_n output tiles (tile_n 128,
+// 192 or 256; splits must be 1); M < 64: the bytes regime (tile_n 128),
+// K split `splits` ways: with splits > 1 a [splits, M, N] int32 workspace
+// for the partials and one zeroed int32 arrival counter per 128-column
+// block (left zeroed).  b is the [N, K] weight, K-major.
+// kernels/matmul.py's k2_plan chooses tile_n and splits.
 extern "C" int k2_int8_matmul(const void* a, const void* b,
                               const void* a_scale, const void* b_scale,
                               void* out_f32, void* out_bf16,
                               const void* residual, const void* operand2,
-                              int M, int N, int K, int gate_silu,
+                              void* workspace, void* counters, int M, int N,
+                              int K, int splits, int tile_n, int gate_silu,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* A = static_cast<const int8_t*>(a);
@@ -795,16 +1040,35 @@ extern "C" int k2_int8_matmul(const void* a, const void* b,
   bf16* OB = static_cast<bf16*>(out_bf16);
   const bf16* R = static_cast<const bf16*>(residual);
   const bf16* G = static_cast<const bf16*>(operand2);
-  if (M <= 16) {
-    dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
-    int8_matmul_kernel<16, 1><<<grid, THREADS, 0, st>>>(
-        A, B, SA, SB, OF, OB, R, G, M, N, K, gate_silu);
-  } else {
-    dim3 grid((N + BN - 1) / BN, (M + 63) / 64);
-    int8_matmul_kernel<64, 2><<<grid, THREADS, 0, st>>>(
-        A, B, SA, SB, OF, OB, R, G, M, N, K, gate_silu);
+  int* P = static_cast<int*>(workspace);
+  int* cnt = static_cast<int*>(counters);
+  if (splits < 1 || (splits > 1 && (P == nullptr || cnt == nullptr)) ||
+      (OF == nullptr) == (OB == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (M >= 64) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    switch (tile_n) {
+      case 128: return launch_k2_ops<128>(A, B, SA, SB, OF, OB, R, G, M, N,
+                                          K, gate_silu, st);
+      case 192: return launch_k2_ops<192>(A, B, SA, SB, OF, OB, R, G, M, N,
+                                          K, gate_silu, st);
+      case 256: return launch_k2_ops<256>(A, B, SA, SB, OF, OB, R, G, M, N,
+                                          K, gate_silu, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  if (tile_n != DEC_BN) return (int)cudaErrorInvalidValue;
+  if (M <= 8)
+    return launch_k2_bytes<8>(A, B, P, cnt, SA, SB, OF, OB, R, G, M, N, K,
+                              splits, gate_silu, st);
+  if (M <= 16)
+    return launch_k2_bytes<16>(A, B, P, cnt, SA, SB, OF, OB, R, G, M, N, K,
+                               splits, gate_silu, st);
+  if (M <= 32)
+    return launch_k2_bytes<32>(A, B, P, cnt, SA, SB, OF, OB, R, G, M, N, K,
+                               splits, gate_silu, st);
+  return launch_k2_bytes<64>(A, B, P, cnt, SA, SB, OF, OB, R, G, M, N, K,
+                             splits, gate_silu, st);
 }
 
 extern "C" int k3_quantize_rows(const void* x, void* q, void* scale, int M,

@@ -16,7 +16,9 @@ beside the library as ``lib<name>-<hash>.log`` (``ptxas_report``).
 one exactly where it launches its kernel (``count``).  A launch of a
 variant (gemma2's 'local' window, the softcap) also adds one to the
 variant's own key, ``"<kernel>:<variant>"``, e.g.
-``"paged_decode:local+softcap"``.
+``"paged_decode:local+softcap"``; K6's prefill-chunk body counts under
+``paged_decode`` with the ``chunk`` variant (``paged_decode:chunk``,
+``paged_decode:local+softcap+chunk``), and its decode body never does.
 """
 from __future__ import annotations
 
@@ -46,10 +48,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                       _P],
         # x, scale, out, M, N, eps, stream
         "k1_rmsnorm_rows": [_P, _P, _P, _I, _I, _F, _P],
-        # a, b, a_scale, b_scale, out_f32, out_bf16, residual, operand2,
-        # M, N, K, gate_silu, stream
-        "k2_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P],
+        # a, b ([N, K]), a_scale, b_scale, out_f32, out_bf16, residual,
+        # operand2, workspace, counters, M, N, K, splits, tile_n,
+        # gate_silu, stream
+        "k2_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _P],
         # x, q, scale, M, N, x_is_f32, stream
         "k3_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     },
@@ -62,11 +65,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # n_tiles, n_splits, scale, softcap, stream
         "k5_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _F, _F, _P],
-        # q, k_pool, v_pool, table, positions, ws, out, counters, L, S, KV,
+        # q, k_pool, v_pool, table, positions, ws, out, counters, L, KV,
         # rep, G, hd, P, PS, n_tiles, n_splits, scale, window, softcap,
         # stream
         "k6_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
+                            _I, _I, _I, _I, _I, _F, _I, _F, _P],
+        # q, k_pool, v_pool, table, positions, out, L, S, KV, G, hd, P,
+        # log2 PS, n_pool, scale, window, softcap, stream
+        "k6_paged_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _F, _P],
     },
     "addertree": {
         # partials, out, S, n, in_kind, out_kind, stream

@@ -27,15 +27,21 @@ version of K4 is ``ref.flash_attention_ref`` (causal masked softmax, GQA
 grouped in the einsum).  ``kernels.ops`` takes the plain versions for
 tensors on the CPU.
 
-K6 is K5's kernel on the page table, ``paged_flash_decode_cuda`` (plain
-version ``paged_flash_decode_tiled``; its partials ``paged_tile_partials``,
-the twin of the reference's ``_paged_tile_partials_xla``, and the
-workspace of ``paged_decode_launch``).  It tiles a lane's logical view in
-the same 32-slot tiles from position 0 as the dense path (not one page
-per tile, see ROADMAP F2), so a paged lane is bitwise the same history in
-a dense cache.  Its rows are (lane, s, kv head), each with its own position, so
-prefill chunks (S > 1) and decode (S == 1) take the same kernel; an idle
-row (position -1) gives exactly 0.0.
+K6 is ``paged_flash_decode_cuda`` (plain version
+``paged_flash_decode_tiled``; its partials ``paged_tile_partials``, the
+twin of the reference's ``_paged_tile_partials_xla``), two bodies chosen
+by the shape alone (``paged_body``).  Decode (S == 1) is K5's kernel on
+the page table: it tiles a lane's logical view in the same 32-slot tiles
+from position 0 as the dense path (not one page per tile, see ROADMAP
+F2), so a paged lane is bitwise the same history in a dense cache, and
+its workspace holds the live tiles' partials.  A prefill chunk (S > 1)
+takes a flash-prefill body (``k6_paged_chunk``): one block per (q tile,
+kv head, lane) holds S x G query rows of the lane (``chunk_tiles``) and
+streams each 128-slot K/V tile of the lane once, page by page through
+the table, into K4's tensor-core arithmetic; each row is masked by its
+own position, so it agrees with the plain version within the rounding
+of P to bf16.  In both an idle row (position -1) gives exactly 0.0, and
+a lane reads only its own pages.
 
 Variants (gemma2): K4 and K6 take the ``'local'`` kind, a sliding window
 in which query position p attends keys p - window < k <= p, and all three
@@ -319,21 +325,80 @@ def paged_flash_decode_tiled(q, k_pool, v_pool, page_table, positions, *,
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
+# the chunk body's q tile holds at most this many (position, head) rows;
+# it takes page sizes that tile its 128-slot K/V tiles in whole pages, at
+# most 32 of them
+CHUNK_ROWS = 128
+CHUNK_PAGE_SIZES = (4, 8, 16, 32, 64, 128)
+
+
+def paged_body(s_q: int) -> str:
+    """K6's kernel for a call of ``s_q`` positions a lane, by the shape
+    alone: decode (S == 1) keeps the split-K decode body, whose tiles and
+    fold carry the paged == dense bitwise contract; a prefill chunk (S >
+    1) takes the flash-prefill body."""
+    return "k6_paged_decode" if s_q == 1 else "k6_paged_chunk"
+
+
+def chunk_tiles(s_q: int, g: int):
+    """(positions per q tile, q tiles) of the chunk body: a q tile holds
+    the G query heads of ``CHUNK_ROWS // G`` consecutive chunk positions
+    (at most S), rows in (position, head) order; the grid is one block per
+    (q tile, kv head, lane)."""
+    if not 1 <= g <= CHUNK_ROWS:
+        raise ValueError(f"the chunk body takes 1 to {CHUNK_ROWS} query "
+                         f"heads per kv head, got {g}")
+    per = min(CHUNK_ROWS // g, s_q)
+    return per, -(-s_q // per)
+
+
+def _chunk_launch(q, k_pool, v_pool, page_table, positions, win: int,
+                  softcap: Optional[float]) -> torch.Tensor:
+    """One launch of ``k6_paged_chunk`` on operands the caller checked."""
+    n_lanes, s_q, n_kv, g, hd = q.shape
+    n_pool, ps = k_pool.shape[0], k_pool.shape[1]
+    out = torch.empty_like(q)
+    if q.numel():
+        _cuda.count("paged_decode", local=win > 0, softcap=bool(softcap),
+                    chunk=True)
+        _cuda.launch("flash_attention", "k6_paged_chunk", q.data_ptr(),
+                     k_pool.data_ptr(), v_pool.data_ptr(),
+                     page_table.data_ptr(), positions.data_ptr(),
+                     out.data_ptr(), n_lanes, s_q, n_kv, g, hd,
+                     page_table.shape[1], ps.bit_length() - 1, n_pool,
+                     hd ** -0.5, win, float(softcap or 0.0))
+    return out
+
+
 def paged_decode_launch(q, k_pool, v_pool, page_table, positions, *,
                         kind: str = "global", window: int = 0,
                         softcap: Optional[float] = None):
-    """One launch of ``k6_paged_decode``; returns (out, workspace).  The
-    workspace holds each live tile's partial (``record_views``)."""
+    """One launch of K6, the body chosen by ``paged_body``.  Decode
+    returns (out, workspace): the workspace holds each live tile's partial
+    (``record_views``).  A prefill chunk returns (out, None): its body
+    keeps no per-tile records."""
     n_lanes, s_q, n_kv, g, hd = q.shape
     n_pool, ps = k_pool.shape[0], k_pool.shape[1]
     p_max = page_table.shape[1]
     win = _window_arg(kind, window)
-    rep, gk = _check_decode(q, g, hd)
+    chunk = paged_body(s_q) == "k6_paged_chunk"
+    if chunk:
+        _check_head_dim(hd)
+        chunk_tiles(s_q, g)
+        if ps not in CHUNK_PAGE_SIZES:
+            raise ValueError(f"the chunk body takes page sizes "
+                             f"{CHUNK_PAGE_SIZES}, got {ps}")
+        _cuda.check(q, "q", torch.bfloat16)
+    else:
+        rep, gk = _check_decode(q, g, hd)
     _cuda.check(k_pool, "k_pool", torch.bfloat16, (n_pool, ps, n_kv, hd))
     _cuda.check(v_pool, "v_pool", torch.bfloat16, (n_pool, ps, n_kv, hd))
     _cuda.check(page_table, "page_table", torch.int32, (n_lanes, p_max))
     _cuda.check(positions, "positions", torch.int32, (n_lanes, s_q))
-    rows = n_lanes * s_q * n_kv * rep
+    if chunk:
+        return _chunk_launch(q, k_pool, v_pool, page_table, positions, win,
+                             softcap), None
+    rows = n_lanes * n_kv * rep
     n_tiles = math.ceil(p_max * ps / DEFAULT_KV_TILE)
     n_splits = default_splits(rows, n_tiles, sm_count(q.device.index))
     out = torch.empty_like(q)
@@ -342,13 +407,12 @@ def paged_decode_launch(q, k_pool, v_pool, page_table, positions, *,
         return out.zero_(), ws
     counters = (split_scratch(q.device, 0, rows)[1].data_ptr()
                 if n_splits > 1 else None)
-    _cuda.count("paged_decode", local=win > 0, softcap=bool(softcap),
-                chunk=s_q > 1)
+    _cuda.count("paged_decode", local=win > 0, softcap=bool(softcap))
     _cuda.launch("flash_attention", "k6_paged_decode", q.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
                  positions.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                 counters, n_lanes, s_q, n_kv, rep, gk, hd, p_max, ps,
-                 n_tiles, n_splits, hd ** -0.5, win, float(softcap or 0.0))
+                 counters, n_lanes, n_kv, rep, gk, hd, p_max, ps, n_tiles,
+                 n_splits, hd ** -0.5, win, float(softcap or 0.0))
     return out, ws
 
 

@@ -21,12 +21,16 @@ row-norm kernel normalizes the stored rows).  Any other stage or dtype
 raises: the kernel never silently falls back.
 
 ``int8_matmul_cuda`` wraps K2, ``k2_int8_matmul``: int8 x int8 into an
-int32 accumulator with the row and column scales applied first in the
-store phase; its plain version is ``ref.int8_matmul_ref``.  It stores bf16
-or fp32; under ``quantize`` it stores the fp32 value in a workspace and
-the K3 row pass (counted as ``int8_quantize``) makes ``(q, scale)``;
-under ``norm='rmsnorm'`` the row-norm kernel completes ``(value,
-normed)``, as for K1.
+int32 accumulator on the s8 wgmma, with the row and column scales applied
+first in the store phase; its plain version is ``ref.int8_matmul_ref``.
+The s8 wgmma reads both operands K-major, so the weight is the [K, N]
+view of a contiguous [N, K] buffer (``QuantizedWeight``); K2 runs K1's
+two regimes and split rule with 128 k a stage (``k2_plan``), and its
+split partials are int32, folded ascending by the last split to arrive.
+It stores bf16 or fp32; under ``quantize`` it stores the fp32 value in a
+workspace and the K3 row pass (counted as ``int8_quantize``) makes ``(q,
+scale)``; under ``norm='rmsnorm'`` the row-norm kernel completes
+``(value, normed)``, as for K1.
 """
 from __future__ import annotations
 
@@ -46,20 +50,26 @@ from repro_torch.kernels.quantize import quantize_rowwise_cuda
 # 128 x 256 tile carries the most work per byte loaded; the rates are
 # launch/k1_widths.py's at 8320 rows on an H100, where every width fills
 # its waves); the bytes regime's weight columns and k per stage, and the
-# activation rows it rounds M up to
+# activation rows it rounds M up to.  K2 runs the same tiles with 128 k
+# (128 bytes of int8) per stage, and weighs the widths by K1's rates.
 K1_OPS_MIN_M = 64
 K1_OPS_ROWS, K1_OPS_K = 128, 64
 K1_OPS_COLS = {256: 1.0, 192: 0.88, 128: 0.71}
 K1_DEC_TILE = (128, 64)
 K1_DEC_ROWS = (8, 16, 32, 64)
 K1_BLOCKS_PER_SM = 2
+# K2: k per stage (one 128-byte swizzled row of int8); the bytes regime
+# splits K until the grid holds one block per this many SMs, so that a
+# split streams enough stages to amortize filling its ring
+K2_K = 128
+K2_SMS_PER_BLOCK = 2
 
 
 @dataclasses.dataclass(frozen=True)
-class K1Plan:
-    """K1's launch for one shape: the regime, the block's output tile
-    (``rows`` x ``cols``), k per stage, the blocks of the main kernel and
-    the K split (bytes regime; 1 means no fold)."""
+class GemmPlan:
+    """K1's or K2's launch for one shape: the regime, the block's output
+    tile (``rows`` x ``cols``), k per stage, the blocks of the main kernel
+    and the K split (bytes regime; 1 means no fold)."""
 
     regime: str
     rows: int
@@ -78,7 +88,24 @@ class K1Plan:
                 for i in range(s)]
 
 
-def k1_plan(m: int, n: int, k: int, sms: int) -> K1Plan:
+def _gemm_plan(m: int, n: int, k: int, sms: int, ops_k: int,
+               dec_k: int, dec_blocks: int) -> GemmPlan:
+    if m >= K1_OPS_MIN_M:
+        row_tiles = -(-m // K1_OPS_ROWS)
+        cols = min(K1_OPS_COLS, key=lambda c: (
+            -(-row_tiles * -(-n // c) // sms) * c / K1_OPS_COLS[c]))
+        kt = -(-k // ops_k)
+        return GemmPlan("operations", K1_OPS_ROWS, cols, ops_k, kt,
+                        -(-m // K1_OPS_ROWS) * -(-n // cols), 1)
+    bn = K1_DEC_TILE[0]
+    rows = next(r for r in K1_DEC_ROWS if m <= r)
+    kt = -(-k // dec_k)
+    n_tiles = -(-n // bn)
+    splits = max(1, min(kt, -(-dec_blocks // n_tiles)))
+    return GemmPlan("bytes", rows, bn, dec_k, kt, n_tiles * splits, splits)
+
+
+def k1_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
     """K1's launch plan, from the shape and the card's SM count only (never
     from data).  M >= 64 is the operations regime: one block per 128 x
     ``cols`` output tile, no split, ``cols`` the width of least estimated
@@ -91,19 +118,18 @@ def k1_plan(m: int, n: int, k: int, sms: int) -> K1Plan:
     blocks per SM (at most one split per k tile).  The split count does not
     depend on M, so every row of a bytes-regime call sums in the same
     order."""
-    if m >= K1_OPS_MIN_M:
-        row_tiles = -(-m // K1_OPS_ROWS)
-        cols = min(K1_OPS_COLS, key=lambda c: (
-            -(-row_tiles * -(-n // c) // sms) * c / K1_OPS_COLS[c]))
-        kt = -(-k // K1_OPS_K)
-        return K1Plan("operations", K1_OPS_ROWS, cols, K1_OPS_K, kt,
-                      -(-m // K1_OPS_ROWS) * -(-n // cols), 1)
-    bn, bk = K1_DEC_TILE
-    rows = next(r for r in K1_DEC_ROWS if m <= r)
-    kt = -(-k // bk)
-    n_tiles = -(-n // bn)
-    splits = max(1, min(kt, -(-K1_BLOCKS_PER_SM * sms // n_tiles)))
-    return K1Plan("bytes", rows, bn, bk, kt, n_tiles * splits, splits)
+    return _gemm_plan(m, n, k, sms, K1_OPS_K, K1_DEC_TILE[1],
+                      K1_BLOCKS_PER_SM * sms)
+
+
+def k2_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
+    """K2's launch plan: K1's regimes and widths with ``K2_K`` = 128 int8
+    values (one 128-byte row of a swizzled tile) of k per stage; the bytes
+    regime splits K until the grid holds one block per
+    ``K2_SMS_PER_BLOCK`` SMs.  Integer sums are exact, so no plan changes
+    a bit."""
+    return _gemm_plan(m, n, k, sms, K2_K, K2_K,
+                      -(-sms // K2_SMS_PER_BLOCK))
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,8 +139,13 @@ def sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def _device_plan(m: int, n: int, k: int, index: int) -> K1Plan:
+def _device_plan(m: int, n: int, k: int, index: int) -> GemmPlan:
     return k1_plan(m, n, k, sm_count(index))
+
+
+@functools.lru_cache(maxsize=4096)
+def _device_k2_plan(m: int, n: int, k: int, index: int) -> GemmPlan:
+    return k2_plan(m, n, k, sm_count(index))
 
 
 _SPLIT_SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -230,17 +261,20 @@ def int8_matmul_cuda(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
                      operand2: Optional[torch.Tensor] = None,
                      norm_scale: Optional[torch.Tensor] = None):
     """``epilogue(sa * sb * (qa @ qb))`` through the K2 kernel.  qa [M, K]
-    and qb [K, N] int8 contiguous, K and N multiples of 16; sa [M, 1] and
-    sb [1, N] f32.  Returns ``[M, N]`` in ``ep.out_dtype`` (bf16 or fp32,
-    default fp32), ``(q, scale)`` under ``quantize`` or ``(value,
-    normed)`` under ``norm='rmsnorm'``."""
+    int8 contiguous; qb [K, N] int8, the transposed view of a contiguous
+    [N, K] weight (``QuantizedWeight``'s storage: the s8 wgmma reads both
+    operands K-major); K and N multiples of 16; sa [M, 1] and sb [1, N]
+    f32.  Returns ``[M, N]`` in ``ep.out_dtype`` (bf16 or fp32, default
+    fp32), ``(q, scale)`` under ``quantize`` or ``(value, normed)`` under
+    ``norm='rmsnorm'``."""
     if qa.dim() != 2 or qb.dim() != 2 or qa.shape[1] != qb.shape[0]:
         raise ValueError(f"int8 matmul shapes {tuple(qa.shape)} x "
                          f"{tuple(qb.shape)} do not chain")
     m, k = qa.shape
     n = qb.shape[1]
     _cuda.check(qa, "int8 matmul A", torch.int8)
-    _cuda.check(qb, "int8 matmul B", torch.int8)
+    _cuda.check(qb.t(), "int8 matmul B's [N, K] storage (qb.t())",
+                torch.int8)
     _cuda.check(sa, "a_scale", torch.float32, (m, 1))
     _cuda.check(sb, "b_scale", torch.float32, (1, n))
     if k % 16 or n % 16:
@@ -263,14 +297,20 @@ def int8_matmul_cuda(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=qa.device)
     f32 = out_dtype == torch.float32
     if m and n:
+        plan = _device_k2_plan(m, n, k, qa.device.index)
+        ws = counters = None
+        if plan.splits > 1:
+            # int32 partials in the fp32 workspace's storage
+            ws, counters = (t.data_ptr() for t in split_scratch(
+                qa.device, plan.splits * m * n, -(-n // plan.cols)))
         _cuda.LAUNCHES["int8_matmul"] += 1
         _cuda.launch("matmul", "k2_int8_matmul", qa.data_ptr(), qb.data_ptr(),
                      sa.data_ptr(), sb.data_ptr(),
                      out.data_ptr() if f32 else None,
                      None if f32 else out.data_ptr(),
                      residual.data_ptr() if ep.residual else None,
-                     operand2.data_ptr() if gate else None,
-                     m, n, k, int(gate))
+                     operand2.data_ptr() if gate else None, ws, counters,
+                     m, n, k, plan.splits, plan.cols, int(gate))
     if ep.quantize:
         return quantize_rowwise_cuda(out, count="int8_quantize")
     if ep.norm == "rmsnorm":

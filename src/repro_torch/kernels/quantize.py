@@ -22,22 +22,34 @@ from repro_torch.kernels import _cuda
 
 
 class QuantizedWeight(nn.Module):
-    """An int8 GEMM weight with per-column scales: ``q`` int8 ``[K, N]``
-    and ``scale`` f32 ``[1, N]`` buffers.  Serving only: made by
-    ``Model.quantize_params_for_serving``, never trained."""
+    """An int8 GEMM weight with per-column scales: the int8 values stored
+    K-major, as the ``qt`` buffer ``[N, K]`` (the layout the s8 wgmma of
+    K2 reads), and the ``scale`` buffer f32 ``[1, N]``.  ``q`` is the
+    ``[K, N]`` view of ``qt``, the reference's layout.  Serving only: made
+    by ``Model.quantize_params_for_serving``, never trained."""
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        """``q`` int8 ``[K, N]`` (any strides; stored transposed once)."""
         super().__init__()
         if q.dtype != torch.int8 or scale.dtype != torch.float32:
             raise TypeError(f"QuantizedWeight holds int8 values and f32 "
                             f"scales, got {q.dtype} and {scale.dtype}")
-        self.register_buffer("q", q)
+        if q.dim() != 2:
+            raise ValueError(f"QuantizedWeight holds a [K, N] matrix, got "
+                             f"{tuple(q.shape)}")
+        self.register_buffer("qt", q.t().contiguous())
         self.register_buffer("scale", scale)
 
+    @property
+    def q(self) -> torch.Tensor:
+        """The int8 values as ``[K, N]``: a view of the ``[N, K]``
+        storage."""
+        return self.qt.t()
+
     def as_matrix(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The 2-D GEMM operand pair ``(q [K, N], scale [1, N])``."""
-        k, n = self.q.shape[-2], self.q.shape[-1]
-        return self.q.reshape(k, n), self.scale.reshape(1, n)
+        """The 2-D GEMM operand pair ``(q [K, N], scale [1, N])``; ``q`` is
+        the transposed view of the K-major storage."""
+        return self.q, self.scale.reshape(1, self.qt.shape[0])
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         return (self.q.to(torch.float32) * self.scale).to(dtype)

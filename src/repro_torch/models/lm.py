@@ -127,10 +127,11 @@ class Model(nn.Module):
     def quantize_params_for_serving(self) -> "Model":
         """One-shot int8 weight quantization for serving: a new ``Model``
         whose packed ``wqkv``, ``wo`` and MLP ``gate``/``up``/``down`` are
-        ``QuantizedWeight``s (int8 values, one f32 scale per output column)
-        and which shares this model's embedding and norm scales (the tied
-        head keeps full precision for the logits).  Idempotent: an int8
-        model returns itself."""
+        ``QuantizedWeight``s (int8 values stored once transposed, [N, K],
+        the K-major operand of K2's s8 wgmma; one f32 scale per output
+        column) and which shares this model's embedding and norm scales
+        (the tied head keeps full precision for the logits).  Idempotent:
+        an int8 model returns itself."""
         if self.int8:
             return self
         q = Model.__new__(Model)

@@ -23,6 +23,7 @@ request asking to sample is refused at submit.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -31,8 +32,9 @@ import torch
 from repro_torch.kernels.quantize import (quantize_fixed_scale,
                                           saturation_fraction)
 from repro_torch.models.lm import Model
-from repro_torch.robust.guards import (STATUS_NONFINITE, STATUS_OK,
-                                       STATUS_SHED, GenerateResult,
+from repro_torch.robust.guards import (STATUS_DEGRADED, STATUS_NONFINITE,
+                                       STATUS_OK, STATUS_SHED,
+                                       STATUS_TIMEOUT, GenerateResult,
                                        NumericalHealthError)
 from repro_torch.serve.api import Request, RequestOutput, SamplingParams
 from repro_torch.serve.scheduler import PagedScheduler
@@ -284,7 +286,12 @@ class ServeEngine:
         outside the kernels) in step.  Kept as the reference the scheduler
         shim's greedy tokens are held equal to (bitwise for global-only
         models; with local layers the ring and the paged lane sum in other
-        orders, so only the tokens are held equal)."""
+        orders, so only the tokens are held equal).  The guards are the
+        scheduler's: ``request_timeout_s``, counted from the end of the
+        prefill, times out every running lane at the top of a step; with
+        int8 each lane's first logits calibrate its saturation probe, and
+        a degraded lane picks from the float model's logits under
+        ``fp32_fallback``."""
         scfg = self.scfg
         toks = torch.as_tensor(batch["tokens"])
         b_full = toks.shape[0]
@@ -301,17 +308,45 @@ class ServeEngine:
         prompt_len = toks.shape[1]
         logits, cache = self.model.prefill(
             toks, max_len=prompt_len + scfg.max_new_tokens)
+        # the clock starts once prefill has returned: the budget bounds the
+        # decode loop, not the first call's kernel build
+        deadline = (time.monotonic() + scfg.request_timeout_s
+                    if scfg.request_timeout_s is not None else None)
 
         status = np.array([STATUS_OK] * admit, dtype=object)
         fault_step = np.full((admit,), -1, np.int64)
         done = np.zeros((admit,), bool)
+        degraded = np.zeros((admit,), bool)
+        timed_out = False
+        calib = None          # each lane's first-logits absmax (int8 probe)
+        fp_logits = None      # the float model's logits for degraded lanes
         guards_on = scfg.guards and scfg.on_nonfinite != "off"
+        sat_on = scfg.guards and scfg.int8
+        dev = self.model.device
         out: List[np.ndarray] = []
         for i in range(scfg.max_new_tokens):
-            tok, finite = self._pick_and_probe(logits)
+            if deadline is not None and time.monotonic() > deadline:
+                running = ~done
+                status[running] = STATUS_TIMEOUT
+                fault_step[running & (fault_step < 0)] = i
+                timed_out = True
+                break
+            if sat_on:
+                cal = (torch.ones((admit,), dtype=torch.float32, device=dev)
+                       if calib is None else calib)
+                tok, finite, absmax, sat = self._pick_and_probe_lanes(logits,
+                                                                      cal)
+            else:
+                tok, finite = self._pick_and_probe(logits)
+            if fp_logits is not None:
+                # degraded lanes pick from the float model's logits
+                tok_fp = self._pick_and_probe(fp_logits)[0]
+                tok = torch.where(torch.from_numpy(degraded).to(dev), tok_fp,
+                                  tok)
             tok_np = tok.cpu().numpy()
+            fin_np = finite.cpu().numpy()
             if guards_on:
-                newly_bad = ~finite.cpu().numpy() & ~done
+                newly_bad = ~fin_np & ~done
                 if newly_bad.any():
                     lanes = np.flatnonzero(newly_bad)
                     if scfg.on_nonfinite == "raise":
@@ -320,6 +355,19 @@ class ServeEngine:
                             f"lanes {lanes.tolist()}")
                     status[newly_bad] = STATUS_NONFINITE
                     fault_step[newly_bad & (fault_step < 0)] = i
+            if sat_on:
+                if calib is None:
+                    # each lane's first logits calibrate its probe
+                    calib = torch.clamp(absmax, min=1e-6)
+                else:
+                    newly_sat = ((sat.cpu().numpy()
+                                  > scfg.saturation_threshold)
+                                 & ~degraded & ~done & fin_np)
+                    if newly_sat.any():
+                        degraded |= newly_sat
+                        mark = newly_sat & (status == STATUS_OK)
+                        status[mark] = STATUS_DEGRADED
+                        fault_step[mark & (fault_step < 0)] = i
             quarantined = status == STATUS_NONFINITE
             if quarantined.any():
                 tok_np = np.where(quarantined, scfg.pad_id,
@@ -331,6 +379,13 @@ class ServeEngine:
             if done.all() or i == scfg.max_new_tokens - 1:
                 break
             tok_dev = torch.from_numpy(tok_np)[:, None]
+            fp_logits = None
+            if degraded.any() and self.fp_model is not None:
+                # before the int8 step on the same cache: the float step
+                # writes its K/V at this position, which the int8 step
+                # then overwrites before any later step reads it
+                fp_logits, _ = self.fp_model.decode_step(cache, tok_dev,
+                                                         prompt_len + i)
             logits, cache = self.model.decode_step(cache, tok_dev,
                                                    prompt_len + i)
 
@@ -348,4 +403,4 @@ class ServeEngine:
                 [fault_step, np.full((shed,), -1, np.int64)])
         return GenerateResult(tokens=tokens, status=list(status),
                               fault_step=fault_step, n_steps=len(out),
-                              timed_out=False, admitted=admit)
+                              timed_out=timed_out, admitted=admit)

@@ -305,10 +305,12 @@ def test_record_views_map_grouped_rows_to_heads(g, hd):
 
 
 def test_one_launch_per_decode():
-    """K5 and K6 are one launcher each, partials and fold, and no partials-
-    only or combine launcher or count is left."""
+    """K5 and K6's decode body are one launcher each, partials and fold,
+    beside K6's prefill-chunk body, and no partials-only or combine
+    launcher or count is left."""
     fns = set(_cuda.SIGNATURES["flash_attention"])
-    assert fns == {"k4_flash_prefill", "k5_flash_decode", "k6_paged_decode"}
+    assert fns == {"k4_flash_prefill", "k5_flash_decode", "k6_paged_decode",
+                   "k6_paged_chunk"}
     assert not {"decode_combine", "decode_partials",
                 "paged_partials"} & set(_cuda.LAUNCHES)
     src = (_cuda.CSRC / "flash_attention.cu").read_text()

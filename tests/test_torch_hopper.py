@@ -27,7 +27,8 @@ from repro.kernels.matmul import matmul_pallas
 from repro_torch.configs import get_config
 from repro_torch.kernels import _cuda, ref
 from repro_torch.kernels.epilogue import Epilogue
-from repro_torch.kernels.matmul import K1_BLOCKS_PER_SM, k1_plan
+from repro_torch.kernels.matmul import (K1_BLOCKS_PER_SM, K2_K,
+                                        K2_SMS_PER_BLOCK, k1_plan, k2_plan)
 
 H100_SMS = 132
 BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
@@ -96,6 +97,41 @@ def test_k1_plan_depends_on_the_shape_alone(m, n, k):
     assert ranges[0][0] == 0 and ranges[-1][1] == k
     assert all(b < e for b, e in ranges)
     assert all(e == b2 for (_, e), (b2, _) in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("m,n,k", SHAPES)
+def test_k2_plan_depends_on_the_shape_alone(m, n, k):
+    """K2's plan: K1's regimes and widths at 128 k a stage; the bytes
+    regime's split does not depend on M and its ranges cover K once, in
+    whole 128-value stages but the last."""
+    plan = k2_plan(m, n, k, H100_SMS)
+    assert plan == k2_plan(m, n, k, H100_SMS)
+    assert plan.k_tile == K2_K and plan.k_tiles == -(-k // K2_K)
+    if m >= 64:
+        assert plan.regime == "operations" and plan.splits == 1
+        assert plan.cols == k1_plan(m, n, k, H100_SMS).cols
+    else:
+        assert plan.regime == "bytes" and plan.cols == 128
+        assert {k2_plan(r, n, k, H100_SMS).splits for r in (1, 8, 63)} \
+            == {plan.splits}
+    ranges = plan.k_ranges(k)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(e == b2 for (_, e), (b2, _) in zip(ranges, ranges[1:]))
+    assert all(b % K2_K == 0 for b, _ in ranges)
+
+
+@pytest.mark.parametrize("proj", PROJECTIONS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_k2_decode_grid_holds_a_block_per_two_sms(arch, proj):
+    """Every int8 decode projection streams its weight from at least one
+    block per ``K2_SMS_PER_BLOCK`` SMs (or one block per k tile), with
+    longer splits than K1's."""
+    k, n = _projection(arch, proj)
+    plan = k2_plan(8, n, k, H100_SMS)
+    assert plan.regime == "bytes"
+    assert plan.blocks >= min(-(-H100_SMS // K2_SMS_PER_BLOCK),
+                              -(-n // 128) * plan.k_tiles)
+    assert plan.splits <= k1_plan(8, n, k, H100_SMS).splits
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +252,7 @@ def test_every_extern_c_launcher_has_a_signature():
 
 def test_k1_and_k4_run_on_wgmma_and_tma():
     """K1's float path and K4 issue wgmma and load through TMA; no WMMA is
-    left on either (K2 keeps its WMMA s8 kernel)."""
+    left on either."""
     header = (_cuda.CSRC / "hopper.cuh").read_text()
     assert "wgmma.mma_async" in header
     assert "cp.async.bulk.tensor" in header
@@ -240,3 +276,21 @@ def test_the_build_hash_covers_the_header(tmp_path, monkeypatch):
     header = tmp_path / "hopper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _cuda._target("matmul") != before
+
+
+def test_k2_and_the_chunk_body_run_on_wgmma_and_tma():
+    """K2 issues the s8 wgmma on TMA-loaded K-major tiles (no WMMA is left
+    in the port), and K6's chunk body K4's wgmma products on pages loaded
+    by TMA."""
+    header = (_cuda.CSRC / "hopper.cuh").read_text()
+    assert "m64n256k32.s32.s8.s8" in header and "m64n8k32.s32.s8.s8" in header
+    mm = (_cuda.CSRC / "matmul.cu").read_text()
+    k2 = mm[mm.index("// K2: int8 GEMM, s8 wgmma + TMA"):
+            mm.index("// K3: rowwise")]
+    assert "wgmma_s8" in k2 and "tma_load_2d" in k2
+    assert "wmma" not in mm.replace("wgmma", "")
+    attn = (_cuda.CSRC / "flash_attention.cu").read_text()
+    chunk = attn[attn.index("// K6, prefill chunks (S > 1)"):
+                 attn.index("// K5 / K6: split-K flash decode")]
+    assert "issue_scores" in chunk and "issue_pv" in chunk
+    assert "tma_load_4d" in chunk and "tma_load_3d" in chunk

@@ -264,6 +264,46 @@ def test_quantize_params_for_serving_bitwise_equals_reference(arch,
                 got.scale.numpy(), np.asarray(want.scale[i]).reshape(1, n))
 
 
+@pytest.mark.parametrize("arch", ["granite-3-8b", "internlm2-1.8b"])
+def test_quantized_weights_are_stored_k_major(arch):
+    """The int8 copy stores each weight once as a contiguous [N, K] buffer
+    (the s8 wgmma's K-major operand); ``q`` and ``as_matrix()`` are its
+    [K, N] view, bitwise the reference's ``q``, and no copy is made when a
+    GEMM takes it."""
+    jcfg = jax_config(arch, smoke=True)
+    tcfg = get_config(arch, smoke=True)
+    jm = JaxModel(jcfg, make_mesh(1, 1))
+    params = jm.init_params(0)
+    jq = jm.quantize_params_for_serving(params)["groups"]["b0"]
+    tm = Model(tcfg, device="cpu")
+    tm.load_state_dict(from_jax_params(
+        tcfg, jax.tree.map(np.asarray, params)))
+    q = tm.quantize_params_for_serving()
+    for i, blk in enumerate(q.blocks):
+        for sub, name in (("attn", "wqkv"), ("attn", "wo"), ("ffn", "gate"),
+                          ("ffn", "up"), ("ffn", "down")):
+            w = getattr(getattr(blk, sub), name)
+            k, n = w.q.shape
+            assert w.qt.shape == (n, k) and w.qt.is_contiguous()
+            qb, sb = w.as_matrix()
+            assert qb.data_ptr() == w.qt.data_ptr() and qb.stride() == (1, k)
+            assert torch.equal(qb, w.qt.t()) and sb.shape == (1, n)
+            np.testing.assert_array_equal(
+                w.qt.numpy(), np.asarray(jq[sub][name].q[i]).reshape(k, n).T)
+            assert set(w.state_dict()) == {"qt", "scale"}
+
+
+def test_k2_plain_takes_the_k_major_view():
+    """The plain K2 gives bitwise the same product on the [N, K] buffer's
+    [K, N] view as on a row-major copy."""
+    (qa, sa, qb, sb), _ = _int8_operands(5, 48, 80, seed=3)
+    view = qb.t().contiguous().t()
+    assert not view.is_contiguous()
+    for ep in (Epilogue(), Epilogue(out_dtype=torch.bfloat16)):
+        assert torch.equal(ops.int8_matmul(qa, sa, view, sb, epilogue=ep),
+                           ops.int8_matmul(qa, sa, qb, sb, epilogue=ep))
+
+
 def test_int8_mlp_hands_q_scale_from_up_to_down(monkeypatch):
     """One standalone quantize per MLP: the down GEMM consumes the (q,
     scale) pair the up GEMM's epilogue emitted, never a requantized
