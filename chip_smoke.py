@@ -30,7 +30,16 @@ line):
    512 and 1024; gemma2 2, 8, 512 and 8320), and is deterministic: the
    same call twice is bitwise equal, and row 0 is bitwise the same when
    the other rows change.  K2 timed at the scheduler's rows (8, 512),
-   beside ``torch._int_mm`` in its faster operand form.
+   beside ``torch._int_mm`` in its faster operand form.  The row passes
+   (``check_row_passes``, ``check_row_tails``): the standalone rmsnorm
+   bitwise its ordered mirror ``ref.rmsnorm_rows_ref``; K3 bitwise its
+   plain version, also on quotients beside the half-integers; at M = 2, 4,
+   5 and 8, K1's and K2's normed output in the store phase bitwise the
+   standalone rmsnorm of the stored value, and K2's (q, scale) bitwise K3
+   of the stored fp32 value, each in one launch; each timed at 8 and 512
+   rows (the tails at 2 to 63) beside an empty kernel, the launch floor,
+   and in CUPTI kernel time (``kernel_ms``, taken in a last phase after
+   phase 5: ``cupti_pass``).
    Each kernel's device time (CUDA events behind a spin kernel that hides
    the host's launch), its wrapper's time (CUDA events, host work inside
    included),
@@ -54,7 +63,10 @@ line):
    greedy tokens each; K1, K4, K5), and continuous batching through
    ``ServeEngine.submit/step`` with 16 requests of 32-448 prompt tokens
    and 16-32 new tokens on 8 lanes (page size 16, chunk 64), once bf16
-   (K1, K6) and once int8 (K2, K3, K6).  Every status ok, no request
+   (K1, K6) and once int8 (K2, K3, K6).  On each decode path one
+   iteration's launches are counted exactly (``decode_launches``: the
+   row-norm kernel only for the entry norm and each ``ln2``, no row
+   quantize launch under int8).  Every status ok, no request
    repeating one token, and request 0 served alone emitting bitwise the
    tokens it emits amid the churn.  Then K7's one entry point,
    ``ops.addertree``, as the row-parallel reduction of a K-split
@@ -106,21 +118,42 @@ G2_H, G2_KV, G2_HD, G2_WINDOW, G2_SOFTCAP = 32, 16, 128, 4096, 50.0
 # scheduler's requests, the first of them with the long prompt
 G2_BATCH, G2_PROMPT, G2_NEW, G2_REQ = 2, 4160, 16, 8
 # kernels each driven path must launch (the counts are read per path)
+# (a variant's launches are counted under "<kernel>:<variant>"; a row pass
+# in a GEMM's store phase is its variant "norm" or "quantize")
 PATH_KERNELS = {
-    "fixed": ("matmul", "rmsnorm", "flash_attention", "flash_decode"),
-    "scheduler_bf16": ("matmul", "rmsnorm", "paged_decode",
+    "fixed": ("matmul", "matmul:norm", "rmsnorm", "flash_attention",
+              "flash_decode"),
+    "scheduler_bf16": ("matmul", "matmul:norm", "rmsnorm", "paged_decode",
                        "paged_decode:chunk"),
-    "scheduler_int8": ("int8_matmul", "int8_quantize", "quantize",
+    "scheduler_int8": ("int8_matmul", "int8_matmul:norm",
+                       "int8_matmul:quantize", "int8_quantize", "quantize",
                        "rmsnorm", "paged_decode", "paged_decode:chunk"),
     "addertree": ("matmul", "addertree"),
-    # a variant's launches are counted under "<kernel>:<variant>"
-    "gemma2_fixed": ("matmul", "rmsnorm", "flash_attention:local+softcap",
+    "gemma2_fixed": ("matmul", "matmul:norm", "rmsnorm",
+                     "flash_attention:local+softcap",
                      "flash_attention:softcap", "flash_decode:softcap"),
-    "gemma2_scheduler": ("matmul", "rmsnorm", "paged_decode:local+softcap",
+    "gemma2_scheduler": ("matmul", "matmul:norm", "rmsnorm",
+                         "paged_decode:local+softcap",
                          "paged_decode:softcap",
                          "paged_decode:local+softcap+chunk",
                          "paged_decode:softcap+chunk"),
 }
+
+
+def decode_launches(name, counts, layers: int, int8: bool = False) -> dict:
+    """One decode iteration's launch counts on a driven path: the entry
+    norm and each block's ``ln2`` are the only row-norm launches (the down
+    GEMM's norm is its tail, one per layer), and under int8 no row
+    quantize launches (the up GEMM's quantize is its tail).  Raises on a
+    miss; returns the counts."""
+    gemm = "int8_matmul" if int8 else "matmul"
+    want = {"rmsnorm": layers + 1, f"{gemm}:norm": layers}
+    if int8:
+        want.update({"int8_matmul:quantize": layers, "int8_quantize": 0})
+    got = {k: counts.get(k, 0) for k in want}
+    require(got == want, f"{name}: launches in one decode iteration {got}, "
+                         f"want {want}")
+    return counts
 
 
 class SmokeFailure(RuntimeError):
@@ -457,9 +490,7 @@ def check_kernels(torch, timer):
     Tolerances are per row (``row_err``): a bf16 output may differ from
     the plain version by one rounding flip, one ulp of the element, which
     is at most eps * the row's largest magnitude."""
-    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.epilogue import rms_normalize
 
     eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -469,7 +500,6 @@ def check_kernels(torch, timer):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 ).to(dtype)
 
-    d = 4096
     results = {}
     # K1 GEMM at both models' widths and the rows of every driven path
     # (granite: the fixed loop's decode and prefill, 4 and 1024, the
@@ -503,7 +533,8 @@ def check_kernels(torch, timer):
             regime=sel[0]["regime"], deterministic=True)
 
     five = ("five projections: qkv, o, gate, up+silu gate, "
-            "down+residual (+rmsnorm pass)")
+            "down+residual+rmsnorm (its tail at decode, the row kernel at "
+            "M >= 64)")
     # the decode regime at the scheduler's rows, the path generate runs
     results["k1_matmul"] = dict(
         k1_entry("granite", LANES,
@@ -521,31 +552,6 @@ def check_kernels(torch, timer):
         "gemma2", G2_BATCH * G2_PROMPT,
         f"gemma2-27b's {five} at the fixed loop's prefill "
         f"(M={G2_BATCH * G2_PROMPT})")
-
-    # K1 row-norm pass at the same rows: each row within 1 bf16 ulp of its
-    # scale; reported at the scheduler's decode rows
-    nscale = rand(d, dtype=torch.float32, scale=0.1)
-    w1 = (1.0 + nscale).to(bf)
-    norm_rows = {}
-    for m in (BATCH, LANES, 1024, LANES * CHUNK):
-        x = rand(m, d)
-        got, want = ops.rmsnorm(x, nscale), rms_normalize(x, nscale, 1e-6)
-        norm_rows[m] = (x, row_err(got, want), max_err(got, want))
-    err = max(e for _, e, _ in norm_rows.values())
-    require(err <= eps_bf16, f"rmsnorm: a row is off by {err:.3e}")
-    x = norm_rows[LANES][0]
-    t_b, by = bound(2 * 2 * x.numel() + 4 * d, 0)
-    results["k1_rmsnorm"] = dict(
-        work=f"rmsnorm rows [{LANES}, {d}] bf16 (also checked at "
-             f"{BATCH}, 1024 and {LANES * CHUNK} rows)",
-        max_abs_err=max(a for _, _, a in norm_rows.values()),
-        max_row_err=err, tol=eps_bf16,
-        ms=timer(lambda: ops.rmsnorm(x, nscale)),
-        wrapper_ms=timer.wall(lambda: ops.rmsnorm(x, nscale)),
-        plain_ms=timer(lambda: rms_normalize(x, nscale, 1e-6)),
-        bound_ms=t_b, bound_by=by,
-        library_ms=(timer(lambda: F.rms_norm(x, (d,), w1, 1e-6))
-                    if hasattr(F, "rms_norm") else None))
 
     # K4 flash prefill: each (b, s, h) row within 4 bf16 ulps of its own
     # scale (P is rounded to bf16 for the P.V product, then the output is
@@ -599,20 +605,18 @@ def _int_mm_ms(torch, timer, qa, qb):
 
 
 def check_int8_kernels(torch, timer):
-    """K2 (int8 GEMM), its (q, scale) row pass and K3 (rowwise quantize)
-    against their plain versions at granite-3-8b's widths, at decode
-    (M = 8 lanes) and at a prefill chunk (M = 8 x 64), the weights in
-    ``QuantizedWeight``'s K-major [N, K] storage.  K3 and every fp32-out
-    product are bitwise (also at a 64 x 32 tile, K and N below one
+    """K2 (int8 GEMM) against its plain version at granite-3-8b's widths,
+    at decode (M = 8 lanes) and at a prefill chunk (M = 8 x 64), the
+    weights in ``QuantizedWeight``'s K-major [N, K] storage.  Every
+    fp32-out product is bitwise (also at a 64 x 32 tile, K and N below one
     128-value box, M = 64 and ragged M in both regimes).  bf16 outputs:
     every row within one bf16 ulp of its scale (the same fp32 values, so
-    in practice bitwise).  The
-    up GEMM's (q, scale): q within +-1 and the scale within 2 fp32 ulps
-    (the silu may differ by an ulp).  The normed output is bitwise the
-    standalone rmsnorm of the stored value."""
+    in practice bitwise).  The up GEMM's (q, scale): q within +-1 and the
+    scale within 2 fp32 ulps (the silu may differ by an ulp).  The normed
+    output is bitwise the standalone rmsnorm of the stored value.  The row
+    passes themselves are ``check_row_passes``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.epilogue import Epilogue
-    from repro_torch.kernels.quantize import quantize_rowwise_cuda
 
     eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
     eps_f32 = float(torch.finfo(torch.float32).eps)
@@ -624,40 +628,6 @@ def check_int8_kernels(torch, timer):
 
     d, ff, qkv_n = 4096, 12800, 6144
     results, shapes = {}, []
-    # K3: bitwise, both instantiations
-    k3 = {}
-    for shape, dt in (((LANES, d), bf), ((LANES * CHUNK, ff), torch.float32)):
-        x = rand(*shape).to(dt)
-        got, want = ops.quantize_rowwise(x), ref.quantize_rowwise_ref(x)
-        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                f"K3 {shape} {dt} is not bitwise its plain version")
-        k3[shape] = x
-    x = k3[(LANES, d)]
-    t_b, by = bound(2 * x.numel() + x.numel() + 4 * LANES, 0)
-    results["k3_quantize"] = dict(
-        work=f"rowwise quantize of the normed stream [{LANES}, {d}] bf16 "
-             f"(also bitwise at [{LANES * CHUNK}, {ff}] fp32)",
-        max_abs_err=0.0, max_row_err=0.0, tol=0.0,
-        ms=timer(lambda: ops.quantize_rowwise(x)),
-        wrapper_ms=timer.wall(lambda: ops.quantize_rowwise(x)),
-        plain_ms=timer(lambda: ref.quantize_rowwise_ref(x)),
-        bound_ms=t_b, bound_by=by, library_ms=None)
-    # K2's row pass: the up GEMM's fp32 workspace -> (q, scale)
-    w32 = rand(LANES, ff)
-    got = quantize_rowwise_cuda(w32, count="int8_quantize")
-    want = ref.quantize_rowwise_ref(w32)
-    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-            "the K2 row pass is not bitwise its plain version")
-    t_b, by = bound(4 * w32.numel() + w32.numel() + 4 * LANES, 0)
-    results["k2_quantize_rows"] = dict(
-        work=f"the up GEMM's (q, scale) row pass over [{LANES}, {ff}] fp32",
-        max_abs_err=0.0, max_row_err=0.0, tol=0.0,
-        ms=timer(lambda: quantize_rowwise_cuda(w32, count="int8_quantize")),
-        wrapper_ms=timer.wall(
-            lambda: quantize_rowwise_cuda(w32, count="int8_quantize")),
-        plain_ms=timer(lambda: ref.quantize_rowwise_ref(w32)),
-        bound_ms=t_b, bound_by=by, library_ms=None)
-
     # K2 on the s8 wgmma: the fp32-out product bitwise its plain version at
     # a 64 x 32 tile, at M = 8, 64 and 512 and at ragged M in both regimes,
     # fed the [N, K] weight's [K, N] view (QuantizedWeight's layout); K and
@@ -760,9 +730,10 @@ def check_int8_kernels(torch, timer):
         padded = any("library_padded_rows" in r for r in rows)
         results[key] = dict(
             work=f"one decoder block's five int8 projections at M={m}: "
-                 f"qkv, o, gate, up+silu gate+quantize (with its row pass), "
-                 f"down+residual (+rmsnorm pass); fp32 out also bitwise at a "
-                 f"64 x 32 tile, M = 8, 37, 64, 200 and 512",
+                 f"qkv, o, gate, up+silu gate+quantize, down+residual+"
+                 f"rmsnorm (the row passes as tails at decode, row kernels "
+                 f"at M >= 64); fp32 out also bitwise at a 64 x 32 tile, "
+                 f"M = 8, 37, 64, 200 and 512",
             max_abs_err=max(r["max_abs_err"] for r in rows),
             max_row_err=max(r["max_row_err"] for r in rows), tol=eps_bf16,
             ms=sum(r["ms"] for r in rows),
@@ -779,6 +750,404 @@ def check_int8_kernels(torch, timer):
                 + ("; it refuses M <= 16, so it ran on the rows zero-padded "
                    "to 32, another shape" if padded else "")),
             shapes=rows)
+    return results
+
+
+def kernel_ms(torch, flush, fn, reps: int = 10):
+    """The call's kernels' own time on the card: the sum of their CUPTI
+    durations in a ``torch.profiler`` trace of ``reps`` calls, each after
+    an L2 flush (``flush``'s bits inverted; its kernel is left out), per
+    call.  No launch, no event and no gap between kernels is in it, which a
+    row pass of a few microseconds needs: the event timer's floor
+    (``launch_floor``) is of their size.  A trace that holds none of the
+    call's kernels gives None (not measured), never 0."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.bitwise_not(flush, out=flush)
+            fn()
+        torch.cuda.synchronize()
+    times = [getattr(ev, "device_time_total", None) or ev.cuda_time_total
+             for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and "elementwise" not in ev.name]
+    return sum(times) / reps / 1e3 if times else None
+
+
+def launch_floor(timer, cupti) -> dict:
+    """The launch floor: one empty kernel (``k0_empty``) through
+    ``_cuda.launch``, by the same timers as the row passes (device time:
+    the events around an empty launch; wrapper time: with the host's
+    launch inside; its CUPTI duration, ``kernel_ms``, comes from the
+    ``cupti`` pass)."""
+    from repro_torch.kernels import _cuda
+
+    def empty():
+        _cuda.launch("matmul", "k0_empty")
+    floor = dict(ms=timer(empty), wrapper_ms=timer.wall(empty))
+    cupti.append(([floor], "kernel_ms", empty))
+    return floor
+
+
+def row_timing(timer, cupti, fn, plain, nbytes, library=None) -> dict:
+    """A row pass's device and wrapper ms beside its plain version's, one
+    PyTorch call's (where one computes the same function) and its bytes
+    bound (each input read once, each output written once); its
+    ``kernel_ms`` comes from the ``cupti`` pass."""
+    t_b, by = bound(nbytes, 0)
+    row = dict(ms=timer(fn), wrapper_ms=timer.wall(fn), plain_ms=timer(plain),
+               bound_ms=t_b, bound_by=by,
+               library_ms=timer(library) if library else None)
+    cupti.append(([row], "kernel_ms", fn))
+    return row
+
+
+def also_into(cupti, src: dict, dst: dict) -> None:
+    """``dst`` gets the CUPTI times recorded for ``src`` too (a row's
+    summary and its primary row count: the same calls)."""
+    for targets, _, _ in cupti:
+        if any(t is src for t in targets):
+            targets.append(dst)
+
+
+def cupti_pass(torch, cupti) -> None:
+    """The last phase: the rows of each recorded ``(rows, key, call)`` get
+    the call's CUPTI kernel time (``kernel_ms``) under ``key``, and each
+    tail row its ``tail_ms``.  It runs last, after the served paths, so
+    that no ``torch.profiler`` session precedes their host-bound timing
+    (see ``Timer`` for what many traces in one process did)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for rows, key, fn in cupti:
+        ms = kernel_ms(torch, flush, fn)
+        for row in rows:
+            row[key] = ms
+    for rows, _, _ in cupti:
+        for row in rows:
+            if "gemm_kernel_ms" in row:
+                row["tail_ms"] = (row["kernel_ms"] - row["gemm_kernel_ms"]
+                                  if None not in (row["kernel_ms"],
+                                                  row["gemm_kernel_ms"])
+                                  else None)
+
+
+def quantize_ties(torch, x):
+    """Rows of fp32 values (k + 1/2) * scale for random k in [-127, 126],
+    nudged by -1, 0 or +1 ulp, with each row's absmax, and so its scale,
+    kept from ``x``: the quotients x / scale sit on or a rounding away
+    from the half-integers."""
+    absmax = x.abs().amax(dim=-1, keepdim=True)
+    scale = absmax.clamp(min=1e-12) * (1.0 / 127.0)
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 9)
+    k = torch.randint(-127, 127, x.shape, generator=gen, device=x.device)
+    ties = (k.to(torch.float32) + 0.5) * scale
+    step = torch.randint(-1, 2, x.shape, generator=gen, device=x.device)
+    ties = torch.where(step == 0, ties, torch.nextafter(
+        ties, ties + step.to(torch.float32) * float("inf")))
+    ties[:, :1] = absmax
+    return ties
+
+
+def check_row_passes(torch, timer, floor, cupti):
+    """Phase 2, the row kernels (one warp a row, ``rmsnorm_row`` and
+    ``quantize_row`` in ``csrc/matmul.cu``): the standalone rmsnorm bitwise
+    its ordered mirror (``ref.rmsnorm_rows_ref``) and within one bf16 ulp
+    of each row's scale of ``rms_normalize``, at granite's and gemma2's
+    widths and the rows of every driven path (and 5); K3 bitwise its plain
+    version, bf16 and fp32, at decode, ragged and chunk rows, and on
+    quotients at and beside the half-integers (``quantize_ties``).  The
+    rmsnorm and K3 timed at [8, 4096] and [512, 4096] bf16, K2's row pass
+    (K3 on the up GEMM's fp32 value, which runs at M >= 64 only) at
+    [512, 12800] and [8, 12800] fp32, each beside the launch floor; the
+    CUPTI kernel times are recorded in ``cupti`` for the last phase."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.epilogue import rms_normalize
+    from repro_torch.kernels.quantize import quantize_rowwise_cuda
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rand(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    d, ff = 4096, 12800
+    floor_keys = dict(floor_ms=floor["ms"],
+                      floor_wrapper_ms=floor["wrapper_ms"])
+    results = {}
+    errs, abs_errs = [], []
+    for dm, rows in ((d, (BATCH, 5, LANES, LANES * CHUNK, 1024)),
+                     (4608, (G2_BATCH, LANES, LANES * CHUNK))):
+        nscale = rand(dm, dtype=f32, scale=0.1)
+        for m in rows:
+            x = rand(m, dm)
+            got = ops.rmsnorm(x, nscale)
+            require(torch.equal(got, ref.rmsnorm_rows_ref(x, nscale, 1e-6)),
+                    f"rmsnorm [{m}, {dm}] is not bitwise its ordered mirror")
+            want = rms_normalize(x, nscale, 1e-6)
+            errs.append(row_err(got, want))
+            abs_errs.append(max_err(got, want))
+    err = max(errs)
+    require(err <= eps_bf16, f"rmsnorm: a row is off by {err:.3e}")
+    nscale = rand(d, dtype=f32, scale=0.1)
+    w1 = (1.0 + nscale).to(bf)
+    at = {}
+    for m in (LANES, LANES * CHUNK):
+        x = rand(m, d)
+        # (each call binds its own x: the cupti pass calls them later)
+        at[m] = row_timing(
+            timer, cupti, lambda x=x: ops.rmsnorm(x, nscale),
+            lambda: rms_normalize(x, nscale, 1e-6), 2 * 2 * x.numel() + 4 * d,
+            (lambda: F.rms_norm(x, (d,), w1, 1e-6))
+            if hasattr(F, "rms_norm") else None)
+    results["k1_rmsnorm"] = dict(
+        work=f"rmsnorm rows [{LANES}, {d}] bf16, one warp a row (bitwise its "
+             f"ordered mirror; also at {BATCH}, 5, 512 and 1024 rows, and at "
+             f"[2 | 8 | 512, 4608]); 'rows' also times [512, {d}]",
+        max_abs_err=max(abs_errs), max_row_err=err, tol=eps_bf16,
+        **at[LANES], rows={str(m): v for m, v in at.items()}, **floor_keys)
+    also_into(cupti, at[LANES], results["k1_rmsnorm"])
+
+    # K3: bitwise its plain version, both instantiations, and on values a
+    # few ulps from the half-integers of x / scale, where the kernel's
+    # reciprocal multiply defers to the division
+    for shape, dt in (((LANES, d), bf), ((5, d), bf), ((LANES * CHUNK, d), bf),
+                      ((LANES, ff), f32), ((37, ff), f32),
+                      ((LANES * CHUNK, ff), f32), ((LANES, ff), "ties")):
+        x = (quantize_ties(torch, rand(*shape, dtype=f32)) if dt == "ties"
+             else rand(*shape, dtype=dt, scale=3.0))
+        got, want = ops.quantize_rowwise(x), ref.quantize_rowwise_ref(x)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"K3 {shape} {dt} is not bitwise its plain version")
+    at = {}
+    for m in (LANES, LANES * CHUNK):
+        x = rand(m, d, scale=3.0)
+        at[m] = row_timing(timer, cupti, lambda x=x: ops.quantize_rowwise(x),
+                           lambda: ref.quantize_rowwise_ref(x),
+                           2 * x.numel() + x.numel() + 4 * m)
+    results["k3_quantize"] = dict(
+        work=f"rowwise quantize of the normed stream [{LANES}, {d}] bf16, one "
+             f"warp a row (bitwise; also at 5 and 512 rows, and fp32 at "
+             f"[8 | 37 | 512, {ff}]); 'rows' also times [512, {d}]",
+        max_abs_err=0.0, max_row_err=0.0, tol=0.0, **at[LANES],
+        rows={str(m): v for m, v in at.items()}, **floor_keys)
+    also_into(cupti, at[LANES], results["k3_quantize"])
+
+    # K2's row pass where it still launches (M >= 64): the up GEMM's fp32
+    # value at a chunk's rows -> (q, scale)
+    at = {}
+    for m in (LANES * CHUNK, LANES):
+        w32 = rand(m, ff, dtype=f32)
+        got = quantize_rowwise_cuda(w32, count="int8_quantize")
+        want = ref.quantize_rowwise_ref(w32)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"the K2 row pass [{m}, {ff}] is not bitwise its plain "
+                f"version")
+        at[m] = row_timing(
+            timer, cupti,
+            lambda w32=w32: quantize_rowwise_cuda(w32, count="int8_quantize"),
+            lambda: ref.quantize_rowwise_ref(w32),
+            4 * w32.numel() + w32.numel() + 4 * m)
+    results["k2_quantize_rows"] = dict(
+        work=f"the up GEMM's (q, scale) row kernel over [{LANES * CHUNK}, "
+             f"{ff}] fp32, a chunk's rows, where it still launches (at "
+             f"decode the GEMM's tail does it); 'rows' also times "
+             f"[{LANES}, {ff}]",
+        max_abs_err=0.0, max_row_err=0.0, tol=0.0, **at[LANES * CHUNK],
+        rows={str(m): v for m, v in at.items()}, **floor_keys)
+    also_into(cupti, at[LANES * CHUNK], results["k2_quantize_rows"])
+    return results
+
+
+# the fused row passes are checked at these rows (the driven paths' decode
+# rows and a ragged one); the tail and the two launches it replaces are
+# timed at TAIL_SWEEP rows, across the bytes regime, where the plan takes
+# the tail
+TAIL_ROWS = (2, 4, 5, 8)
+TAIL_SWEEP = (2, 4, 8, 16, 32, 63)
+
+
+def check_row_tails(torch, timer, cupti):
+    """Phase 2, the row passes in K1's and K2's store phase at decode: at
+    M = 2, 4, 5 and 8, granite's down GEMM through K1 and K2 and gemma2's
+    through K1 give the value bitwise the same GEMM's without the norm and
+    the normed output bitwise the standalone rmsnorm of that value and its
+    ordered mirror, in one launch (``matmul:norm``, ``int8_matmul:norm``);
+    granite's int8 up GEMM gives (q, scale) bitwise K3 (kernel and plain
+    version) of the fp32 value the same GEMM stores without the quantize,
+    in one launch (``int8_matmul:quantize``).  Each timed at M = 8 beside
+    the GEMM alone and the two launches it replaces (the GEMM, then the
+    row kernel), and at every M of ``TAIL_SWEEP``; the CUPTI kernel times
+    of the tail, the GEMM alone and the two launches are recorded in
+    ``cupti`` for the last phase."""
+    from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels.epilogue import Epilogue
+    from repro_torch.kernels.quantize import quantize_rowwise_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    bf, f32 = torch.bfloat16, torch.float32
+    top = max(TAIL_SWEEP)
+
+    def rand(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    def launched(fn, key):
+        before = dict(_cuda.LAUNCHES)
+        out = fn()
+        diff = {k: n - before.get(k, 0) for k, n in _cuda.LAUNCHES.items()
+                if n != before.get(k, 0)}
+        require(diff.get(key) == 1 and not any(
+            diff.get(k) for k in ("rmsnorm", "quantize", "int8_quantize")),
+            f"{key}: the fused row pass launched {diff}")
+        return out
+
+    def kmajor(q):
+        return q.t().contiguous().t()
+
+    norm = Epilogue(residual=True, norm="rmsnorm", out_dtype=bf)
+    plain_ep = Epilogue(residual=True, out_dtype=bf)
+    results = {}
+    cases = {}
+    for model, (k, n) in (("granite", (12800, 4096)),
+                          ("gemma2", (36864, 4608))):
+        h, res = rand(top, k), rand(top, n)
+        cases[("k1", model)] = (h, rand(k, n, scale=k ** -0.5), res,
+                                rand(n, dtype=f32, scale=0.1))
+    qh, sh = ref.quantize_rowwise_ref(rand(top, 12800, dtype=f32))
+    qd, sd = ref.quantize_colwise_ref(rand(12800, 4096, dtype=f32,
+                                           scale=12800 ** -0.5))
+    k2_down = (qh, sh, kmajor(qd), sd, rand(top, 4096),
+               rand(4096, dtype=f32, scale=0.1))
+    qx, sx = ref.quantize_rowwise_ref(rand(top, 4096, dtype=f32))
+    qu, su = ref.quantize_colwise_ref(rand(4096, 12800, dtype=f32,
+                                           scale=4096 ** -0.5))
+    k2_up = (qx, sx, kmajor(qu), su, rand(top, 12800))
+    gate_f32 = Epilogue(gate="silu", out_dtype=f32)
+    gate_q = Epilogue(gate="silu", quantize=True)
+
+    def k1_calls(model, m):
+        h, w, res, ns = cases[("k1", model)]
+        h, res = h[:m], res[:m]
+        return (lambda: ops.matmul(h, w, epilogue=norm, residual=res,
+                                   norm_scale=ns),
+                lambda: ops.matmul(h, w, epilogue=plain_ep, residual=res),
+                ns, (h, w, res))
+
+    def k2_norm_calls(m):
+        qa, sa, qb, sb, res, ns = k2_down
+        qa, sa, res = qa[:m], sa[:m], res[:m]
+        return (lambda: ops.int8_matmul(qa, sa, qb, sb, epilogue=norm,
+                                        residual=res, norm_scale=ns),
+                lambda: ops.int8_matmul(qa, sa, qb, sb, epilogue=plain_ep,
+                                        residual=res),
+                ns, (qa, sa, qb, sb, res))
+
+    def k2_quant_calls(m):
+        qa, sa, qb, sb, g = k2_up
+        qa, sa, g = qa[:m], sa[:m], g[:m]
+        return (lambda: ops.int8_matmul(qa, sa, qb, sb, epilogue=gate_q,
+                                        operand2=g),
+                lambda: ops.int8_matmul(qa, sa, qb, sb, epilogue=gate_f32,
+                                        operand2=g),
+                (qa, sa, qb, sb, g))
+
+    for m in TAIL_ROWS:
+        for key, calls in (("matmul:norm", k1_calls("granite", m)),
+                           ("matmul:norm", k1_calls("gemma2", m)),
+                           ("int8_matmul:norm", k2_norm_calls(m))):
+            fused, alone, ns, _ = calls
+            value, normed = launched(fused, key)
+            require(torch.equal(value, alone()),
+                    f"{key} M={m}: the value differs from the GEMM's own")
+            require(torch.equal(normed, ops.rmsnorm(value, ns)),
+                    f"{key} M={m}: the fused normed output is not bitwise "
+                    f"the standalone rmsnorm of the stored value")
+            require(torch.equal(normed, ref.rmsnorm_rows_ref(value, ns,
+                                                             1e-6)),
+                    f"{key} M={m}: the fused normed output is not bitwise "
+                    f"the ordered mirror")
+        fused, alone, _ = k2_quant_calls(m)
+        q, scale = launched(fused, "int8_matmul:quantize")
+        value = alone()
+        for name, (wq, ws) in (("K3", ops.quantize_rowwise(value)),
+                               ("K3's plain version",
+                                ref.quantize_rowwise_ref(value))):
+            require(torch.equal(q, wq) and torch.equal(scale, ws),
+                    f"int8_matmul:quantize M={m}: (q, scale) is not bitwise "
+                    f"{name} of the stored value")
+
+    def tail_row(work, fused, alone, second, plain, nbytes, m=LANES):
+        sweep = {}
+        for mm in TAIL_SWEEP:
+            f, a = fused(mm), alone(mm)
+            sweep[str(mm)] = dict(fused_ms=timer(f),
+                                  two_launches_ms=timer(lambda: second(a())))
+        f, a = fused(m), alone(m)
+        t_b, by = bound(nbytes, 0)
+        row = dict(work=work, max_abs_err=0.0, max_row_err=0.0, tol=0.0,
+                   ms=timer(f), wrapper_ms=timer.wall(f), gemm_ms=timer(a),
+                   two_launches_ms=timer(lambda: second(a())),
+                   two_launches_wrapper_ms=timer.wall(lambda: second(a())),
+                   plain_ms=timer(plain(m)), bound_ms=t_b, bound_by=by,
+                   library_ms=None,
+                   library_note="no one PyTorch call computes a GEMM with a "
+                                "row norm or a row quantize",
+                   sweep=sweep)
+        cupti.extend([([row], "kernel_ms", f), ([row], "gemm_kernel_ms", a),
+                      ([row], "two_launches_kernel_ms",
+                       lambda: second(a()))])
+        print("  tail", json.dumps(row), flush=True)
+        return row
+
+    def k1_plain(m):
+        h, w, res = k1_calls("granite", m)[3]
+        ns = cases[("k1", "granite")][3]
+        return lambda: ref.matmul_fused_ref(h, w, norm, residual=res,
+                                            norm_scale=ns)
+
+    def k2_norm_plain(m):
+        qa, sa, qb, sb, res = k2_norm_calls(m)[3]
+        return lambda: ref.int8_matmul_ref(qa, sa, qb, sb, norm, residual=res,
+                                           norm_scale=k2_down[5])
+
+    def k2_quant_plain(m):
+        qa, sa, qb, sb, g = k2_quant_calls(m)[2]
+        return lambda: ref.int8_matmul_ref(qa, sa, qb, sb, gate_q,
+                                           operand2=g)
+
+    ns_k1 = cases[("k1", "granite")][3]
+    m, k, n = LANES, 12800, 4096
+    results["k1_matmul_norm_tail"] = tail_row(
+        f"K1's down GEMM at decode, M={m} K={k} N={n}: residual and the "
+        f"rmsnorm in its store phase, one launch (bitwise store-then-rmsnorm "
+        f"and the ordered mirror at M = {TAIL_ROWS}, also at gemma2's "
+        f"[36864, 4608]); 'two_launches_ms' is the GEMM and the row kernel",
+        lambda mm: k1_calls("granite", mm)[0],
+        lambda mm: k1_calls("granite", mm)[1],
+        lambda v: ops.rmsnorm(v, ns_k1), k1_plain,
+        2 * (m * k + k * n + 3 * m * n) + 4 * n)
+    ns_k2 = k2_down[5]
+    results["k2_int8_matmul_norm_tail"] = tail_row(
+        f"K2's down GEMM at decode, M={m} K={k} N={n}: the scales, the "
+        f"residual and the rmsnorm in its store phase, one launch (bitwise "
+        f"store-then-rmsnorm and the ordered mirror at M = {TAIL_ROWS})",
+        lambda mm: k2_norm_calls(mm)[0], lambda mm: k2_norm_calls(mm)[1],
+        lambda v: ops.rmsnorm(v, ns_k2), k2_norm_plain,
+        m * k + k * n + 4 * (m + n) + 3 * 2 * m * n + 4 * n)
+    k, n = 4096, 12800
+    results["k2_int8_matmul_quantize_tail"] = tail_row(
+        f"K2's up GEMM at decode, M={m} K={k} N={n}: the scales, the silu "
+        f"gate and the row quantize in its store phase, one launch ((q, "
+        f"scale) bitwise K3 of the stored fp32 value at M = {TAIL_ROWS}); "
+        f"'two_launches_ms' is the GEMM storing fp32 and K3's row kernel",
+        lambda mm: k2_quant_calls(mm)[0], lambda mm: k2_quant_calls(mm)[1],
+        lambda v: quantize_rowwise_cuda(v, count="int8_quantize"),
+        k2_quant_plain,
+        m * k + k * n + 4 * (m + n) + 2 * m * n + m * n + 4 * m)
     return results
 
 
@@ -1241,8 +1610,10 @@ def serve_scheduler(torch, model, int8: bool):
     require(np.array_equal(alone.tokens, outs[0].tokens),
             f"{name}: request 0 alone {alone.tokens.tolist()} != amid "
             f"churn {outs[0].tokens.tolist()}")
-    require(all(launches[k] > 0 for k in PATH_KERNELS[name]),
+    require(all(launches.get(k, 0) > 0 for k in PATH_KERNELS[name]),
             f"{name}: a kernel never launched: {launches}")
+    decode_launches(name, run["decode_launches"] or {}, model.cfg.n_layers,
+                    int8)
     ttft = np.array([run["ttft_s"][r.id] for r in reqs])
     del eng
     torch.cuda.empty_cache()
@@ -1256,8 +1627,8 @@ def serve_scheduler(torch, model, int8: bool):
         decode_ms_per_iter=run["decode_ms_per_iter"],
         generated=run["generated"], wall_s=run["wall_s"],
         tokens_per_s=run["tokens_per_s"], peak_bytes=peak,
-        launches=launches, alone_equals_churn=True,
-        tokens0=outs[0].tokens.tolist())
+        launches=launches, launches_per_decode_iter=run["decode_launches"],
+        alone_equals_churn=True, tokens0=outs[0].tokens.tolist())
 
 
 def serve_full(torch):
@@ -1291,7 +1662,7 @@ def serve_full(torch):
     peak = torch.cuda.max_memory_allocated()
     require(res.tokens.shape == (BATCH, NEW), f"tokens {res.tokens.shape}")
     require(all(st == "ok" for st in res.status), f"statuses {res.status}")
-    require(all(launches[k] > 0 for k in PATH_KERNELS["fixed"]),
+    require(all(launches.get(k, 0) > 0 for k in PATH_KERNELS["fixed"]),
             f"a kernel never launched on the fixed path: {launches}")
     require(all(len(set(lane.tolist())) > 1 for lane in res.tokens),
             f"a lane repeats one token: {res.tokens.tolist()}")
@@ -1315,13 +1686,18 @@ def serve_full(torch):
     torch.cuda.synchronize()
     dec_ms = (time.perf_counter() - t) / (NEW - 1) * 1e3
     require(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    _cuda.reset_launches()
+    model.decode_step(cache, tok, PROMPT + NEW - 1)
+    step_launches = decode_launches("fixed", dict(_cuda.LAUNCHES),
+                                    cfg.n_layers)
 
     fixed = dict(
         params=cfg.param_count(), init_s=init_s,
         prefill_ms=sorted(pre)[1] * 1e3, decode_ms_per_step=dec_ms,
         generate_s=gen_s, tokens_per_s=BATCH * NEW / gen_s,
         decode_tokens_per_s=BATCH / dec_ms * 1e3,
-        statuses=list(res.status), launches=launches, peak_bytes=peak,
+        statuses=list(res.status), launches=launches,
+        launches_per_decode_step=step_launches, peak_bytes=peak,
         tokens=res.tokens.tolist(), witness=witness,
         witness_tol=WITNESS_TOL, int8_witness=witness8)
     del engine, cache, logits
@@ -1865,6 +2241,10 @@ def serve_gemma2(torch):
     require(bool(torch.isfinite(logits).all())
             and float(logits.abs().max()) <= cfg.final_softcap,
             "gemma2 decode logits")
+    _cuda.reset_launches()
+    model.decode_step(cache, tok, G2_PROMPT + G2_NEW - 1)
+    step_launches = decode_launches("gemma2_fixed", dict(_cuda.LAUNCHES),
+                                    cfg.n_layers)
     # the logits' cost per iteration: the sliced fp32 product against the
     # 256000-row embedding, at the scheduler's 8 lanes
     from repro_torch.models.loss import vocab_parallel_logits
@@ -1883,7 +2263,8 @@ def serve_gemma2(torch):
         batch=G2_BATCH, prompt=G2_PROMPT, new=G2_NEW,
         ttft_ms=prefill_s * 1e3, decode_ms_per_step=dec_ms,
         generate_s=gen_s, tokens_per_s=G2_BATCH * G2_NEW / gen_s,
-        statuses=list(res.status), launches=launches, peak_gb=peak / 1e9,
+        statuses=list(res.status), launches=launches,
+        launches_per_decode_step=step_launches, peak_gb=peak / 1e9,
         logits_ms_8_rows=logits_ms,
         distinct_tokens=[len(set(lane.tolist())) for lane in res.tokens],
         tokens=res.tokens.tolist())
@@ -1917,6 +2298,8 @@ def serve_gemma2(torch):
     require(all(launches.get(key, 0) > 0
                 for key in PATH_KERNELS["gemma2_scheduler"]),
             f"a kernel never launched on gemma2's scheduler: {launches}")
+    decode_launches("gemma2_scheduler", run["decode_launches"] or {},
+                    cfg.n_layers)
     ttft = np.array([run["ttft_s"][r.id] for r in reqs])
     sched = dict(
         requests=G2_REQ, **geom, prompt_lens=[len(r.tokens) for r in reqs],
@@ -1930,7 +2313,7 @@ def serve_gemma2(torch):
         decode_ms_per_iter=run["decode_ms_per_iter"],
         generated=run["generated"], wall_s=run["wall_s"],
         tokens_per_s=run["tokens_per_s"], peak_gb=peak / 1e9,
-        launches=launches,
+        launches=launches, launches_per_decode_iter=run["decode_launches"],
         distinct_tokens=[len(set(outs[r.id].tokens.tolist())) for r in reqs])
     print("serve gemma2 scheduler: " + json.dumps(sched), flush=True)
     del eng, model
@@ -1957,6 +2340,16 @@ SOURCES = {
                             "src/repro/kernels/matmul.py:293"),
     "k2_quantize_rows": ("int8_quantize", "src/repro_torch/csrc/matmul.cu",
                          "src/repro/kernels/matmul.py:108"),
+    # the row passes in the GEMMs' store phase at decode (variants of K1's
+    # and K2's launches, not launches of their own)
+    "k1_matmul_norm_tail": ("matmul:norm", "src/repro_torch/csrc/matmul.cu",
+                            "src/repro/kernels/matmul.py:180"),
+    "k2_int8_matmul_norm_tail": ("int8_matmul:norm",
+                                 "src/repro_torch/csrc/matmul.cu",
+                                 "src/repro/kernels/matmul.py:180"),
+    "k2_int8_matmul_quantize_tail": ("int8_matmul:quantize",
+                                     "src/repro_torch/csrc/matmul.cu",
+                                     "src/repro/kernels/matmul.py:108"),
     "k3_quantize": ("quantize", "src/repro_torch/csrc/matmul.cu",
                     "src/repro/kernels/quantize.py:131"),
     "k4_flash_prefill": ("flash_attention",
@@ -1996,6 +2389,15 @@ SOURCES = {
     "k7_addertree": ("addertree", "src/repro_torch/csrc/addertree.cu",
                      "src/repro/kernels/addertree.py:59"),
 }
+
+
+# the row passes' own numbers, carried into the kernels line: their CUPTI
+# kernel times, their times at 8 and 512 rows, the launch floor, and a
+# tail's cost beside the GEMM alone and the two launches it replaces
+ROW_PASS_KEYS = ("kernel_ms", "rows", "floor_ms", "floor_wrapper_ms",
+                 "floor_kernel_ms", "gemm_ms", "gemm_kernel_ms", "tail_ms",
+                 "two_launches_ms", "two_launches_wrapper_ms",
+                 "two_launches_kernel_ms")
 
 
 # rows whose launches on the driven paths are not at the row's own shape
@@ -2039,7 +2441,12 @@ def main() -> int:
             print(f"  ptxas {name}: {line}")
 
     timer = Timer(torch)
+    cupti = []     # (row, key, call): CUPTI kernel times, the last phase
+    floor = launch_floor(timer, cupti)
+    print("  launch floor " + json.dumps(floor), flush=True)
     kernels = check_kernels(torch, timer)
+    kernels.update(check_row_passes(torch, timer, floor, cupti))
+    kernels.update(check_row_tails(torch, timer, cupti))
     kernels.update(check_int8_kernels(torch, timer))
     kernels.update(check_paged_kernel(torch, timer))
     wide = check_wide_groups(torch)
@@ -2060,6 +2467,10 @@ def main() -> int:
     serve["addertree"] = addertree_path(torch)
     print("addertree path: " + json.dumps(serve["addertree"]), flush=True)
     serve.update(serve_gemma2(torch))
+    cupti_pass(torch, cupti)
+    for k in kernels.values():
+        if "floor_ms" in k:
+            k["floor_kernel_ms"] = floor["kernel_ms"]
 
     line = []
     for name, (counter, source, replaces) in SOURCES.items():
@@ -2082,8 +2493,9 @@ def main() -> int:
                      **({"library_note": k["library_note"]}
                         if "library_note" in k else {}),
                      "max_row_err": k["max_row_err"], "tol": k["tol"],
+                     **{key: k[key] for key in ROW_PASS_KEYS if key in k},
                      "work": k["work"]})
-    print(json.dumps({"kernels": line}))
+    print(json.dumps({"kernels": line, "launch_floor": floor}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,10 @@ variant's own key, ``"<kernel>:<variant>"``, e.g.
 ``"paged_decode:local+softcap"``; K6's prefill-chunk body counts under
 ``paged_decode`` with the ``chunk`` variant (``paged_decode:chunk``,
 ``paged_decode:local+softcap+chunk``), and its decode body never does.
+A row pass fused into a GEMM's store phase is no launch of its own: it
+counts as the GEMM's variant (``matmul:norm``, ``int8_matmul:norm``,
+``int8_matmul:quantize``), while ``rmsnorm``, ``quantize`` and
+``int8_quantize`` count the row kernels' own launches.
 """
 from __future__ import annotations
 
@@ -42,19 +46,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t of its launch
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "matmul": {
-        # a, b, out, residual, operand2, workspace, counters, M, N, K,
-        # splits, tile_n, gate_silu, stream
-        "k1_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _P],
+        # a, b, out, residual, operand2, workspace, counters, norm_scale,
+        # normed, M, N, K, splits, tile_n, gate_silu, eps, stream
+        "k1_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _F, _P],
         # x, scale, out, M, N, eps, stream
         "k1_rmsnorm_rows": [_P, _P, _P, _I, _I, _F, _P],
         # a, b ([N, K]), a_scale, b_scale, out_f32, out_bf16, residual,
-        # operand2, workspace, counters, M, N, K, splits, tile_n,
-        # gate_silu, stream
-        "k2_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _P],
+        # operand2, workspace, counters, norm_scale, normed, q, q_scale, M,
+        # N, K, splits, tile_n, gate_silu, eps, stream
+        "k2_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
         # x, q, scale, M, N, x_is_f32, stream
         "k3_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
+        # stream: an empty kernel, the launch floor (a measurement only)
+        "k0_empty": [_P],
     },
     "flash_attention": {
         # q, k, v, out, B, Sq, Skv, H, KV, hd, scale, window, softcap,

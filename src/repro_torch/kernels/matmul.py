@@ -10,15 +10,26 @@ block to arrive folds the fp32 split partials in ascending split order
 before the epilogue (``split_scratch``).  ``ref.matmul_splitk_ref`` is
 the plain version of that arithmetic.
 
-``matmul_cuda`` and ``rmsnorm_cuda`` are the wrappers of the two kernels
-in ``csrc/matmul.cu``; their plain PyTorch versions are
+``matmul_cuda`` and ``rmsnorm_cuda`` are the wrappers of K1 and of its
+row-norm kernel in ``csrc/matmul.cu``; their plain PyTorch versions are
 ``ref.matmul_fused_ref`` and ``epilogue.rms_normalize``, which
 ``kernels.ops`` takes for tensors on the CPU.  The kernel takes bf16 x bf16
 with an fp32 accumulator, and of the epilogue stages the serving path
 uses: the cast to bf16, ``gate='silu'`` with ``operand2``, the residual
-add, and ``norm='rmsnorm'`` (the GEMM stores the value, then the
-row-norm kernel normalizes the stored rows).  Any other stage or dtype
-raises: the kernel never silently falls back.
+add, and ``norm='rmsnorm'``.  Any other stage or dtype raises: the kernel
+never silently falls back.
+
+The rmsnorm needs the whole row.  Where the plan says so
+(``GemmPlan.row_tail``: the bytes regime, decode), the GEMM finishes it in
+its store phase, in the same launch: the last column blocks to store their
+columns (one per four rows) wait for the others, read the M stored rows
+back from L2 and normalize them, one warp per row (counted as the variant
+``matmul:norm``, not as a launch of ``rmsnorm``).  Otherwise the GEMM
+stores the value and the row-norm kernel (one warp per row) normalizes
+it.  Both run one device routine whose
+summation order depends on N alone (``ref.rmsnorm_rows_ref`` is its
+plain mirror), so a fused ``(value, normed)`` is bitwise
+store-then-rmsnorm either way.
 
 ``int8_matmul_cuda`` wraps K2, ``k2_int8_matmul``: int8 x int8 into an
 int32 accumulator on the s8 wgmma, with the row and column scales applied
@@ -27,10 +38,13 @@ The s8 wgmma reads both operands K-major, so the weight is the [K, N]
 view of a contiguous [N, K] buffer (``QuantizedWeight``); K2 runs K1's
 two regimes and split rule with 128 k a stage (``k2_plan``), and its
 split partials are int32, folded ascending by the last split to arrive.
-It stores bf16 or fp32; under ``quantize`` it stores the fp32 value in a
-workspace and the K3 row pass (counted as ``int8_quantize``) makes ``(q,
-scale)``; under ``norm='rmsnorm'`` the row-norm kernel completes
-``(value, normed)``, as for K1.
+It stores bf16 or fp32.  Under ``quantize`` it stores the fp32 value in a
+workspace; with the row tail the last column blocks to store quantize the
+stored rows together, with scales from the call's row maxima
+(``int8_matmul:quantize``); otherwise K3's row kernel does (counted as
+``int8_quantize``).  Under
+``norm='rmsnorm'`` it completes ``(value, normed)`` as K1 does
+(``int8_matmul:norm`` or a launch of ``rmsnorm``).
 """
 from __future__ import annotations
 
@@ -63,13 +77,20 @@ K1_BLOCKS_PER_SM = 2
 # split streams enough stages to amortize filling its ring
 K2_K = 128
 K2_SMS_PER_BLOCK = 2
+# the widest rmsnorm row (csrc/matmul.cu's NORM_MAX_N: its fp32 scale is
+# staged in shared memory), and so the widest row a GEMM finishes in its
+# store phase
+NORM_MAX_N = 16384
 
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
     """K1's or K2's launch for one shape: the regime, the block's output
     tile (``rows`` x ``cols``), k per stage, the blocks of the main kernel
-    and the K split (bytes regime; 1 means no fold)."""
+    and the K split (bytes regime; 1 means no fold).  ``row_tail``: a row
+    pass of the call (the rmsnorm, K2's row quantize) runs in its store
+    phase, in the last column blocks to store (``arrival_counters``),
+    rather than as a second launch."""
 
     regime: str
     rows: int
@@ -78,6 +99,15 @@ class GemmPlan:
     k_tiles: int
     blocks: int
     splits: int
+    row_tail: bool
+
+    def arrival_counters(self, m: int, n: int, quantize: bool) -> int:
+        """The zeroed counters a bytes-regime call of [m, n] takes, in
+        ``csrc/matmul.cu``'s layout: one per 128-column block (a split
+        call's fold), then the row tail's two (its column blocks' arrivals
+        and its finished tail blocks), then under the fused quantize the
+        ``m`` row maxima."""
+        return -(-n // self.cols) + 2 + (m if quantize else 0)
 
     def k_ranges(self, k: int) -> List[Tuple[int, int]]:
         """[begin, end) of K that each split sums, in ascending split order:
@@ -96,13 +126,14 @@ def _gemm_plan(m: int, n: int, k: int, sms: int, ops_k: int,
             -(-row_tiles * -(-n // c) // sms) * c / K1_OPS_COLS[c]))
         kt = -(-k // ops_k)
         return GemmPlan("operations", K1_OPS_ROWS, cols, ops_k, kt,
-                        -(-m // K1_OPS_ROWS) * -(-n // cols), 1)
+                        -(-m // K1_OPS_ROWS) * -(-n // cols), 1, False)
     bn = K1_DEC_TILE[0]
     rows = next(r for r in K1_DEC_ROWS if m <= r)
     kt = -(-k // dec_k)
     n_tiles = -(-n // bn)
     splits = max(1, min(kt, -(-dec_blocks // n_tiles)))
-    return GemmPlan("bytes", rows, bn, dec_k, kt, n_tiles * splits, splits)
+    return GemmPlan("bytes", rows, bn, dec_k, kt, n_tiles * splits, splits,
+                    n <= NORM_MAX_N)
 
 
 def k1_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
@@ -117,7 +148,14 @@ def k1_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
     ranges of 64-deep tiles until the grid reaches ``K1_BLOCKS_PER_SM``
     blocks per SM (at most one split per k tile).  The split count does not
     depend on M, so every row of a bytes-regime call sums in the same
-    order."""
+    order.  A bytes-regime call of at most ``NORM_MAX_N`` columns runs its
+    rmsnorm in the store phase (``row_tail``): the last column blocks to
+    store their columns, one per four rows, finish the rows together; an
+    operations-regime call stores the value and launches the row-norm
+    kernel after it.  The tail takes the card about as long as the
+    row-norm launch it replaces at every M of the regime (``chip_smoke.py``
+    times both at 2 to 63 rows) and saves the host that launch, so it is
+    the rule there."""
     return _gemm_plan(m, n, k, sms, K1_OPS_K, K1_DEC_TILE[1],
                       K1_BLOCKS_PER_SM * sms)
 
@@ -127,7 +165,9 @@ def k2_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
     values (one 128-byte row of a swizzled tile) of k per stage; the bytes
     regime splits K until the grid holds one block per
     ``K2_SMS_PER_BLOCK`` SMs.  Integer sums are exact, so no plan changes
-    a bit."""
+    a bit.  The row tail follows K1's rule, for the rmsnorm and the row
+    quantize alike (the quantize's last column blocks to store split the
+    stored values into equal runs)."""
     return _gemm_plan(m, n, k, sms, K2_K, K2_K,
                       -(-sms // K2_SMS_PER_BLOCK))
 
@@ -153,13 +193,15 @@ _SPLIT_SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 def split_scratch(device: torch.device, partials: int,
                   blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scratch of a split K1 call on ``device``: an fp32 workspace of at
-    least ``partials`` elements for the split partials, and at least
-    ``blocks`` zeroed int32 arrival counters, one per column block.  The
-    block that folds a column resets its counter, so the counters are zero
-    again when the kernel ends.  K1 calls on one device share both buffers
-    and must therefore run on one stream (the port's only one).  K5 and
-    K6 take the same counters, one per row they split
+    """Scratch of a split or row-tail K1 or K2 call on ``device``: an fp32
+    workspace of at least ``partials`` elements for the split partials,
+    and at least ``blocks`` zeroed int32 arrival counters (a split call's
+    one per column block, then a row-tail call's two and its row maxima:
+    ``GemmPlan.arrival_counters``).  The block that folds a column, and the
+    last tail block to finish the rows, reset theirs, so the counters are
+    zero again when the kernel ends.  K1 and K2 calls on one device share both
+    buffers and must therefore run on one stream (the port's only one).
+    K5 and K6 take the same counters, one per row they split
     (``flash_attention.default_splits``)."""
     ws, cnt = _SPLIT_SCRATCH.get(device.index, (None, None))
     if ws is None or ws.numel() < partials:
@@ -174,11 +216,16 @@ def split_scratch(device: torch.device, partials: int,
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
                  eps: float) -> torch.Tensor:
-    """Row rmsnorm of a bf16 ``[M, N]`` tensor with an fp32 ``[N]`` scale:
-    ``x * rsqrt(sum(x^2)/N + eps) * (1 + scale)``, fixed-order reduction."""
+    """Row rmsnorm of a bf16 ``[M, N]`` tensor with an fp32 ``[N]`` scale,
+    N a multiple of 8 (16-byte rows): ``x * rsqrt(sum(x^2)/N + eps) * (1 +
+    scale)``, one warp a row in the fixed order of
+    ``ref.rmsnorm_rows_ref``."""
     m, n = x.shape
     _cuda.check(x, "rmsnorm input", torch.bfloat16)
     _cuda.check(scale, "rmsnorm scale", torch.float32, (n,))
+    if n % 8 or n > NORM_MAX_N:
+        raise ValueError(f"the row-norm kernel needs N divisible by 8 and "
+                         f"at most {NORM_MAX_N}, got N={n}")
     out = torch.empty_like(x)
     if m == 0:
         return out
@@ -190,9 +237,10 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
 
 def _epilogue_operands(ep: Epilogue, m: int, n: int,
                        residual: Optional[torch.Tensor],
-                       operand2: Optional[torch.Tensor]) -> bool:
-    """Check the gate and residual operands the GEMM kernels read; True if
-    gated."""
+                       operand2: Optional[torch.Tensor],
+                       norm_scale: Optional[torch.Tensor]) -> bool:
+    """Check the gate, residual and norm-scale operands the GEMM kernels
+    read; True if gated."""
     gate = ep.gate == "silu"
     if gate:
         if operand2 is None:
@@ -202,7 +250,15 @@ def _epilogue_operands(ep: Epilogue, m: int, n: int,
         if residual is None:
             raise ValueError("Epilogue.residual set but no residual operand")
         _cuda.check(residual, "residual", torch.bfloat16, (m, n))
+    if ep.norm == "rmsnorm":
+        if norm_scale is None:
+            raise ValueError("Epilogue.norm set but no norm_scale operand")
+        _cuda.check(norm_scale, "rmsnorm scale", torch.float32, (n,))
     return gate
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
@@ -212,7 +268,8 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
     """``epilogue(a @ b)`` through the K1 kernel.  a [M, K], b [K, N], both
     bf16 and contiguous, K and N multiples of 8.  Returns ``[M, N]`` bf16
     (``ep.out_dtype`` must be bf16), or ``(value, normed)`` under
-    ``norm='rmsnorm'``."""
+    ``norm='rmsnorm'``: one launch where the plan has the row tail, else
+    the GEMM and the row-norm kernel."""
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError(f"the K1 kernel takes bf16 x bf16, got "
                         f"{a.dtype} x {b.dtype}")
@@ -234,24 +291,30 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
     if ep.out_dtype != torch.bfloat16:
         raise TypeError(f"the K1 kernel stores bf16, got out_dtype "
                         f"{ep.out_dtype}")
-    gate = _epilogue_operands(ep, m, n, residual, operand2)
+    gate = _epilogue_operands(ep, m, n, residual, operand2, norm_scale)
+    norm = ep.norm == "rmsnorm"
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    normed = None
     if m and n:
         plan = _device_plan(m, n, k, a.device.index)
+        tail = norm and plan.row_tail
+        normed = torch.empty_like(out) if tail else None
         ws = counters = None
-        if plan.splits > 1:
+        if plan.splits > 1 or tail:
             ws, counters = (t.data_ptr() for t in split_scratch(
-                a.device, plan.splits * m * n, -(-n // plan.cols)))
-        _cuda.LAUNCHES["matmul"] += 1
+                a.device, plan.splits * m * n,
+                plan.arrival_counters(m, n, False)))
+        _cuda.count("matmul", norm=tail)
         _cuda.launch("matmul", "k1_matmul", a.data_ptr(), b.data_ptr(),
-                     out.data_ptr(),
-                     residual.data_ptr() if ep.residual else None,
-                     operand2.data_ptr() if gate else None, ws, counters,
-                     m, n, k, plan.splits, plan.cols, int(gate))
-    if ep.norm == "rmsnorm":
-        if norm_scale is None:
-            raise ValueError("Epilogue.norm set but no norm_scale operand")
-        return out, rmsnorm_cuda(out, norm_scale, ep.norm_eps)
+                     out.data_ptr(), _ptr(residual if ep.residual else None),
+                     _ptr(operand2 if gate else None), ws, counters,
+                     _ptr(norm_scale if tail else None), _ptr(normed),
+                     m, n, k, plan.splits, plan.cols, int(gate),
+                     float(ep.norm_eps))
+    if norm:
+        if normed is None:
+            normed = rmsnorm_cuda(out, norm_scale, ep.norm_eps)
+        return out, normed
     return out
 
 
@@ -266,7 +329,8 @@ def int8_matmul_cuda(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
     operands K-major); K and N multiples of 16; sa [M, 1] and sb [1, N]
     f32.  Returns ``[M, N]`` in ``ep.out_dtype`` (bf16 or fp32, default
     fp32), ``(q, scale)`` under ``quantize`` or ``(value, normed)`` under
-    ``norm='rmsnorm'``."""
+    ``norm='rmsnorm'``; the row pass runs in the store phase where the
+    plan has the row tail, else in K3's or the row-norm kernel."""
     if qa.dim() != 2 or qb.dim() != 2 or qa.shape[1] != qb.shape[0]:
         raise ValueError(f"int8 matmul shapes {tuple(qa.shape)} x "
                          f"{tuple(qb.shape)} do not chain")
@@ -291,30 +355,45 @@ def int8_matmul_cuda(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
         else (ep.out_dtype or torch.float32)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the K2 kernel stores bf16 or fp32, got {out_dtype}")
-    if ep.norm == "rmsnorm" and out_dtype != torch.bfloat16:
+    norm = ep.norm == "rmsnorm"
+    if norm and out_dtype != torch.bfloat16:
         raise TypeError("the K2 rmsnorm output is bf16")
-    gate = _epilogue_operands(ep, m, n, residual, operand2)
+    gate = _epilogue_operands(ep, m, n, residual, operand2, norm_scale)
     out = torch.empty((m, n), dtype=out_dtype, device=qa.device)
     f32 = out_dtype == torch.float32
+    q = q_scale = normed = None     # the fused row pass's outputs
     if m and n:
         plan = _device_k2_plan(m, n, k, qa.device.index)
+        if plan.row_tail and ep.quantize:
+            q = torch.empty((m, n), dtype=torch.int8, device=qa.device)
+            q_scale = torch.empty((m, 1), dtype=torch.float32,
+                                  device=qa.device)
+        elif plan.row_tail and norm:
+            normed = torch.empty_like(out)
         ws = counters = None
-        if plan.splits > 1:
+        if plan.splits > 1 or q is not None or normed is not None:
             # int32 partials in the fp32 workspace's storage
             ws, counters = (t.data_ptr() for t in split_scratch(
-                qa.device, plan.splits * m * n, -(-n // plan.cols)))
-        _cuda.LAUNCHES["int8_matmul"] += 1
+                qa.device, plan.splits * m * n,
+                plan.arrival_counters(m, n, ep.quantize)))
+        _cuda.count("int8_matmul", norm=normed is not None,
+                    quantize=q is not None)
         _cuda.launch("matmul", "k2_int8_matmul", qa.data_ptr(), qb.data_ptr(),
                      sa.data_ptr(), sb.data_ptr(),
                      out.data_ptr() if f32 else None,
                      None if f32 else out.data_ptr(),
-                     residual.data_ptr() if ep.residual else None,
-                     operand2.data_ptr() if gate else None, ws, counters,
-                     m, n, k, plan.splits, plan.cols, int(gate))
+                     _ptr(residual if ep.residual else None),
+                     _ptr(operand2 if gate else None), ws, counters,
+                     _ptr(norm_scale if normed is not None else None),
+                     _ptr(normed), _ptr(q), _ptr(q_scale),
+                     m, n, k, plan.splits, plan.cols, int(gate),
+                     float(ep.norm_eps))
     if ep.quantize:
-        return quantize_rowwise_cuda(out, count="int8_quantize")
-    if ep.norm == "rmsnorm":
-        if norm_scale is None:
-            raise ValueError("Epilogue.norm set but no norm_scale operand")
-        return out, rmsnorm_cuda(out, norm_scale, ep.norm_eps)
+        if q is None:
+            return quantize_rowwise_cuda(out, count="int8_quantize")
+        return q, q_scale
+    if norm:
+        if normed is None:
+            normed = rmsnorm_cuda(out, norm_scale, ep.norm_eps)
+        return out, normed
     return out

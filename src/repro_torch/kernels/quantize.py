@@ -82,9 +82,11 @@ def saturation_fraction(q: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def quantize_rowwise_cuda(x: torch.Tensor, *, count: str = "quantize"
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: ``(q int8 [M, N], scale f32 [M, 1])`` of a bf16 or fp32
-    ``[M, N]`` CUDA tensor.  ``count`` names the launch counter: the int8
-    GEMM's own row pass counts as ``int8_quantize``.  M == 0 returns empty
-    outputs without a launch."""
+    ``[M, N]`` CUDA tensor whose rows are whole 16-byte vectors (N a
+    multiple of 8 for bf16, of 4 for fp32), whole warps a row (as many as
+    the shape needs to fill the card; no count changes a bit).  ``count``
+    names the launch counter: the int8 GEMM's own row pass counts as
+    ``int8_quantize``.  M == 0 returns empty outputs without a launch."""
     if x.dim() != 2:
         raise ValueError(f"quantize_rowwise takes [M, N], got "
                          f"{tuple(x.shape)}")
@@ -92,6 +94,10 @@ def quantize_rowwise_cuda(x: torch.Tensor, *, count: str = "quantize"
         raise TypeError(f"the K3 kernel takes bf16 or fp32, got {x.dtype}")
     _cuda.check(x, "quantize input", x.dtype)
     m, n = x.shape
+    per = 16 // x.element_size()
+    if n % per:
+        raise ValueError(f"the K3 kernel needs N divisible by {per} for "
+                         f"{x.dtype}, got N={n}")
     q = torch.empty((m, n), dtype=torch.int8, device=x.device)
     scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if m and n:

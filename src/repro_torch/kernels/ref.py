@@ -46,6 +46,46 @@ def matmul_fused_ref(a: torch.Tensor, b: torch.Tensor, epilogue,
                           operand2=operand2, norm_scale=norm_scale)
 
 
+ROW_LANES, ROW_VEC = 32, 8   # a warp's lanes; bf16 values a 16-byte vector
+
+
+def rmsnorm_rows_ref(value: torch.Tensor, scale: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """``epilogue.rms_normalize`` in the row-norm kernels' order
+    (``csrc/matmul.cu`` ``rmsnorm_row``, the standalone rmsnorm and the
+    GEMMs' fused tail alike): bitwise what they compute on the card.
+
+    ``value`` [..., N] bf16, N a multiple of 8; ``scale`` [N] fp32.  Lane l
+    of a warp adds the squares of the row's 8-value vectors l, l + 32, l +
+    64, ... in ascending order, each vector's values in index order, at
+    fp32; then the 32 lane sums fold pairwise, each lane with the one 16,
+    8, 4, 2 and 1 away.  The order depends on N alone, never on the rows
+    beside.  Then ``r = 1 / sqrt(sum / N + eps)`` and ``(x * r) * (1 +
+    scale)``, each step an IEEE operation (tensor divisors: torch on CUDA
+    divides by a Python scalar as a reciprocal multiply)."""
+    n = value.shape[-1]
+    lead = value.shape[:-1]
+    x = value.to(torch.float32)
+    rounds = -(-n // (ROW_LANES * ROW_VEC))
+    # lane l's squares in its order, the missing tail as +0.0 added last
+    # (the sum is >= +0, so adding +0.0 changes no bit)
+    sq = torch.nn.functional.pad(x * x, (0, rounds * ROW_LANES * ROW_VEC - n))
+    sq = sq.reshape(*lead, rounds, ROW_LANES, ROW_VEC).transpose(-3, -2)
+    sq = sq.reshape(*lead, ROW_LANES, rounds * ROW_VEC)
+    ss = torch.zeros((*lead, ROW_LANES), dtype=torch.float32,
+                     device=value.device)
+    for t in range(rounds * ROW_VEC):
+        ss = ss + sq[..., t]
+    half = ROW_LANES // 2
+    while half:
+        ss = ss[..., :half] + ss[..., half:2 * half]
+        half //= 2
+    ms = ss / torch.full_like(ss, float(n))
+    eps32 = torch.tensor(eps, dtype=torch.float32, device=value.device)
+    r = torch.ones_like(ms) / torch.sqrt(ms + eps32)
+    return ((x * r) * (1.0 + scale.to(torch.float32))).to(value.dtype)
+
+
 def quantize_rowwise_ref(x: torch.Tensor):
     """Row-wise symmetric int8 quantization of ``x [M, N]`` at fp32:
     ``(q int8 [M, N], scale f32 [M, 1])``, the plain version of K3."""

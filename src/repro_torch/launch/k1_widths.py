@@ -43,7 +43,8 @@ def _k1(a, b, out, cols):
     m, k = a.shape
     n = b.shape[1]
     _cuda.launch("matmul", "k1_matmul", a.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), None, None, None, None, m, n, k, 1, cols, 0)
+                 out.data_ptr(), None, None, None, None, None, None, m, n, k,
+                 1, cols, 0, 1e-6)
 
 
 def _spin_cycles_per_ms() -> float:

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels import _cuda
 from repro_torch.models.lm import Model
 from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -60,7 +61,9 @@ def serve_requests(engine: ServeEngine, requests: List[Request]) -> Dict:
     all have finished.  Host clock around synchronized iterations: each
     request's time to first token (from the submit), the wall time of
     every iteration and whether it ran a prefill chunk.  Returns those
-    with the outputs by request id."""
+    with the outputs by request id, and the kernel launches of the last
+    iteration that ran no chunk (``decode_launches``, from
+    ``kernels._cuda.LAUNCHES``)."""
     dev = engine.model.device
     sched = engine.scheduler
     _sync(dev)
@@ -70,16 +73,22 @@ def serve_requests(engine: ServeEngine, requests: List[Request]) -> Dict:
     ttft: Dict = {}
     iters = []
     outs = {}
+    decode_launches = None
     while engine.pending:
         chunk = any(a is not None and not a.prefilled
                     for a in sched.lanes) or (
             bool(sched.queue) and any(a is None for a in sched.lanes))
+        before = dict(_cuda.LAUNCHES)
         t = time.perf_counter()
         for o in engine.step():
             outs[o.id] = o
         _sync(dev)
         now = time.perf_counter()
         iters.append((now - t, chunk))
+        if not chunk:
+            decode_launches = {k: n - before.get(k, 0)
+                               for k, n in _cuda.LAUNCHES.items()
+                               if n != before.get(k, 0)}
         for a in sched.lanes:
             if a is not None and a.tokens and a.req.id not in ttft:
                 ttft[a.req.id] = now - t0
@@ -94,7 +103,8 @@ def serve_requests(engine: ServeEngine, requests: List[Request]) -> Dict:
                 decode_ms_per_iter=(1e3 * sum(decode) / len(decode)
                                     if decode else None),
                 chunk_iterations=len(iters) - len(decode),
-                generated=n_tok, tokens_per_s=n_tok / wall)
+                generated=n_tok, tokens_per_s=n_tok / wall,
+                decode_launches=decode_launches)
 
 
 # continuous batching: 8 lanes of up to 512 positions, 16-slot pages,
