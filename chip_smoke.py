@@ -82,7 +82,23 @@ line):
    Phases 2 and 3 hold gemma2's kernel variants at its full shapes (K4
    local and global with softcap at the fixed loop's prefill, timed beside
    SDPA) and its smoke config card against CPU (``check_gemma2_kernels``,
-   ``check_gemma2_smoke``).
+   ``check_local_smoke``).
+6. gemma3: after gemma2's model is freed, full-width 48-layer gemma3-12b
+   (bf16, 5 local layers to 1 global, window 1024, head dim 256, RoPE
+   theta 1e4 and 1e6) from seed 0, built once (``serve_long``, phase 5's
+   code): the decode-vs-prefill witness past the window and the int8
+   copy's first logits against the bf16 model's at init scales; then, on
+   varied weights, the fixed loop (batch 2, prompt 4160, the ring wrapped
+   four times, 16 tokens; K1, K4 local and global at hd 256, the ring, K5
+   at hd 256) and the scheduler bf16 and int8 (8 requests, one with the
+   4160-token prompt; K1 or K2 with K3 and the int8 tails, K6 decode and
+   chunk, local and global, at hd 256), every status ok and one decode
+   iteration's launches exact.  Phases 2 and 3 hold its kernels at hd 256
+   at its full shapes (``check_gemma3_kernels``: K4 beside SDPA, K5
+   bitwise across split counts, K6 decode bitwise K5 on global lanes, the
+   chunk body with ``chunk_contracts``, also on 128-slot pages; K1 at its
+   five projections at rows 2, 8, 512 and 8320 and K2 at 8 and 512) and
+   its smoke config at ``head_dim=256`` card against CPU.
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -117,6 +133,11 @@ G2_H, G2_KV, G2_HD, G2_WINDOW, G2_SOFTCAP = 32, 16, 128, 4096, 50.0
 # window and the local ring's wrap both run) and new tokens; the
 # scheduler's requests, the first of them with the long prompt
 G2_BATCH, G2_PROMPT, G2_NEW, G2_REQ = 2, 4160, 16, 8
+# gemma3-12b's attention (src/repro_torch/configs/gemma3_12b.py): head dim
+# 256, window 1024, no softcap; phase 6 serves it as phase 5 serves gemma2
+# (the prompt wraps the local layers' 1024-slot ring four times)
+G3_H, G3_KV, G3_HD, G3_WINDOW = 16, 8, 256, 1024
+G3_BATCH, G3_PROMPT, G3_NEW, G3_REQ = 2, 4160, 16, 8
 # kernels each driven path must launch (the counts are read per path)
 # (a variant's launches are counted under "<kernel>:<variant>"; a row pass
 # in a GEMM's store phase is its variant "norm" or "quantize")
@@ -137,6 +158,22 @@ PATH_KERNELS = {
                          "paged_decode:softcap",
                          "paged_decode:local+softcap+chunk",
                          "paged_decode:softcap+chunk"),
+    # gemma3: every attention launch at hd 256 (its own variant key)
+    "gemma3_fixed": ("matmul", "matmul:norm", "rmsnorm",
+                     "flash_attention:local+hd256", "flash_attention:hd256",
+                     "flash_decode:hd256"),
+    "gemma3_scheduler_bf16": ("matmul", "matmul:norm", "rmsnorm",
+                              "paged_decode:local+hd256",
+                              "paged_decode:hd256",
+                              "paged_decode:local+chunk+hd256",
+                              "paged_decode:chunk+hd256"),
+    "gemma3_scheduler_int8": ("int8_matmul", "int8_matmul:norm",
+                              "int8_matmul:quantize", "int8_quantize",
+                              "quantize", "rmsnorm",
+                              "paged_decode:local+hd256",
+                              "paged_decode:hd256",
+                              "paged_decode:local+chunk+hd256",
+                              "paged_decode:chunk+hd256"),
 }
 
 
@@ -276,6 +313,8 @@ K1_WIDTHS = {
     "granite": (4096, 6144, 4096, 12800, (BATCH, LANES, 1024, LANES * CHUNK)),
     "gemma2": (4608, 8192, 4096, 36864,
                (G2_BATCH, LANES, LANES * CHUNK, G2_BATCH * G2_PROMPT)),
+    "gemma3": (3840, 8192, 4096, 15360,
+               (G3_BATCH, LANES, LANES * CHUNK, G3_BATCH * G3_PROMPT)),
 }
 
 
@@ -296,9 +335,12 @@ def k1_rows(torch, timer, rand, model, m, d, qkv_n, o_k, ff, tol):
          "up": rand(d, ff, scale=d ** -0.5),
          "down": rand(ff, d, scale=ff ** -0.5)}
     g = ops.matmul(x, w["gate"], out_dtype=bf)
+    # the o-projection's input: the first o_k columns of x where d holds
+    # them (granite, gemma2), its own draw where it does not (gemma3)
+    xo = x[:, :o_k].contiguous() if o_k <= d else rand(m, o_k)
     cases = {
         "qkv": (x, w["qkv"], Epilogue(out_dtype=bf), {}),
-        "o": (x[:, :o_k].contiguous(), w["o"], Epilogue(out_dtype=bf), {}),
+        "o": (xo, w["o"], Epilogue(out_dtype=bf), {}),
         "gate": (x, w["gate"], Epilogue(out_dtype=bf), {}),
         "up": (x, w["up"], Epilogue(gate="silu", out_dtype=bf),
                {"operand2": g}),
@@ -436,7 +478,7 @@ def k5_row(torch, timer, rand, b, length, pos, kv, g, hd, softcap, scale,
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (dense_decode_launch,
                                                      decode_tile_partials,
-                                                     default_splits,
+                                                     decode_splits,
                                                      flash_decode_tiled)
     from repro_torch.kernels.matmul import sm_count
     eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
@@ -466,7 +508,7 @@ def k5_row(torch, timer, rand, b, length, pos, kv, g, hd, softcap, scale,
     row = dict(
         work=f"{where}: decode B={b} cache={length} pos={pos} KV={kv} G={g} "
              f"hd={hd} softcap={softcap}, {n_tiles} tiles, "
-             f"{default_splits(rows, n_tiles, sm_count(q.device.index))} "
+             f"{decode_splits(rows, n_tiles, sm_count(q.device.index), hd)} "
              f"splits by default; bitwise at n_splits {list(splits)}",
         max_abs_err=max_err(outs[0], want), max_row_err=err,
         tol=2 * eps_bf16, partials_row_err=p_err, partials_tol=1e-5,
@@ -552,6 +594,12 @@ def check_kernels(torch, timer):
         "gemma2", G2_BATCH * G2_PROMPT,
         f"gemma2-27b's {five} at the fixed loop's prefill "
         f"(M={G2_BATCH * G2_PROMPT})")
+    for m, where in ((LANES, "decode"), (LANES * CHUNK, "a scheduler chunk"),
+                     (G3_BATCH * G3_PROMPT, "the fixed loop's prefill")):
+        results[f"k1_matmul_gemma3_m{m}"] = k1_entry(
+            "gemma3", m, f"gemma3-12b's {five} at {where} (M={m}; also at "
+                         f"the fixed loop's decode, M={G3_BATCH}, in "
+                         f"k1_matmul's 'shapes')")
 
     # K4 flash prefill: each (b, s, h) row within 4 bf16 ulps of its own
     # scale (P is rounded to bf16 for the P.V product, then the output is
@@ -605,9 +653,10 @@ def _int_mm_ms(torch, timer, qa, qb):
 
 
 def check_int8_kernels(torch, timer):
-    """K2 (int8 GEMM) against its plain version at granite-3-8b's widths,
-    at decode (M = 8 lanes) and at a prefill chunk (M = 8 x 64), the
-    weights in ``QuantizedWeight``'s K-major [N, K] storage.  Every
+    """K2 (int8 GEMM) against its plain version at granite-3-8b's and
+    gemma3-12b's widths, at decode (M = 8 lanes) and at a prefill chunk
+    (M = 8 x 64), the weights in ``QuantizedWeight``'s K-major [N, K]
+    storage.  Every
     fp32-out product is bitwise (also at a 64 x 32 tile, K and N below one
     128-value box, M = 64 and ragged M in both regimes).  bf16 outputs:
     every row within one bf16 ulp of its scale (the same fp32 values, so
@@ -645,12 +694,16 @@ def check_int8_kernels(torch, timer):
                             ref.int8_matmul_ref(qa, sa, qb, sb)),
                 f"K2 M={m} K={k} N={n}: fp32 out is not bitwise")
 
-    # K2: the five projections of one block with their epilogues
-    for m in (LANES, LANES * CHUNK):
+    # K2: the five projections of one block with their epilogues, at
+    # granite-3-8b's and gemma3-12b's widths
+    for model, m in (("granite", LANES), ("granite", LANES * CHUNK),
+                     ("gemma3", LANES), ("gemma3", LANES * CHUNK)):
+        d, qkv_n, o_k, ff = K1_WIDTHS[model][:4]
         qx, sx = ref.quantize_rowwise_ref(rand(m, d))
+        qo, so = ref.quantize_rowwise_ref(rand(m, o_k))
         qh, sh = ref.quantize_rowwise_ref(rand(m, ff))
         w = {}
-        for name, (k, n) in (("qkv", (d, qkv_n)), ("o", (d, d)),
+        for name, (k, n) in (("qkv", (d, qkv_n)), ("o", (o_k, d)),
                              ("gate", (d, ff)), ("up", (d, ff)),
                              ("down", (ff, d))):
             qb, sb = ref.quantize_colwise_ref(rand(k, n, scale=k ** -0.5))
@@ -660,7 +713,7 @@ def check_int8_kernels(torch, timer):
         nscale = rand(d, scale=0.1)
         cases = {
             "qkv": ((qx, sx), Epilogue(out_dtype=bf), {}),
-            "o": ((qx, sx), Epilogue(out_dtype=bf), {}),
+            "o": ((qo, so), Epilogue(out_dtype=bf), {}),
             "gate": ((qx, sx), Epilogue(out_dtype=bf), {}),
             "up": ((qx, sx), Epilogue(gate="silu", quantize=True),
                    {"operand2": g}),
@@ -702,7 +755,7 @@ def check_int8_kernels(torch, timer):
             else:
                 nbytes += 2 * mm * nn
             lib, form = _int_mm_ms(torch, timer, qa, qb)
-            row = {"shape": f"{name} M={mm} K={kk} N={nn}",
+            row = {"model": model, "shape": f"{name} M={mm} K={kk} N={nn}",
                    "max_abs_err": abs_err, "max_row_err": err,
                    "ms": timer(lambda: ops.int8_matmul(qa, sa, qb, sb,
                                                        epilogue=ep, **kw)),
@@ -723,13 +776,18 @@ def check_int8_kernels(torch, timer):
                 nbytes, 2 * mm * kk * nn, INT8_OPS_PER_S)
             shapes.append(row)
             print("  k2", json.dumps(row), flush=True)
-    for key, m in (("k2_int8_matmul", LANES),
-                   ("k2_int8_matmul_m512", LANES * CHUNK)):
-        rows = [r for r in shapes if f" M={m} " in r["shape"]]
+    for key, model, m in (
+            ("k2_int8_matmul", "granite", LANES),
+            ("k2_int8_matmul_m512", "granite", LANES * CHUNK),
+            ("k2_int8_matmul_gemma3", "gemma3", LANES),
+            ("k2_int8_matmul_gemma3_m512", "gemma3", LANES * CHUNK)):
+        rows = [r for r in shapes
+                if r["model"] == model and f" M={m} " in r["shape"]]
         lib = [r["library_ms"] for r in rows]
         padded = any("library_padded_rows" in r for r in rows)
         results[key] = dict(
-            work=f"one decoder block's five int8 projections at M={m}: "
+            work=f"one {model} decoder block's five int8 projections at "
+                 f"M={m}: "
                  f"qkv, o, gate, up+silu gate+quantize, down+residual+"
                  f"rmsnorm (the row passes as tails at decode, row kernels "
                  f"at M >= 64); fp32 out also bitwise at a 64 x 32 tile, "
@@ -1880,18 +1938,10 @@ def check_gemma2_kernels(torch, timer):
             f"chunk {chunk_err:.3e}, global chunk {gchunk_err:.3e}, window "
             f"16 {small_err:.3e}")
     # global + softcap: each lane bitwise K5 over the same history
-    gglob = ops.paged_flash_decode(q, kp, vp, table, posd, softcap=sc)
-    for lane in range(L - 1):
-        kd = torch.zeros((1, P * ps, KV, hd), dtype=bf, device="cuda")
-        vd = torch.zeros_like(kd)
-        for page, phys in enumerate(table[lane].tolist()):
-            if phys >= 0:
-                kd[0, page * ps:(page + 1) * ps] = kp[phys]
-                vd[0, page * ps:(page + 1) * ps] = vp[phys]
-        require(torch.equal(gglob[lane:lane + 1], ops.flash_decode(
-            q[lane:lane + 1], kd, vd, int(lane_pos[lane]), softcap=sc)),
-            f"K6 global softcap lane {lane} is not bitwise K5 over the same "
-            f"history")
+    lanes_equal_k5(torch, ops.paged_flash_decode(q, kp, vp, table, posd,
+                                                 softcap=sc),
+                   q, kp, vp, table, lane_pos, "K6 global softcap",
+                   softcap=sc)
     where = (f"local window={W} softcap={sc} L={L} KV={KV} G={G} hd={hd} "
              f"page_size={ps} P={P} ({n_tiles} tiles)")
     dec = dict(
@@ -1981,6 +2031,213 @@ def check_gemma2_kernels(torch, timer):
     return results
 
 
+def lanes_equal_k5(torch, got, q, kp, vp, table, lane_pos, what, **var):
+    """Each lane of a K6 decode ``got`` [L, 1, KV, G, hd] at positions
+    ``lane_pos`` (the last lane idle) is bitwise K5 over the same history
+    gathered into a dense cache; raises on a miss."""
+    from repro_torch.kernels import ops
+    n_lanes, p_max, ps = table.shape[0], table.shape[1], kp.shape[1]
+    for lane in range(n_lanes - 1):
+        kd = torch.zeros((1, p_max * ps, *kp.shape[2:]), dtype=kp.dtype,
+                         device="cuda")
+        vd = torch.zeros_like(kd)
+        for page, phys in enumerate(table[lane].tolist()):
+            if phys >= 0:
+                kd[0, page * ps:(page + 1) * ps] = kp[phys]
+                vd[0, page * ps:(page + 1) * ps] = vp[phys]
+        require(torch.equal(got[lane:lane + 1], ops.flash_decode(
+            q[lane:lane + 1], kd, vd, int(lane_pos[lane]), **var)),
+            f"{what} lane {lane} is not bitwise K5 over the same history")
+
+
+def check_gemma3_kernels(torch, timer):
+    """Phase 2, gemma3: head dim 256 in K4, K5 and K6 against their plain
+    versions at gemma3-12b's shapes (H 16, KV 8, hd 256, window 1024, no
+    softcap).  K4 local and global over the fixed loop's prefill, B = 2 x
+    S = 4160, each row within 2 bf16 ulps of its scale, each beside SDPA
+    (the window as a bool mask); K5 at the fixed loop's decode, cache 4192
+    at position 4175 (``k5_row``: bitwise at split counts 1, 2, 4, the
+    default and one per tile, 2 ulps, partials within 1e-5) beside SDPA;
+    K6 at the scheduler's geometry (8 lanes, 16-slot pages, 262 pages a
+    lane; lanes on both sides of the window and one idle), local and
+    global: decode within 2 ulps with its partials within 1e-5, every
+    global lane bitwise K5 over the same history, the idle lane exactly
+    0.0; the S = 64 chunk body within 2 ulps with ``chunk_contracts`` on
+    both kinds, and once more with 128-slot pages, each 64-slot K/V tile
+    half a page."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (paged_decode_launch,
+                                                     paged_flash_decode_tiled,
+                                                     paged_tile_partials)
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    tol = 2 * eps_bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    bf = torch.bfloat16
+    H, KV, hd, W = G3_H, G3_KV, G3_HD, G3_WINDOW
+    G = H // KV
+
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    results = {}
+    # K4 at the fixed loop's prefill, local and global
+    b, s = G3_BATCH, G3_PROMPT
+    q, k, v = rand(b, s, H, hd), rand(b, s, KV, hd), rand(b, s, KV, hd)
+    pos_q = torch.arange(s, device="cuda")
+    causal = pos_q[None, :] <= pos_q[:, None]
+    for name, var, live, lib_kw, note in (
+            ("k4_flash_prefill_hd256_local", dict(kind="local", window=W),
+             sum(min(i + 1, W) for i in range(s)),
+             dict(attn_mask=causal & (pos_q[:, None] - pos_q[None, :] < W)),
+             "SDPA with the local window as a bool mask (sdpa_ms)"),
+            ("k4_flash_prefill_hd256", dict(kind="global"), s * (s + 1) / 2,
+             dict(is_causal=True), "SDPA causal (sdpa_ms)")):
+        got = ops.flash_attention(q, k, v, **var)
+        want = ref.flash_attention_ref(q, k, v, **var)
+        err, abs_err = row_err(got, want), max_err(got, want)
+        del got, want
+        require(err <= tol, f"{name}: a row is off by {err:.3e} of its "
+                            f"scale")
+        t_b, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                        4 * b * H * hd * live)
+        results[name] = dict(
+            work=f"{var['kind']} prefill"
+                 f"{' window=%d' % W if 'window' in var else ''} B={b} "
+                 f"S={s} H={H} KV={KV} hd={hd} (64-slot K/V tiles, 2 "
+                 f"stages)",
+            max_abs_err=abs_err, max_row_err=err, tol=tol,
+            ms=timer(lambda var=var: ops.flash_attention(q, k, v, **var),
+                     reps=3),
+            wrapper_ms=timer.wall(
+                lambda var=var: ops.flash_attention(q, k, v, **var), reps=3),
+            plain_ms=timer(
+                lambda var=var: ref.flash_attention_ref(q, k, v, **var),
+                reps=3),
+            bound_ms=t_b, bound_by=by,
+            library_ms=sdpa_ms(torch, timer, q, k, v, **lib_kw),
+            library_note=note)
+        print("  k4 " + json.dumps({name: results[name]}), flush=True)
+    del q, k, v, causal
+    torch.cuda.empty_cache()
+
+    # K5 at the global layers' decode, the fixed loop's cache at a step
+    # past the prompt
+    results["k5_flash_decode_hd256"] = k5_row(
+        torch, timer, rand, b, G3_PROMPT + 32, G3_PROMPT + G3_NEW - 1, KV, G,
+        hd, None, 1.0, "gemma3-12b's global layers, fixed loop")
+    torch.cuda.empty_cache()
+
+    # K6 at the scheduler's geometry, lanes on both sides of the window
+    L, ps, P = LANES, PAGE, 262
+    n_pages = L * P
+    kp, vp = rand(n_pages + 1, ps, KV, hd), rand(n_pages + 1, ps, KV, hd)
+    lane_pos = torch.tensor([0, 31, 100, 1023, 1024, 2100, 4191, -1],
+                            dtype=torch.int32)
+    table = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        SEED)).reshape(L, P).to(torch.int32)
+    for lane in range(L):
+        table[lane, max(int(lane_pos[lane]), 0) // ps + 1:] = -1
+    table = table.cuda()
+    posd = lane_pos.cuda()[:, None].contiguous()
+    q = rand(L, 1, KV, G, hd)
+    s_q = CHUNK
+    qc = rand(L, s_q, KV, G, hd)
+    pc = (lane_pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None])
+    pc = torch.where((pc >= 0) & (lane_pos[:, None] >= 0), pc, -1)
+    pc[2, -7:] = -1      # a final chunk's padded tail
+    pc = pc.to(torch.int32).cuda().contiguous()
+    rows, n_tiles = L * KV, P * ps // 32
+    where = (f"L={L} KV={KV} G={G} hd={hd} page_size={ps} P={P} "
+             f"({n_tiles} tiles)")
+    lib_note = "no one PyTorch call attends through a page table"
+    for kind, var in (("local", dict(kind="local", window=W)),
+                      ("global", dict())):
+        suffix = "_local" if kind == "local" else ""
+        win = W if kind == "local" else 0
+        got = ops.paged_flash_decode(q, kp, vp, table, posd, **var)
+        require(bool((got[L - 1] == 0).all()),
+                f"K6 hd 256 {kind}: the idle lane is not 0.0")
+        want = paged_flash_decode_tiled(q, kp, vp, table, posd, **var)
+        dec_err, dec_abs = row_err(got, want), max_err(got, want)
+        out, ws = paged_decode_launch(q, kp, vp, table, posd, **var)
+        require(torch.equal(out, got), f"K6 hd 256 {kind}: two launches "
+                                       f"differ")
+        p_err = record_err(torch, ws, paged_tile_partials(
+            q, kp, vp, table, posd, **var), rows, n_tiles, G, hd)
+        del out, ws
+        if kind == "global":
+            lanes_equal_k5(torch, got, q, kp, vp, table, lane_pos,
+                           "K6 hd 256 global")
+        chunk = chunk_contracts(torch, qc, kp, vp, table, pc, 5, **var)
+        chunk_want = paged_flash_decode_tiled(qc, kp, vp, table, pc, **var)
+        chunk_err, chunk_abs = row_err(chunk, chunk_want), max_err(
+            chunk, chunk_want)
+        del chunk, chunk_want
+        require(p_err <= 1e-5 and max(dec_err, chunk_err) <= tol,
+                f"K6 hd 256 {kind}: decode {dec_err:.3e} (partials "
+                f"{p_err:.3e}), chunk {chunk_err:.3e}")
+        dec = dict(
+            work=f"paged decode {kind}"
+                 f"{' window=%d' % W if win else ''} {where}, positions "
+                 f"{lane_pos.tolist()}; the idle lane 0.0"
+                 f"{', each lane bitwise K5' if not win else ''}",
+            max_abs_err=dec_abs, max_row_err=dec_err, tol=tol,
+            partials_row_err=p_err, partials_tol=1e-5,
+            ms=timer(lambda var=var: ops.paged_flash_decode(
+                q, kp, vp, table, posd, **var)),
+            wrapper_ms=timer.wall(lambda var=var: ops.paged_flash_decode(
+                q, kp, vp, table, posd, **var)),
+            plain_ms=timer(lambda var=var: paged_flash_decode_tiled(
+                q, kp, vp, table, posd, **var), reps=3),
+            library_ms=None, library_note=lib_note)
+        dec["bound_ms"], dec["bound_by"] = k6_bound(q, table, posd, KV, win)
+        chk = dict(
+            work=f"paged prefill chunk S={s_q} {kind}"
+                 f"{' window=%d' % W if win else ''} {where}, each lane's "
+                 f"chunk ending at its position (a padded tail), on the "
+                 f"flash-prefill body: deterministic, idle rows 0.0, a "
+                 f"lane unmoved by its neighbours",
+            max_abs_err=chunk_abs, max_row_err=chunk_err, tol=tol,
+            ms=timer(lambda var=var: ops.paged_flash_decode(
+                qc, kp, vp, table, pc, **var), reps=3),
+            wrapper_ms=timer.wall(lambda var=var: ops.paged_flash_decode(
+                qc, kp, vp, table, pc, **var), reps=3),
+            plain_ms=timer(lambda var=var: paged_flash_decode_tiled(
+                qc, kp, vp, table, pc, **var), reps=1),
+            library_ms=None, library_note=lib_note)
+        chk["bound_ms"], chk["bound_by"] = k6_bound(qc, table, pc, KV, win)
+        results[f"k6_paged_decode_hd256{suffix}"] = dec
+        results[f"k6_paged_decode_chunk_hd256{suffix}"] = chk
+        print("  k6 hd256 " + json.dumps({kind: [dec, chk]}), flush=True)
+    del kp, vp, q, qc
+    torch.cuda.empty_cache()
+
+    # the chunk body with 128-slot pages: each 64-slot K/V tile is half a
+    # page (4 lanes, KV 2, G 2, 3 pages a lane, one lane idle, a hole)
+    L, KV2, ps, P = 4, 2, 128, 3
+    kp, vp = rand(L * P + 1, ps, KV2, hd), rand(L * P + 1, ps, KV2, hd)
+    lane_pos = torch.tensor([5, 200, 383, -1], dtype=torch.int32)
+    table = torch.randperm(L * P, generator=torch.Generator().manual_seed(
+        SEED)).reshape(L, P).to(torch.int32)
+    for lane in range(L):
+        table[lane, max(int(lane_pos[lane]), 0) // ps + 1:] = -1
+    table[2, 1] = -1     # a hole inside lane 2's range
+    qc = rand(L, s_q, KV2, G, hd)
+    pc = lane_pos.clamp(min=0)[:, None] - s_q + 1 + torch.arange(s_q)[None]
+    pc = torch.where((pc >= 0) & (lane_pos[:, None] >= 0), pc, -1)
+    table, pc = table.cuda(), pc.to(torch.int32).cuda().contiguous()
+    big = max(row_err(chunk_contracts(torch, qc, kp, vp, table, pc, 1,
+                                      **var),
+                      paged_flash_decode_tiled(qc, kp, vp, table, pc, **var))
+              for var in (dict(kind="local", window=100), dict()))
+    require(big <= tol, f"K6 chunk at hd 256 with 128-slot pages: a row is "
+                        f"off by {big:.3e}")
+    results["k6_paged_decode_chunk_hd256"]["page_128_row_err"] = big
+    return results
+
+
 def addertree_path(torch):
     """K7's one entry point, ``ops.addertree``, driven as the row-parallel
     reduction of a K-split product (the reference's adder tree over the
@@ -2045,12 +2302,15 @@ def paged_forced(torch, model, toks, picks, chunk):
     return [o[:, :model.cfg.vocab] for o in out]
 
 
-def check_gemma2_smoke(torch):
-    """Phase 3, gemma2: the whole path on gemma2-27b-smoke (bf16
-    parameters, 4 layers alternating local and global, window 16) with
-    prompts of 40 tokens, longer than the window; card against CPU.
+def check_local_smoke(torch, arch: str, **over):
+    """Phase 3, the models with local layers: the whole path on a smoke
+    config (``arch``'s, fields replaced by ``over``, bf16 parameters:
+    gemma2-27b-smoke's 4 layers alternating local and global, window 16,
+    softcaps; gemma3-12b-smoke's 6 layers, 5 local to 1 global, window
+    16, dual theta, at ``head_dim=256``) with prompts of 40 tokens, longer
+    than the window; card against CPU.
 
-    The scheduler (K6 local and global with softcap): greedy tokens
+    The scheduler (K6 local and global): greedy tokens
     through ``ServeEngine.generate`` on both, and the same math
     teacher-forced on the CPU's tokens (``paged_forced``).  Each forced
     step's logits are within twice the CPU pipeline's own bf16 rounding
@@ -2059,7 +2319,7 @@ def check_gemma2_smoke(torch):
     logit is within twice the step's largest card-CPU logit difference of
     the CPU's maximum: a flip that difference explains.  The free-running
     tokens are equal up to the first such flip.  The fixed loop (K4 local
-    and global with softcap, the ring, K5 softcap, the final softcap):
+    and global, the ring, K5, the final softcap where set):
     teacher-forced logits within the same budget."""
     import dataclasses
     import numpy as np
@@ -2067,8 +2327,9 @@ def check_gemma2_smoke(torch):
     from repro_torch.models.lm import Model
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-    cfg = dataclasses.replace(get_config("gemma2-27b", smoke=True),
-                              param_dtype="bfloat16")
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              param_dtype="bfloat16", **over)
+    name = cfg.name
     cpu = Model(cfg, device="cpu").init_weights(SEED)
     vary(torch, cpu, SEED)
     card = Model(cfg)
@@ -2083,7 +2344,7 @@ def check_gemma2_smoke(torch):
     scfg = ServeConfig(max_new_tokens=steps)
     want = ServeEngine(cpu, scfg).generate({"tokens": toks})
     got = ServeEngine(card, scfg).generate({"tokens": toks})
-    require(got.shape == want.shape == (BATCH, steps), "gemma2 token shape")
+    require(got.shape == want.shape == (BATCH, steps), f"{name} token shape")
 
     def rel(a, b):
         return float((a.double().cpu() - b.double().cpu()).abs().max()
@@ -2095,7 +2356,7 @@ def check_gemma2_smoke(torch):
     err = [rel(g, c) for g, c in zip(lg, lc)]
     noise = [rel(c, r) for c, r in zip(lc, l3)]
     require(max(err) <= 2 * max(noise),
-            f"gemma2 scheduler logits off by {max(err):.3e} of scale, "
+            f"{name} scheduler logits off by {max(err):.3e} of scale, "
             f"budget {2 * max(noise):.3e}")
     flips, first_flip = [], steps
     for i, (g, c) in enumerate(zip(lg, lc)):
@@ -2108,13 +2369,13 @@ def check_gemma2_smoke(torch):
                 continue
             gap = float(c[lane].max() - c[lane, pick])
             require(gap <= 2 * diff,
-                    f"gemma2 lane {lane} step {i}: the card picks {pick}, "
+                    f"{name} lane {lane} step {i}: the card picks {pick}, "
                     f"{gap:.3e} under the CPU's maximum, more than twice "
                     f"the logit difference {diff:.3e}")
             flips.append(dict(lane=lane, step=i, gap=gap, diff=diff))
             first_flip = min(first_flip, i)
     require(np.array_equal(got[:, :first_flip], want[:, :first_flip]),
-            f"gemma2 greedy tokens differ before any near tie: card "
+            f"{name} greedy tokens differ before any near tie: card "
             f"{got.tolist()} cpu {want.tolist()}")
     # the fixed loop, teacher-forced on the same picks
     fc = cpu.prefill(toks, plen + steps)
@@ -2128,10 +2389,11 @@ def check_gemma2_smoke(torch):
         f3 = ref32.decode_step(f3[1], tok, plen + i)
         ferr.append(rel(fg[0], fc[0]))
         fnoise.append(rel(fc[0], f3[0]))
-        require(float(fg[0].abs().max()) <= cfg.final_softcap,
+        require(not cfg.final_softcap
+                or float(fg[0].abs().max()) <= cfg.final_softcap,
                 "a logit is outside the final softcap")
     require(max(ferr) <= 2 * max(fnoise),
-            f"gemma2 fixed-loop logits off by {max(ferr):.3e} of scale, "
+            f"{name} fixed-loop logits off by {max(ferr):.3e} of scale, "
             f"budget {2 * max(fnoise):.3e}")
     return dict(tokens=got.tolist(), cpu_tokens=want.tolist(),
                 equal_steps=first_flip, near_tie_flips=flips,
@@ -2140,49 +2402,62 @@ def check_gemma2_smoke(torch):
                 distinct_tokens=len(set(got.reshape(-1).tolist())))
 
 
-def gemma2_witness(torch, model, toks):
-    """Phase 5's witness at the reference's init scales: the fixed loop's
-    decode step at position G2_PROMPT + G2_NEW - 2 (the local layers' ring
-    has wrapped, K5 with softcap over the global caches) against the last
+def long_witness(torch, model, toks, new: int):
+    """The long-context phases' witness at the reference's init scales: the
+    fixed loop's decode step at position prompt + new - 2 (the local
+    layers' ring has wrapped, K5 over the global caches) against the last
     logits of a prefill over the same tokens (K4 local and global), each
     lane within WITNESS_TOL of its logit scale; the same step against a
     prefill whose last token was changed must differ by more than 4x
     that."""
     cfg = model.cfg
-    logits, cache = model.prefill(toks, G2_PROMPT + G2_NEW)
+    prompt = toks.shape[1]
+    logits, cache = model.prefill(toks, prompt + new)
     seq = toks.to(logits.device)
-    for i in range(G2_NEW - 1):
+    for i in range(new - 1):
         tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
         seq = torch.cat([seq, tok], dim=1)
-        logits, cache = model.decode_step(cache, tok, G2_PROMPT + i)
+        logits, cache = model.decode_step(cache, tok, prompt + i)
     del cache
     want, _ = model.prefill(seq)
     other = seq.clone()
     other[:, -1] = (other[:, -1] + 1) % cfg.vocab
     off, _ = model.prefill(other)
-    w = dict(position=G2_PROMPT + G2_NEW - 2, err=rel_rows(logits, want),
+    w = dict(position=prompt + new - 2, err=rel_rows(logits, want),
              other_token=rel_rows(logits, off), tol=WITNESS_TOL)
     require(w["err"] <= WITNESS_TOL,
-            f"gemma2 decode is off its prefill by {w['err']:.3e} of the "
+            f"{cfg.name} decode is off its prefill by {w['err']:.3e} of the "
             f"logit scale")
     require(w["other_token"] > 4 * WITNESS_TOL,
-            f"the gemma2 witness cannot tell a changed token apart: {w}")
+            f"the {cfg.name} witness cannot tell a changed token apart: {w}")
     return w
 
 
-def serve_gemma2(torch):
-    """Phase 5: full-width, 46-layer gemma2-27b (bf16, random weights from
-    SEED) through the fixed loop and the scheduler, once built for both.
-    The granite models are gone by now (their phase returned; the caches
-    are emptied and the peak reset here)."""
+def serve_long(torch, arch: str, prefix: str, batch: int, prompt: int,
+               new: int, n_req: int, int8s=(False,)):
+    """Phases 5 and 6: full-width ``arch`` (bf16, random weights from
+    SEED, every layer) built once, after the models of the phases before
+    it are gone (the caches are emptied and the peak reset here).  At the
+    init scales the decode-vs-prefill witness past the window
+    (``long_witness``) and, with int8, the int8 copy's first logits
+    against the bf16 model's (``int8_witness``).  Then, on weights varied
+    as in phase 3, the fixed loop (``batch`` x ``prompt`` tokens, ``new``
+    greedy tokens) and the scheduler at ``geometry(arch)`` with ``n_req``
+    requests, request 0 with the ``prompt``-token prompt (it decodes past
+    the window), the others 32-448 tokens; the scheduler once per entry
+    of ``int8s``.  Each path counts its launches from 0, every kernel of
+    ``PATH_KERNELS[<its name>]`` launched, every status ok, one decode
+    iteration's launches exact (``decode_launches``).  Returns the paths'
+    reports under ``prefix``."""
     import gc
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import _cuda
-    from repro_torch.launch.serve import (GEMMA2_GEOMETRY, NEW_RANGE,
-                                          PROMPT_RANGE, make_requests,
+    from repro_torch.launch.serve import (NEW_RANGE, PROMPT_RANGE,
+                                          geometry, make_requests,
                                           serve_requests)
     from repro_torch.models.lm import Model
+    from repro_torch.models.loss import vocab_parallel_logits
     from repro_torch.serve.api import Request
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
@@ -2190,20 +2465,25 @@ def serve_gemma2(torch):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("gemma2-27b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = Model(cfg).init_weights(SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
-    toks = torch.randint(0, cfg.vocab, (G2_BATCH, G2_PROMPT),
+    toks = torch.randint(0, cfg.vocab, (batch, prompt),
                          generator=torch.Generator().manual_seed(SEED))
-    witness = gemma2_witness(torch, model, toks)
-    print("gemma2 witness: " + json.dumps(witness), flush=True)
+    out = {f"{prefix}_witness": long_witness(torch, model, toks, new)}
+    if True in int8s:
+        out[f"{prefix}_int8_witness"] = int8_witness(torch, model, toks)
+        torch.cuda.empty_cache()
+    print(f"{prefix} witness: " + json.dumps(out), flush=True)
     vary(torch, model, SEED)
+    capped = cfg.final_softcap or float("inf")
 
     # the fixed loop: generate_with_status_fixed, launches counted from 0
-    engine = ServeEngine(model, ServeConfig(max_new_tokens=G2_NEW))
+    name = f"{prefix}_fixed"
+    engine = ServeEngine(model, ServeConfig(max_new_tokens=new))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2214,40 +2494,36 @@ def serve_gemma2(torch):
     gen_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    require(res.tokens.shape == (G2_BATCH, G2_NEW),
-            f"gemma2 tokens {res.tokens.shape}")
+    require(res.tokens.shape == (batch, new),
+            f"{name} tokens {res.tokens.shape}")
     require(all(st == "ok" for st in res.status),
-            f"gemma2 fixed statuses {res.status}")
-    require(all(launches.get(key, 0) > 0
-                for key in PATH_KERNELS["gemma2_fixed"]),
-            f"a kernel never launched on gemma2's fixed path: {launches}")
+            f"{name} statuses {res.status}")
+    require(all(launches.get(key, 0) > 0 for key in PATH_KERNELS[name]),
+            f"a kernel never launched on {name}: {launches}")
     # its prefill (the time to first token) and decode step times
     torch.cuda.synchronize()
     t = time.perf_counter()
-    logits, cache = model.prefill(toks, G2_PROMPT + G2_NEW)
+    logits, cache = model.prefill(toks, prompt + new)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     require(bool(torch.isfinite(logits).all())
-            and logits.shape == (G2_BATCH, cfg.padded_vocab()),
-            "gemma2 prefill logits")
+            and logits.shape == (batch, cfg.padded_vocab()),
+            f"{name} prefill logits")
     tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for i in range(G2_NEW - 1):
-        logits, cache = model.decode_step(cache, tok, G2_PROMPT + i)
+    for i in range(new - 1):
+        logits, cache = model.decode_step(cache, tok, prompt + i)
         tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
     torch.cuda.synchronize()
-    dec_ms = (time.perf_counter() - t) / (G2_NEW - 1) * 1e3
+    dec_ms = (time.perf_counter() - t) / (new - 1) * 1e3
     require(bool(torch.isfinite(logits).all())
-            and float(logits.abs().max()) <= cfg.final_softcap,
-            "gemma2 decode logits")
+            and float(logits.abs().max()) <= capped, f"{name} decode logits")
     _cuda.reset_launches()
-    model.decode_step(cache, tok, G2_PROMPT + G2_NEW - 1)
-    step_launches = decode_launches("gemma2_fixed", dict(_cuda.LAUNCHES),
-                                    cfg.n_layers)
+    model.decode_step(cache, tok, prompt + new - 1)
+    step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg.n_layers)
     # the logits' cost per iteration: the sliced fp32 product against the
-    # 256000-row embedding, at the scheduler's 8 lanes
-    from repro_torch.models.loss import vocab_parallel_logits
+    # embedding, at the scheduler's 8 lanes
     h = torch.randn((LANES, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2257,70 +2533,81 @@ def serve_gemma2(torch):
         vocab_parallel_logits(h, model.embed, cfg.final_softcap)
     end.record()
     end.synchronize()
-    logits_ms = start.elapsed_time(end) / 5
     fixed = dict(
         params=cfg.param_count(), init_s=init_s, weights_gb=weights_gb,
-        batch=G2_BATCH, prompt=G2_PROMPT, new=G2_NEW,
+        batch=batch, prompt=prompt, new=new,
         ttft_ms=prefill_s * 1e3, decode_ms_per_step=dec_ms,
-        generate_s=gen_s, tokens_per_s=G2_BATCH * G2_NEW / gen_s,
+        generate_s=gen_s, tokens_per_s=batch * new / gen_s,
         statuses=list(res.status), launches=launches,
         launches_per_decode_step=step_launches, peak_gb=peak / 1e9,
-        logits_ms_8_rows=logits_ms,
+        logits_ms_8_rows=start.elapsed_time(end) / 5,
         distinct_tokens=[len(set(lane.tolist())) for lane in res.tokens],
         tokens=res.tokens.tolist())
     del engine, cache, logits, h
     torch.cuda.empty_cache()
-    print("serve gemma2 fixed: " + json.dumps(fixed), flush=True)
+    print(f"serve {name}: " + json.dumps(fixed), flush=True)
+    out[name] = fixed
 
-    # the scheduler: 8 requests on 8 lanes, request 0 with the long prompt
-    geom = GEMMA2_GEOMETRY
+    # the scheduler: n_req requests on 8 lanes, request 0 with the long
+    # prompt
+    geom = geometry(arch)
     require((geom["n_lanes"], geom["page_size"], geom["prefill_chunk"])
-            == (LANES, PAGE, CHUNK), f"gemma2 geometry {geom}")
-    eng = ServeEngine(model, ServeConfig(**geom))
-    reqs = make_requests(cfg.vocab, G2_REQ, SEED, PROMPT_RANGE, NEW_RANGE)
-    long_toks = np.random.default_rng(SEED).integers(0, cfg.vocab, G2_PROMPT)
+            == (LANES, PAGE, CHUNK), f"{arch} geometry {geom}")
+    reqs = make_requests(cfg.vocab, n_req, SEED, PROMPT_RANGE, NEW_RANGE)
+    long_toks = np.random.default_rng(SEED).integers(0, cfg.vocab, prompt)
     reqs[0] = Request(id=0, tokens=long_toks, sampling=reqs[0].sampling)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launches()
-    run = serve_requests(eng, reqs)
-    launches = dict(_cuda.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    outs = run["outputs"]
-    require(sorted(outs) == list(range(G2_REQ)), f"gemma2 outputs "
-                                                 f"{sorted(outs)}")
-    require(all(o.status == "ok" for o in outs.values()),
-            f"gemma2 statuses {[o.status for o in outs.values()]}")
-    require(all(outs[r.id].tokens.size == r.sampling.max_new_tokens
-                for r in reqs), "a gemma2 request ran short")
-    last_pos = len(reqs[0].tokens) + outs[0].tokens.size - 1
-    require(last_pos > G2_WINDOW, f"request 0 stopped at {last_pos}")
-    require(all(launches.get(key, 0) > 0
-                for key in PATH_KERNELS["gemma2_scheduler"]),
-            f"a kernel never launched on gemma2's scheduler: {launches}")
-    decode_launches("gemma2_scheduler", run["decode_launches"] or {},
-                    cfg.n_layers)
-    ttft = np.array([run["ttft_s"][r.id] for r in reqs])
-    sched = dict(
-        requests=G2_REQ, **geom, prompt_lens=[len(r.tokens) for r in reqs],
-        max_new=[r.sampling.max_new_tokens for r in reqs],
-        last_position_of_request_0=last_pos,
-        iterations=run["iterations"],
-        chunk_iterations=run["chunk_iterations"],
-        ttft_ms_median=float(np.median(ttft)) * 1e3,
-        ttft_ms_max=float(ttft.max()) * 1e3,
-        ttft_ms_request_0=float(ttft[0]) * 1e3,
-        decode_ms_per_iter=run["decode_ms_per_iter"],
-        generated=run["generated"], wall_s=run["wall_s"],
-        tokens_per_s=run["tokens_per_s"], peak_gb=peak / 1e9,
-        launches=launches, launches_per_decode_iter=run["decode_launches"],
-        distinct_tokens=[len(set(outs[r.id].tokens.tolist())) for r in reqs])
-    print("serve gemma2 scheduler: " + json.dumps(sched), flush=True)
-    del eng, model
+    for int8 in int8s:
+        name = (f"{prefix}_scheduler" if int8s == (False,) else
+                f"{prefix}_scheduler_{'int8' if int8 else 'bf16'}")
+        t0 = time.perf_counter()
+        eng = ServeEngine(model, ServeConfig(int8=int8, **geom))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        run = serve_requests(eng, reqs)
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        outs = run["outputs"]
+        require(sorted(outs) == list(range(n_req)),
+                f"{name} outputs {sorted(outs)}")
+        require(all(o.status == "ok" for o in outs.values()),
+                f"{name} statuses {[o.status for o in outs.values()]}")
+        require(all(outs[r.id].tokens.size == r.sampling.max_new_tokens
+                    for r in reqs), f"a {name} request ran short")
+        last_pos = len(reqs[0].tokens) + outs[0].tokens.size - 1
+        require(last_pos > cfg.window, f"request 0 stopped at {last_pos}")
+        require(all(launches.get(key, 0) > 0 for key in PATH_KERNELS[name]),
+                f"a kernel never launched on {name}: {launches}")
+        decode_launches(name, run["decode_launches"] or {}, cfg.n_layers,
+                        int8)
+        ttft = np.array([run["ttft_s"][r.id] for r in reqs])
+        sched = dict(
+            requests=n_req, int8=int8, **geom,
+            prompt_lens=[len(r.tokens) for r in reqs],
+            max_new=[r.sampling.max_new_tokens for r in reqs],
+            last_position_of_request_0=last_pos, setup_s=setup_s,
+            iterations=run["iterations"],
+            chunk_iterations=run["chunk_iterations"],
+            ttft_ms_median=float(np.median(ttft)) * 1e3,
+            ttft_ms_max=float(ttft.max()) * 1e3,
+            ttft_ms_request_0=float(ttft[0]) * 1e3,
+            decode_ms_per_iter=run["decode_ms_per_iter"],
+            generated=run["generated"], wall_s=run["wall_s"],
+            tokens_per_s=run["tokens_per_s"], peak_gb=peak / 1e9,
+            launches=launches,
+            launches_per_decode_iter=run["decode_launches"],
+            distinct_tokens=[len(set(outs[r.id].tokens.tolist()))
+                             for r in reqs])
+        print(f"serve {name}: " + json.dumps(sched), flush=True)
+        out[name] = sched
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
     gc.collect()
     torch.cuda.empty_cache()
-    return {"gemma2_fixed": fixed, "gemma2_scheduler": sched,
-            "gemma2_witness": witness}
+    return out
 
 
 SOURCES = {
@@ -2388,6 +2675,43 @@ SOURCES = {
         "src/repro/kernels/flash_attention.py:563"),
     "k7_addertree": ("addertree", "src/repro_torch/csrc/addertree.cu",
                      "src/repro/kernels/addertree.py:59"),
+    # gemma3-12b: its widths in K1 and K2, and head dim 256 in K4-K6
+    "k1_matmul_gemma3_m8": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                            "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_gemma3_m512": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                              "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_gemma3_m8320": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                               "src/repro/kernels/matmul.py:293"),
+    "k2_int8_matmul_gemma3": ("int8_matmul", "src/repro_torch/csrc/matmul.cu",
+                              "src/repro/kernels/matmul.py:293"),
+    "k2_int8_matmul_gemma3_m512": ("int8_matmul",
+                                   "src/repro_torch/csrc/matmul.cu",
+                                   "src/repro/kernels/matmul.py:293"),
+    "k4_flash_prefill_hd256_local": (
+        "flash_attention:local+hd256",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
+    "k4_flash_prefill_hd256": (
+        "flash_attention:hd256", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
+    "k5_flash_decode_hd256": (
+        "flash_decode:hd256", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:447"),
+    "k6_paged_decode_hd256_local": (
+        "paged_decode:local+hd256",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:563"),
+    "k6_paged_decode_hd256": (
+        "paged_decode:hd256", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:563"),
+    "k6_paged_decode_chunk_hd256_local": (
+        "paged_decode:local+chunk+hd256",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:563"),
+    "k6_paged_decode_chunk_hd256": (
+        "paged_decode:chunk+hd256",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:563"),
 }
 
 
@@ -2432,7 +2756,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = _cuda.build_all()
     print(f"card: {card}; built {sorted(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2454,6 +2778,7 @@ def main() -> int:
     print("  chunk head dims " + json.dumps(check_chunk_head_dims(torch)),
           flush=True)
     kernels.update(check_gemma2_kernels(torch, timer))
+    kernels.update(check_gemma3_kernels(torch, timer))
     del timer
     torch.cuda.empty_cache()
     print("kernels: " + json.dumps(
@@ -2461,12 +2786,20 @@ def main() -> int:
          for k, v in kernels.items()}), flush=True)
     smoke = check_smoke_path(torch)
     print("smoke: " + json.dumps(smoke), flush=True)
-    smoke2 = check_gemma2_smoke(torch)
-    print("smoke gemma2: " + json.dumps(smoke2), flush=True)
+    for arch, over in (("gemma2-27b", {}), ("gemma3-12b", {"head_dim": 256})):
+        smoke_local = check_local_smoke(torch, arch, **over)
+        print(f"smoke {arch}: " + json.dumps(smoke_local), flush=True)
     serve = serve_full(torch)
     serve["addertree"] = addertree_path(torch)
     print("addertree path: " + json.dumps(serve["addertree"]), flush=True)
-    serve.update(serve_gemma2(torch))
+    t0 = time.perf_counter()
+    serve.update(serve_long(torch, "gemma2-27b", "gemma2", G2_BATCH,
+                            G2_PROMPT, G2_NEW, G2_REQ))
+    t1 = time.perf_counter()
+    serve.update(serve_long(torch, "gemma3-12b", "gemma3", G3_BATCH,
+                            G3_PROMPT, G3_NEW, G3_REQ, int8s=(False, True)))
+    print(f"phase times: gemma2 {t1 - t0:.1f} s, gemma3 "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     cupti_pass(torch, cupti)
     for k in kernels.values():
         if "floor_ms" in k:
@@ -2495,6 +2828,8 @@ def main() -> int:
                      "max_row_err": k["max_row_err"], "tol": k["tol"],
                      **{key: k[key] for key in ROW_PASS_KEYS if key in k},
                      "work": k["work"]})
+    print(f"total {time.perf_counter() - t_start:.1f} s, the build included",
+          flush=True)
     print(json.dumps({"kernels": line, "launch_floor": floor}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,15 @@ from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import gemma2_27b, granite_3_8b, internlm2_1_8b
+from repro_torch.configs import (gemma2_27b, gemma3_12b, granite_3_8b,
+                                 internlm2_1_8b)
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
     "granite-3-8b": granite_3_8b,
     "internlm2-1.8b": internlm2_1_8b,
     "gemma2-27b": gemma2_27b,
+    "gemma3-12b": gemma3_12b,
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

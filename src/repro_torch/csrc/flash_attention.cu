@@ -7,8 +7,9 @@
 // (q head, batch, 128-row q tile), the longest tiles first: a producer
 // warpgroup (one thread issuing TMA, its registers handed to the
 // consumers by setmaxnreg) loads the Q tile once and streams 128-slot K
-// and V tiles through a TMA ring (full/empty mbarriers; 3 stages at hd
-// 128, 4 below, as many as fit beside Q in shared memory); two consumer
+// and V tiles (64-slot at hd 256) through a TMA ring (full/empty
+// mbarriers; 2 stages at hd 256, 3 at 128, 4 below, as many as fit beside
+// Q in shared memory); two consumer
 // warpgroups of 64 q rows each compute S = Q K^T with wgmma (Q and K
 // K-major from shared memory), run the online softmax in registers on the
 // accumulator's fragments (row max and sum over the four threads of a
@@ -17,7 +18,8 @@
 // output by alpha in registers; the output is written once.  Under the
 // causal mask query row i attends slots <= i; q head h reads kv head h /
 // (H / KV), so the grouped K/V are never repeated.  Swizzled rows of 32,
-// 64 or 128 bytes serve head dims 16, 32, 64 and 128.  What bounds it:
+// 64 or 128 bytes serve head dims 16, 32, 64, 128 and 256 (four 64-column
+// boxes a row; P.V one m64n256k16 product per 16 slots).  What bounds it:
 // at S = 256 the causal work is small, so launch and latency dominate; at
 // long S it is bound by tensor-core operations and the softmax's exps.
 // The S x S scores never reach device memory and the kv loop stops at the
@@ -25,7 +27,7 @@
 // tiles that meet the diagonal, the end of the keys or the window's edge.
 // Variants (gemma2): `window` > 0 is the 'local' kind, query row i
 // attending keys i - window < k <= i, and the kv loop starts at the first
-// 128-slot tile that meets the window of the q tile's first row, so a
+// K/V tile that meets the window of the q tile's first row, so a
 // tile before every row's window is never loaded; a later row whose first
 // visited tile is wholly masked adds exactly nothing (p = 0 there, and
 // alpha = exp(min(m - m_new, 0)) keeps o and l at 0 until its first live
@@ -93,25 +95,32 @@ constexpr int THREADS = 128;
 // K4: prefill, wgmma + TMA
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 128;   // q rows per block: two consumer warpgroups of 64
-constexpr int BKV = 128;  // kv slots per tile
+constexpr int BQ = 128;  // q rows per block: two consumer warpgroups of 64
 // two consumer warpgroups and a producer warpgroup, whose registers go to
 // the consumers (240 a thread; 168 without the rebalancing)
 constexpr int PREFILL_THREADS = 3 * 128;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared-memory plan for head dim HD: rows of SPAN bytes (the swizzle
-// span, at most 128), CH column boxes of SPAN / 2 elements per row.
+// span, at most 128), CH column boxes of SPAN / 2 elements per row, K/V
+// tiles of BKV slots.  BKV is 128 up to hd 128.  At hd 256 the Q tile is
+// 64 KB and a 128-slot K+V stage 128 KB, so one stage would fit and no
+// load would overlap the math, and each consumer thread would hold a
+// 64-float score fragment beside its o[128]; 64-slot tiles fit two stages
+// (Q 64 KB + 2 x 64 KB) and halve the fragment, and P.V becomes one
+// m64n256k16 product per 16 slots.
 template <int HD>
 struct PrefillLayout {
+  static constexpr int BKV = HD > 128 ? 64 : 128;
   static constexpr int SPAN = HD * 2 < 128 ? HD * 2 : 128;
   static constexpr int CH = HD * 2 / SPAN;
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BKV * HD * 2;
   static constexpr int STAGE = 2 * KV_BYTES;  // K, then V
-  // as many K/V stages as fit beside Q (3 at HD 128), at most 4
+  // as many K/V stages as fit beside Q (3 at HD 128, 2 at 256), at most 4
   static constexpr int STAGES_FIT = (232448 - 2048 - Q_BYTES) / STAGE;
   static constexpr int STAGES = STAGES_FIT < 4 ? STAGES_FIT : 4;
+  static_assert(STAGES >= 2, "the K/V ring needs two stages to overlap");
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE +
                               (1 + 2 * STAGES) * 8;
 };
@@ -146,10 +155,12 @@ __device__ __forceinline__ float softcap_score(float x, float softcap,
 
 // S [64 x BKV] = Q_wg [64 x HD] . K^T for warpgroup wg, both operands
 // K-major in shared memory; issued and committed, not waited for
-template <int HD, int SPAN>
-__device__ __forceinline__ void issue_scores(float (&sc)[BKV / 2],
-                                             const uint8_t* Qs,
-                                             const uint8_t* ks, int wg) {
+template <int HD>
+__device__ __forceinline__ void issue_scores(
+    float (&sc)[PrefillLayout<HD>::BKV / 2], const uint8_t* Qs,
+    const uint8_t* ks, int wg) {
+  constexpr int SPAN = PrefillLayout<HD>::SPAN;
+  constexpr int BKV = PrefillLayout<HD>::BKV;
   constexpr int KSTEPS_PER_BOX = SPAN / 32;  // k16 steps along one row
   wgmma_fence();
 #pragma unroll
@@ -165,12 +176,15 @@ __device__ __forceinline__ void issue_scores(float (&sc)[BKV / 2],
 }
 
 // O [64 x HD] += P [64 x BKV] . V with P in registers (bf16 pairs in the
-// accumulator's fragment layout, which is the A operand's) and V MN-major;
-// issued and committed, not waited for
-template <int HD, int SPAN>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&pa)[BKV / 16][4],
-                                         const uint8_t* vs) {
+// accumulator's fragment layout, which is the A operand's) and V MN-major
+// (CH column boxes of BKV slots, LBO apart); issued and committed, not
+// waited for
+template <int HD>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[HD / 2], const uint32_t (&pa)[PrefillLayout<HD>::BKV / 16][4],
+    const uint8_t* vs) {
+  constexpr int SPAN = PrefillLayout<HD>::SPAN;
+  constexpr int BKV = PrefillLayout<HD>::BKV;
   wgmma_fence();
   fence_regs(o);
 #pragma unroll
@@ -184,6 +198,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 
 // P rounded to bf16 pairs: the A fragment of k16 step kk is the
 // accumulator's elements 8 kk .. 8 kk + 7
+template <int BKV>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4],
                                        const float (&sc)[BKV / 2]) {
 #pragma unroll
@@ -257,7 +272,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
                bf16* __restrict__ out, int Sq, int Skv, int H, int KV,
                int n_qt, float scale, int window, float softcap) {
   using L = PrefillLayout<HD>;
-  constexpr int SPAN = L::SPAN, COLS = SPAN / 2;
+  constexpr int SPAN = L::SPAN, COLS = SPAN / 2, BKV = L::BKV;
   constexpr int KV_STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -340,7 +355,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(&full[s], (i / KV_STAGES) & 1);
     const uint8_t* ks = KVs + s * L::STAGE;
     float sc[BKV / 2];
-    issue_scores<HD, SPAN>(sc, Qs, ks, wg);
+    issue_scores<HD>(sc, Qs, ks, wg);
     wgmma_wait<0>();
     fence_regs(sc);
 
@@ -366,8 +381,8 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
       o[4 * j + 3] *= alpha[1];
     }
     uint32_t pa[BKV / 16][4];
-    pack_p(pa, sc);
-    issue_pv<HD, SPAN>(o, pa, ks + L::KV_BYTES);
+    pack_p<BKV>(pa, sc);
+    issue_pv<HD>(o, pa, ks + L::KV_BYTES);
     wgmma_wait<0>();
     fence_regs(o);
     __syncwarp();
@@ -393,16 +408,19 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
 // K6, prefill chunks (S > 1): K4's body over the page table
 // ---------------------------------------------------------------------------
 
-// two consumer warpgroups and a producer warp.  ptxas caps the kernel at
-// 168 registers a thread either way; rebalancing them to the consumers
-// with setmaxnreg (K4's way) spilled more at hd 128, not less
-constexpr int CHUNK_THREADS = 2 * 128 + 32;
-
 // Shared memory of the chunk body: K4's Q tile, K/V ring and barriers,
-// then per stage the mask of the tile's pages that were loaded, and the
-// q tile's positions
+// then per stage the mask of the tile's K/V boxes that were loaded, and
+// the q tile's positions.  Threads: two consumer warpgroups and a producer
+// warp.  ptxas caps the kernel at 168 registers a thread; up to hd 128
+// rebalancing them to the consumers with setmaxnreg (K4's way) spilled
+// more, not less.  At hd 256 a consumer's o[128], scores and P exceed
+// 168 (1.3 KB of spills a thread), so there the producer is a whole
+// warpgroup, one warp of it working, whose registers go to the consumers
+// (232 a thread).
 template <int HD>
 struct ChunkLayout {
+  static constexpr bool REBALANCE = HD > 128;
+  static constexpr int THREADS = REBALANCE ? 3 * 128 : 2 * 128 + 32;
   using P = PrefillLayout<HD>;
   // byte offsets from the 1024-aligned base
   static constexpr int BARS = P::Q_BYTES + P::STAGES * P::STAGE;
@@ -414,22 +432,23 @@ struct ChunkLayout {
 // One block per (q tile, kv head, lane).  The q tile is QS of the lane's
 // chunk positions times the kv head's G query heads, rows in (s, g) order
 // (QS = 128 / G, at most S), loaded by one 4-D TMA box per 64 columns.
-// The producer warp streams the lane's 128-slot K/V tiles from the first
-// slot any row of the tile can see to the last row's position: each
-// 128-slot tile is BKV / PS pages, each page one TMA box per 64 columns of
-// K and of V, at the physical page from one table lookup by one lane of
-// the warp.  A page that holds no key of the tile's rows (unmapped, past
-// the table, or outside [first, last]) is not read: its box is issued past
-// the pool's last row, which TMA zero-fills, and its bit in the stage's
-// page mask is clear.  Consumers run K4's arithmetic: S = Q K^T and O += P
-// V on wgmma, the online softmax in registers, each row masked by its own
-// position (causal; 'local' keys at or before position - window; the
-// page mask) on tiles that meet an edge.  Rows at position -1 (idle
-// lanes, a short chunk's padded tail) store exactly 0.0.  No atomics: a
-// row's keys are summed in one fixed order, and a block reads its lane's
-// pages only.
+// The producer warp streams the lane's K/V tiles (BKV slots: 128, or 64 at
+// hd 256) from the first slot any row of the tile can see to the last
+// row's position: each tile is BKV / BR boxes of BR = min(PS, BKV) slots
+// (a page, or the tile's part of a larger page), each box one TMA load per
+// 64 columns of K and of V, at the physical page from one table lookup by
+// one lane of the warp.  A box that holds no key of the tile's rows
+// (unmapped, past the table, or outside [first, last]) is not read: it is
+// issued past the pool's last row, which TMA zero-fills, and its bit in
+// the stage's box mask is clear.  Consumers run K4's arithmetic: S = Q
+// K^T and O += P V on wgmma, the online softmax in registers, each row
+// masked by its own position (causal; 'local' keys at or before position
+// - window; the box mask) on tiles that meet an edge.  Rows at position
+// -1 (idle lanes, a short chunk's padded tail) store exactly 0.0.  No
+// atomics: a row's keys are summed in one fixed order, and a block reads
+// its lane's pages only.
 template <int HD, bool SOFTCAP>
-__global__ void __launch_bounds__(CHUNK_THREADS, 1)
+__global__ void __launch_bounds__(ChunkLayout<HD>::THREADS, 1)
 chunk_kernel(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_k,
              const __grid_constant__ CUtensorMap map_v,
@@ -439,7 +458,7 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
              float softcap) {
   using L = PrefillLayout<HD>;
   using C = ChunkLayout<HD>;
-  constexpr int SPAN = L::SPAN, COLS = SPAN / 2;
+  constexpr int SPAN = L::SPAN, COLS = SPAN / 2, BKV = L::BKV;
   constexpr int KV_STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -449,12 +468,16 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + C::BARS);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + KV_STAGES;
-  uint32_t* page_mask = reinterpret_cast<uint32_t*>(smem + C::MASKS);
+  uint32_t* box_mask = reinterpret_cast<uint32_t*>(smem + C::MASKS);
   int* spos = reinterpret_cast<int*>(smem + C::POS);
 
   const int qt = blockIdx.x, kvh = blockIdx.y, ln = blockIdx.z;
   const int s0 = qt * QS, n_s = min(QS, S - s0), rows = n_s * G;
-  const int PS = 1 << ps_shift, npages = BKV / PS;
+  // a K/V box: 2^br_shift = min(PS, BKV) slots, nbox of them a tile: a
+  // page (always, for 128-slot tiles: PS <= 128), or at hd 256 with
+  // 128-slot pages the tile's half of one
+  const int br_shift = BKV == 128 ? ps_shift : min(ps_shift, 6);
+  const int nbox = BKV >> br_shift;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // the tile's positions (-1 past the chunk) and the live rows' range
@@ -493,7 +516,7 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
   bf16* const out_tile = out + ((size_t)ln * S + s0) * row_stride +
                          (size_t)kvh * G * HD;
   if (max_pos < 0) {  // every row idle: exactly 0.0
-    for (int i = threadIdx.x; i < rows * (HD / 8); i += CHUNK_THREADS) {
+    for (int i = threadIdx.x; i < rows * (HD / 8); i += C::THREADS) {
       const int r = i / (HD / 8), c = i % (HD / 8);
       *reinterpret_cast<uint4*>(out_tile + (size_t)(r / G) * row_stride +
                                 (r % G) * HD + c * 8) = make_uint4(0, 0, 0, 0);
@@ -505,7 +528,9 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
   const int t_lo = first / BKV;
   const int n_tiles = max_pos / BKV - t_lo + 1;
 
-  if (warp == 8) {  // producer: Q once, then the K/V pages
+  if (warp >= 8) {  // producer (warp 8): Q once, then the K/V pages
+    if constexpr (C::REBALANCE) setmaxnreg_dec<40>();
+    if (warp > 8) return;
     if (lane == 0) {
       mbar_expect_tx(qbar, G * QS * HD * 2);
 #pragma unroll
@@ -513,35 +538,37 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
         tma_load_4d(Qs + c * BQ * SPAN, &map_q, qbar, c * COLS, 0, kvh,
                     ln * S + s0);
     }
-    const int items = npages * L::CH * 2;  // (page, column box, K or V)
+    const int items = nbox * L::CH * 2;  // (box, column box, K or V)
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % KV_STAGES, kv0 = (t_lo + i) * BKV;
-      // page p of the tile is loaded when it holds a slot of [first,
-      // max_pos] and is mapped
+      // box p of the tile is loaded when it holds a slot of [first,
+      // max_pos] and its page is mapped
       bool ok = false;
-      if (lane < npages) {
-        const int gp = (kv0 >> ps_shift) + lane;
-        const int lo = gp << ps_shift;
-        ok = gp < P && lo + PS > first && lo <= max_pos &&
+      if (lane < nbox) {
+        const int lo = kv0 + (lane << br_shift);
+        const int gp = lo >> ps_shift;
+        ok = gp < P && lo + (1 << br_shift) > first && lo <= max_pos &&
              table[(size_t)ln * P + gp] >= 0;
       }
       const uint32_t mask = __ballot_sync(0xffffffffu, ok);
       if (lane == 0) {
         mbar_wait(&empty[s], ((i / KV_STAGES) & 1) ^ 1);
-        page_mask[s] = mask;
+        box_mask[s] = mask;
         mbar_expect_tx(&full[s], L::STAGE);
       }
       __syncwarp();
       uint8_t* ks = KVs + s * L::STAGE;
       for (int it = lane; it < items; it += 32) {
         const int p = it / (2 * L::CH), c = it / 2 % L::CH, is_v = it % 2;
-        const int gp = (kv0 >> ps_shift) + p;
-        // a page not loaded: a box past the pool's end, zero-filled
+        const int lo = kv0 + (p << br_shift);
+        // a box not loaded: past the pool's end, zero-filled
+        const int in_page = BKV == 128 ? 0 : lo & ((1 << ps_shift) - 1);
         const int row = (mask >> p) & 1
-                            ? table[(size_t)ln * P + gp] << ps_shift
+                            ? (table[(size_t)ln * P + (lo >> ps_shift)]
+                               << ps_shift) + in_page
                             : pool_rows;
         tma_load_3d(ks + is_v * L::KV_BYTES + c * BKV * SPAN +
-                        (p << ps_shift) * SPAN,
+                        (p << br_shift) * SPAN,
                     is_v ? &map_v : &map_k, &full[s], c * COLS, kvh, row);
       }
     }
@@ -550,6 +577,7 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // consumers: warpgroup wg owns tile rows [64 wg, 64 wg + 64); this
   // thread holds rows tr0 and tr0 + 8 of the accumulator fragments
+  if constexpr (C::REBALANCE) setmaxnreg_inc<232>();
   const int wg = warp / 4;
   const int tr0 = wg * 64 + (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
@@ -559,7 +587,7 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
     const int tr = tr0 + 8 * r;
     pos_r[r] = tr < rows ? spos[tr / G] : -1;
   }
-  const uint32_t all_pages = npages == 32 ? 0xffffffffu : (1u << npages) - 1;
+  const uint32_t all_boxes = nbox == 32 ? 0xffffffffu : (1u << nbox) - 1;
   const float softcap_rcp = SOFTCAP ? __frcp_rn(softcap) : 0.0f;
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.0f, 0.0f};
   float o[HD / 2];
@@ -570,23 +598,23 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % KV_STAGES, kv0 = (t_lo + i) * BKV;
     mbar_wait(&full[s], (i / KV_STAGES) & 1);
-    const uint32_t pm = page_mask[s];
+    const uint32_t pm = box_mask[s];
     const uint8_t* ks = KVs + s * L::STAGE;
     float sc[BKV / 2];
-    issue_scores<HD, SPAN>(sc, Qs, ks, wg);
+    issue_scores<HD>(sc, Qs, ks, wg);
     wgmma_wait<0>();
     fence_regs(sc);
 
     // masks only on tiles that meet the causal edge or the window's lower
-    // edge of some live row of the tile, or hold a page not loaded; rows
+    // edge of some live row of the tile, or hold a box not loaded; rows
     // at position -1 compute unmasked and store zeros
-    const bool edge = pm != all_pages || kv0 + BKV - 1 > min_pos ||
+    const bool edge = pm != all_boxes || kv0 + BKV - 1 > min_pos ||
                       (window > 0 && max_pos - kv0 >= window);
     float alpha[2];
     const auto live_key = [&](int key, int r) {
       const int p = pos_r[r];
       return p >= 0 && key <= p && (window == 0 || p - key < window) &&
-             ((pm >> ((key - kv0) >> ps_shift)) & 1);
+             ((pm >> ((key - kv0) >> br_shift)) & 1);
     };
     if (edge)
       tile_softmax<true, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq, live_key,
@@ -602,8 +630,8 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
       o[4 * j + 3] *= alpha[1];
     }
     uint32_t pa[BKV / 16][4];
-    pack_p(pa, sc);
-    issue_pv<HD, SPAN>(o, pa, ks + L::KV_BYTES);
+    pack_p<BKV>(pa, sc);
+    issue_pv<HD>(o, pa, ks + L::KV_BYTES);
     wgmma_wait<0>();
     fence_regs(o);
     __syncwarp();
@@ -632,7 +660,8 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
 
 constexpr int TILE = 32;       // DEFAULT_KV_TILE of the reference
 constexpr int G_MAX = 8;       // query rows per kv head
-constexpr int DEC_STAGES = 3;  // K/V tiles in the ring: 48 KB at hd 128
+// K/V tiles in the ring: 48 KB at hd 128 (4 blocks an SM), 96 KB at 256 (2)
+constexpr int DEC_STAGES = 3;
 
 // Where a decode row's K/V slots live.  slot_row returns the index of the
 // slot's [hd] row in the K and V arrays, or -1 when the slot holds nothing
@@ -989,7 +1018,7 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out,
   // past a sequence's end is zero-filled rather than read from the next
   CUtensorMap mq, mk, mv;
   const uint32_t box_q[3] = {L::SPAN / 2, BQ, 1};
-  const uint32_t box_kv[3] = {L::SPAN / 2, BKV, 1};
+  const uint32_t box_kv[3] = {L::SPAN / 2, L::BKV, 1};
   const uint64_t dims_q[3] = {(uint64_t)H * HD, (uint64_t)Sq, (uint64_t)B};
   const uint64_t strides_q[2] = {(uint64_t)H * HD * 2,
                                  (uint64_t)Sq * H * HD * 2};
@@ -1033,11 +1062,11 @@ int launch_chunk(const void* q, const void* k_pool, const void* v_pool,
                  float scale, int window, float softcap, cudaStream_t st) {
   using Lay = PrefillLayout<HD>;
   const int PS = 1 << ps_shift;
-  if (G < 1 || G > BQ || PS < 4 || PS > BKV) return (int)cudaErrorInvalidValue;
+  if (G < 1 || G > BQ || PS < 4 || PS > 128) return (int)cudaErrorInvalidValue;
   const int QS = min(BQ / G, S);
   // q [L * S, KV, G, HD] as a 4-D map whose box is QS chunk positions x G
   // heads x 64 columns, rows in (s, g) order; the pools [n_pool * PS, KV,
-  // HD] as 3-D maps whose box is one page of one kv head
+  // HD] as 3-D maps whose box is min(PS, BKV) slots of one kv head
   CUtensorMap mq, mk, mv;
   const uint64_t dims_q[4] = {(uint64_t)HD, (uint64_t)G, (uint64_t)KV,
                               (uint64_t)L * S};
@@ -1047,7 +1076,8 @@ int launch_chunk(const void* q, const void* k_pool, const void* v_pool,
   const uint64_t dims_kv[3] = {(uint64_t)HD, (uint64_t)KV,
                                (uint64_t)n_pool * PS};
   const uint64_t strides_kv[2] = {(uint64_t)HD * 2, (uint64_t)KV * HD * 2};
-  const uint32_t box_kv[3] = {Lay::SPAN / 2, 1, (uint32_t)PS};
+  const uint32_t box_kv[3] = {Lay::SPAN / 2, 1,
+                              (uint32_t)(PS < Lay::BKV ? PS : Lay::BKV)};
   int e = make_map(&mq, q, 4, dims_q, strides_q, box_q, Lay::SPAN);
   if (!e) e = make_map(&mk, k_pool, 3, dims_kv, strides_kv, box_kv, Lay::SPAN);
   if (!e) e = make_map(&mv, v_pool, 3, dims_kv, strides_kv, box_kv, Lay::SPAN);
@@ -1067,12 +1097,14 @@ int launch_chunk(const void* q, const void* k_pool, const void* v_pool,
   dim3 grid((S + QS - 1) / QS, KV, L);
   bf16* o = static_cast<bf16*>(out);
   if (softcap > 0.0f)
-    chunk_kernel<HD, true><<<grid, CHUNK_THREADS, ChunkLayout<HD>::SMEM,
+    chunk_kernel<HD, true><<<grid, ChunkLayout<HD>::THREADS,
+                             ChunkLayout<HD>::SMEM,
                              st>>>(mq, mk, mv, table, positions, o, S, KV, G,
                                    QS, P, ps_shift, n_pool * PS, scale,
                                    window, softcap);
   else
-    chunk_kernel<HD, false><<<grid, CHUNK_THREADS, ChunkLayout<HD>::SMEM,
+    chunk_kernel<HD, false><<<grid, ChunkLayout<HD>::THREADS,
+                              ChunkLayout<HD>::SMEM,
                               st>>>(mq, mk, mv, table, positions, o, S, KV,
                                     G, QS, P, ps_shift, n_pool * PS, scale,
                                     window, softcap);
@@ -1113,7 +1145,7 @@ int launch_decode_hd(const Rows& kv, int hd, const void* q, void* ws,
     case HD: return launch_decode<HD, Rows>(                              \
         kv, q, ws, out, counters, rows, G, n_tiles, n_splits, scale,      \
         window, softcap, st);
-    K5_CASE(16) K5_CASE(32) K5_CASE(64) K5_CASE(128)
+    K5_CASE(16) K5_CASE(32) K5_CASE(64) K5_CASE(128) K5_CASE(256)
 #undef K5_CASE
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1130,7 +1162,7 @@ extern "C" int k4_flash_prefill(const void* q, const void* k, const void* v,
 #define K4_CASE(HD)                                                        \
     case HD: return launch_prefill<HD>(q, k, v, out, B, Sq, Skv, H, KV,    \
                                        scale, window, softcap, st);
-    K4_CASE(16) K4_CASE(32) K4_CASE(64) K4_CASE(128)
+    K4_CASE(16) K4_CASE(32) K4_CASE(64) K4_CASE(128) K4_CASE(256)
 #undef K4_CASE
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1189,7 +1221,7 @@ extern "C" int k6_paged_chunk(const void* q, const void* k_pool,
     case HD: return launch_chunk<HD>(q, k_pool, v_pool, T, Pos, out, L, S,  \
                                      KV, G, P, ps_shift, n_pool, scale,     \
                                      window, softcap, st);
-    K6C_CASE(16) K6C_CASE(32) K6C_CASE(64) K6C_CASE(128)
+    K6C_CASE(16) K6C_CASE(32) K6C_CASE(64) K6C_CASE(128) K6C_CASE(256)
 #undef K6C_CASE
     default: return (int)cudaErrorInvalidValue;
   }

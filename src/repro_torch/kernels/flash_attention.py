@@ -37,8 +37,8 @@ F2), so a paged lane is bitwise the same history in a dense cache, and
 its workspace holds the live tiles' partials.  A prefill chunk (S > 1)
 takes a flash-prefill body (``k6_paged_chunk``): one block per (q tile,
 kv head, lane) holds S x G query rows of the lane (``chunk_tiles``) and
-streams each 128-slot K/V tile of the lane once, page by page through
-the table, into K4's tensor-core arithmetic; each row is masked by its
+streams each K/V tile of the lane once, page by page through the table,
+into K4's tensor-core arithmetic; each row is masked by its
 own position, so it agrees with the plain version within the rounding
 of P to bf16.  In both an idle row (position -1) gives exactly 0.0, and
 a lane reads only its own pages.
@@ -50,6 +50,12 @@ softcap)`` (an IEEE division, ``ref.softcap_scores``) before the mask.
 K5 serves ``'global'`` only: a local layer's dense cache is a ring buffer,
 decoded outside the kernels (``models.attention.decode_attention_ring``).
 Any other kind raises (``ref.check_kind``) on every device.
+
+Head dims (``_HEAD_DIMS``): 16 to 128, and gemma3's 256, where K4 and
+K6's chunk body stream 64-slot K/V tiles (two stages beside the 64 KB Q
+tile) and the decode body's 96 KB ring fits two blocks an SM, so its
+split count comes from ``decode_splits``.  A launch at hd 256 also counts
+under its ``hd256`` variant.  Any other head dim raises on the card.
 """
 from __future__ import annotations
 
@@ -67,7 +73,7 @@ _NEG = -1e30
 
 # KV tile of the decode path; the CUDA kernel's TILE is the same constant
 DEFAULT_KV_TILE = 32
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 # query heads a block of the decode kernel holds (G_MAX)
 _G_MAX = 8
 # blocks per SM the decode grid aims at: one wave, as many as fit an SM
@@ -162,7 +168,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    _cuda.count("flash_attention", local=win > 0, softcap=bool(softcap))
+    _cuda.count("flash_attention", local=win > 0, softcap=bool(softcap),
+                hd256=hd == 256)
     _cuda.launch("flash_attention", "k4_flash_prefill", q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, n_h,
                  n_kv, hd, hd ** -0.5, win, float(softcap or 0.0))
@@ -175,6 +182,22 @@ def default_splits(rows: int, n_tiles: int, sms: int) -> int:
     one per tile.  No bit of the output depends on it."""
     want = -(-DECODE_BLOCKS_PER_SM * sms // max(rows, 1))
     return max(1, min(n_tiles, want))
+
+
+def decode_blocks_per_sm(hd: int) -> int:
+    """Blocks of the decode kernel that fit one SM at head dim ``hd``: its
+    ring of 3 K and V tiles of 32 slots is 48 KB at hd 128 (4 blocks of
+    the SM's 228 KB) and 96 KB at hd 256 (2)."""
+    return DECODE_BLOCKS_PER_SM if hd <= 128 else 2
+
+
+def decode_splits(rows: int, n_tiles: int, sms: int, hd: int) -> int:
+    """``default_splits`` for rows at head dim ``hd``: one wave of the
+    blocks that fit an SM there (``decode_blocks_per_sm``), so a row at hd
+    256, whose block takes the room of two at hd 128, counts twice.  No
+    bit of the output depends on it."""
+    weight = DECODE_BLOCKS_PER_SM // decode_blocks_per_sm(hd)
+    return default_splits(rows * weight, n_tiles, sms)
 
 
 def head_groups(g: int):
@@ -239,7 +262,7 @@ def dense_decode_launch(q, k_cache, v_cache, pos: int,
     rows = b * n_kv * rep
     n_tiles = math.ceil(kv_len / DEFAULT_KV_TILE)
     if n_splits is None:
-        n_splits = default_splits(rows, n_tiles, sm_count(q.device.index))
+        n_splits = decode_splits(rows, n_tiles, sm_count(q.device.index), hd)
     if n_splits < 1:
         raise ValueError(f"n_splits must be >= 1, got {n_splits}")
     out = torch.empty_like(q)
@@ -248,7 +271,7 @@ def dense_decode_launch(q, k_cache, v_cache, pos: int,
         return out.zero_(), ws
     counters = (split_scratch(q.device, 0, rows)[1].data_ptr()
                 if n_splits > 1 else None)
-    _cuda.count("flash_decode", softcap=bool(softcap))
+    _cuda.count("flash_decode", softcap=bool(softcap), hd256=hd == 256)
     _cuda.launch("flash_attention", "k5_flash_decode", q.data_ptr(),
                  k_cache.data_ptr(), v_cache.data_ptr(), ws.data_ptr(),
                  out.data_ptr(), counters, b, n_kv, rep, gk, hd, kv_len,
@@ -264,7 +287,7 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     """K5: split-K flash decode, partials and fold in one launch.
     q [B, 1, KV, G, hd], caches [B, K, KV, hd] bf16 contiguous ->
     [B, 1, KV, G, hd] bf16, bitwise the same for any ``n_splits`` (tile
-    groups per kernel row; default ``default_splits``)."""
+    groups per kernel row; default ``decode_splits``)."""
     return dense_decode_launch(q, k_cache, v_cache, pos, n_splits,
                                softcap)[0]
 
@@ -326,8 +349,8 @@ def paged_flash_decode_tiled(q, k_pool, v_pool, page_table, positions, *,
 
 
 # the chunk body's q tile holds at most this many (position, head) rows;
-# it takes page sizes that tile its 128-slot K/V tiles in whole pages, at
-# most 32 of them
+# it takes page sizes from 4 slots to 128, a K/V tile (128 slots, 64 at hd
+# 256) being whole pages (at most 32) or part of one
 CHUNK_ROWS = 128
 CHUNK_PAGE_SIZES = (4, 8, 16, 32, 64, 128)
 
@@ -360,7 +383,7 @@ def _chunk_launch(q, k_pool, v_pool, page_table, positions, win: int,
     out = torch.empty_like(q)
     if q.numel():
         _cuda.count("paged_decode", local=win > 0, softcap=bool(softcap),
-                    chunk=True)
+                    chunk=True, hd256=hd == 256)
         _cuda.launch("flash_attention", "k6_paged_chunk", q.data_ptr(),
                      k_pool.data_ptr(), v_pool.data_ptr(),
                      page_table.data_ptr(), positions.data_ptr(),
@@ -400,14 +423,15 @@ def paged_decode_launch(q, k_pool, v_pool, page_table, positions, *,
                              softcap), None
     rows = n_lanes * n_kv * rep
     n_tiles = math.ceil(p_max * ps / DEFAULT_KV_TILE)
-    n_splits = default_splits(rows, n_tiles, sm_count(q.device.index))
+    n_splits = decode_splits(rows, n_tiles, sm_count(q.device.index), hd)
     out = torch.empty_like(q)
     ws = _workspace(rows, n_tiles, gk, hd, q.device)
     if rows == 0 or n_tiles == 0:
         return out.zero_(), ws
     counters = (split_scratch(q.device, 0, rows)[1].data_ptr()
                 if n_splits > 1 else None)
-    _cuda.count("paged_decode", local=win > 0, softcap=bool(softcap))
+    _cuda.count("paged_decode", local=win > 0, softcap=bool(softcap),
+                hd256=hd == 256)
     _cuda.launch("flash_attention", "k6_paged_decode", q.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
                  positions.data_ptr(), ws.data_ptr(), out.data_ptr(),

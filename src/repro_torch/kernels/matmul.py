@@ -202,7 +202,7 @@ def split_scratch(device: torch.device, partials: int,
     zero again when the kernel ends.  K1 and K2 calls on one device share both
     buffers and must therefore run on one stream (the port's only one).
     K5 and K6 take the same counters, one per row they split
-    (``flash_attention.default_splits``)."""
+    (``flash_attention.decode_splits``)."""
     ws, cnt = _SPLIT_SCRATCH.get(device.index, (None, None))
     if ws is None or ws.numel() < partials:
         ws = torch.empty(max(partials, 1 << 20), dtype=torch.float32,

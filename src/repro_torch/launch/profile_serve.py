@@ -7,6 +7,9 @@ where the int8 copy does not fit beside the model: gemma2-27b).
         --arch granite-3-8b --out profile_serve.json
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch gemma2-27b --out profile_serve_gemma2.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch gemma3-12b --batch 2 --prompt-len 4160 \
+        --out profile_serve_gemma3.json
 
 Prints, for each window (fixed prefill, fixed decode step, and per engine
 a scheduler iteration that prefills one chunk on every lane and one that

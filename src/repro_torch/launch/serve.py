@@ -8,6 +8,8 @@ or continuous batching over the paged KV cache (``--requests N``).
         --smoke --device cpu [--requests 6]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
         [--requests 8] [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+        [--requests 8] [--int8] [--smoke --device cpu]
 
 Runs on the CUDA card unless ``--device cpu``; weights are random, drawn
 from ``--seed`` on the device.  The fixed mode prints the prefill time,
@@ -18,7 +20,8 @@ and token budgets drawn from ``--seed``, to a scheduler of 8 lanes
 prints the time to first token, the time per decode-only iteration,
 tokens/s and every request's status.  gemma2-27b's 27.2 B bf16 parameters
 (54.4 GB) leave no room on an 80 GB card for its int8 copy beside them,
-so ``--int8`` is granite's.
+so ``--int8`` serves granite-3-8b and gemma3-12b (11.8 B parameters,
+23.5 GB in bf16, and its int8 copy beside them).
 """
 from __future__ import annotations
 
@@ -115,12 +118,19 @@ GEOMETRY = dict(n_lanes=8, page_size=16, prefill_chunk=64, max_seq_len=512)
 # and a pool of 512 pages shared by them (3.1 GB over 46 layers) instead
 # of eight full lanes' 2096
 GEMMA2_GEOMETRY = dict(GEOMETRY, max_seq_len=4192, n_pages=512)
+# gemma3-12b: gemma2's lanes and shared pool (1.6 GB over 48 layers at its
+# 8 kv heads of 256), so a 4160-token prompt runs past its 1024 window
+GEMMA3_GEOMETRY = dict(GEMMA2_GEOMETRY)
 PROMPT_RANGE, NEW_RANGE = (32, 448), (16, 32)
 
 
 def geometry(arch: str) -> dict:
     """The scheduler geometry ``--arch`` is served with."""
-    return GEMMA2_GEOMETRY if arch.startswith("gemma2") else GEOMETRY
+    if arch.startswith("gemma2"):
+        return GEMMA2_GEOMETRY
+    if arch.startswith("gemma3"):
+        return GEMMA3_GEOMETRY
+    return GEOMETRY
 
 
 def int8_fits(cfg, device: torch.device) -> bool:
