@@ -99,6 +99,26 @@ line):
    chunk body with ``chunk_contracts``, also on 128-slot pages; K1 at its
    five projections at rows 2, 8, 512 and 8320 and K2 at 8 and 512) and
    its smoke config at ``head_dim=256`` card against CPU.
+7. whisper: after gemma3's model is freed, full-width whisper-small (12
+   encoder and 12 decoder layers, d_model 768, 12 heads of 64, the plain
+   GELU MLP of 3072, bf16 projection weights) from seed 0
+   (``serve_whisper``): at init scales a decode-vs-prefill witness
+   (``long_witness`` with the frames) and the int8 copy's first logits
+   against the bf16 model's; then, on varied weights, ``generate_with_status`` (the
+   engine falls through to the fixed loop: the model is not pageable) on
+   8 clips of 1500 frame embeddings drawn from the seed, a 64-token prompt
+   and 64 greedy tokens, bf16 and int8 (K1 with gelu, K4 'full' over the
+   encoder and the cross-attention prefill, K4 causal, K5 global and
+   'full', K2 with gelu and its quantize tail or row kernel): every
+   status ok, every variant launched, one decode iteration's launches
+   exact (``decode_launches``: 2 layers + 1 row-norm launches, the entry
+   norm, each ``lnx`` and ``ln2``).  Phase 2 holds the four variants
+   against their plain versions at these shapes, timed beside bound and
+   yardstick (``check_whisper_kernels``: K1 gelu at M = 12000 and 8, K2
+   gelu with the quantize at M = 8 and 512, K4 'full' over the encoder
+   and at Sq 64 against Skv 1500, K5 'full' over the 1500 frames), and
+   phase 3 its smoke config card against CPU through the same
+   fall-through, bf16 and int8 (``check_whisper_smoke``).
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -174,19 +194,44 @@ PATH_KERNELS = {
                               "paged_decode:hd256",
                               "paged_decode:local+chunk+hd256",
                               "paged_decode:chunk+hd256"),
+    # whisper: the encoder (K4 'full', K1 gelu), the decoder's prefill (K4
+    # causal and 'full') and decode (K5 global and 'full'); under int8 the
+    # decoder's up GEMM is K2 with gelu (its quantize the store phase's
+    # tail at decode), while the encoder and cross-attention stay on K1
+    "whisper_fixed": ("matmul", "matmul:gelu", "matmul:norm", "rmsnorm",
+                      "flash_attention", "flash_attention:full",
+                      "flash_decode", "flash_decode:full"),
+    "whisper_fixed_int8": ("matmul", "matmul:gelu", "int8_matmul",
+                           "int8_matmul:gelu", "int8_matmul:gelu+quantize",
+                           "int8_matmul:norm", "int8_quantize", "quantize",
+                           "rmsnorm", "flash_attention",
+                           "flash_attention:full", "flash_decode",
+                           "flash_decode:full"),
 }
 
 
-def decode_launches(name, counts, layers: int, int8: bool = False) -> dict:
+def decode_launches(name, counts, layers: int, int8: bool = False,
+                    encdec: bool = False) -> dict:
     """One decode iteration's launch counts on a driven path: the entry
     norm and each block's ``ln2`` are the only row-norm launches (the down
     GEMM's norm is its tail, one per layer), and under int8 no row
-    quantize launches (the up GEMM's quantize is its tail).  Raises on a
-    miss; returns the counts."""
+    quantize launches (the up GEMM's quantize is its tail).  An
+    encoder-decoder (whisper) adds each block's ``lnx`` (2 layers + 1
+    row-norm launches), a K5 'full' launch a layer beside the global one,
+    and its up GEMM is the gelu variant (``matmul:gelu``, or under int8
+    ``int8_matmul:gelu+quantize``).  Raises on a miss; returns the
+    counts."""
     gemm = "int8_matmul" if int8 else "matmul"
-    want = {"rmsnorm": layers + 1, f"{gemm}:norm": layers}
+    want = {"rmsnorm": (2 if encdec else 1) * layers + 1,
+            f"{gemm}:norm": layers}
+    if encdec:
+        want.update({"flash_decode": 2 * layers,
+                     "flash_decode:full": layers,
+                     ("int8_matmul:gelu+quantize" if int8
+                      else "matmul:gelu"): layers})
     if int8:
-        want.update({"int8_matmul:quantize": layers, "int8_quantize": 0})
+        want.update({"int8_matmul:quantize": 0 if encdec else layers,
+                     "int8_quantize": 0})
     got = {k: counts.get(k, 0) for k in want}
     require(got == want, f"{name}: launches in one decode iteration {got}, "
                          f"want {want}")
@@ -465,9 +510,10 @@ def sdpa_ms(torch, timer, q, k, v, **kw):
 
 
 def k5_row(torch, timer, rand, b, length, pos, kv, g, hd, softcap, scale,
-           where):
-    """K5 at one shape (caches of ``length`` slots, position ``pos``; q and
-    K at ``scale``): the output bitwise the same at split counts 1, 2, 4,
+           where, kind="global"):
+    """K5 at one shape (caches of ``length`` slots, position ``pos``, or
+    every slot for ``kind='full'``; q and K at ``scale``): the output
+    bitwise the same at split counts 1, 2, 4,
     the default and n_tiles, each (b, kv, g) row within 2 bf16 ulps of its
     scale of ``flash_decode_tiled``; the live tiles' partials, as the
     serving launch leaves them in its workspace (fp32, the same math in
@@ -486,37 +532,40 @@ def k5_row(torch, timer, rand, b, length, pos, kv, g, hd, softcap, scale,
     kc, vc = rand(b, length, kv, hd, scale=scale), rand(b, length, kv, hd)
     rows, n_tiles = b * kv, -(-length // 32)
     splits = (None, 1, 2, 4, n_tiles)
-    outs = [ops.flash_decode(q, kc, vc, pos, softcap=softcap, n_splits=n)
-            for n in splits]
+    outs = [ops.flash_decode(q, kc, vc, pos, softcap=softcap, n_splits=n,
+                             kind=kind) for n in splits]
     require(all(torch.equal(outs[0], o) for o in outs[1:]),
             f"K5 ({where}) output changes with n_splits")
-    want = flash_decode_tiled(q, kc, vc, pos, softcap)
+    want = flash_decode_tiled(q, kc, vc, pos, softcap, kind)
     err = row_err(outs[0], want)
     require(err <= 2 * eps_bf16,
             f"K5 ({where}): a row is off by {err:.3e} of its scale")
-    out, ws = dense_decode_launch(q, kc, vc, pos, softcap=softcap)
+    out, ws = dense_decode_launch(q, kc, vc, pos, softcap=softcap, kind=kind)
     require(torch.equal(out, outs[0]), f"K5 ({where}): two launches differ")
     p_err = record_err(torch, ws, decode_tile_partials(q, kc, vc, pos,
-                                                       softcap),
+                                                       softcap, kind),
                        rows, n_tiles, g, hd)
     del out, ws
     require(p_err <= 1e-5, f"K5 ({where}) partials: a row is off by "
                            f"{p_err:.3e}")
-    live = pos + 1
+    live = length if kind == "full" else pos + 1
     t_b, by = bound(2 * 2 * q.numel() + 2 * 2 * b * live * kv * hd,
                     4 * b * kv * g * hd * live)
     row = dict(
-        work=f"{where}: decode B={b} cache={length} pos={pos} KV={kv} G={g} "
-             f"hd={hd} softcap={softcap}, {n_tiles} tiles, "
+        work=f"{where}: {kind} decode B={b} cache={length} "
+             f"{'every slot' if kind == 'full' else f'pos={pos}'} KV={kv} "
+             f"G={g} hd={hd} softcap={softcap}, {n_tiles} tiles, "
              f"{decode_splits(rows, n_tiles, sm_count(q.device.index), hd)} "
              f"splits by default; bitwise at n_splits {list(splits)}",
         max_abs_err=max_err(outs[0], want), max_row_err=err,
         tol=2 * eps_bf16, partials_row_err=p_err, partials_tol=1e-5,
-        ms=timer(lambda: ops.flash_decode(q, kc, vc, pos, softcap=softcap)),
+        ms=timer(lambda: ops.flash_decode(q, kc, vc, pos, softcap=softcap,
+                                          kind=kind)),
         wrapper_ms=timer.wall(
-            lambda: ops.flash_decode(q, kc, vc, pos, softcap=softcap)),
-        plain_ms=timer(lambda: flash_decode_tiled(q, kc, vc, pos, softcap),
-                       reps=3),
+            lambda: ops.flash_decode(q, kc, vc, pos, softcap=softcap,
+                                     kind=kind)),
+        plain_ms=timer(lambda: flash_decode_tiled(q, kc, vc, pos, softcap,
+                                                  kind), reps=3),
         bound_ms=t_b, bound_by=by, library_ms=None,
         library_note="no one PyTorch call has a softcap")
     if softcap is None:
@@ -1612,13 +1661,13 @@ def decode_witness(torch, model, toks):
 INT8_WITNESS_TOL = 0.10
 
 
-def int8_witness(torch, model, toks):
+def int8_witness(torch, model, toks, frames=None):
     q8 = model.quantize_params_for_serving()
-    want, _ = model.prefill(toks)
-    got, _ = q8.prefill(toks)
+    want, _ = model.prefill(toks, frames=frames)
+    got, _ = q8.prefill(toks, frames=frames)
     other = toks.clone()
     other[:, -1] = (other[:, -1] + 1) % model.cfg.vocab
-    off, _ = model.prefill(other)
+    off, _ = model.prefill(other, frames=frames)
     w = dict(err=rel_rows(got, want), other_token=rel_rows(off, want),
              tol=INT8_WITNESS_TOL)
     require(w["err"] <= INT8_WITNESS_TOL,
@@ -2402,27 +2451,28 @@ def check_local_smoke(torch, arch: str, **over):
                 distinct_tokens=len(set(got.reshape(-1).tolist())))
 
 
-def long_witness(torch, model, toks, new: int):
+def long_witness(torch, model, toks, new: int, frames=None):
     """The long-context phases' witness at the reference's init scales: the
     fixed loop's decode step at position prompt + new - 2 (the local
-    layers' ring has wrapped, K5 over the global caches) against the last
-    logits of a prefill over the same tokens (K4 local and global), each
-    lane within WITNESS_TOL of its logit scale; the same step against a
-    prefill whose last token was changed must differ by more than 4x
+    layers' ring has wrapped, K5 over the global caches; whisper's K5
+    'full' over its ``frames``) against the last logits of a prefill over
+    the same tokens (K4 local and global; whisper's causal and 'full'),
+    each lane within WITNESS_TOL of its logit scale; the same step against
+    a prefill whose last token was changed must differ by more than 4x
     that."""
     cfg = model.cfg
     prompt = toks.shape[1]
-    logits, cache = model.prefill(toks, prompt + new)
+    logits, cache = model.prefill(toks, prompt + new, frames=frames)
     seq = toks.to(logits.device)
     for i in range(new - 1):
         tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
         seq = torch.cat([seq, tok], dim=1)
         logits, cache = model.decode_step(cache, tok, prompt + i)
     del cache
-    want, _ = model.prefill(seq)
+    want, _ = model.prefill(seq, frames=frames)
     other = seq.clone()
     other[:, -1] = (other[:, -1] + 1) % cfg.vocab
-    off, _ = model.prefill(other)
+    off, _ = model.prefill(other, frames=frames)
     w = dict(position=prompt + new - 2, err=rel_rows(logits, want),
              other_token=rel_rows(logits, off), tol=WITNESS_TOL)
     require(w["err"] <= WITNESS_TOL,
@@ -2609,6 +2659,351 @@ def serve_long(torch, arch: str, prefix: str, batch: int, prompt: int,
     torch.cuda.empty_cache()
     return out
 
+# whisper-small (src/repro_torch/configs/whisper_small.py): 12 heads of 64
+# (G = 1), d_model 768, d_ff 3072; phase 7 serves 8 clips of 1500 frames
+# with a 64-token prompt and 64 greedy tokens (position 128 of its 448)
+WH_H, WH_HD, WH_D, WH_FF, WH_FRAMES = 12, 64, 768, 3072, 1500
+WH_BATCH, WH_PROMPT, WH_NEW = 8, 64, 64
+
+
+def check_whisper_kernels(torch, timer):
+    """Phase 2, whisper: the four kernel variants it runs, each against its
+    plain version on the card at the main path's shapes and timed beside
+    its bound and yardstick.  K1 with ``activation='gelu'`` (the up GEMM
+    [M, 768] x [768, 3072]) over the encoder's 8 x 1500 frames and at
+    decode (M = 8), each row within 2 bf16 ulps of its scale, beside one
+    ``torch.matmul`` of the same operands (the gelu not included).  K2
+    with gelu and the row quantize (the int8 decoder's up GEMM) at decode
+    (M = 8, the store-phase tail) and at the 8 x 64 prefill (M = 512, the
+    row kernel after it): q within one step, the scales within 2 fp32
+    ulps, beside ``torch._int_mm``.  K4 'full' over the encoder (8 x 1500
+    x 1500, 12 heads of 64) and the cross-attention prefill (Sq 64
+    against Skv 1500, a ragged tile), each row within 2 bf16 ulps; K5
+    'full' over the 1500 frames at decode (``k5_row``: bitwise across
+    split counts, partials within 1e-5); each beside SDPA with no mask."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.epilogue import Epilogue
+    from repro_torch.kernels.matmul import k1_plan, sm_count
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    eps_f32 = float(torch.finfo(torch.float32).eps)
+    tol = 2 * eps_bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    results = {}
+    k, n = WH_D, WH_FF
+    w = rand(k, n, scale=3 * k ** -0.5)
+    ep = Epilogue(activation="gelu", out_dtype=bf)
+    for m, where in ((WH_BATCH * WH_FRAMES, "the encoder's 8 x 1500 frames"),
+                     (WH_BATCH, "decode")):
+        x = rand(m, k)
+        got = ops.matmul(x, w, epilogue=ep)
+        want = ref.matmul_fused_ref(x, w, ep)
+        err, abs_err = row_err(got, want), max_err(got, want)
+        del got, want
+        require(err <= tol, f"K1 gelu M={m}: a row is off by {err:.3e}")
+        t_b, by = bound(2 * (m * k + k * n + m * n), 2 * m * k * n)
+        plan = k1_plan(m, n, k, sm_count(0))
+        results[f"k1_matmul_gelu_m{m}"] = dict(
+            work=f"whisper's up GEMM with the gelu epilogue at {where}: "
+                 f"M={m} K={k} N={n}, {plan.regime} regime, "
+                 f"{plan.splits} split(s)",
+            max_abs_err=abs_err, max_row_err=err, tol=tol,
+            ms=timer(lambda x=x: ops.matmul(x, w, epilogue=ep)),
+            wrapper_ms=timer.wall(lambda x=x: ops.matmul(x, w, epilogue=ep)),
+            plain_ms=timer(lambda x=x: ref.matmul_fused_ref(x, w, ep),
+                           reps=3),
+            bound_ms=t_b, bound_by=by,
+            library_ms=timer(lambda x=x: torch.matmul(x, w)),
+            library_note="torch.matmul of the same operands, the gelu not "
+                         "included",
+            # K1 on the same operands with no gelu: the activation's cost
+            no_gelu_ms=timer(lambda x=x: ops.matmul(x, w, out_dtype=bf)))
+        print("  whisper k1 " + json.dumps(
+            {f"M={m}": results[f"k1_matmul_gelu_m{m}"]}), flush=True)
+
+    # K2: the int8 up GEMM, the weight in QuantizedWeight's [N, K] storage
+    qb, sb = ref.quantize_colwise_ref(rand(k, n, scale=3 * k ** -0.5,
+                                           dtype=torch.float32))
+    qb = qb.t().contiguous().t()
+    ep8 = Epilogue(activation="gelu", quantize=True)
+    for m, where in ((WH_BATCH, "decode: the quantize in the store phase"),
+                     (WH_BATCH * WH_PROMPT,
+                      "the prefill: the row kernel after the GEMM")):
+        qa, sa = ref.quantize_rowwise_ref(rand(m, k, dtype=torch.float32))
+        require(torch.equal(ops.int8_matmul(qa, sa, qb, sb),
+                            ref.int8_matmul_ref(qa, sa, qb, sb)),
+                f"K2 M={m} K={k} N={n}: fp32 out is not bitwise")
+        got = ops.int8_matmul(qa, sa, qb, sb, epilogue=ep8)
+        want = ref.int8_matmul_ref(qa, sa, qb, sb, ep8)
+        q_err = int((got[0].int() - want[0].int()).abs().max())
+        s_err = float(((got[1] - want[1]).abs() / want[1]).max())
+        require(q_err <= 1 and s_err <= 2 * eps_f32,
+                f"K2 gelu M={m}: q off by {q_err}, scale by {s_err}")
+        nbytes = m * k + k * n + 4 * (m + n) + m * n + 4 * m
+        t_b, by = bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+        lib, form = _int_mm_ms(torch, timer, qa, qb)
+        row = dict(
+            work=f"whisper's int8 up GEMM with gelu and the row quantize at "
+                 f"{where}: M={m} K={k} N={n}",
+            max_abs_err=float(q_err), max_row_err=s_err,
+            tol=2 * eps_f32, q_tol=1,
+            ms=timer(lambda qa=qa, sa=sa: ops.int8_matmul(
+                qa, sa, qb, sb, epilogue=ep8)),
+            wrapper_ms=timer.wall(lambda qa=qa, sa=sa: ops.int8_matmul(
+                qa, sa, qb, sb, epilogue=ep8)),
+            plain_ms=timer(lambda qa=qa, sa=sa: ref.int8_matmul_ref(
+                qa, sa, qb, sb, ep8)),
+            bound_ms=t_b, bound_by=by, library_ms=lib, library_form=form,
+            library_note="torch._int_mm (cuBLASLt int8, no epilogue), the "
+                         "faster operand form")
+        if lib is None:
+            # _int_mm refuses M <= 16: its time on the rows zero-padded to
+            # 32 (another shape, recorded as such)
+            pad = torch.zeros((32, k), dtype=torch.int8, device="cuda")
+            pad[:m] = qa
+            row["library_ms"], row["library_form"] = _int_mm_ms(
+                torch, timer, pad, qb)
+            row["library_note"] += "; on the rows zero-padded to 32"
+        results[f"k2_int8_matmul_gelu_m{m}"] = row
+        print("  whisper k2 " + json.dumps({f"M={m}": row}), flush=True)
+
+    # K4 'full': the encoder's self-attention, the cross-attention prefill
+    for name, sq in (("k4_flash_prefill_full_encoder", WH_FRAMES),
+                     ("k4_flash_prefill_full_cross", WH_PROMPT)):
+        b, skv = WH_BATCH, WH_FRAMES
+        q = rand(b, sq, WH_H, WH_HD, scale=2.0)
+        kk, vv = rand(b, skv, WH_H, WH_HD, scale=2.0), rand(b, skv, WH_H,
+                                                             WH_HD)
+        got = ops.flash_attention(q, kk, vv, kind="full")
+        want = ref.flash_attention_ref(q, kk, vv, kind="full")
+        err, abs_err = row_err(got, want), max_err(got, want)
+        del got, want
+        require(err <= tol, f"{name}: a row is off by {err:.3e}")
+        t_b, by = bound(2 * (2 * q.numel() + 2 * kk.numel()),
+                        4 * b * WH_H * WH_HD * sq * skv)
+        results[name] = dict(
+            work=f"full (bidirectional) prefill B={b} Sq={sq} Skv={skv} "
+                 f"H={WH_H} KV={WH_H} hd={WH_HD} (Skv ragged: 1500 = 11 x "
+                 f"128 + 92)",
+            max_abs_err=abs_err, max_row_err=err, tol=tol,
+            ms=timer(lambda q=q, kk=kk, vv=vv: ops.flash_attention(
+                q, kk, vv, kind="full")),
+            wrapper_ms=timer.wall(lambda q=q, kk=kk, vv=vv:
+                                  ops.flash_attention(q, kk, vv,
+                                                      kind="full")),
+            plain_ms=timer(lambda q=q, kk=kk, vv=vv: ref.flash_attention_ref(
+                q, kk, vv, kind="full"), reps=3),
+            bound_ms=t_b, bound_by=by,
+            library_ms=sdpa_ms(torch, timer, q, kk, vv),
+            library_note="SDPA with no mask (sdpa_ms)")
+        print("  whisper k4 " + json.dumps({name: results[name]}),
+              flush=True)
+        del q, kk, vv
+    results["k5_flash_decode_full"] = k5_row(
+        torch, timer, rand, WH_BATCH, WH_FRAMES, 0, WH_H, 1, WH_HD, None,
+        2.0, "whisper-small's cross-attention decode", kind="full")
+    torch.cuda.empty_cache()
+    return results
+
+
+def check_whisper_smoke(torch):
+    """Phase 3, whisper: the smoke config (2 encoder and 2 decoder layers,
+    24 frames a clip, bf16 compute and bf16 projection weights as the full
+    model has them), card against CPU, weights varied as in phase 3,
+    through ``generate_with_status`` (its fall-through to the fixed loop),
+    bf16 and int8: the card's teacher-forced logits (prefill with the
+    encoder, then decode steps fed the CPU's picks) within twice the CPU
+    pipeline's own bf16 rounding noise (its distance from an fp32-compute
+    run on the same weights), and each lane's greedy tokens equal up to
+    its first step where the CPU's two best logits lie within twice the
+    lane's card-CPU logit difference (a near tie that difference
+    explains)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_frames
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = get_config("whisper-small", smoke=True)
+    cpu = Model(cfg, device="cpu").init_weights(SEED)
+    vary(torch, cpu, SEED)
+    card = Model(cfg)
+    card.load_state_dict(cpu.state_dict())
+    ref32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                  device="cpu")
+    ref32.load_state_dict(cpu.state_dict())
+    plen, steps = 16, 8
+    toks = torch.randint(0, cfg.vocab, (BATCH, plen),
+                         generator=torch.Generator().manual_seed(SEED + 3))
+    frames = make_frames(cfg, BATCH, SEED + 3)
+    batch = {"tokens": toks, "frames": frames}
+
+    def rel(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max()
+                     / max(1.0, float(b.abs().max())))
+
+    out = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        scfg = ServeConfig(max_new_tokens=steps, int8=int8)
+        ecpu, ecard = ServeEngine(cpu, scfg), ServeEngine(card, scfg)
+        want = ecpu.generate_with_status(batch)
+        got = ecard.generate_with_status(batch)
+        require(list(got.status) == list(want.status) == ["ok"] * BATCH,
+                f"whisper smoke {tag} statuses {got.status} {want.status}")
+        served = (ecpu.model, ecard.model,
+                  ref32.quantize_params_for_serving() if int8 else ref32)
+        runs = [m.prefill(toks, plen + steps, frames=frames)
+                for m in served]
+        logits = [[r[0].float().cpu()] for r in runs]
+        caches = [r[1] for r in runs]
+        for i in range(steps - 1):
+            tok = torch.from_numpy(want.tokens[:, i:i + 1])
+            for j, m in enumerate(served):
+                lg, caches[j] = m.decode_step(caches[j], tok, plen + i)
+                logits[j].append(lg.float().cpu())
+        lc, lg, l3 = logits
+        err = [rel(g, c) for g, c in zip(lg, lc)]
+        noise = [rel(c, r) for c, r in zip(lc, l3)]
+        require(max(err) <= 2 * max(noise),
+                f"whisper smoke {tag}: card logits off by {max(err):.3e} "
+                f"of scale, budget {2 * max(noise):.3e}")
+        # each lane up to its first near tie: a step where the CPU's two
+        # best logits of the lane lie within twice the lane's card-CPU
+        # logit difference
+        first = [steps] * BATCH
+        for i, (g, c) in enumerate(zip(lg, lc)):
+            top2 = c[:, :cfg.vocab].topk(2, dim=-1).values
+            diff = (g - c).abs().amax(-1)
+            for lane in range(BATCH):
+                if (first[lane] == steps
+                        and top2[lane, 0] - top2[lane, 1] <= 2 * diff[lane]):
+                    first[lane] = i
+        for lane in range(BATCH):
+            require(np.array_equal(got.tokens[lane, :first[lane]],
+                                   want.tokens[lane, :first[lane]]),
+                    f"whisper smoke {tag} lane {lane}: greedy tokens differ "
+                    f"before a near tie: card {got.tokens.tolist()} cpu "
+                    f"{want.tokens.tolist()}")
+        out[tag] = dict(tokens=got.tokens.tolist(),
+                        cpu_tokens=want.tokens.tolist(), equal_steps=first,
+                        logit_err=max(err), budget=2 * max(noise))
+    return out
+
+
+def serve_whisper(torch):
+    """Phase 7: full-width whisper-small (12 encoder and 12 decoder layers,
+    bf16 projection weights, random weights from SEED), built after the
+    models of the phases before it are gone.  At the init scales the
+    decode-vs-prefill witness (``long_witness`` with the frames) and the
+    int8 copy's first logits against the bf16 model's (``int8_witness``).
+    Then, on weights varied as in phase 3, ``generate_with_status`` (the
+    engine falls through to the fixed loop: the model is not pageable) on
+    8 clips of 1500 frames, a 64-token prompt and 64 greedy tokens, bf16
+    and int8, each with the launch counts set to 0 just before it: every
+    status ok, every kernel of ``PATH_KERNELS[<its name>]`` launched, and
+    one decode iteration's launches exact (``decode_launches``)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import make_frames
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("whisper-small")
+    t0 = time.perf_counter()
+    model = Model(cfg).init_weights(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    toks = torch.randint(0, cfg.vocab, (WH_BATCH, WH_PROMPT),
+                         generator=torch.Generator().manual_seed(SEED))
+    frames = make_frames(cfg, WH_BATCH, SEED)
+    out = {"whisper_witness": long_witness(torch, model, toks, 16,
+                                           frames=frames),
+           "whisper_int8_witness": int8_witness(torch, model, toks,
+                                                frames=frames)}
+    print("whisper witness: " + json.dumps(out), flush=True)
+    vary(torch, model, SEED)
+    batch = {"tokens": toks, "frames": frames}
+    for int8 in (False, True):
+        name = "whisper_fixed_int8" if int8 else "whisper_fixed"
+        engine = ServeEngine(model, ServeConfig(max_new_tokens=WH_NEW,
+                                                int8=int8))
+        served = engine.model
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = engine.generate_with_status(batch)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        require(engine._sched is None and not engine._shim_cache,
+                f"{name}: generate_with_status built a scheduler")
+        require(res.tokens.shape == (WH_BATCH, WH_NEW),
+                f"{name} tokens {res.tokens.shape}")
+        require(all(st == "ok" for st in res.status),
+                f"{name} statuses {res.status}")
+        require(all(launches.get(key, 0) > 0 for key in PATH_KERNELS[name]),
+                f"a kernel never launched on {name}: {launches}")
+        # the prefill (the encoder included: the time to first token) and
+        # the decode step
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = served.prefill(toks, WH_PROMPT + WH_NEW,
+                                       frames=frames)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        require(bool(torch.isfinite(logits).all())
+                and logits.shape == (WH_BATCH, cfg.padded_vocab()),
+                f"{name} prefill logits")
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(WH_NEW - 2):
+            logits, cache = served.decode_step(cache, tok, WH_PROMPT + i)
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t) / (WH_NEW - 2) * 1e3
+        require(bool(torch.isfinite(logits).all()), f"{name} decode logits")
+        _cuda.reset_launches()
+        served.decode_step(cache, tok, WH_PROMPT + WH_NEW - 2)
+        step_launches = decode_launches(name, dict(_cuda.LAUNCHES),
+                                        cfg.n_layers, int8, encdec=True)
+        report = dict(
+            params=sum(p.numel() for p in model.parameters()),
+            init_s=init_s, weights_gb=weights_gb, batch=WH_BATCH,
+            frames=WH_FRAMES, prompt=WH_PROMPT, new=WH_NEW, int8=int8,
+            ttft_ms=prefill_s * 1e3, decode_ms_per_step=dec_ms,
+            generate_s=gen_s, tokens_per_s=WH_BATCH * WH_NEW / gen_s,
+            statuses=list(res.status), launches=launches,
+            launches_per_decode_step=step_launches, peak_gb=peak / 1e9,
+            distinct_tokens=[len(set(lane.tolist())) for lane in res.tokens],
+            tokens=res.tokens[:, :16].tolist())
+        print(f"serve {name}: " + json.dumps(report), flush=True)
+        out[name] = report
+        del engine, served, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 
 SOURCES = {
     "k1_matmul": ("matmul", "src/repro_torch/csrc/matmul.cu",
@@ -2712,16 +3107,37 @@ SOURCES = {
         "paged_decode:chunk+hd256",
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:563"),
+    # whisper-small: gelu in K1 and K2, the 'full' kind in K4 and K5
+    "k1_matmul_gelu_m12000": ("matmul:gelu", "src/repro_torch/csrc/matmul.cu",
+                              "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_gelu_m8": ("matmul:gelu", "src/repro_torch/csrc/matmul.cu",
+                          "src/repro/kernels/matmul.py:293"),
+    "k2_int8_matmul_gelu_m8": ("int8_matmul:gelu+quantize",
+                               "src/repro_torch/csrc/matmul.cu",
+                               "src/repro/kernels/matmul.py:293"),
+    "k2_int8_matmul_gelu_m512": ("int8_matmul:gelu",
+                                 "src/repro_torch/csrc/matmul.cu",
+                                 "src/repro/kernels/matmul.py:293"),
+    "k4_flash_prefill_full_encoder": (
+        "flash_attention:full", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
+    "k4_flash_prefill_full_cross": (
+        "flash_attention:full", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
+    "k5_flash_decode_full": (
+        "flash_decode:full", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:447"),
 }
 
 
-# the row passes' own numbers, carried into the kernels line: their CUPTI
-# kernel times, their times at 8 and 512 rows, the launch floor, and a
-# tail's cost beside the GEMM alone and the two launches it replaces
-ROW_PASS_KEYS = ("kernel_ms", "rows", "floor_ms", "floor_wrapper_ms",
-                 "floor_kernel_ms", "gemm_ms", "gemm_kernel_ms", "tail_ms",
-                 "two_launches_ms", "two_launches_wrapper_ms",
-                 "two_launches_kernel_ms")
+# numbers of some rows, carried into the kernels line: the row passes'
+# CUPTI kernel times, their times at 8 and 512 rows, the launch floor, and
+# a tail's cost beside the GEMM alone and the two launches it replaces;
+# K1's time without the gelu beside its gelu rows
+EXTRA_KEYS = ("kernel_ms", "rows", "floor_ms", "floor_wrapper_ms",
+              "floor_kernel_ms", "gemm_ms", "gemm_kernel_ms", "tail_ms",
+              "two_launches_ms", "two_launches_wrapper_ms",
+              "two_launches_kernel_ms", "no_gelu_ms")
 
 
 # rows whose launches on the driven paths are not at the row's own shape
@@ -2729,6 +3145,18 @@ LAUNCH_NOTES = {
     "k5_flash_decode_gemma2": "the no-softcap variant's launches, all at "
                               "granite's shapes: gemma2 runs K5 with its "
                               "softcap only",
+    "k1_matmul_gelu_m12000": "every matmul:gelu launch: the encoder's at "
+                             "M=12000, the decoder's prefill at M=512 and "
+                             "its decode at M=8",
+    "k1_matmul_gelu_m8": "every matmul:gelu launch: the encoder's at "
+                         "M=12000, the decoder's prefill at M=512 and its "
+                         "decode at M=8",
+    "k4_flash_prefill_full_encoder": "every flash_attention:full launch: the "
+                                     "encoder's and the cross-attention "
+                                     "prefill's",
+    "k4_flash_prefill_full_cross": "every flash_attention:full launch: the "
+                                   "encoder's and the cross-attention "
+                                   "prefill's",
 }
 
 
@@ -2779,6 +3207,7 @@ def main() -> int:
           flush=True)
     kernels.update(check_gemma2_kernels(torch, timer))
     kernels.update(check_gemma3_kernels(torch, timer))
+    kernels.update(check_whisper_kernels(torch, timer))
     del timer
     torch.cuda.empty_cache()
     print("kernels: " + json.dumps(
@@ -2789,6 +3218,8 @@ def main() -> int:
     for arch, over in (("gemma2-27b", {}), ("gemma3-12b", {"head_dim": 256})):
         smoke_local = check_local_smoke(torch, arch, **over)
         print(f"smoke {arch}: " + json.dumps(smoke_local), flush=True)
+    print("smoke whisper-small: " + json.dumps(check_whisper_smoke(torch)),
+          flush=True)
     serve = serve_full(torch)
     serve["addertree"] = addertree_path(torch)
     print("addertree path: " + json.dumps(serve["addertree"]), flush=True)
@@ -2798,8 +3229,10 @@ def main() -> int:
     t1 = time.perf_counter()
     serve.update(serve_long(torch, "gemma3-12b", "gemma3", G3_BATCH,
                             G3_PROMPT, G3_NEW, G3_REQ, int8s=(False, True)))
-    print(f"phase times: gemma2 {t1 - t0:.1f} s, gemma3 "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    t2 = time.perf_counter()
+    serve.update(serve_whisper(torch))
+    print(f"phase times: gemma2 {t1 - t0:.1f} s, gemma3 {t2 - t1:.1f} s, "
+          f"whisper {time.perf_counter() - t2:.1f} s", flush=True)
     cupti_pass(torch, cupti)
     for k in kernels.values():
         if "floor_ms" in k:
@@ -2826,7 +3259,7 @@ def main() -> int:
                      **({"library_note": k["library_note"]}
                         if "library_note" in k else {}),
                      "max_row_err": k["max_row_err"], "tol": k["tol"],
-                     **{key: k[key] for key in ROW_PASS_KEYS if key in k},
+                     **{key: k[key] for key in EXTRA_KEYS if key in k},
                      "work": k["work"]})
     print(f"total {time.perf_counter() - t_start:.1f} s, the build included",
           flush=True)

@@ -4,7 +4,7 @@ from __future__ import annotations
 from typing import List
 
 from repro_torch.configs import (gemma2_27b, gemma3_12b, granite_3_8b,
-                                 internlm2_1_8b)
+                                 internlm2_1_8b, whisper_small)
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
@@ -12,6 +12,7 @@ _MODULES = {
     "internlm2-1.8b": internlm2_1_8b,
     "gemma2-27b": gemma2_27b,
     "gemma3-12b": gemma3_12b,
+    "whisper-small": whisper_small,
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

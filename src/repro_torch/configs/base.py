@@ -1,6 +1,7 @@
-"""Architecture configuration schema (the dense-decoder subset the port
-serves).  A copy of the JAX package's ``ArchConfig`` fields that the
-serving path reads; the port never imports that package."""
+"""Architecture configuration schema (the dense decoders and the
+encoder-decoder the port serves).  A copy of the JAX package's
+``ArchConfig`` fields that the serving path reads; the port never imports
+that package."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +28,12 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     rope_theta_global: Optional[float] = None  # gemma3 dual-theta
     gated_mlp: bool = True
+    # encoder-decoder (whisper): an encoder of n_enc_layers bidirectional
+    # blocks over enc_frames (stubbed) frame embeddings a clip, and
+    # cross-attention in every decoder block
+    encdec: bool = False
+    n_enc_layers: int = 0
+    enc_frames: int = 1500
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     param_dtype: str = "float32"
@@ -65,9 +72,15 @@ class ArchConfig:
         return self.block_pattern[layer % self.pattern_period]
 
     def param_count(self) -> int:
-        """Parameters of the dense gated decoder with tied embeddings."""
+        """Parameters of the attention decoder with tied embeddings, and of
+        the encoder for ``encdec``, by the reference's count (whose
+        decoder blocks leave out the cross-attention and its norm)."""
         d = self.d_model
         attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
-        return (self.padded_vocab() * d + d
-                + self.n_layers * (attn + mlp + 2 * d))
+        total = (self.padded_vocab() * d + d
+                 + self.n_layers * (attn + mlp + 2 * d))
+        if self.encdec:
+            total += self.n_enc_layers * (attn + d + 2 * d * self.d_ff
+                                          + 2 * d)
+        return total

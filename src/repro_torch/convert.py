@@ -10,8 +10,13 @@ period + i``.  Each layer takes its own ``ln1``: the reference's scan
 carries the NEXT block's ``ln1`` into a block's fused down GEMM (the
 shifted stack), and the port's forward reads ``blocks[i + 1].ln1`` for
 the same fold.  MLP weights arrive in the single-device xyz layout
-``[1, K, N]`` and become ``[K, N]``; the packed ``wqkv`` stays packed and
-interleaved.
+``[1, K, N]`` and become ``[K, N]`` (``up``/``down`` only for a plain MLP);
+the packed ``wqkv`` stays packed and interleaved.  Whisper's tree adds the
+decoder blocks' ``lnx`` and unpacked ``xattn/{wq,wk,wv,wo}``, and the
+encoder, ``encoder/blocks`` stacked over its ``n_enc_layers`` and
+``encoder/final_norm``, which become ``encoder.blocks.<i>`` and
+``encoder.final_norm``.  Loading the result into a ``Model`` casts each
+leaf once to its parameter's dtype.
 """
 from __future__ import annotations
 
@@ -34,20 +39,23 @@ def _tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
-def _block(sd: Dict[str, torch.Tensor], layer: int, blk: Dict[str, Any],
+def _block(sd: Dict[str, torch.Tensor], p: str, blk: Dict[str, Any],
            g=None) -> None:
     """One reference block (entry ``g`` of a stacked group, or an unstacked
-    tail block for ``g`` None) into ``blocks.<layer>``."""
+    tail block for ``g`` None) into the keys under prefix ``p``."""
     def leaf(a):
         return _tensor(a if g is None else a[g])
-    p = f"blocks.{layer}."
-    sd[p + "ln1"] = leaf(blk["ln1"])
-    sd[p + "ln2"] = leaf(blk["ln2"])
+    for name in ("ln1", "lnx", "ln2"):
+        if name in blk:
+            sd[p + name] = leaf(blk[name])
     sd[p + "attn.wqkv"] = leaf(blk["attn"]["wqkv"])
     sd[p + "attn.wo"] = leaf(blk["attn"]["wo"])
+    for name, w in blk.get("xattn", {}).items():
+        sd[p + "xattn." + name] = leaf(w)
     for name in ("gate", "up", "down"):
-        sd[p + "ffn." + name] = unshard_weight_xyz(
-            leaf(blk["ffn"][name]), 1).contiguous()
+        if name in blk["ffn"]:
+            sd[p + "ffn." + name] = unshard_weight_xyz(
+                leaf(blk["ffn"][name]), 1).contiguous()
 
 
 def from_jax_params(cfg: ArchConfig, params: Dict[str, Any]
@@ -58,7 +66,14 @@ def from_jax_params(cfg: ArchConfig, params: Dict[str, Any]
     period = cfg.pattern_period
     for g in range(cfg.n_groups):
         for i in range(period):
-            _block(sd, g * period + i, params["groups"][f"b{i}"], g)
+            _block(sd, f"blocks.{g * period + i}.",
+                   params["groups"][f"b{i}"], g)
     for i in range(len(cfg.tail_blocks)):
-        _block(sd, cfg.n_groups * period + i, params["tail"][f"t{i}"])
+        _block(sd, f"blocks.{cfg.n_groups * period + i}.",
+               params["tail"][f"t{i}"])
+    if cfg.encdec:
+        enc = params["encoder"]
+        for i in range(cfg.n_enc_layers):
+            _block(sd, f"encoder.blocks.{i}.", enc["blocks"], i)
+        sd["encoder.final_norm"] = _tensor(enc["final_norm"])
     return sd

@@ -32,7 +32,11 @@
 // visited tile is wholly masked adds exactly nothing (p = 0 there, and
 // alpha = exp(min(m - m_new, 0)) keeps o and l at 0 until its first live
 // key).  `softcap` > 0 caps the scaled scores, s = softcap * tanh(s /
-// softcap) with an IEEE division, before the mask.
+// softcap) with an IEEE division, before the mask.  `full_kind` (whisper's
+// encoder self-attention and cross-attention prefill) drops the causal
+// term: every q tile streams all Skv keys, which may differ from Sq (64
+// decoder positions against 1500 frames) and need not fill a tile (the
+// TMA box past Skv is zero-filled and its keys masked).
 //
 // K5 replaces flash_decode_pallas (_decode_kernel) and
 // combine_tile_partials, in one launch (k5_flash_decode): one block per
@@ -55,7 +59,9 @@
 // picks rep), rows that read the same K/V.  A query head's arithmetic
 // never depends on the heads beside it, so the grouping changes no bit.
 // Each live tile's record stays in the workspace after the fold, which is
-// how the partials are checked.
+// how the partials are checked.  The 'full' kind (whisper's
+// cross-attention decode, every stored slot live) is this kernel at
+// position cache_len - 1, passed by the wrapper.
 //
 // K6 replaces paged_flash_decode_pallas (_paged_decode_kernel) and, for
 // prefill chunks (S > 1), its tiled XLA mirror paged_flash_decode_xla,
@@ -125,11 +131,12 @@ struct PrefillLayout {
                               (1 + 2 * STAGES) * 8;
 };
 
-// key kpos is attended by query row qrow: stored, causal, and inside the
-// window ('local', window > 0)
+// key kpos is attended by query row qrow: stored, causal (not for the
+// bidirectional 'full' kind), and inside the window ('local', window > 0)
 __device__ __forceinline__ bool prefill_live(int kpos, int qrow, int Skv,
-                                             int window) {
-  return kpos < Skv && kpos <= qrow && (window == 0 || qrow - kpos < window);
+                                             int window, int full_kind) {
+  return kpos < Skv && (full_kind || kpos <= qrow) &&
+         (window == 0 || qrow - kpos < window);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -270,7 +277,8 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                bf16* __restrict__ out, int Sq, int Skv, int H, int KV,
-               int n_qt, float scale, int window, float softcap) {
+               int n_qt, float scale, int window, int full_kind,
+               float softcap) {
   using L = PrefillLayout<HD>;
   constexpr int SPAN = L::SPAN, COLS = SPAN / 2, BKV = L::BKV;
   constexpr int KV_STAGES = L::STAGES;
@@ -288,7 +296,8 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
   const int qt = n_qt - 1 - blockIdx.z, h = blockIdx.x, b = blockIdx.y;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
-  const int kv_end = min(Skv, q0 + BQ);  // no tile past the diagonal
+  // no tile past the diagonal; 'full' attends every stored key
+  const int kv_end = full_kind ? Skv : min(Skv, q0 + BQ);
   // no tile before the window of the q tile's first row
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV
@@ -361,11 +370,12 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // masks only on tiles that meet the diagonal, the end of the keys or
     // the window's lower edge of some row of this warpgroup
-    const bool edge = kv0 + BKV - 1 > qw0 || kv0 + BKV > Skv ||
+    const bool edge = (!full_kind && kv0 + BKV - 1 > qw0) ||
+                      kv0 + BKV > Skv ||
                       (window > 0 && qw0 + 63 - kv0 >= window);
     float alpha[2];
     const auto live_key = [&](int key, int r) {
-      return prefill_live(key, r0 + 8 * r, Skv, window);
+      return prefill_live(key, r0 + 8 * r, Skv, window, full_kind);
     };
     if (edge)
       tile_softmax<true, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq, live_key,
@@ -1012,7 +1022,8 @@ decode_kernel(Rows kv, const bf16* __restrict__ q, float* __restrict__ ws,
 template <int HD>
 int launch_prefill(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Skv, int H, int KV, float scale,
-                   int window, float softcap, cudaStream_t st) {
+                   int window, int full_kind, float softcap,
+                   cudaStream_t st) {
   using L = PrefillLayout<HD>;
   // q [B, Sq, H * HD] and k, v [B, Skv, KV * HD] as 3-D maps, so a box
   // past a sequence's end is zero-filled rather than read from the next
@@ -1047,11 +1058,11 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out,
   if (softcap > 0.0f)
     prefill_kernel<HD, true><<<grid, PREFILL_THREADS, L::SMEM, st>>>(
         mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KV, n_qt, scale,
-        window, softcap);
+        window, full_kind, softcap);
   else
     prefill_kernel<HD, false><<<grid, PREFILL_THREADS, L::SMEM, st>>>(
         mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KV, n_qt, scale,
-        window, softcap);
+        window, full_kind, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -1156,12 +1167,15 @@ int launch_decode_hd(const Rows& kv, int hd, const void* q, void* ws,
 extern "C" int k4_flash_prefill(const void* q, const void* k, const void* v,
                                 void* out, int B, int Sq, int Skv, int H,
                                 int KV, int hd, float scale, int window,
-                                float softcap, void* stream) {
+                                int full_kind, float softcap,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (full_kind && window) return (int)cudaErrorInvalidValue;
   switch (hd) {
 #define K4_CASE(HD)                                                        \
     case HD: return launch_prefill<HD>(q, k, v, out, B, Sq, Skv, H, KV,    \
-                                       scale, window, softcap, st);
+                                       scale, window, full_kind, softcap,  \
+                                       st);
     K4_CASE(16) K4_CASE(32) K4_CASE(64) K4_CASE(128) K4_CASE(256)
 #undef K4_CASE
     default: return (int)cudaErrorInvalidValue;

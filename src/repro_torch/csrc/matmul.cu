@@ -22,9 +22,10 @@
 // contiguous, so it is read MN-major (the descriptor's transpose bit).
 // The width changes no element's summation order: every element sums the
 // same k16 products in the same order.  The epilogue runs from the
-// accumulator registers: silu(g) * x with g from operand2, then the
-// residual, then the bf16 store, the gate and residual pairs of 8 column
-// blocks loaded ahead of their stores.
+// accumulator registers: gelu(x) (the activation, whisper's ungated up
+// GEMM), silu(g) * x with g from operand2, then the residual, then the
+// bf16 store, the gate and residual pairs of 8 column blocks loaded ahead
+// of their stores.
 //
 // Bytes regime (M < 64: decode).  Bound by the weight stream, so the
 // operands are swapped: C^T = B^T A^T, with weight columns on wgmma's
@@ -61,10 +62,11 @@
 // tensor cores (wgmma m64nNk32.s32.s8.s8), then in the store phase x =
 // (float(acc) * a_scale[m]) * b_scale[n] -- the reference's order, with
 // explicit round-to-nearest multiplies so the compiler cannot fuse a stage
-// into its neighbour -- then the gate or the residual, then a bf16 or fp32
-// store.  The s8 wgmma reads both operands K-major from shared memory, so
-// the weight arrives as [N, K] (QuantizedWeight stores it so, transposed
-// once when the model is quantized); a K-major int8 row of 128 values is
+// into its neighbour -- then the gelu activation, the gate or the
+// residual, then a bf16 or fp32 store.  The s8 wgmma reads both operands
+// K-major from shared memory, so the weight arrives as [N, K]
+// (QuantizedWeight stores it so, transposed once when the model is
+// quantized); a K-major int8 row of 128 values is
 // 128 bytes, the swizzle span, so the tiles, descriptors and TMA boxes are
 // K1's with 128 k a stage (and one k32 step where K1 takes a k16 one).
 // Both of K1's regimes, by the shape alone (k2_plan): M >= 64, tensor-core
@@ -455,11 +457,40 @@ __device__ __forceinline__ float silu(float g) {
   return __fdividef(g, 1.0f + __expf(-g));
 }
 
-// x -> silu(g) * x (gate), then + r (residual), at fp32
+// the epilogue's stages past the scales, as bits of `epi_flags`:
+// EPI_SILU the two-operand gate silu(g) * x, EPI_GELU the activation
+constexpr int EPI_SILU = 1, EPI_GELU = 2;
+
+// gelu, tanh form (jax.nn.gelu's default, PyTorch's approximate="tanh"):
+// 0.5 x (1 + tanh(y)), y = sqrt(2 / pi) (x + 0.044715 x^3), with the
+// accurate tanhf: K2's form, whose fp32 values set the row scales of its
+// quantize (whisper's int8 up GEMM)
+constexpr float GELU_BETA = 0.7978845608028654f, GELU_KAPPA = 0.044715f;
+__device__ __forceinline__ float gelu(float x) {
+  const float y = GELU_BETA * (x + GELU_KAPPA * (x * x * x));
+  return 0.5f * x * (1.0f + tanhf(y));
+}
+
+// K1's form: 0.5 (1 + tanh(y)) = 1 / (1 + exp(-2 y)), so gelu(x) = x / (1
+// + exp(-2 y)) with silu's fast exp and division (relative error about
+// 1e-6, far inside the bf16 store), a few instructions where tanhf takes
+// tens on each of the encoder's 37 M up-GEMM outputs
+__device__ __forceinline__ float gelu_fast(float x) {
+  const float y = GELU_BETA * (x + GELU_KAPPA * (x * x * x));
+  return __fdividef(x, 1.0f + __expf(-2.0f * y));
+}
+
+// x -> gelu(x) (activation), then silu(g) * x (gate), then + r
+// (residual), at fp32.  The gelu is a template flag, so the kernels that
+// do not take it carry none of its code in their unrolled store loops
+// (with a runtime flag, K2's operations regime ran 1.4-1.7x slower on an
+// H100, where no gelu was asked for)
+template <bool GELU>
 __device__ __forceinline__ float k1_epilogue(float x, const bf16* residual,
                                              const bf16* operand2, size_t o,
-                                             int gate_silu) {
-  if (gate_silu) x = silu(__bfloat162float(operand2[o])) * x;
+                                             int epi_flags) {
+  if constexpr (GELU) x = gelu_fast(x);
+  if (epi_flags & EPI_SILU) x = silu(__bfloat162float(operand2[o])) * x;
   if (residual) x += __bfloat162float(residual[o]);
   return x;
 }
@@ -499,14 +530,14 @@ struct OpsEpilogue {
   }
 };
 
-template <int BN>
+template <int BN, bool GELU>
 __global__ void __launch_bounds__(OPS_THREADS, 1)
 k1_ops_kernel(const __grid_constant__ CUtensorMap map_a,
               const __grid_constant__ CUtensorMap map_b,
               const __grid_constant__ CUtensorMap map_out,
               const __grid_constant__ CUtensorMap map_gate,
               const __grid_constant__ CUtensorMap map_res, int M, int N,
-              int K, int gate_silu, int has_residual) {
+              int K, int epi_flags, int has_residual) {
   using L = OpsLayout<BN>;
   using E = OpsEpilogue<BN>;
   constexpr int STAGES = L::STAGES;
@@ -598,13 +629,14 @@ k1_ops_kernel(const __grid_constant__ CUtensorMap map_a,
   uint8_t* t_out = smem;
   const uint8_t* t_gate = smem + E::TILE;
   const uint8_t* t_res = smem + 2 * E::TILE;
-  if (gate_silu || has_residual) {
+  const bool gated = epi_flags & EPI_SILU;
+  if (gated || has_residual) {
     if (threadIdx.x == 0) {
-      mbar_expect_tx(epi, ((gate_silu != 0) + (has_residual != 0)) *
+      mbar_expect_tx(epi, ((gated ? 1 : 0) + (has_residual != 0)) *
                               E::TILE);
 #pragma unroll
       for (int c = 0; c < BN / 64; ++c) {
-        if (gate_silu)
+        if (gated)
           tma_load_2d(smem + E::TILE + c * E::BOX, &map_gate, epi,
                       n0 + 64 * c, m0);
         if (has_residual)
@@ -623,7 +655,11 @@ k1_ops_kernel(const __grid_constant__ CUtensorMap map_a,
     for (int h = 0; h < 2; ++h) {
       const uint32_t off = E::offset(r0 + 8 * h, j, q);
       float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
-      if (gate_silu) {
+      if constexpr (GELU) {
+        x0 = gelu_fast(x0);
+        x1 = gelu_fast(x1);
+      }
+      if (gated) {
         const __nv_bfloat162 g =
             *reinterpret_cast<const __nv_bfloat162*>(t_gate + off);
         x0 = silu(__low2float(g)) * x0;
@@ -669,14 +705,14 @@ __host__ __device__ __forceinline__ int split_begin(int s, int ktiles,
   return (int)((long long)s * ktiles / splits);
 }
 
-template <int NR>
+template <int NR, bool GELU>
 __global__ void __launch_bounds__(DEC_THREADS)
 k1_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
                 const __grid_constant__ CUtensorMap map_x,
                 float* __restrict__ partial, int* __restrict__ counters,
                 bf16* __restrict__ out, const bf16* __restrict__ residual,
                 const bf16* __restrict__ operand2, const RowTail tail, int M,
-                int N, int K, int splits, int gate_silu) {
+                int N, int K, int splits, int epi_flags) {
   using L = DecLayout<NR>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -772,7 +808,7 @@ k1_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
             partial[(size_t)split * M * N + o] = x;
           else
             out[o] = __float2bfloat16(
-                k1_epilogue(x, residual, operand2, o, gate_silu));
+                k1_epilogue<GELU>(x, residual, operand2, o, epi_flags));
         }
 
   if (splits > 1) {
@@ -813,7 +849,8 @@ k1_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
       for (int u = 0; u < FE; ++u)
         if (base + 128 * u < count)
           out[o[u]] = __float2bfloat16(
-              k1_epilogue(x[u], residual, operand2, o[u], gate_silu));
+              k1_epilogue<GELU>(x[u], residual, operand2, o[u],
+                                epi_flags));
     }
     if (threadIdx.x == 0) counters[blockIdx.x] = 0;
   }
@@ -837,10 +874,10 @@ int set_smem(F* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int NR>
+template <int NR, bool GELU>
 int launch_bytes(const bf16* A, const bf16* B, float* partial, int* counters,
                  bf16* C, const bf16* R, const bf16* G, const RowTail& tail,
-                 int M, int N, int K, int splits, int gate_silu,
+                 int M, int N, int K, int splits, int epi_flags,
                  cudaStream_t st) {
   CUtensorMap map_w, map_x;
   int e = make_map_2d(&map_w, B, K, N, DEC_BK, 64);
@@ -849,20 +886,21 @@ int launch_bytes(const bf16* A, const bf16* B, float* partial, int* counters,
   if (e) return e;
   static int smem_set = 0;
   if (!smem_set) {
-    e = set_smem(k1_bytes_kernel<NR>, DecLayout<NR>::SMEM);
+    e = set_smem(k1_bytes_kernel<NR, GELU>, DecLayout<NR>::SMEM);
     if (e) return e;
     smem_set = 1;
   }
   dim3 grid((N + DEC_BN - 1) / DEC_BN, splits);
-  k1_bytes_kernel<NR><<<grid, DEC_THREADS, DecLayout<NR>::SMEM, st>>>(
+  k1_bytes_kernel<NR, GELU>
+      <<<grid, DEC_THREADS, DecLayout<NR>::SMEM, st>>>(
       map_w, map_x, partial, counters, C, R, G, tail, M, N, K, splits,
-      gate_silu);
+      epi_flags);
   return (int)cudaGetLastError();
 }
 
-template <int BN>
+template <int BN, bool GELU>
 int launch_ops(const bf16* A, const bf16* B, bf16* C, const bf16* R,
-               const bf16* G, int M, int N, int K, int gate_silu,
+               const bf16* G, int M, int N, int K, int epi_flags,
                cudaStream_t st) {
   // the output, gate and residual tiles move as [128 x 64] boxes; an
   // absent operand's map is the output's, never read
@@ -870,18 +908,20 @@ int launch_ops(const bf16* A, const bf16* B, bf16* C, const bf16* R,
   int e = make_map_2d(&map_a, A, M, K, OPS_BM, OPS_BK);
   if (!e) e = make_map_2d(&map_b, B, K, N, OPS_BK, 64);
   if (!e) e = make_map_2d(&map_out, C, M, N, OPS_BM, 64);
-  if (!e) e = make_map_2d(&map_gate, gate_silu ? G : C, M, N, OPS_BM, 64);
+  if (!e)
+    e = make_map_2d(&map_gate, (epi_flags & EPI_SILU) ? G : C, M, N,
+                    OPS_BM, 64);
   if (!e) e = make_map_2d(&map_res, R ? R : C, M, N, OPS_BM, 64);
   if (e) return e;
   static int smem_set = 0;
   if (!smem_set) {
-    e = set_smem(k1_ops_kernel<BN>, OpsLayout<BN>::SMEM);
+    e = set_smem(k1_ops_kernel<BN, GELU>, OpsLayout<BN>::SMEM);
     if (e) return e;
     smem_set = 1;
   }
   const int tiles = ((M + OPS_BM - 1) / OPS_BM) * ((N + BN - 1) / BN);
-  k1_ops_kernel<BN><<<tiles, OPS_THREADS, OpsLayout<BN>::SMEM, st>>>(
-      map_a, map_b, map_out, map_gate, map_res, M, N, K, gate_silu,
+  k1_ops_kernel<BN, GELU><<<tiles, OPS_THREADS, OpsLayout<BN>::SMEM, st>>>(
+      map_a, map_b, map_out, map_gate, map_res, M, N, K, epi_flags,
       R != nullptr);
   return (int)cudaGetLastError();
 }
@@ -933,12 +973,14 @@ struct I8OpsLayout {
 // the store phase of output element o = (m, n) from its int32 sum: the
 // reference's order, each product and sum rounded on its own, so the
 // compiler cannot fuse a stage into its neighbour
+template <bool GELU>
 __device__ __forceinline__ float k2_value(int acc, float sa, float sb,
                                           size_t o, const bf16* residual,
                                           const bf16* operand2,
-                                          int gate_silu) {
+                                          int epi_flags) {
   float x = __fmul_rn(__fmul_rn(__int2float_rn(acc), sa), sb);
-  if (gate_silu) {
+  if constexpr (GELU) x = gelu(x);
+  if (epi_flags & EPI_SILU) {
     const float g = __bfloat162float(operand2[o]);
     x = __fmul_rn(g / (1.0f + expf(-g)), x);
   }
@@ -957,7 +999,7 @@ __device__ __forceinline__ void k2_store(float x, size_t o, float* out_f32,
 // operations regime: K1's grid, raster and ring; A [128 x 128 k] and B
 // [BN n x 128 k] both K-major (B is the [N, K] weight), four k32 steps a
 // stage; the epilogue stores from the accumulator registers
-template <int BN>
+template <int BN, bool GELU>
 __global__ void __launch_bounds__(OPS_THREADS, 1)
 k2_ops_kernel(const __grid_constant__ CUtensorMap map_a,
               const __grid_constant__ CUtensorMap map_b,
@@ -965,7 +1007,7 @@ k2_ops_kernel(const __grid_constant__ CUtensorMap map_a,
               const float* __restrict__ b_scale, float* __restrict__ out_f32,
               bf16* __restrict__ out_bf16, const bf16* __restrict__ residual,
               const bf16* __restrict__ operand2, int M, int N, int K,
-              int gate_silu) {
+              int epi_flags) {
   using L = I8OpsLayout<BN>;
   constexpr int STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -1052,10 +1094,10 @@ k2_ops_kernel(const __grid_constant__ CUtensorMap map_a,
       if (n >= N) continue;
       const float2 sb = *reinterpret_cast<const float2*>(b_scale + n);
       const size_t o = (size_t)m * N + n;
-      const float x0 = k2_value(acc[4 * j + 2 * h], sa, sb.x, o, residual,
-                                operand2, gate_silu);
-      const float x1 = k2_value(acc[4 * j + 2 * h + 1], sa, sb.y, o + 1,
-                                residual, operand2, gate_silu);
+      const float x0 = k2_value<GELU>(acc[4 * j + 2 * h], sa, sb.x, o,
+                                      residual, operand2, epi_flags);
+      const float x1 = k2_value<GELU>(acc[4 * j + 2 * h + 1], sa, sb.y,
+                                      o + 1, residual, operand2, epi_flags);
       if (out_f32)
         *reinterpret_cast<float2*>(out_f32 + o) = make_float2(x0, x1);
       else
@@ -1079,7 +1121,7 @@ struct I8DecLayout {
                               2 * I8_DEC_STAGES * 8;
 };
 
-template <int NR>
+template <int NR, bool GELU>
 __global__ void __launch_bounds__(DEC_THREADS)
 k2_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
                 const __grid_constant__ CUtensorMap map_x,
@@ -1088,7 +1130,7 @@ k2_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
                 const float* __restrict__ b_scale, float* __restrict__ out_f32,
                 bf16* __restrict__ out_bf16, const bf16* __restrict__ residual,
                 const bf16* __restrict__ operand2, const RowTail tail, int M,
-                int N, int K, int splits, int gate_silu) {
+                int N, int K, int splits, int epi_flags) {
   // under the fused quantize: this block's |value| maxima of each row, as
   // float bits (non-negative floats order as their bits)
   __shared__ unsigned smax[64];
@@ -1187,8 +1229,8 @@ k2_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
           if (splits > 1) {
             partial[(size_t)split * M * N + o] = x;
           } else {
-            const float v = k2_value(x, a_scale[m], b_scale[n], o, residual,
-                                     operand2, gate_silu);
+            const float v = k2_value<GELU>(x, a_scale[m], b_scale[n], o,
+                                           residual, operand2, epi_flags);
             k2_store(v, o, out_f32, out_bf16);
             rmax[2 * j + e] = fmaxf(rmax[2 * j + e], fabsf(v));
           }
@@ -1228,8 +1270,9 @@ k2_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
       for (int u = 0; u < FE; ++u)
         if (base + 128 * u < count) {
           const int m = (int)(o[u] / N), n = (int)(o[u] % N);
-          const float v = k2_value(x[u], a_scale[m], b_scale[n], o[u],
-                                   residual, operand2, gate_silu);
+          const float v = k2_value<GELU>(x[u], a_scale[m], b_scale[n],
+                                         o[u], residual, operand2,
+                                         epi_flags);
           k2_store(v, o[u], out_f32, out_bf16);
           if (tail.q)
             atomicMax(&smax[m], __float_as_uint(fmaxf(fabsf(v), 0.0f)));
@@ -1268,33 +1311,33 @@ k2_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
   tail_done(tc, share, tail.q ? rowmax : nullptr, M);
 }
 
-template <int NR>
+template <int NR, bool GELU>
 int launch_k2_bytes(const int8_t* A, const int8_t* B, int* partial,
                     int* counters, const float* SA, const float* SB,
                     float* OF, bf16* OB, const bf16* R, const bf16* G,
                     const RowTail& tail, int M, int N, int K, int splits,
-                    int gate_silu, cudaStream_t st) {
+                    int epi_flags, cudaStream_t st) {
   CUtensorMap map_w, map_x;
   int e = make_map_2d(&map_w, B, N, K, DEC_BN, I8_BK, 1);
   if (!e) e = make_map_2d(&map_x, A, M, K, NR, I8_BK, 1);
   if (e) return e;
   static int smem_set = 0;
   if (!smem_set) {
-    e = set_smem(k2_bytes_kernel<NR>, I8DecLayout<NR>::SMEM);
+    e = set_smem(k2_bytes_kernel<NR, GELU>, I8DecLayout<NR>::SMEM);
     if (e) return e;
     smem_set = 1;
   }
   dim3 grid((N + DEC_BN - 1) / DEC_BN, splits);
-  k2_bytes_kernel<NR><<<grid, DEC_THREADS, I8DecLayout<NR>::SMEM, st>>>(
+  k2_bytes_kernel<NR, GELU><<<grid, DEC_THREADS, I8DecLayout<NR>::SMEM, st>>>(
       map_w, map_x, partial, counters, SA, SB, OF, OB, R, G, tail, M, N, K,
-      splits, gate_silu);
+      splits, epi_flags);
   return (int)cudaGetLastError();
 }
 
-template <int BN>
+template <int BN, bool GELU>
 int launch_k2_ops(const int8_t* A, const int8_t* B, const float* SA,
                   const float* SB, float* OF, bf16* OB, const bf16* R,
-                  const bf16* G, int M, int N, int K, int gate_silu,
+                  const bf16* G, int M, int N, int K, int epi_flags,
                   cudaStream_t st) {
   CUtensorMap map_a, map_b;
   int e = make_map_2d(&map_a, A, M, K, OPS_BM, I8_BK, 1);
@@ -1302,13 +1345,13 @@ int launch_k2_ops(const int8_t* A, const int8_t* B, const float* SA,
   if (e) return e;
   static int smem_set = 0;
   if (!smem_set) {
-    e = set_smem(k2_ops_kernel<BN>, I8OpsLayout<BN>::SMEM);
+    e = set_smem(k2_ops_kernel<BN, GELU>, I8OpsLayout<BN>::SMEM);
     if (e) return e;
     smem_set = 1;
   }
   const int tiles = ((M + OPS_BM - 1) / OPS_BM) * ((N + BN - 1) / BN);
-  k2_ops_kernel<BN><<<tiles, OPS_THREADS, I8OpsLayout<BN>::SMEM, st>>>(
-      map_a, map_b, SA, SB, OF, OB, R, G, M, N, K, gate_silu);
+  k2_ops_kernel<BN, GELU><<<tiles, OPS_THREADS, I8OpsLayout<BN>::SMEM, st>>>(
+      map_a, map_b, SA, SB, OF, OB, R, G, M, N, K, epi_flags);
   return (int)cudaGetLastError();
 }
 
@@ -1403,6 +1446,39 @@ int launch_k3(const T* x, int8_t* q, float* scale, int M, int N,
 
 }  // namespace
 
+// K1's regime and instantiation for the shape (the gelu instantiations
+// apart)
+template <bool GELU>
+int k1_launch(const bf16* A, const bf16* B, float* P, int* cnt, bf16* C,
+              const bf16* R, const bf16* G, const RowTail& tail, int M,
+              int N, int K, int splits, int tile_n, int epi_flags,
+              cudaStream_t st) {
+  if (M >= 64) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    switch (tile_n) {
+      case 128: return launch_ops<128, GELU>(A, B, C, R, G, M, N, K,
+                                             epi_flags, st);
+      case 192: return launch_ops<192, GELU>(A, B, C, R, G, M, N, K,
+                                             epi_flags, st);
+      case 256: return launch_ops<256, GELU>(A, B, C, R, G, M, N, K,
+                                             epi_flags, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (tile_n != DEC_BN) return (int)cudaErrorInvalidValue;
+  if (M <= 8)
+    return launch_bytes<8, GELU>(A, B, P, cnt, C, R, G, tail, M, N, K,
+                                 splits, epi_flags, st);
+  if (M <= 16)
+    return launch_bytes<16, GELU>(A, B, P, cnt, C, R, G, tail, M, N, K,
+                                  splits, epi_flags, st);
+  if (M <= 32)
+    return launch_bytes<32, GELU>(A, B, P, cnt, C, R, G, tail, M, N, K,
+                                  splits, epi_flags, st);
+  return launch_bytes<64, GELU>(A, B, P, cnt, C, R, G, tail, M, N, K,
+                                splits, epi_flags, st);
+}
+
 // M >= 64: the operations regime, 128 x tile_n output tiles (tile_n 128,
 // 192 or 256; splits must be 1); M < 64: the bytes regime (tile_n 128),
 // K split `splits` ways: with splits > 1 a [splits, M, N] fp32 workspace
@@ -1411,12 +1487,14 @@ int launch_k3(const T* x, int8_t* q, float* scale, int M, int N,
 // (tail_slot), which the fused rmsnorm needs at any split count.  With
 // `normed` (bytes regime only, N % 8 == 0, N <= NORM_MAX_N) the call also
 // writes normed = rmsnorm(out) with `norm_scale` [N] fp32 and `eps`.
-// kernels/matmul.py's k1_plan chooses tile_n and splits.
+// `epi_flags`: EPI_GELU applies gelu to the accumulator, EPI_SILU the gate
+// silu(operand2) * x after it.  kernels/matmul.py's k1_plan chooses tile_n
+// and splits.
 extern "C" int k1_matmul(const void* a, const void* b, void* out,
                          const void* residual, const void* operand2,
                          void* workspace, void* counters,
                          const void* norm_scale, void* normed, int M, int N,
-                         int K, int splits, int tile_n, int gate_silu,
+                         int K, int splits, int tile_n, int epi_flags,
                          float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* A = static_cast<const bf16*>(a);
@@ -1432,27 +1510,11 @@ extern "C" int k1_matmul(const void* a, const void* b, void* out,
       (tail.normed && (cnt == nullptr || tail.norm_scale == nullptr ||
                        N % 8 || N > NORM_MAX_N || M >= 64)))
     return (int)cudaErrorInvalidValue;
-  if (M >= 64) {
-    if (splits != 1) return (int)cudaErrorInvalidValue;
-    switch (tile_n) {
-      case 128: return launch_ops<128>(A, B, C, R, G, M, N, K, gate_silu, st);
-      case 192: return launch_ops<192>(A, B, C, R, G, M, N, K, gate_silu, st);
-      case 256: return launch_ops<256>(A, B, C, R, G, M, N, K, gate_silu, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (tile_n != DEC_BN) return (int)cudaErrorInvalidValue;
-  if (M <= 8)
-    return launch_bytes<8>(A, B, P, cnt, C, R, G, tail, M, N, K, splits,
-                           gate_silu, st);
-  if (M <= 16)
-    return launch_bytes<16>(A, B, P, cnt, C, R, G, tail, M, N, K, splits,
-                            gate_silu, st);
-  if (M <= 32)
-    return launch_bytes<32>(A, B, P, cnt, C, R, G, tail, M, N, K, splits,
-                            gate_silu, st);
-  return launch_bytes<64>(A, B, P, cnt, C, R, G, tail, M, N, K, splits,
-                          gate_silu, st);
+  return (epi_flags & EPI_GELU)
+             ? k1_launch<true>(A, B, P, cnt, C, R, G, tail, M, N, K, splits,
+                               tile_n, epi_flags, st)
+             : k1_launch<false>(A, B, P, cnt, C, R, G, tail, M, N, K, splits,
+                                tile_n, epi_flags, st);
 }
 
 // the rmsnorm of M rows of N bf16 values (N % 8 == 0) with an fp32 [N]
@@ -1474,6 +1536,39 @@ extern "C" int k1_rmsnorm_rows(const void* x, const void* scale, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2's regime and instantiation for the shape (the gelu instantiations
+// apart)
+template <bool GELU>
+int k2_launch(const int8_t* A, const int8_t* B, int* P, int* cnt,
+              const float* SA, const float* SB, float* OF, bf16* OB,
+              const bf16* R, const bf16* G, const RowTail& tail, int M, int N,
+              int K, int splits, int tile_n, int epi_flags, cudaStream_t st) {
+  if (M >= 64) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    switch (tile_n) {
+      case 128: return launch_k2_ops<128, GELU>(A, B, SA, SB, OF, OB, R, G,
+                                                M, N, K, epi_flags, st);
+      case 192: return launch_k2_ops<192, GELU>(A, B, SA, SB, OF, OB, R, G,
+                                                M, N, K, epi_flags, st);
+      case 256: return launch_k2_ops<256, GELU>(A, B, SA, SB, OF, OB, R, G,
+                                                M, N, K, epi_flags, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (tile_n != DEC_BN) return (int)cudaErrorInvalidValue;
+  if (M <= 8)
+    return launch_k2_bytes<8, GELU>(A, B, P, cnt, SA, SB, OF, OB, R, G, tail,
+                                    M, N, K, splits, epi_flags, st);
+  if (M <= 16)
+    return launch_k2_bytes<16, GELU>(A, B, P, cnt, SA, SB, OF, OB, R, G,
+                                     tail, M, N, K, splits, epi_flags, st);
+  if (M <= 32)
+    return launch_k2_bytes<32, GELU>(A, B, P, cnt, SA, SB, OF, OB, R, G,
+                                     tail, M, N, K, splits, epi_flags, st);
+  return launch_k2_bytes<64, GELU>(A, B, P, cnt, SA, SB, OF, OB, R, G, tail,
+                                   M, N, K, splits, epi_flags, st);
+}
+
 // M >= 64: the operations regime, 128 x tile_n output tiles (tile_n 128,
 // 192 or 256; splits must be 1); M < 64: the bytes regime (tile_n 128),
 // K split `splits` ways: with splits > 1 a [splits, M, N] int32 workspace
@@ -1482,7 +1577,8 @@ extern "C" int k1_rmsnorm_rows(const void* x, const void* scale, void* out,
 // [N, K] weight, K-major.  Bytes regime only: with `normed` (out_bf16)
 // the call also writes the rmsnorm of its rows, as k1_matmul; with `q`
 // (out_f32, the workspace the values are stored in) the rows' (q,
-// q_scale [M]).  kernels/matmul.py's k2_plan chooses tile_n and splits.
+// q_scale [M]).  `epi_flags` as for k1_matmul, after the scales.
+// kernels/matmul.py's k2_plan chooses tile_n and splits.
 extern "C" int k2_int8_matmul(const void* a, const void* b,
                               const void* a_scale, const void* b_scale,
                               void* out_f32, void* out_bf16,
@@ -1490,7 +1586,7 @@ extern "C" int k2_int8_matmul(const void* a, const void* b,
                               void* workspace, void* counters,
                               const void* norm_scale, void* normed, void* q,
                               void* q_scale, int M, int N, int K, int splits,
-                              int tile_n, int gate_silu, float eps,
+                              int tile_n, int epi_flags, float eps,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* A = static_cast<const int8_t*>(a);
@@ -1514,30 +1610,11 @@ extern "C" int k2_int8_matmul(const void* a, const void* b,
                        N > NORM_MAX_N)) ||
       (tail.q && (OF == nullptr || tail.q_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (M >= 64) {
-    if (splits != 1) return (int)cudaErrorInvalidValue;
-    switch (tile_n) {
-      case 128: return launch_k2_ops<128>(A, B, SA, SB, OF, OB, R, G, M, N,
-                                          K, gate_silu, st);
-      case 192: return launch_k2_ops<192>(A, B, SA, SB, OF, OB, R, G, M, N,
-                                          K, gate_silu, st);
-      case 256: return launch_k2_ops<256>(A, B, SA, SB, OF, OB, R, G, M, N,
-                                          K, gate_silu, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (tile_n != DEC_BN) return (int)cudaErrorInvalidValue;
-  if (M <= 8)
-    return launch_k2_bytes<8>(A, B, P, cnt, SA, SB, OF, OB, R, G, tail, M, N,
-                              K, splits, gate_silu, st);
-  if (M <= 16)
-    return launch_k2_bytes<16>(A, B, P, cnt, SA, SB, OF, OB, R, G, tail, M,
-                               N, K, splits, gate_silu, st);
-  if (M <= 32)
-    return launch_k2_bytes<32>(A, B, P, cnt, SA, SB, OF, OB, R, G, tail, M,
-                               N, K, splits, gate_silu, st);
-  return launch_k2_bytes<64>(A, B, P, cnt, SA, SB, OF, OB, R, G, tail, M, N,
-                             K, splits, gate_silu, st);
+  return (epi_flags & EPI_GELU)
+             ? k2_launch<true>(A, B, P, cnt, SA, SB, OF, OB, R, G, tail, M,
+                               N, K, splits, tile_n, epi_flags, st)
+             : k2_launch<false>(A, B, P, cnt, SA, SB, OF, OB, R, G, tail, M,
+                                N, K, splits, tile_n, epi_flags, st);
 }
 
 // K3 on M rows of N bf16 (N % 8 == 0) or fp32 (N % 4 == 0) values,

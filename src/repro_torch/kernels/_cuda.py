@@ -47,14 +47,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "matmul": {
         # a, b, out, residual, operand2, workspace, counters, norm_scale,
-        # normed, M, N, K, splits, tile_n, gate_silu, eps, stream
+        # normed, M, N, K, splits, tile_n, epi_flags (1 silu gate, 2
+        # gelu), eps, stream
         "k1_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _F, _P],
         # x, scale, out, M, N, eps, stream
         "k1_rmsnorm_rows": [_P, _P, _P, _I, _I, _F, _P],
         # a, b ([N, K]), a_scale, b_scale, out_f32, out_bf16, residual,
         # operand2, workspace, counters, norm_scale, normed, q, q_scale, M,
-        # N, K, splits, tile_n, gate_silu, eps, stream
+        # N, K, splits, tile_n, epi_flags, eps, stream
         "k2_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
         # x, q, scale, M, N, x_is_f32, stream
@@ -63,10 +64,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "k0_empty": [_P],
     },
     "flash_attention": {
-        # q, k, v, out, B, Sq, Skv, H, KV, hd, scale, window, softcap,
-        # stream
+        # q, k, v, out, B, Sq, Skv, H, KV, hd, scale, window, full,
+        # softcap, stream
         "k4_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                             _F, _P],
+                             _I, _F, _P],
         # q, k, v, ws, out, counters, B, KV, rep, G, hd, cache_len, pos,
         # n_tiles, n_splits, scale, softcap, stream
         "k5_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

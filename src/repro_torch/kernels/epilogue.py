@@ -13,10 +13,10 @@ The normed output is computed from the cast value, so a fused
 ``(value, normed)`` is bitwise what storing ``value`` and re-reading it
 through ``models.layers.rmsnorm`` gives.  ``apply_epilogue`` implements
 the stages the serving path uses (the int8 row and column scales,
-``gate='silu'``, the residual, the rowwise quantize, the cast, the
-rmsnorm); the others (bias, an activation, the other gates, the colwise
-quantize) keep their fields and raise ``NotImplementedError`` until a
-later slice has a caller for them.
+``activation='gelu'`` in its tanh form, ``gate='silu'``, the residual, the
+rowwise quantize, the cast, the rmsnorm); the others (bias, the other
+activations and gates, the colwise quantize) keep their fields and raise
+``NotImplementedError`` until a later slice has a caller for them.
 """
 from __future__ import annotations
 
@@ -133,11 +133,12 @@ def apply_epilogue(
     if ep.quantize and ep.quantize_axis != "row":
         raise NotImplementedError(
             "the colwise quantize epilogue belongs to the training slice")
-    if ep.bias or ep.activation != "none" or ep.gate not in ("none", "silu"):
+    if ep.bias or ep.activation not in ("none", "gelu") \
+            or ep.gate not in ("none", "silu"):
         raise NotImplementedError(
-            f"the serving slice runs the int8 scales, gate='silu', the "
-            f"residual, the row quantize and the rmsnorm; {ep} needs a "
-            f"later slice")
+            f"the serving slice runs the int8 scales, activation='gelu', "
+            f"gate='silu', the residual, the row quantize and the rmsnorm; "
+            f"{ep} needs a later slice")
     scaled = row_scale is not None or col_scale is not None
     if ep.is_identity and not scaled:
         return acc.to(ep.out_dtype) if ep.out_dtype else acc
@@ -147,6 +148,10 @@ def apply_epilogue(
         x = x * row_scale.to(wide)
     if col_scale is not None:
         x = x * col_scale.to(wide)
+    if ep.activation == "gelu":
+        # jax.nn.gelu's default, the tanh form (the reference's
+        # kernels/epilogue.py:166), on the fp32 accumulator
+        x = torch.nn.functional.gelu(x, approximate="tanh")
     if ep.gate == "silu":
         if operand2 is None:
             raise ValueError("Epilogue.gate set but no operand2")

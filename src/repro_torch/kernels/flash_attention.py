@@ -47,9 +47,14 @@ Variants (gemma2): K4 and K6 take the ``'local'`` kind, a sliding window
 in which query position p attends keys p - window < k <= p, and all three
 take ``softcap``: the scaled scores become ``softcap * tanh(s /
 softcap)`` (an IEEE division, ``ref.softcap_scores``) before the mask.
-K5 serves ``'global'`` only: a local layer's dense cache is a ring buffer,
+K5 serves ``'global'``: a local layer's dense cache is a ring buffer,
 decoded outside the kernels (``models.attention.decode_attention_ring``).
-Any other kind raises (``ref.check_kind``) on every device.
+Whisper's ``'full'`` kind (no position mask): K4 over every key, with Skv
+free of Sq and ragged (its encoder self-attention and cross-attention
+prefill), and K5 at position ``kv_len - 1`` (its cross-attention decode);
+each launch also counts under its ``full`` variant.  K6 serves paged
+decoder-only models, 'global' and 'local'.  Any other kind raises
+(``ref.check_kind``) on every device.
 
 Head dims (``_HEAD_DIMS``): 16 to 128, and gemma3's 256, where K4 and
 K6's chunk body stream 64-slot K/V tiles (two stages beside the 64 KB Q
@@ -66,7 +71,8 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.matmul import sm_count, split_scratch
-from repro_torch.kernels.ref import (accum_dtype, attention_mask, check_kind,
+from repro_torch.kernels.ref import (PAGED_KINDS, accum_dtype,
+                                     attention_mask, check_kind,
                                      softcap_scores)
 
 _NEG = -1e30
@@ -96,14 +102,17 @@ def combine_tile_partials(m_t: torch.Tensor, l_t: torch.Tensor,
 
 
 def decode_tile_partials(q, k_cache, v_cache, pos: int,
-                         softcap: Optional[float] = None):
-    """Per-tile partials over a dense cache, slots <= ``pos`` live: q
-    [B, S, KV, G, hd], caches [B, K, KV, hd].  Returns (m_t, l_t, acc_t)
-    stacked on axis 0 with inner layout [B, KV, G, S(, hd)].  One product
-    per tile, as in the reference's mirror; the short last tile's missing
-    slots would be masked, so slicing them off changes no bit."""
+                         softcap: Optional[float] = None,
+                         kind: str = "global"):
+    """Per-tile partials over a dense cache, slots <= ``pos`` live (every
+    slot for ``kind='full'``, the reference's mirror with no position
+    mask): q [B, S, KV, G, hd], caches [B, K, KV, hd].  Returns (m_t, l_t,
+    acc_t) stacked on axis 0 with inner layout [B, KV, G, S(, hd)].  One
+    product per tile, as in the reference's mirror; the short last tile's
+    missing slots would be masked, so slicing them off changes no bit."""
     hd = q.shape[-1]
     kv_len = k_cache.shape[1]
+    pos = _decode_pos(kind, pos, kv_len)
     acc = accum_dtype(q.dtype, k_cache.dtype)
     qa = q.to(acc)
     ms, ls, accs = [], [], []
@@ -123,12 +132,13 @@ def decode_tile_partials(q, k_cache, v_cache, pos: int,
 
 
 def flash_decode_tiled(q, k_cache, v_cache, pos: int,
-                       softcap: Optional[float] = None) -> torch.Tensor:
+                       softcap: Optional[float] = None,
+                       kind: str = "global") -> torch.Tensor:
     """Plain tiled flash decode: q [B, S, KV, G, hd] against dense caches
-    [B, K, KV, hd], slots <= ``pos`` live -> [B, S, KV, G, hd] in q's
-    dtype."""
+    [B, K, KV, hd], slots <= ``pos`` live (every slot for 'full') ->
+    [B, S, KV, G, hd] in q's dtype."""
     out = combine_tile_partials(*decode_tile_partials(q, k_cache, v_cache,
-                                                      pos, softcap))
+                                                      pos, softcap, kind))
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
@@ -138,9 +148,17 @@ def _check_head_dim(hd: int) -> None:
                          f"got {hd}")
 
 
+def _decode_pos(kind: str, pos: int, kv_len: int) -> int:
+    """The last live slot of a dense decode: ``pos`` for 'global'; for
+    'full' (cross-attention) the last stored slot, as the reference passes
+    ``kv_len - 1`` (``models/attention.py:682``), so every slot is live."""
+    check_kind(kind, ("global", "full"))
+    return kv_len - 1 if kind == "full" else int(pos)
+
+
 def _window_arg(kind: str, window: int) -> int:
     """The kernels' window argument: the window for 'local', 0 (none) for
-    'global'."""
+    'global' and 'full'."""
     check_kind(kind)
     if kind != "local":
         return 0
@@ -153,9 +171,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, kind: str = "global", window: int = 0,
                          softcap: Optional[float] = None) -> torch.Tensor:
     """K4: causal online-softmax prefill ('local': the last ``window``
-    keys of each query only), scores softcapped when ``softcap`` is set.
-    q [B, Sq, H, hd], k/v [B, Skv, KV, hd] bf16 contiguous, KV | H ->
-    [B, Sq, H, hd] bf16."""
+    keys of each query only; 'full': every key, Skv free of Sq), scores
+    softcapped when ``softcap`` is set.  q [B, Sq, H, hd], k/v [B, Skv,
+    KV, hd] bf16 contiguous, KV | H -> [B, Sq, H, hd] bf16."""
     b, sq, n_h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     win = _window_arg(kind, window)
@@ -168,11 +186,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    _cuda.count("flash_attention", local=win > 0, softcap=bool(softcap),
-                hd256=hd == 256)
+    full = kind == "full"
+    _cuda.count("flash_attention", local=win > 0, full=full,
+                softcap=bool(softcap), hd256=hd == 256)
     _cuda.launch("flash_attention", "k4_flash_prefill", q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, n_h,
-                 n_kv, hd, hd ** -0.5, win, float(softcap or 0.0))
+                 n_kv, hd, hd ** -0.5, win, int(full), float(softcap or 0.0))
     return out
 
 
@@ -249,13 +268,16 @@ def record_views(ws: torch.Tensor, g: int, hd: int):
 
 def dense_decode_launch(q, k_cache, v_cache, pos: int,
                         n_splits: Optional[int] = None,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None,
+                        kind: str = "global"):
     """One launch of ``k5_flash_decode``; returns (out, workspace).  The
-    workspace holds each live tile's partial (``record_views``)."""
+    workspace holds each live tile's partial (``record_views``).  'full'
+    is the launch at position ``kv_len - 1``."""
     b, s_q, n_kv, g, hd = q.shape
     if s_q != 1:
         raise ValueError("flash decode is single-token (S == 1)")
     kv_len = k_cache.shape[1]
+    pos = _decode_pos(kind, pos, kv_len)
     rep, gk = _check_decode(q, g, hd)
     _cuda.check(k_cache, "k_cache", torch.bfloat16, (b, kv_len, n_kv, hd))
     _cuda.check(v_cache, "v_cache", torch.bfloat16, (b, kv_len, n_kv, hd))
@@ -271,7 +293,8 @@ def dense_decode_launch(q, k_cache, v_cache, pos: int,
         return out.zero_(), ws
     counters = (split_scratch(q.device, 0, rows)[1].data_ptr()
                 if n_splits > 1 else None)
-    _cuda.count("flash_decode", softcap=bool(softcap), hd256=hd == 256)
+    _cuda.count("flash_decode", full=kind == "full", softcap=bool(softcap),
+                hd256=hd == 256)
     _cuda.launch("flash_attention", "k5_flash_decode", q.data_ptr(),
                  k_cache.data_ptr(), v_cache.data_ptr(), ws.data_ptr(),
                  out.data_ptr(), counters, b, n_kv, rep, gk, hd, kv_len,
@@ -283,13 +306,14 @@ def dense_decode_launch(q, k_cache, v_cache, pos: int,
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, pos: int,
                       n_splits: Optional[int] = None,
-                      softcap: Optional[float] = None) -> torch.Tensor:
+                      softcap: Optional[float] = None,
+                      kind: str = "global") -> torch.Tensor:
     """K5: split-K flash decode, partials and fold in one launch.
     q [B, 1, KV, G, hd], caches [B, K, KV, hd] bf16 contiguous ->
     [B, 1, KV, G, hd] bf16, bitwise the same for any ``n_splits`` (tile
     groups per kernel row; default ``decode_splits``)."""
     return dense_decode_launch(q, k_cache, v_cache, pos, n_splits,
-                               softcap)[0]
+                               softcap, kind)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +329,7 @@ def paged_tile_partials(q, k_pool, v_pool, page_table, positions, *,
     page and masked), ``positions`` [L, S] (-1 = idle row).  Returns
     (m_t, l_t, acc_t) stacked on axis 0 with inner layout
     [L, KV, G, S(, hd)], tile for tile the reference's mirror."""
-    check_kind(kind)
+    check_kind(kind, PAGED_KINDS)
     n_pool, ps = k_pool.shape[0], k_pool.shape[1]
     n_lanes, p_max = page_table.shape
     hd = q.shape[-1]
@@ -403,6 +427,7 @@ def paged_decode_launch(q, k_pool, v_pool, page_table, positions, *,
     n_lanes, s_q, n_kv, g, hd = q.shape
     n_pool, ps = k_pool.shape[0], k_pool.shape[1]
     p_max = page_table.shape[1]
+    check_kind(kind, PAGED_KINDS)
     win = _window_arg(kind, window)
     chunk = paged_body(s_q) == "k6_paged_chunk"
     if chunk:

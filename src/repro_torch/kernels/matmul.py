@@ -15,9 +15,10 @@ row-norm kernel in ``csrc/matmul.cu``; their plain PyTorch versions are
 ``ref.matmul_fused_ref`` and ``epilogue.rms_normalize``, which
 ``kernels.ops`` takes for tensors on the CPU.  The kernel takes bf16 x bf16
 with an fp32 accumulator, and of the epilogue stages the serving path
-uses: the cast to bf16, ``gate='silu'`` with ``operand2``, the residual
-add, and ``norm='rmsnorm'``.  Any other stage or dtype raises: the kernel
-never silently falls back.
+uses: the cast to bf16, ``activation='gelu'`` (tanh form: whisper's
+ungated up GEMM, counted as ``matmul:gelu``), ``gate='silu'`` with
+``operand2``, the residual add, and ``norm='rmsnorm'``.  Any other stage
+or dtype raises: the kernel never silently falls back.
 
 The rmsnorm needs the whole row.  Where the plan says so
 (``GemmPlan.row_tail``: the bytes regime, decode), the GEMM finishes it in
@@ -38,7 +39,10 @@ The s8 wgmma reads both operands K-major, so the weight is the [K, N]
 view of a contiguous [N, K] buffer (``QuantizedWeight``); K2 runs K1's
 two regimes and split rule with 128 k a stage (``k2_plan``), and its
 split partials are int32, folded ascending by the last split to arrive.
-It stores bf16 or fp32.  Under ``quantize`` it stores the fp32 value in a
+It stores bf16 or fp32, after the gelu activation where asked
+(``int8_matmul:gelu``; whisper's int8 up GEMM, whose quantize then counts
+as ``int8_matmul:gelu+quantize`` at decode).  Under ``quantize`` it stores
+the fp32 value in a
 workspace; with the row tail the last column blocks to store quantize the
 stored rows together, with scales from the call's row maxima
 (``int8_matmul:quantize``); otherwise K3's row kernel does (counted as
@@ -235,12 +239,17 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+# the kernels' epilogue flags (csrc/matmul.cu's EPI_SILU, EPI_GELU)
+EPI_SILU, EPI_GELU = 1, 2
+
+
 def _epilogue_operands(ep: Epilogue, m: int, n: int,
                        residual: Optional[torch.Tensor],
                        operand2: Optional[torch.Tensor],
-                       norm_scale: Optional[torch.Tensor]) -> bool:
+                       norm_scale: Optional[torch.Tensor]) -> int:
     """Check the gate, residual and norm-scale operands the GEMM kernels
-    read; True if gated."""
+    read; returns the kernels' epilogue flags (the silu gate, the gelu
+    activation)."""
     gate = ep.gate == "silu"
     if gate:
         if operand2 is None:
@@ -254,7 +263,8 @@ def _epilogue_operands(ep: Epilogue, m: int, n: int,
         if norm_scale is None:
             raise ValueError("Epilogue.norm set but no norm_scale operand")
         _cuda.check(norm_scale, "rmsnorm scale", torch.float32, (n,))
-    return gate
+    return (EPI_SILU if gate else 0) | (EPI_GELU if ep.activation == "gelu"
+                                        else 0)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -283,15 +293,16 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
     if k % 8 or n % 8:
         raise ValueError(f"the K1 kernel needs K and N divisible by 8, got "
                          f"K={k}, N={n}")
-    if ep.bias or ep.quantize or ep.activation != "none" \
+    if ep.bias or ep.quantize or ep.activation not in ("none", "gelu") \
             or ep.gate not in ("none", "silu"):
         raise NotImplementedError(
-            f"the K1 kernel implements the cast, gate='silu', residual and "
-            f"rmsnorm stages; {ep} needs a later slice")
+            f"the K1 kernel implements the cast, activation='gelu', "
+            f"gate='silu', residual and rmsnorm stages; {ep} needs a later "
+            f"slice")
     if ep.out_dtype != torch.bfloat16:
         raise TypeError(f"the K1 kernel stores bf16, got out_dtype "
                         f"{ep.out_dtype}")
-    gate = _epilogue_operands(ep, m, n, residual, operand2, norm_scale)
+    flags = _epilogue_operands(ep, m, n, residual, operand2, norm_scale)
     norm = ep.norm == "rmsnorm"
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     normed = None
@@ -304,12 +315,12 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
             ws, counters = (t.data_ptr() for t in split_scratch(
                 a.device, plan.splits * m * n,
                 plan.arrival_counters(m, n, False)))
-        _cuda.count("matmul", norm=tail)
+        _cuda.count("matmul", gelu=bool(flags & EPI_GELU), norm=tail)
         _cuda.launch("matmul", "k1_matmul", a.data_ptr(), b.data_ptr(),
                      out.data_ptr(), _ptr(residual if ep.residual else None),
-                     _ptr(operand2 if gate else None), ws, counters,
-                     _ptr(norm_scale if tail else None), _ptr(normed),
-                     m, n, k, plan.splits, plan.cols, int(gate),
+                     _ptr(operand2 if flags & EPI_SILU else None), ws,
+                     counters, _ptr(norm_scale if tail else None),
+                     _ptr(normed), m, n, k, plan.splits, plan.cols, flags,
                      float(ep.norm_eps))
     if norm:
         if normed is None:
@@ -344,13 +355,13 @@ def int8_matmul_cuda(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
     if k % 16 or n % 16:
         raise ValueError(f"the K2 kernel needs K and N divisible by 16, got "
                          f"K={k}, N={n}")
-    if ep.bias or ep.activation != "none" \
+    if ep.bias or ep.activation not in ("none", "gelu") \
             or ep.gate not in ("none", "silu") \
             or (ep.quantize and ep.quantize_axis != "row"):
         raise NotImplementedError(
-            f"the K2 kernel implements the scales, gate='silu', the "
-            f"residual, the row quantize and the rmsnorm; {ep} needs a "
-            f"later slice")
+            f"the K2 kernel implements the scales, activation='gelu', "
+            f"gate='silu', the residual, the row quantize and the rmsnorm; "
+            f"{ep} needs a later slice")
     out_dtype = torch.float32 if ep.quantize \
         else (ep.out_dtype or torch.float32)
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -358,7 +369,7 @@ def int8_matmul_cuda(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
     norm = ep.norm == "rmsnorm"
     if norm and out_dtype != torch.bfloat16:
         raise TypeError("the K2 rmsnorm output is bf16")
-    gate = _epilogue_operands(ep, m, n, residual, operand2, norm_scale)
+    flags = _epilogue_operands(ep, m, n, residual, operand2, norm_scale)
     out = torch.empty((m, n), dtype=out_dtype, device=qa.device)
     f32 = out_dtype == torch.float32
     q = q_scale = normed = None     # the fused row pass's outputs
@@ -376,17 +387,18 @@ def int8_matmul_cuda(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
             ws, counters = (t.data_ptr() for t in split_scratch(
                 qa.device, plan.splits * m * n,
                 plan.arrival_counters(m, n, ep.quantize)))
-        _cuda.count("int8_matmul", norm=normed is not None,
-                    quantize=q is not None)
+        _cuda.count("int8_matmul", gelu=bool(flags & EPI_GELU),
+                    norm=normed is not None, quantize=q is not None)
         _cuda.launch("matmul", "k2_int8_matmul", qa.data_ptr(), qb.data_ptr(),
                      sa.data_ptr(), sb.data_ptr(),
                      out.data_ptr() if f32 else None,
                      None if f32 else out.data_ptr(),
                      _ptr(residual if ep.residual else None),
-                     _ptr(operand2 if gate else None), ws, counters,
+                     _ptr(operand2 if flags & EPI_SILU else None), ws,
+                     counters,
                      _ptr(norm_scale if normed is not None else None),
                      _ptr(normed), _ptr(q), _ptr(q_scale),
-                     m, n, k, plan.splits, plan.cols, int(gate),
+                     m, n, k, plan.splits, plan.cols, flags,
                      float(ep.norm_eps))
     if ep.quantize:
         if q is None:

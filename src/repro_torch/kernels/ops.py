@@ -118,7 +118,8 @@ def flash_attention(q, k, v, *, kind: str = "global", window: int = 0,
                     softcap: Optional[float] = None):
     """Prefill attention: q [B, Sq, H, hd], k/v [B, Skv, KV, hd] ->
     [B, Sq, H, hd].  'global' is causal, 'local' attends the last
-    ``window`` keys; ``softcap`` caps the scores.  Other kinds raise."""
+    ``window`` keys, 'full' every key (Skv may differ from Sq);
+    ``softcap`` caps the scores.  Other kinds raise."""
     ref.check_kind(kind)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, kind=kind, window=window,
@@ -131,16 +132,17 @@ def flash_decode(q, k_cache, v_cache, pos: int, *, kind: str = "global",
                  softcap: Optional[float] = None,
                  n_splits: Optional[int] = None):
     """Decode attention over slots <= ``pos``: q [B, 1, KV, G, hd]
-    against dense caches [B, K, KV, hd] -> [B, 1, KV, G, hd].  Only
-    'global' (a local layer's ring buffer is decoded by
-    ``models.attention.decode_attention_ring``).  ``n_splits`` (on the
+    against dense caches [B, K, KV, hd] -> [B, 1, KV, G, hd].  'global',
+    or 'full' (every slot, ``pos`` unread: cross-attention); a local
+    layer's ring buffer is decoded by
+    ``models.attention.decode_attention_ring``.  ``n_splits`` (on the
     card; default: enough tile groups to fill the SMs) changes no bit of
     the result."""
-    ref.check_kind(kind, ("global",))
+    ref.check_kind(kind, ("global", "full"))
     if q.is_cuda:
         return flash_decode_cuda(q, k_cache, v_cache, pos, n_splits,
-                                 softcap)
-    return flash_decode_tiled(q, k_cache, v_cache, pos, softcap)
+                                 softcap, kind)
+    return flash_decode_tiled(q, k_cache, v_cache, pos, softcap, kind)
 
 
 def paged_flash_decode(q, k_pool, v_pool, page_table, positions, *,
@@ -150,7 +152,7 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, positions, *,
     through ``page_table`` [L, P] against the pools [NP + 1, PS, KV, hd]
     at per-token ``positions`` [L, S] (-1 = idle) -> [L, S, KV, G, hd].
     'global' or 'local' (``window``); ``softcap`` caps the scores."""
-    ref.check_kind(kind)
+    ref.check_kind(kind, ref.PAGED_KINDS)
     if q.is_cuda:
         return paged_flash_decode_cuda(q, k_pool, v_pool, page_table,
                                        positions, kind=kind, window=window,

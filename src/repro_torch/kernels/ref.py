@@ -120,12 +120,16 @@ def int8_matmul_ref(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
                           row_scale=sa, col_scale=sb)
 
 
-_ATTN_KINDS = ("global", "local")
+# the kinds of the prefill kernel (K4) and of the dense decode (K5 takes
+# 'global' and 'full'); the paged kernel (K6) serves decoder-only models
+_ATTN_KINDS = ("global", "local", "full")
+PAGED_KINDS = ("global", "local")
 
 
 def check_kind(kind: str, kinds=_ATTN_KINDS) -> None:
     """Refuse an attention kind the kernels do not implement ('chunked',
-    'prefix', 'full'): it raises on every device, never falls through."""
+    'prefix'; 'full' where ``kinds`` leaves it out): it raises on every
+    device, never falls through."""
     if kind not in kinds:
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported; the kernels take "
@@ -147,9 +151,13 @@ def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, kind: str,
                    window: int) -> torch.Tensor:
     """[..., Sq, Skv] bool from query positions [..., Sq] and key
     positions [Skv]: causal (key <= query) for 'global', and in the last
-    ``window`` positions (query - key < window) for 'local'
+    ``window`` positions (query - key < window) for 'local'; every key
+    for 'full' (whisper's bidirectional encoder and cross-attention)
     (``models/attention.py``'s masks in the reference)."""
     check_kind(kind)
+    if kind == "full":
+        return torch.ones((*qpos.shape, kpos.shape[0]), dtype=torch.bool,
+                          device=kpos.device)
     mask = kpos <= qpos[..., None]
     if kind == "local":
         mask &= (qpos[..., None] - kpos) < window
@@ -160,10 +168,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, kind: str = "global", window: int = 0,
                         softcap: Optional[float] = None) -> torch.Tensor:
     """Prefill attention (query row i attends slots <= i; 'local' only the
-    last ``window`` of them), plain masked softmax at the accumulator
-    width, the scaled scores softcapped before the mask.  q [B, Sq, H, hd];
-    k/v [B, Skv, KV, hd] with KV | H: q head h reads kv head h // (H // KV)
-    — grouped in the einsum, never repeated."""
+    last ``window`` of them; 'full' every slot, with Skv free of Sq),
+    plain masked softmax at the accumulator width, the scaled scores
+    softcapped before the mask.  q [B, Sq, H, hd]; k/v [B, Skv, KV, hd]
+    with KV | H: q head h reads kv head h // (H // KV) — grouped in the
+    einsum, never repeated."""
     b, sq, n_h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     acc = accum_dtype(q.dtype)
@@ -182,10 +191,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int, *,
+                     kind: str = "global",
                      softcap: Optional[float] = None) -> torch.Tensor:
     """Decode oracle: q [B, 1, KV, G, hd] against dense caches
-    [B, K, KV, hd], slots <= pos live.  Plain (untiled) masked softmax at
-    the accumulator width, the scaled scores softcapped."""
+    [B, K, KV, hd], slots <= pos live ('global'; every slot for 'full',
+    ``pos`` unread).  Plain (untiled) masked softmax at the accumulator
+    width, the scaled scores softcapped."""
+    check_kind(kind, ("global", "full"))
+    if kind == "full":
+        pos = k_cache.shape[1] - 1
     hd = q.shape[-1]
     acc = accum_dtype(q.dtype)
     s = torch.einsum("bqkgd,bKkd->bkgqK", q.to(acc), k_cache.to(acc))

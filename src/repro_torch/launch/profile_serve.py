@@ -10,13 +10,21 @@ where the int8 copy does not fit beside the model: gemma2-27b).
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch gemma3-12b --batch 2 --prompt-len 4160 \
         --out profile_serve_gemma3.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch whisper-small --batch 8 --prompt-len 64 \
+        --out profile_serve_whisper.json
 
 Prints, for each window (fixed prefill, fixed decode step, and per engine
 a scheduler iteration that prefills one chunk on every lane and one that
 only decodes): the host wall time (synchronized, profiler off), the device
 busy time (sum of kernel times from a profiled run of the same calls from
 the same starting state; one stream, so kernels do not overlap), the idle
-share, and the kernels by device time.  Needs the card: the timings are device metrics.
+share, and the kernels by device time.  whisper-small (an
+encoder-decoder, served by the fixed loop only) has the fixed windows,
+bf16 and int8: its prefill window holds the encoder over the batch's
+clips (``launch.serve.make_frames``), and its decode step recomputes the
+cross-attention K/V from the held encoder output.  Needs the card: the
+timings are device metrics.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.launch.serve import geometry, int8_fits
+from repro_torch.launch.serve import geometry, int8_fits, make_frames
 from repro_torch.models.lm import Model
 from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -82,14 +90,17 @@ def _window(fn, reps: int, setup):
 def _fixed(model, cfg, args) -> dict:
     toks = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                          generator=torch.Generator().manual_seed(args.seed))
+    frames = (make_frames(cfg, args.batch, args.seed) if cfg.encdec
+              else None)
     max_len = args.prompt_len + args.steps + 2
-    model.prefill(toks, max_len)                                # warm-up
-    prefill = _window(lambda: model.prefill(toks, max_len), 2, lambda: None)
+    model.prefill(toks, max_len, frames=frames)                 # warm-up
+    prefill = _window(lambda: model.prefill(toks, max_len, frames=frames),
+                      2, lambda: None)
     state = {}
 
     def start():
         """A fresh cache after the prompt, and one decode step."""
-        logits, state["cache"] = model.prefill(toks, max_len)
+        logits, state["cache"] = model.prefill(toks, max_len, frames=frames)
         state["tok"] = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
         state["pos"] = args.prompt_len
         step()
@@ -162,12 +173,17 @@ def main(argv=None):
               "lanes": geom["n_lanes"], "sched_prompt": SCHED_PROMPT,
               "fixed": _fixed(model, cfg, args)}
     int8s = (False, True) if int8_fits(cfg, model.device) else (False,)
+    if not model.supports_paged_serving:
+        # the fixed loop only: its windows on the int8 copy too
+        report["fixed_int8"] = _fixed(model.quantize_params_for_serving(),
+                                      cfg, args)
+        int8s = ()
     for int8 in int8s:
         name = "scheduler_int8" if int8 else "scheduler_bf16"
         report[name] = _scheduler(model, cfg, args, int8)
         torch.cuda.empty_cache()
     windows = [(group, phase) for group in
-               ("fixed", "scheduler_bf16", "scheduler_int8")
+               ("fixed", "fixed_int8", "scheduler_bf16", "scheduler_int8")
                if group in report for phase in report[group]]
     for group, phase in windows:
         r = report[group][phase]

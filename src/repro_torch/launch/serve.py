@@ -10,6 +10,9 @@ or continuous batching over the paged KV cache (``--requests N``).
         [--requests 8] [--smoke --device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         [--requests 8] [--int8] [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        [--batch 8 --prompt-len 64 --max-new 64] [--int8] \
+        [--smoke --device cpu]
 
 Runs on the CUDA card unless ``--device cpu``; weights are random, drawn
 from ``--seed`` on the device.  The fixed mode prints the prefill time,
@@ -20,8 +23,13 @@ and token budgets drawn from ``--seed``, to a scheduler of 8 lanes
 prints the time to first token, the time per decode-only iteration,
 tokens/s and every request's status.  gemma2-27b's 27.2 B bf16 parameters
 (54.4 GB) leave no room on an 80 GB card for its int8 copy beside them,
-so ``--int8`` serves granite-3-8b and gemma3-12b (11.8 B parameters,
-23.5 GB in bf16, and its int8 copy beside them).
+so ``--int8`` serves granite-3-8b, gemma3-12b (11.8 B parameters,
+23.5 GB in bf16, and its int8 copy beside them) and whisper-small.
+whisper-small (an encoder-decoder) takes frame embeddings as its input, one
+clip of ``enc_frames`` frames a batch row drawn N(0, 1) from ``--seed``
+(the stubbed conv frontend), and is served by the fixed loop only:
+``generate_with_status`` falls through to it, and ``--requests`` is
+refused.
 """
 from __future__ import annotations
 
@@ -133,6 +141,15 @@ def geometry(arch: str) -> dict:
     return GEOMETRY
 
 
+def make_frames(cfg, batch: int, seed: int) -> torch.Tensor:
+    """An encoder-decoder's input: ``batch`` clips of ``cfg.enc_frames``
+    frame embeddings of ``cfg.d_model``, drawn N(0, 1) in fp32 from
+    ``seed`` (the reference's ``launch/serve.py:98-100`` draws the same
+    shape; the stubbed conv frontend's output)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((batch, cfg.enc_frames, cfg.d_model), generator=gen)
+
+
 def int8_fits(cfg, device: torch.device) -> bool:
     """Whether the int8 copy (one byte per parameter) fits on the card
     beside the bf16 model (two), with a fifth of the card left for caches
@@ -193,18 +210,25 @@ def main(argv=None):
                          f"card beside the bf16 model")
     model = Model(cfg, device=device).init_weights(args.seed)
     if args.requests:
+        if not model.supports_paged_serving:
+            raise SystemExit(f"{cfg.name}: continuous batching serves "
+                             f"decoder-only models; run the fixed loop")
         return _continuous(args, model, cfg)
 
     gen = torch.Generator().manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen)
+    batch = {"tokens": tokens}
+    if cfg.encdec:
+        batch["frames"] = make_frames(cfg, args.batch, args.seed)
     eng = ServeEngine(model, ServeConfig(max_new_tokens=args.max_new,
                                          int8=args.int8))
     served = eng.model
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = served.prefill(tokens, max_len=args.prompt_len
-                                   + args.max_new)
+                                   + args.max_new,
+                                   frames=batch.get("frames"))
     _sync(device)
     t1 = time.perf_counter()
     tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
@@ -213,7 +237,9 @@ def main(argv=None):
         tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
     _sync(device)
     t2 = time.perf_counter()
-    res = eng.generate_with_status_fixed({"tokens": tokens})
+    # an encoder-decoder takes generate_with_status's fall-through
+    res = (eng.generate_with_status(batch) if cfg.encdec
+           else eng.generate_with_status_fixed(batch))
     _sync(device)
     t3 = time.perf_counter()
     steps = max(args.max_new - 1, 1)

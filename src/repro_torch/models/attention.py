@@ -6,7 +6,10 @@ flash decode (K6) for decode steps and prefill chunks alike.
 
 Two kinds, as in the reference: 'global' (causal) and 'local' (sliding
 window of ``cfg.window`` positions); ``cfg.attn_softcap`` caps the scores
-of both.  A local layer's dense cache is a ring buffer of ``min(window,
+of both.  Whisper adds 'full' (bidirectional): its encoder's
+self-attention, and the decoder's cross-attention over the encoder output
+(``cross_attention_apply``, unpacked ``wq/wk/wv/wo``); whisper takes no
+RoPE (``use_rope=False``).  A local layer's dense cache is a ring buffer of ``min(window,
 max_len)`` slots (position p at slot p % W), decoded by
 ``decode_attention_ring``, plain torch as the reference's einsum path is
 plain XLA; its paged lanes keep their full history and K6 masks by
@@ -56,6 +59,23 @@ class Attention(nn.Module):
             requires_grad=False)
         self.wo = nn.Parameter(torch.empty(cfg.q_dim, d, **kw),
                                requires_grad=False)
+
+
+class CrossAttention(nn.Module):
+    """Whisper's cross-attention, unpacked as in the reference
+    (``lm.py:103-106``): ``wq [D, q_dim]`` reads the decoder stream,
+    ``wk``/``wv [D, kv_dim]`` the encoder output, ``wo [q_dim, D]``.
+    Never quantized (the reference's int8 pass skips ``xattn``)."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        d = cfg.d_model
+        kw = dict(dtype=dtype, device=device)
+        for name, shape in (("wq", (d, cfg.q_dim)), ("wk", (d, cfg.kv_dim)),
+                            ("wv", (d, cfg.kv_dim)), ("wo", (cfg.q_dim, d))):
+            setattr(self, name, nn.Parameter(torch.empty(shape, **kw),
+                                             requires_grad=False))
 
 
 def _weight(w, compute_dtype: torch.dtype):
@@ -187,25 +207,31 @@ def paged_attention(q, k_pool, v_pool, page_table, positions, *,
 
 def attention_apply(attn: Attention, x: torch.Tensor, cfg: ArchConfig,
                     compute_dtype: torch.dtype, *, kind: str, theta: float,
-                    positions: torch.Tensor, cache: dict,
+                    positions: torch.Tensor, cache: Optional[dict],
                     pos: Optional[int] = None,
-                    page_table: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """The attention sub-block of kind ``kind`` ('global' or 'local').
-    With ``page_table`` [L, P] the cache is the layer's page pools
-    (``{"kp", "vp"}``) and ``positions`` [L, S] holds per-token positions
-    (-1 = inactive): the K/V are written first, then attended (paged
-    serving, decode step or prefill chunk).  Otherwise the cache is dense
-    (``{"k", "v"}``, a ring buffer for 'local'): ``pos`` None is prefill
-    over the whole sequence, the post-rope K/V written to the cache after;
-    else single-token decode at position ``pos``."""
+                    page_table: Optional[torch.Tensor] = None,
+                    use_rope: bool = True) -> torch.Tensor:
+    """The attention sub-block of kind ``kind`` ('global', 'local', or
+    'full' for whisper's encoder).  With ``page_table`` [L, P] the cache is
+    the layer's page pools (``{"kp", "vp"}``) and ``positions`` [L, S]
+    holds per-token positions (-1 = inactive): the K/V are written first,
+    then attended (paged serving, decode step or prefill chunk).
+    Otherwise the cache is dense (``{"k", "v"}``, a ring buffer for
+    'local'): ``pos`` None is prefill over the whole sequence, the
+    post-rope K/V written to the cache after (the encoder keeps none:
+    ``cache`` None); else single-token decode at position ``pos``.
+    ``use_rope=False`` (whisper) leaves q and k unrotated."""
     b, s, _ = x.shape
     n_kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     mask = dict(kind=kind, window=cfg.window, softcap=cfg.attn_softcap)
     ring = kind == "local"
     q, k, v = project_qkv(attn, x, cfg, compute_dtype)
-    q = rope(q, positions, theta)
-    k = rope(k, positions, theta)
+    if use_rope:
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+    else:
+        # the packed split leaves strided views; the kernels take rows
+        q, k = q.contiguous(), k.contiguous()
     if page_table is not None:
         paged_update(cache["kp"], cache["vp"], k, v, positions, page_table)
         out = paged_attention(q.reshape(b, s, n_kv, g, hd), cache["kp"],
@@ -213,7 +239,8 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ArchConfig,
     elif pos is None:
         # prefill: GQA K/V consumed grouped (head h reads kv head h // g)
         out = kops.flash_attention(q, k, v.contiguous(), **mask)
-        fill_cache(cache["k"], cache["v"], k, v, ring=ring)
+        if cache is not None:
+            fill_cache(cache["k"], cache["v"], k, v, ring=ring)
     else:
         update_cache(cache["k"], cache["v"], k, v, pos, ring=ring)
         out = decode_attention(q.reshape(b, s, n_kv, g, hd), cache["k"],
@@ -221,3 +248,32 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ArchConfig,
     out = out.reshape(b, s, cfg.q_dim).to(compute_dtype)
     return kops.matmul(out.reshape(b * s, -1), attn.wo,
                        out_dtype=compute_dtype).reshape(b, s, -1)
+
+
+def cross_attention_apply(xattn: CrossAttention, x: torch.Tensor,
+                          enc_out: torch.Tensor, cfg: ArchConfig,
+                          compute_dtype: torch.dtype,
+                          decode: bool) -> torch.Tensor:
+    """Whisper's cross-attention sub-block (the reference's ``lm.py:
+    272-287``): q from the decoder's normed stream x [B, S, D], K/V from
+    the encoder output ``enc_out`` [B, F, D], recomputed at every call as
+    the reference does.  The three input products are plain GEMMs outside
+    any kernel, as the reference's einsums are (``lm.py:276-281``,
+    ``attention.py:619``); the attention is the 'full' kind: K4 over every
+    frame at prefill, K5 with no position mask at decode (``decode``, S ==
+    1); ``wo`` goes through K1 (``attention.py:705``)."""
+    b, s, _ = x.shape
+    f = enc_out.shape[1]
+    n_kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    cd = compute_dtype
+    q = torch.matmul(x, xattn.wq.to(cd)).reshape(b, s, cfg.n_heads, hd)
+    ek = torch.matmul(enc_out, xattn.wk.to(cd)).reshape(b, f, n_kv, hd)
+    ev = torch.matmul(enc_out, xattn.wv.to(cd)).reshape(b, f, n_kv, hd)
+    if decode:
+        out = kops.flash_decode(q.reshape(b, s, n_kv, g, hd), ek, ev, f - 1,
+                                kind="full", softcap=cfg.attn_softcap)
+    else:
+        out = kops.flash_attention(q, ek, ev, kind="full",
+                                   softcap=cfg.attn_softcap)
+    out = out.reshape(b * s, cfg.q_dim).to(cd)
+    return kops.matmul(out, xattn.wo.to(cd), out_dtype=cd).reshape(b, s, -1)

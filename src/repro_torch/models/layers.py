@@ -1,9 +1,11 @@
-"""Shared layers: rmsnorm, RoPE, the embedding gather and the MaxEVA MLP
-(single device; bf16 or int8 weights)."""
+"""Shared layers: rmsnorm, RoPE, whisper's sinusoidal positions, the
+embedding gather and the MaxEVA MLP, gated (SwiGLU) or plain GELU (single
+device; bf16 or int8 weights)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 import torch
 
@@ -38,6 +40,21 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoid(start: int, length: int, d_model: int, dtype: torch.dtype,
+             device=None) -> torch.Tensor:
+    """Whisper's sinusoidal positions [1, length, d_model] for positions
+    start .. start + length - 1 (the reference's ``lm.py:717``): angles
+    ``pos * exp(-i * log(10000) / (d/2 - 1))`` at fp32, ``[sin | cos]``,
+    cast to ``dtype``."""
+    pos = start + torch.arange(length, device=device)[:, None].to(
+        torch.float32)
+    half = d_model // 2
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32, device=device)
+                     * (math.log(10000.0) / max(half - 1, 1)))
+    ang = pos * freq[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None].to(dtype)
+
+
 def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor,
                          compute_dtype: torch.dtype) -> torch.Tensor:
     """ids [B, S] -> [B, S, D] in the compute dtype (one device: a plain
@@ -47,21 +64,30 @@ def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor,
 
 def _mlp_apply_int8(params: Dict[str, QuantizedWeight], x: torch.Tensor,
                     compute_dtype: torch.dtype, residual: torch.Tensor,
-                    norm_scale: torch.Tensor, norm_eps: float = 1e-6):
-    """The int8 gated MLP (weights quantized column-wise by
-    ``Model.quantize_params_for_serving``).  ONE rowwise quantize of the
-    normed stream feeds both the gate and the up GEMM; the gate GEMM emits
-    raw g in bf16, the up GEMM's epilogue computes ``silu(g) * u`` and
-    quantizes it, handing the down GEMM the ``(q, scale)`` pair straight
-    from its store phase; the down GEMM folds the residual add and the NEXT
-    norm.  Returns ``(h_new, rmsnorm(h_new, norm_scale))``."""
+                    norm_scale: torch.Tensor, norm_eps: float = 1e-6,
+                    gated: bool = True):
+    """The int8 MLP (weights quantized column-wise by
+    ``Model.quantize_params_for_serving``), the reference's
+    ``_mlp_apply_int8``.  ONE rowwise quantize of the normed stream feeds
+    the up GEMM (and the gate GEMM, gated); the up GEMM's epilogue computes
+    ``silu(g) * u`` from the gate GEMM's raw g (gated) or ``gelu(u)``
+    (plain, ``layers.py:369-371``) and quantizes it, handing the down GEMM
+    the ``(q, scale)`` pair straight from its store phase; the down GEMM
+    folds the residual add and the NEXT norm.  Returns ``(h_new,
+    rmsnorm(h_new, norm_scale))``."""
     lead = x.shape[:-1]
     qx, sx = kops.quantize_rowwise(x.reshape(-1, x.shape[-1]))
-    g = kops.int8_matmul(qx, sx, *params["gate"].as_matrix(),
-                         out_dtype=compute_dtype)
-    qh, sh = kops.int8_matmul(qx, sx, *params["up"].as_matrix(),
-                              epilogue=Epilogue(gate="silu", quantize=True),
-                              operand2=g)
+    if gated:
+        g = kops.int8_matmul(qx, sx, *params["gate"].as_matrix(),
+                             out_dtype=compute_dtype)
+        qh, sh = kops.int8_matmul(qx, sx, *params["up"].as_matrix(),
+                                  epilogue=Epilogue(gate="silu",
+                                                    quantize=True),
+                                  operand2=g)
+    else:
+        qh, sh = kops.int8_matmul(qx, sx, *params["up"].as_matrix(),
+                                  epilogue=Epilogue(activation="gelu",
+                                                    quantize=True))
     fold = Epilogue(residual=True, norm="rmsnorm", norm_eps=norm_eps,
                     out_dtype=compute_dtype)
     val, xn = kops.int8_matmul(
@@ -72,22 +98,36 @@ def _mlp_apply_int8(params: Dict[str, QuantizedWeight], x: torch.Tensor,
 
 
 def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
-              compute_dtype: torch.dtype, residual: torch.Tensor,
-              norm_scale: torch.Tensor, norm_eps: float = 1e-6):
-    """The gated MLP on the normed stream x [B, S, D], folded into the
-    block's residual: returns ``(h_new, rmsnorm(h_new, norm_scale))`` with
-    ``h_new = residual + down(silu(g) * u)``.  ``silu(g) * u`` is the up
-    GEMM's two-operand gate epilogue (the gate GEMM emits raw g); the down
-    GEMM folds the residual add and the NEXT norm (``norm_scale``) into its
-    epilogue.  Quantized weights take ``_mlp_apply_int8``."""
+              compute_dtype: torch.dtype,
+              residual: Optional[torch.Tensor] = None,
+              norm_scale: Optional[torch.Tensor] = None,
+              norm_eps: float = 1e-6, gated: bool = True):
+    """The MLP on the normed stream x [B, S, D].  Gated: ``silu(g) * u``
+    is the up GEMM's two-operand gate epilogue (the gate GEMM emits raw
+    g); plain (whisper): ``gelu(u)`` is the up GEMM's activation epilogue.
+    With ``residual`` and ``norm_scale`` (a decoder block) the down GEMM
+    folds the residual add and the NEXT norm into its epilogue and the
+    call returns ``(h_new, rmsnorm(h_new, norm_scale))`` with ``h_new =
+    residual + down(...)``; without them (whisper's encoder, whose
+    residual the reference adds outside the GEMM in bf16, ``lm.py:379``)
+    it returns ``down(...)`` cast to the compute dtype.  Quantized weights
+    take ``_mlp_apply_int8``."""
     if isinstance(params["up"], QuantizedWeight):
         return _mlp_apply_int8(params, x, compute_dtype, residual,
-                               norm_scale, norm_eps)
+                               norm_scale, norm_eps, gated)
     cd = compute_dtype
     up_cfg = XYZConfig(out_dtype=cd)
-    g = xyz_matmul(x, params["gate"], cfg=up_cfg)
-    h = xyz_matmul(x, params["up"], cfg=dataclasses.replace(
-        up_cfg, epilogue=Epilogue(gate="silu", out_dtype=cd)), operand2=g)
+    if gated:
+        g = xyz_matmul(x, params["gate"], cfg=up_cfg)
+        h = xyz_matmul(x, params["up"], cfg=dataclasses.replace(
+            up_cfg, epilogue=Epilogue(gate="silu", out_dtype=cd)),
+            operand2=g)
+    else:
+        h = xyz_matmul(x, params["up"], cfg=dataclasses.replace(
+            up_cfg, epilogue=Epilogue(activation="gelu", out_dtype=cd)))
+    if norm_scale is None:
+        return xyz_matmul_replicated_out(h, params["down"],
+                                         cfg=XYZConfig(out_dtype=cd))
     fold = Epilogue(residual=True, norm="rmsnorm", norm_eps=norm_eps,
                     out_dtype=cd)
     return xyz_matmul_replicated_out(

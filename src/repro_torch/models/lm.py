@@ -1,7 +1,7 @@
 """The dense GQA decoder (global or sliding-window attention + gated MLP,
-tied embeddings): parameters, forward in ``prefill``, ``decode`` and
-``paged`` modes, the dense KV cache and the paged KV pools, and the int8
-serving copy.
+tied embeddings) and whisper's encoder-decoder: parameters, forward in
+``prefill``, ``decode`` and ``paged`` modes, the dense KV cache and the
+paged KV pools, and the int8 serving copy.
 
 Layer i's attention kind is ``cfg.block_pattern[i % period]`` (gemma2
 alternates 'local' and 'global'); its RoPE theta is ``rope_theta``, or
@@ -12,6 +12,20 @@ chain is the reference's: the entry norm is the only standalone ``ln1``;
 every block's down GEMM folds the residual add and the NEXT block's
 ``ln1`` (the last block's folds ``final_norm``) into its epilogue, while
 ``ln2`` stays a standalone rmsnorm.  ``final_softcap`` caps the logits.
+
+Whisper (``cfg.encdec``, the reference's ``lm.py:272-287, 356-385``): an
+encoder of ``n_enc_layers`` blocks over the (stubbed) frame embeddings
+[B, F, D] plus sinusoidal positions, each a standalone rmsnorm, the
+'full' self-attention (K4), a standalone rmsnorm and the plain GELU MLP,
+its residual adds in the compute dtype outside the GEMMs, then the final
+rmsnorm.  The decoder takes sinusoidal positions, no RoPE; each block
+adds a cross-attention over the encoder output between the self-attention
+and the MLP (its own standalone rmsnorm ``lnx``).  The encoder output is
+held beside the dense cache (``Cache.enc_out``) and decode recomputes the
+cross-attention K/V from it at every step.  Its config keeps the
+reference's float32 ``param_dtype``; the port holds the projection
+weights at the compute dtype (bf16 on the card, cast once when the model
+is built or loaded), the embedding and norm scales at fp32.
 """
 from __future__ import annotations
 
@@ -24,59 +38,116 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.quantize import quantize_weight_colwise
-from repro_torch.kernels.ref import check_kind
-from repro_torch.models.attention import Attention, attention_apply
-from repro_torch.models.layers import mlp_apply, rmsnorm, vocab_parallel_embed
+from repro_torch.kernels.ref import PAGED_KINDS, check_kind
+from repro_torch.models.attention import (Attention, CrossAttention,
+                                          attention_apply,
+                                          cross_attention_apply)
+from repro_torch.models.layers import (mlp_apply, rmsnorm, sinusoid,
+                                       vocab_parallel_embed)
 from repro_torch.models.loss import vocab_parallel_logits
 
-Cache = List[Dict[str, torch.Tensor]]
+
+# the paged serving cache: one {"kp", "vp"} pair of page pools a layer
+Pools = List[Dict[str, torch.Tensor]]
+
+
+class Cache(list):
+    """The dense cache: one ``{"k", "v"}`` dict per decoder layer, and for
+    whisper the encoder output [B, F, D] in the compute dtype
+    (``enc_out``; the reference's cache entry, ``lm.py:669-672``)."""
+    enc_out: Optional[torch.Tensor] = None
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def _mlp_names(cfg: ArchConfig) -> Tuple[str, ...]:
+    return ("gate", "up", "down") if cfg.gated_mlp else ("up", "down")
+
+
 class MLP(nn.Module):
+    """``up``/``down`` and, gated, ``gate`` (``weights`` given: the int8
+    serving copy's ``QuantizedWeight``s)."""
+
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, weights: Optional[dict] = None):
         super().__init__()
+        self.names = _mlp_names(cfg)
         if weights is not None:
-            self.gate, self.up, self.down = (weights["gate"], weights["up"],
-                                             weights["down"])
+            for name in self.names:
+                setattr(self, name, weights[name])
             return
         d, ff = cfg.d_model, cfg.d_ff
         kw = dict(dtype=dtype, device=device)
-        self.gate = nn.Parameter(torch.empty(d, ff, **kw), requires_grad=False)
-        self.up = nn.Parameter(torch.empty(d, ff, **kw), requires_grad=False)
-        self.down = nn.Parameter(torch.empty(ff, d, **kw), requires_grad=False)
+        for name in self.names:
+            shape = (ff, d) if name == "down" else (d, ff)
+            setattr(self, name, nn.Parameter(torch.empty(shape, **kw),
+                                             requires_grad=False))
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in self.names}
+
+
+def _norm(cfg: ArchConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(cfg.d_model, dtype=torch.float32,
+                                    device=device), requires_grad=False)
 
 
 class Block(nn.Module):
+    """A decoder block; whisper's (``cfg.encdec``) also holds the
+    cross-attention and its norm ``lnx``."""
+
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
-        kw = dict(dtype=torch.float32, device=device)
-        self.ln1 = nn.Parameter(torch.empty(cfg.d_model, **kw),
-                                requires_grad=False)
+        self.ln1 = _norm(cfg, device)
         self.attn = Attention(cfg, dtype, device)
-        self.ln2 = nn.Parameter(torch.empty(cfg.d_model, **kw),
-                                requires_grad=False)
+        if cfg.encdec:
+            self.lnx = _norm(cfg, device)
+            self.xattn = CrossAttention(cfg, dtype, device)
+        self.ln2 = _norm(cfg, device)
         self.ffn = MLP(cfg, dtype, device)
 
     @classmethod
     def quantized(cls, blk: "Block", cfg: ArchConfig) -> "Block":
-        """The int8 serving copy of ``blk``: the five projection weights
-        quantized column-wise, the norm scales shared."""
+        """The int8 serving copy of ``blk``: the packed ``wqkv``, ``wo``
+        and the MLP's projections quantized column-wise; the norm scales
+        and whisper's cross-attention shared (the reference's pass skips
+        ``xattn``)."""
         q = cls.__new__(cls)
         nn.Module.__init__(q)
         q.ln1, q.ln2 = blk.ln1, blk.ln2
+        if cfg.encdec:
+            q.lnx, q.xattn = blk.lnx, blk.xattn
         qw = quantize_weight_colwise
         q.attn = Attention(cfg, None, None, weights={
             "wqkv": qw(blk.attn.wqkv), "wo": qw(blk.attn.wo)})
         q.ffn = MLP(cfg, None, None, weights={
-            name: qw(getattr(blk.ffn, name))
-            for name in ("gate", "up", "down")})
+            name: qw(getattr(blk.ffn, name)) for name in blk.ffn.names})
         return q
+
+
+class EncoderBlock(nn.Module):
+    """Whisper's encoder block (the reference's ``enc_block``): ``ln1``,
+    the packed self-attention, ``ln2`` and the MLP."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.ln1 = _norm(cfg, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.ln2 = _norm(cfg, device)
+        self.ffn = MLP(cfg, dtype, device)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.blocks = nn.ModuleList(EncoderBlock(cfg, dtype, device)
+                                    for _ in range(cfg.n_enc_layers))
+        self.final_norm = _norm(cfg, device)
 
 
 class Model(nn.Module):
@@ -86,24 +157,27 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         for kind in cfg.block_pattern:
-            check_kind(kind)
-        if not cfg.gated_mlp or not cfg.tie_embeddings:
+            check_kind(kind, PAGED_KINDS)
+        if not cfg.tie_embeddings:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense attention decoders "
-                f"with a gated MLP and tied embeddings")
+                f"{cfg.name}: the port serves models with tied embeddings")
         self.cfg = cfg
         self.int8 = False
         self.device = resolve_device(device)
         self.compute_dtype = _dtype(cfg.compute_dtype)
         dt = _dtype(cfg.param_dtype)
+        # whisper's float32 param_dtype is the reference's training master
+        # copy; served, its projection weights are held at the compute
+        # dtype, so no GEMM casts them at use
+        proj = self.compute_dtype if cfg.encdec else dt
         self.embed = nn.Parameter(
             torch.empty(cfg.padded_vocab(), cfg.d_model, dtype=dt,
                         device=self.device), requires_grad=False)
-        self.final_norm = nn.Parameter(
-            torch.empty(cfg.d_model, dtype=torch.float32, device=self.device),
-            requires_grad=False)
+        self.final_norm = _norm(cfg, self.device)
         self.blocks = nn.ModuleList(
-            Block(cfg, dt, self.device) for _ in range(cfg.n_layers))
+            Block(cfg, proj, self.device) for _ in range(cfg.n_layers))
+        if cfg.encdec:
+            self.encoder = Encoder(cfg, proj, self.device)
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Model":
@@ -126,12 +200,14 @@ class Model(nn.Module):
     @torch.no_grad()
     def quantize_params_for_serving(self) -> "Model":
         """One-shot int8 weight quantization for serving: a new ``Model``
-        whose packed ``wqkv``, ``wo`` and MLP ``gate``/``up``/``down`` are
-        ``QuantizedWeight``s (int8 values stored once transposed, [N, K],
-        the K-major operand of K2's s8 wgmma; one f32 scale per output
-        column) and which shares this model's embedding and norm scales
-        (the tied head keeps full precision for the logits).  Idempotent:
-        an int8 model returns itself."""
+        whose decoder blocks' packed ``wqkv``, ``wo`` and MLP ``gate``/
+        ``up``/``down`` are ``QuantizedWeight``s (int8 values stored once
+        transposed, [N, K], the K-major operand of K2's s8 wgmma; one f32
+        scale per output column) and which shares this model's embedding
+        and norm scales (the tied head keeps full precision for the
+        logits), and whisper's encoder and cross-attention (the
+        reference's pass skips ``/encoder/`` and ``/xattn/``,
+        ``lm.py:202``).  Idempotent: an int8 model returns itself."""
         if self.int8:
             return self
         q = Model.__new__(Model)
@@ -141,14 +217,19 @@ class Model(nn.Module):
         q.embed, q.final_norm = self.embed, self.final_norm
         q.blocks = nn.ModuleList(Block.quantized(b, self.cfg)
                                  for b in self.blocks)
+        if self.cfg.encdec:
+            q.encoder = self.encoder
         return q
 
     @property
     def supports_paged_serving(self) -> bool:
-        """The paged scheduler serves single-device stacks of the attention
-        kinds K6 takes ('global', 'local'): every model the port builds."""
-        return all(kind in ("global", "local")
-                   for kind in self.cfg.block_pattern)
+        """The paged scheduler serves single-device decoder stacks of the
+        attention kinds K6 takes ('global', 'local'); an encoder-decoder
+        prefills through extra inputs (the frames) the chunk loop does not
+        model, so engines take the fixed loop for it (the reference's
+        ``lm.py:562-565``)."""
+        return not self.cfg.encdec and all(
+            kind in PAGED_KINDS for kind in self.cfg.block_pattern)
 
     def _theta(self, kind: str) -> float:
         cfg = self.cfg
@@ -165,7 +246,7 @@ class Model(nn.Module):
         one."""
         cfg = self.cfg
         kw = dict(dtype=torch.bfloat16, device=self.device)
-        out = []
+        out = Cache()
         for i in range(cfg.n_layers):
             slots = (min(cfg.window, max_len) if cfg.kind(i) == "local"
                      else max_len)
@@ -174,7 +255,7 @@ class Model(nn.Module):
                         "v": torch.zeros(shape, **kw)})
         return out
 
-    def new_paged_cache(self, n_pages: int, page_size: int) -> Cache:
+    def new_paged_cache(self, n_pages: int, page_size: int) -> Pools:
         """Zeroed K/V page pools ``[n_pages + 1, page_size, KV, hd]`` bf16,
         one pair per layer, shared by every lane through the page table;
         row ``n_pages`` is the trash page (written by idle lanes and padded
@@ -189,31 +270,66 @@ class Model(nn.Module):
     # -- forward ----------------------------------------------------------------
 
     def _block(self, blk: Block, kind: str, h, xn, next_scale, *, positions,
-               cache, pos, page_table):
+               cache, pos, page_table, enc_out=None):
         cfg, cd = self.cfg, self.compute_dtype
         out = attention_apply(blk.attn, xn, cfg, cd, kind=kind,
                               theta=self._theta(kind), positions=positions,
-                              cache=cache, pos=pos, page_table=page_table)
+                              cache=cache, pos=pos, page_table=page_table,
+                              use_rope=not cfg.encdec)
         h = h + out
+        if enc_out is not None:
+            # cross-attention, added outside any GEMM (lm.py:272-287)
+            xx = rmsnorm(h, blk.lnx, cfg.norm_eps)
+            h = h + cross_attention_apply(blk.xattn, xx, enc_out, cfg, cd,
+                                          decode=pos is not None)
         xn2 = rmsnorm(h, blk.ln2, cfg.norm_eps)
-        ffn = {"gate": blk.ffn.gate, "up": blk.ffn.up, "down": blk.ffn.down}
-        return mlp_apply(ffn, xn2, cd, residual=h, norm_scale=next_scale,
-                         norm_eps=cfg.norm_eps)
+        return mlp_apply(blk.ffn.params(), xn2, cd, residual=h,
+                         norm_scale=next_scale, norm_eps=cfg.norm_eps,
+                         gated=cfg.gated_mlp)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over frame embeddings [B, F, D] (the
+        reference's ``_encode``, ``lm.py:363-385``) -> [B, F, D] in the
+        compute dtype: the frames plus sinusoidal positions, per block a
+        standalone rmsnorm, the 'full' self-attention (K4, no RoPE), the
+        residual add, a standalone rmsnorm, the plain GELU MLP (K1's gelu
+        up GEMM, a down GEMM with no epilogue), the residual add in the
+        compute dtype; then the final rmsnorm."""
+        cfg, cd = self.cfg, self.compute_dtype
+        f = frames.shape[1]
+        h = frames.to(self.device).to(cd) + sinusoid(0, f, cfg.d_model, cd,
+                                                      self.device)
+        positions = torch.arange(f, device=self.device)
+        for blk in self.encoder.blocks:
+            x = rmsnorm(h, blk.ln1, cfg.norm_eps)
+            h = h + attention_apply(blk.attn, x, cfg, cd, kind="full",
+                                    theta=cfg.rope_theta,
+                                    positions=positions, cache=None,
+                                    use_rope=False)
+            x2 = rmsnorm(h, blk.ln2, cfg.norm_eps)
+            h = h + mlp_apply(blk.ffn.params(), x2, cd, gated=cfg.gated_mlp)
+        return rmsnorm(h, self.encoder.final_norm, cfg.norm_eps)
 
     def forward(self, tokens: torch.Tensor, *, cache: Cache,
                 pos: Optional[int] = None,
                 positions: Optional[torch.Tensor] = None,
-                page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+                page_table: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S].  With ``page_table`` [B, P]: paged serving, the
         cache is the page pools and ``positions`` [B, S] holds per-token
         positions (-1 = inactive).  Otherwise ``pos`` None is prefill (the
         dense cache is filled from slot 0), else one decode token at
-        position ``pos``.  Returns the final-normed stream [B, S, D]."""
+        position ``pos``.  Whisper's decoder attends ``enc_out`` [B, F, D]
+        in every block.  Returns the final-normed stream [B, S, D]."""
         cfg, cd = self.cfg, self.compute_dtype
         h = vocab_parallel_embed(self.embed, tokens, cd)
         # the sqrt(d) multiplier is rounded to the compute dtype first
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cd,
                              device=h.device)
+        if cfg.encdec:
+            # sinusoidal positions from the first token's (lm.py:356-360)
+            h = h + sinusoid(0 if pos is None else pos, tokens.shape[1],
+                             cfg.d_model, cd, h.device)
         if page_table is None:
             positions = (torch.arange(tokens.shape[1], device=h.device)
                          if pos is None
@@ -225,19 +341,30 @@ class Model(nn.Module):
             h, xn = self._block(blk, cfg.kind(i), h, xn, nxt,
                                 positions=positions,
                                 cache=cache[i], pos=pos,
-                                page_table=page_table)
+                                page_table=page_table, enc_out=enc_out)
         return xn  # the last block's fold produced rmsnorm(h, final_norm)
 
     # -- entry points -------------------------------------------------------------
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor,
-                max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                frames: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
         """tokens [B, S] -> (last-token logits [B, Vp] fp32, cache with
-        ``max_len`` slots)."""
+        ``max_len`` slots).  Whisper takes its clips' frame embeddings
+        ``frames`` [B, F, D]: the encoder runs here and its output is held
+        in the cache (``Cache.enc_out``) for the decode steps."""
         b, s = tokens.shape
         cache = self.new_cache(b, max(max_len or s, s, 1))
-        h = self.forward(tokens.to(self.device), cache=cache)
+        if self.cfg.encdec:
+            if frames is None or frames.shape[0] != b:
+                raise ValueError(f"{self.cfg.name} prefills from frames "
+                                 f"[{b}, F, {self.cfg.d_model}]")
+            cache.enc_out = self.encode(frames)
+        elif frames is not None:
+            raise ValueError(f"{self.cfg.name} has no encoder for frames")
+        h = self.forward(tokens.to(self.device), cache=cache,
+                         enc_out=cache.enc_out)
         logits = vocab_parallel_logits(h[:, -1:], self.embed,
                                        self.cfg.final_softcap)
         return logits[:, 0], cache
@@ -246,15 +373,17 @@ class Model(nn.Module):
     def decode_step(self, cache: Cache, token: torch.Tensor,
                     pos: int) -> Tuple[torch.Tensor, Cache]:
         """token [B, 1] at position ``pos`` -> (logits [B, Vp] fp32, cache
-        updated in place)."""
-        h = self.forward(token.to(self.device), cache=cache, pos=int(pos))
+        updated in place).  Whisper's cross-attention reads the encoder
+        output held in the cache."""
+        h = self.forward(token.to(self.device), cache=cache, pos=int(pos),
+                         enc_out=cache.enc_out)
         logits = vocab_parallel_logits(h, self.embed, self.cfg.final_softcap)
         return logits[:, 0], cache
 
     @torch.inference_mode()
-    def decode_step_paged(self, cache: Cache, token: torch.Tensor,
+    def decode_step_paged(self, cache: Pools, token: torch.Tensor,
                           positions: torch.Tensor, page_table: torch.Tensor
-                          ) -> Tuple[torch.Tensor, Cache]:
+                          ) -> Tuple[torch.Tensor, Pools]:
         """One decode step for every serving lane through the page pools.
         token [L, 1] each lane's previous pick; positions [L] the position
         being written (-1 = idle lane: its write lands on the trash page,
@@ -270,9 +399,9 @@ class Model(nn.Module):
         return logits[:, 0], cache
 
     @torch.inference_mode()
-    def prefill_chunk(self, cache: Cache, tokens: torch.Tensor,
+    def prefill_chunk(self, cache: Pools, tokens: torch.Tensor,
                       positions: torch.Tensor, page_table: torch.Tensor,
-                      last_idx: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+                      last_idx: torch.Tensor) -> Tuple[torch.Tensor, Pools]:
         """One fixed-size prompt chunk for every serving lane at once, with
         the decode step's write-then-attend math.  tokens [L, C];
         positions [L, C] (-1 marks idle lanes and the padded tail of a

@@ -10,7 +10,10 @@ cache behind ``submit()/step()/collect()``, and the fixed-batch loop.
 
 ``generate()`` / ``generate_with_status()`` are shims over a cached
 fixed-geometry scheduler, as in the reference, whose greedy tokens equal
-the fixed loop's.  With ``ServeConfig(int8=True)`` the engine serves the
+the fixed loop's; a model the scheduler cannot serve (whisper's
+encoder-decoder, ``Model.supports_paged_serving``) falls through to the
+fixed loop, which hands the batch's ``frames`` to its prefill, and its
+``submit()`` raises.  With ``ServeConfig(int8=True)`` the engine serves the
 model's int8 copy (``Model.quantize_params_for_serving``); a saturation
 probe, calibrated on each request's first logits, marks requests whose
 logits drift past the int8 envelope as ``degraded_fp32`` and, with
@@ -170,9 +173,9 @@ class ServeEngine:
         scfg = self.scfg
         if not self.model.supports_paged_serving:
             raise NotImplementedError(
-                "paged serving needs a decoder of global and local "
-                "attention blocks; use generate_with_status_fixed() for "
-                "this model")
+                "paged serving needs a decoder-only model of global and "
+                "local attention blocks; use generate_with_status() or "
+                "generate_with_status_fixed() for this model")
         ppl = -(-max_len // scfg.page_size)
         return PagedScheduler(
             self, n_lanes=n_lanes, pages_per_lane=ppl,
@@ -241,7 +244,11 @@ class ServeEngine:
                              ) -> GenerateResult:
         """Guarded generation with structured per-lane outcomes: each batch
         row becomes a Request on a cached fixed-geometry scheduler and the
-        RequestOutputs are reassembled into a GenerateResult."""
+        RequestOutputs are reassembled into a GenerateResult.  A model the
+        scheduler cannot serve falls through to
+        ``generate_with_status_fixed`` (the reference's ``engine.py:544``)."""
+        if not self.model.supports_paged_serving:
+            return self.generate_with_status_fixed(batch)
         scfg = self.scfg
         toks = np.asarray(batch["tokens"])
         b_full = toks.shape[0]
@@ -291,7 +298,8 @@ class ServeEngine:
         prefill, times out every running lane at the top of a step; with
         int8 each lane's first logits calibrate its saturation probe, and
         a degraded lane picks from the float model's logits under
-        ``fp32_fallback``."""
+        ``fp32_fallback``.  Whisper's batch carries ``frames`` [B, F, D],
+        which the prefill encodes."""
         scfg = self.scfg
         toks = torch.as_tensor(batch["tokens"])
         b_full = toks.shape[0]
@@ -305,9 +313,12 @@ class ServeEngine:
         admit = b_full if scfg.max_lanes is None \
             else min(b_full, scfg.max_lanes)
         toks = toks[:admit]
+        frames = batch.get("frames")
+        if frames is not None:
+            frames = torch.as_tensor(frames)[:admit]
         prompt_len = toks.shape[1]
         logits, cache = self.model.prefill(
-            toks, max_len=prompt_len + scfg.max_new_tokens)
+            toks, max_len=prompt_len + scfg.max_new_tokens, frames=frames)
         # the clock starts once prefill has returned: the budget bounds the
         # decode loop, not the first call's kernel build
         deadline = (time.monotonic() + scfg.request_timeout_s

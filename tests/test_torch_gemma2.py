@@ -257,12 +257,14 @@ def test_unported_kinds_raise_on_every_path():
     rng = np.random.default_rng(0)
     _, q = _pair(rng, (1, 8, 2, 16))
     _, k = _pair(rng, (1, 8, 2, 16))
-    for kind in ("chunked", "prefix", "full"):
+    for kind in ("chunked", "prefix"):
         with pytest.raises(NotImplementedError):
             ops.flash_attention(q, k, k, kind=kind, window=4)
+    # 'full' (whisper's encoder-decoder) is no kind of the paged kernel
+    for kind in ("chunked", "prefix", "full"):
         with pytest.raises(NotImplementedError):
             ops.paged_flash_decode(*_paged_case(16, 1), kind=kind, window=4)
-    for kind in ("local", "full"):
+    for kind in ("local", "chunked"):
         with pytest.raises(NotImplementedError):
             ops.flash_decode(q[:, :1].reshape(1, 1, 2, 1, 16), k, k, 3,
                              kind=kind)

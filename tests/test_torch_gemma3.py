@@ -278,7 +278,9 @@ def test_k4_launch_at_hd256(intercepted, kind, window, key):
     ((lib, fn, args),) = intercepted
     assert (lib, fn) == ("flash_attention", "k4_flash_prefill")
     assert len(args) + 1 == len(_cuda.SIGNATURES[lib][fn])
-    assert args[4:] == (2, 4160, 4160, 16, 8, HD, HD ** -0.5, window, 0.0)
+    # window, then the 'full' flag (0: not whisper's kind), the softcap
+    assert args[4:] == (2, 4160, 4160, 16, 8, HD, HD ** -0.5, window, 0,
+                        0.0)
     assert _cuda.LAUNCHES["flash_attention"] == 1
     assert _cuda.LAUNCHES[key] == 1
 

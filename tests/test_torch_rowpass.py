@@ -182,12 +182,12 @@ def _args(lib, fn, args):
     names = {
         "k1_matmul": ("a", "b", "out", "residual", "operand2", "workspace",
                       "counters", "norm_scale", "normed", "M", "N", "K",
-                      "splits", "tile_n", "gate_silu", "eps"),
+                      "splits", "tile_n", "epi_flags", "eps"),
         "k2_int8_matmul": ("a", "b", "a_scale", "b_scale", "out_f32",
                            "out_bf16", "residual", "operand2", "workspace",
                            "counters", "norm_scale", "normed", "q",
                            "q_scale", "M", "N", "K", "splits", "tile_n",
-                           "gate_silu", "eps"),
+                           "epi_flags", "eps"),
     }[fn]
     assert len(args) + 1 == len(_cuda.SIGNATURES[lib][fn]) == len(names) + 1
     return dict(zip(names, args))
