@@ -119,6 +119,24 @@ line):
    and at Sq 64 against Skv 1500, K5 'full' over the 1500 frames), and
    phase 3 its smoke config card against CPU through the same
    fall-through, bf16 and int8 (``check_whisper_smoke``).
+8. llama4: after whisper's model is freed, llama4-scout at full width
+   (d_model 5120, 40 q heads over 8 of 128, 16 experts of 8192 top-1 with
+   a shared expert, vocab 202048) cut to 8 of its 48 layers (two periods
+   of its 3:1 chunked:global pattern, 37.3 GB of bf16 weights) from seed
+   0 (``serve_llama4``): at init scales the MoE witness past position
+   8192 (``moe_witness``: held on the lanes none of whose tokens the MoE
+   dropped); then, on varied weights, the fixed loop (batch 2, prompt
+   8448, 16 tokens; K4 chunked across the boundary and global, the ring,
+   K5, K1) and the scheduler (8 requests, request 0 an 8180-token prompt
+   decoding past 8192; K6 chunked and global, decode and chunk, K1): every
+   status ok, every variant launched, one decode iteration's launches
+   exact (2 layers + 1 row-norm launches: the MoE has no down GEMM to
+   fold the next norm into), request 0 alone bitwise the same amid churn.
+   Phase 2 holds K4 chunked at the fixed prefill and K4 'prefix' at
+   paligemma's would-be shape (no model calls it) beside SDPA, K6 chunked
+   decode (bitwise across split counts) and chunk at G = 5, and K1 at its
+   qkv and o projections (``check_llama4_kernels``); phase 3 its smoke
+   config card against CPU (``check_local_smoke``).
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -158,6 +176,24 @@ G2_BATCH, G2_PROMPT, G2_NEW, G2_REQ = 2, 4160, 16, 8
 # (the prompt wraps the local layers' 1024-slot ring four times)
 G3_H, G3_KV, G3_HD, G3_WINDOW = 16, 8, 256, 1024
 G3_BATCH, G3_PROMPT, G3_NEW, G3_REQ = 2, 4160, 16, 8
+# llama4-scout-17b-a16e (src/repro_torch/configs/llama4_scout_17b_a16e.py):
+# 40 q heads over 8 kv heads (G = 5), hd 128, chunks of 8192 positions,
+# d_model 5120, 16 experts of d_ff 8192; phase 8 serves 8 of its 48 layers
+# (two periods of its 3:1 chunked:global pattern) at full width
+L4_ARCH = "llama4-scout-17b-a16e"
+L4_H, L4_KV, L4_HD, L4_WINDOW, L4_D = 40, 8, 128, 8192, 5120
+L4_LAYERS = 8
+# the fixed loop's batch, prompt (past the 8192 chunk) and new tokens; the
+# scheduler's requests, request 0's prompt and budget (its decode crosses
+# position 8192), and the pages of a lane (launch.serve.LLAMA4_GEOMETRY's
+# 8224 positions over 16-slot pages)
+L4_BATCH, L4_PROMPT, L4_NEW = 2, 8448, 16
+L4_REQ, L4_LONG, L4_LONG_NEW, L4_PAGES = 8, 8180, 32, 514
+# the witness: a prompt just short of the chunk boundary, decoded past it
+L4_WIT_PROMPT, L4_WIT_NEW = 8190, 8
+# K4's 'prefix' kind at paligemma's would-be shape (256 patches before 256
+# text tokens, 8 q heads over 1 kv head of 256): no model calls it
+PG_B, PG_PREFIX, PG_S, PG_H, PG_KV, PG_HD = 4, 256, 512, 8, 1, 256
 # kernels each driven path must launch (the counts are read per path)
 # (a variant's launches are counted under "<kernel>:<variant>"; a row pass
 # in a GEMM's store phase is its variant "norm" or "quantize")
@@ -207,11 +243,21 @@ PATH_KERNELS = {
                            "rmsnorm", "flash_attention",
                            "flash_attention:full", "flash_decode",
                            "flash_decode:full"),
+    # llama4: K4 chunked and global, K5 global (the chunked layers decode
+    # their ring in plain torch), K6 chunked and global in both bodies, K1
+    # (no norm tail: after the MoE the residual add and the next norm run
+    # standalone, the row-norm kernel); a bare kernel name here means its
+    # launches with no variant on (``variant_launches``)
+    "llama4_fixed": ("matmul", "rmsnorm", "flash_attention:chunked",
+                     "flash_attention", "flash_decode"),
+    "llama4_scheduler": ("matmul", "rmsnorm", "paged_decode:chunked",
+                         "paged_decode", "paged_decode:chunked+chunk",
+                         "paged_decode:chunk"),
 }
 
 
 def decode_launches(name, counts, layers: int, int8: bool = False,
-                    encdec: bool = False) -> dict:
+                    encdec: bool = False, moe: bool = False) -> dict:
     """One decode iteration's launch counts on a driven path: the entry
     norm and each block's ``ln2`` are the only row-norm launches (the down
     GEMM's norm is its tail, one per layer), and under int8 no row
@@ -219,11 +265,13 @@ def decode_launches(name, counts, layers: int, int8: bool = False,
     encoder-decoder (whisper) adds each block's ``lnx`` (2 layers + 1
     row-norm launches), a K5 'full' launch a layer beside the global one,
     and its up GEMM is the gelu variant (``matmul:gelu``, or under int8
-    ``int8_matmul:gelu+quantize``).  Raises on a miss; returns the
-    counts."""
+    ``int8_matmul:gelu+quantize``).  An MoE model (llama4) has no down
+    GEMM to fold into: each layer's ``ln2`` and its next norm after the
+    MoE are row-norm launches (2 layers + 1), and no norm tail runs.
+    Raises on a miss; returns the counts."""
     gemm = "int8_matmul" if int8 else "matmul"
-    want = {"rmsnorm": (2 if encdec else 1) * layers + 1,
-            f"{gemm}:norm": layers}
+    want = {"rmsnorm": (2 if encdec or moe else 1) * layers + 1,
+            f"{gemm}:norm": 0 if moe else layers}
     if encdec:
         want.update({"flash_decode": 2 * layers,
                      "flash_decode:full": layers,
@@ -363,11 +411,13 @@ K1_WIDTHS = {
 }
 
 
-def k1_rows(torch, timer, rand, model, m, d, qkv_n, o_k, ff, tol):
-    """K1 at one model's five projections for M rows: each against its
-    plain version (``tol`` of each row's scale; the fused rmsnorm bitwise
-    store-then-rmsnorm), timed beside its bound, its plain version and one
-    ``torch.matmul``; returns one row per projection."""
+def k1_rows(torch, timer, rand, model, m, d, qkv_n, o_k, ff, tol,
+            names=("qkv", "o", "gate", "up", "down")):
+    """K1 at one model's projections (``names``, by default all five) for
+    M rows: each against its plain version (``tol`` of each row's scale;
+    the fused rmsnorm bitwise store-then-rmsnorm), timed beside its bound,
+    its plain version and one ``torch.matmul``; returns one row per
+    projection."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.epilogue import Epilogue
     from repro_torch.kernels.matmul import k1_plan, sm_count
@@ -395,6 +445,8 @@ def k1_rows(torch, timer, rand, model, m, d, qkv_n, o_k, ff, tol):
     }
     out = []
     for name, (a, b, ep, kw) in cases.items():
+        if name not in names:
+            continue
         got = ops.matmul(a, b, epilogue=ep, **kw)
         want = ref.matmul_fused_ref(a, b, ep, **kw)
         if ep.norm != "none":
@@ -435,6 +487,26 @@ def k1_rows(torch, timer, rand, model, m, d, qkv_n, o_k, ff, tol):
         out.append(row)
         print("  k1", json.dumps(row), flush=True)
     return out
+
+
+def k1_sum(shapes, model, m, work, tol):
+    """One kernels-line row from ``k1_rows``' rows of ``model`` at M = m:
+    the projections' times, bounds and yardsticks summed, the worst
+    error."""
+    sel = [r for r in shapes
+           if r["model"] == model and r["shape"].split()[1] == f"M={m}"]
+    return dict(
+        work=work,
+        max_abs_err=max(r["max_abs_err"] for r in sel),
+        max_row_err=max(r["max_row_err"] for r in sel), tol=tol,
+        ms=sum(r["ms"] for r in sel),
+        wrapper_ms=sum(r["wrapper_ms"] for r in sel),
+        plain_ms=sum(r["plain_ms"] for r in sel),
+        bound_ms=sum(r["bound_ms"] for r in sel),
+        bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in sel)
+                  else "operations"),
+        library_ms=sum(r["library_ms"] for r in sel),
+        regime=sel[0]["regime"], deterministic=True)
 
 
 def k1_determinism(torch, rand):
@@ -608,20 +680,7 @@ def check_kernels(torch, timer):
     k1_determinism(torch, rand)
 
     def k1_entry(model, m, work):
-        sel = [r for r in shapes
-               if r["model"] == model and r["shape"].split()[1] == f"M={m}"]
-        return dict(
-            work=work,
-            max_abs_err=max(r["max_abs_err"] for r in sel),
-            max_row_err=max(r["max_row_err"] for r in sel), tol=k1_tol,
-            ms=sum(r["ms"] for r in sel),
-            wrapper_ms=sum(r["wrapper_ms"] for r in sel),
-            plain_ms=sum(r["plain_ms"] for r in sel),
-            bound_ms=sum(r["bound_ms"] for r in sel),
-            bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in sel)
-                      else "operations"),
-            library_ms=sum(r["library_ms"] for r in sel),
-            regime=sel[0]["regime"], deterministic=True)
+        return k1_sum(shapes, model, m, work, k1_tol)
 
     five = ("five projections: qkv, o, gate, up+silu gate, "
             "down+residual+rmsnorm (its tail at decode, the row kernel at "
@@ -1513,20 +1572,25 @@ def check_wide_groups(torch):
                 records_tol=1e-5)
 
 
-def k6_bound(q, table, positions, kv, window):
+def k6_bound(q, table, positions, kv, window, chunked=False):
     """K6's bound for q [L, S, KV, G, hd] at ``positions`` [L, S]: the
     bytes of q, the output, the table, the positions and each lane's
     attended K/V rows (read once), and the operations of the rows' scores
-    and P.V (bf16 inputs)."""
+    and P.V (bf16 inputs).  ``window`` is a local window, or with
+    ``chunked`` the chunk: a row at p attends from its chunk's start."""
     hd, g = q.shape[-1], q.shape[-2]
     keys, slots = 0, 0
     for lane in positions.cpu().tolist():
         live = [p for p in lane if p >= 0]
         if not live:
             continue
-        span = [min(p + 1, window) if window else p + 1 for p in live]
+        if chunked:
+            span = [p % window + 1 for p in live]
+            first = min(live) // window * window
+        else:
+            span = [min(p + 1, window) if window else p + 1 for p in live]
+            first = max(0, min(live) - window + 1) if window else 0
         keys += sum(span)
-        first = max(0, min(live) - window + 1) if window else 0
         slots += max(live) + 1 - first
     nbytes = (2 * 2 * q.numel() + 2 * 2 * slots * kv * hd
               + 4 * (table.numel() + positions.numel()))
@@ -3005,6 +3069,416 @@ def serve_whisper(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# llama4-scout: the 'chunked' kind in K4 and K6, K4's 'prefix' kind, the
+# MoE FFN, G = 5
+# ---------------------------------------------------------------------------
+
+def check_llama4_kernels(torch, timer):
+    """Phase 2, llama4: the new variants against their plain versions at
+    the shapes the driven paths give them, each row within 2 bf16 ulps of
+    its scale.  K4 'chunked' at the fixed loop's prefill (B 2 x S 8448, 40
+    q heads over 8, hd 128, chunks of 8192: the boundary inside the
+    prefill), its plain version taken a kv head at a time (the whole
+    score tensor would be 23 GB), beside SDPA with the chunks as a bool
+    mask; K4 'prefix' at paligemma's would-be shape (B 4, 256 patches and
+    256 text tokens, 8 heads over 1 of 256, ``prefix_len`` 256) beside
+    SDPA with the bool mask; K6 'chunked' at the scheduler's geometry (8
+    lanes, KV 8, G 5, 16-slot pages, 514 pages a lane) with lanes on both
+    sides of the 8192 boundary and one idle: decode (partials within
+    1e-5, bitwise the same at split counts 1, 2, 4, the default and one
+    per tile, the idle lane 0.0) and the S = 64 chunk body
+    (``chunk_contracts``; q tiles of 25, 25 and 14 positions at G = 5); K1
+    at llama4's two projections, the packed qkv [5120, 7168] and wo [5120,
+    5120], at M = 8 and 512, beside ``torch.matmul``."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (
+        chunk_tiles, head_groups, paged_decode_launch,
+        paged_flash_decode_tiled, paged_tile_partials)
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    tol = 2 * eps_bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    bf = torch.bfloat16
+    H, KV, hd, W = L4_H, L4_KV, L4_HD, L4_WINDOW
+    G = H // KV
+    require(head_groups(G) == (1, G) and chunk_tiles(CHUNK, G) == (25, 3),
+            f"G = {G}: head_groups {head_groups(G)}, chunk_tiles "
+            f"{chunk_tiles(CHUNK, G)}")
+
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    def by_kv_head(q, k, v, **var):
+        """The plain K4 one kv head (and its G q heads) at a time."""
+        g = q.shape[2] // k.shape[2]
+        return torch.cat([ref.flash_attention_ref(
+            q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1],
+            **var) for j in range(k.shape[2])], dim=2)
+
+    results = {}
+    # K4 'chunked' at the fixed loop's prefill, and 'prefix'
+    b, s = L4_BATCH, L4_PROMPT
+    pos = torch.arange(s, device="cuda")
+    chunked_mask = (pos[None, :] <= pos[:, None]) & (
+        pos[None, :] // W == pos[:, None] // W)
+    pp = torch.arange(PG_S, device="cuda")
+    prefix_mask = (pp[None, :] <= pp[:, None]) | (pp[None, :] < PG_PREFIX)
+    for name, shape, var, live, mask, what in (
+            ("k4_flash_prefill_chunked", (b, s, H, KV, hd),
+             dict(kind="chunked", window=W),
+             sum(p % W + 1 for p in range(s)), chunked_mask,
+             f"chunked prefill window={W} B={b} S={s} H={H} KV={KV} "
+             f"hd={hd} (G = {G}; the plain version a kv head at a time)"),
+            ("k4_flash_prefill_prefix", (PG_B, PG_S, PG_H, PG_KV, PG_HD),
+             dict(kind="prefix", prefix_len=PG_PREFIX),
+             PG_PREFIX * PG_PREFIX + sum(p + 1 for p in
+                                         range(PG_PREFIX, PG_S)),
+             prefix_mask,
+             f"prefix-LM prefill prefix_len={PG_PREFIX} B={PG_B} S={PG_S} "
+             f"H={PG_H} KV={PG_KV} hd={PG_HD} (paligemma's would-be shape; "
+             f"reached through ops.flash_attention only)")):
+        bb, ss, hh, kvh, dd = shape
+        q, k, v = rand(bb, ss, hh, dd), rand(bb, ss, kvh, dd), rand(
+            bb, ss, kvh, dd)
+        got = ops.flash_attention(q, k, v, **var)
+        want = by_kv_head(q, k, v, **var)
+        err, abs_err = row_err(got, want), max_err(got, want)
+        del got, want
+        require(err <= tol, f"{name}: a row is off by {err:.3e} of its "
+                            f"scale")
+        t_b, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                        4 * bb * hh * dd * live)
+        results[name] = dict(
+            work=what, max_abs_err=abs_err, max_row_err=err, tol=tol,
+            ms=timer(lambda var=var: ops.flash_attention(q, k, v, **var),
+                     reps=3),
+            wrapper_ms=timer.wall(
+                lambda var=var: ops.flash_attention(q, k, v, **var), reps=3),
+            plain_ms=timer(lambda var=var: by_kv_head(q, k, v, **var),
+                           reps=1),
+            bound_ms=t_b, bound_by=by,
+            library_ms=sdpa_ms(torch, timer, q, k, v, attn_mask=mask),
+            library_note="SDPA with the mask as a bool tensor (sdpa_ms)")
+        print("  k4 " + json.dumps({name: results[name]}), flush=True)
+        del q, k, v
+    del chunked_mask, prefix_mask
+    torch.cuda.empty_cache()
+
+    # K6 'chunked' at the scheduler's geometry
+    L, ps, P = LANES, PAGE, L4_PAGES
+    n_pages = L * P
+    kp, vp = rand(n_pages + 1, ps, KV, hd), rand(n_pages + 1, ps, KV, hd)
+    lane_pos = torch.tensor([0, 31, 8191, 8192, 8200, 8223, 5000, -1],
+                            dtype=torch.int32)
+    table = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        SEED)).reshape(L, P).to(torch.int32)
+    for lane in range(L):
+        table[lane, max(int(lane_pos[lane]), 0) // ps + 1:] = -1
+    table = table.cuda()
+    posd = lane_pos.cuda()[:, None].contiguous()
+    var = dict(kind="chunked", window=W)
+    q = rand(L, 1, KV, G, hd)
+    rows, n_tiles = L * KV, P * ps // 32
+    got = ops.paged_flash_decode(q, kp, vp, table, posd, **var)
+    require(bool((got[L - 1] == 0).all()), "K6 chunked: the idle lane is "
+                                           "not 0.0")
+    splits = sorted({1, 2, 4, n_tiles})
+    for n in splits:
+        out, _ = paged_decode_launch(q, kp, vp, table, posd, n_splits=n,
+                                     **var)
+        require(torch.equal(out, got), f"K6 chunked decode differs at "
+                                       f"{n} splits")
+    want = paged_flash_decode_tiled(q, kp, vp, table, posd, **var)
+    dec_err, dec_abs = row_err(got, want), max_err(got, want)
+    out, ws = paged_decode_launch(q, kp, vp, table, posd, **var)
+    p_err = record_err(torch, ws, paged_tile_partials(
+        q, kp, vp, table, posd, **var), rows, n_tiles, G, hd)
+    del out, ws, got, want
+    qc = rand(L, CHUNK, KV, G, hd)
+    pc = lane_pos.clamp(min=0)[:, None] - CHUNK + 1 + torch.arange(CHUNK)[
+        None]
+    pc = torch.where((pc >= 0) & (lane_pos[:, None] >= 0), pc, -1)
+    pc[2, -7:] = -1      # a final chunk's padded tail
+    pc = pc.to(torch.int32).cuda().contiguous()
+    chunk = chunk_contracts(torch, qc, kp, vp, table, pc, 4, **var)
+    chunk_want = paged_flash_decode_tiled(qc, kp, vp, table, pc, **var)
+    chunk_err, chunk_abs = row_err(chunk, chunk_want), max_err(chunk,
+                                                               chunk_want)
+    del chunk, chunk_want
+    require(p_err <= 1e-5 and max(dec_err, chunk_err) <= tol,
+            f"K6 chunked: decode {dec_err:.3e} (partials {p_err:.3e}), "
+            f"chunk {chunk_err:.3e}")
+    where = (f"L={L} KV={KV} G={G} hd={hd} page_size={ps} P={P} "
+             f"({n_tiles} tiles), positions {lane_pos.tolist()}")
+    lib_note = "no one PyTorch call attends through a page table"
+    dec = dict(
+        work=f"paged decode chunked window={W} {where}; the idle lane 0.0, "
+             f"bitwise at split counts {splits} and the default",
+        max_abs_err=dec_abs, max_row_err=dec_err, tol=tol,
+        partials_row_err=p_err, partials_tol=1e-5,
+        ms=timer(lambda: ops.paged_flash_decode(q, kp, vp, table, posd,
+                                                **var)),
+        wrapper_ms=timer.wall(lambda: ops.paged_flash_decode(
+            q, kp, vp, table, posd, **var)),
+        plain_ms=timer(lambda: paged_flash_decode_tiled(
+            q, kp, vp, table, posd, **var), reps=1),
+        library_ms=None, library_note=lib_note)
+    dec["bound_ms"], dec["bound_by"] = k6_bound(q, table, posd, KV, W, True)
+    chk = dict(
+        work=f"paged prefill chunk S={CHUNK} chunked window={W} {where}, "
+             f"each lane's chunk ending at its position (a padded tail), "
+             f"q tiles of 25, 25 and 14 positions x 5 heads; "
+             f"deterministic, idle rows 0.0, a lane unmoved by its "
+             f"neighbours",
+        max_abs_err=chunk_abs, max_row_err=chunk_err, tol=tol,
+        ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table, pc,
+                                                **var), reps=3),
+        wrapper_ms=timer.wall(lambda: ops.paged_flash_decode(
+            qc, kp, vp, table, pc, **var), reps=3),
+        plain_ms=timer(lambda: paged_flash_decode_tiled(
+            qc, kp, vp, table, pc, **var), reps=1),
+        library_ms=None, library_note=lib_note)
+    chk["bound_ms"], chk["bound_by"] = k6_bound(qc, table, pc, KV, W, True)
+    results["k6_paged_decode_chunked"] = dec
+    results["k6_paged_decode_chunk_chunked"] = chk
+    print("  k6 chunked " + json.dumps([dec, chk]), flush=True)
+    del kp, vp, q, qc
+    torch.cuda.empty_cache()
+
+    # K1 at llama4's two projections (its FFN is the MoE's batched
+    # products, not K1)
+    shapes = []
+    for m in (LANES, LANES * CHUNK):
+        shapes += k1_rows(torch, timer, rand, "llama4",
+                          m, L4_D, (H + 2 * KV) * hd, H * hd, 8192, tol,
+                          names=("qkv", "o"))
+    for m, where in ((LANES, "decode"), (LANES * CHUNK, "a scheduler chunk")):
+        results[f"k1_matmul_llama4_m{m}"] = dict(
+            k1_sum(shapes, "llama4", m,
+                   f"llama4-scout's qkv [{L4_D}, {(H + 2 * KV) * hd}] and "
+                   f"o [{H * hd}, {L4_D}] at {where} (M={m})", tol),
+            shapes=[r for r in shapes
+                    if r["shape"].split()[1] == f"M={m}"])
+    return results
+
+
+def moe_witness(torch, model, toks, new: int):
+    """Phase 8's witness at the reference's init scales: the fixed loop's
+    decode step at position prompt + new - 2 (past the 8192 chunk: the
+    chunked layers' ring has wrapped and attends chunk 1 only) against the
+    last logits of a prefill over the same tokens (K4 chunked across the
+    boundary).  The MoE drops a token past its expert's capacity, which
+    depends on the call's token count, so the two prefills (the decode's
+    and the comparison's) may drop different tokens, and a dropped token
+    changes the lane from there on.  Per lane and layer it reports the
+    tokens dropped in each prefill; it holds a lane to WITNESS_TOL only
+    where none of its tokens was dropped in either (the lanes are then
+    independent), and needs one such lane.  The same step against a
+    prefill whose last token was changed must differ by more than 4x the
+    tolerance there."""
+    cfg = model.cfg
+    prompt = toks.shape[1]
+
+    def dropped():   # [lanes, layers]: tokens of each lane dropped
+        return torch.stack([(~k).sum(dim=1) for k in model.moe_kept],
+                           dim=1).cpu()
+    logits, cache = model.prefill(toks, prompt + new)
+    drop_cache = dropped()
+    seq = toks.to(logits.device)
+    for i in range(new - 1):
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        seq = torch.cat([seq, tok], dim=1)
+        logits, cache = model.decode_step(cache, tok, prompt + i)
+    del cache
+    want, _ = model.prefill(seq)
+    drop_want = dropped()
+    other = seq.clone()
+    other[:, -1] = (other[:, -1] + 1) % cfg.vocab
+    off, _ = model.prefill(other)
+    held = [b for b in range(toks.shape[0])
+            if int(drop_cache[b].sum()) == 0 and int(drop_want[b].sum()) == 0]
+    w = dict(position=prompt + new - 2, held_lanes=held,
+             dropped_decode_prefill=drop_cache.tolist(),
+             dropped_witness_prefill=drop_want.tolist(), tol=WITNESS_TOL)
+    require(held, f"{cfg.name}: every lane dropped a token in a prefill, "
+                  f"no witness held: {w}")
+    w["err"] = rel_rows(logits[held], want[held])
+    w["other_token"] = rel_rows(logits[held], off[held])
+    require(w["err"] <= WITNESS_TOL,
+            f"{cfg.name} decode is off its prefill by {w['err']:.3e} of the "
+            f"logit scale: {w}")
+    require(w["other_token"] > 4 * WITNESS_TOL,
+            f"the {cfg.name} witness cannot tell a changed token apart: {w}")
+    return w
+
+
+def serve_llama4(torch):
+    """Phase 8: llama4-scout at full width (d_model 5120, 40 q heads over
+    8, 16 experts of 8192, vocab 202048), 8 of its 48 layers (two periods
+    of the 3:1 chunked:global pattern; 37.3 GB of bf16 weights), random
+    weights from SEED, built after the models of the phases before it are
+    gone.  At the init scales the MoE witness (``moe_witness``).  Then, on
+    weights varied as in phase 3, each path with the launch counts set to
+    0 just before it: the fixed loop (``generate_with_status_fixed``,
+    batch 2, prompt 8448: K4 chunked across the 8192 boundary and global,
+    the ring wrapped, K5 global, K1) and the scheduler (8 requests on 8
+    lanes, request 0 an 8180-token prompt with 32 new tokens, decoding past
+    8192; K6 chunked and global in both bodies, K1).  Every status ok,
+    every variant of ``PATH_KERNELS`` launched, one decode iteration's
+    launches exact (``decode_launches`` with the MoE's standalone norms),
+    and request 0 served alone first emits bitwise the tokens it emits
+    amid churn (lane 0's tokens sort first within every expert, so no
+    neighbour takes its capacity: ROADMAP F6)."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import (NEW_RANGE, PROMPT_RANGE, geometry,
+                                          make_requests, serve_requests,
+                                          with_layers)
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.api import Request, SamplingParams
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = with_layers(get_config(L4_ARCH), L4_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(cfg).init_weights(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    wit = torch.randint(0, cfg.vocab, (L4_BATCH, L4_WIT_PROMPT),
+                        generator=torch.Generator().manual_seed(SEED))
+    out = {"llama4_witness": moe_witness(torch, model, wit, L4_WIT_NEW)}
+    print("llama4 witness: " + json.dumps(out), flush=True)
+    vary(torch, model, SEED)
+
+    def launched(name, launches):
+        missing = [key for key in PATH_KERNELS[name]
+                   if variant_launches(launches, key) <= 0]
+        require(not missing, f"{name}: never launched {missing}: "
+                             f"{launches}")
+
+    # the fixed loop
+    name = "llama4_fixed"
+    toks = torch.randint(0, cfg.vocab, (L4_BATCH, L4_PROMPT),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    engine = ServeEngine(model, ServeConfig(max_new_tokens=L4_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.generate_with_status_fixed({"tokens": toks})
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(res.tokens.shape == (L4_BATCH, L4_NEW),
+            f"{name} tokens {res.tokens.shape}")
+    require(all(st == "ok" for st in res.status),
+            f"{name} statuses {res.status}")
+    launched(name, launches)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = model.prefill(toks, L4_PROMPT + L4_NEW)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_dropped = [int((~k).sum()) for k in model.moe_kept]
+    require(bool(torch.isfinite(logits).all())
+            and logits.shape == (L4_BATCH, cfg.padded_vocab()),
+            f"{name} prefill logits")
+    tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(L4_NEW - 1):
+        logits, cache = model.decode_step(cache, tok, L4_PROMPT + i)
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t) / (L4_NEW - 1) * 1e3
+    require(bool(torch.isfinite(logits).all()), f"{name} decode logits")
+    _cuda.reset_launches()
+    model.decode_step(cache, tok, L4_PROMPT + L4_NEW - 1)
+    step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg.n_layers,
+                                    moe=True)
+    out[name] = dict(
+        layers=cfg.n_layers, params=cfg.param_count(), init_s=init_s,
+        weights_gb=weights_gb, batch=L4_BATCH, prompt=L4_PROMPT, new=L4_NEW,
+        ttft_ms=prefill_s * 1e3, decode_ms_per_step=dec_ms,
+        generate_s=gen_s, tokens_per_s=L4_BATCH * L4_NEW / gen_s,
+        statuses=list(res.status), launches=launches,
+        launches_per_decode_step=step_launches, peak_gb=peak / 1e9,
+        prefill_tokens_dropped_per_layer=prefill_dropped,
+        distinct_tokens=[len(set(lane.tolist())) for lane in res.tokens],
+        tokens=res.tokens.tolist())
+    del engine, cache, logits
+    torch.cuda.empty_cache()
+    print(f"serve {name}: " + json.dumps(out[name]), flush=True)
+
+    # the scheduler: request 0 alone (also the warm-up), then amid churn
+    name = "llama4_scheduler"
+    geom = geometry(L4_ARCH)
+    require((geom["n_lanes"], geom["page_size"], geom["prefill_chunk"],
+             geom["max_seq_len"] // geom["page_size"])
+            == (LANES, PAGE, CHUNK, L4_PAGES), f"{L4_ARCH} geometry {geom}")
+    reqs = make_requests(cfg.vocab, L4_REQ, SEED, PROMPT_RANGE, NEW_RANGE)
+    reqs[0] = Request(id=0, tokens=np.random.default_rng(SEED).integers(
+        0, cfg.vocab, L4_LONG), sampling=SamplingParams(
+        max_new_tokens=L4_LONG_NEW))
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, ServeConfig(**geom))
+    alone = serve_requests(eng, reqs[:1])["outputs"][0]
+    alone_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    run = serve_requests(eng, reqs)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    outs = run["outputs"]
+    require(sorted(outs) == list(range(L4_REQ)),
+            f"{name} outputs {sorted(outs)}")
+    require(all(o.status == "ok" for o in outs.values()),
+            f"{name} statuses {[o.status for o in outs.values()]}")
+    require(all(outs[r.id].tokens.size == r.sampling.max_new_tokens
+                for r in reqs), f"a {name} request ran short")
+    last_pos = len(reqs[0].tokens) + outs[0].tokens.size - 1
+    require(last_pos > cfg.window, f"request 0 stopped at {last_pos}")
+    require(np.array_equal(alone.tokens, outs[0].tokens),
+            f"{name}: request 0 alone {alone.tokens.tolist()} != amid "
+            f"churn {outs[0].tokens.tolist()}")
+    launched(name, launches)
+    decode_launches(name, run["decode_launches"] or {}, cfg.n_layers,
+                    moe=True)
+    ttft = np.array([run["ttft_s"][r.id] for r in reqs])
+    out[name] = dict(
+        requests=L4_REQ, **geom, prompt_lens=[len(r.tokens) for r in reqs],
+        max_new=[r.sampling.max_new_tokens for r in reqs],
+        last_position_of_request_0=last_pos, alone_s=alone_s,
+        iterations=run["iterations"],
+        chunk_iterations=run["chunk_iterations"],
+        ttft_ms_median=float(np.median(ttft)) * 1e3,
+        ttft_ms_max=float(ttft.max()) * 1e3,
+        ttft_ms_request_0=float(ttft[0]) * 1e3,
+        decode_ms_per_iter=run["decode_ms_per_iter"],
+        generated=run["generated"], wall_s=run["wall_s"],
+        tokens_per_s=run["tokens_per_s"], peak_gb=peak / 1e9,
+        launches=launches, launches_per_decode_iter=run["decode_launches"],
+        alone_equals_churn=True, tokens0=outs[0].tokens.tolist(),
+        distinct_tokens=[len(set(outs[r.id].tokens.tolist()))
+                         for r in reqs])
+    print(f"serve {name}: " + json.dumps(out[name]), flush=True)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 SOURCES = {
     "k1_matmul": ("matmul", "src/repro_torch/csrc/matmul.cu",
                   "src/repro/kernels/matmul.py:293"),
@@ -3127,6 +3601,26 @@ SOURCES = {
     "k5_flash_decode_full": (
         "flash_decode:full", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:447"),
+    # llama4-scout: its widths in K1, the 'chunked' kind in K4 and K6, and
+    # K4's 'prefix' kind
+    "k1_matmul_llama4_m8": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                            "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_llama4_m512": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                              "src/repro/kernels/matmul.py:293"),
+    "k4_flash_prefill_chunked": (
+        "flash_attention:chunked", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
+    "k4_flash_prefill_prefix": (
+        "flash_attention:prefix+hd256",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
+    "k6_paged_decode_chunked": (
+        "paged_decode:chunked", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:563"),
+    "k6_paged_decode_chunk_chunked": (
+        "paged_decode:chunked+chunk",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:563"),
 }
 
 
@@ -3157,6 +3651,9 @@ LAUNCH_NOTES = {
     "k4_flash_prefill_full_cross": "every flash_attention:full launch: the "
                                    "encoder's and the cross-attention "
                                    "prefill's",
+    "k4_flash_prefill_prefix": "no model reaches the 'prefix' kind (the "
+                               "reference's neither): ops.flash_attention "
+                               "only, held in phase 2",
 }
 
 
@@ -3208,6 +3705,7 @@ def main() -> int:
     kernels.update(check_gemma2_kernels(torch, timer))
     kernels.update(check_gemma3_kernels(torch, timer))
     kernels.update(check_whisper_kernels(torch, timer))
+    kernels.update(check_llama4_kernels(torch, timer))
     del timer
     torch.cuda.empty_cache()
     print("kernels: " + json.dumps(
@@ -3215,7 +3713,8 @@ def main() -> int:
          for k, v in kernels.items()}), flush=True)
     smoke = check_smoke_path(torch)
     print("smoke: " + json.dumps(smoke), flush=True)
-    for arch, over in (("gemma2-27b", {}), ("gemma3-12b", {"head_dim": 256})):
+    for arch, over in (("gemma2-27b", {}), ("gemma3-12b", {"head_dim": 256}),
+                       (L4_ARCH, {})):
         smoke_local = check_local_smoke(torch, arch, **over)
         print(f"smoke {arch}: " + json.dumps(smoke_local), flush=True)
     print("smoke whisper-small: " + json.dumps(check_whisper_smoke(torch)),
@@ -3231,8 +3730,11 @@ def main() -> int:
                             G3_PROMPT, G3_NEW, G3_REQ, int8s=(False, True)))
     t2 = time.perf_counter()
     serve.update(serve_whisper(torch))
+    t3 = time.perf_counter()
+    serve.update(serve_llama4(torch))
     print(f"phase times: gemma2 {t1 - t0:.1f} s, gemma3 {t2 - t1:.1f} s, "
-          f"whisper {time.perf_counter() - t2:.1f} s", flush=True)
+          f"whisper {t3 - t2:.1f} s, llama4 {time.perf_counter() - t3:.1f} "
+          f"s", flush=True)
     cupti_pass(torch, cupti)
     for k in kernels.values():
         if "floor_ms" in k:

@@ -4,7 +4,8 @@ from __future__ import annotations
 from typing import List
 
 from repro_torch.configs import (gemma2_27b, gemma3_12b, granite_3_8b,
-                                 internlm2_1_8b, whisper_small)
+                                 internlm2_1_8b, llama4_scout_17b_a16e,
+                                 whisper_small)
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
@@ -13,6 +14,7 @@ _MODULES = {
     "gemma2-27b": gemma2_27b,
     "gemma3-12b": gemma3_12b,
     "whisper-small": whisper_small,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -1,5 +1,5 @@
-"""Architecture configuration schema (the dense decoders and the
-encoder-decoder the port serves).  A copy of the JAX package's
+"""Architecture configuration schema (the dense decoders, the MoE decoder
+and the encoder-decoder the port serves).  A copy of the JAX package's
 ``ArchConfig`` fields that the serving path reads; the port never imports
 that package."""
 from __future__ import annotations
@@ -20,13 +20,21 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None
-    # cycled over layers: 'global' or 'local' (sliding window) attention
+    # cycled over layers: 'global', 'local' (sliding window) or 'chunked'
+    # (llama4: causal within chunks of ``window`` positions) attention
     block_pattern: Tuple[str, ...] = ("global",)
-    window: int = 1024           # local attention window
+    window: int = 1024           # local/chunked attention window
     attn_softcap: Optional[float] = None   # gemma2 attention logit softcap
     final_softcap: Optional[float] = None  # gemma2 final logit softcap
     rope_theta: float = 10_000.0
     rope_theta_global: Optional[float] = None  # gemma3 dual-theta
+    # MoE (llama4): every block's FFN is a routed MoE of n_experts, top_k
+    # of them a token, with a shared expert beside them
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    moe_shared_expert: bool = False
+    capacity_factor: float = 1.25
     gated_mlp: bool = True
     # encoder-decoder (whisper): an encoder of n_enc_layers bidirectional
     # blocks over enc_frames (stubbed) frame embeddings a clip, and
@@ -74,10 +82,14 @@ class ArchConfig:
     def param_count(self) -> int:
         """Parameters of the attention decoder with tied embeddings, and of
         the encoder for ``encdec``, by the reference's count (whose
-        decoder blocks leave out the cross-attention and its norm)."""
+        decoder blocks leave out the cross-attention and its norm; an MoE
+        block's FFN is its experts, router and shared expert)."""
         d = self.d_model
         attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+        if self.moe:
+            mlp = (self.n_experts + self.moe_shared_expert) * mlp \
+                + d * self.n_experts
         total = (self.padded_vocab() * d + d
                  + self.n_layers * (attn + mlp + 2 * d))
         if self.encdec:

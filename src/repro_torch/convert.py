@@ -15,8 +15,13 @@ the packed ``wqkv`` stays packed and interleaved.  Whisper's tree adds the
 decoder blocks' ``lnx`` and unpacked ``xattn/{wq,wk,wv,wo}``, and the
 encoder, ``encoder/blocks`` stacked over its ``n_enc_layers`` and
 ``encoder/final_norm``, which become ``encoder.blocks.<i>`` and
-``encoder.final_norm``.  Loading the result into a ``Model`` casts each
-leaf once to its parameter's dtype.
+``encoder.final_norm``.  An MoE block's ``ffn`` (llama4) holds the fp32
+``router [D, E]``, the expert stacks ``w_up``/``w_gate [E, D, F]`` and
+``w_down [E, F, D]`` and the shared expert's ``shared_up``/``shared_gate``
+``[D, F]`` and ``shared_down [F, D]``, as the reference stores them (no
+xyz layout), which keep their names under ``blocks.<i>.ffn``.  Loading
+the result into a ``Model`` casts each leaf once to its parameter's
+dtype.
 """
 from __future__ import annotations
 
@@ -52,10 +57,12 @@ def _block(sd: Dict[str, torch.Tensor], p: str, blk: Dict[str, Any],
     sd[p + "attn.wo"] = leaf(blk["attn"]["wo"])
     for name, w in blk.get("xattn", {}).items():
         sd[p + "xattn." + name] = leaf(w)
-    for name in ("gate", "up", "down"):
-        if name in blk["ffn"]:
-            sd[p + "ffn." + name] = unshard_weight_xyz(
-                leaf(blk["ffn"][name]), 1).contiguous()
+    for name, w in blk["ffn"].items():
+        if name in ("gate", "up", "down"):
+            sd[p + "ffn." + name] = unshard_weight_xyz(leaf(w),
+                                                       1).contiguous()
+        else:   # the MoE's router, expert stacks and shared expert
+            sd[p + "ffn." + name] = leaf(w)
 
 
 def from_jax_params(cfg: ArchConfig, params: Dict[str, Any]

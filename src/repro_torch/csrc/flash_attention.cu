@@ -25,18 +25,27 @@
 // The S x S scores never reach device memory and the kv loop stops at the
 // diagonal, so no tile past it is loaded; masks are evaluated only on
 // tiles that meet the diagonal, the end of the keys or the window's edge.
-// Variants (gemma2): `window` > 0 is the 'local' kind, query row i
+// Variants (gemma2): the 'local' kind (a window), query row i
 // attending keys i - window < k <= i, and the kv loop starts at the first
 // K/V tile that meets the window of the q tile's first row, so a
 // tile before every row's window is never loaded; a later row whose first
 // visited tile is wholly masked adds exactly nothing (p = 0 there, and
 // alpha = exp(min(m - m_new, 0)) keeps o and l at 0 until its first live
 // key).  `softcap` > 0 caps the scaled scores, s = softcap * tanh(s /
-// softcap) with an IEEE division, before the mask.  `full_kind` (whisper's
-// encoder self-attention and cross-attention prefill) drops the causal
-// term: every q tile streams all Skv keys, which may differ from Sq (64
-// decoder positions against 1500 frames) and need not fill a tile (the
-// TMA box past Skv is zero-filled and its keys masked).
+// softcap) with an IEEE division, before the mask.  The 'full' kind
+// (whisper's encoder self-attention and cross-attention prefill) drops
+// the causal term: every q tile streams all Skv keys, which may differ
+// from Sq (64 decoder positions against 1500 frames) and need not fill a
+// tile (the TMA box past Skv is zero-filled and its keys masked).  llama4's
+// 'chunked' kind attends the causal keys of the query's own chunk of
+// `window` positions (q / W == k / W), so the kv loop starts at the chunk
+// of the q tile's first row and no tile of an earlier chunk is loaded; the
+// 'prefix' kind (the reference's prefix-LM mask, reached only through
+// ops.flash_attention) adds every key before `prefix_len`, so the loop
+// runs to max(diagonal, prefix end).  Every kind is one interval of keys a
+// query position attends (struct Mask), one mask code at run time: the
+// interval bounds the loop, decides which tiles are edges, and masks
+// those only.
 //
 // K5 replaces flash_decode_pallas (_decode_kernel) and
 // combine_tile_partials, in one launch (k5_flash_decode): one block per
@@ -76,7 +85,9 @@
 // neighbour's page mapping changes no bit of it.  'local' rows (`window`
 // > 0) also mask keys at or before pos - window, and a tile wholly before
 // the window is skipped as a tile past the position is.  What bounds it:
-// the bytes of each row's live pages.  Prefill chunks, k6_paged_chunk:
+// the bytes of each row's live pages.  'chunked' rows (llama4) mask keys
+// before the chunk of their position and skip the tiles before it.
+// Prefill chunks, k6_paged_chunk:
 // K4's body over the page table (chunk_kernel below), one block holding a
 // lane's S x G query rows of a kv head, so each K/V tile of the lane is
 // loaded once per block instead of once per query row, and both products
@@ -131,13 +142,36 @@ struct PrefillLayout {
                               (1 + 2 * STAGES) * 8;
 };
 
-// key kpos is attended by query row qrow: stored, causal (not for the
-// bidirectional 'full' kind), and inside the window ('local', window > 0)
-__device__ __forceinline__ bool prefill_live(int kpos, int qrow, int Skv,
-                                             int window, int full_kind) {
-  return kpos < Skv && (full_kind || kpos <= qrow) &&
-         (window == 0 || qrow - kpos < window);
-}
+// The attention kinds (kernels/flash_attention.py's MASK_CODES, the
+// reference's attention_mask_ref, src/repro/kernels/ref.py:140-157).
+enum MaskKind : int {
+  MASK_GLOBAL = 0,   // causal
+  MASK_LOCAL = 1,    // causal, the last `window` positions
+  MASK_FULL = 2,     // every key (whisper)
+  MASK_CHUNKED = 3,  // causal, the query's own chunk of `window` positions
+  MASK_PREFIX = 4,   // causal, or a key before `prefix_len`
+};
+
+// The keys query position p >= 0 attends are one interval [lo(p), hi(p)]
+// (with the keys' end, and K6's page mask, on top) under every kind:
+// global [0, p], local [p - window + 1, p], chunked [p / window * window,
+// p], prefix [0, max(p, prefix_len - 1)], full [0, KEY_MAX].  Both bounds
+// are nondecreasing in p, so a tile is interior for a range of rows when
+// it lies in [lo(last row), hi(first row)].
+constexpr int KEY_MAX = 0x3fffffff;
+struct Mask {
+  int kind, window, prefix_len;
+  __device__ __forceinline__ int lo(int p) const {
+    return kind == MASK_LOCAL     ? p - window + 1
+           : kind == MASK_CHUNKED ? p / window * window
+                                  : 0;
+  }
+  __device__ __forceinline__ int hi(int p) const {
+    return kind == MASK_FULL     ? KEY_MAX
+           : kind == MASK_PREFIX ? max(p, prefix_len - 1)
+                                 : p;
+  }
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -277,8 +311,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                bf16* __restrict__ out, int Sq, int Skv, int H, int KV,
-               int n_qt, float scale, int window, int full_kind,
-               float softcap) {
+               int n_qt, float scale, Mask mask, float softcap) {
   using L = PrefillLayout<HD>;
   constexpr int SPAN = L::SPAN, COLS = SPAN / 2, BKV = L::BKV;
   constexpr int KV_STAGES = L::STAGES;
@@ -296,10 +329,11 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
   const int qt = n_qt - 1 - blockIdx.z, h = blockIdx.x, b = blockIdx.y;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
-  // no tile past the diagonal; 'full' attends every stored key
-  const int kv_end = full_kind ? Skv : min(Skv, q0 + BQ);
-  // no tile before the window of the q tile's first row
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  // no tile past the last row's keys (the diagonal; the prefix's end for
+  // 'prefix'; every stored key for 'full'), none before the first row's
+  // (the window of 'local', the chunk of 'chunked')
+  const int kv_end = min(Skv, mask.hi(q0 + BQ - 1) + 1);
+  const int kv_begin = max(0, mask.lo(q0)) / BKV * BKV;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV
                                         : 0;
 
@@ -347,6 +381,12 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
   const int qw0 = q0 + wg * 64;
   const int r0 = qw0 + (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
+  // the keys of this thread's rows r0 and r0 + 8, and the keys every row
+  // of the warpgroup attends (a tile inside them is interior)
+  const int key_lo[2] = {mask.lo(r0), mask.lo(r0 + 8)};
+  const int key_hi[2] = {min(mask.hi(r0), Skv - 1),
+                         min(mask.hi(r0 + 8), Skv - 1)};
+  const int wg_lo = mask.lo(qw0 + 63), wg_hi = min(mask.hi(qw0), Skv - 1);
   const float softcap_rcp = SOFTCAP ? __frcp_rn(softcap) : 0.0f;
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.0f, 0.0f};
   float o[HD / 2];
@@ -368,14 +408,13 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // masks only on tiles that meet the diagonal, the end of the keys or
-    // the window's lower edge of some row of this warpgroup
-    const bool edge = (!full_kind && kv0 + BKV - 1 > qw0) ||
-                      kv0 + BKV > Skv ||
-                      (window > 0 && qw0 + 63 - kv0 >= window);
+    // masks only on tiles that some row of this warpgroup does not attend
+    // whole: tiles that meet the diagonal, the end of the keys, the
+    // window's lower edge, a chunk boundary or the prefix's end
+    const bool edge = kv0 < wg_lo || kv0 + BKV - 1 > wg_hi;
     float alpha[2];
     const auto live_key = [&](int key, int r) {
-      return prefill_live(key, r0 + 8 * r, Skv, window, full_kind);
+      return key >= key_lo[r] && key <= key_hi[r];
     };
     if (edge)
       tile_softmax<true, SOFTCAP>(sc, alpha, m_run, l_run, kv0 + cq, live_key,
@@ -464,7 +503,7 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_v,
              const int* __restrict__ table, const int* __restrict__ positions,
              bf16* __restrict__ out, int S, int KV, int G, int QS, int P,
-             int ps_shift, int pool_rows, float scale, int window,
+             int ps_shift, int pool_rows, float scale, Mask mask,
              float softcap) {
   using L = PrefillLayout<HD>;
   using C = ChunkLayout<HD>;
@@ -534,7 +573,7 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
     return;
   }
   // the slots any row of the tile attends: [first, max_pos]
-  const int first = window > 0 ? max(0, min_pos - window + 1) : 0;
+  const int first = max(0, mask.lo(min_pos));
   const int t_lo = first / BKV;
   const int n_tiles = max_pos / BKV - t_lo + 1;
 
@@ -591,6 +630,9 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wg = warp / 4;
   const int tr0 = wg * 64 + (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
+  // rows r of this thread attend keys [mask.lo(p), p], p = pos_r[r] (none
+  // at -1); the lower bound is worked out on edge tiles only, so that it
+  // holds no register through the products
   int pos_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -615,15 +657,14 @@ chunk_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // masks only on tiles that meet the causal edge or the window's lower
-    // edge of some live row of the tile, or hold a box not loaded; rows
-    // at position -1 compute unmasked and store zeros
+    // masks only on tiles that meet the causal edge, the window's lower
+    // edge or a chunk's start of some live row of the tile, or hold a box
+    // not loaded; rows at position -1 compute unmasked and store zeros
     const bool edge = pm != all_boxes || kv0 + BKV - 1 > min_pos ||
-                      (window > 0 && max_pos - kv0 >= window);
+                      kv0 < mask.lo(max_pos);
     float alpha[2];
     const auto live_key = [&](int key, int r) {
-      const int p = pos_r[r];
-      return p >= 0 && key <= p && (window == 0 || p - key < window) &&
+      return key >= mask.lo(pos_r[r]) && key <= pos_r[r] &&
              ((pm >> ((key - kv0) >> br_shift)) & 1);
     };
     if (edge)
@@ -762,7 +803,8 @@ __host__ __device__ constexpr int record_floats(int G, int HD) {
 
 // One block per (row, split), gridDim.y splits.  A row's live tiles, the
 // 32-slot tiles from slot 0 that hold a key of the row, are lo..hi: a
-// tile past the position, wholly before the window or of an idle row is
+// tile past the position, wholly before the window or the chunk (the
+// mask's lower bound, 'local' and 'chunked' rows of K6) or of an idle row is
 // neither read, written nor folded.  The splits take contiguous ranges of
 // the live tiles.  Per tile: its K and V arrive through a DEC_STAGES-deep
 // cp.async ring (a masked slot is zero-filled, never read); the scores
@@ -783,7 +825,7 @@ template <int HD, class Rows>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(Rows kv, const bf16* __restrict__ q, float* __restrict__ ws,
               bf16* __restrict__ out, int* __restrict__ counters, int G,
-              int n_tiles, float scale, int window, float softcap) {
+              int n_tiles, float scale, Mask mask, float softcap) {
   using L = DecodeLayout<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float sp[G_MAX][TILE];           // a tile's scores, then p
@@ -795,7 +837,9 @@ decode_kernel(Rows kv, const bf16* __restrict__ q, float* __restrict__ ws,
   const int warp = tid / 32, lane = tid % 32;
   const int pos = kv.position(row);
   const int hi = pos < 0 ? -1 : min(pos / TILE, n_tiles - 1);
-  const int lo = window > 0 ? max(0, pos - window + 1) / TILE : 0;
+  // the row's first key (the window's or the chunk's start) and its tile
+  const int first = max(0, mask.lo(pos));
+  const int lo = first / TILE;
   const int n_live = hi - lo + 1;
   if (n_live <= 0) {  // no key: exactly 0.0
     if (blockIdx.y == 0)
@@ -835,8 +879,7 @@ decode_kernel(Rows kv, const bf16* __restrict__ q, float* __restrict__ ws,
 #pragma unroll
       for (int j = tid / CPR; j < TILE; j += RPP) {
         const int slot = (b_lo + i) * TILE + j;
-        const bool in_mask =
-            slot <= pos && (window == 0 || pos - slot < window);
+        const bool in_mask = slot <= pos && slot >= first;
         const long long sr = in_mask ? kv.slot_row(row, slot) : -1;
         if (c == 0) live[s][j] = sr >= 0;
         const long long o = sr >= 0 ? sr * HD + c * 8 : 0;
@@ -847,8 +890,7 @@ decode_kernel(Rows kv, const bf16* __restrict__ q, float* __restrict__ ws,
     } else {
       const int j = tid / 4, part = tid % 4;
       const int slot = (b_lo + i) * TILE + j;
-      const bool in_mask =
-          slot <= pos && (window == 0 || pos - slot < window);
+      const bool in_mask = slot <= pos && slot >= first;
       const long long sr = in_mask ? kv.slot_row(row, slot) : -1;
       if (part == 0) live[s][j] = sr >= 0;
 #pragma unroll
@@ -1022,8 +1064,7 @@ decode_kernel(Rows kv, const bf16* __restrict__ q, float* __restrict__ ws,
 template <int HD>
 int launch_prefill(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Skv, int H, int KV, float scale,
-                   int window, int full_kind, float softcap,
-                   cudaStream_t st) {
+                   Mask mask, float softcap, cudaStream_t st) {
   using L = PrefillLayout<HD>;
   // q [B, Sq, H * HD] and k, v [B, Skv, KV * HD] as 3-D maps, so a box
   // past a sequence's end is zero-filled rather than read from the next
@@ -1058,11 +1099,11 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out,
   if (softcap > 0.0f)
     prefill_kernel<HD, true><<<grid, PREFILL_THREADS, L::SMEM, st>>>(
         mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KV, n_qt, scale,
-        window, full_kind, softcap);
+        mask, softcap);
   else
     prefill_kernel<HD, false><<<grid, PREFILL_THREADS, L::SMEM, st>>>(
         mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KV, n_qt, scale,
-        window, full_kind, softcap);
+        mask, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -1070,7 +1111,7 @@ template <int HD>
 int launch_chunk(const void* q, const void* k_pool, const void* v_pool,
                  const int* table, const int* positions, void* out, int L,
                  int S, int KV, int G, int P, int ps_shift, int n_pool,
-                 float scale, int window, float softcap, cudaStream_t st) {
+                 float scale, Mask mask, float softcap, cudaStream_t st) {
   using Lay = PrefillLayout<HD>;
   const int PS = 1 << ps_shift;
   if (G < 1 || G > BQ || PS < 4 || PS > 128) return (int)cudaErrorInvalidValue;
@@ -1112,20 +1153,20 @@ int launch_chunk(const void* q, const void* k_pool, const void* v_pool,
                              ChunkLayout<HD>::SMEM,
                              st>>>(mq, mk, mv, table, positions, o, S, KV, G,
                                    QS, P, ps_shift, n_pool * PS, scale,
-                                   window, softcap);
+                                   mask, softcap);
   else
     chunk_kernel<HD, false><<<grid, ChunkLayout<HD>::THREADS,
                               ChunkLayout<HD>::SMEM,
                               st>>>(mq, mk, mv, table, positions, o, S, KV,
                                     G, QS, P, ps_shift, n_pool * PS, scale,
-                                    window, softcap);
+                                    mask, softcap);
   return (int)cudaGetLastError();
 }
 
 template <int HD, class Rows>
 int launch_decode(const Rows& kv, const void* q, void* ws, void* out,
                   void* counters, int rows, int G, int n_tiles, int n_splits,
-                  float scale, int window, float softcap, cudaStream_t st) {
+                  float scale, Mask mask, float softcap, cudaStream_t st) {
   using L = DecodeLayout<HD>;
   if (G < 1 || G > G_MAX || kv.rep < 1 || n_splits < 1 ||
       (n_splits > 1 && counters == nullptr))
@@ -1142,40 +1183,55 @@ int launch_decode(const Rows& kv, const void* q, void* ws, void* out,
   decode_kernel<HD, Rows><<<grid, THREADS, L::SMEM, st>>>(
       kv, static_cast<const bf16*>(q), static_cast<float*>(ws),
       static_cast<bf16*>(out), static_cast<int*>(counters), G, n_tiles,
-      scale, window, softcap);
+      scale, mask, softcap);
   return (int)cudaGetLastError();
 }
 
 template <class Rows>
 int launch_decode_hd(const Rows& kv, int hd, const void* q, void* ws,
                      void* out, void* counters, int rows, int G, int n_tiles,
-                     int n_splits, float scale, int window, float softcap,
+                     int n_splits, float scale, Mask mask, float softcap,
                      cudaStream_t st) {
   switch (hd) {
 #define K5_CASE(HD)                                                       \
     case HD: return launch_decode<HD, Rows>(                              \
         kv, q, ws, out, counters, rows, G, n_tiles, n_splits, scale,      \
-        window, softcap, st);
+        mask, softcap, st);
     K5_CASE(16) K5_CASE(32) K5_CASE(64) K5_CASE(128) K5_CASE(256)
 #undef K5_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// A mask the kernels take: a known kind, a window >= 1 where the kind has
+// one, a prefix length >= 0, and the kinds each kernel serves (`kinds`,
+// a bit per MaskKind).
+bool mask_ok(const Mask& m, int kinds) {
+  if (m.kind < 0 || m.kind > MASK_PREFIX || !((kinds >> m.kind) & 1))
+    return false;
+  const bool windowed = m.kind == MASK_LOCAL || m.kind == MASK_CHUNKED;
+  return (windowed ? m.window >= 1 : m.window == 0) && m.prefix_len >= 0 &&
+         (m.kind == MASK_PREFIX || m.prefix_len == 0);
+}
+constexpr int PAGED_MASKS =
+    (1 << MASK_GLOBAL) | (1 << MASK_LOCAL) | (1 << MASK_CHUNKED);
+
 }  // namespace
 
+// K4: mask_kind is a MaskKind; window for 'local' and 'chunked' (else 0),
+// prefix_len for 'prefix' (else 0).
 extern "C" int k4_flash_prefill(const void* q, const void* k, const void* v,
                                 void* out, int B, int Sq, int Skv, int H,
-                                int KV, int hd, float scale, int window,
-                                int full_kind, float softcap,
+                                int KV, int hd, float scale, int mask_kind,
+                                int window, int prefix_len, float softcap,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (full_kind && window) return (int)cudaErrorInvalidValue;
+  const Mask mask{mask_kind, window, prefix_len};
+  if (!mask_ok(mask, 0x1f)) return (int)cudaErrorInvalidValue;
   switch (hd) {
 #define K4_CASE(HD)                                                        \
     case HD: return launch_prefill<HD>(q, k, v, out, B, Sq, Skv, H, KV,    \
-                                       scale, window, full_kind, softcap,  \
-                                       st);
+                                       scale, mask, softcap, st);
     K4_CASE(16) K4_CASE(32) K4_CASE(64) K4_CASE(128) K4_CASE(256)
 #undef K4_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -1195,46 +1251,52 @@ extern "C" int k5_flash_decode(const void* q, const void* k, const void* v,
   DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), KV,
              rep, cache_len, pos};
   return launch_decode_hd(kv, hd, q, ws, out, counters, B * KV * rep, G,
-                          n_tiles, n_splits, scale, 0, softcap,
-                          static_cast<cudaStream_t>(stream));
+                          n_tiles, n_splits, scale, Mask{MASK_GLOBAL, 0, 0},
+                          softcap, static_cast<cudaStream_t>(stream));
 }
 
 // K6 at decode (S == 1): K5's kernel on the page table, rows (lane, kv
-// head, r).
+// head, r); mask_kind 'global', 'local' or 'chunked' (window >= 1 for the
+// last two).
 extern "C" int k6_paged_decode(const void* q, const void* k_pool,
                                const void* v_pool, const void* table,
                                const void* positions, void* ws, void* out,
                                void* counters, int L, int KV, int rep, int G,
                                int hd, int P, int PS, int n_tiles,
-                               int n_splits, float scale, int window,
-                               float softcap, void* stream) {
+                               int n_splits, float scale, int mask_kind,
+                               int window, float softcap, void* stream) {
+  const Mask mask{mask_kind, window, 0};
+  if (!mask_ok(mask, PAGED_MASKS)) return (int)cudaErrorInvalidValue;
   PagedKV kv{static_cast<const bf16*>(k_pool),
              static_cast<const bf16*>(v_pool),
              static_cast<const int*>(table),
              static_cast<const int*>(positions), KV, rep, P, PS};
   return launch_decode_hd(kv, hd, q, ws, out, counters, L * KV * rep, G,
-                          n_tiles, n_splits, scale, window, softcap,
+                          n_tiles, n_splits, scale, mask, softcap,
                           static_cast<cudaStream_t>(stream));
 }
 
 // K6's prefill-chunk body (S > 1): one block per (q tile, kv head, lane),
 // K4's arithmetic over the page table.  q and out [L, S, KV, G, hd]; pools
 // [n_pool, PS, KV, hd] (the trash page included), PS a power of two from 4
-// to 128; table [L, P]; positions [L, S] (-1 = idle row, output 0.0).
+// to 128; table [L, P]; positions [L, S] (-1 = idle row, output 0.0);
+// mask_kind and window as k6_paged_decode's.
 extern "C" int k6_paged_chunk(const void* q, const void* k_pool,
                               const void* v_pool, const void* table,
                               const void* positions, void* out, int L, int S,
                               int KV, int G, int hd, int P, int ps_shift,
-                              int n_pool, float scale, int window,
-                              float softcap, void* stream) {
+                              int n_pool, float scale, int mask_kind,
+                              int window, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Mask mask{mask_kind, window, 0};
+  if (!mask_ok(mask, PAGED_MASKS)) return (int)cudaErrorInvalidValue;
   const int* T = static_cast<const int*>(table);
   const int* Pos = static_cast<const int*>(positions);
   switch (hd) {
 #define K6C_CASE(HD)                                                        \
     case HD: return launch_chunk<HD>(q, k_pool, v_pool, T, Pos, out, L, S,  \
                                      KV, G, P, ps_shift, n_pool, scale,     \
-                                     window, softcap, st);
+                                     mask, softcap, st);
     K6C_CASE(16) K6C_CASE(32) K6C_CASE(64) K6C_CASE(128) K6C_CASE(256)
 #undef K6C_CASE
     default: return (int)cudaErrorInvalidValue;

@@ -14,11 +14,12 @@ beside the library as ``lib<name>-<hash>.log`` (``ptxas_report``).
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds
 one exactly where it launches its kernel (``count``).  A launch of a
-variant (gemma2's 'local' window, the softcap) also adds one to the
-variant's own key, ``"<kernel>:<variant>"``, e.g.
-``"paged_decode:local+softcap"``; K6's prefill-chunk body counts under
-``paged_decode`` with the ``chunk`` variant (``paged_decode:chunk``,
-``paged_decode:local+softcap+chunk``), and its decode body never does.
+variant (gemma2's 'local' window, the softcap, llama4's 'chunked' kind)
+also adds one to the variant's own key, ``"<kernel>:<variant>"``, e.g.
+``"paged_decode:local+softcap"`` or ``"paged_decode:chunked+chunk"``;
+K6's prefill-chunk body counts under ``paged_decode`` with the ``chunk``
+variant (``paged_decode:chunk``, ``paged_decode:local+softcap+chunk``),
+and its decode body never does.
 A row pass fused into a GEMM's store phase is no launch of its own: it
 counts as the GEMM's variant (``matmul:norm``, ``int8_matmul:norm``,
 ``int8_matmul:quantize``), while ``rmsnorm``, ``quantize`` and
@@ -64,23 +65,23 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "k0_empty": [_P],
     },
     "flash_attention": {
-        # q, k, v, out, B, Sq, Skv, H, KV, hd, scale, window, full,
-        # softcap, stream
+        # q, k, v, out, B, Sq, Skv, H, KV, hd, scale, mask kind
+        # (flash_attention.MASK_CODES), window, prefix_len, softcap, stream
         "k4_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                             _I, _F, _P],
+                             _I, _I, _F, _P],
         # q, k, v, ws, out, counters, B, KV, rep, G, hd, cache_len, pos,
         # n_tiles, n_splits, scale, softcap, stream
         "k5_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _F, _F, _P],
         # q, k_pool, v_pool, table, positions, ws, out, counters, L, KV,
-        # rep, G, hd, P, PS, n_tiles, n_splits, scale, window, softcap,
-        # stream
+        # rep, G, hd, P, PS, n_tiles, n_splits, scale, mask kind, window,
+        # softcap, stream
         "k6_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _F, _I, _F, _P],
+                            _I, _I, _I, _I, _I, _F, _I, _I, _F, _P],
         # q, k_pool, v_pool, table, positions, out, L, S, KV, G, hd, P,
-        # log2 PS, n_pool, scale, window, softcap, stream
+        # log2 PS, n_pool, scale, mask kind, window, softcap, stream
         "k6_paged_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _F, _P],
+                           _I, _I, _F, _I, _I, _F, _P],
     },
     "addertree": {
         # partials, out, S, n, in_kind, out_kind, stream

@@ -52,9 +52,19 @@ decoded outside the kernels (``models.attention.decode_attention_ring``).
 Whisper's ``'full'`` kind (no position mask): K4 over every key, with Skv
 free of Sq and ragged (its encoder self-attention and cross-attention
 prefill), and K5 at position ``kv_len - 1`` (its cross-attention decode);
-each launch also counts under its ``full`` variant.  K6 serves paged
-decoder-only models, 'global' and 'local'.  Any other kind raises
-(``ref.check_kind``) on every device.
+each launch also counts under its ``full`` variant.  llama4's
+``'chunked'`` kind (query position p attends the causal keys of its own
+chunk of ``window`` positions, p // W == k // W): K4 at prefill, and K6's
+decode and chunk bodies in the scheduler; a chunked layer's dense cache
+is a ring decoded outside the kernels, as a local one's.  K4 also takes
+the reference's ``'prefix'`` kind (every key before ``prefix_len`` as
+well as the causal ones), reached through ``ops.flash_attention`` only: no
+model of the reference runs it.  A launch of either counts under its
+``chunked`` or ``prefix`` variant.  One mask code (``MASK_CODES``) with
+``window`` and ``prefix_len`` selects the kind in every kernel
+(``mask_args``).  K6 serves paged decoder-only models, 'global', 'local'
+and 'chunked'.  Any other kind raises (``ref.check_kind``) on every
+device.
 
 Head dims (``_HEAD_DIMS``): 16 to 128, and gemma3's 256, where K4 and
 K6's chunk body stream 64-slot K/V tiles (two stages beside the 64 KB Q
@@ -71,7 +81,7 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.matmul import sm_count, split_scratch
-from repro_torch.kernels.ref import (PAGED_KINDS, accum_dtype,
+from repro_torch.kernels.ref import (_ATTN_KINDS, PAGED_KINDS, accum_dtype,
                                      attention_mask, check_kind,
                                      softcap_scores)
 
@@ -86,6 +96,8 @@ _G_MAX = 8
 # at hd 128 (the 3-stage ring's 48 KB of shared memory, and 122 registers
 # a thread, each allow 4)
 DECODE_BLOCKS_PER_SM = 4
+# the kernels' mask codes (``MaskKind`` in csrc/flash_attention.cu)
+MASK_CODES = {"global": 0, "local": 1, "full": 2, "chunked": 3, "prefix": 4}
 
 
 def combine_tile_partials(m_t: torch.Tensor, l_t: torch.Tensor,
@@ -156,27 +168,36 @@ def _decode_pos(kind: str, pos: int, kv_len: int) -> int:
     return kv_len - 1 if kind == "full" else int(pos)
 
 
-def _window_arg(kind: str, window: int) -> int:
-    """The kernels' window argument: the window for 'local', 0 (none) for
-    'global' and 'full'."""
-    check_kind(kind)
-    if kind != "local":
-        return 0
-    if window < 1:
-        raise ValueError(f"a local window must be >= 1, got {window}")
-    return int(window)
+def mask_args(kind: str, window: int = 0, prefix_len: int = 0,
+              kinds=_ATTN_KINDS):
+    """The kernels' mask arguments ``(code, window, prefix_len)``: the
+    kind's ``MASK_CODES`` entry, the window for 'local' and 'chunked' (0
+    for the others), the prefix length for 'prefix' (0 for the others).
+    Raises for a kind outside ``kinds`` (default: K4's), a window below 1
+    where the kind has one, or a negative prefix length."""
+    check_kind(kind, kinds)
+    if kind in ("local", "chunked") and window < 1:
+        raise ValueError(f"a {kind} window must be >= 1, got {window}")
+    if kind == "prefix" and prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+    return (MASK_CODES[kind],
+            int(window) if kind in ("local", "chunked") else 0,
+            int(prefix_len) if kind == "prefix" else 0)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, kind: str = "global", window: int = 0,
+                         prefix_len: int = 0,
                          softcap: Optional[float] = None) -> torch.Tensor:
     """K4: causal online-softmax prefill ('local': the last ``window``
-    keys of each query only; 'full': every key, Skv free of Sq), scores
-    softcapped when ``softcap`` is set.  q [B, Sq, H, hd], k/v [B, Skv,
-    KV, hd] bf16 contiguous, KV | H -> [B, Sq, H, hd] bf16."""
+    keys of each query only; 'chunked': the keys of its own chunk of
+    ``window``; 'prefix': also every key before ``prefix_len``; 'full':
+    every key, Skv free of Sq), scores softcapped when ``softcap`` is set.
+    q [B, Sq, H, hd], k/v [B, Skv, KV, hd] bf16 contiguous, KV | H ->
+    [B, Sq, H, hd] bf16."""
     b, sq, n_h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
-    win = _window_arg(kind, window)
+    code, win, plen = mask_args(kind, window, prefix_len)
     _check_head_dim(hd)
     if n_h % n_kv:
         raise ValueError(f"{n_h} q heads do not group over {n_kv} kv heads")
@@ -186,12 +207,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    full = kind == "full"
-    _cuda.count("flash_attention", local=win > 0, full=full,
-                softcap=bool(softcap), hd256=hd == 256)
+    _cuda.count("flash_attention", local=kind == "local",
+                full=kind == "full", chunked=kind == "chunked",
+                prefix=kind == "prefix", softcap=bool(softcap),
+                hd256=hd == 256)
     _cuda.launch("flash_attention", "k4_flash_prefill", q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, n_h,
-                 n_kv, hd, hd ** -0.5, win, int(full), float(softcap or 0.0))
+                 n_kv, hd, hd ** -0.5, code, win, plen,
+                 float(softcap or 0.0))
     return out
 
 
@@ -399,36 +422,40 @@ def chunk_tiles(s_q: int, g: int):
     return per, -(-s_q // per)
 
 
-def _chunk_launch(q, k_pool, v_pool, page_table, positions, win: int,
+def _chunk_launch(q, k_pool, v_pool, page_table, positions, kind: str,
+                  code: int, win: int,
                   softcap: Optional[float]) -> torch.Tensor:
-    """One launch of ``k6_paged_chunk`` on operands the caller checked."""
+    """One launch of ``k6_paged_chunk`` on operands and mask arguments
+    (``mask_args``) the caller checked."""
     n_lanes, s_q, n_kv, g, hd = q.shape
     n_pool, ps = k_pool.shape[0], k_pool.shape[1]
     out = torch.empty_like(q)
     if q.numel():
-        _cuda.count("paged_decode", local=win > 0, softcap=bool(softcap),
+        _cuda.count("paged_decode", local=kind == "local",
+                    chunked=kind == "chunked", softcap=bool(softcap),
                     chunk=True, hd256=hd == 256)
         _cuda.launch("flash_attention", "k6_paged_chunk", q.data_ptr(),
                      k_pool.data_ptr(), v_pool.data_ptr(),
                      page_table.data_ptr(), positions.data_ptr(),
                      out.data_ptr(), n_lanes, s_q, n_kv, g, hd,
                      page_table.shape[1], ps.bit_length() - 1, n_pool,
-                     hd ** -0.5, win, float(softcap or 0.0))
+                     hd ** -0.5, code, win, float(softcap or 0.0))
     return out
 
 
 def paged_decode_launch(q, k_pool, v_pool, page_table, positions, *,
                         kind: str = "global", window: int = 0,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None,
+                        n_splits: Optional[int] = None):
     """One launch of K6, the body chosen by ``paged_body``.  Decode
     returns (out, workspace): the workspace holds each live tile's partial
-    (``record_views``).  A prefill chunk returns (out, None): its body
-    keeps no per-tile records."""
+    (``record_views``); ``n_splits`` (default ``decode_splits``) changes
+    no bit of it.  A prefill chunk returns (out, None): its body keeps no
+    per-tile records."""
     n_lanes, s_q, n_kv, g, hd = q.shape
     n_pool, ps = k_pool.shape[0], k_pool.shape[1]
     p_max = page_table.shape[1]
-    check_kind(kind, PAGED_KINDS)
-    win = _window_arg(kind, window)
+    code, win, _ = mask_args(kind, window, kinds=PAGED_KINDS)
     chunk = paged_body(s_q) == "k6_paged_chunk"
     if chunk:
         _check_head_dim(hd)
@@ -444,24 +471,28 @@ def paged_decode_launch(q, k_pool, v_pool, page_table, positions, *,
     _cuda.check(page_table, "page_table", torch.int32, (n_lanes, p_max))
     _cuda.check(positions, "positions", torch.int32, (n_lanes, s_q))
     if chunk:
-        return _chunk_launch(q, k_pool, v_pool, page_table, positions, win,
-                             softcap), None
+        return _chunk_launch(q, k_pool, v_pool, page_table, positions, kind,
+                             code, win, softcap), None
     rows = n_lanes * n_kv * rep
     n_tiles = math.ceil(p_max * ps / DEFAULT_KV_TILE)
-    n_splits = decode_splits(rows, n_tiles, sm_count(q.device.index), hd)
+    if n_splits is None:
+        n_splits = decode_splits(rows, n_tiles, sm_count(q.device.index), hd)
+    if n_splits < 1:
+        raise ValueError(f"n_splits must be >= 1, got {n_splits}")
     out = torch.empty_like(q)
     ws = _workspace(rows, n_tiles, gk, hd, q.device)
     if rows == 0 or n_tiles == 0:
         return out.zero_(), ws
     counters = (split_scratch(q.device, 0, rows)[1].data_ptr()
                 if n_splits > 1 else None)
-    _cuda.count("paged_decode", local=win > 0, softcap=bool(softcap),
+    _cuda.count("paged_decode", local=kind == "local",
+                chunked=kind == "chunked", softcap=bool(softcap),
                 hd256=hd == 256)
     _cuda.launch("flash_attention", "k6_paged_decode", q.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
                  positions.data_ptr(), ws.data_ptr(), out.data_ptr(),
                  counters, n_lanes, n_kv, rep, gk, hd, p_max, ps, n_tiles,
-                 n_splits, hd ** -0.5, win, float(softcap or 0.0))
+                 n_splits, hd ** -0.5, code, win, float(softcap or 0.0))
     return out, ws
 
 
@@ -473,8 +504,9 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     """K6, one launch: q [L, S, KV, G, hd] bf16, pools [NP + 1, PS, KV, hd]
     bf16, ``page_table`` [L, P] and ``positions`` [L, S] int32, all
     contiguous; table entries must be -1 or a page below NP.  'local'
-    masks keys at or before position - window; a tile wholly outside a
-    row's keys is never read.  -> [L, S, KV, G, hd] bf16, an idle row
+    masks keys at or before position - window, 'chunked' keys before the
+    chunk of ``window`` positions that holds the position; a tile wholly
+    outside a row's keys is never read.  -> [L, S, KV, G, hd] bf16, an idle row
     exactly 0.0."""
     return paged_decode_launch(q, k_pool, v_pool, page_table, positions,
                                kind=kind, window=window, softcap=softcap)[0]

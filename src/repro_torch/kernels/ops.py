@@ -115,17 +115,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def flash_attention(q, k, v, *, kind: str = "global", window: int = 0,
-                    softcap: Optional[float] = None):
+                    prefix_len: int = 0, softcap: Optional[float] = None):
     """Prefill attention: q [B, Sq, H, hd], k/v [B, Skv, KV, hd] ->
     [B, Sq, H, hd].  'global' is causal, 'local' attends the last
-    ``window`` keys, 'full' every key (Skv may differ from Sq);
+    ``window`` keys, 'chunked' the keys of the query's own chunk of
+    ``window``, 'prefix' the causal keys and every key before
+    ``prefix_len``, 'full' every key (Skv may differ from Sq);
     ``softcap`` caps the scores.  Other kinds raise."""
     ref.check_kind(kind)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, kind=kind, window=window,
-                                    softcap=softcap)
+                                    prefix_len=prefix_len, softcap=softcap)
     return ref.flash_attention_ref(q, k, v, kind=kind, window=window,
-                                   softcap=softcap)
+                                   prefix_len=prefix_len, softcap=softcap)
 
 
 def flash_decode(q, k_cache, v_cache, pos: int, *, kind: str = "global",
@@ -151,7 +153,8 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, positions, *,
     """Paged decode and prefill-chunk attention: q [L, S, KV, G, hd]
     through ``page_table`` [L, P] against the pools [NP + 1, PS, KV, hd]
     at per-token ``positions`` [L, S] (-1 = idle) -> [L, S, KV, G, hd].
-    'global' or 'local' (``window``); ``softcap`` caps the scores."""
+    'global', 'local' or 'chunked' (``window``); ``softcap`` caps the
+    scores."""
     ref.check_kind(kind, ref.PAGED_KINDS)
     if q.is_cuda:
         return paged_flash_decode_cuda(q, k_pool, v_pool, page_table,

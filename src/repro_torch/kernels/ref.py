@@ -120,16 +120,18 @@ def int8_matmul_ref(qa: torch.Tensor, sa: torch.Tensor, qb: torch.Tensor,
                           row_scale=sa, col_scale=sb)
 
 
-# the kinds of the prefill kernel (K4) and of the dense decode (K5 takes
-# 'global' and 'full'); the paged kernel (K6) serves decoder-only models
-_ATTN_KINDS = ("global", "local", "full")
-PAGED_KINDS = ("global", "local")
+# the kinds of the prefill kernel (K4: every mask of the reference's
+# ``attention_mask_ref``, ``repro/kernels/ref.py:140-157``) and of the
+# dense decode (K5 takes 'global' and 'full'); the paged kernel (K6) serves
+# decoder-only models, whose layers are 'global', 'local' or 'chunked'
+_ATTN_KINDS = ("global", "local", "full", "chunked", "prefix")
+PAGED_KINDS = ("global", "local", "chunked")
 
 
 def check_kind(kind: str, kinds=_ATTN_KINDS) -> None:
-    """Refuse an attention kind the kernels do not implement ('chunked',
-    'prefix'; 'full' where ``kinds`` leaves it out): it raises on every
-    device, never falls through."""
+    """Refuse an attention kind a kernel does not implement (one outside
+    ``kinds``, e.g. 'full' or 'prefix' for the paged kernel): it raises on
+    every device, never falls through."""
     if kind not in kinds:
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported; the kernels take "
@@ -148,12 +150,16 @@ def softcap_scores(s: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
 
 
 def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, kind: str,
-                   window: int) -> torch.Tensor:
+                   window: int, prefix_len: int = 0) -> torch.Tensor:
     """[..., Sq, Skv] bool from query positions [..., Sq] and key
-    positions [Skv]: causal (key <= query) for 'global', and in the last
-    ``window`` positions (query - key < window) for 'local'; every key
-    for 'full' (whisper's bidirectional encoder and cross-attention)
-    (``models/attention.py``'s masks in the reference)."""
+    positions [Skv], term for term the reference's ``attention_mask_ref``
+    (``repro/kernels/ref.py:140-157``): causal (key <= query) for
+    'global', 'local', 'chunked' and 'prefix'; 'local' also keeps only the
+    last ``window`` positions (query - key < window), 'chunked' only the
+    query's own chunk of ``window`` positions (query // window == key //
+    window), and 'prefix' adds every key before ``prefix_len`` (a
+    bidirectional prefix); 'full' keeps every key (whisper's encoder and
+    cross-attention).  A negative key position never attends."""
     check_kind(kind)
     if kind == "full":
         return torch.ones((*qpos.shape, kpos.shape[0]), dtype=torch.bool,
@@ -161,14 +167,22 @@ def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, kind: str,
     mask = kpos <= qpos[..., None]
     if kind == "local":
         mask &= (qpos[..., None] - kpos) < window
-    return mask
+    elif kind == "chunked":
+        mask &= torch.div(qpos[..., None], window, rounding_mode="floor") \
+            == torch.div(kpos, window, rounding_mode="floor")
+    elif kind == "prefix":
+        mask |= kpos < prefix_len
+    return mask & (kpos >= 0)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, kind: str = "global", window: int = 0,
+                        prefix_len: int = 0,
                         softcap: Optional[float] = None) -> torch.Tensor:
     """Prefill attention (query row i attends slots <= i; 'local' only the
-    last ``window`` of them; 'full' every slot, with Skv free of Sq),
+    last ``window`` of them; 'chunked' only those of its own chunk of
+    ``window``; 'prefix' also every slot before ``prefix_len``; 'full'
+    every slot, with Skv free of Sq: ``attention_mask``),
     plain masked softmax at the accumulator width, the scaled scores
     softcapped before the mask.  q [B, Sq, H, hd]; k/v [B, Skv, KV, hd]
     with KV | H: q head h reads kv head h // (H // KV) — grouped in the
@@ -180,7 +194,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bqkgd,bKkd->bkgqK", qg, k.to(acc))
     s = softcap_scores(s * hd ** -0.5, softcap)
     mask = attention_mask(torch.arange(sq, device=q.device),
-                          torch.arange(skv, device=q.device), kind, window)
+                          torch.arange(skv, device=q.device), kind, window,
+                          prefix_len)
     s = s.masked_fill(~mask, _NEG_REF)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~mask, 0.0)

@@ -13,6 +13,9 @@ where the int8 copy does not fit beside the model: gemma2-27b).
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch whisper-small --batch 8 --prompt-len 64 \
         --out profile_serve_whisper.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch llama4-scout-17b-a16e --layers 8 --batch 2 \
+        --prompt-len 8448 --out profile_serve_llama4.json
 
 Prints, for each window (fixed prefill, fixed decode step, and per engine
 a scheduler iteration that prefills one chunk on every lane and one that
@@ -23,8 +26,10 @@ share, and the kernels by device time.  whisper-small (an
 encoder-decoder, served by the fixed loop only) has the fixed windows,
 bf16 and int8: its prefill window holds the encoder over the batch's
 clips (``launch.serve.make_frames``), and its decode step recomputes the
-cross-attention K/V from the held encoder output.  Needs the card: the
-timings are device metrics.
+cross-attention K/V from the held encoder output.  llama4-scout
+(``--layers`` cuts its depth) has the fixed and the bf16 scheduler
+windows (no int8 copy of an MoE model).  Needs the card: the timings are
+device metrics.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.launch.serve import geometry, int8_fits, make_frames
+from repro_torch.launch.serve import (geometry, int8_fits, make_frames,
+                                      with_layers)
 from repro_torch.models.lm import Model
 from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -158,6 +164,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="profile the config's first N layers")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -166,10 +174,11 @@ def main(argv=None):
     if SCHED_PROMPT + args.steps + 4 > geom["max_seq_len"]:
         raise SystemExit("--steps too large for the scheduler's lanes")
 
-    cfg = get_config(args.arch)
+    cfg = with_layers(get_config(args.arch), args.layers)
     model = Model(cfg).init_weights(args.seed)
     report = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
-              "batch": args.batch, "prompt_len": args.prompt_len,
+              "layers": cfg.n_layers, "batch": args.batch,
+              "prompt_len": args.prompt_len,
               "lanes": geom["n_lanes"], "sched_prompt": SCHED_PROMPT,
               "fixed": _fixed(model, cfg, args)}
     int8s = (False, True) if int8_fits(cfg, model.device) else (False,)

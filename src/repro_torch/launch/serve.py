@@ -13,6 +13,9 @@ or continuous batching over the paged KV cache (``--requests N``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
         [--batch 8 --prompt-len 64 --max-new 64] [--int8] \
         [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-scout-17b-a16e --layers 8 \
+        [--batch 2 --prompt-len 8448] [--requests 8] [--smoke --device cpu]
 
 Runs on the CUDA card unless ``--device cpu``; weights are random, drawn
 from ``--seed`` on the device.  The fixed mode prints the prefill time,
@@ -29,11 +32,15 @@ whisper-small (an encoder-decoder) takes frame embeddings as its input, one
 clip of ``enc_frames`` frames a batch row drawn N(0, 1) from ``--seed``
 (the stubbed conv frontend), and is served by the fixed loop only:
 ``generate_with_status`` falls through to it, and ``--requests`` is
-refused.
+refused.  llama4-scout-17b-a16e (MoE, 3 chunked layers to 1 global,
+window 8192) is 211 GB in bf16 at its 48 layers: ``--layers N`` serves
+its first N at full width (``dataclasses.replace(cfg, n_layers=N)``; 8
+layers are 37.3 GB), bf16 only (int8 MoE serving is not ported).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, List
 
@@ -129,6 +136,10 @@ GEMMA2_GEOMETRY = dict(GEOMETRY, max_seq_len=4192, n_pages=512)
 # gemma3-12b: gemma2's lanes and shared pool (1.6 GB over 48 layers at its
 # 8 kv heads of 256), so a 4160-token prompt runs past its 1024 window
 GEMMA3_GEOMETRY = dict(GEMMA2_GEOMETRY)
+# llama4-scout: lanes of up to 8224 positions (a prompt of 8180 tokens
+# decoding past its 8192-position chunk), a pool of 1024 pages shared by
+# them (0.54 GB over 8 layers at its 8 kv heads of 128)
+LLAMA4_GEOMETRY = dict(GEOMETRY, max_seq_len=8224, n_pages=1024)
 PROMPT_RANGE, NEW_RANGE = (32, 448), (16, 32)
 
 
@@ -138,6 +149,8 @@ def geometry(arch: str) -> dict:
         return GEMMA2_GEOMETRY
     if arch.startswith("gemma3"):
         return GEMMA3_GEOMETRY
+    if arch.startswith("llama4"):
+        return LLAMA4_GEOMETRY
     return GEOMETRY
 
 
@@ -150,10 +163,24 @@ def make_frames(cfg, batch: int, seed: int) -> torch.Tensor:
     return torch.randn((batch, cfg.enc_frames, cfg.d_model), generator=gen)
 
 
+def with_layers(cfg, layers):
+    """``cfg`` cut to its first ``layers`` layers (None: all of them), the
+    only cut the launchers make; wider than the config is refused."""
+    if layers is None or layers == cfg.n_layers:
+        return cfg
+    if not 1 <= layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.name} has {cfg.n_layers} layers, asked for "
+                         f"{layers}")
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
 def int8_fits(cfg, device: torch.device) -> bool:
     """Whether the int8 copy (one byte per parameter) fits on the card
     beside the bf16 model (two), with a fifth of the card left for caches
-    and activations.  The CPU has no such limit here."""
+    and activations.  The CPU has no such limit here.  An MoE model has no
+    int8 copy (not ported)."""
+    if cfg.moe:
+        return False
     if device.type != "cuda":
         return True
     total = torch.cuda.get_device_properties(device).total_memory
@@ -194,6 +221,8 @@ def main(argv=None):
     ap.add_argument("--int8", action="store_true",
                     help="serve int8 weights (column-wise scales)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the config's first N layers (default: all)")
     # fixed-batch mode
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=256)
@@ -204,10 +233,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = with_layers(get_config(args.arch, smoke=args.smoke), args.layers)
     if args.int8 and not int8_fits(cfg, device):
-        raise SystemExit(f"{cfg.name}: the int8 copy does not fit on the "
-                         f"card beside the bf16 model")
+        raise SystemExit(f"{cfg.name}: no int8 copy (an MoE model, or one "
+                         f"that does not fit on the card beside the bf16 "
+                         f"model)")
     model = Model(cfg, device=device).init_weights(args.seed)
     if args.requests:
         if not model.supports_paged_serving:

@@ -4,16 +4,18 @@ grouped K/V, cached decode through split-K flash decode (K5), and paged
 serving: K/V scattered through a page table into shared pools, then paged
 flash decode (K6) for decode steps and prefill chunks alike.
 
-Two kinds, as in the reference: 'global' (causal) and 'local' (sliding
-window of ``cfg.window`` positions); ``cfg.attn_softcap`` caps the scores
-of both.  Whisper adds 'full' (bidirectional): its encoder's
-self-attention, and the decoder's cross-attention over the encoder output
-(``cross_attention_apply``, unpacked ``wq/wk/wv/wo``); whisper takes no
-RoPE (``use_rope=False``).  A local layer's dense cache is a ring buffer of ``min(window,
+Three decoder kinds, as in the reference: 'global' (causal), 'local'
+(sliding window of ``cfg.window`` positions) and llama4's 'chunked' (the
+causal keys of the query's own chunk of ``cfg.window`` positions);
+``cfg.attn_softcap`` caps the scores.  Whisper adds 'full'
+(bidirectional): its encoder's self-attention, and the decoder's
+cross-attention over the encoder output (``cross_attention_apply``,
+unpacked ``wq/wk/wv/wo``); whisper takes no RoPE (``use_rope=False``).
+A local or chunked layer's dense cache is a ring buffer of ``min(window,
 max_len)`` slots (position p at slot p % W), decoded by
 ``decode_attention_ring``, plain torch as the reference's einsum path is
-plain XLA; its paged lanes keep their full history and K6 masks by
-position."""
+plain XLA (``attention.py:405-441``); its paged lanes keep their full
+history and K6 masks by position."""
 from __future__ import annotations
 
 import math
@@ -108,20 +110,24 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, kind: str = "global",
                      softcap: Optional[float] = None) -> torch.Tensor:
     """q [B, 1, KV, G, hd] against dense caches [B, K, KV, hd] (global,
     slots <= ``pos`` live: the tiled flash-decode path, K5 on the card) or
-    ring buffers [B, W, KV, hd] (local: ``decode_attention_ring``)."""
-    if kind == "local":
-        return decode_attention_ring(q, k_cache, v_cache, pos,
+    ring buffers [B, W, KV, hd] (local and chunked:
+    ``decode_attention_ring``, the reference's ``attention.py:405-409``)."""
+    if kind in ("local", "chunked"):
+        return decode_attention_ring(q, k_cache, v_cache, pos, kind=kind,
                                      window=window, softcap=softcap)
     return kops.flash_decode(q, k_cache, v_cache, pos, kind=kind,
                              softcap=softcap)
 
 
 def decode_attention_ring(q, k_cache, v_cache, pos: int, *, window: int,
+                          kind: str = "local",
                           softcap: Optional[float] = None) -> torch.Tensor:
-    """Local decode over a ring buffer [B, W, KV, hd], the reference's
-    ``decode_attention_einsum``: slot j holds position pos - ((pos - j)
-    mod W), live where that position is >= 0 and within ``window`` of
-    ``pos``.  q is rounded to the cache dtype and the scores summed at
+    """Local or chunked decode over a ring buffer [B, W, KV, hd], the
+    reference's ``decode_attention_einsum`` (``attention.py:430-441``):
+    slot j holds position pos - ((pos - j) mod W), live where that position
+    is >= 0 and within ``window`` of ``pos`` ('local'), or in the chunk of
+    ``window`` positions that holds ``pos`` ('chunked').  q is rounded to
+    the cache dtype and the scores summed at
     fp32; the probabilities are rounded to the cache dtype for the value
     product and normalized by their fp32 sum."""
     hd = q.shape[-1]
@@ -132,7 +138,12 @@ def decode_attention_ring(q, k_cache, v_cache, pos: int, *, window: int,
     w = k_cache.shape[1]
     slots = torch.arange(w, device=q.device)
     kpos = pos - torch.remainder(pos - slots, w)
-    valid = (kpos >= 0) & (kpos <= pos) & (pos - kpos < window)
+    valid = (kpos >= 0) & (kpos <= pos)
+    if kind == "chunked":
+        valid &= torch.div(kpos, window, rounding_mode="floor") \
+            == pos // window
+    else:
+        valid &= pos - kpos < window
     s = s.masked_fill(~valid, _NEG)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~valid, 0.0)
@@ -211,20 +222,22 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ArchConfig,
                     pos: Optional[int] = None,
                     page_table: Optional[torch.Tensor] = None,
                     use_rope: bool = True) -> torch.Tensor:
-    """The attention sub-block of kind ``kind`` ('global', 'local', or
-    'full' for whisper's encoder).  With ``page_table`` [L, P] the cache is
-    the layer's page pools (``{"kp", "vp"}``) and ``positions`` [L, S]
-    holds per-token positions (-1 = inactive): the K/V are written first,
-    then attended (paged serving, decode step or prefill chunk).
-    Otherwise the cache is dense (``{"k", "v"}``, a ring buffer for
-    'local'): ``pos`` None is prefill over the whole sequence, the
-    post-rope K/V written to the cache after (the encoder keeps none:
-    ``cache`` None); else single-token decode at position ``pos``.
+    """The attention sub-block of kind ``kind`` ('global', 'local',
+    'chunked', or 'full' for whisper's encoder).  With ``page_table``
+    [L, P] the cache is the layer's page pools (``{"kp", "vp"}``) and
+    ``positions`` [L, S] holds per-token positions (-1 = inactive): the
+    K/V are written first, then attended (paged serving, decode step or
+    prefill chunk).  Otherwise the cache is dense (``{"k", "v"}``, a ring
+    buffer for 'local' and 'chunked'): ``pos`` None is prefill over the
+    whole sequence, the post-rope K/V written to the cache after (the
+    encoder keeps none: ``cache`` None); else single-token decode at
+    position ``pos``.
     ``use_rope=False`` (whisper) leaves q and k unrotated."""
     b, s, _ = x.shape
     n_kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     mask = dict(kind=kind, window=cfg.window, softcap=cfg.attn_softcap)
-    ring = kind == "local"
+    # the reference's dense ring kinds (attention.py:673)
+    ring = kind in ("local", "chunked")
     q, k, v = project_qkv(attn, x, cfg, compute_dtype)
     if use_rope:
         q = rope(q, positions, theta)

@@ -1,7 +1,7 @@
-"""The dense GQA decoder (global or sliding-window attention + gated MLP,
-tied embeddings) and whisper's encoder-decoder: parameters, forward in
-``prefill``, ``decode`` and ``paged`` modes, the dense KV cache and the
-paged KV pools, and the int8 serving copy.
+"""The GQA decoder (global, sliding-window or chunked attention + gated
+MLP or routed MoE, tied embeddings) and whisper's encoder-decoder:
+parameters, forward in ``prefill``, ``decode`` and ``paged`` modes, the
+dense KV cache and the paged KV pools, and the int8 serving copy.
 
 Layer i's attention kind is ``cfg.block_pattern[i % period]`` (gemma2
 alternates 'local' and 'global'); its RoPE theta is ``rope_theta``, or
@@ -12,6 +12,14 @@ chain is the reference's: the entry norm is the only standalone ``ln1``;
 every block's down GEMM folds the residual add and the NEXT block's
 ``ln1`` (the last block's folds ``final_norm``) into its epilogue, while
 ``ln2`` stays a standalone rmsnorm.  ``final_softcap`` caps the logits.
+
+llama4 (``cfg.moe``, the reference's ``lm.py:291-297``): each block's FFN
+is the routed MoE (``models.moe``), which has no GEMM epilogue to fold
+into, so after ``ln2`` and the MoE the residual add runs in the compute
+dtype and the NEXT norm as a standalone rmsnorm.  Its 'chunked' layers
+keep a dense ring cache of ``min(window, max_len)`` slots, as local ones
+do.  Each forward keeps the MoE layers' ``kept`` masks (which tokens kept
+their expert) in ``Model.moe_kept``.
 
 Whisper (``cfg.encdec``, the reference's ``lm.py:272-287, 356-385``): an
 encoder of ``n_enc_layers`` blocks over the (stubbed) frame embeddings
@@ -45,6 +53,7 @@ from repro_torch.models.attention import (Attention, CrossAttention,
 from repro_torch.models.layers import (mlp_apply, rmsnorm, sinusoid,
                                        vocab_parallel_embed)
 from repro_torch.models.loss import vocab_parallel_logits
+from repro_torch.models.moe import MoE, moe_apply
 
 
 # the paged serving cache: one {"kp", "vp"} pair of page pools a layer
@@ -96,7 +105,8 @@ def _norm(cfg: ArchConfig, device) -> nn.Parameter:
 
 class Block(nn.Module):
     """A decoder block; whisper's (``cfg.encdec``) also holds the
-    cross-attention and its norm ``lnx``."""
+    cross-attention and its norm ``lnx``, llama4's (``cfg.moe``) an MoE
+    as its FFN."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device):
@@ -107,7 +117,7 @@ class Block(nn.Module):
             self.lnx = _norm(cfg, device)
             self.xattn = CrossAttention(cfg, dtype, device)
         self.ln2 = _norm(cfg, device)
-        self.ffn = MLP(cfg, dtype, device)
+        self.ffn = (MoE if cfg.moe else MLP)(cfg, dtype, device)
 
     @classmethod
     def quantized(cls, blk: "Block", cfg: ArchConfig) -> "Block":
@@ -163,6 +173,7 @@ class Model(nn.Module):
                 f"{cfg.name}: the port serves models with tied embeddings")
         self.cfg = cfg
         self.int8 = False
+        self.moe_kept: List[torch.Tensor] = []
         self.device = resolve_device(device)
         self.compute_dtype = _dtype(cfg.compute_dtype)
         dt = _dtype(cfg.param_dtype)
@@ -182,16 +193,17 @@ class Model(nn.Module):
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Model":
         """Seeded init with the reference's schema and scales: norm scales
-        zero, the embedding N(0, 1/d), every other weight N(0, 1/fan_in).
-        Drawn by ``torch.Generator`` on the model's device, so it does not
-        reproduce the JAX package's bits (``convert.from_jax_params``
-        carries those across)."""
+        zero, the embedding N(0, 1/d), every other weight N(0, 1/fan_in),
+        the fan-in the second-to-last dim (``param.py:142-145``: an expert
+        stack [E, D, F] takes D).  Drawn by ``torch.Generator`` on the
+        model's device, so it does not reproduce the JAX package's bits
+        (``convert.from_jax_params`` carries those across)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         for name, p in self.named_parameters():
             if p.dim() == 1:
                 p.zero_()
                 continue
-            fan_in = self.cfg.d_model if name == "embed" else p.shape[0]
+            fan_in = self.cfg.d_model if name == "embed" else p.shape[-2]
             w = torch.randn(p.shape, generator=gen, device=self.device,
                             dtype=torch.float32)
             p.copy_(w.mul_(1.0 / math.sqrt(fan_in)))
@@ -207,9 +219,15 @@ class Model(nn.Module):
         and norm scales (the tied head keeps full precision for the
         logits), and whisper's encoder and cross-attention (the
         reference's pass skips ``/encoder/`` and ``/xattn/``,
-        ``lm.py:202``).  Idempotent: an int8 model returns itself."""
+        ``lm.py:202``).  Idempotent: an int8 model returns itself.  An MoE
+        model (whose reference pass quantizes only ``wqkv`` and ``wo``,
+        ``lm.py:194-208``) is not ported: it raises."""
         if self.int8:
             return self
+        if self.cfg.moe:
+            raise NotImplementedError(
+                f"{self.cfg.name}: int8 serving of an MoE model is not "
+                f"ported")
         q = Model.__new__(Model)
         nn.Module.__init__(q)
         q.cfg, q.int8, q.device = self.cfg, True, self.device
@@ -224,10 +242,10 @@ class Model(nn.Module):
     @property
     def supports_paged_serving(self) -> bool:
         """The paged scheduler serves single-device decoder stacks of the
-        attention kinds K6 takes ('global', 'local'); an encoder-decoder
-        prefills through extra inputs (the frames) the chunk loop does not
-        model, so engines take the fixed loop for it (the reference's
-        ``lm.py:562-565``)."""
+        attention kinds K6 takes ('global', 'local', 'chunked'); an
+        encoder-decoder prefills through extra inputs (the frames) the
+        chunk loop does not model, so engines take the fixed loop for it
+        (the reference's ``lm.py:562-565``)."""
         return not self.cfg.encdec and all(
             kind in PAGED_KINDS for kind in self.cfg.block_pattern)
 
@@ -242,14 +260,14 @@ class Model(nn.Module):
     def new_cache(self, batch: int, max_len: int) -> Cache:
         """Zeroed dense K/V caches in bf16, one dict per layer (the
         reference's ``cache_defs``): [B, max_len, KV, hd] for a global
-        layer, a ring buffer of min(window, max_len) slots for a local
-        one."""
+        layer, a ring buffer of min(window, max_len) slots for a local or
+        chunked one."""
         cfg = self.cfg
         kw = dict(dtype=torch.bfloat16, device=self.device)
         out = Cache()
         for i in range(cfg.n_layers):
-            slots = (min(cfg.window, max_len) if cfg.kind(i) == "local"
-                     else max_len)
+            slots = (min(cfg.window, max_len)
+                     if cfg.kind(i) in ("local", "chunked") else max_len)
             shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
             out.append({"k": torch.zeros(shape, **kw),
                         "v": torch.zeros(shape, **kw)})
@@ -283,6 +301,13 @@ class Model(nn.Module):
             h = h + cross_attention_apply(blk.xattn, xx, enc_out, cfg, cd,
                                           decode=pos is not None)
         xn2 = rmsnorm(h, blk.ln2, cfg.norm_eps)
+        if cfg.moe:
+            # the routed path: no GEMM epilogue to fold into, so the
+            # residual add and the next norm run standalone (lm.py:291-297)
+            y = moe_apply(blk.ffn, xn2, cfg, cd)
+            self.moe_kept.append(y.kept)
+            h = h + y.out
+            return h, rmsnorm(h, next_scale, cfg.norm_eps)
         return mlp_apply(blk.ffn.params(), xn2, cd, residual=h,
                          norm_scale=next_scale, norm_eps=cfg.norm_eps,
                          gated=cfg.gated_mlp)
@@ -335,6 +360,7 @@ class Model(nn.Module):
                          if pos is None
                          else torch.tensor([pos], device=h.device))
         xn = rmsnorm(h, self.blocks[0].ln1, cfg.norm_eps)
+        self.moe_kept = []
         for i, blk in enumerate(self.blocks):
             nxt = (self.blocks[i + 1].ln1 if i + 1 < len(self.blocks)
                    else self.final_norm)

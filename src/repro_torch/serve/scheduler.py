@@ -12,10 +12,15 @@ flow queue -> lane -> retired while every model call keeps its shape:
     (``Model.prefill_chunk``); idle lanes ride along at position -1.  The
     last chunk's logits seed the request's first pick.
   * decode: every lane holding a picked token steps in one ``[L, 1]`` call
-    (``Model.decode_step_paged``).  A lane's math is independent of its
-    neighbours (rows of every GEMM and norm are independent, and the paged
-    attention masks other lanes' pages), so a request's tokens are the same
-    alone or amid churn.
+    (``Model.decode_step_paged``).  In a dense model a lane's math is
+    independent of its neighbours (rows of every GEMM and norm are
+    independent, and the paged attention masks other lanes' pages), so a
+    request's tokens are the same alone or amid churn.  An MoE model
+    (llama4) shares each expert's capacity among every token of a call,
+    idle lanes' padding included, and drops the tokens that sort past it,
+    as the reference does (ROADMAP F6): a lane's tokens then depend on the
+    lanes before it, and only lane 0's tokens, which sort first within
+    every expert, never do.
   * pick: one greedy pick with the health probes (finite, absmax, int8
     saturation) over all lanes, then ONE device-to-host transfer: the only
     host sync of an iteration.  Everything before it is queued on the

@@ -121,8 +121,9 @@ def test_a_chunk_launches_the_chunk_body(intercepted, var, key):
     assert args[6:14] == (n_lanes, s_q, kv, g, hd, table.shape[1], 3,
                           kp.shape[0])
     assert args[14] == hd ** -0.5
-    assert args[15] == var.get("window", 0)
-    assert args[16] == var.get("softcap", 0.0)
+    assert args[15] == tfa.MASK_CODES[var.get("kind", "global")]
+    assert args[16] == var.get("window", 0)
+    assert args[17] == var.get("softcap", 0.0)
     assert _cuda.LAUNCHES["paged_decode"] == 1 and _cuda.LAUNCHES[key] == 1
 
 

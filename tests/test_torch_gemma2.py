@@ -254,14 +254,18 @@ def test_k6_tiles_before_the_window_are_exact_zero_partials():
 
 
 def test_unported_kinds_raise_on_every_path():
+    """Every kind of the reference's masks is ported to K4;
+    a kind outside a kernel's set raises on every path: no mask of the
+    reference is called 'sliding', the paged kernel serves no 'prefix' or
+    'full' (whisper's encoder-decoder), K5 no ring kind ('local' and
+    'chunked' layers decode their ring in plain torch), and no model
+    block is 'prefix' (the reference's prefix-LM mask has no caller)."""
     rng = np.random.default_rng(0)
     _, q = _pair(rng, (1, 8, 2, 16))
     _, k = _pair(rng, (1, 8, 2, 16))
-    for kind in ("chunked", "prefix"):
-        with pytest.raises(NotImplementedError):
-            ops.flash_attention(q, k, k, kind=kind, window=4)
-    # 'full' (whisper's encoder-decoder) is no kind of the paged kernel
-    for kind in ("chunked", "prefix", "full"):
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(q, k, k, kind="sliding", window=4)
+    for kind in ("prefix", "full"):
         with pytest.raises(NotImplementedError):
             ops.paged_flash_decode(*_paged_case(16, 1), kind=kind, window=4)
     for kind in ("local", "chunked"):
@@ -269,7 +273,7 @@ def test_unported_kinds_raise_on_every_path():
             ops.flash_decode(q[:, :1].reshape(1, 1, 2, 1, 16), k, k, 3,
                              kind=kind)
     cfg = dataclasses.replace(get_config(ARCH, smoke=True),
-                              block_pattern=("chunked",))
+                              block_pattern=("prefix",))
     with pytest.raises(NotImplementedError):
         Model(cfg, device="cpu")
 

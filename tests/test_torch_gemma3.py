@@ -278,9 +278,9 @@ def test_k4_launch_at_hd256(intercepted, kind, window, key):
     ((lib, fn, args),) = intercepted
     assert (lib, fn) == ("flash_attention", "k4_flash_prefill")
     assert len(args) + 1 == len(_cuda.SIGNATURES[lib][fn])
-    # window, then the 'full' flag (0: not whisper's kind), the softcap
-    assert args[4:] == (2, 4160, 4160, 16, 8, HD, HD ** -0.5, window, 0,
-                        0.0)
+    # the mask code, window and prefix length, then the softcap
+    assert args[4:] == (2, 4160, 4160, 16, 8, HD, HD ** -0.5,
+                        tfa.MASK_CODES[kind], window, 0, 0.0)
     assert _cuda.LAUNCHES["flash_attention"] == 1
     assert _cuda.LAUNCHES[key] == 1
 
@@ -317,8 +317,8 @@ def test_k6_chunk_launch_at_hd256(intercepted, kind, window, key):
     ((lib, fn, args),) = intercepted
     assert (lib, fn) == ("flash_attention", "k6_paged_chunk")
     assert len(args) + 1 == len(_cuda.SIGNATURES[lib][fn])
-    assert args[6:17] == (8, 64, 8, 2, HD, 262, 4, 513, HD ** -0.5, window,
-                          0.0)
+    assert args[6:18] == (8, 64, 8, 2, HD, 262, 4, 513, HD ** -0.5,
+                          tfa.MASK_CODES[kind], window, 0.0)
     assert _cuda.LAUNCHES["paged_decode"] == 1 and _cuda.LAUNCHES[key] == 1
 
 
@@ -332,7 +332,8 @@ def test_k6_decode_launch_at_hd256(intercepted):
                             window=1024)
     ((lib, fn, args),) = intercepted
     assert fn == "k6_paged_decode"
-    assert args[8:19] == (8, 8, 1, 2, HD, 262, 16, 131, 5, HD ** -0.5, 1024)
+    assert args[8:20] == (8, 8, 1, 2, HD, 262, 16, 131, 5, HD ** -0.5,
+                          tfa.MASK_CODES["local"], 1024)
     assert _cuda.LAUNCHES["paged_decode:local+hd256"] == 1
 
 

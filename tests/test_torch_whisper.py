@@ -346,7 +346,8 @@ def test_k4_full_launch(intercepted, sq, skv):
     ((lib, fn, args),) = intercepted
     assert (lib, fn) == ("flash_attention", "k4_flash_prefill")
     assert len(args) + 1 == len(_cuda.SIGNATURES[lib][fn])
-    assert args[4:] == (8, sq, skv, 12, 12, 64, 64 ** -0.5, 0, 1, 0.0)
+    assert args[4:] == (8, sq, skv, 12, 12, 64, 64 ** -0.5,
+                        tfa.MASK_CODES["full"], 0, 0, 0.0)
     assert _cuda.LAUNCHES["flash_attention:full"] == 1
 
 
