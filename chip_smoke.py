@@ -40,6 +40,10 @@ line):
    rows (the tails at 2 to 63) beside an empty kernel, the launch floor,
    and in CUPTI kernel time (``kernel_ms``, taken in a last phase after
    phase 5: ``cupti_pass``).
+   The sampler (``check_sampler``, plain torch, no kernel): at granite's
+   and gemma3's vocab over 8 lanes, fp32 and bf16 logits, the keys, words
+   and uniforms bitwise card against CPU, sampled tokens equal (a flip
+   only at a near tie), the pick's device ms greedy and sampled.
    Each kernel's device time (CUDA events behind a spin kernel that hides
    the host's launch), its wrapper's time (CUDA events, host work inside
    included),
@@ -68,9 +72,17 @@ line):
    row-norm kernel only for the entry norm and each ``ln2``, no row
    quantize launch under int8).  Every status ok, no request
    repeating one token, and request 0 served alone emitting bitwise the
-   tokens it emits amid the churn.  Then K7's one entry point,
-   ``ops.addertree``, as the row-parallel reduction of a K-split
-   o-projection (``addertree_path``).
+   tokens it emits amid the churn.  Then the mixed run (``serve_mixed``):
+   the same 16 requests, the even ones sampled (temperatures 0.7-1.0, own
+   seeds): statuses ok, request 0 alone bitwise amid churn, the greedy
+   ones bitwise the greedy run's tokens; and the fault drills through
+   ``generate_with_status`` (``fault_drills``): a NaN at step 3 on one
+   lane quarantines it alone, an int8 'scale' fault degrades it
+   (``fp32_fallback``), a stall past ``request_timeout_s`` times every
+   lane out, ``generate_with_retry`` gets through two transient failures,
+   the other lanes' tokens bitwise the undrilled run's.  Then K7's one
+   entry point, ``ops.addertree``, as the row-parallel reduction of a
+   K-split o-projection (``addertree_path``).
 5. gemma2: after the granite models are freed, full-width 46-layer
    gemma2-27b (bf16, local and global layers alternating, window 4096,
    softcaps 50 and 30) from seed 0, built once: a decode-vs-prefill
@@ -112,7 +124,11 @@ line):
    'full', K2 with gelu and its quantize tail or row kernel): every
    status ok, every variant launched, one decode iteration's launches
    exact (``decode_launches``: 2 layers + 1 row-norm launches, the entry
-   norm, each ``lnx`` and ``ln2``).  Phase 2 holds the four variants
+   norm, each ``lnx`` and ``ln2``).  Then the checkpoint round trip
+   (``checkpoint_round_trip``: save, ``ServeEngine.from_checkpoint``,
+   tokens bitwise; a bit flipped in a newer step, the older one served
+   and the skip printed) and the sampled fixed loop replayed bitwise from
+   its seed.  Phase 2 holds the four variants
    against their plain versions at these shapes, timed beside bound and
    yardstick (``check_whisper_kernels``: K1 gelu at M = 12000 and 8, K2
    gelu with the quantize at M = 8 and 512, K4 'full' over the encoder
@@ -1799,7 +1815,8 @@ def serve_scheduler(torch, model, int8: bool):
         generated=run["generated"], wall_s=run["wall_s"],
         tokens_per_s=run["tokens_per_s"], peak_bytes=peak,
         launches=launches, launches_per_decode_iter=run["decode_launches"],
-        alone_equals_churn=True, tokens0=outs[0].tokens.tolist())
+        alone_equals_churn=True, tokens0=outs[0].tokens.tolist(),
+        tokens_all={i: o.tokens.tolist() for i, o in outs.items()})
 
 
 def serve_full(torch):
@@ -1878,8 +1895,17 @@ def serve_full(torch):
     for int8 in (False, True):
         r = serve_scheduler(torch, model, int8)
         name = "scheduler_int8" if int8 else "scheduler_bf16"
-        print(f"serve {name}: " + json.dumps(r), flush=True)
+        print(f"serve {name}: " + json.dumps(
+            {k: v for k, v in r.items() if k != "tokens_all"}), flush=True)
         out[name] = r
+    out["mixed"] = serve_mixed(torch, model,
+                               out["scheduler_bf16"]["tokens_all"])
+    print("serve mixed sampled/greedy: " + json.dumps(out["mixed"]),
+          flush=True)
+    t0 = time.perf_counter()
+    out["drills"] = fault_drills(torch, model, toks)
+    out["drills"]["part_s"] = time.perf_counter() - t0
+    print("fault drills: " + json.dumps(out["drills"]), flush=True)
     return out
 
 
@@ -2975,6 +3001,7 @@ def serve_whisper(torch):
     status ok, every kernel of ``PATH_KERNELS[<its name>]`` launched, and
     one decode iteration's launches exact (``decode_launches``)."""
     import gc
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import _cuda
     from repro_torch.launch.serve import make_frames
@@ -3060,9 +3087,36 @@ def serve_whisper(torch):
             tokens=res.tokens[:, :16].tolist())
         print(f"serve {name}: " + json.dumps(report), flush=True)
         out[name] = report
+        if not int8:
+            greedy_tokens = res.tokens
         del engine, served, cache, logits
         gc.collect()
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ck = checkpoint_round_trip(torch, model, batch, greedy_tokens, WH_NEW)
+    ck["part_s"] = time.perf_counter() - t0
+    print("whisper checkpoint: " + json.dumps(ck), flush=True)
+    out["whisper_checkpoint"] = ck
+    # the sampled fixed loop (generate_with_status falls through to it):
+    # one key over the [8, v] draw, split after each step; the same seed
+    # replays bitwise
+    t0 = time.perf_counter()
+    engine = ServeEngine(model, ServeConfig(max_new_tokens=WH_NEW,
+                                            greedy=False,
+                                            temperature=SAMPLE_TEMP))
+    runs = [engine.generate_with_status(batch, seed=5) for _ in range(2)]
+    require(all(r.ok for r in runs)
+            and np.array_equal(runs[0].tokens, runs[1].tokens),
+            "whisper sampled: the same seed did not replay bitwise")
+    require(not np.array_equal(runs[0].tokens, greedy_tokens),
+            "whisper sampled: the sampled run emitted the greedy tokens")
+    out["whisper_sampled"] = dict(
+        temperature=SAMPLE_TEMP, seed=5, replay_bitwise=True,
+        tokens=runs[0].tokens[:, :16].tolist(),
+        part_s=time.perf_counter() - t0)
+    print("whisper sampled: " + json.dumps(out["whisper_sampled"]),
+          flush=True)
+    del engine, runs
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3479,6 +3533,317 @@ def serve_llama4(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# sampled picks and the robustness layer (fault plans, retry, checkpoints)
+# ---------------------------------------------------------------------------
+
+# the sampler row's shapes: the scheduler's lanes at granite's vocab and
+# at gemma3's
+SAMPLER_VOCABS = (49155, 262144)
+SAMPLE_TEMP = 0.8
+
+
+def check_sampler(torch, timer):
+    """Phase 2, the sampler (``serve/sampling.py``, plain torch on the
+    logits' device, no kernel of its own) at granite's and gemma3's vocab,
+    fp32 and bf16 logits.  Card against CPU, bitwise: the scheduler's 8
+    lane keys ``fold_in(PRNGKey(1000 + l), step)``, their 32-bit words and
+    fp32 uniforms over ``[v]`` (the scheduler draws in fp32 whatever the
+    logits' dtype), and the fixed loop's one-key ``[8, v]`` uniforms in
+    the logits' dtype (bf16: 8-bit words).  The card's sampled tokens
+    (``engine.pick_lanes``, every lane at ``SAMPLE_TEMP``) equal the
+    CPU's on the same logits, a flip allowed only at a near tie of the
+    CPU's scores (within 4 fp32 ulps of their scale).  Timed: the pick's
+    device ms with every lane greedy (no draw) and every lane sampled."""
+    from repro_torch.serve import sampling
+    from repro_torch.serve.engine import pick_lanes
+
+    import numpy as np
+    rows = []
+    seeds = np.stack([sampling.prng_key(1000 + l) for l in range(LANES)])
+    steps_np = np.array([0, 1, 3, 7, 15, 31, 2, 5], np.int64)
+    greedy = {dev: torch.zeros(LANES, dtype=torch.bool, device=dev)
+              for dev in ("cpu", "cuda")}
+    temp = {dev: torch.full((LANES,), SAMPLE_TEMP, device=dev)
+            for dev in ("cpu", "cuda")}
+    kb = {dev: sampling.key_tensor(seeds, dev) for dev in ("cpu", "cuda")}
+    steps = {dev: torch.from_numpy(steps_np).to(dev)
+             for dev in ("cpu", "cuda")}
+    for v in SAMPLER_VOCABS:
+        t0 = time.perf_counter()
+        gen = torch.Generator().manual_seed(SEED + v)
+        logits = {"cpu": 3.0 * torch.randn((LANES, v), generator=gen)}
+        logits["cuda"] = logits["cpu"].to("cuda")
+        per = {}
+        for dev in ("cpu", "cuda"):
+            keys = sampling.fold_in(kb[dev], steps[dev])
+            per[dev] = dict(
+                keys=keys, lane_words=sampling.random_bits(keys, (v,), 32),
+                lane_uniforms=sampling.uniform(
+                    keys, (v,), torch.float32,
+                    minval=torch.finfo(torch.float32).tiny))
+        for dtype in (torch.float32, torch.bfloat16):
+            for dev in ("cpu", "cuda"):
+                per[dev]["fixed_uniforms"] = sampling.uniform(
+                    kb[dev][0], (LANES, v), dtype,
+                    minval=torch.finfo(dtype).tiny)
+                per[dev]["tokens"] = pick_lanes(
+                    logits[dev], dtype, kb[dev], steps[dev], greedy[dev],
+                    temp[dev])
+            torch.cuda.synchronize()
+            for name in ("keys", "lane_words", "lane_uniforms",
+                         "fixed_uniforms"):
+                require(torch.equal(per["cuda"][name].cpu(), per["cpu"][name]),
+                        f"sampler {name} at vocab {v}, {dtype}: card and CPU "
+                        f"differ")
+            got, want = per["cuda"]["tokens"].cpu(), per["cpu"]["tokens"]
+            flips = []
+            for l in torch.nonzero(got != want).flatten().tolist():
+                # the CPU's scores of its own draw: the near-tie rule
+                scores = (sampling.gumbel(per["cpu"]["keys"][l], (v,),
+                                          torch.float32)
+                          + logits["cpu"][l].to(dtype).float()
+                          / SAMPLE_TEMP).double()
+                gap = float(scores[want[l]] - scores[got[l]])
+                tol = 4 * float(torch.finfo(torch.float32).eps
+                                * scores.abs().max())
+                require(gap <= tol, f"sampled token of lane {l} at vocab {v} "
+                                    f"differs card vs CPU by a score gap "
+                                    f"{gap:.3e} > {tol:.3e}")
+                flips.append(dict(lane=l, gap=gap))
+            check_s = time.perf_counter() - t0
+            real = logits["cuda"]
+            greedy_ms = timer(lambda: pick_lanes(real, dtype))
+            sampled_ms = timer(lambda: pick_lanes(
+                real, dtype, kb["cuda"], steps["cuda"], greedy["cuda"],
+                temp["cuda"]))
+            rows.append(dict(
+                vocab=v, lanes=LANES, logits_dtype=str(dtype).split(".")[-1],
+                bitwise=["keys", "lane_words", "lane_uniforms",
+                         "fixed_uniforms"],
+                tokens_equal=int((got == want).sum()), near_tie_flips=flips,
+                greedy_pick_ms=greedy_ms, sampled_pick_ms=sampled_ms,
+                check_s=check_s))
+            t0 = time.perf_counter()
+    return rows
+
+
+def serve_mixed(torch, model, greedy_tokens):
+    """Phase 4's mixed run: the greedy run's 16 requests on the bf16
+    scheduler, the even ones now sampled (temperatures 0.7-1.0, each its
+    own seed), the odd ones greedy as before.  Every status ok; request 0
+    (sampled) served alone emits bitwise the tokens it emits amid the
+    churn; each greedy request's tokens are bitwise those of the greedy
+    run; a sampled request's tokens are not all its greedy ones."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.launch.serve import (GEOMETRY, NEW_RANGE, PROMPT_RANGE,
+                                          make_requests, serve_requests)
+    from repro_torch.serve.api import SamplingParams
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    reqs = make_requests(model.cfg.vocab, N_REQ, SEED, PROMPT_RANGE,
+                         NEW_RANGE)
+    temps = np.linspace(0.7, 1.0, N_REQ // 2)
+    mixed = [r if r.id % 2 else dataclasses.replace(
+        r, seed=1000 + r.id, sampling=SamplingParams(
+            greedy=False, temperature=float(temps[r.id // 2]),
+            max_new_tokens=r.sampling.max_new_tokens)) for r in reqs]
+    eng = ServeEngine(model, ServeConfig(**GEOMETRY))
+    alone = serve_requests(eng, mixed[:1])["outputs"][0]
+    run = serve_requests(eng, mixed)
+    outs = run["outputs"]
+    require(all(o.status == "ok" for o in outs.values()),
+            f"mixed: statuses {[o.status for o in outs.values()]}")
+    require(np.array_equal(alone.tokens, outs[0].tokens),
+            f"mixed: sampled request 0 alone {alone.tokens.tolist()} != "
+            f"amid churn {outs[0].tokens.tolist()}")
+    greedy_ids = [r.id for r in mixed if r.sampling.greedy]
+    require(all(outs[i].tokens.tolist() == greedy_tokens[i]
+                for i in greedy_ids),
+            "mixed: a greedy request's tokens moved beside sampled lanes")
+    sampled_ids = [r.id for r in mixed if not r.sampling.greedy]
+    differ = sum(outs[i].tokens.tolist() != greedy_tokens[i]
+                 for i in sampled_ids)
+    require(differ > 0, "mixed: every sampled request emitted its greedy "
+                        "tokens")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(requests=N_REQ, sampled=sampled_ids,
+                temperatures=temps.tolist(), statuses_ok=True,
+                alone_equals_churn=True, greedy_unchanged=len(greedy_ids),
+                sampled_not_greedy=differ,
+                decode_ms_per_iter=run["decode_ms_per_iter"],
+                tokens_per_s=run["tokens_per_s"], wall_s=run["wall_s"],
+                tokens0=outs[0].tokens.tolist(),
+                part_s=time.perf_counter() - t0)
+
+
+# phase 4's drills: the fault step and lane, the stall past the budget
+DRILL_STEP, DRILL_LANE = 3, 1
+DRILL_TIMEOUT_S, DRILL_STALL_S = 2.0, 2.5
+
+
+def fault_drills(torch, model, toks):
+    """Phase 4's fault drills through ``generate_with_status`` (the
+    scheduler's shim) on the full model, each against the undrilled run of
+    the same engine: a NaN fault on one lane at step 3 quarantines that
+    request alone (``quarantined_nonfinite`` at step 3) and every other
+    keeps bitwise its tokens; on the int8 engine (with ``fp32_fallback``)
+    a 'scale' fault degrades its lane (``degraded_fp32`` at step 3), the
+    others bitwise unchanged; a stall past ``request_timeout_s`` times
+    every lane out at its step; ``generate_with_retry`` with
+    ``fail_first_generates=2`` succeeds on the third attempt, tokens
+    bitwise the undrilled run."""
+    import numpy as np
+    from repro_torch.robust import (FaultPlan, LogitFault, StallFault,
+                                    generate_with_retry)
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    batch = {"tokens": toks}
+    b = toks.shape[0]
+    others = [l for l in range(b) if l != DRILL_LANE]
+    out = {}
+
+    def timed(fn):
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    eng = ServeEngine(model, ServeConfig(max_new_tokens=NEW))
+    base, base_s = timed(lambda: eng.generate_with_status(batch))
+    require(base.ok and base.tokens.shape == (b, NEW),
+            f"drills: undrilled run {base.status}")
+    res, s = timed(lambda: eng.generate_with_status(batch, fault_plan=(
+        FaultPlan(logit_faults=(LogitFault(step=DRILL_STEP,
+                                           lanes=(DRILL_LANE,)),)))))
+    require(res.status[DRILL_LANE] == "quarantined_nonfinite"
+            and res.fault_step[DRILL_LANE] == DRILL_STEP
+            and all(res.status[l] == "ok" for l in others),
+            f"nan drill: statuses {res.status}, steps {res.fault_step}")
+    require(np.array_equal(res.tokens[others], base.tokens[others])
+            and np.array_equal(res.tokens[DRILL_LANE, :DRILL_STEP],
+                               base.tokens[DRILL_LANE, :DRILL_STEP]),
+            "nan drill: a healthy lane's tokens moved")
+    out["nan"] = dict(statuses=list(res.status),
+                      fault_step=res.fault_step.tolist(),
+                      others_bitwise=True, s=s)
+
+    slept = []
+    res, s = timed(lambda: generate_with_retry(
+        eng, batch, fault_plan=FaultPlan(fail_first_generates=2),
+        sleep=slept.append))
+    require(res.ok and np.array_equal(res.tokens, base.tokens)
+            and slept == [0.05, 0.1],
+            f"retry drill: {res.status}, backoff {slept}")
+    out["retry"] = dict(attempts=3, backoff_s=slept, tokens_bitwise=True,
+                        s=s)
+    del eng
+
+    eng = ServeEngine(model, ServeConfig(max_new_tokens=NEW,
+                                         request_timeout_s=DRILL_TIMEOUT_S))
+    res, s = timed(lambda: eng.generate_with_status(batch, fault_plan=(
+        FaultPlan(stalls=(StallFault(step=2, seconds=DRILL_STALL_S),)))))
+    require(res.timed_out and res.status == ["timeout"] * b
+            and res.fault_step.tolist() == [2] * b and res.n_steps == 2
+            and np.array_equal(res.tokens, base.tokens[:, :2]),
+            f"stall drill: {res.status}, steps {res.fault_step}, "
+            f"n_steps {res.n_steps}")
+    out["stall"] = dict(statuses=list(res.status), timeout_s=DRILL_TIMEOUT_S,
+                        stall_s=DRILL_STALL_S, n_steps=res.n_steps, s=s)
+    del eng
+
+    eng = ServeEngine(model, ServeConfig(max_new_tokens=NEW, int8=True,
+                                         fp32_fallback=True))
+    base8, _ = timed(lambda: eng.generate_with_status(batch))
+    require(base8.ok, f"int8 drill: undrilled run {base8.status}")
+    res, s = timed(lambda: eng.generate_with_status(batch, fault_plan=(
+        FaultPlan(logit_faults=(LogitFault(step=DRILL_STEP,
+                                           lanes=(DRILL_LANE,),
+                                           kind="scale", scale=100.0),)))))
+    require(res.status[DRILL_LANE] == "degraded_fp32"
+            and res.fault_step[DRILL_LANE] == DRILL_STEP
+            and all(res.status[l] == "ok" for l in others)
+            and np.array_equal(res.tokens[others], base8.tokens[others]),
+            f"int8 scale drill: statuses {res.status}, steps "
+            f"{res.fault_step}")
+    out["int8_scale"] = dict(statuses=list(res.status),
+                             fault_step=res.fault_step.tolist(),
+                             others_bitwise=True, s=s)
+    out["undrilled_s"] = base_s
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_round_trip(torch, model, batch, want_tokens, new):
+    """Phase 7's checkpoint drill on the full model: the weights saved
+    (``CheckpointManager.save(..., blocking=True)`` of
+    ``convert.to_jax_params``), restored into a fresh model by
+    ``ServeEngine.from_checkpoint``, whose greedy tokens must be bitwise
+    ``want_tokens`` (the in-memory engine's).  Then a second step (the
+    final norm moved) with a bit flipped in its first leaf: the engine
+    must serve the first step and print the skip.  Each step's seconds
+    are returned."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.convert import to_jax_params
+    from repro_torch.models.lm import Model
+    from repro_torch.robust import bitflip_leaf
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = model.cfg
+    d = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    mgr = CheckpointManager(str(d))
+    secs = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    tree = timed("host_copy_s", lambda: to_jax_params(cfg, model.state_dict()))
+    timed("save_s", lambda: mgr.save(1, tree, blocking=True))
+    gb = sum(f.stat().st_size for f in (d / "step_00000001").iterdir()) / 1e9
+    scfg = ServeConfig(max_new_tokens=new)
+
+    def restore():
+        return ServeEngine.from_checkpoint(Model(cfg), str(d), scfg=scfg)
+
+    eng = timed("restore_s", restore)
+    got = timed("generate_s", lambda: eng.generate_with_status(batch))
+    require(got.ok and np.array_equal(got.tokens, want_tokens),
+            "checkpoint: the restored engine's tokens differ from the "
+            "in-memory engine's")
+    del eng
+    tree["final_norm"] = tree["final_norm"] + np.float32(1.0)
+    timed("save2_s", lambda: mgr.save(2, tree, blocking=True))
+    name = timed("bitflip_s", lambda: bitflip_leaf(str(d), 2, leaf=0))
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        eng = timed("fallback_restore_s", restore)
+    skip = log.getvalue().strip()
+    print(f"  {skip}")
+    require("falling back" in skip and name in skip,
+            f"checkpoint: the fallback printed {skip!r}")
+    got = timed("generate2_s", lambda: eng.generate_with_status(batch))
+    require(got.ok and np.array_equal(got.tokens, want_tokens),
+            "checkpoint: the fallback engine does not serve step 1")
+    del eng
+    timed("cleanup_s", lambda: shutil.rmtree(d, ignore_errors=True))
+    torch.cuda.empty_cache()
+    return dict(leaves=len(flatten(tree)), gb=gb, tokens_bitwise=True,
+                skipped=name, **secs)
+
 SOURCES = {
     "k1_matmul": ("matmul", "src/repro_torch/csrc/matmul.cu",
                   "src/repro/kernels/matmul.py:293"),
@@ -3689,6 +4054,7 @@ def main() -> int:
         for line in _cuda.ptxas_report(so):
             print(f"  ptxas {name}: {line}")
 
+    marks = [("build", time.perf_counter())]
     timer = Timer(torch)
     cupti = []     # (row, key, call): CUPTI kernel times, the last phase
     floor = launch_floor(timer, cupti)
@@ -3706,8 +4072,13 @@ def main() -> int:
     kernels.update(check_gemma3_kernels(torch, timer))
     kernels.update(check_whisper_kernels(torch, timer))
     kernels.update(check_llama4_kernels(torch, timer))
+    t0 = time.perf_counter()
+    sampler = check_sampler(torch, timer)
+    print(f"sampler ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps(sampler), flush=True)
     del timer
     torch.cuda.empty_cache()
+    marks.append(("kernels", time.perf_counter()))
     print("kernels: " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk != "shapes"}
          for k, v in kernels.items()}), flush=True)
@@ -3719,23 +4090,26 @@ def main() -> int:
         print(f"smoke {arch}: " + json.dumps(smoke_local), flush=True)
     print("smoke whisper-small: " + json.dumps(check_whisper_smoke(torch)),
           flush=True)
+    marks.append(("smoke", time.perf_counter()))
     serve = serve_full(torch)
     serve["addertree"] = addertree_path(torch)
     print("addertree path: " + json.dumps(serve["addertree"]), flush=True)
-    t0 = time.perf_counter()
+    marks.append(("granite", time.perf_counter()))
     serve.update(serve_long(torch, "gemma2-27b", "gemma2", G2_BATCH,
                             G2_PROMPT, G2_NEW, G2_REQ))
-    t1 = time.perf_counter()
+    marks.append(("gemma2", time.perf_counter()))
     serve.update(serve_long(torch, "gemma3-12b", "gemma3", G3_BATCH,
                             G3_PROMPT, G3_NEW, G3_REQ, int8s=(False, True)))
-    t2 = time.perf_counter()
+    marks.append(("gemma3", time.perf_counter()))
     serve.update(serve_whisper(torch))
-    t3 = time.perf_counter()
+    marks.append(("whisper", time.perf_counter()))
     serve.update(serve_llama4(torch))
-    print(f"phase times: gemma2 {t1 - t0:.1f} s, gemma3 {t2 - t1:.1f} s, "
-          f"whisper {t3 - t2:.1f} s, llama4 {time.perf_counter() - t3:.1f} "
-          f"s", flush=True)
+    marks.append(("llama4", time.perf_counter()))
     cupti_pass(torch, cupti)
+    marks.append(("cupti", time.perf_counter()))
+    print("phase times: " + ", ".join(
+        f"{name} {t - t_prev:.1f} s" for (name, t), (_, t_prev)
+        in zip(marks, [(None, t_start)] + marks[:-1])), flush=True)
     for k in kernels.values():
         if "floor_ms" in k:
             k["floor_kernel_ms"] = floor["kernel_ms"]

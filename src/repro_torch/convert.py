@@ -22,6 +22,12 @@ encoder, ``encoder/blocks`` stacked over its ``n_enc_layers`` and
 xyz layout), which keep their names under ``blocks.<i>.ffn``.  Loading
 the result into a ``Model`` casts each leaf once to its parameter's
 dtype.
+
+``to_jax_params`` is the inverse: a ``state_dict`` back to the reference's
+tree (the groups restacked, the MLP weights in the xyz layout ``[1, K,
+N]``) with numpy leaves, for ``checkpoint.CheckpointManager``; a bf16
+tensor becomes its 2-byte words (``checkpoint.manager.BF16_WORDS``), which
+``from_jax_params`` reads back.
 """
 from __future__ import annotations
 
@@ -30,15 +36,22 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import BF16_WORDS, host_copy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.maxeva_matmul import unshard_weight_xyz
+
+
+_MLP = ("gate", "up", "down")
 
 
 def _tensor(a: Any) -> torch.Tensor:
     """numpy leaf -> torch tensor.  A bf16 leaf comes through ``np.asarray``
     as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects;
-    it goes through float32, which holds every bf16 value exactly."""
+    it goes through float32, which holds every bf16 value exactly.  A
+    checkpoint's bf16 leaf is its 2-byte words, bit-cast back."""
     a = np.asarray(a)
+    if a.dtype == BF16_WORDS:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(a))  # a writable copy
@@ -58,7 +71,7 @@ def _block(sd: Dict[str, torch.Tensor], p: str, blk: Dict[str, Any],
     for name, w in blk.get("xattn", {}).items():
         sd[p + "xattn." + name] = leaf(w)
     for name, w in blk["ffn"].items():
-        if name in ("gate", "up", "down"):
+        if name in _MLP:
             sd[p + "ffn." + name] = unshard_weight_xyz(leaf(w),
                                                        1).contiguous()
         else:   # the MoE's router, expert stacks and shared expert
@@ -84,3 +97,50 @@ def from_jax_params(cfg: ArchConfig, params: Dict[str, Any]
             _block(sd, f"encoder.blocks.{i}.", enc["blocks"], i)
         sd["encoder.final_norm"] = _tensor(enc["final_norm"])
     return sd
+
+
+def _block_tree(sd: Dict[str, torch.Tensor], p: str) -> Dict[str, Any]:
+    """The reference block of the port's keys under prefix ``p``."""
+    blk: Dict[str, Any] = {}
+    for key, t in sd.items():
+        if not key.startswith(p):
+            continue
+        *path, name = key[len(p):].split(".")
+        w = host_copy(t)
+        if path == ["ffn"] and name in _MLP:
+            w = w[None]    # the single-device xyz layout [1, K, N]
+        node = blk
+        for k in path:
+            node = node.setdefault(k, {})
+        node[name] = w
+    return blk
+
+
+def _stack(blocks):
+    """Stack same-structured block trees on a leading axis."""
+    if isinstance(blocks[0], dict):
+        return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
+    return np.stack(blocks)
+
+
+def to_jax_params(cfg: ArchConfig, state_dict: Dict[str, torch.Tensor]
+                  ) -> Dict[str, Any]:
+    """The port's ``state_dict`` -> the reference's parameter tree, numpy
+    leaves (the inverse of ``from_jax_params``)."""
+    sd = state_dict
+    period = cfg.pattern_period
+    tree: Dict[str, Any] = {"embed": host_copy(sd["embed"]),
+                            "final_norm": host_copy(sd["final_norm"])}
+    if cfg.n_groups > 0:
+        tree["groups"] = {f"b{i}": _stack([
+            _block_tree(sd, f"blocks.{g * period + i}.")
+            for g in range(cfg.n_groups)]) for i in range(period)}
+    tree["tail"] = {f"t{i}": _block_tree(
+        sd, f"blocks.{cfg.n_groups * period + i}.")
+        for i in range(len(cfg.tail_blocks))}
+    if cfg.encdec:
+        tree["encoder"] = {
+            "blocks": _stack([_block_tree(sd, f"encoder.blocks.{i}.")
+                              for i in range(cfg.n_enc_layers)]),
+            "final_norm": host_copy(sd["encoder.final_norm"])}
+    return tree

@@ -17,9 +17,20 @@ or continuous batching over the paged KV cache (``--requests N``).
         --arch llama4-scout-17b-a16e --layers 8 \
         [--batch 2 --prompt-len 8448] [--requests 8] [--smoke --device cpu]
 
+Drills (the reference's flags): lane 1 gets NaN logits at step 2 and is
+quarantined while its peers finish, the first call fails once and is
+retried, and step 4 stalls past the budget:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
+        --inject-nan 2:1 --inject-transient 1 --inject-stall 4:3 \
+        --timeout-s 2
+
 Runs on the CUDA card unless ``--device cpu``; weights are random, drawn
-from ``--seed`` on the device.  The fixed mode prints the prefill time,
-the decode time per step, tokens/s and every lane's status.  The
+from ``--seed`` on the device.  The fixed mode times one prefill and the
+decode steps of the dense loop, then runs ``generate_with_status`` (the
+scheduler's shim; an encoder-decoder falls through to the fixed loop)
+under ``generate_with_retry`` with the drill flags' ``FaultPlan``, and
+prints tokens/s and every lane's status and fault step.  The
 continuous mode submits ``--requests`` requests at once, prompt lengths
 and token budgets drawn from ``--seed``, to a scheduler of 8 lanes
 (``geometry(arch)``), steps it until every request has finished, and
@@ -42,7 +53,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -51,6 +62,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import _cuda
 from repro_torch.models.lm import Model
+from repro_torch.robust import (FaultPlan, LogitFault, StallFault,
+                                generate_with_retry)
 from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
@@ -74,14 +87,15 @@ def make_requests(vocab: int, n: int, seed: int, prompt_range=(32, 448),
     return reqs
 
 
-def serve_requests(engine: ServeEngine, requests: List[Request]) -> Dict:
+def serve_requests(engine: ServeEngine, requests: List[Request],
+                   fault_plan=None) -> Dict:
     """Submit every request at once and step the engine's scheduler until
     all have finished.  Host clock around synchronized iterations: each
     request's time to first token (from the submit), the wall time of
     every iteration and whether it ran a prefill chunk.  Returns those
     with the outputs by request id, and the kernel launches of the last
     iteration that ran no chunk (``decode_launches``, from
-    ``kernels._cuda.LAUNCHES``)."""
+    ``kernels._cuda.LAUNCHES``).  ``fault_plan`` rides every step."""
     dev = engine.model.device
     sched = engine.scheduler
     _sync(dev)
@@ -98,7 +112,7 @@ def serve_requests(engine: ServeEngine, requests: List[Request]) -> Dict:
             bool(sched.queue) and any(a is None for a in sched.lanes))
         before = dict(_cuda.LAUNCHES)
         t = time.perf_counter()
-        for o in engine.step():
+        for o in engine.step(fault_plan):
             outs[o.id] = o
         _sync(dev)
         now = time.perf_counter()
@@ -187,12 +201,41 @@ def int8_fits(cfg, device: torch.device) -> bool:
     return 3 * cfg.param_count() < 0.8 * total
 
 
-def _continuous(args, model, cfg) -> None:
+def _parse_faults(args) -> Optional[FaultPlan]:
+    """The drill flags as a FaultPlan ("step:lane", "step:seconds"), or
+    None."""
+    logit_faults, stalls = [], []
+    for spec in args.inject_nan or ():
+        step, lane = spec.split(":")
+        logit_faults.append(LogitFault(step=int(step), lanes=(int(lane),),
+                                       kind="nan"))
+    for spec in args.inject_saturation or ():
+        step, lane = spec.split(":")
+        logit_faults.append(LogitFault(step=int(step), lanes=(int(lane),),
+                                       kind="scale", scale=100.0))
+    for spec in args.inject_stall or ():
+        step, seconds = spec.split(":")
+        stalls.append(StallFault(step=int(step), seconds=float(seconds)))
+    if not (logit_faults or stalls or args.inject_transient):
+        return None
+    return FaultPlan(seed=args.seed, logit_faults=tuple(logit_faults),
+                     stalls=tuple(stalls),
+                     fail_first_generates=args.inject_transient)
+
+
+def _guards(args) -> dict:
+    """The ServeConfig fields of the guard flags."""
+    return dict(int8=args.int8, fp32_fallback=args.fp32_fallback,
+                guards=not args.no_guards, request_timeout_s=args.timeout_s,
+                max_lanes=args.max_lanes)
+
+
+def _continuous(args, model, cfg, plan) -> None:
     geom = geometry(cfg.name)
-    eng = ServeEngine(model, ServeConfig(int8=args.int8, **geom))
+    eng = ServeEngine(model, ServeConfig(**_guards(args), **geom))
     reqs = make_requests(cfg.vocab, args.requests, args.seed, PROMPT_RANGE,
                          NEW_RANGE)
-    r = serve_requests(eng, reqs)
+    r = serve_requests(eng, reqs, plan)
     ttft = np.array([r["ttft_s"][q.id] for q in reqs if q.id in r["ttft_s"]])
     dec = r["decode_ms_per_iter"]
     print(f"{cfg.name}{' int8' if args.int8 else ''} on {model.device}: "
@@ -208,8 +251,9 @@ def _continuous(args, model, cfg) -> None:
         print(f"  decode-only iteration: {dec:.3f} ms")
     for q in reqs:
         o = r["outputs"][q.id]
+        extra = f" (at step {o.fault_step})" if o.fault_step >= 0 else ""
         print(f"  request {q.id}: prompt {len(q.tokens)}, {o.tokens.size} "
-              f"tokens, {o.status}")
+              f"tokens, {o.status}{extra}")
 
 
 def main(argv=None):
@@ -230,6 +274,28 @@ def main(argv=None):
     # continuous batching
     ap.add_argument("--requests", type=int, default=0,
                     help="continuous batching: serve this many requests")
+    # guards (the reference's flags)
+    ap.add_argument("--fp32-fallback", action="store_true",
+                    help="with --int8: keep the bf16 model and finish "
+                         "saturation-degraded lanes on it")
+    ap.add_argument("--no-guards", action="store_true",
+                    help="no per-lane numerical-health guards")
+    ap.add_argument("--timeout-s", type=float, default=None,
+                    help="wall-clock budget per request; expired lanes "
+                         "get a structured 'timeout' status")
+    ap.add_argument("--max-lanes", type=int, default=None,
+                    help="admission limit; surplus batch rows are shed")
+    ap.add_argument("--retries", type=int, default=2,
+                    help="transient-failure retries (doubling backoff)")
+    # fault-injection drills ("step:lane" / "step:seconds")
+    ap.add_argument("--inject-nan", action="append", metavar="STEP:LANE")
+    ap.add_argument("--inject-saturation", action="append",
+                    metavar="STEP:LANE")
+    ap.add_argument("--inject-stall", action="append",
+                    metavar="STEP:SECONDS")
+    ap.add_argument("--inject-transient", type=int, default=0,
+                    help="fail the first N generate calls with a retryable "
+                         "error")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -239,11 +305,12 @@ def main(argv=None):
                          f"that does not fit on the card beside the bf16 "
                          f"model)")
     model = Model(cfg, device=device).init_weights(args.seed)
+    plan = _parse_faults(args)
     if args.requests:
         if not model.supports_paged_serving:
             raise SystemExit(f"{cfg.name}: continuous batching serves "
                              f"decoder-only models; run the fixed loop")
-        return _continuous(args, model, cfg)
+        return _continuous(args, model, cfg, plan)
 
     gen = torch.Generator().manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
@@ -252,7 +319,7 @@ def main(argv=None):
     if cfg.encdec:
         batch["frames"] = make_frames(cfg, args.batch, args.seed)
     eng = ServeEngine(model, ServeConfig(max_new_tokens=args.max_new,
-                                         int8=args.int8))
+                                         **_guards(args)))
     served = eng.model
     _sync(device)
     t0 = time.perf_counter()
@@ -267,15 +334,18 @@ def main(argv=None):
         tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
     _sync(device)
     t2 = time.perf_counter()
-    # an encoder-decoder takes generate_with_status's fall-through
-    res = (eng.generate_with_status(batch) if cfg.encdec
-           else eng.generate_with_status_fixed(batch))
+    # generate_with_status (an encoder-decoder takes its fall-through to
+    # the fixed loop) under the retry wrapper, the drills' plan riding it
+    res = generate_with_retry(eng, batch, args.seed, retries=args.retries,
+                              fault_plan=plan)
     _sync(device)
     t3 = time.perf_counter()
     steps = max(args.max_new - 1, 1)
     print(f"{cfg.name}{' int8' if args.int8 else ''} on {device}: prefill "
           f"{1e3 * (t1 - t0):.3f} ms, decode {1e3 * (t2 - t1) / steps:.3f} "
-          f"ms/step, generate {res.tokens.size / (t3 - t2):.1f} tok/s")
+          f"ms/step, generate {res.tokens.size / (t3 - t2):.1f} tok/s, "
+          f"{res.admitted}/{args.batch} lanes admitted"
+          f"{', TIMED OUT' if res.timed_out else ''}")
     for lane, (st, fs) in enumerate(zip(res.status, res.fault_step)):
         extra = f" (at step {fs})" if fs >= 0 else ""
         print(f"  lane {lane}: {st}{extra}")

@@ -3,8 +3,8 @@
 
 ``ServeEngine.submit()/step()/collect()`` consumes and produces these;
 ``generate()``/``generate_with_status()`` are fixed-batch shims over the
-same scheduler.  This slice serves greedy picks only: a request asking to
-sample is refused at submit (``NotImplementedError``).
+same scheduler.  A request picks greedily or samples at its temperature
+from its own key stream, rooted at ``Request.seed``.
 """
 from __future__ import annotations
 

@@ -20,13 +20,25 @@ logits drift past the int8 envelope as ``degraded_fp32`` and, with
 ``fp32_fallback``, finishes them on the retained bf16 model over the same
 pools.  A non-finite logit quarantines that request (or raises under
 ``on_nonfinite='raise'``); a wall-clock budget gives ``timeout``; a
-request that can never fit is ``shed``.  This slice picks greedily; a
-request asking to sample is refused at submit.
+request that can never fit is ``shed``.
+
+Picks are greedy or sampled, as the reference's: a sampled pick is
+``jax.random.categorical`` computed bit for bit in torch
+(``serve.sampling``).  The scheduler samples each lane from its request's
+own stream, ``fold_in(PRNGKey(request.seed), step)``, so a sampled
+request's tokens do not depend on its lane or its neighbours; the fixed
+loop samples every lane from one key, ``PRNGKey(seed)``, split after each
+decode step.  A pick in which no lane samples draws nothing.  A
+``robust.FaultPlan`` injects faults at the reference's boundaries (a
+transient failure at the start of a call, a host stall before a step,
+poisoned logits before a pick); ``from_checkpoint`` serves weights
+restored by ``checkpoint.CheckpointManager``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -39,17 +51,28 @@ from repro_torch.robust.guards import (STATUS_DEGRADED, STATUS_NONFINITE,
                                        STATUS_OK, STATUS_SHED,
                                        STATUS_TIMEOUT, GenerateResult,
                                        NumericalHealthError)
+from repro_torch.serve import sampling
 from repro_torch.serve.api import Request, RequestOutput, SamplingParams
 from repro_torch.serve.scheduler import PagedScheduler
 
 _ON_NONFINITE = ("quarantine", "raise", "off")
 
+# ServeConfig fields that moved to SamplingParams; kept as the engine-wide
+# defaults of requests that carry none (the reference's
+# ``_SAMPLING_DEFAULTS``)
+_SAMPLING_DEFAULTS = dict(max_new_tokens=32, eos_id=None, greedy=True,
+                          temperature=1.0)
+
 
 @dataclasses.dataclass
 class ServeConfig:
+    # -- sampling defaults (deprecated here: pass SamplingParams on each
+    # Request; a non-default value warns) -------------------------------------
     max_new_tokens: int = 32
     # stop token (None = run to max_new_tokens)
     eos_id: Optional[int] = None
+    greedy: bool = True
+    temperature: float = 1.0
     # per-lane health guards (finite logits; int8 saturation probe),
     # computed in the token pick
     guards: bool = True
@@ -81,7 +104,16 @@ class ServeConfig:
     n_pages: Optional[int] = None
 
     def __post_init__(self):
-        SamplingParams(max_new_tokens=self.max_new_tokens,
+        moved = [k for k, d in _SAMPLING_DEFAULTS.items()
+                 if getattr(self, k) != d]
+        if moved:
+            warnings.warn(
+                f"ServeConfig sampling fields {moved} are deprecated: pass "
+                f"repro_torch.serve.api.SamplingParams on each Request (the "
+                f"ServeConfig values remain the engine-wide defaults)",
+                DeprecationWarning, stacklevel=3)
+        SamplingParams(greedy=self.greedy, temperature=self.temperature,
+                       max_new_tokens=self.max_new_tokens,
                        eos_id=self.eos_id)
         if self.pad_id < 0:
             raise ValueError(f"pad_id must be >= 0, got {self.pad_id}")
@@ -125,9 +157,35 @@ class ServeConfig:
                 f"n_pages must be >= 1 (or None), got {self.n_pages}")
 
     def sampling_defaults(self) -> SamplingParams:
-        """The SamplingParams of requests that carry none."""
-        return SamplingParams(max_new_tokens=self.max_new_tokens,
+        """The SamplingParams of requests that carry none, from the
+        deprecated fields."""
+        return SamplingParams(greedy=self.greedy,
+                              temperature=self.temperature,
+                              max_new_tokens=self.max_new_tokens,
                               eos_id=self.eos_id)
+
+
+def pick_lanes(real: torch.Tensor, ldtype: torch.dtype,
+               key_base: Optional[torch.Tensor] = None,
+               steps: Optional[torch.Tensor] = None,
+               greedy: Optional[torch.Tensor] = None,
+               temp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The scheduler's pick over the real-vocab logits ``real [L, v]``
+    (the reference's ``_pick_and_probe_lanes`` without its probes): each
+    lane's argmax in ``ldtype``, or where ``greedy [L]`` is False
+    ``categorical(fold_in(key_base[l], steps[l]), real[l] / temp[l])``,
+    every lane drawing its own ``[v]``.  The division runs in fp32 at
+    least (the reference promotes the logits to its fp32 ``temp``).
+    ``key_base`` None: no lane samples and nothing is drawn."""
+    lf = real.to(ldtype)
+    tok = torch.argmax(lf, dim=-1).to(torch.int32)
+    if key_base is None:
+        return tok
+    keys = sampling.fold_in(key_base, steps)
+    wide = torch.promote_types(ldtype, torch.float32)
+    scaled = lf.to(wide) / torch.clamp(temp, min=1e-6)[:, None]
+    tok_s = sampling.categorical(keys, scaled).to(torch.int32)
+    return torch.where(greedy, tok, tok_s)
 
 
 class ServeEngine:
@@ -143,28 +201,99 @@ class ServeEngine:
         self._finished: List[RequestOutput] = []
         self._shim_cache: Dict[tuple, PagedScheduler] = {}
 
+    @classmethod
+    def from_checkpoint(cls, model: Model, ckpt_dir: str,
+                        step: Optional[int] = None,
+                        scfg: ServeConfig = ServeConfig(),
+                        fallback: bool = True) -> "ServeEngine":
+        """Serve the weights of a checkpoint written by
+        ``checkpoint.CheckpointManager`` (by either package: the reference's
+        tree, ``convert.to_jax_params``), loaded into ``model`` in place.
+        A checkpoint of separate ``wq``/``wk``/``wv`` leaves is packed into
+        ``wqkv``.  With ``fallback`` (the serving default) a step that
+        fails its integrity check is reported and the newest earlier
+        intact step is served: stale weights over none.  With
+        ``scfg.int8`` the restored weights go through the one-shot
+        quantization, as in ``__init__``."""
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.convert import from_jax_params
+        _, tree = CheckpointManager(ckpt_dir).restore(
+            step, cfg=model.cfg, fallback=fallback)
+        model.load_state_dict(from_jax_params(model.cfg, tree))
+        return cls(model, scfg)
+
     # -- token pick + health probes ---------------------------------------------
 
-    def _pick_and_probe(self, logits: torch.Tensor):
-        """Greedy pick over the real vocab plus the per-lane finite probe:
-        (tok [B] int32, finite [B] bool)."""
-        real = logits[:, :self.model.cfg.vocab]
-        tok = torch.argmax(real.to(self._ldtype), dim=-1).to(torch.int32)
-        return tok, torch.isfinite(real).all(dim=-1)
+    def _pick_math(self, logits: torch.Tensor, key: Optional[torch.Tensor],
+                   compiled: bool) -> torch.Tensor:
+        """The fixed loop's pick over the real vocab in ``logits_dtype``:
+        greedy, or ``categorical(key, logits / temperature)`` with one key
+        for the whole ``[B, v]`` draw.  ``compiled`` follows the
+        reference's two call sites: inside its jitted guarded pick XLA
+        turns the division by the constant temperature into a multiply by
+        its fp32 reciprocal; its eager pick (guards off, the fp32
+        fallback's tokens) divides by the temperature cast to the
+        dtype."""
+        lf = logits[:, :self.model.cfg.vocab].to(self._ldtype)
+        if self.scfg.greedy:
+            return torch.argmax(lf, dim=-1).to(torch.int32)
+        t = torch.tensor(max(self.scfg.temperature, 1e-6),
+                         dtype=self._ldtype)
+        if compiled:
+            recip = np.float32(1.0) / np.float32(t.float().item())
+            scaled = (lf.float() * float(recip)).to(self._ldtype)
+        else:
+            scaled = lf / t.to(lf.device)
+        return sampling.categorical(key, scaled).to(torch.int32)
 
-    def _pick_and_probe_lanes(self, logits: torch.Tensor,
-                              calib: torch.Tensor):
-        """Greedy pick + the per-lane probes over ``logits [L, Vp]``:
-        ``finite`` (all real-vocab logits finite), ``absmax`` (the
-        calibration source of a request's first pick) and ``sat`` (the
+    def _pick(self, logits: torch.Tensor, key: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+        """The unguarded pick (the reference's eager ``_pick``)."""
+        return self._pick_math(logits, key, compiled=False)
+
+    def _pick_and_probe(self, logits: torch.Tensor,
+                        key: Optional[torch.Tensor],
+                        calib: Optional[torch.Tensor]):
+        """The fixed loop's guarded pick plus the per-lane probes over the
+        real vocab: ``finite``, and with ``calib [B]`` (int8) ``absmax``
+        (the calibration source of the first pick) and ``sat`` (the
         fraction of the lane's logits that saturate a fixed int8 scale
-        calibrated to ``calib [L]``)."""
-        tok, finite = self._pick_and_probe(logits)
+        calibrated to ``calib``)."""
         real = logits[:, :self.model.cfg.vocab]
+        tok = self._pick_math(logits, key, compiled=True)
+        finite = torch.isfinite(real).all(dim=-1)
+        if calib is None:
+            return tok, finite, None, None
+        return (tok, finite) + self._saturation_probe(real, calib)
+
+    @staticmethod
+    def _saturation_probe(real: torch.Tensor, calib: torch.Tensor):
         absmax = torch.amax(torch.abs(real), dim=-1)
         scale = torch.clamp(calib, min=1e-6)[:, None] * (1.0 / 127.0)
         sat = saturation_fraction(quantize_fixed_scale(real, scale))
-        return tok, finite, absmax, sat
+        return absmax, sat
+
+    def _pick_and_probe_lanes(self, logits: torch.Tensor,
+                              key_base: Optional[torch.Tensor],
+                              steps: Optional[torch.Tensor],
+                              greedy: Optional[torch.Tensor],
+                              temp: Optional[torch.Tensor],
+                              calib: torch.Tensor):
+        """The scheduler's pick (``pick_lanes``) plus the probes over
+        ``logits [L, Vp]``: each lane samples from its own request's key
+        stream, so a sampled request's tokens do not depend on its lane or
+        its neighbours."""
+        real = logits[:, :self.model.cfg.vocab]
+        tok = pick_lanes(real, self._ldtype, key_base, steps, greedy, temp)
+        finite = torch.isfinite(real).all(dim=-1)
+        return (tok, finite) + self._saturation_probe(real, calib)
+
+    @staticmethod
+    def _request_key(seed: int) -> np.ndarray:
+        """``uint32[2]`` ``PRNGKey(seed)``, the root of a request's
+        ``fold_in`` stream: two integer operations on the host (the
+        reference caches its device dispatch; nothing to cache here)."""
+        return sampling.prng_key(seed)
 
     # -- request-level API -----------------------------------------------------
 
@@ -196,11 +325,11 @@ class ServeEngine:
         """Queue one request (admitted into a lane as capacity frees)."""
         self.scheduler.submit(request)
 
-    def step(self) -> List[RequestOutput]:
+    def step(self, fault_plan=None) -> List[RequestOutput]:
         """One scheduler iteration: admissions, at most one prefill chunk
         per prefilling lane, one decode call, one pick.  Returns the
         requests finished now (also buffered for ``collect()``)."""
-        outs = self.scheduler.step()
+        outs = self.scheduler.step(fault_plan)
         self._finished.extend(outs)
         return outs
 
@@ -214,10 +343,10 @@ class ServeEngine:
         """True while the scheduler holds queued or active work."""
         return self._sched is not None and self._sched.has_work
 
-    def drain(self) -> List[RequestOutput]:
+    def drain(self, fault_plan=None) -> List[RequestOutput]:
         """Step until idle; returns every output finished along the way
         (buffered ones included)."""
-        self._finished.extend(self.scheduler.run_to_completion())
+        self._finished.extend(self.scheduler.run_to_completion(fault_plan))
         return self.collect()
 
     def _shim_scheduler(self, n_lanes: int, prompt_len: int,
@@ -236,20 +365,29 @@ class ServeEngine:
 
     # -- batch-shaped generation -------------------------------------------------
 
-    def generate(self, batch: Dict[str, torch.Tensor]) -> np.ndarray:
+    def generate(self, batch: Dict[str, torch.Tensor], seed: int = 0
+                 ) -> np.ndarray:
         """batch['tokens'] [B, S] -> generated tokens [B, <= max_new]."""
-        return self.generate_with_status(batch).tokens
+        return self.generate_with_status(batch, seed).tokens
 
-    def generate_with_status(self, batch: Dict[str, torch.Tensor]
+    def generate_with_status(self, batch: Dict[str, torch.Tensor],
+                             seed: int = 0, fault_plan=None
                              ) -> GenerateResult:
         """Guarded generation with structured per-lane outcomes: each batch
-        row becomes a Request on a cached fixed-geometry scheduler and the
+        row becomes a Request (the ServeConfig's sampling, ``seed`` for
+        every row) on a cached fixed-geometry scheduler and the
         RequestOutputs are reassembled into a GenerateResult.  A model the
         scheduler cannot serve falls through to
-        ``generate_with_status_fixed`` (the reference's ``engine.py:544``)."""
+        ``generate_with_status_fixed`` (the reference's ``engine.py:544``).
+        ``fault_plan`` (a ``robust.FaultPlan``) injects faults; None leaves
+        the loop as it is."""
         if not self.model.supports_paged_serving:
-            return self.generate_with_status_fixed(batch)
+            return self.generate_with_status_fixed(batch, seed, fault_plan)
         scfg = self.scfg
+        plan = fault_plan if (fault_plan is not None
+                              and fault_plan.enabled) else None
+        if plan is not None:
+            plan.on_generate_start()
         toks = np.asarray(batch["tokens"])
         b_full = toks.shape[0]
         if toks.ndim != 2 or toks.shape[1] == 0:
@@ -264,11 +402,12 @@ class ServeEngine:
         sp = scfg.sampling_defaults()
         sched = self._shim_scheduler(admit, toks.shape[1],
                                      sp.max_new_tokens)
-        sched.timed_out = False
+        sched.reset_fault_state()
         for r in range(admit):
-            sched.submit(Request(id=r, tokens=toks[r], sampling=sp))
+            sched.submit(Request(id=r, tokens=toks[r], sampling=sp,
+                                 seed=seed))
         try:
-            outs = sched.run_to_completion()
+            outs = sched.run_to_completion(plan)
         except Exception:
             # a raise mid-drain leaves lanes mapped: drop the scheduler
             self._shim_cache = {k: v for k, v in self._shim_cache.items()
@@ -286,7 +425,8 @@ class ServeEngine:
                               fault_step=fault_step, n_steps=n_steps,
                               timed_out=sched.timed_out, admitted=admit)
 
-    def generate_with_status_fixed(self, batch: Dict[str, torch.Tensor]
+    def generate_with_status_fixed(self, batch: Dict[str, torch.Tensor],
+                                   seed: int = 0, fault_plan=None
                                    ) -> GenerateResult:
         """The lockstep fixed-batch loop over a dense cache: every lane
         prefills (K4) and decodes (K5; a local layer's ring buffer
@@ -299,8 +439,17 @@ class ServeEngine:
         int8 each lane's first logits calibrate its saturation probe, and
         a degraded lane picks from the float model's logits under
         ``fp32_fallback``.  Whisper's batch carries ``frames`` [B, F, D],
-        which the prefill encodes."""
+        which the prefill encodes.  A sampled config (``greedy=False``)
+        draws every lane's pick from one key: ``PRNGKey(seed)`` for token
+        0, then ``key, pick_key = split(key)`` after each decode step (a
+        degraded lane picks from the float logits with the same key).
+        ``fault_plan`` stalls the host before a step and poisons the
+        logits before its pick."""
         scfg = self.scfg
+        plan = fault_plan if (fault_plan is not None
+                              and fault_plan.enabled) else None
+        if plan is not None:
+            plan.on_generate_start()
         toks = torch.as_tensor(batch["tokens"])
         b_full = toks.shape[0]
         if toks.dim() != 2 or toks.shape[1] == 0:
@@ -334,28 +483,40 @@ class ServeEngine:
         guards_on = scfg.guards and scfg.on_nonfinite != "off"
         sat_on = scfg.guards and scfg.int8
         dev = self.model.device
+        # the sampled loop's key: token 0 picks with the unsplit key; a
+        # greedy loop draws nothing and carries no key
+        key = (None if scfg.greedy
+               else sampling.key_tensor(sampling.prng_key(seed), dev))
+        pick_key = key
         out: List[np.ndarray] = []
         for i in range(scfg.max_new_tokens):
+            if plan is not None:
+                plan.maybe_stall(i)
             if deadline is not None and time.monotonic() > deadline:
                 running = ~done
                 status[running] = STATUS_TIMEOUT
                 fault_step[running & (fault_step < 0)] = i
                 timed_out = True
                 break
-            if sat_on:
-                cal = (torch.ones((admit,), dtype=torch.float32, device=dev)
-                       if calib is None else calib)
-                tok, finite, absmax, sat = self._pick_and_probe_lanes(logits,
-                                                                      cal)
+            if plan is not None:
+                logits = plan.perturb_logits(i, logits)
+            if guards_on or sat_on:
+                cal = None
+                if sat_on:
+                    cal = (torch.ones((admit,), dtype=torch.float32,
+                                      device=dev) if calib is None else calib)
+                tok, finite, absmax, sat = self._pick_and_probe(
+                    logits, pick_key, cal)
+                fin_np = finite.cpu().numpy()
             else:
-                tok, finite = self._pick_and_probe(logits)
+                tok = self._pick(logits, pick_key)
             if fp_logits is not None:
-                # degraded lanes pick from the float model's logits
-                tok_fp = self._pick_and_probe(fp_logits)[0]
+                # degraded lanes pick from the float model's logits with
+                # the same key
+                tok_fp = self._pick(fp_logits, pick_key)
                 tok = torch.where(torch.from_numpy(degraded).to(dev), tok_fp,
                                   tok)
             tok_np = tok.cpu().numpy()
-            fin_np = finite.cpu().numpy()
             if guards_on:
                 newly_bad = ~fin_np & ~done
                 if newly_bad.any():
@@ -399,6 +560,8 @@ class ServeEngine:
                                                          prompt_len + i)
             logits, cache = self.model.decode_step(cache, tok_dev,
                                                    prompt_len + i)
+            if key is not None:
+                key, pick_key = sampling.split(key)
 
         tokens = (np.stack(out, axis=1) if out
                   else np.zeros((admit, 0), np.int32))

@@ -21,10 +21,20 @@ flow queue -> lane -> retired while every model call keeps its shape:
     as the reference does (ROADMAP F6): a lane's tokens then depend on the
     lanes before it, and only lane 0's tokens, which sort first within
     every expert, never do.
-  * pick: one greedy pick with the health probes (finite, absmax, int8
-    saturation) over all lanes, then ONE device-to-host transfer: the only
-    host sync of an iteration.  Everything before it is queued on the
-    device without waiting.
+  * pick: one pick with the health probes (finite, absmax, int8
+    saturation) over all lanes, each lane with its request's sampling
+    (greedy, or temperature sampling from the request's own key stream
+    ``fold_in(PRNGKey(seed), step)``), then ONE device-to-host transfer:
+    the only host sync of an iteration.  Everything before it is queued on
+    the device without waiting.  The lane-constant pick arguments (keys,
+    modes, temperatures, calibration) stay on the device and are rebuilt
+    only when the lane mix changes; an iteration in which no lane samples
+    draws nothing.
+
+``FaultPlan`` hooks ride at the reference's boundaries: a stall fires once
+per drain when a live lane reaches its step (before the deadlines are
+checked), and logit faults poison the pick buffer's rows of the lanes
+whose request is at the fault's step.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ class _Lane:
 
     req: Request
     sp: SamplingParams
+    key_base: np.ndarray              # uint32[2] PRNGKey(req.seed)
     n_prefilled: int = 0
     tokens: List[int] = dataclasses.field(default_factory=list)
     status: str = STATUS_OK
@@ -84,6 +95,15 @@ class PagedScheduler:
         self.timed_out = False
         self._logits: Optional[torch.Tensor] = None   # [L, Vp] pick buffer
         self._last_tok = np.zeros((n_lanes,), np.int32)
+        self._stall_fired: set = set()
+        # the lane-constant pick arguments live on the device and are
+        # rebuilt only when the lane mix, a calibration or a degradation
+        # changes (``_lane_gen``)
+        self._lane_gen = 0
+        self._pick_gen = -1
+        self._pick_const = None
+        self._sampled = False
+        self._degr_dev: Optional[torch.Tensor] = None
 
     # -- surface ---------------------------------------------------------------
 
@@ -95,21 +115,24 @@ class PagedScheduler:
     def has_work(self) -> bool:
         return bool(self.queue) or self.n_active > 0
 
+    def reset_fault_state(self) -> None:
+        """Per-drain fault bookkeeping (which stalls fired, the timeout
+        flag), cleared by the shim between calls so that a reused
+        scheduler replays a FaultPlan from the start."""
+        self._stall_fired.clear()
+        self.timed_out = False
+
     def submit(self, req: Request) -> None:
         sp = req.sampling if req.sampling is not None \
             else self.engine.scfg.sampling_defaults()
-        if not sp.greedy:
-            raise NotImplementedError(
-                "sampled picks (threefry fold_in/categorical parity with "
-                "the reference) are not ported yet; submit greedy requests")
         self.queue.append((req, sp))
 
-    def run_to_completion(self) -> List[RequestOutput]:
+    def run_to_completion(self, fault_plan=None) -> List[RequestOutput]:
         outs: List[RequestOutput] = []
         idle = 0
         while self.has_work:
             before = self.n_active
-            outs.extend(self.step())
+            outs.extend(self.step(fault_plan))
             if self.queue and before == 0 and self.n_active == 0:
                 idle += 1
                 if idle > 2:
@@ -122,12 +145,14 @@ class PagedScheduler:
 
     # -- one iteration ---------------------------------------------------------
 
-    def step(self) -> List[RequestOutput]:
+    def step(self, fault_plan=None) -> List[RequestOutput]:
         """Advance every phase one tick; returns the requests finished now."""
         eng = self.engine
         scfg = eng.scfg
         model = eng.model
         dev = model.device
+        plan = fault_plan if (fault_plan is not None
+                              and fault_plan.enabled) else None
         finished: List[RequestOutput] = []
         L = self.n_lanes
         fresh = np.zeros((L,), bool)
@@ -192,7 +217,15 @@ class PagedScheduler:
                                            self._logits)
             fresh |= completed
 
-        # 5. per-request deadlines
+        # 5. faults and per-request deadlines: each fresh lane's step (the
+        # index of the token it picks now; -1 elsewhere), the stall first,
+        # as in the fixed loop: a stalled host is what the budget converts
+        steps = np.full((L,), -1, np.int64)
+        for l, a in enumerate(self.lanes):
+            if a is not None and fresh[l]:
+                steps[l] = len(a.tokens)
+        if plan is not None:
+            plan.maybe_stall_lanes(steps, self._stall_fired)
         now = time.monotonic()
         for l, a in enumerate(self.lanes):
             if a is not None and a.deadline is not None and now > a.deadline:
@@ -200,20 +233,27 @@ class PagedScheduler:
                 a.fault_step = len(a.tokens)
                 self.timed_out = True
                 fresh[l] = False
+                steps[l] = -1
                 self._retire(l, finished)
         if not fresh.any():
             return finished
+        if plan is not None:
+            self._logits = plan.perturb_logits_lanes(steps, self._logits)
 
-        # 6. one greedy pick + health probes over all lanes, one transfer
-        calib = torch.tensor([a.calib if a is not None else 1.0
-                              for a in self.lanes], dtype=torch.float32)
+        # 6. one pick + health probes over all lanes, one transfer.  A
+        # lane that is not fresh carries step -1: its key differs from a
+        # live lane's, and its pick is never read.
+        kb, greedy, temp, calib = self._pick_args(dev)
+        steps_d = (torch.from_numpy(steps).to(dev) if self._sampled
+                   else None)
+        pick_args = (kb, steps_d, greedy, temp, calib)
         tok_d, fin_d, absmax_d, sat_d = eng._pick_and_probe_lanes(
-            self._logits, calib.to(dev))
+            self._logits, *pick_args)
         if fp_logits is not None:
-            tok_fp = eng._pick_and_probe_lanes(fp_logits, calib.to(dev))[0]
-            degr = torch.tensor([a is not None and a.degraded
-                                 for a in self.lanes], device=dev)
-            tok_d = torch.where(degr, tok_fp, tok_d)
+            # degraded lanes pick from the float logits; the same keys
+            # keep the healthy lanes' picks as they are
+            tok_fp = eng._pick_and_probe_lanes(fp_logits, *pick_args)[0]
+            tok_d = torch.where(self._degr_dev, tok_fp, tok_d)
         host = torch.stack([tok_d.double(), fin_d.double(),
                             absmax_d.double(), sat_d.double()]).cpu().numpy()
         tok_np = host[0].astype(np.int64)
@@ -243,9 +283,11 @@ class PagedScheduler:
                     # the request's first logits calibrate its probe
                     a.calib = float(max(absmax_np[l], 1e-6))
                     a.calibrated = True
+                    self._lane_gen += 1
                 elif (fin_np[l] and not a.degraded
                         and sat_np[l] > scfg.saturation_threshold):
                     a.degraded = True
+                    self._lane_gen += 1
                     if a.status == STATUS_OK:
                         a.status = STATUS_DEGRADED
                         a.fault_step = t
@@ -258,6 +300,36 @@ class PagedScheduler:
         return finished
 
     # -- internals -------------------------------------------------------------
+
+    def _pick_args(self, dev: torch.device):
+        """The lane-constant pick arguments on the device, rebuilt when the
+        lane mix changed: keys ``[L, 2]``, the greedy mask, temperatures
+        and calibrations (an empty lane: greedy, 1.0).  Keys, mask and
+        temperatures are None while no lane samples."""
+        if self._pick_gen != self._lane_gen:
+            L = self.n_lanes
+            kb = np.zeros((L, 2), np.uint32)
+            greedy = np.ones((L,), bool)
+            temp = np.ones((L,), np.float32)
+            calib = np.ones((L,), np.float32)
+            degr = np.zeros((L,), bool)
+            for l, a in enumerate(self.lanes):
+                if a is None:
+                    continue
+                kb[l] = a.key_base
+                greedy[l] = a.sp.greedy
+                temp[l] = a.sp.temperature
+                calib[l] = a.calib
+                degr[l] = a.degraded
+            self._sampled = not greedy.all()
+            sampled = ((torch.from_numpy(kb.astype(np.int64)).to(dev),
+                        torch.from_numpy(greedy).to(dev),
+                        torch.from_numpy(temp).to(dev))
+                       if self._sampled else (None, None, None))
+            self._pick_const = sampled + (torch.from_numpy(calib).to(dev),)
+            self._degr_dev = torch.from_numpy(degr).to(dev)
+            self._pick_gen = self._lane_gen
+        return self._pick_const
 
     def _admit(self, finished: List[RequestOutput]) -> None:
         while self.queue:
@@ -279,16 +351,19 @@ class PagedScheduler:
             if not self.kv.admit(lane, total):
                 return  # transient page exhaustion: stay queued
             self.queue.popleft()
-            a = _Lane(req=req, sp=sp)
+            a = _Lane(req=req, sp=sp,
+                      key_base=self.engine._request_key(req.seed))
             timeout = self.engine.scfg.request_timeout_s
             if timeout is not None:
                 a.deadline = time.monotonic() + timeout
             self.lanes[lane] = a
+            self._lane_gen += 1
 
     def _retire(self, lane: int, finished: List[RequestOutput]) -> None:
         a = self.lanes[lane]
         self.kv.release(lane)
         self.lanes[lane] = None
+        self._lane_gen += 1
         finished.append(RequestOutput(
             id=a.req.id, tokens=np.asarray(a.tokens, np.int32),
             status=a.status, fault_step=a.fault_step,

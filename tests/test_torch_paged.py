@@ -508,9 +508,15 @@ def test_serve_config_rejects_bad_values(kwargs, msg):
 
 
 def test_sampled_requests_are_refused_at_submit(model):
+    """No longer refused: sampled picks are ported
+    (``test_torch_sampling.py``).  A sampled request queues with its own
+    SamplingParams and seed, and drains like a greedy one."""
     eng = _engine(model)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        eng.submit(_req(model, "s", sampling=SamplingParams(greedy=False)))
+    sp = SamplingParams(greedy=False, temperature=0.8, max_new_tokens=4)
+    eng.submit(_req(model, "s", sampling=sp, seed=3))
+    assert eng.scheduler.queue[0][1] == sp
+    (o,) = eng.drain()
+    assert o.id == "s" and o.status == STATUS_OK and o.tokens.shape == (4,)
 
 
 # ---------------------------------------------------------------------------
@@ -702,7 +708,7 @@ def test_pick_probe_flags_saturation_past_calibration(model):
     logits[1, :v] = 4 * torch.linspace(-1, 1, v)
     logits[1, 5] = float("inf")
     tok, finite, absmax, sat = eng._pick_and_probe_lanes(
-        logits, torch.tensor([1.0, 1.0]))
+        logits, None, None, None, None, torch.tensor([1.0, 1.0]))
     assert tok.tolist() == [v - 1, 5]
     assert finite.tolist() == [True, False]
     assert absmax[0] == 1.0
@@ -717,8 +723,8 @@ def test_saturated_lanes_degrade_onto_the_float_model(model, monkeypatch):
     assert eng.model.int8 and eng.fp_model is model
     real = eng._pick_and_probe_lanes
 
-    def saturating(logits, calib):
-        tok, fin, absmax, sat = real(logits, calib)
+    def saturating(logits, *pick_args):
+        tok, fin, absmax, sat = real(logits, *pick_args)
         return tok, fin, absmax, torch.ones_like(sat)
 
     monkeypatch.setattr(eng, "_pick_and_probe_lanes", saturating)
