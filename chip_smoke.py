@@ -90,7 +90,15 @@ line):
    fixed loop (batch 2, prompt 4160, 16 tokens; K1, K4 local and global
    with softcap, the ring, K5 softcap) and the scheduler (8 requests, one
    with a 4160-token prompt that decodes past position 4096, the others
-   32-448; K1, K6 local and global with softcap), every status ok.
+   32-448; K1, K6 local and global with softcap), every status ok.  Then
+   int8 on the one card: the model drawn again from the seed and
+   quantized in place, each block's bf16 projections released as its int8
+   copy is made (``quantize_params_for_serving(release=True)``), its first
+   logits held to the bf16 model's kept from the init scales, and the
+   same 8 requests through the scheduler on it (K2 with K3 and its tails,
+   K6 local and global with softcap): statuses ok, one decode iteration's
+   launches exact, the peak GB of the build and the run printed and held
+   under 80 (``serve_released_int8``).
    Phases 2 and 3 hold gemma2's kernel variants at its full shapes (K4
    local and global with softcap at the fixed loop's prefill, timed beside
    SDPA) and its smoke config card against CPU (``check_gemma2_kernels``,
@@ -134,7 +142,7 @@ line):
    gelu with the quantize at M = 8 and 512, K4 'full' over the encoder
    and at Sq 64 against Skv 1500, K5 'full' over the 1500 frames), and
    phase 3 its smoke config card against CPU through the same
-   fall-through, bf16 and int8 (``check_whisper_smoke``).
+   fall-through, bf16 and int8 (``check_fixed_smoke``).
 8. llama4: after whisper's model is freed, llama4-scout at full width
    (d_model 5120, 40 q heads over 8 of 128, 16 experts of 8192 top-1 with
    a shared expert, vocab 202048) cut to 8 of its 48 layers (two periods
@@ -148,11 +156,31 @@ line):
    status ok, every variant launched, one decode iteration's launches
    exact (2 layers + 1 row-norm launches: the MoE has no down GEMM to
    fold the next norm into), request 0 alone bitwise the same amid churn.
+   Then the scheduler again on the attention-only int8 copy (``wqkv`` and
+   ``wo`` K2 with K3, the MoE shared): the same requests, statuses ok, one
+   decode iteration's launches exact; its int8 witness at init scales
+   (8 lanes of 512 tokens) is held on the lanes where no token was dropped
+   and whose last token the router sent to the same expert in every
+   layer in both runs.
    Phase 2 holds K4 chunked at the fixed prefill and K4 'prefix' at
    paligemma's would-be shape (no model calls it) beside SDPA, K6 chunked
    decode (bitwise across split counts) and chunk at G = 5, and K1 at its
    qkv and o projections (``check_llama4_kernels``); phase 3 its smoke
    config card against CPU (``check_local_smoke``).
+9. paligemma: after llama4's model is freed, full-width paligemma-3b (18
+   layers, d_model 2048, 8 q heads over 1 kv head of 256, d_ff 16384,
+   vocab 257216; fp32 embedding, bf16 projections) from seed 0
+   (``serve_paligemma``): 8 images' 256 patch embeddings drawn from the
+   seed in front of 256 text tokens.  At init scales the decode-vs-prefill
+   witness over the prefix and the int8 copy's first logits against the
+   bf16 model's; then, on varied weights, ``generate_with_status`` (the
+   fall-through to the fixed loop) with 32 greedy tokens, bf16 and int8
+   (K1 or K2 with K3 and its tails, K4 'global' over the patches and the
+   text and K5, both at hd 256 and G = 8): statuses ok, every variant
+   launched, one decode iteration's launches exact.  Phase 2 holds K4 and
+   K5 at these shapes beside SDPA (``check_paligemma_kernels``), K1 at its
+   five projections at M = 8 and 4096 and K2 at M = 8; phase 3 its smoke
+   config card against CPU, bf16 and int8 (``check_fixed_smoke``).
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -205,11 +233,21 @@ L4_LAYERS = 8
 # 8224 positions over 16-slot pages)
 L4_BATCH, L4_PROMPT, L4_NEW = 2, 8448, 16
 L4_REQ, L4_LONG, L4_LONG_NEW, L4_PAGES = 8, 8180, 32, 514
-# the witness: a prompt just short of the chunk boundary, decoded past it
+# the witness: a prompt just short of the chunk boundary, decoded past it;
+# the int8 witness: 8 lanes of 512 tokens (a lane is held where its last
+# token was routed alike in both runs and no token of it was dropped)
 L4_WIT_PROMPT, L4_WIT_NEW = 8190, 8
+L4_WIT8_LANES, L4_WIT8_PROMPT = 8, 512
 # K4's 'prefix' kind at paligemma's would-be shape (256 patches before 256
 # text tokens, 8 q heads over 1 kv head of 256): no model calls it
 PG_B, PG_PREFIX, PG_S, PG_H, PG_KV, PG_HD = 4, 256, 512, 8, 1, 256
+# paligemma-3b (src/repro_torch/configs/paligemma_3b.py): phase 9 serves 8
+# images' 256 patches and 256 text tokens each (a prompt of 512
+# positions) and 32 greedy tokens through generate_with_status; its
+# attention is 'global' over the patches too (ROADMAP F5), 8 q heads over
+# 1 kv head of 256 (G = 8)
+PG_ARCH, PG_D, PG_FF = "paligemma-3b", 2048, 16384
+PG_BATCH, PG_TEXT, PG_NEW = 8, PG_S - PG_PREFIX, 32
 # kernels each driven path must launch (the counts are read per path)
 # (a variant's launches are counted under "<kernel>:<variant>"; a row pass
 # in a GEMM's store phase is its variant "norm" or "quantize")
@@ -269,11 +307,34 @@ PATH_KERNELS = {
     "llama4_scheduler": ("matmul", "rmsnorm", "paged_decode:chunked",
                          "paged_decode", "paged_decode:chunked+chunk",
                          "paged_decode:chunk"),
+    # llama4 int8: K2 (fed by K3) for wqkv and wo only, the MoE unchanged
+    "llama4_scheduler_int8": ("int8_matmul", "quantize", "rmsnorm",
+                              "paged_decode:chunked", "paged_decode",
+                              "paged_decode:chunked+chunk",
+                              "paged_decode:chunk"),
+    # gemma2 int8: the releasing build's copy through the scheduler; its up
+    # GEMM (N 36864) is wider than the store phase's row pass takes, so
+    # its row quantize is K3's row kernel at decode too
+    "gemma2_scheduler_int8": ("int8_matmul", "int8_matmul:norm",
+                              "int8_quantize", "quantize", "rmsnorm",
+                              "paged_decode:local+softcap",
+                              "paged_decode:softcap",
+                              "paged_decode:local+softcap+chunk",
+                              "paged_decode:softcap+chunk"),
+    # paligemma: K4 global and K5 at hd 256, G = 8, over the patches and
+    # the text (generate_with_status's fall-through to the fixed loop)
+    "paligemma_fixed": ("matmul", "matmul:norm", "rmsnorm",
+                        "flash_attention:hd256", "flash_decode:hd256"),
+    "paligemma_fixed_int8": ("int8_matmul", "int8_matmul:norm",
+                             "int8_matmul:quantize", "int8_quantize",
+                             "quantize", "rmsnorm", "flash_attention:hd256",
+                             "flash_decode:hd256"),
 }
 
 
 def decode_launches(name, counts, layers: int, int8: bool = False,
-                    encdec: bool = False, moe: bool = False) -> dict:
+                    encdec: bool = False, moe: bool = False,
+                    wide_ff: bool = False) -> dict:
     """One decode iteration's launch counts on a driven path: the entry
     norm and each block's ``ln2`` are the only row-norm launches (the down
     GEMM's norm is its tail, one per layer), and under int8 no row
@@ -283,8 +344,13 @@ def decode_launches(name, counts, layers: int, int8: bool = False,
     and its up GEMM is the gelu variant (``matmul:gelu``, or under int8
     ``int8_matmul:gelu+quantize``).  An MoE model (llama4) has no down
     GEMM to fold into: each layer's ``ln2`` and its next norm after the
-    MoE are row-norm launches (2 layers + 1), and no norm tail runs.
-    Raises on a miss; returns the counts."""
+    MoE are row-norm launches (2 layers + 1), and no norm tail runs;
+    under int8 only its ``wqkv`` and ``wo`` are K2 launches, each fed by
+    K3 (2 layers of each, no K1, no tail).  An int8 up GEMM wider than
+    the store phase's row pass takes (``wide_ff``: d_ff above
+    ``matmul.NORM_MAX_N``, gemma2's 36864) quantizes in K3's row kernel,
+    one launch a layer, and has no tail.  Raises on a miss; returns the
+    counts."""
     gemm = "int8_matmul" if int8 else "matmul"
     want = {"rmsnorm": (2 if encdec or moe else 1) * layers + 1,
             f"{gemm}:norm": 0 if moe else layers}
@@ -294,8 +360,12 @@ def decode_launches(name, counts, layers: int, int8: bool = False,
                      ("int8_matmul:gelu+quantize" if int8
                       else "matmul:gelu"): layers})
     if int8:
-        want.update({"int8_matmul:quantize": 0 if encdec else layers,
-                     "int8_quantize": 0})
+        tail = not (encdec or moe or wide_ff)
+        want.update({"int8_matmul:quantize": layers if tail else 0,
+                     "int8_quantize": layers if wide_ff else 0})
+    if int8 and moe:
+        want.update({"int8_matmul": 2 * layers, "quantize": 2 * layers,
+                     "matmul": 0})
     got = {k: counts.get(k, 0) for k in want}
     require(got == want, f"{name}: launches in one decode iteration {got}, "
                          f"want {want}")
@@ -424,6 +494,9 @@ K1_WIDTHS = {
                (G2_BATCH, LANES, LANES * CHUNK, G2_BATCH * G2_PROMPT)),
     "gemma3": (3840, 8192, 4096, 15360,
                (G3_BATCH, LANES, LANES * CHUNK, G3_BATCH * G3_PROMPT)),
+    # paligemma: its fixed loop's decode (8 rows) and prefill (8 x 512)
+    "paligemma": (PG_D, (PG_H + 2 * PG_KV) * PG_HD, PG_H * PG_HD, PG_FF,
+                  (PG_BATCH, PG_BATCH * PG_S)),
 }
 
 
@@ -724,6 +797,11 @@ def check_kernels(torch, timer):
             "gemma3", m, f"gemma3-12b's {five} at {where} (M={m}; also at "
                          f"the fixed loop's decode, M={G3_BATCH}, in "
                          f"k1_matmul's 'shapes')")
+    for m, where in ((PG_BATCH, "the fixed loop's decode"),
+                     (PG_BATCH * PG_S, "the fixed loop's prefill of 256 "
+                                       "patches and 256 text tokens")):
+        results[f"k1_matmul_paligemma_m{m}"] = k1_entry(
+            "paligemma", m, f"paligemma-3b's {five} at {where} (M={m})")
 
     # K4 flash prefill: each (b, s, h) row within 4 bf16 ulps of its own
     # scale (P is rounded to bf16 for the P.V product, then the output is
@@ -779,8 +857,8 @@ def _int_mm_ms(torch, timer, qa, qb):
 def check_int8_kernels(torch, timer):
     """K2 (int8 GEMM) against its plain version at granite-3-8b's and
     gemma3-12b's widths, at decode (M = 8 lanes) and at a prefill chunk
-    (M = 8 x 64), the weights in ``QuantizedWeight``'s K-major [N, K]
-    storage.  Every
+    (M = 8 x 64), and at paligemma-3b's at decode (M = 8), the weights in
+    ``QuantizedWeight``'s K-major [N, K] storage.  Every
     fp32-out product is bitwise (also at a 64 x 32 tile, K and N below one
     128-value box, M = 64 and ragged M in both regimes).  bf16 outputs:
     every row within one bf16 ulp of its scale (the same fp32 values, so
@@ -819,9 +897,10 @@ def check_int8_kernels(torch, timer):
                 f"K2 M={m} K={k} N={n}: fp32 out is not bitwise")
 
     # K2: the five projections of one block with their epilogues, at
-    # granite-3-8b's and gemma3-12b's widths
+    # granite-3-8b's, gemma3-12b's and paligemma-3b's widths
     for model, m in (("granite", LANES), ("granite", LANES * CHUNK),
-                     ("gemma3", LANES), ("gemma3", LANES * CHUNK)):
+                     ("gemma3", LANES), ("gemma3", LANES * CHUNK),
+                     ("paligemma", PG_BATCH)):
         d, qkv_n, o_k, ff = K1_WIDTHS[model][:4]
         qx, sx = ref.quantize_rowwise_ref(rand(m, d))
         qo, so = ref.quantize_rowwise_ref(rand(m, o_k))
@@ -904,7 +983,8 @@ def check_int8_kernels(torch, timer):
             ("k2_int8_matmul", "granite", LANES),
             ("k2_int8_matmul_m512", "granite", LANES * CHUNK),
             ("k2_int8_matmul_gemma3", "gemma3", LANES),
-            ("k2_int8_matmul_gemma3_m512", "gemma3", LANES * CHUNK)):
+            ("k2_int8_matmul_gemma3_m512", "gemma3", LANES * CHUNK),
+            ("k2_int8_matmul_paligemma", "paligemma", PG_BATCH)):
         rows = [r for r in shapes
                 if r["model"] == model and f" M={m} " in r["shape"]]
         lib = [r["library_ms"] for r in rows]
@@ -1615,7 +1695,9 @@ def k6_bound(q, table, positions, kv, window, chunked=False):
 
 def vary(torch, model, seed):
     """Random norm scales and tripled block weights, so greedy decoding of
-    the small model changes token from step to step."""
+    the small model changes token from step to step.  An int8 model (the
+    releasing build's) triples its ``QuantizedWeight``s' column scales."""
+    from repro_torch.kernels.quantize import QuantizedWeight
     gen = torch.Generator(device=model.device).manual_seed(seed + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -1624,6 +1706,9 @@ def vary(torch, model, seed):
                                           device=model.device))
             elif name != "embed":
                 p.mul_(3)
+        for m in model.modules():
+            if isinstance(m, QuantizedWeight):
+                m.scale.mul_(3)
 
 
 def check_smoke_path(torch):
@@ -1741,18 +1826,69 @@ def decode_witness(torch, model, toks):
 INT8_WITNESS_TOL = 0.10
 
 
-def int8_witness(torch, model, toks, frames=None):
-    q8 = model.quantize_params_for_serving()
-    want, _ = model.prefill(toks, frames=frames)
-    got, _ = q8.prefill(toks, frames=frames)
+def first_logits(torch, model, toks, **inputs):
+    """The bf16 model's first logits on ``toks`` and on ``toks`` with its
+    last token changed (what ``int8_witness`` holds the int8 copy to), and
+    for an MoE model each lane's tokens dropped in each prefill
+    ([lanes, layers], ``Model.moe_kept``)."""
+    def dropped():
+        return (torch.stack([(~k).sum(dim=1) for k in model.moe_kept],
+                            dim=1).cpu() if model.cfg.moe else None)
+    want, _ = model.prefill(toks, **inputs)
+    drop = dropped()
     other = toks.clone()
     other[:, -1] = (other[:, -1] + 1) % model.cfg.vocab
-    off, _ = model.prefill(other, frames=frames)
-    w = dict(err=rel_rows(got, want), other_token=rel_rows(off, want),
-             tol=INT8_WITNESS_TOL)
+    off, _ = model.prefill(other, **inputs)
+    return dict(want=want, off=off, dropped=drop)
+
+
+def int8_witness(torch, model, toks, q8=None, first=None, **inputs):
+    """``q8`` (default: ``model``'s int8 copy) against ``first``
+    (default: ``first_logits`` of ``model``, taken before a releasing
+    build).  An MoE model's int8 copy is held on the lanes where neither
+    prefill dropped a token (ROADMAP F6) and whose last token the router
+    sent to the same expert in every layer in both (at init scales the
+    router's logits lie close, and int8 noise may flip a token to another
+    expert, which moves that token's logits by the whole expert output);
+    one such lane is needed."""
+    from repro_torch.models import moe
+    q8 = q8 or model.quantize_params_for_serving()
+    routes = []
+    route = moe.router_probs
+
+    def recorded(x, router):   # each MoE call's last token's expert
+        probs = route(x, router)
+        routes.append(torch.argmax(probs, -1).reshape(toks.shape[0], -1)[
+            :, -1].cpu())
+        return probs
+    if model.cfg.moe:
+        moe.router_probs = recorded
+    try:
+        first = first or first_logits(torch, model, toks, **inputs)
+        bf16_routes = routes[:model.cfg.n_layers]
+        routes.clear()
+        got, _ = q8.prefill(toks, **inputs)
+    finally:
+        moe.router_probs = route
+    held = list(range(toks.shape[0]))
+    w = dict(tol=INT8_WITNESS_TOL)
+    if model.cfg.moe:
+        drop = torch.stack([(~k).sum(dim=1) for k in q8.moe_kept],
+                           dim=1).cpu()
+        same = torch.stack([a == b for a, b in zip(bf16_routes, routes)],
+                           dim=1).all(dim=1)
+        held = [b for b in held if int(first["dropped"][b].sum()) == 0
+                and int(drop[b].sum()) == 0 and bool(same[b])]
+        w.update(held_lanes=held, last_token_routed_alike=same.tolist(),
+                 dropped_bf16=first["dropped"].tolist(),
+                 dropped_int8=drop.tolist())
+        require(held, f"{model.cfg.name}: no lane held for the int8 "
+                      f"witness: {w}")
+    want, off = first["want"][held], first["off"][held]
+    w.update(err=rel_rows(got[held], want), other_token=rel_rows(off, want))
     require(w["err"] <= INT8_WITNESS_TOL,
             f"int8 first logits are off the bf16 ones by {w['err']:.3e} of "
-            f"the logit scale")
+            f"the logit scale: {w}")
     require(w["other_token"] > 4 * INT8_WITNESS_TOL,
             f"the int8 witness cannot tell a changed token apart: {w}")
     return w
@@ -2541,28 +2677,28 @@ def check_local_smoke(torch, arch: str, **over):
                 distinct_tokens=len(set(got.reshape(-1).tolist())))
 
 
-def long_witness(torch, model, toks, new: int, frames=None):
+def long_witness(torch, model, toks, new: int, **inputs):
     """The long-context phases' witness at the reference's init scales: the
     fixed loop's decode step at position prompt + new - 2 (the local
     layers' ring has wrapped, K5 over the global caches; whisper's K5
-    'full' over its ``frames``) against the last logits of a prefill over
-    the same tokens (K4 local and global; whisper's causal and 'full'),
-    each lane within WITNESS_TOL of its logit scale; the same step against
-    a prefill whose last token was changed must differ by more than 4x
-    that."""
+    'full' over its ``frames``; paligemma's prompt starts with its
+    ``patches``) against the last logits of a prefill over the same tokens
+    (K4 local and global; whisper's causal and 'full'), each lane within
+    WITNESS_TOL of its logit scale; the same step against a prefill whose
+    last token was changed must differ by more than 4x that."""
     cfg = model.cfg
-    prompt = toks.shape[1]
-    logits, cache = model.prefill(toks, prompt + new, frames=frames)
+    prompt = toks.shape[1] + cfg.prefix_tokens
+    logits, cache = model.prefill(toks, prompt + new, **inputs)
     seq = toks.to(logits.device)
     for i in range(new - 1):
         tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
         seq = torch.cat([seq, tok], dim=1)
         logits, cache = model.decode_step(cache, tok, prompt + i)
     del cache
-    want, _ = model.prefill(seq, frames=frames)
+    want, _ = model.prefill(seq, **inputs)
     other = seq.clone()
     other[:, -1] = (other[:, -1] + 1) % cfg.vocab
-    off, _ = model.prefill(other, frames=frames)
+    off, _ = model.prefill(other, **inputs)
     w = dict(position=prompt + new - 2, err=rel_rows(logits, want),
              other_token=rel_rows(logits, off), tol=WITNESS_TOL)
     require(w["err"] <= WITNESS_TOL,
@@ -2573,8 +2709,70 @@ def long_witness(torch, model, toks, new: int, frames=None):
     return w
 
 
+def scheduler_run(torch, eng, reqs, name: str, reset_peak: bool = True,
+                  **extra):
+    """One driven scheduler path: ``reqs`` submitted at once to ``eng``
+    (``serve_requests``), the launch counts set to 0 just before (and the
+    peak memory, unless ``reset_peak`` is False: the caller reset it).
+    Every output, every status ok, every request its whole budget,
+    request 0 past the window, every kernel of ``PATH_KERNELS[name]``
+    launched (``variant_launches``: a bare kernel name counts its
+    launches with no variant on), one decode iteration's launches exact
+    (``decode_launches``: int8, an MoE, an up GEMM wider than the store
+    phase's row pass).  Prints and returns the report, ``extra`` in it."""
+    import numpy as np
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.matmul import NORM_MAX_N
+    from repro_torch.launch.serve import serve_requests
+
+    model = eng.model
+    cfg = model.cfg
+    if reset_peak:
+        torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    run = serve_requests(eng, reqs)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    outs = run["outputs"]
+    require(sorted(outs) == sorted(r.id for r in reqs),
+            f"{name} outputs {sorted(outs)}")
+    require(all(o.status == "ok" for o in outs.values()),
+            f"{name} statuses {[o.status for o in outs.values()]}")
+    require(all(outs[r.id].tokens.size == r.sampling.max_new_tokens
+                for r in reqs), f"a {name} request ran short")
+    last_pos = len(reqs[0].tokens) + outs[reqs[0].id].tokens.size - 1
+    require(last_pos > cfg.window, f"{name}: request 0 stopped at "
+                                   f"{last_pos}")
+    missing = [key for key in PATH_KERNELS[name]
+               if variant_launches(launches, key) <= 0]
+    require(not missing, f"{name}: never launched {missing}: {launches}")
+    decode_launches(name, run["decode_launches"] or {}, cfg.n_layers,
+                    model.int8, moe=cfg.moe,
+                    wide_ff=model.int8 and cfg.d_ff > NORM_MAX_N)
+    ttft = np.array([run["ttft_s"][r.id] for r in reqs])
+    report = dict(
+        requests=len(reqs), **extra,
+        prompt_lens=[len(r.tokens) for r in reqs],
+        max_new=[r.sampling.max_new_tokens for r in reqs],
+        last_position_of_request_0=last_pos,
+        iterations=run["iterations"],
+        chunk_iterations=run["chunk_iterations"],
+        ttft_ms_median=float(np.median(ttft)) * 1e3,
+        ttft_ms_max=float(ttft.max()) * 1e3,
+        ttft_ms_request_0=float(ttft[0]) * 1e3,
+        decode_ms_per_iter=run["decode_ms_per_iter"],
+        generated=run["generated"], wall_s=run["wall_s"],
+        tokens_per_s=run["tokens_per_s"], peak_gb=peak / 1e9,
+        launches=launches, launches_per_decode_iter=run["decode_launches"],
+        tokens0=outs[reqs[0].id].tokens.tolist(),
+        distinct_tokens=[len(set(outs[r.id].tokens.tolist()))
+                         for r in reqs])
+    print(f"serve {name}: " + json.dumps(report), flush=True)
+    return report
+
+
 def serve_long(torch, arch: str, prefix: str, batch: int, prompt: int,
-               new: int, n_req: int, int8s=(False,)):
+               new: int, n_req: int, int8s=(False,), release_int8=False):
     """Phases 5 and 6: full-width ``arch`` (bf16, random weights from
     SEED, every layer) built once, after the models of the phases before
     it are gone (the caches are emptied and the peak reset here).  At the
@@ -2587,15 +2785,22 @@ def serve_long(torch, arch: str, prefix: str, batch: int, prompt: int,
     the window), the others 32-448 tokens; the scheduler once per entry
     of ``int8s``.  Each path counts its launches from 0, every kernel of
     ``PATH_KERNELS[<its name>]`` launched, every status ok, one decode
-    iteration's launches exact (``decode_launches``).  Returns the paths'
-    reports under ``prefix``."""
+    iteration's launches exact (``decode_launches``).  With
+    ``release_int8`` (gemma2, whose int8 copy does not fit beside the bf16
+    model) the bf16 model's first logits at init scales are kept, and
+    after the bf16 runs the model is drawn again from SEED and quantized
+    in place, each block's bf16 projections released as its int8 copy is
+    made (``quantize_params_for_serving(release=True)``, the launcher's
+    ``--int8`` path): the int8 witness against the kept logits, then the
+    scheduler on the int8 model varied as in phase 3 (its column scales
+    tripled), the peak memory of the build and the run printed and held
+    under the card's.  Returns the paths' reports under ``prefix``."""
     import gc
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import _cuda
     from repro_torch.launch.serve import (NEW_RANGE, PROMPT_RANGE,
-                                          geometry, make_requests,
-                                          serve_requests)
+                                          geometry, make_requests)
     from repro_torch.models.lm import Model
     from repro_torch.models.loss import vocab_parallel_logits
     from repro_torch.serve.api import Request
@@ -2617,6 +2822,8 @@ def serve_long(torch, arch: str, prefix: str, batch: int, prompt: int,
     if True in int8s:
         out[f"{prefix}_int8_witness"] = int8_witness(torch, model, toks)
         torch.cuda.empty_cache()
+    if release_int8:
+        first = first_logits(torch, model, toks)
     print(f"{prefix} witness: " + json.dumps(out), flush=True)
     vary(torch, model, SEED)
     capped = cfg.final_softcap or float("inf")
@@ -2702,51 +2909,59 @@ def serve_long(torch, arch: str, prefix: str, batch: int, prompt: int,
         t0 = time.perf_counter()
         eng = ServeEngine(model, ServeConfig(int8=int8, **geom))
         torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
-        _cuda.reset_launches()
-        run = serve_requests(eng, reqs)
-        launches = dict(_cuda.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        outs = run["outputs"]
-        require(sorted(outs) == list(range(n_req)),
-                f"{name} outputs {sorted(outs)}")
-        require(all(o.status == "ok" for o in outs.values()),
-                f"{name} statuses {[o.status for o in outs.values()]}")
-        require(all(outs[r.id].tokens.size == r.sampling.max_new_tokens
-                    for r in reqs), f"a {name} request ran short")
-        last_pos = len(reqs[0].tokens) + outs[0].tokens.size - 1
-        require(last_pos > cfg.window, f"request 0 stopped at {last_pos}")
-        require(all(launches.get(key, 0) > 0 for key in PATH_KERNELS[name]),
-                f"a kernel never launched on {name}: {launches}")
-        decode_launches(name, run["decode_launches"] or {}, cfg.n_layers,
-                        int8)
-        ttft = np.array([run["ttft_s"][r.id] for r in reqs])
-        sched = dict(
-            requests=n_req, int8=int8, **geom,
-            prompt_lens=[len(r.tokens) for r in reqs],
-            max_new=[r.sampling.max_new_tokens for r in reqs],
-            last_position_of_request_0=last_pos, setup_s=setup_s,
-            iterations=run["iterations"],
-            chunk_iterations=run["chunk_iterations"],
-            ttft_ms_median=float(np.median(ttft)) * 1e3,
-            ttft_ms_max=float(ttft.max()) * 1e3,
-            ttft_ms_request_0=float(ttft[0]) * 1e3,
-            decode_ms_per_iter=run["decode_ms_per_iter"],
-            generated=run["generated"], wall_s=run["wall_s"],
-            tokens_per_s=run["tokens_per_s"], peak_gb=peak / 1e9,
-            launches=launches,
-            launches_per_decode_iter=run["decode_launches"],
-            distinct_tokens=[len(set(outs[r.id].tokens.tolist()))
-                             for r in reqs])
-        print(f"serve {name}: " + json.dumps(sched), flush=True)
-        out[name] = sched
+        out[name] = scheduler_run(torch, eng, reqs, name, int8=int8,
+                                  setup_s=time.perf_counter() - t0)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    if release_int8:
+        out.update(serve_released_int8(torch, model, prefix, toks, first,
+                                       reqs))
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def serve_released_int8(torch, model, prefix, toks, first, reqs):
+    """``serve_long``'s releasing int8 run: ``model`` drawn again from
+    SEED (bit for bit its init), quantized in place block by block, held
+    to ``first`` (the bf16 model's first logits at init scales), varied,
+    and served through the scheduler (``scheduler_run``); the peak covers
+    the build, the witness and the run, and is held under 80 GB."""
+    from repro_torch.launch.serve import geometry, int8_peak_bytes
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = model.cfg
+    name = f"{prefix}_scheduler_int8"
+    model.init_weights(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bf16_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    q8 = model.quantize_params_for_serving(release=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(q8 is model and model.int8, f"{name}: the build is not in place")
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    int8_gb = torch.cuda.memory_allocated() / 1e9
+    out = {f"{prefix}_int8_witness": int8_witness(torch, model, toks,
+                                                  q8=model, first=first)}
+    print(f"{prefix} int8 witness: " + json.dumps(out), flush=True)
+    vary(torch, model, SEED)
+    geom = geometry(cfg.name)
+    eng = ServeEngine(model, ServeConfig(int8=True, **geom))
+    out[name] = scheduler_run(
+        torch, eng, reqs, name, reset_peak=False, int8=True, release=True,
+        **geom, bf16_weights_gb=bf16_gb, int8_weights_gb=int8_gb,
+        build_s=build_s, build_peak_gb=build_peak,
+        reckoned_peak_gb=int8_peak_bytes(cfg) / 1e9)
+    peak = out[name]["peak_gb"]
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"{name}: peak {peak:.2f} GB of the card's {total:.2f} GB (the "
+          f"build's {build_peak:.2f} GB)", flush=True)
+    require(peak < 80, f"{name}: peak {peak:.1f} GB")
+    del eng
     return out
 
 # whisper-small (src/repro_torch/configs/whisper_small.py): 12 heads of 64
@@ -2902,26 +3117,27 @@ def check_whisper_kernels(torch, timer):
     return results
 
 
-def check_whisper_smoke(torch):
-    """Phase 3, whisper: the smoke config (2 encoder and 2 decoder layers,
-    24 frames a clip, bf16 compute and bf16 projection weights as the full
-    model has them), card against CPU, weights varied as in phase 3,
-    through ``generate_with_status`` (its fall-through to the fixed loop),
-    bf16 and int8: the card's teacher-forced logits (prefill with the
-    encoder, then decode steps fed the CPU's picks) within twice the CPU
-    pipeline's own bf16 rounding noise (its distance from an fp32-compute
-    run on the same weights), and each lane's greedy tokens equal up to
-    its first step where the CPU's two best logits lie within twice the
-    lane's card-CPU logit difference (a near tie that difference
-    explains)."""
+def check_fixed_smoke(torch, arch: str):
+    """Phase 3, the models served through the fixed loop only: whisper
+    (2 encoder and 2 decoder layers, 24 frames a clip) and paligemma (2
+    layers, 8 patches an image), each smoke config at bf16 compute and
+    bf16 projection weights as the full model has them, card against
+    CPU, weights varied as in phase 3, through ``generate_with_status``
+    (its fall-through to the fixed loop), bf16 and int8: the card's
+    teacher-forced logits (prefill with the frames or the patches, then
+    decode steps fed the CPU's picks) within twice the CPU pipeline's own
+    bf16 rounding noise (its distance from an fp32-compute run on the same
+    weights), and each lane's greedy tokens equal up to its first step
+    where the CPU's two best logits lie within twice the lane's card-CPU
+    logit difference (a near tie that difference explains)."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import make_frames
+    from repro_torch.launch.serve import make_frames, make_patches
     from repro_torch.models.lm import Model
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-    cfg = get_config("whisper-small", smoke=True)
+    cfg = get_config(arch, smoke=True)
     cpu = Model(cfg, device="cpu").init_weights(SEED)
     vary(torch, cpu, SEED)
     card = Model(cfg)
@@ -2932,8 +3148,10 @@ def check_whisper_smoke(torch):
     plen, steps = 16, 8
     toks = torch.randint(0, cfg.vocab, (BATCH, plen),
                          generator=torch.Generator().manual_seed(SEED + 3))
-    frames = make_frames(cfg, BATCH, SEED + 3)
-    batch = {"tokens": toks, "frames": frames}
+    inputs = ({"frames": make_frames(cfg, BATCH, SEED + 3)} if cfg.encdec
+              else {"patches": make_patches(cfg, BATCH, SEED + 3)})
+    batch = {"tokens": toks, **inputs}
+    prompt = plen + cfg.prefix_tokens
 
     def rel(a, b):
         return float((a.double().cpu() - b.double().cpu()).abs().max()
@@ -2947,23 +3165,22 @@ def check_whisper_smoke(torch):
         want = ecpu.generate_with_status(batch)
         got = ecard.generate_with_status(batch)
         require(list(got.status) == list(want.status) == ["ok"] * BATCH,
-                f"whisper smoke {tag} statuses {got.status} {want.status}")
+                f"{cfg.name} {tag} statuses {got.status} {want.status}")
         served = (ecpu.model, ecard.model,
                   ref32.quantize_params_for_serving() if int8 else ref32)
-        runs = [m.prefill(toks, plen + steps, frames=frames)
-                for m in served]
+        runs = [m.prefill(toks, prompt + steps, **inputs) for m in served]
         logits = [[r[0].float().cpu()] for r in runs]
         caches = [r[1] for r in runs]
         for i in range(steps - 1):
             tok = torch.from_numpy(want.tokens[:, i:i + 1])
             for j, m in enumerate(served):
-                lg, caches[j] = m.decode_step(caches[j], tok, plen + i)
+                lg, caches[j] = m.decode_step(caches[j], tok, prompt + i)
                 logits[j].append(lg.float().cpu())
         lc, lg, l3 = logits
         err = [rel(g, c) for g, c in zip(lg, lc)]
         noise = [rel(c, r) for c, r in zip(lc, l3)]
         require(max(err) <= 2 * max(noise),
-                f"whisper smoke {tag}: card logits off by {max(err):.3e} "
+                f"{cfg.name} {tag}: card logits off by {max(err):.3e} "
                 f"of scale, budget {2 * max(noise):.3e}")
         # each lane up to its first near tie: a step where the CPU's two
         # best logits of the lane lie within twice the lane's card-CPU
@@ -2979,7 +3196,7 @@ def check_whisper_smoke(torch):
         for lane in range(BATCH):
             require(np.array_equal(got.tokens[lane, :first[lane]],
                                    want.tokens[lane, :first[lane]]),
-                    f"whisper smoke {tag} lane {lane}: greedy tokens differ "
+                    f"{cfg.name} {tag} lane {lane}: greedy tokens differ "
                     f"before a near tie: card {got.tokens.tolist()} cpu "
                     f"{want.tokens.tolist()}")
         out[tag] = dict(tokens=got.tokens.tolist(),
@@ -3318,6 +3535,59 @@ def check_llama4_kernels(torch, timer):
     return results
 
 
+def check_paligemma_kernels(torch, timer):
+    """Phase 2, paligemma: head dim 256 at G = 8 (8 q heads over 1 kv
+    head), the shapes its fixed loop gives K4 and K5.  K4 'global' over
+    the prefill of 8 images' 256 patches and 256 text tokens (the patches
+    attended causally, as the reference does: ROADMAP F5), each row within
+    2 bf16 ulps of its scale, beside SDPA causal; K5 at the last decode
+    step, position 543 of a 544-slot cache (``k5_row``: bitwise at split
+    counts 1, 2, 4, the default and one per tile, partials within 1e-5),
+    beside SDPA."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import head_groups
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    tol = 2 * eps_bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    bf = torch.bfloat16
+    b, s, H, KV, hd = PG_BATCH, PG_S, PG_H, PG_KV, PG_HD
+    G = H // KV
+    require(head_groups(G) == (1, G), f"G = {G}: {head_groups(G)}")
+
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    q, k, v = rand(b, s, H, hd), rand(b, s, KV, hd), rand(b, s, KV, hd)
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    err, abs_err = row_err(got, want), max_err(got, want)
+    del got, want
+    require(err <= tol, f"K4 paligemma: a row is off by {err:.3e} of its "
+                        f"scale")
+    t_b, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                    4 * b * H * hd * s * (s + 1) / 2)
+    results = {"k4_flash_prefill_paligemma": dict(
+        work=f"global (causal) prefill over {PG_PREFIX} patches and "
+             f"{PG_TEXT} text tokens B={b} S={s} H={H} KV={KV} hd={hd} "
+             f"(G = {G}; 64-slot K/V tiles)",
+        max_abs_err=abs_err, max_row_err=err, tol=tol,
+        ms=timer(lambda: ops.flash_attention(q, k, v)),
+        wrapper_ms=timer.wall(lambda: ops.flash_attention(q, k, v)),
+        plain_ms=timer(lambda: ref.flash_attention_ref(q, k, v), reps=3),
+        bound_ms=t_b, bound_by=by,
+        library_ms=sdpa_ms(torch, timer, q, k, v, is_causal=True),
+        library_note="SDPA causal (sdpa_ms)")}
+    print("  k4 " + json.dumps(results), flush=True)
+    del q, k, v
+    results["k5_flash_decode_paligemma"] = k5_row(
+        torch, timer, rand, b, s + PG_NEW, s + PG_NEW - 1, KV, G, hd, None,
+        1.0, "paligemma-3b's fixed loop")
+    torch.cuda.empty_cache()
+    return results
+
+
 def moe_witness(torch, model, toks, new: int):
     """Phase 8's witness at the reference's init scales: the fixed loop's
     decode step at position prompt + new - 2 (past the 8192 chunk: the
@@ -3373,13 +3643,17 @@ def serve_llama4(torch):
     8, 16 experts of 8192, vocab 202048), 8 of its 48 layers (two periods
     of the 3:1 chunked:global pattern; 37.3 GB of bf16 weights), random
     weights from SEED, built after the models of the phases before it are
-    gone.  At the init scales the MoE witness (``moe_witness``).  Then, on
-    weights varied as in phase 3, each path with the launch counts set to
-    0 just before it: the fixed loop (``generate_with_status_fixed``,
-    batch 2, prompt 8448: K4 chunked across the 8192 boundary and global,
-    the ring wrapped, K5 global, K1) and the scheduler (8 requests on 8
-    lanes, request 0 an 8180-token prompt with 32 new tokens, decoding past
-    8192; K6 chunked and global in both bodies, K1).  Every status ok,
+    gone.  At the init scales the MoE witness (``moe_witness``) and the
+    int8 copy's first logits against the bf16 model's on 8 lanes of 512
+    tokens (``int8_witness``).  Then, on weights varied as in phase 3,
+    each path with the launch counts set to 0 just before it: the fixed
+    loop (``generate_with_status_fixed``, batch 2, prompt 8448: K4
+    chunked across the 8192 boundary and global, the ring wrapped, K5
+    global, K1) and the scheduler (8 requests on 8 lanes, request 0 an
+    8180-token prompt with 32 new tokens, decoding past 8192; K6 chunked
+    and global in both bodies, K1), once bf16 and once on the int8 copy
+    of the attention (K2 and K3 for ``wqkv`` and ``wo``; the MoE shared,
+    ``scheduler_run``).  Every status ok,
     every variant of ``PATH_KERNELS`` launched, one decode iteration's
     launches exact (``decode_launches`` with the MoE's standalone norms),
     and request 0 served alone first emits bitwise the tokens it emits
@@ -3409,6 +3683,9 @@ def serve_llama4(torch):
     wit = torch.randint(0, cfg.vocab, (L4_BATCH, L4_WIT_PROMPT),
                         generator=torch.Generator().manual_seed(SEED))
     out = {"llama4_witness": moe_witness(torch, model, wit, L4_WIT_NEW)}
+    wit8 = torch.randint(0, cfg.vocab, (L4_WIT8_LANES, L4_WIT8_PROMPT),
+                         generator=torch.Generator().manual_seed(SEED + 2))
+    out["llama4_int8_witness"] = int8_witness(torch, model, wit8)
     print("llama4 witness: " + json.dumps(out), flush=True)
     vary(torch, model, SEED)
 
@@ -3474,8 +3751,8 @@ def serve_llama4(torch):
     torch.cuda.empty_cache()
     print(f"serve {name}: " + json.dumps(out[name]), flush=True)
 
-    # the scheduler: request 0 alone (also the warm-up), then amid churn
-    name = "llama4_scheduler"
+    # the scheduler, bf16 then on the attention-only int8 copy: request 0
+    # alone (also the warm-up), then amid churn
     geom = geometry(L4_ARCH)
     require((geom["n_lanes"], geom["page_size"], geom["prefill_chunk"],
              geom["max_seq_len"] // geom["page_size"])
@@ -3484,50 +3761,140 @@ def serve_llama4(torch):
     reqs[0] = Request(id=0, tokens=np.random.default_rng(SEED).integers(
         0, cfg.vocab, L4_LONG), sampling=SamplingParams(
         max_new_tokens=L4_LONG_NEW))
-    t0 = time.perf_counter()
-    eng = ServeEngine(model, ServeConfig(**geom))
-    alone = serve_requests(eng, reqs[:1])["outputs"][0]
-    alone_s = time.perf_counter() - t0
+    for int8 in (False, True):
+        name = "llama4_scheduler_int8" if int8 else "llama4_scheduler"
+        t0 = time.perf_counter()
+        eng = ServeEngine(model, ServeConfig(int8=int8, **geom))
+        alone = serve_requests(eng, reqs[:1])["outputs"][0]
+        torch.cuda.synchronize()
+        out[name] = scheduler_run(
+            torch, eng, reqs, name, int8=int8, **geom,
+            alone_s=time.perf_counter() - t0,
+            int8_copy_gb=sum(b.nbytes for blk in eng.model.blocks
+                             for b in blk.attn.buffers()) / 1e9)
+        require(alone.tokens.tolist() == out[name]["tokens0"],
+                f"{name}: request 0 alone {alone.tokens.tolist()} != amid "
+                f"churn {out[name]['tokens0']}")
+        out[name]["alone_equals_churn"] = True
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_paligemma(torch):
+    """Phase 9: full-width paligemma-3b (18 layers, d_model 2048, 8 q heads
+    over 1 kv head of 256, d_ff 16384, vocab 257216; the fp32 embedding
+    and bf16 projection weights), random weights from SEED, built after
+    the models of the phases before it are gone.  Its input is 8 images'
+    256 patch embeddings drawn N(0, 1) from SEED (the stubbed SigLIP
+    tower, ``launch.serve.make_patches``) in front of 256 text tokens.  At
+    the init scales the decode-vs-prefill witness over the prefix
+    (``long_witness`` with the patches) and the int8 copy's first logits
+    against the bf16 model's (``int8_witness``).  Then, on weights varied
+    as in phase 3, ``generate_with_status`` (the engine falls through to
+    the fixed loop: a prefix-LM is not pageable) with 32 greedy tokens,
+    bf16 and int8, each with the launch counts set to 0 just before it:
+    every status ok, no scheduler built, every kernel of
+    ``PATH_KERNELS[<its name>]`` launched (K1 or K2 with K3 and its
+    tails, K4 'global' and K5 at hd 256 and G = 8), one decode
+    iteration's launches exact (``decode_launches``)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import make_patches
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launches()
-    run = serve_requests(eng, reqs)
-    launches = dict(_cuda.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    outs = run["outputs"]
-    require(sorted(outs) == list(range(L4_REQ)),
-            f"{name} outputs {sorted(outs)}")
-    require(all(o.status == "ok" for o in outs.values()),
-            f"{name} statuses {[o.status for o in outs.values()]}")
-    require(all(outs[r.id].tokens.size == r.sampling.max_new_tokens
-                for r in reqs), f"a {name} request ran short")
-    last_pos = len(reqs[0].tokens) + outs[0].tokens.size - 1
-    require(last_pos > cfg.window, f"request 0 stopped at {last_pos}")
-    require(np.array_equal(alone.tokens, outs[0].tokens),
-            f"{name}: request 0 alone {alone.tokens.tolist()} != amid "
-            f"churn {outs[0].tokens.tolist()}")
-    launched(name, launches)
-    decode_launches(name, run["decode_launches"] or {}, cfg.n_layers,
-                    moe=True)
-    ttft = np.array([run["ttft_s"][r.id] for r in reqs])
-    out[name] = dict(
-        requests=L4_REQ, **geom, prompt_lens=[len(r.tokens) for r in reqs],
-        max_new=[r.sampling.max_new_tokens for r in reqs],
-        last_position_of_request_0=last_pos, alone_s=alone_s,
-        iterations=run["iterations"],
-        chunk_iterations=run["chunk_iterations"],
-        ttft_ms_median=float(np.median(ttft)) * 1e3,
-        ttft_ms_max=float(ttft.max()) * 1e3,
-        ttft_ms_request_0=float(ttft[0]) * 1e3,
-        decode_ms_per_iter=run["decode_ms_per_iter"],
-        generated=run["generated"], wall_s=run["wall_s"],
-        tokens_per_s=run["tokens_per_s"], peak_gb=peak / 1e9,
-        launches=launches, launches_per_decode_iter=run["decode_launches"],
-        alone_equals_churn=True, tokens0=outs[0].tokens.tolist(),
-        distinct_tokens=[len(set(outs[r.id].tokens.tolist()))
-                         for r in reqs])
-    print(f"serve {name}: " + json.dumps(out[name]), flush=True)
-    del eng, model
+    cfg = get_config(PG_ARCH)
+    require((cfg.prefix_tokens, cfg.hd, cfg.n_heads, cfg.n_kv_heads,
+             cfg.d_model, cfg.d_ff) == (PG_PREFIX, PG_HD, PG_H, PG_KV,
+                                        PG_D, PG_FF), f"{cfg}")
+    t0 = time.perf_counter()
+    model = Model(cfg).init_weights(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    toks = torch.randint(0, cfg.vocab, (PG_BATCH, PG_TEXT),
+                         generator=torch.Generator().manual_seed(SEED))
+    patches = make_patches(cfg, PG_BATCH, SEED)
+    out = {"paligemma_witness": long_witness(torch, model, toks, 16,
+                                             patches=patches),
+           "paligemma_int8_witness": int8_witness(torch, model, toks,
+                                                  patches=patches)}
+    print("paligemma witness: " + json.dumps(out), flush=True)
+    vary(torch, model, SEED)
+    batch = {"tokens": toks, "patches": patches}
+    for int8 in (False, True):
+        name = "paligemma_fixed_int8" if int8 else "paligemma_fixed"
+        engine = ServeEngine(model, ServeConfig(max_new_tokens=PG_NEW,
+                                                int8=int8))
+        served = engine.model
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = engine.generate_with_status(batch)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        require(engine._sched is None and not engine._shim_cache,
+                f"{name}: generate_with_status built a scheduler")
+        require(res.tokens.shape == (PG_BATCH, PG_NEW),
+                f"{name} tokens {res.tokens.shape}")
+        require(all(st == "ok" for st in res.status),
+                f"{name} statuses {res.status}")
+        require(all(launches.get(key, 0) > 0 for key in PATH_KERNELS[name]),
+                f"a kernel never launched on {name}: {launches}")
+        # the prefill (the time to first token) and the decode step
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = served.prefill(toks, PG_S + PG_NEW, patches=patches)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        require(bool(torch.isfinite(logits).all())
+                and logits.shape == (PG_BATCH, cfg.padded_vocab()),
+                f"{name} prefill logits")
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(PG_NEW - 2):
+            logits, cache = served.decode_step(cache, tok, PG_S + i)
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t) / (PG_NEW - 2) * 1e3
+        require(bool(torch.isfinite(logits).all()), f"{name} decode logits")
+        _cuda.reset_launches()
+        served.decode_step(cache, tok, PG_S + PG_NEW - 2)
+        step_launches = decode_launches(name, dict(_cuda.LAUNCHES),
+                                        cfg.n_layers, int8)
+        require(step_launches.get("flash_decode:hd256") == cfg.n_layers,
+                f"{name}: K5 hd 256 launches {step_launches}")
+        report = dict(
+            params=cfg.param_count(), init_s=init_s, weights_gb=weights_gb,
+            batch=PG_BATCH, patches=PG_PREFIX, text=PG_TEXT, prompt=PG_S,
+            new=PG_NEW, int8=int8, ttft_ms=prefill_s * 1e3,
+            decode_ms_per_step=dec_ms, generate_s=gen_s,
+            tokens_per_s=PG_BATCH * PG_NEW / gen_s,
+            statuses=list(res.status), launches=launches,
+            launches_per_decode_step=step_launches, peak_gb=peak / 1e9,
+            distinct_tokens=[len(set(lane.tolist())) for lane in res.tokens],
+            tokens=res.tokens[:, :16].tolist())
+        print(f"serve {name}: " + json.dumps(report), flush=True)
+        out[name] = report
+        del engine, served, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3986,6 +4353,21 @@ SOURCES = {
         "paged_decode:chunked+chunk",
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:563"),
+    # paligemma-3b: its widths in K1 and K2, and K4 'global' and K5 at hd
+    # 256 with G = 8
+    "k1_matmul_paligemma_m8": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                               "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_paligemma_m4096": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                                  "src/repro/kernels/matmul.py:293"),
+    "k2_int8_matmul_paligemma": ("int8_matmul",
+                                 "src/repro_torch/csrc/matmul.cu",
+                                 "src/repro/kernels/matmul.py:293"),
+    "k4_flash_prefill_paligemma": (
+        "flash_attention:hd256", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
+    "k5_flash_decode_paligemma": (
+        "flash_decode:hd256", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:447"),
 }
 
 
@@ -4019,6 +4401,14 @@ LAUNCH_NOTES = {
     "k4_flash_prefill_prefix": "no model reaches the 'prefix' kind (the "
                                "reference's neither): ops.flash_attention "
                                "only, held in phase 2",
+    "k4_flash_prefill_hd256": "every flash_attention:hd256 launch: gemma3's "
+                              "global layers' and paligemma's",
+    "k4_flash_prefill_paligemma": "every flash_attention:hd256 launch: "
+                                  "gemma3's global layers' and paligemma's",
+    "k5_flash_decode_hd256": "every flash_decode:hd256 launch: gemma3's "
+                             "global layers' and paligemma's",
+    "k5_flash_decode_paligemma": "every flash_decode:hd256 launch: gemma3's "
+                                 "global layers' and paligemma's",
 }
 
 
@@ -4072,6 +4462,7 @@ def main() -> int:
     kernels.update(check_gemma3_kernels(torch, timer))
     kernels.update(check_whisper_kernels(torch, timer))
     kernels.update(check_llama4_kernels(torch, timer))
+    kernels.update(check_paligemma_kernels(torch, timer))
     t0 = time.perf_counter()
     sampler = check_sampler(torch, timer)
     print(f"sampler ({time.perf_counter() - t0:.1f} s): "
@@ -4088,15 +4479,16 @@ def main() -> int:
                        (L4_ARCH, {})):
         smoke_local = check_local_smoke(torch, arch, **over)
         print(f"smoke {arch}: " + json.dumps(smoke_local), flush=True)
-    print("smoke whisper-small: " + json.dumps(check_whisper_smoke(torch)),
-          flush=True)
+    for arch in ("whisper-small", PG_ARCH):
+        print(f"smoke {arch}: " + json.dumps(check_fixed_smoke(torch, arch)),
+              flush=True)
     marks.append(("smoke", time.perf_counter()))
     serve = serve_full(torch)
     serve["addertree"] = addertree_path(torch)
     print("addertree path: " + json.dumps(serve["addertree"]), flush=True)
     marks.append(("granite", time.perf_counter()))
     serve.update(serve_long(torch, "gemma2-27b", "gemma2", G2_BATCH,
-                            G2_PROMPT, G2_NEW, G2_REQ))
+                            G2_PROMPT, G2_NEW, G2_REQ, release_int8=True))
     marks.append(("gemma2", time.perf_counter()))
     serve.update(serve_long(torch, "gemma3-12b", "gemma3", G3_BATCH,
                             G3_PROMPT, G3_NEW, G3_REQ, int8s=(False, True)))
@@ -4105,6 +4497,8 @@ def main() -> int:
     marks.append(("whisper", time.perf_counter()))
     serve.update(serve_llama4(torch))
     marks.append(("llama4", time.perf_counter()))
+    serve.update(serve_paligemma(torch))
+    marks.append(("paligemma", time.perf_counter()))
     cupti_pass(torch, cupti)
     marks.append(("cupti", time.perf_counter()))
     print("phase times: " + ", ".join(

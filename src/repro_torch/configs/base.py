@@ -1,7 +1,7 @@
-"""Architecture configuration schema (the dense decoders, the MoE decoder
-and the encoder-decoder the port serves).  A copy of the JAX package's
-``ArchConfig`` fields that the serving path reads; the port never imports
-that package."""
+"""Architecture configuration schema (the dense decoders, the MoE decoder,
+the encoder-decoder and the prefix-LM the port serves).  A copy of the
+JAX package's ``ArchConfig`` fields that the serving path reads; the port
+never imports that package."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,8 +42,14 @@ class ArchConfig:
     encdec: bool = False
     n_enc_layers: int = 0
     enc_frames: int = 1500
+    # VLM prefix (paligemma): prefix_tokens (stubbed) patch embeddings
+    # [B, prefix_tokens, d_model] in front of the text tokens
+    prefix_tokens: int = 0
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
+    # whisper's and paligemma's float32 is the reference's training master
+    # copy: the port serves their projection weights at the compute dtype
+    # (``models.lm.Model``), the embedding and norm scales at float32
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 

@@ -1,7 +1,9 @@
 """Where the serving time goes on the card: ``torch.profiler`` traces of
 the fixed-batch path (one prefill, a few decode steps) and of the
-continuous-batching scheduler's iterations, bf16 and int8 (bf16 only
-where the int8 copy does not fit beside the model: gemma2-27b).
+continuous-batching scheduler's iterations, bf16 and int8 (where the int8
+copy does not fit beside the model, gemma2-27b, the int8 windows run
+after the bf16 ones on the model quantized in place,
+``quantize_params_for_serving(release=True)``).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch granite-3-8b --out profile_serve.json
@@ -16,6 +18,9 @@ where the int8 copy does not fit beside the model: gemma2-27b).
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch llama4-scout-17b-a16e --layers 8 --batch 2 \
         --prompt-len 8448 --out profile_serve_llama4.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch paligemma-3b --batch 8 --prompt-len 512 \
+        --out profile_serve_paligemma.json
 
 Prints, for each window (fixed prefill, fixed decode step, and per engine
 a scheduler iteration that prefills one chunk on every lane and one that
@@ -23,13 +28,15 @@ only decodes): the host wall time (synchronized, profiler off), the device
 busy time (sum of kernel times from a profiled run of the same calls from
 the same starting state; one stream, so kernels do not overlap), the idle
 share, and the kernels by device time.  whisper-small (an
-encoder-decoder, served by the fixed loop only) has the fixed windows,
-bf16 and int8: its prefill window holds the encoder over the batch's
-clips (``launch.serve.make_frames``), and its decode step recomputes the
-cross-attention K/V from the held encoder output.  llama4-scout
-(``--layers`` cuts its depth) has the fixed and the bf16 scheduler
-windows (no int8 copy of an MoE model).  Needs the card: the timings are
-device metrics.
+encoder-decoder) and paligemma-3b (a prefix-LM), served by the fixed loop
+only, have the fixed windows, bf16 and int8: whisper's prefill window
+holds the encoder over the batch's clips (``launch.serve.make_frames``),
+and its decode step recomputes the cross-attention K/V from the held
+encoder output; paligemma's prompt is its images' patches
+(``launch.serve.make_patches``) and ``--prompt-len`` minus them text
+tokens.  llama4-scout (``--layers`` cuts its depth) has the fixed and
+the scheduler windows, its int8 copy the attention's only.  Needs the
+card: the timings are device metrics.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.serve import (geometry, int8_fits, make_frames,
-                                      with_layers)
+                                      make_patches, with_layers)
 from repro_torch.models.lm import Model
 from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -94,19 +101,24 @@ def _window(fn, reps: int, setup):
 
 
 def _fixed(model, cfg, args) -> dict:
-    toks = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+    """``--prompt-len`` positions: a prefix-LM's patches, then text."""
+    toks = torch.randint(0, cfg.vocab,
+                         (args.batch, args.prompt_len - cfg.prefix_tokens),
                          generator=torch.Generator().manual_seed(args.seed))
-    frames = (make_frames(cfg, args.batch, args.seed) if cfg.encdec
-              else None)
+    inputs = {}
+    if cfg.encdec:
+        inputs["frames"] = make_frames(cfg, args.batch, args.seed)
+    if cfg.prefix_tokens:
+        inputs["patches"] = make_patches(cfg, args.batch, args.seed)
     max_len = args.prompt_len + args.steps + 2
-    model.prefill(toks, max_len, frames=frames)                 # warm-up
-    prefill = _window(lambda: model.prefill(toks, max_len, frames=frames),
+    model.prefill(toks, max_len, **inputs)                      # warm-up
+    prefill = _window(lambda: model.prefill(toks, max_len, **inputs),
                       2, lambda: None)
     state = {}
 
     def start():
         """A fresh cache after the prompt, and one decode step."""
-        logits, state["cache"] = model.prefill(toks, max_len, frames=frames)
+        logits, state["cache"] = model.prefill(toks, max_len, **inputs)
         state["tok"] = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
         state["pos"] = args.prompt_len
         step()
@@ -181,16 +193,17 @@ def main(argv=None):
               "prompt_len": args.prompt_len,
               "lanes": geom["n_lanes"], "sched_prompt": SCHED_PROMPT,
               "fixed": _fixed(model, cfg, args)}
-    int8s = (False, True) if int8_fits(cfg, model.device) else (False,)
     if not model.supports_paged_serving:
         # the fixed loop only: its windows on the int8 copy too
         report["fixed_int8"] = _fixed(model.quantize_params_for_serving(),
                                       cfg, args)
-        int8s = ()
-    for int8 in int8s:
-        name = "scheduler_int8" if int8 else "scheduler_bf16"
-        report[name] = _scheduler(model, cfg, args, int8)
+    else:
+        report["scheduler_bf16"] = _scheduler(model, cfg, args, False)
         torch.cuda.empty_cache()
+        if not int8_fits(cfg, model.device, fp32_fallback=True):
+            # the copy does not fit beside the model: quantize it in place
+            model = model.quantize_params_for_serving(release=True)
+        report["scheduler_int8"] = _scheduler(model, cfg, args, True)
     windows = [(group, phase) for group in
                ("fixed", "fixed_int8", "scheduler_bf16", "scheduler_int8")
                if group in report for phase in report[group]]

@@ -7,7 +7,7 @@ or continuous batching over the paged KV cache (``--requests N``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --smoke --device cpu [--requests 6]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
-        [--requests 8] [--smoke --device cpu]
+        [--requests 8] [--int8] [--smoke --device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         [--requests 8] [--int8] [--smoke --device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
@@ -15,7 +15,11 @@ or continuous batching over the paged KV cache (``--requests N``).
         [--smoke --device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama4-scout-17b-a16e --layers 8 \
-        [--batch 2 --prompt-len 8448] [--requests 8] [--smoke --device cpu]
+        [--batch 2 --prompt-len 8448] [--requests 8] [--int8] \
+        [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        [--batch 8 --prompt-len 512 --max-new 32] [--int8] \
+        [--smoke --device cpu --prompt-len 16]
 
 Drills (the reference's flags): lane 1 gets NaN logits at step 2 and is
 quarantined while its peers finish, the first call fails once and is
@@ -28,25 +32,35 @@ retried, and step 4 stalls past the budget:
 Runs on the CUDA card unless ``--device cpu``; weights are random, drawn
 from ``--seed`` on the device.  The fixed mode times one prefill and the
 decode steps of the dense loop, then runs ``generate_with_status`` (the
-scheduler's shim; an encoder-decoder falls through to the fixed loop)
-under ``generate_with_retry`` with the drill flags' ``FaultPlan``, and
-prints tokens/s and every lane's status and fault step.  The
-continuous mode submits ``--requests`` requests at once, prompt lengths
-and token budgets drawn from ``--seed``, to a scheduler of 8 lanes
-(``geometry(arch)``), steps it until every request has finished, and
-prints the time to first token, the time per decode-only iteration,
-tokens/s and every request's status.  gemma2-27b's 27.2 B bf16 parameters
-(54.4 GB) leave no room on an 80 GB card for its int8 copy beside them,
-so ``--int8`` serves granite-3-8b, gemma3-12b (11.8 B parameters,
-23.5 GB in bf16, and its int8 copy beside them) and whisper-small.
+scheduler's shim; an encoder-decoder or a prefix-LM falls through to the
+fixed loop) under ``generate_with_retry`` with the drill flags'
+``FaultPlan``, and prints tokens/s and every lane's status and fault
+step.  The continuous mode submits ``--requests`` requests at once,
+prompt lengths and token budgets drawn from ``--seed``, to a scheduler of
+8 lanes (``geometry(arch)``), steps it until every request has finished,
+and prints the time to first token, the time per decode-only iteration,
+tokens/s and every request's status.
+
+``--int8`` serves every model of the port.  Without ``--fp32-fallback``
+the model is quantized in place, each block's bf16 projections released
+as soon as its int8 copy exists (``Model.quantize_params_for_serving(
+release=True)``): gemma2-27b's 54.5 GB of bf16 weights become 28.4 GB,
+the peak about the bf16 model plus one block.  ``--fp32-fallback`` keeps
+the bf16 model beside the int8 copy; ``int8_fits`` refuses what the card
+cannot hold (gemma2-27b then).  An MoE model's int8 copy quantizes the
+attention's ``wqkv`` and ``wo`` only, as the reference's does.
+
 whisper-small (an encoder-decoder) takes frame embeddings as its input, one
 clip of ``enc_frames`` frames a batch row drawn N(0, 1) from ``--seed``
-(the stubbed conv frontend), and is served by the fixed loop only:
+(the stubbed conv frontend); paligemma-3b (a prefix-LM) takes
+``prefix_tokens`` patch embeddings a batch row drawn the same way (the
+stubbed SigLIP tower) in front of ``--prompt-len`` minus
+``prefix_tokens`` text tokens.  Both are served by the fixed loop only:
 ``generate_with_status`` falls through to it, and ``--requests`` is
 refused.  llama4-scout-17b-a16e (MoE, 3 chunked layers to 1 global,
 window 8192) is 211 GB in bf16 at its 48 layers: ``--layers N`` serves
 its first N at full width (``dataclasses.replace(cfg, n_layers=N)``; 8
-layers are 37.3 GB), bf16 only (int8 MoE serving is not ported).
+layers are 37.3 GB).
 """
 from __future__ import annotations
 
@@ -61,7 +75,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import _cuda
-from repro_torch.models.lm import Model
+from repro_torch.kernels.quantize import QuantizedWeight
+from repro_torch.models.lm import Block, Model
 from repro_torch.robust import (FaultPlan, LogitFault, StallFault,
                                 generate_with_retry)
 from repro_torch.serve.api import Request, SamplingParams
@@ -177,6 +192,16 @@ def make_frames(cfg, batch: int, seed: int) -> torch.Tensor:
     return torch.randn((batch, cfg.enc_frames, cfg.d_model), generator=gen)
 
 
+def make_patches(cfg, batch: int, seed: int) -> torch.Tensor:
+    """A prefix-LM's input: ``batch`` images of ``cfg.prefix_tokens``
+    patch embeddings of ``cfg.d_model``, drawn N(0, 1) in fp32 from
+    ``seed`` (the reference's ``launch/serve.py:95-97`` draws the same
+    shape; the stubbed SigLIP tower's output)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((batch, cfg.prefix_tokens, cfg.d_model),
+                       generator=gen)
+
+
 def with_layers(cfg, layers):
     """``cfg`` cut to its first ``layers`` layers (None: all of them), the
     only cut the launchers make; wider than the config is refused."""
@@ -188,17 +213,36 @@ def with_layers(cfg, layers):
     return dataclasses.replace(cfg, n_layers=layers)
 
 
-def int8_fits(cfg, device: torch.device) -> bool:
-    """Whether the int8 copy (one byte per parameter) fits on the card
-    beside the bf16 model (two), with a fifth of the card left for caches
-    and activations.  The CPU has no such limit here.  An MoE model has no
-    int8 copy (not ported)."""
-    if cfg.moe:
-        return False
-    if device.type != "cuda":
-        return True
-    total = torch.cuda.get_device_properties(device).total_memory
-    return 3 * cfg.param_count() < 0.8 * total
+def _nbytes(tensors) -> int:
+    return sum(t.nbytes for t in tensors)
+
+
+def int8_peak_bytes(cfg, fp32_fallback: bool = False) -> int:
+    """The weight bytes the int8 build of ``cfg`` holds at its peak,
+    reckoned on the meta device (no memory is touched): the float model
+    (bf16 projections; the embedding and norm scales at their own dtype)
+    and, with ``fp32_fallback``, every block's int8 copy beside it; without
+    it the release path's float model plus one block's int8 copy (every
+    block has the same projections).  The int8 copy is the
+    ``QuantizedWeight``s (int8 values and f32 column scales); what it
+    shares is not counted twice."""
+    model = Model(cfg, device="meta")
+    block = _nbytes(b for m in Block.quantized(model.blocks[0], cfg).modules()
+                    if isinstance(m, QuantizedWeight) for b in m.buffers())
+    return (_nbytes(model.state_dict().values())
+            + block * (cfg.n_layers if fp32_fallback else 1))
+
+
+def int8_fits(cfg, device: torch.device, fp32_fallback: bool = False,
+              total: Optional[float] = None) -> bool:
+    """Whether the int8 build's peak (``int8_peak_bytes``) leaves a fifth
+    of the card (``total`` bytes; default: the card's memory) for caches
+    and activations.  The CPU has no such limit here."""
+    if total is None:
+        if device.type != "cuda":
+            return True
+        total = torch.cuda.get_device_properties(device).total_memory
+    return int8_peak_bytes(cfg, fp32_fallback) < 0.8 * total
 
 
 def _parse_faults(args) -> Optional[FaultPlan]:
@@ -300,24 +344,40 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = with_layers(get_config(args.arch, smoke=args.smoke), args.layers)
-    if args.int8 and not int8_fits(cfg, device):
-        raise SystemExit(f"{cfg.name}: no int8 copy (an MoE model, or one "
-                         f"that does not fit on the card beside the bf16 "
-                         f"model)")
+    if args.int8 and not int8_fits(cfg, device, args.fp32_fallback):
+        raise SystemExit(
+            f"{cfg.name}: its int8 build holds "
+            f"{int8_peak_bytes(cfg, args.fp32_fallback) / 1e9:.1f} GB of "
+            f"weights at its peak, more than 0.8 of the card"
+            + (" (--fp32-fallback keeps the bf16 model beside the int8 "
+               "copy)" if args.fp32_fallback else ""))
+    text_len = args.prompt_len - cfg.prefix_tokens
+    if text_len < 1:
+        raise SystemExit(f"{cfg.name}: --prompt-len counts its "
+                         f"{cfg.prefix_tokens} patches and at least one "
+                         f"text token, got {args.prompt_len}")
     model = Model(cfg, device=device).init_weights(args.seed)
+    if args.int8 and not args.fp32_fallback:
+        # the bf16 projections go block by block as the int8 copy is built
+        model = model.quantize_params_for_serving(release=True)
     plan = _parse_faults(args)
     if args.requests:
         if not model.supports_paged_serving:
-            raise SystemExit(f"{cfg.name}: continuous batching serves "
-                             f"decoder-only models; run the fixed loop")
+            raise SystemExit(
+                f"{cfg.name}: continuous batching prefills tokens only, "
+                f"and this model also takes "
+                f"{'frames' if cfg.encdec else 'patches'}; run the fixed "
+                f"loop")
         return _continuous(args, model, cfg, plan)
 
     gen = torch.Generator().manual_seed(args.seed)
-    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+    tokens = torch.randint(0, cfg.vocab, (args.batch, text_len),
                            generator=gen)
     batch = {"tokens": tokens}
     if cfg.encdec:
         batch["frames"] = make_frames(cfg, args.batch, args.seed)
+    if cfg.prefix_tokens:
+        batch["patches"] = make_patches(cfg, args.batch, args.seed)
     eng = ServeEngine(model, ServeConfig(max_new_tokens=args.max_new,
                                          **_guards(args)))
     served = eng.model
@@ -325,7 +385,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     logits, cache = served.prefill(tokens, max_len=args.prompt_len
                                    + args.max_new,
-                                   frames=batch.get("frames"))
+                                   frames=batch.get("frames"),
+                                   patches=batch.get("patches"))
     _sync(device)
     t1 = time.perf_counter()
     tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
@@ -334,8 +395,9 @@ def main(argv=None):
         tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
     _sync(device)
     t2 = time.perf_counter()
-    # generate_with_status (an encoder-decoder takes its fall-through to
-    # the fixed loop) under the retry wrapper, the drills' plan riding it
+    # generate_with_status (an encoder-decoder or a prefix-LM takes its
+    # fall-through to the fixed loop) under the retry wrapper, the drills'
+    # plan riding it
     res = generate_with_retry(eng, batch, args.seed, retries=args.retries,
                               fault_plan=plan)
     _sync(device)

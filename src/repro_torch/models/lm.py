@@ -1,7 +1,8 @@
 """The GQA decoder (global, sliding-window or chunked attention + gated
-MLP or routed MoE, tied embeddings) and whisper's encoder-decoder:
-parameters, forward in ``prefill``, ``decode`` and ``paged`` modes, the
-dense KV cache and the paged KV pools, and the int8 serving copy.
+MLP or routed MoE, tied embeddings), whisper's encoder-decoder and
+paligemma's patch prefix: parameters, forward in ``prefill``, ``decode``
+and ``paged`` modes, the dense KV cache and the paged KV pools, and the
+int8 serving copy.
 
 Layer i's attention kind is ``cfg.block_pattern[i % period]`` (gemma2
 alternates 'local' and 'global'); its RoPE theta is ``rope_theta``, or
@@ -30,10 +31,22 @@ rmsnorm.  The decoder takes sinusoidal positions, no RoPE; each block
 adds a cross-attention over the encoder output between the self-attention
 and the MLP (its own standalone rmsnorm ``lnx``).  The encoder output is
 held beside the dense cache (``Cache.enc_out``) and decode recomputes the
-cross-attention K/V from it at every step.  Its config keeps the
-reference's float32 ``param_dtype``; the port holds the projection
-weights at the compute dtype (bf16 on the card, cast once when the model
-is built or loaded), the embedding and norm scales at fp32.
+cross-attention K/V from it at every step.
+
+paligemma (``cfg.prefix_tokens``, the reference's ``_embed_inputs``,
+``lm.py:346-361``): the prefill takes ``prefix_tokens`` (stubbed) patch
+embeddings [B, P, D]; the text tokens' rows are gathered and scaled by
+``sqrt(d_model)`` first, then the patches, cast to the compute dtype and
+not scaled, are put in front.  Positions and RoPE run over P + S, and the
+layers keep their own kind: paligemma's 'global' attends to the patches
+causally, as the reference's does (ROADMAP F5).  Decode takes no patches.
+
+whisper's and paligemma's configs keep the reference's float32
+``param_dtype`` (its training master copy); the port serves their
+projection weights at the compute dtype (bf16 on the card, cast once when
+the model is built or loaded), the embedding and norm scales at fp32.
+Other float32 configs (internlm2-1.8b, the smoke configs) keep float32
+weights, so that their int8 copies are the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -122,9 +135,10 @@ class Block(nn.Module):
     @classmethod
     def quantized(cls, blk: "Block", cfg: ArchConfig) -> "Block":
         """The int8 serving copy of ``blk``: the packed ``wqkv``, ``wo``
-        and the MLP's projections quantized column-wise; the norm scales
-        and whisper's cross-attention shared (the reference's pass skips
-        ``xattn``)."""
+        and the MLP's projections quantized column-wise; the norm scales,
+        whisper's cross-attention and llama4's MoE (router, experts and
+        shared expert) shared (the reference's pass skips ``xattn`` and an
+        MoE's ``ffn``, ``lm.py:194-208``)."""
         q = cls.__new__(cls)
         nn.Module.__init__(q)
         q.ln1, q.ln2 = blk.ln1, blk.ln2
@@ -133,7 +147,7 @@ class Block(nn.Module):
         qw = quantize_weight_colwise
         q.attn = Attention(cfg, None, None, weights={
             "wqkv": qw(blk.attn.wqkv), "wo": qw(blk.attn.wo)})
-        q.ffn = MLP(cfg, None, None, weights={
+        q.ffn = blk.ffn if cfg.moe else MLP(cfg, None, None, weights={
             name: qw(getattr(blk.ffn, name)) for name in blk.ffn.names})
         return q
 
@@ -177,10 +191,11 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.compute_dtype = _dtype(cfg.compute_dtype)
         dt = _dtype(cfg.param_dtype)
-        # whisper's float32 param_dtype is the reference's training master
-        # copy; served, its projection weights are held at the compute
-        # dtype, so no GEMM casts them at use
-        proj = self.compute_dtype if cfg.encdec else dt
+        # whisper's and paligemma's float32 param_dtype is the reference's
+        # training master copy; served, their projection weights are held
+        # at the compute dtype, so no GEMM casts them at use
+        proj = (self.compute_dtype if cfg.encdec or cfg.prefix_tokens
+                else dt)
         self.embed = nn.Parameter(
             torch.empty(cfg.padded_vocab(), cfg.d_model, dtype=dt,
                         device=self.device), requires_grad=False)
@@ -210,24 +225,31 @@ class Model(nn.Module):
         return self
 
     @torch.no_grad()
-    def quantize_params_for_serving(self) -> "Model":
+    def quantize_params_for_serving(self, release: bool = False) -> "Model":
         """One-shot int8 weight quantization for serving: a new ``Model``
         whose decoder blocks' packed ``wqkv``, ``wo`` and MLP ``gate``/
         ``up``/``down`` are ``QuantizedWeight``s (int8 values stored once
         transposed, [N, K], the K-major operand of K2's s8 wgmma; one f32
         scale per output column) and which shares this model's embedding
         and norm scales (the tied head keeps full precision for the
-        logits), and whisper's encoder and cross-attention (the
-        reference's pass skips ``/encoder/`` and ``/xattn/``,
-        ``lm.py:202``).  Idempotent: an int8 model returns itself.  An MoE
-        model (whose reference pass quantizes only ``wqkv`` and ``wo``,
-        ``lm.py:194-208``) is not ported: it raises."""
+        logits), whisper's encoder and cross-attention (the reference's
+        pass skips ``/encoder/`` and ``/xattn/``, ``lm.py:202``) and an
+        MoE model's FFN (only ``wqkv`` and ``wo`` are quantized,
+        ``lm.py:194-208``).  Idempotent: an int8 model returns itself.
+
+        ``release``: quantize this model in place, block by block, each
+        block's float projections dropped as soon as its int8 copy exists
+        (the reference's engine replaces the float weights,
+        ``serve/engine.py:240-248``).  The peak is then the float model
+        plus one block's int8 copy, and this model, returned, is the int8
+        one: nothing serves the float weights afterwards."""
         if self.int8:
             return self
-        if self.cfg.moe:
-            raise NotImplementedError(
-                f"{self.cfg.name}: int8 serving of an MoE model is not "
-                f"ported")
+        if release:
+            for i in range(len(self.blocks)):
+                self.blocks[i] = Block.quantized(self.blocks[i], self.cfg)
+            self.int8 = True
+            return self
         q = Model.__new__(Model)
         nn.Module.__init__(q)
         q.cfg, q.int8, q.device = self.cfg, True, self.device
@@ -243,11 +265,12 @@ class Model(nn.Module):
     def supports_paged_serving(self) -> bool:
         """The paged scheduler serves single-device decoder stacks of the
         attention kinds K6 takes ('global', 'local', 'chunked'); an
-        encoder-decoder prefills through extra inputs (the frames) the
-        chunk loop does not model, so engines take the fixed loop for it
-        (the reference's ``lm.py:562-565``)."""
-        return not self.cfg.encdec and all(
-            kind in PAGED_KINDS for kind in self.cfg.block_pattern)
+        encoder-decoder or a prefix-LM prefills through extra inputs (the
+        frames, the patches) the chunk loop does not model, so engines
+        take the fixed loop for it (the reference's ``lm.py:562-565``)."""
+        cfg = self.cfg
+        return not cfg.encdec and not cfg.prefix_tokens and all(
+            kind in PAGED_KINDS for kind in cfg.block_pattern)
 
     def _theta(self, kind: str) -> float:
         cfg = self.cfg
@@ -339,24 +362,30 @@ class Model(nn.Module):
                 pos: Optional[int] = None,
                 positions: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None,
-                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                enc_out: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S].  With ``page_table`` [B, P]: paged serving, the
         cache is the page pools and ``positions`` [B, S] holds per-token
         positions (-1 = inactive).  Otherwise ``pos`` None is prefill (the
         dense cache is filled from slot 0), else one decode token at
         position ``pos``.  Whisper's decoder attends ``enc_out`` [B, F, D]
-        in every block.  Returns the final-normed stream [B, S, D]."""
+        in every block; paligemma's prefill puts ``patches`` [B, P, D] in
+        front of the tokens.  Returns the final-normed stream [B, P + S,
+        D]."""
         cfg, cd = self.cfg, self.compute_dtype
         h = vocab_parallel_embed(self.embed, tokens, cd)
         # the sqrt(d) multiplier is rounded to the compute dtype first
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cd,
                              device=h.device)
+        if patches is not None:
+            # the patches in front, cast and not scaled (lm.py:352-355)
+            h = torch.cat([patches.to(h.device).to(cd), h], dim=1)
         if cfg.encdec:
             # sinusoidal positions from the first token's (lm.py:356-360)
             h = h + sinusoid(0 if pos is None else pos, tokens.shape[1],
                              cfg.d_model, cd, h.device)
         if page_table is None:
-            positions = (torch.arange(tokens.shape[1], device=h.device)
+            positions = (torch.arange(h.shape[1], device=h.device)
                          if pos is None
                          else torch.tensor([pos], device=h.device))
         xn = rmsnorm(h, self.blocks[0].ln1, cfg.norm_eps)
@@ -374,15 +403,27 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
-                frames: Optional[torch.Tensor] = None
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         """tokens [B, S] -> (last-token logits [B, Vp] fp32, cache with
         ``max_len`` slots).  Whisper takes its clips' frame embeddings
         ``frames`` [B, F, D]: the encoder runs here and its output is held
-        in the cache (``Cache.enc_out``) for the decode steps."""
+        in the cache (``Cache.enc_out``) for the decode steps.  paligemma
+        takes its images' patch embeddings ``patches`` [B, P, D], P =
+        ``prefix_tokens``: the prompt is P + S positions long, and the
+        first decode step is at position P + S."""
+        cfg = self.cfg
         b, s = tokens.shape
-        cache = self.new_cache(b, max(max_len or s, s, 1))
-        if self.cfg.encdec:
+        p = cfg.prefix_tokens
+        if p:
+            if patches is None or tuple(patches.shape) != (b, p, cfg.d_model):
+                raise ValueError(f"{cfg.name} prefills from patches "
+                                 f"[{b}, {p}, {cfg.d_model}]")
+        elif patches is not None:
+            raise ValueError(f"{cfg.name} has no prefix for patches")
+        cache = self.new_cache(b, max(max_len or p + s, p + s, 1))
+        if cfg.encdec:
             if frames is None or frames.shape[0] != b:
                 raise ValueError(f"{self.cfg.name} prefills from frames "
                                  f"[{b}, F, {self.cfg.d_model}]")
@@ -390,7 +431,7 @@ class Model(nn.Module):
         elif frames is not None:
             raise ValueError(f"{self.cfg.name} has no encoder for frames")
         h = self.forward(tokens.to(self.device), cache=cache,
-                         enc_out=cache.enc_out)
+                         enc_out=cache.enc_out, patches=patches)
         logits = vocab_parallel_logits(h[:, -1:], self.embed,
                                        self.cfg.final_softcap)
         return logits[:, 0], cache

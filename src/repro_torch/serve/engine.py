@@ -11,10 +11,11 @@ cache behind ``submit()/step()/collect()``, and the fixed-batch loop.
 ``generate()`` / ``generate_with_status()`` are shims over a cached
 fixed-geometry scheduler, as in the reference, whose greedy tokens equal
 the fixed loop's; a model the scheduler cannot serve (whisper's
-encoder-decoder, ``Model.supports_paged_serving``) falls through to the
-fixed loop, which hands the batch's ``frames`` to its prefill, and its
-``submit()`` raises.  With ``ServeConfig(int8=True)`` the engine serves the
-model's int8 copy (``Model.quantize_params_for_serving``); a saturation
+encoder-decoder, paligemma's prefix-LM, ``Model.supports_paged_serving``)
+falls through to the fixed loop, which hands the batch's ``frames`` or
+``patches`` to its prefill, and its ``submit()`` raises.  With
+``ServeConfig(int8=True)`` the engine serves the model's int8 copy
+(``Model.quantize_params_for_serving``); a saturation
 probe, calibrated on each request's first logits, marks requests whose
 logits drift past the int8 envelope as ``degraded_fp32`` and, with
 ``fp32_fallback``, finishes them on the retained bf16 model over the same
@@ -190,6 +191,10 @@ def pick_lanes(real: torch.Tensor, ldtype: torch.dtype,
 
 class ServeEngine:
     def __init__(self, model: Model, scfg: ServeConfig = ServeConfig()):
+        if scfg.fp32_fallback and model.int8:
+            raise ValueError(
+                "fp32_fallback finishes lanes on the float model, and this "
+                "model is already int8 (its float weights were released)")
         self.scfg = scfg
         # int8: the one-shot quantized copy serves; the bf16 model stays
         # only under fp32_fallback
@@ -439,7 +444,9 @@ class ServeEngine:
         int8 each lane's first logits calibrate its saturation probe, and
         a degraded lane picks from the float model's logits under
         ``fp32_fallback``.  Whisper's batch carries ``frames`` [B, F, D],
-        which the prefill encodes.  A sampled config (``greedy=False``)
+        which the prefill encodes, and paligemma's ``patches`` [B, P, D],
+        which it puts in front of the tokens: the prompt is then P + S
+        positions long.  A sampled config (``greedy=False``)
         draws every lane's pick from one key: ``PRNGKey(seed)`` for token
         0, then ``key, pick_key = split(key)`` after each decode step (a
         degraded lane picks from the float logits with the same key).
@@ -462,12 +469,14 @@ class ServeEngine:
         admit = b_full if scfg.max_lanes is None \
             else min(b_full, scfg.max_lanes)
         toks = toks[:admit]
-        frames = batch.get("frames")
-        if frames is not None:
-            frames = torch.as_tensor(frames)[:admit]
-        prompt_len = toks.shape[1]
+        frames, patches = (None if batch.get(k) is None
+                           else torch.as_tensor(batch[k])[:admit]
+                           for k in ("frames", "patches"))
+        # the patches are positions of the prompt (engine.py:625)
+        prompt_len = toks.shape[1] + self.model.cfg.prefix_tokens
         logits, cache = self.model.prefill(
-            toks, max_len=prompt_len + scfg.max_new_tokens, frames=frames)
+            toks, max_len=prompt_len + scfg.max_new_tokens, frames=frames,
+            patches=patches)
         # the clock starts once prefill has returned: the budget bounds the
         # decode loop, not the first call's kernel build
         deadline = (time.monotonic() + scfg.request_timeout_s

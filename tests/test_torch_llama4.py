@@ -126,7 +126,9 @@ def test_eight_layers_fit_one_card():
     geom = tserve.geometry(ARCH)
     assert geom == tserve.LLAMA4_GEOMETRY
     assert geom["max_seq_len"] >= 8180 + 32 > cfg.window
-    assert not tserve.int8_fits(cfg, torch.device("cpu"))
+    # the attention-only int8 copy (0.51 GB) fits beside the bf16 model
+    assert tserve.int8_fits(cfg, torch.device("cuda"), True, total=80e9)
+    assert tserve.int8_peak_bytes(cfg, True) < 2 * cfg.param_count() + 6e8
 
 
 # ---------------------------------------------------------------------------
@@ -528,11 +530,16 @@ def test_convert_carries_the_moe_tree():
 
 
 def test_int8_moe_is_refused():
-    tm = Model(get_config(ARCH, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.quantize_params_for_serving()
-    with pytest.raises(NotImplementedError):
-        ServeEngine(tm, ServeConfig(int8=True))
+    """No longer refused: an MoE model's int8 copy quantizes the
+    attention's ``wqkv`` and ``wo`` and shares the MoE, as the reference's
+    pass does (``test_torch_int8_models.py`` holds it to the reference).
+    The engine serves that copy."""
+    tm = Model(get_config(ARCH, smoke=True), device="cpu").init_weights(0)
+    q = tm.quantize_params_for_serving()
+    assert q.int8 and all(b.ffn is a.ffn for a, b in zip(tm.blocks,
+                                                         q.blocks))
+    eng = ServeEngine(tm, ServeConfig(int8=True))
+    assert eng.model.int8 and eng.fp_model is None
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +674,8 @@ def test_a_lanes_tokens_depend_on_its_neighbours_under_moe_capacity():
 
 def test_launcher_serves_the_smoke_config(capsys):
     """``launch.serve --arch llama4-scout-17b-a16e --smoke --device cpu``
-    with ``--layers`` and ``--requests``; ``--int8`` is refused."""
+    with ``--layers`` and ``--requests``; ``--int8`` (no longer refused)
+    serves the attention-only int8 copy."""
     tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--layers",
                  "2", "--batch", "2", "--prompt-len", "20", "--max-new",
                  "3"])
@@ -676,6 +684,8 @@ def test_launcher_serves_the_smoke_config(capsys):
     tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--layers",
                  "2", "--requests", "2"])
     assert "request 1:" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                     "--int8"])
+    tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--layers",
+                 "2", "--batch", "2", "--prompt-len", "20", "--max-new",
+                 "3", "--int8"])
+    out = capsys.readouterr().out
+    assert "llama4-scout-smoke int8 on cpu" in out and "lane 1: ok" in out
