@@ -181,6 +181,19 @@ line):
    K5 at these shapes beside SDPA (``check_paligemma_kernels``), K1 at its
    five projections at M = 8 and 4096 and K2 at M = 8; phase 3 its smoke
    config card against CPU, bf16 and int8 (``check_fixed_smoke``).
+10. serve: full-width recurrentgemma-9b, all 38 layers (26 RG-LRU blocks,
+   12 local-attention blocks at hd 256 with G = 16, window 2048), random
+   weights from SEED (``serve_recurrentgemma``).  At the init scales the
+   decode-vs-prefill witness past the window (2 x 4160, 16 steps), the
+   mixers' state carried (8 x 512, one step against a prefill of 513) and
+   the int8 witness; then, on varied weights, ``generate_with_status``
+   (the fall-through to the fixed loop) bf16 and int8 on 2 x 4160 (16
+   tokens) and 8 x 512 (32 tokens): statuses ok, every variant launched,
+   one decode iteration's launches exact.  Phase 2 holds K4 'local' at
+   this shape beside SDPA (``check_recurrentgemma_kernels``), K1 at its
+   widths at M = 8 and 8320 and K2 at M = 8, and times the mixer's plain
+   parts (``rglru_rows``: the scan, the fp32 gates, a mixer call); phase
+   3 its smoke config card against CPU, bf16 and int8.
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -248,6 +261,16 @@ PG_B, PG_PREFIX, PG_S, PG_H, PG_KV, PG_HD = 4, 256, 512, 8, 1, 256
 # 1 kv head of 256 (G = 8)
 PG_ARCH, PG_D, PG_FF = "paligemma-3b", 2048, 16384
 PG_BATCH, PG_TEXT, PG_NEW = 8, PG_S - PG_PREFIX, 32
+# recurrentgemma-9b (src/repro_torch/configs/recurrentgemma_9b.py): 26
+# RG-LRU blocks and 12 local-attention blocks (16 q heads over 1 kv head
+# of 256, G = 16, window 2048), d_model 4096, d_ff 12288, vocab 256000;
+# phase 10 serves all 38 layers through generate_with_status (the fixed
+# loop): 2 prompts of 4160 tokens (past the window: K4's local mask beyond
+# it, the ring wrapped) with 16 new tokens, then 8 prompts of 512 with 32
+RG_ARCH = "recurrentgemma-9b"
+RG_H, RG_KV, RG_HD, RG_WINDOW, RG_D, RG_FF = 16, 1, 256, 2048, 4096, 12288
+RG_LONG_BATCH, RG_LONG_PROMPT, RG_LONG_NEW = 2, 4160, 16
+RG_BATCH, RG_PROMPT, RG_NEW = 8, 512, 32
 # kernels each driven path must launch (the counts are read per path)
 # (a variant's launches are counted under "<kernel>:<variant>"; a row pass
 # in a GEMM's store phase is its variant "norm" or "quantize")
@@ -329,6 +352,16 @@ PATH_KERNELS = {
                              "int8_matmul:quantize", "int8_quantize",
                              "quantize", "rmsnorm", "flash_attention:hd256",
                              "flash_decode:hd256"),
+    # recurrentgemma: K4 'local' at hd 256 and G = 16 in its 12 local
+    # layers' prefill (their decode is the plain ring, no K5), K1 (or K2
+    # with K3) for those layers' qkv and o and every MLP; the RG-LRU
+    # mixers are library products and plain torch (no kernel)
+    "recurrentgemma_fixed": ("matmul", "matmul:norm", "rmsnorm",
+                             "flash_attention:local+hd256"),
+    "recurrentgemma_fixed_int8": ("int8_matmul", "int8_matmul:norm",
+                                  "int8_matmul:quantize", "int8_quantize",
+                                  "quantize", "rmsnorm",
+                                  "flash_attention:local+hd256"),
 }
 
 
@@ -497,6 +530,10 @@ K1_WIDTHS = {
     # paligemma: its fixed loop's decode (8 rows) and prefill (8 x 512)
     "paligemma": (PG_D, (PG_H + 2 * PG_KV) * PG_HD, PG_H * PG_HD, PG_FF,
                   (PG_BATCH, PG_BATCH * PG_S)),
+    # recurrentgemma: the local layers' qkv (N 4608) and o, every layer's
+    # MLP, at the fixed loop's decode (8 rows) and long prefill (2 x 4160)
+    "recurrentgemma": (RG_D, (RG_H + 2 * RG_KV) * RG_HD, RG_H * RG_HD, RG_FF,
+                       (RG_BATCH, RG_LONG_BATCH * RG_LONG_PROMPT)),
 }
 
 
@@ -802,6 +839,13 @@ def check_kernels(torch, timer):
                                        "patches and 256 text tokens")):
         results[f"k1_matmul_paligemma_m{m}"] = k1_entry(
             "paligemma", m, f"paligemma-3b's {five} at {where} (M={m})")
+    for m, where in ((RG_BATCH, "the fixed loop's decode"),
+                     (RG_LONG_BATCH * RG_LONG_PROMPT,
+                      "the fixed loop's prefill of 2 x 4160")):
+        results[f"k1_matmul_recurrentgemma_m{m}"] = k1_entry(
+            "recurrentgemma", m,
+            f"recurrentgemma-9b's {five} at {where} (M={m}; qkv and o in "
+            f"its 12 local layers, the MLP in all 38)")
 
     # K4 flash prefill: each (b, s, h) row within 4 bf16 ulps of its own
     # scale (P is rounded to bf16 for the P.V product, then the output is
@@ -900,7 +944,7 @@ def check_int8_kernels(torch, timer):
     # granite-3-8b's, gemma3-12b's and paligemma-3b's widths
     for model, m in (("granite", LANES), ("granite", LANES * CHUNK),
                      ("gemma3", LANES), ("gemma3", LANES * CHUNK),
-                     ("paligemma", PG_BATCH)):
+                     ("paligemma", PG_BATCH), ("recurrentgemma", RG_BATCH)):
         d, qkv_n, o_k, ff = K1_WIDTHS[model][:4]
         qx, sx = ref.quantize_rowwise_ref(rand(m, d))
         qo, so = ref.quantize_rowwise_ref(rand(m, o_k))
@@ -984,7 +1028,8 @@ def check_int8_kernels(torch, timer):
             ("k2_int8_matmul_m512", "granite", LANES * CHUNK),
             ("k2_int8_matmul_gemma3", "gemma3", LANES),
             ("k2_int8_matmul_gemma3_m512", "gemma3", LANES * CHUNK),
-            ("k2_int8_matmul_paligemma", "paligemma", PG_BATCH)):
+            ("k2_int8_matmul_paligemma", "paligemma", PG_BATCH),
+            ("k2_int8_matmul_recurrentgemma", "recurrentgemma", RG_BATCH)):
         rows = [r for r in shapes
                 if r["model"] == model and f" M={m} " in r["shape"]]
         lib = [r["library_ms"] for r in rows]
@@ -1695,12 +1740,17 @@ def k6_bound(q, table, positions, kv, window, chunked=False):
 
 def vary(torch, model, seed):
     """Random norm scales and tripled block weights, so greedy decoding of
-    the small model changes token from step to step.  An int8 model (the
-    releasing build's) triples its ``QuantizedWeight``s' column scales."""
+    the small model changes token from step to step.  An RG-LRU mixer
+    keeps its init (tripled, its recurrence gate saturates: a -> 1, and
+    ``1 - a^2`` cancels to nothing; ``tests/test_torch_recurrentgemma.py``
+    keeps it so too).  An int8 model (the releasing build's) triples its
+    ``QuantizedWeight``s' column scales."""
     from repro_torch.kernels.quantize import QuantizedWeight
     gen = torch.Generator(device=model.device).manual_seed(seed + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
+            if ".mix." in name:
+                continue
             if p.dim() == 1:
                 p.copy_(0.5 * torch.randn(p.shape, generator=gen,
                                           device=model.device))
@@ -3117,11 +3167,13 @@ def check_whisper_kernels(torch, timer):
     return results
 
 
-def check_fixed_smoke(torch, arch: str):
+def check_fixed_smoke(torch, arch: str, **over):
     """Phase 3, the models served through the fixed loop only: whisper
-    (2 encoder and 2 decoder layers, 24 frames a clip) and paligemma (2
-    layers, 8 patches an image), each smoke config at bf16 compute and
-    bf16 projection weights as the full model has them, card against
+    (2 encoder and 2 decoder layers, 24 frames a clip), paligemma (2
+    layers, 8 patches an image) and recurrentgemma (5 layers: one group
+    of (rglru, rglru, local) and the (rglru, rglru) tail, window 16;
+    ``over`` its bf16 ``param_dtype``), each smoke config at bf16 compute
+    and bf16 projection weights as the full model has them, card against
     CPU, weights varied as in phase 3, through ``generate_with_status``
     (its fall-through to the fixed loop), bf16 and int8: the card's
     teacher-forced logits (prefill with the frames or the patches, then
@@ -3137,7 +3189,7 @@ def check_fixed_smoke(torch, arch: str):
     from repro_torch.models.lm import Model
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-    cfg = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
     cpu = Model(cfg, device="cpu").init_weights(SEED)
     vary(torch, cpu, SEED)
     card = Model(cfg)
@@ -3149,7 +3201,8 @@ def check_fixed_smoke(torch, arch: str):
     toks = torch.randint(0, cfg.vocab, (BATCH, plen),
                          generator=torch.Generator().manual_seed(SEED + 3))
     inputs = ({"frames": make_frames(cfg, BATCH, SEED + 3)} if cfg.encdec
-              else {"patches": make_patches(cfg, BATCH, SEED + 3)})
+              else {"patches": make_patches(cfg, BATCH, SEED + 3)}
+              if cfg.prefix_tokens else {})
     batch = {"tokens": toks, **inputs}
     prompt = plen + cfg.prefix_tokens
 
@@ -3900,6 +3953,262 @@ def serve_paligemma(torch):
     return out
 
 
+def check_recurrentgemma_kernels(torch, timer):
+    """Phase 2, recurrentgemma: K4 'local' at hd 256 with G = 16 (16 q
+    heads over 1 kv head, window 2048) over the fixed loop's prefill, 2 x
+    4160 (past the window), each row within 2 bf16 ulps of its scale,
+    beside SDPA with the window as a bool mask.  K1 and K2 at its widths
+    are ``check_kernels``' and ``check_int8_kernels``' rows."""
+    from repro_torch.kernels import ops, ref
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    tol = 2 * eps_bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    bf = torch.bfloat16
+    b, s, H, KV, hd, W = (RG_LONG_BATCH, RG_LONG_PROMPT, RG_H, RG_KV, RG_HD,
+                          RG_WINDOW)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    q, k, v = rand(b, s, H, hd), rand(b, s, KV, hd), rand(b, s, KV, hd)
+    var = dict(kind="local", window=W)
+    got = ops.flash_attention(q, k, v, **var)
+    want = ref.flash_attention_ref(q, k, v, **var)
+    err, abs_err = row_err(got, want), max_err(got, want)
+    del got, want
+    require(err <= tol, f"K4 recurrentgemma: a row is off by {err:.3e} of "
+                        f"its scale")
+    pos = torch.arange(s, device="cuda")
+    local = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    live = sum(min(i + 1, W) for i in range(s))
+    t_b, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                    4 * b * H * hd * live)
+    results = {"k4_flash_prefill_recurrentgemma": dict(
+        work=f"local prefill window={W} B={b} S={s} H={H} KV={KV} hd={hd} "
+             f"(G = {H // KV}; 64-slot K/V tiles)",
+        max_abs_err=abs_err, max_row_err=err, tol=tol,
+        ms=timer(lambda: ops.flash_attention(q, k, v, **var), reps=3),
+        wrapper_ms=timer.wall(lambda: ops.flash_attention(q, k, v, **var),
+                              reps=3),
+        plain_ms=timer(lambda: ref.flash_attention_ref(q, k, v, **var),
+                       reps=3),
+        bound_ms=t_b, bound_by=by,
+        library_ms=sdpa_ms(torch, timer, q, k, v, attn_mask=local),
+        library_note="SDPA with the local window as a bool mask (sdpa_ms)")}
+    print("  k4 " + json.dumps(results), flush=True)
+    del q, k, v, local
+    torch.cuda.empty_cache()
+    return results
+
+
+def rglru_rows(torch, timer):
+    """The RG-LRU mixer's plain-torch parts at full width (no kernel of the
+    reference's: library products and elementwise launches), device ms
+    beside the least time their bytes or operations take: the scan over
+    the long prefill's [2, 4160, 4096] (reads a and b, writes h), the fp32
+    gate products (``w_a``, ``w_i``: 4096 x 4096 each, TF32 off) at the
+    prefill's 8320 rows and the decode's 8, and one mixer call
+    (``rglru_apply``: projections, conv, gates, scan or step, output gate)
+    at each shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+
+    cfg = get_config(RG_ARCH)
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    w = cfg.lru_width
+    mix = rglru.RGLRU(cfg, bf, torch.device("cuda"))
+    with torch.no_grad():
+        for name, p in mix.named_parameters():
+            if name == "lam":
+                p.copy_(rglru.lru_log_init(p.shape, gen, p.device))
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * p.shape[-2] ** -0.5)
+    b, s = RG_LONG_BATCH, RG_LONG_PROMPT
+    a = torch.rand((b, s, w), generator=gen, device="cuda")
+    bb = torch.randn((b, s, w), generator=gen, device="cuda")
+    t_b, by = bound(3 * a.numel() * 4, 0)
+    out = {}
+    out["scan"] = dict(shape=f"[{b}, {s}, {w}] fp32",
+                       ms=timer(lambda: rglru.linear_scan(a, bb), reps=3),
+                       bound_ms=t_b, bound_by=by)
+    del a, bb
+    for m in (b * s, RG_BATCH):
+        xc = torch.randn((1, m, w), generator=gen, device="cuda")
+        nbytes = 2 * w * w * 4 + m * w * 4 * 3
+        t_b, by = bound(nbytes, 2 * 2 * m * w * w, FP32_FLOPS_PER_S)
+        out[f"gates_m{m}"] = dict(
+            shape=f"2 x [{m}, {w}] @ [{w}, {w}] fp32",
+            ms=timer(lambda xc=xc: rglru.gates(mix, xc), reps=3),
+            bound_ms=t_b, bound_by=by)
+    for name, rows, m, decode in (("mixer_prefill", b, s, False),
+                                  ("mixer_decode", RG_BATCH, 1, True)):
+        x = torch.randn((rows, m, cfg.d_model), generator=gen,
+                        device="cuda").to(bf)
+        cache = rglru.rglru_cache(cfg, rows, bf, torch.device("cuda"))
+        # the weights once and x in, y out; the bf16 projections' and the
+        # fp32 gates' operations each at their type's peak
+        nbytes = (3 * cfg.d_model * w * 2 + 2 * w * w * 4
+                  + 2 * rows * m * cfg.d_model * 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (2 * rows * m * 3 * cfg.d_model * w / BF16_FLOPS_PER_S
+                 + 2 * rows * m * 2 * w * w / FP32_FLOPS_PER_S) * 1e3
+        out[name] = dict(
+            shape=f"x [{rows}, {m}, {cfg.d_model}] bf16",
+            ms=timer(lambda x=x, cache=cache, decode=decode:
+                     rglru.rglru_apply(mix, x, cfg, bf, cache, decode),
+                     reps=3),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print("  rglru plain " + json.dumps(out), flush=True)
+    del mix
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_recurrentgemma(torch, rglru_plain):
+    """Phase 10: recurrentgemma-9b at full width and all 38 layers (26
+    RG-LRU blocks, 12 local-attention blocks of 16 q heads over 1 kv head
+    of 256, window 2048; d_model 4096, d_ff 12288, vocab 256000; bf16
+    weights, the mixers' gates and decays at fp32: 20.5 GB), random
+    weights from SEED, built after the models of the phases before it are
+    gone.  At the init scales three witnesses: the fixed loop's decode
+    step at position 4174 after a prefill of 2 x 4160 (the ring wrapped,
+    each mixer's state advanced 15 times) against a prefill of the same
+    4175 tokens, the mixers' state carried (a prefill of 8 x 512, one
+    decode step, against a prefill of 513: ``long_witness`` with 2), and
+    the int8 copy's first logits against the bf16 model's on 8 x 512
+    (``int8_witness``).  Then, on weights varied as in phase 3 (the
+    mixers kept at their init), ``generate_with_status`` (the engine
+    falls through to the fixed loop: an RG-LRU state has no pages) bf16
+    and int8, each on 2 x 4160
+    with 16 new tokens and on 8 x 512 with 32, the launch counts set to 0
+    just before the two: every status ok, no scheduler built, every
+    kernel of ``PATH_KERNELS[<its name>]`` launched (K1 or K2 with K3 and
+    its tails, K4 'local' at hd 256 and G = 16), one decode iteration's
+    launches exact (``decode_launches``; its GEMMs three a layer and two
+    a local layer, no K5).  The prefill (time to first token) and the
+    decode step are timed at both shapes."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(RG_ARCH)
+    n_local = sum(cfg.kind(i) == "local" for i in range(cfg.n_layers))
+    require((cfg.n_layers, n_local, cfg.hd, cfg.n_heads, cfg.n_kv_heads,
+             cfg.window, cfg.d_model, cfg.d_ff)
+            == (38, 12, RG_HD, RG_H, RG_KV, RG_WINDOW, RG_D, RG_FF), f"{cfg}")
+    t0 = time.perf_counter()
+    model = Model(cfg).init_weights(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    shapes = {"long": (RG_LONG_BATCH, RG_LONG_PROMPT, RG_LONG_NEW),
+              "batch8": (RG_BATCH, RG_PROMPT, RG_NEW)}
+    toks = {key: torch.randint(0, cfg.vocab, (b, s), generator=(
+        torch.Generator().manual_seed(SEED + i)))
+        for i, (key, (b, s, _)) in enumerate(shapes.items())}
+    out = {"recurrentgemma_witness": long_witness(
+        torch, model, toks["long"], RG_LONG_NEW),
+        "recurrentgemma_state_witness": long_witness(
+            torch, model, toks["batch8"], 2),
+        "recurrentgemma_int8_witness": int8_witness(torch, model,
+                                                    toks["batch8"])}
+    print("recurrentgemma witness: " + json.dumps(out), flush=True)
+    vary(torch, model, SEED)
+    for int8 in (False, True):
+        name = ("recurrentgemma_fixed_int8" if int8
+                else "recurrentgemma_fixed")
+        t0 = time.perf_counter()
+        served = model.quantize_params_for_serving() if int8 else model
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        runs = {}
+        for key, (b, s, new) in shapes.items():
+            # the int8 copy is served as it is (the quantize is idempotent)
+            engine = ServeEngine(served, ServeConfig(max_new_tokens=new,
+                                                     int8=int8))
+            t = time.perf_counter()
+            res = engine.generate_with_status({"tokens": toks[key]})
+            torch.cuda.synchronize()
+            runs[key] = (res, time.perf_counter() - t)
+            require(engine._sched is None and not engine._shim_cache,
+                    f"{name}: generate_with_status built a scheduler")
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        missing = [key for key in PATH_KERNELS[name]
+                   if variant_launches(launches, key) <= 0]
+        require(not missing, f"{name}: never launched {missing}: "
+                             f"{launches}")
+        report = dict(params=cfg.param_count(), init_s=init_s,
+                      weights_gb=weights_gb, int8=int8, build_s=build_s,
+                      launches=launches, peak_gb=peak / 1e9)
+        for key, (b, s, new) in shapes.items():
+            res, gen_s = runs[key]
+            require(res.tokens.shape == (b, new),
+                    f"{name} {key} tokens {res.tokens.shape}")
+            require(all(st == "ok" for st in res.status),
+                    f"{name} {key} statuses {res.status}")
+            # the prefill (the time to first token) and the decode step
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = served.prefill(toks[key], s + new)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+            require(bool(torch.isfinite(logits).all())
+                    and logits.shape == (b, cfg.padded_vocab()),
+                    f"{name} {key} prefill logits")
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(new - 2):
+                logits, cache = served.decode_step(cache, tok, s + i)
+                tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t) / (new - 2) * 1e3
+            require(bool(torch.isfinite(logits).all()),
+                    f"{name} {key} decode logits")
+            _cuda.reset_launches()
+            served.decode_step(cache, tok, s + new - 2)
+            step = decode_launches(name, dict(_cuda.LAUNCHES), cfg.n_layers,
+                                   int8)
+            gemm = "int8_matmul" if int8 else "matmul"
+            want = {gemm: 3 * cfg.n_layers + 2 * n_local, "flash_decode": 0}
+            got = {k_: step.get(k_, 0) for k_ in want}
+            require(got == want, f"{name}: a decode iteration's GEMMs and "
+                                 f"K5 {got}, want {want}")
+            report[key] = dict(
+                batch=b, prompt=s, new=new, ttft_ms=prefill_s * 1e3,
+                decode_ms_per_step=dec_ms, generate_s=gen_s,
+                tokens_per_s=b * new / gen_s, statuses=list(res.status),
+                launches_per_decode_step=step,
+                distinct_tokens=[len(set(lane.tolist()))
+                                 for lane in res.tokens],
+                tokens=res.tokens[:, :16].tolist())
+            del cache, logits
+        print(f"serve {name}: " + json.dumps(report), flush=True)
+        out[name] = report
+        del engine, served
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["recurrentgemma_plain"] = rglru_plain
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # sampled picks and the robustness layer (fault plans, retry, checkpoints)
 # ---------------------------------------------------------------------------
@@ -4368,6 +4677,20 @@ SOURCES = {
     "k5_flash_decode_paligemma": (
         "flash_decode:hd256", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:447"),
+    # recurrentgemma-9b: its widths in K1 and K2, and K4 'local' at hd 256
+    # with G = 16
+    "k1_matmul_recurrentgemma_m8": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                                    "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_recurrentgemma_m8320": ("matmul",
+                                       "src/repro_torch/csrc/matmul.cu",
+                                       "src/repro/kernels/matmul.py:293"),
+    "k2_int8_matmul_recurrentgemma": ("int8_matmul",
+                                      "src/repro_torch/csrc/matmul.cu",
+                                      "src/repro/kernels/matmul.py:293"),
+    "k4_flash_prefill_recurrentgemma": (
+        "flash_attention:local+hd256",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:331"),
 }
 
 
@@ -4409,6 +4732,12 @@ LAUNCH_NOTES = {
                              "global layers' and paligemma's",
     "k5_flash_decode_paligemma": "every flash_decode:hd256 launch: gemma3's "
                                  "global layers' and paligemma's",
+    "k4_flash_prefill_hd256_local": "every flash_attention:local+hd256 "
+                                    "launch: gemma3's local layers' and "
+                                    "recurrentgemma's",
+    "k4_flash_prefill_recurrentgemma": "every flash_attention:local+hd256 "
+                                       "launch: gemma3's local layers' and "
+                                       "recurrentgemma's",
 }
 
 
@@ -4463,6 +4792,8 @@ def main() -> int:
     kernels.update(check_whisper_kernels(torch, timer))
     kernels.update(check_llama4_kernels(torch, timer))
     kernels.update(check_paligemma_kernels(torch, timer))
+    kernels.update(check_recurrentgemma_kernels(torch, timer))
+    rglru_plain = rglru_rows(torch, timer)
     t0 = time.perf_counter()
     sampler = check_sampler(torch, timer)
     print(f"sampler ({time.perf_counter() - t0:.1f} s): "
@@ -4479,8 +4810,10 @@ def main() -> int:
                        (L4_ARCH, {})):
         smoke_local = check_local_smoke(torch, arch, **over)
         print(f"smoke {arch}: " + json.dumps(smoke_local), flush=True)
-    for arch in ("whisper-small", PG_ARCH):
-        print(f"smoke {arch}: " + json.dumps(check_fixed_smoke(torch, arch)),
+    for arch, over in (("whisper-small", {}), (PG_ARCH, {}),
+                       (RG_ARCH, {"param_dtype": "bfloat16"})):
+        print(f"smoke {arch}: "
+              + json.dumps(check_fixed_smoke(torch, arch, **over)),
               flush=True)
     marks.append(("smoke", time.perf_counter()))
     serve = serve_full(torch)
@@ -4499,6 +4832,8 @@ def main() -> int:
     marks.append(("llama4", time.perf_counter()))
     serve.update(serve_paligemma(torch))
     marks.append(("paligemma", time.perf_counter()))
+    serve.update(serve_recurrentgemma(torch, rglru_plain))
+    marks.append(("recurrentgemma", time.perf_counter()))
     cupti_pass(torch, cupti)
     marks.append(("cupti", time.perf_counter()))
     print("phase times: " + ", ".join(

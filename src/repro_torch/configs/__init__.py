@@ -5,7 +5,8 @@ from typing import List
 
 from repro_torch.configs import (gemma2_27b, gemma3_12b, granite_3_8b,
                                  internlm2_1_8b, llama4_scout_17b_a16e,
-                                 paligemma_3b, whisper_small)
+                                 paligemma_3b, recurrentgemma_9b,
+                                 whisper_small)
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
@@ -16,6 +17,7 @@ _MODULES = {
     "whisper-small": whisper_small,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
     "paligemma-3b": paligemma_3b,
+    "recurrentgemma-9b": recurrentgemma_9b,
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

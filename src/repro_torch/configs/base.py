@@ -1,5 +1,5 @@
 """Architecture configuration schema (the dense decoders, the MoE decoder,
-the encoder-decoder and the prefix-LM the port serves).  A copy of the
+the encoder-decoder, the prefix-LM and the RG-LRU hybrid the port serves).  A copy of the
 JAX package's ``ArchConfig`` fields that the serving path reads; the port
 never imports that package."""
 from __future__ import annotations
@@ -21,7 +21,8 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None
     # cycled over layers: 'global', 'local' (sliding window) or 'chunked'
-    # (llama4: causal within chunks of ``window`` positions) attention
+    # (llama4: causal within chunks of ``window`` positions) attention, or
+    # the 'rglru' recurrent mixer (recurrentgemma)
     block_pattern: Tuple[str, ...] = ("global",)
     window: int = 1024           # local/chunked attention window
     attn_softcap: Optional[float] = None   # gemma2 attention logit softcap
@@ -45,6 +46,10 @@ class ArchConfig:
     # VLM prefix (paligemma): prefix_tokens (stubbed) patch embeddings
     # [B, prefix_tokens, d_model] in front of the text tokens
     prefix_tokens: int = 0
+    # RG-LRU (recurrentgemma): the recurrence's width (None: d_model) and
+    # its causal conv's width
+    lru_width: Optional[int] = None
+    conv_width: int = 4
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     # whisper's and paligemma's float32 is the reference's training master
@@ -86,18 +91,22 @@ class ArchConfig:
         return self.block_pattern[layer % self.pattern_period]
 
     def param_count(self) -> int:
-        """Parameters of the attention decoder with tied embeddings, and of
-        the encoder for ``encdec``, by the reference's count (whose
-        decoder blocks leave out the cross-attention and its norm; an MoE
-        block's FFN is its experts, router and shared expert)."""
+        """Parameters of the decoder with tied embeddings, and of the
+        encoder for ``encdec``, by the reference's count (whose decoder
+        blocks leave out the cross-attention and its norm; an MoE block's
+        FFN is its experts, router and shared expert; an RG-LRU mixer's
+        two [w, w] gates and its decay count ``3 * w``, ROADMAP F8)."""
         d = self.d_model
         attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
         if self.moe:
             mlp = (self.n_experts + self.moe_shared_expert) * mlp \
                 + d * self.n_experts
-        total = (self.padded_vocab() * d + d
-                 + self.n_layers * (attn + mlp + 2 * d))
+        w = self.lru_width or d
+        mix = 3 * d * w + self.conv_width * w + 3 * w
+        total = self.padded_vocab() * d + d + sum(
+            (mix if self.kind(i) == "rglru" else attn) + mlp + 2 * d
+            for i in range(self.n_layers))
         if self.encdec:
             total += self.n_enc_layers * (attn + d + 2 * d * self.d_ff
                                           + 2 * d)

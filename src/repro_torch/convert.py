@@ -19,13 +19,17 @@ encoder, ``encoder/blocks`` stacked over its ``n_enc_layers`` and
 ``router [D, E]``, the expert stacks ``w_up``/``w_gate [E, D, F]`` and
 ``w_down [E, F, D]`` and the shared expert's ``shared_up``/``shared_gate``
 ``[D, F]`` and ``shared_down [F, D]``, as the reference stores them (no
-xyz layout), which keep their names under ``blocks.<i>.ffn``.  Loading
-the result into a ``Model`` casts each leaf once to its parameter's
-dtype.
+xyz layout), which keep their names under ``blocks.<i>.ffn``.  An RG-LRU
+block (recurrentgemma) holds ``mix/{in_x, in_g, conv, w_a, w_i, lam,
+out}`` in place of ``attn``, in its groups and in its 2-block tail, which
+keep their names under ``blocks.<i>.mix``.  Loading the result into a
+``Model`` casts each leaf once to its parameter's dtype (the mixer's
+gates, bf16 in the reference's tree, widen exactly to the port's fp32).
 
 ``to_jax_params`` is the inverse: a ``state_dict`` back to the reference's
 tree (the groups restacked, the MLP weights in the xyz layout ``[1, K,
-N]``) with numpy leaves, for ``checkpoint.CheckpointManager``; a bf16
+N]``, the RG-LRU gates back at the config's ``param_dtype``) with numpy
+leaves, for ``checkpoint.CheckpointManager``; a bf16
 tensor becomes its 2-byte words (``checkpoint.manager.BF16_WORDS``), which
 ``from_jax_params`` reads back.
 """
@@ -66,8 +70,11 @@ def _block(sd: Dict[str, torch.Tensor], p: str, blk: Dict[str, Any],
     for name in ("ln1", "lnx", "ln2"):
         if name in blk:
             sd[p + name] = leaf(blk[name])
-    sd[p + "attn.wqkv"] = leaf(blk["attn"]["wqkv"])
-    sd[p + "attn.wo"] = leaf(blk["attn"]["wo"])
+    if "attn" in blk:
+        sd[p + "attn.wqkv"] = leaf(blk["attn"]["wqkv"])
+        sd[p + "attn.wo"] = leaf(blk["attn"]["wo"])
+    for name, w in blk.get("mix", {}).items():
+        sd[p + "mix." + name] = leaf(w)
     for name, w in blk.get("xattn", {}).items():
         sd[p + "xattn." + name] = leaf(w)
     for name, w in blk["ffn"].items():
@@ -99,13 +106,20 @@ def from_jax_params(cfg: ArchConfig, params: Dict[str, Any]
     return sd
 
 
-def _block_tree(sd: Dict[str, torch.Tensor], p: str) -> Dict[str, Any]:
+# the RG-LRU gates the port holds at fp32 (``models.rglru``)
+_WIDENED = ("w_a", "w_i")
+
+
+def _block_tree(sd: Dict[str, torch.Tensor], p: str,
+                param_dtype: torch.dtype) -> Dict[str, Any]:
     """The reference block of the port's keys under prefix ``p``."""
     blk: Dict[str, Any] = {}
     for key, t in sd.items():
         if not key.startswith(p):
             continue
         *path, name = key[len(p):].split(".")
+        if path == ["mix"] and name in _WIDENED:
+            t = t.to(param_dtype)
         w = host_copy(t)
         if path == ["ffn"] and name in _MLP:
             w = w[None]    # the single-device xyz layout [1, K, N]
@@ -129,18 +143,19 @@ def to_jax_params(cfg: ArchConfig, state_dict: Dict[str, torch.Tensor]
     leaves (the inverse of ``from_jax_params``)."""
     sd = state_dict
     period = cfg.pattern_period
+    pdt = getattr(torch, cfg.param_dtype)
     tree: Dict[str, Any] = {"embed": host_copy(sd["embed"]),
                             "final_norm": host_copy(sd["final_norm"])}
     if cfg.n_groups > 0:
         tree["groups"] = {f"b{i}": _stack([
-            _block_tree(sd, f"blocks.{g * period + i}.")
+            _block_tree(sd, f"blocks.{g * period + i}.", pdt)
             for g in range(cfg.n_groups)]) for i in range(period)}
     tree["tail"] = {f"t{i}": _block_tree(
-        sd, f"blocks.{cfg.n_groups * period + i}.")
+        sd, f"blocks.{cfg.n_groups * period + i}.", pdt)
         for i in range(len(cfg.tail_blocks))}
     if cfg.encdec:
         tree["encoder"] = {
-            "blocks": _stack([_block_tree(sd, f"encoder.blocks.{i}.")
+            "blocks": _stack([_block_tree(sd, f"encoder.blocks.{i}.", pdt)
                               for i in range(cfg.n_enc_layers)]),
             "final_norm": host_copy(sd["encoder.final_norm"])}
     return tree

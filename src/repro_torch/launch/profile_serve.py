@@ -21,6 +21,9 @@ after the bf16 ones on the model quantized in place,
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch paligemma-3b --batch 8 --prompt-len 512 \
         --out profile_serve_paligemma.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch recurrentgemma-9b --batch 2 --prompt-len 4160 \
+        --out profile_serve_recurrentgemma.json
 
 Prints, for each window (fixed prefill, fixed decode step, and per engine
 a scheduler iteration that prefills one chunk on every lane and one that
@@ -28,8 +31,9 @@ only decodes): the host wall time (synchronized, profiler off), the device
 busy time (sum of kernel times from a profiled run of the same calls from
 the same starting state; one stream, so kernels do not overlap), the idle
 share, and the kernels by device time.  whisper-small (an
-encoder-decoder) and paligemma-3b (a prefix-LM), served by the fixed loop
-only, have the fixed windows, bf16 and int8: whisper's prefill window
+encoder-decoder), paligemma-3b (a prefix-LM) and recurrentgemma-9b (RG-LRU
+states), served by the fixed loop only, have the fixed windows, bf16 and
+int8: whisper's prefill window
 holds the encoder over the batch's clips (``launch.serve.make_frames``),
 and its decode step recomputes the cross-attention K/V from the held
 encoder output; paligemma's prompt is its images' patches

@@ -20,6 +20,9 @@ or continuous batching over the paged KV cache (``--requests N``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
         [--batch 8 --prompt-len 512 --max-new 32] [--int8] \
         [--smoke --device cpu --prompt-len 16]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b [--batch 2 --prompt-len 4160] [--int8] \
+        [--smoke --device cpu]
 
 Drills (the reference's flags): lane 1 gets NaN logits at step 2 and is
 quarantined while its peers finish, the first call fails once and is
@@ -37,7 +40,8 @@ fixed loop) under ``generate_with_retry`` with the drill flags'
 ``FaultPlan``, and prints tokens/s and every lane's status and fault
 step.  The continuous mode submits ``--requests`` requests at once,
 prompt lengths and token budgets drawn from ``--seed``, to a scheduler of
-8 lanes (``geometry(arch)``), steps it until every request has finished,
+8 lanes (``geometry(arch)``; a smoke config's lanes are ``GEOMETRY``'s
+512 positions), steps it until every request has finished,
 and prints the time to first token, the time per decode-only iteration,
 tokens/s and every request's status.
 
@@ -57,7 +61,10 @@ clip of ``enc_frames`` frames a batch row drawn N(0, 1) from ``--seed``
 stubbed SigLIP tower) in front of ``--prompt-len`` minus
 ``prefix_tokens`` text tokens.  Both are served by the fixed loop only:
 ``generate_with_status`` falls through to it, and ``--requests`` is
-refused.  llama4-scout-17b-a16e (MoE, 3 chunked layers to 1 global,
+refused; so is recurrentgemma-9b (26 RG-LRU blocks, whose recurrent state
+has no pages, and 12 local-attention blocks; 18.8 GB of weights at bf16,
+20.6 GB as the port holds them, the mixers' gates at fp32).
+llama4-scout-17b-a16e (MoE, 3 chunked layers to 1 global,
 window 8192) is 211 GB in bf16 at its 48 layers: ``--layers N`` serves
 its first N at full width (``dataclasses.replace(cfg, n_layers=N)``; 8
 layers are 37.3 GB).
@@ -172,8 +179,12 @@ LLAMA4_GEOMETRY = dict(GEOMETRY, max_seq_len=8224, n_pages=1024)
 PROMPT_RANGE, NEW_RANGE = (32, 448), (16, 32)
 
 
-def geometry(arch: str) -> dict:
-    """The scheduler geometry ``--arch`` is served with."""
+def geometry(arch: str, smoke: bool = False) -> dict:
+    """The scheduler geometry ``--arch`` is served with.  A smoke config
+    (window 16) runs past its window in ``GEOMETRY``'s 512-position lanes;
+    the long lanes are for the full configs' windows."""
+    if smoke:
+        return GEOMETRY
     if arch.startswith("gemma2"):
         return GEMMA2_GEOMETRY
     if arch.startswith("gemma3"):
@@ -222,15 +233,16 @@ def int8_peak_bytes(cfg, fp32_fallback: bool = False) -> int:
     reckoned on the meta device (no memory is touched): the float model
     (bf16 projections; the embedding and norm scales at their own dtype)
     and, with ``fp32_fallback``, every block's int8 copy beside it; without
-    it the release path's float model plus one block's int8 copy (every
-    block has the same projections).  The int8 copy is the
-    ``QuantizedWeight``s (int8 values and f32 column scales); what it
-    shares is not counted twice."""
+    it the release path's float model plus the largest block's int8 copy
+    (blocks differ: an RG-LRU block's copy is its MLP alone, its mixer
+    shared).  A block's int8 copy is its ``QuantizedWeight``s (int8 values
+    and f32 column scales); what it shares is not counted twice."""
     model = Model(cfg, device="meta")
-    block = _nbytes(b for m in Block.quantized(model.blocks[0], cfg).modules()
-                    if isinstance(m, QuantizedWeight) for b in m.buffers())
+    copies = [_nbytes(b for m in Block.quantized(blk, cfg).modules()
+                      if isinstance(m, QuantizedWeight) for b in m.buffers())
+              for blk in model.blocks]
     return (_nbytes(model.state_dict().values())
-            + block * (cfg.n_layers if fp32_fallback else 1))
+            + (sum(copies) if fp32_fallback else max(copies)))
 
 
 def int8_fits(cfg, device: torch.device, fp32_fallback: bool = False,
@@ -275,7 +287,7 @@ def _guards(args) -> dict:
 
 
 def _continuous(args, model, cfg, plan) -> None:
-    geom = geometry(cfg.name)
+    geom = geometry(cfg.name, args.smoke)
     eng = ServeEngine(model, ServeConfig(**_guards(args), **geom))
     reqs = make_requests(cfg.vocab, args.requests, args.seed, PROMPT_RANGE,
                          NEW_RANGE)
@@ -363,11 +375,12 @@ def main(argv=None):
     plan = _parse_faults(args)
     if args.requests:
         if not model.supports_paged_serving:
+            why = ("also takes frames" if cfg.encdec
+                   else "also takes patches" if cfg.prefix_tokens
+                   else "keeps a recurrent state with no pages")
             raise SystemExit(
-                f"{cfg.name}: continuous batching prefills tokens only, "
-                f"and this model also takes "
-                f"{'frames' if cfg.encdec else 'patches'}; run the fixed "
-                f"loop")
+                f"{cfg.name}: continuous batching prefills tokens into "
+                f"pages only, and this model {why}; run the fixed loop")
         return _continuous(args, model, cfg, plan)
 
     gen = torch.Generator().manual_seed(args.seed)

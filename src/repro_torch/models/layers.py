@@ -55,6 +55,18 @@ def sinusoid(start: int, length: int, d_model: int, dtype: torch.dtype,
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None].to(dtype)
 
 
+def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of fp32 operands in full fp32 on every device: TF32 off
+    for the call, as XLA's fp32 einsum on the CPU is full fp32 (the MoE's
+    router, the RG-LRU's gates)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor,
                          compute_dtype: torch.dtype) -> torch.Tensor:
     """ids [B, S] -> [B, S, D] in the compute dtype (one device: a plain

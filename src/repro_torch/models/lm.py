@@ -1,8 +1,8 @@
 """The GQA decoder (global, sliding-window or chunked attention + gated
-MLP or routed MoE, tied embeddings), whisper's encoder-decoder and
-paligemma's patch prefix: parameters, forward in ``prefill``, ``decode``
-and ``paged`` modes, the dense KV cache and the paged KV pools, and the
-int8 serving copy.
+MLP or routed MoE, tied embeddings), whisper's encoder-decoder,
+paligemma's patch prefix and recurrentgemma's RG-LRU blocks: parameters,
+forward in ``prefill``, ``decode`` and ``paged`` modes, the dense KV cache
+and the paged KV pools, and the int8 serving copy.
 
 Layer i's attention kind is ``cfg.block_pattern[i % period]`` (gemma2
 alternates 'local' and 'global'); its RoPE theta is ``rope_theta``, or
@@ -41,6 +41,18 @@ not scaled, are put in front.  Positions and RoPE run over P + S, and the
 layers keep their own kind: paligemma's 'global' attends to the patches
 causally, as the reference's does (ROADMAP F5).  Decode takes no patches.
 
+recurrentgemma (an 'rglru' kind in ``block_pattern``, the reference's
+``lm.py:252-261``): such a block holds the RG-LRU mixer (``mix``,
+``models.rglru``) where an attention block holds ``attn``, and keeps its
+norms and its MLP, whose down GEMM folds the residual and the next
+``ln1`` as every block's does.  The prefill scans each mixer from a zero
+state and keeps the state after the last token in the layer's cache
+entry (``{"h", "conv"}``, the reference's ``return_state``); a decode
+step advances it.  A recurrent state has no pages: the paged mode
+refuses such a model (``supports_paged_serving`` false), and its int8
+copy leaves the mixer at its float weights (the reference's pass touches
+``/attn/`` and ``/ffn/`` only).
+
 whisper's and paligemma's configs keep the reference's float32
 ``param_dtype`` (its training master copy); the port serves their
 projection weights at the compute dtype (bf16 on the card, cast once when
@@ -67,6 +79,8 @@ from repro_torch.models.layers import (mlp_apply, rmsnorm, sinusoid,
                                        vocab_parallel_embed)
 from repro_torch.models.loss import vocab_parallel_logits
 from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.rglru import (RGLRU, lru_log_init, rglru_apply,
+                                      rglru_cache)
 
 
 # the paged serving cache: one {"kp", "vp"} pair of page pools a layer
@@ -74,10 +88,22 @@ Pools = List[Dict[str, torch.Tensor]]
 
 
 class Cache(list):
-    """The dense cache: one ``{"k", "v"}`` dict per decoder layer, and for
+    """The dense cache: one dict per decoder layer, ``{"k", "v"}`` for an
+    attention layer or an RG-LRU layer's state ``{"h", "conv"}``, and for
     whisper the encoder output [B, F, D] in the compute dtype
     (``enc_out``; the reference's cache entry, ``lm.py:669-672``)."""
     enc_out: Optional[torch.Tensor] = None
+
+    def fork(self) -> "Cache":
+        """A cache over the same buffers whose layer dicts are copies: a
+        decode step on it writes its K/V slot into the shared buffers (which
+        the next step on this cache overwrites) but leaves this cache's
+        recurrent states as they were.  The fixed loop's float step for
+        degraded lanes runs on a fork, as the reference's discards the
+        cache it returns."""
+        out = Cache(dict(layer) for layer in self)
+        out.enc_out = self.enc_out
+        return out
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -117,15 +143,19 @@ def _norm(cfg: ArchConfig, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """A decoder block; whisper's (``cfg.encdec``) also holds the
-    cross-attention and its norm ``lnx``, llama4's (``cfg.moe``) an MoE
-    as its FFN."""
+    """A decoder block of kind ``kind``: an attention block holds ``attn``,
+    an 'rglru' block the RG-LRU mixer ``mix``; whisper's (``cfg.encdec``)
+    also holds the cross-attention and its norm ``lnx``, llama4's
+    (``cfg.moe``) an MoE as its FFN."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, kind: str):
         super().__init__()
         self.ln1 = _norm(cfg, device)
-        self.attn = Attention(cfg, dtype, device)
+        if kind == "rglru":
+            self.mix = RGLRU(cfg, dtype, device)
+        else:
+            self.attn = Attention(cfg, dtype, device)
         if cfg.encdec:
             self.lnx = _norm(cfg, device)
             self.xattn = CrossAttention(cfg, dtype, device)
@@ -136,17 +166,21 @@ class Block(nn.Module):
     def quantized(cls, blk: "Block", cfg: ArchConfig) -> "Block":
         """The int8 serving copy of ``blk``: the packed ``wqkv``, ``wo``
         and the MLP's projections quantized column-wise; the norm scales,
-        whisper's cross-attention and llama4's MoE (router, experts and
-        shared expert) shared (the reference's pass skips ``xattn`` and an
-        MoE's ``ffn``, ``lm.py:194-208``)."""
+        whisper's cross-attention, llama4's MoE (router, experts and
+        shared expert) and recurrentgemma's RG-LRU mixer shared (the
+        reference's pass skips ``xattn``, an MoE's ``ffn`` and every
+        mixer, ``lm.py:194-208``)."""
         q = cls.__new__(cls)
         nn.Module.__init__(q)
         q.ln1, q.ln2 = blk.ln1, blk.ln2
         if cfg.encdec:
             q.lnx, q.xattn = blk.lnx, blk.xattn
         qw = quantize_weight_colwise
-        q.attn = Attention(cfg, None, None, weights={
-            "wqkv": qw(blk.attn.wqkv), "wo": qw(blk.attn.wo)})
+        if hasattr(blk, "mix"):
+            q.mix = blk.mix
+        else:
+            q.attn = Attention(cfg, None, None, weights={
+                "wqkv": qw(blk.attn.wqkv), "wo": qw(blk.attn.wo)})
         q.ffn = blk.ffn if cfg.moe else MLP(cfg, None, None, weights={
             name: qw(getattr(blk.ffn, name)) for name in blk.ffn.names})
         return q
@@ -181,7 +215,8 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         for kind in cfg.block_pattern:
-            check_kind(kind, PAGED_KINDS)
+            if kind != "rglru":
+                check_kind(kind, PAGED_KINDS)
         if not cfg.tie_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves models with tied embeddings")
@@ -201,7 +236,8 @@ class Model(nn.Module):
                         device=self.device), requires_grad=False)
         self.final_norm = _norm(cfg, self.device)
         self.blocks = nn.ModuleList(
-            Block(cfg, proj, self.device) for _ in range(cfg.n_layers))
+            Block(cfg, proj, self.device, cfg.kind(i))
+            for i in range(cfg.n_layers))
         if cfg.encdec:
             self.encoder = Encoder(cfg, proj, self.device)
 
@@ -210,18 +246,27 @@ class Model(nn.Module):
         """Seeded init with the reference's schema and scales: norm scales
         zero, the embedding N(0, 1/d), every other weight N(0, 1/fan_in),
         the fan-in the second-to-last dim (``param.py:142-145``: an expert
-        stack [E, D, F] takes D).  Drawn by ``torch.Generator`` on the
-        model's device, so it does not reproduce the JAX package's bits
-        (``convert.from_jax_params`` carries those across)."""
+        stack [E, D, F] takes D); an RG-LRU mixer's ``lam`` its
+        ``lru_log`` init, and its gates, held at fp32, drawn at the
+        config's ``param_dtype`` as the reference's are.  Drawn by
+        ``torch.Generator`` on the model's device, so it does not reproduce
+        the JAX package's bits (``convert.from_jax_params`` carries those
+        across)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        pdt = _dtype(self.cfg.param_dtype)
         for name, p in self.named_parameters():
+            if name.endswith(".mix.lam"):
+                p.copy_(lru_log_init(p.shape, gen, self.device))
+                continue
             if p.dim() == 1:
                 p.zero_()
                 continue
             fan_in = self.cfg.d_model if name == "embed" else p.shape[-2]
             w = torch.randn(p.shape, generator=gen, device=self.device,
-                            dtype=torch.float32)
-            p.copy_(w.mul_(1.0 / math.sqrt(fan_in)))
+                            dtype=torch.float32).mul_(1.0 / math.sqrt(fan_in))
+            if name.endswith((".mix.w_a", ".mix.w_i")):
+                w = w.to(pdt)
+            p.copy_(w)
         return self
 
     @torch.no_grad()
@@ -264,10 +309,12 @@ class Model(nn.Module):
     @property
     def supports_paged_serving(self) -> bool:
         """The paged scheduler serves single-device decoder stacks of the
-        attention kinds K6 takes ('global', 'local', 'chunked'); an
-        encoder-decoder or a prefix-LM prefills through extra inputs (the
-        frames, the patches) the chunk loop does not model, so engines
-        take the fixed loop for it (the reference's ``lm.py:562-565``)."""
+        attention kinds K6 takes ('global', 'local', 'chunked'); a
+        recurrent mixer carries a dense state with no page indirection,
+        and an encoder-decoder or a prefix-LM prefills through extra inputs
+        (the frames, the patches) the chunk loop does not model, so
+        engines take the fixed loop for them (the reference's
+        ``lm.py:556-565``)."""
         cfg = self.cfg
         return not cfg.encdec and not cfg.prefix_tokens and all(
             kind in PAGED_KINDS for kind in cfg.block_pattern)
@@ -284,11 +331,16 @@ class Model(nn.Module):
         """Zeroed dense K/V caches in bf16, one dict per layer (the
         reference's ``cache_defs``): [B, max_len, KV, hd] for a global
         layer, a ring buffer of min(window, max_len) slots for a local or
-        chunked one."""
+        chunked one; an RG-LRU layer's zeroed state (``rglru_cache``, its
+        conv context in the compute dtype, which the prefill writes)."""
         cfg = self.cfg
         kw = dict(dtype=torch.bfloat16, device=self.device)
         out = Cache()
         for i in range(cfg.n_layers):
+            if cfg.kind(i) == "rglru":
+                out.append(rglru_cache(cfg, batch, self.compute_dtype,
+                                       self.device))
+                continue
             slots = (min(cfg.window, max_len)
                      if cfg.kind(i) in ("local", "chunked") else max_len)
             shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
@@ -300,7 +352,15 @@ class Model(nn.Module):
         """Zeroed K/V page pools ``[n_pages + 1, page_size, KV, hd]`` bf16,
         one pair per layer, shared by every lane through the page table;
         row ``n_pages`` is the trash page (written by idle lanes and padded
-        chunk tails, never read unmasked)."""
+        chunk tails, never read unmasked).  A model the scheduler cannot
+        serve (``supports_paged_serving``) raises, as the reference's
+        ``paged_cache_defs`` does."""
+        if not self.supports_paged_serving:
+            raise ValueError(
+                f"paged serving needs a decoder of attention blocks only "
+                f"(no recurrent mixers, encoder-decoder or prefix-LM); "
+                f"{self.cfg.name} has the pattern "
+                f"{self.cfg.block_pattern}")
         cfg = self.cfg
         shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.hd)
         kw = dict(dtype=torch.bfloat16, device=self.device)
@@ -313,10 +373,19 @@ class Model(nn.Module):
     def _block(self, blk: Block, kind: str, h, xn, next_scale, *, positions,
                cache, pos, page_table, enc_out=None):
         cfg, cd = self.cfg, self.compute_dtype
-        out = attention_apply(blk.attn, xn, cfg, cd, kind=kind,
-                              theta=self._theta(kind), positions=positions,
-                              cache=cache, pos=pos, page_table=page_table,
-                              use_rope=not cfg.encdec)
+        if kind == "rglru":
+            if page_table is not None:
+                raise NotImplementedError(
+                    f"{cfg.name}: an RG-LRU state has no pages; serve it "
+                    f"through the fixed loop")
+            out = rglru_apply(blk.mix, xn, cfg, cd, cache,
+                              decode=pos is not None)
+        else:
+            out = attention_apply(blk.attn, xn, cfg, cd, kind=kind,
+                                  theta=self._theta(kind),
+                                  positions=positions, cache=cache, pos=pos,
+                                  page_table=page_table,
+                                  use_rope=not cfg.encdec)
         h = h + out
         if enc_out is not None:
             # cross-attention, added outside any GEMM (lm.py:272-287)

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import fp32_matmul
 
 
 class MoEOut(NamedTuple):
@@ -84,12 +85,7 @@ def router_probs(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
     """softmax(x @ router) of tokens x [N, D] at fp32: an fp32 product in
     full fp32 on every device (TF32 off for the call, as the reference's
     fp32 einsum on the CPU is)."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        logits = torch.matmul(x.to(torch.float32), router.to(torch.float32))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    logits = fp32_matmul(x.to(torch.float32), router.to(torch.float32))
     return torch.softmax(logits, dim=-1)
 
 

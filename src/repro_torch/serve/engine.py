@@ -11,8 +11,8 @@ cache behind ``submit()/step()/collect()``, and the fixed-batch loop.
 ``generate()`` / ``generate_with_status()`` are shims over a cached
 fixed-geometry scheduler, as in the reference, whose greedy tokens equal
 the fixed loop's; a model the scheduler cannot serve (whisper's
-encoder-decoder, paligemma's prefix-LM, ``Model.supports_paged_serving``)
-falls through to the fixed loop, which hands the batch's ``frames`` or
+encoder-decoder, paligemma's prefix-LM, recurrentgemma's RG-LRU states,
+``Model.supports_paged_serving``) falls through to the fixed loop, which hands the batch's ``frames`` or
 ``patches`` to its prefill, and its ``submit()`` raises.  With
 ``ServeConfig(int8=True)`` the engine serves the model's int8 copy
 (``Model.quantize_params_for_serving``); a saturation
@@ -562,10 +562,12 @@ class ServeEngine:
             tok_dev = torch.from_numpy(tok_np)[:, None]
             fp_logits = None
             if degraded.any() and self.fp_model is not None:
-                # before the int8 step on the same cache: the float step
-                # writes its K/V at this position, which the int8 step
-                # then overwrites before any later step reads it
-                fp_logits, _ = self.fp_model.decode_step(cache, tok_dev,
+                # before the int8 step, on a fork of the same cache: the
+                # float step writes its K/V at this position, which the
+                # int8 step then overwrites before any later step reads
+                # it, and advances only the fork's recurrent states
+                fp_logits, _ = self.fp_model.decode_step(cache.fork(),
+                                                         tok_dev,
                                                          prompt_len + i)
             logits, cache = self.model.decode_step(cache, tok_dev,
                                                    prompt_len + i)

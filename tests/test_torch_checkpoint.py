@@ -39,6 +39,9 @@ from repro_torch.models.lm import Model
 from repro_torch.robust import bitflip_leaf, truncate_leaf, truncate_manifest
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 ARCH = "internlm2-1.8b"
 FAMILIES = ["internlm2-1.8b", "gemma2-27b", "gemma3-12b", "whisper-small",
             "llama4-scout-17b-a16e"]

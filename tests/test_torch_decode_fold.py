@@ -33,6 +33,9 @@ from repro.kernels import flash_attention as jfa
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import flash_attention as tfa
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 TILE = tfa.DEFAULT_KV_TILE
 NEG = tfa._NEG
 BF16_EPS = float(torch.finfo(torch.bfloat16).eps)

@@ -35,6 +35,9 @@ from repro_torch.robust.guards import (STATUS_DEGRADED, STATUS_OK,
                                        STATUS_TIMEOUT)
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 ARCH = "internlm2-1.8b"
 TOKENS = np.arange(16, dtype=np.int32).reshape(2, 8)
 

@@ -49,6 +49,9 @@ from repro_torch.robust.guards import STATUS_OK
 from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
 ARCH = "gemma3-12b"
 HD = 256

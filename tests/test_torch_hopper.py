@@ -30,6 +30,9 @@ from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.matmul import (K1_BLOCKS_PER_SM, K2_K,
                                         K2_SMS_PER_BLOCK, k1_plan, k2_plan)
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 H100_SMS = 132
 BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
 ARCHS = ("granite-3-8b", "gemma2-27b")

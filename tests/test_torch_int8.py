@@ -42,6 +42,9 @@ from repro_torch.kernels.quantize import (QuantizedWeight,
 from repro_torch.models import layers
 from repro_torch.models.lm import Model
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
 F32_EPS = float(torch.finfo(torch.float32).eps)
 

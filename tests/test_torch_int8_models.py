@@ -44,6 +44,9 @@ from repro_torch.models.lm import Model
 from repro_torch.robust.guards import STATUS_OK
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 LLAMA4 = "llama4-scout-17b-a16e"
 GEMMA2 = "gemma2-27b"
 H100_SMS = 132

@@ -14,6 +14,9 @@ import torch
 import repro_torch
 from repro_torch.configs import get_config
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 

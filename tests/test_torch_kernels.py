@@ -29,6 +29,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.models.param import pack_views, split_packed_columns
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
 _T = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _J = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

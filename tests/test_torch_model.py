@@ -40,6 +40,9 @@ from repro_torch.convert import from_jax_params
 from repro_torch.models.lm import Model
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 ARCHS = ["granite-3-8b", "internlm2-1.8b"]
 PROMPT, STEPS = 12, 8
 

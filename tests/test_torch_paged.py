@@ -58,6 +58,9 @@ from repro_torch.serve.api import Request, RequestOutput, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.kv_cache import PageAllocator, PagedKVCache
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
 ARCH = "internlm2-1.8b"
 PROMPT = 16

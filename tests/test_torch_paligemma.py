@@ -52,6 +52,9 @@ from repro_torch.robust.guards import STATUS_OK
 from repro_torch.serve.api import Request
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 ARCH = "paligemma-3b"
 H100_SMS = 132
 

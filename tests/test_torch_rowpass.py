@@ -28,6 +28,9 @@ from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels.epilogue import Epilogue, rms_normalize
 from repro_torch.kernels.quantize import quantize_rowwise_cuda
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 H100_SMS = 132
 BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
 BF = torch.bfloat16

@@ -46,6 +46,9 @@ from repro_torch.serve import sampling
 from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
+# the CPU's cores go to the test workers, not to one worker's torch pool
+torch.set_num_threads(1)
+
 ARCH = "internlm2-1.8b"
 PROMPT = 16
 NEW = 6
