@@ -194,6 +194,26 @@ line):
    widths at M = 8 and 8320 and K2 at M = 8, and times the mixer's plain
    parts (``rglru_rows``: the scan, the fp32 gates, a mixer call); phase
    3 its smoke config card against CPU, bf16 and int8.
+11. serve: full-width xlstm-350m, all 24 layers (21 mLSTM blocks of head
+   dim 512 and 3 sLSTM blocks, no FFN; 1.07 GB), random weights from SEED
+   (``serve_xlstm``).  At the init scales the decode-vs-prefill witness:
+   a prefill of 8 x 2048, 64 decode steps, against a prefill of the same
+   2112 tokens (a multiple of 64, as the chunkwise prefill requires,
+   ROADMAP F10): on one 8-layer period at bf16 and at fp32 compute (the
+   fp32 runs' norms their plain version); on all 24 layers the fp32
+   distance XL_PRECISION_GAIN below the bf16 one, and the bf16 decode
+   within 4x the bf16 prefill's own distance from the fp32 prefill.
+   Then, on varied weights, ``generate_with_status`` (the fall-through to the fixed loop: a recurrent state has no pages) bf16
+   on 8 x 2048 (32 tokens) and 2 x 8192 (16), and the int8 copy (which
+   quantizes nothing) on 8 x 2048, its tokens bitwise the bf16 run's:
+   statuses ok, the row-norm kernel launched, one decode iteration's
+   launches exact (49: the entry norm, each mixer's inner norm and each
+   next norm, and no other kernel of the port).  Phase 2 holds the
+   row-norm kernel at the stream's N = 1024 and the mLSTM's N = 2048
+   bitwise its ordered mirror at 8 and 16384 rows beside ``F.rms_norm`` (``check_xlstm_kernels``) and
+   times the mixers' plain parts (``xlstm_rows``: an mLSTM call and an
+   sLSTM call at 8 x 2048 and at decode, the chunk loop alone); phase 3
+   its smoke config card against CPU, bf16 and int8.
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -271,6 +291,34 @@ RG_ARCH = "recurrentgemma-9b"
 RG_H, RG_KV, RG_HD, RG_WINDOW, RG_D, RG_FF = 16, 1, 256, 2048, 4096, 12288
 RG_LONG_BATCH, RG_LONG_PROMPT, RG_LONG_NEW = 2, 4160, 16
 RG_BATCH, RG_PROMPT, RG_NEW = 8, 512, 32
+# xlstm-350m (src/repro_torch/configs/xlstm_350m.py): 21 mLSTM blocks
+# (width 2048, 4 heads of 512) and 3 sLSTM blocks (4 heads of 256),
+# d_model 1024, vocab 50304, no FFN; phase 11 serves all 24 layers
+# through generate_with_status (the fixed loop): 8 prompts of 2048 tokens
+# with 32 new tokens, then 2 of 8192 (the long prompt a constant-size
+# state is for) with 16; the witness decodes 64 steps past 2048 (a
+# prefill of 2112, a multiple of the chunk of 64)
+XL_ARCH = "xlstm-350m"
+XL_D, XL_W, XL_H = 1024, 2048, 4
+XL_BATCH, XL_PROMPT, XL_NEW = 8, 2048, 32
+XL_LONG_BATCH, XL_LONG_PROMPT, XL_LONG_NEW = 2, 8192, 16
+XL_WIT_STEPS = 64
+# the decode-vs-prefill witness of the xLSTM: each rounding is carried
+# through every layer's recurrent state, and the decode step's distance
+# from the prefill grows with depth (on the card, PERF.md: at bf16 0.034
+# of the logit scale on one period of the pattern, 8 layers of 7 mLSTM
+# blocks and 1 sLSTM block, 0.28 at 24 layers; a changed last token moves
+# the logits by 1.2).  On one period at full width the witness is held to
+# WITNESS_TOL at bf16 and to XL_WITNESS_TOL32 at fp32 compute (the
+# reference's own fp32 distance at this width and depth is 3.6e-6 on the
+# CPU, tests/_xlstm_depth_probe.py).  At all 24 layers even fp32 rounding
+# grows large (the reference's own there 1.6e-4), so the fp32 witness
+# must lie XL_PRECISION_GAIN below the bf16 one: rounding noise shrinks
+# with the stream's precision, while a fault in the step or the chunkwise
+# form moves the logits by about as much as a changed token at either
+# precision.  And the bf16 decode's distance from the fp32 prefill is
+# held to 4x the bf16 prefill's own.
+XL_WIT_LAYERS, XL_WITNESS_TOL32, XL_PRECISION_GAIN = 8, 1e-4, 20
 # kernels each driven path must launch (the counts are read per path)
 # (a variant's launches are counted under "<kernel>:<variant>"; a row pass
 # in a GEMM's store phase is its variant "norm" or "quantize")
@@ -362,17 +410,20 @@ PATH_KERNELS = {
                                   "int8_matmul:quantize", "int8_quantize",
                                   "quantize", "rmsnorm",
                                   "flash_attention:local+hd256"),
+    # xlstm: the row-norm kernel alone (the entry norm, each mixer's inner
+    # norm and each next norm); the mixers are library products and plain
+    # torch, and its int8 copy quantizes nothing
+    "xlstm_fixed": ("rmsnorm",),
+    "xlstm_fixed_int8": ("rmsnorm",),
 }
 
 
-def decode_launches(name, counts, layers: int, int8: bool = False,
-                    encdec: bool = False, moe: bool = False,
-                    wide_ff: bool = False) -> dict:
+def decode_launches(name, counts, cfg, int8: bool = False) -> dict:
     """One decode iteration's launch counts on a driven path: the entry
     norm and each block's ``ln2`` are the only row-norm launches (the down
     GEMM's norm is its tail, one per layer), and under int8 no row
-    quantize launches (the up GEMM's quantize is its tail).  An
-    encoder-decoder (whisper) adds each block's ``lnx`` (2 layers + 1
+    quantize launches (the up GEMM's quantize is its tail); ``cfg`` is
+    the served model's config.  An encoder-decoder (whisper) adds each block's ``lnx`` (2 layers + 1
     row-norm launches), a K5 'full' launch a layer beside the global one,
     and its up GEMM is the gelu variant (``matmul:gelu``, or under int8
     ``int8_matmul:gelu+quantize``).  An MoE model (llama4) has no down
@@ -380,10 +431,23 @@ def decode_launches(name, counts, layers: int, int8: bool = False,
     MoE are row-norm launches (2 layers + 1), and no norm tail runs;
     under int8 only its ``wqkv`` and ``wo`` are K2 launches, each fed by
     K3 (2 layers of each, no K1, no tail).  An int8 up GEMM wider than
-    the store phase's row pass takes (``wide_ff``: d_ff above
-    ``matmul.NORM_MAX_N``, gemma2's 36864) quantizes in K3's row kernel,
-    one launch a layer, and has no tail.  Raises on a miss; returns the
-    counts."""
+    the store phase's row pass takes (d_ff above ``matmul.NORM_MAX_N``,
+    gemma2's 36864) quantizes in K3's row kernel, one launch a layer, and
+    has no tail.  A model of recurrent mixers and no FFN (d_ff 0, xlstm)
+    launches the row-norm kernel alone: each layer's inner norm and next
+    norm and the entry norm (2 layers + 1).  Raises on a miss; returns
+    the counts."""
+    from repro_torch.kernels.matmul import NORM_MAX_N
+
+    layers, encdec, moe = cfg.n_layers, cfg.encdec, cfg.moe
+    wide_ff = int8 and cfg.d_ff > NORM_MAX_N
+    if cfg.d_ff == 0:
+        want = {"rmsnorm": 2 * layers + 1}
+        others = {k: n for k, n in counts.items() if n and k != "rmsnorm"}
+        require(counts.get("rmsnorm", 0) == want["rmsnorm"] and not others,
+                f"{name}: launches in one decode iteration {counts}, want "
+                f"{want} and nothing else")
+        return counts
     gemm = "int8_matmul" if int8 else "matmul"
     want = {"rmsnorm": (2 if encdec or moe else 1) * layers + 1,
             f"{gemm}:norm": 0 if moe else layers}
@@ -1060,11 +1124,13 @@ def check_int8_kernels(torch, timer):
     return results
 
 
-def kernel_ms(torch, flush, fn, reps: int = 10):
+def kernel_ms(torch, flush, fn, reps: int = 10, skip: str = "elementwise"):
     """The call's kernels' own time on the card: the sum of their CUPTI
     durations in a ``torch.profiler`` trace of ``reps`` calls, each after
-    an L2 flush (``flush``'s bits inverted; its kernel is left out), per
-    call.  No launch, no event and no gap between kernels is in it, which a
+    an L2 flush (``flush``'s bits inverted; its kernel is left out, with
+    every kernel whose name holds ``skip``: a plain-torch call's own
+    elementwise kernels count under ``skip="bitwise_not"``), per call.
+    No launch, no event and no gap between kernels is in it, which a
     row pass of a few microseconds needs: the event timer's floor
     (``launch_floor``) is of their size.  A trace that holds none of the
     call's kernels gives None (not measured), never 0."""
@@ -1079,7 +1145,7 @@ def kernel_ms(torch, flush, fn, reps: int = 10):
     times = [getattr(ev, "device_time_total", None) or ev.cuda_time_total
              for ev in prof.events()
              if ev.device_type == torch.autograd.DeviceType.CUDA
-             and "elementwise" not in ev.name]
+             and skip not in ev.name]
     return sum(times) / reps / 1e3 if times else None
 
 
@@ -1114,23 +1180,25 @@ def row_timing(timer, cupti, fn, plain, nbytes, library=None) -> dict:
 def also_into(cupti, src: dict, dst: dict) -> None:
     """``dst`` gets the CUPTI times recorded for ``src`` too (a row's
     summary and its primary row count: the same calls)."""
-    for targets, _, _ in cupti:
+    for targets, *_ in cupti:
         if any(t is src for t in targets):
             targets.append(dst)
 
 
 def cupti_pass(torch, cupti) -> None:
-    """The last phase: the rows of each recorded ``(rows, key, call)`` get
-    the call's CUPTI kernel time (``kernel_ms``) under ``key``, and each
+    """The last phase: the rows of each recorded ``(rows, key, call)`` (or
+    ``(rows, key, call, kw)``, ``kw`` ``kernel_ms``' ``skip`` and
+    ``reps``) get the call's CUPTI kernel time (``kernel_ms``) under
+    ``key``, and each
     tail row its ``tail_ms``.  It runs last, after the served paths, so
     that no ``torch.profiler`` session precedes their host-bound timing
     (see ``Timer`` for what many traces in one process did)."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for rows, key, fn in cupti:
-        ms = kernel_ms(torch, flush, fn)
+    for rows, key, fn, *kw in cupti:
+        ms = kernel_ms(torch, flush, fn, **(kw[0] if kw else {}))
         for row in rows:
             row[key] = ms
-    for rows, _, _ in cupti:
+    for rows, *_ in cupti:
         for row in rows:
             if "gemm_kernel_ms" in row:
                 row["tail_ms"] = (row["kernel_ms"] - row["gemm_kernel_ms"]
@@ -1743,13 +1811,20 @@ def vary(torch, model, seed):
     the small model changes token from step to step.  An RG-LRU mixer
     keeps its init (tripled, its recurrence gate saturates: a -> 1, and
     ``1 - a^2`` cancels to nothing; ``tests/test_torch_recurrentgemma.py``
-    keeps it so too).  An int8 model (the releasing build's) triples its
-    ``QuantizedWeight``s' column scales."""
+    keeps it so too).  An xLSTM mixer (every block of xlstm) gets a random
+    inner norm scale and its output projection (``down``, ``out``)
+    tripled, its input and gate maps kept (tripled, they make the model
+    chaotic; ``tests/test_torch_xlstm.py`` varies it so too).  An int8
+    model (the releasing build's) triples its ``QuantizedWeight``s'
+    column scales."""
     from repro_torch.kernels.quantize import QuantizedWeight
     gen = torch.Generator(device=model.device).manual_seed(seed + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if ".mix." in name:
+            parts = name.split(".")
+            if ".mix." in name and (
+                    model.cfg.kind(int(parts[1])) == "rglru"
+                    or parts[-1] not in ("norm", "down", "out")):
                 continue
             if p.dim() == 1:
                 p.copy_(0.5 * torch.randn(p.shape, generator=gen,
@@ -1985,8 +2060,7 @@ def serve_scheduler(torch, model, int8: bool):
             f"churn {outs[0].tokens.tolist()}")
     require(all(launches.get(k, 0) > 0 for k in PATH_KERNELS[name]),
             f"{name}: a kernel never launched: {launches}")
-    decode_launches(name, run["decode_launches"] or {}, model.cfg.n_layers,
-                    int8)
+    decode_launches(name, run["decode_launches"] or {}, model.cfg, int8)
     ttft = np.array([run["ttft_s"][r.id] for r in reqs])
     del eng
     torch.cuda.empty_cache()
@@ -2062,8 +2136,7 @@ def serve_full(torch):
     require(bool(torch.isfinite(logits).all()), "non-finite decode logits")
     _cuda.reset_launches()
     model.decode_step(cache, tok, PROMPT + NEW - 1)
-    step_launches = decode_launches("fixed", dict(_cuda.LAUNCHES),
-                                    cfg.n_layers)
+    step_launches = decode_launches("fixed", dict(_cuda.LAUNCHES), cfg)
 
     fixed = dict(
         params=cfg.param_count(), init_s=init_s,
@@ -2772,7 +2845,6 @@ def scheduler_run(torch, eng, reqs, name: str, reset_peak: bool = True,
     phase's row pass).  Prints and returns the report, ``extra`` in it."""
     import numpy as np
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels.matmul import NORM_MAX_N
     from repro_torch.launch.serve import serve_requests
 
     model = eng.model
@@ -2796,9 +2868,7 @@ def scheduler_run(torch, eng, reqs, name: str, reset_peak: bool = True,
     missing = [key for key in PATH_KERNELS[name]
                if variant_launches(launches, key) <= 0]
     require(not missing, f"{name}: never launched {missing}: {launches}")
-    decode_launches(name, run["decode_launches"] or {}, cfg.n_layers,
-                    model.int8, moe=cfg.moe,
-                    wide_ff=model.int8 and cfg.d_ff > NORM_MAX_N)
+    decode_launches(name, run["decode_launches"] or {}, cfg, model.int8)
     ttft = np.array([run["ttft_s"][r.id] for r in reqs])
     report = dict(
         requests=len(reqs), **extra,
@@ -2918,7 +2988,7 @@ def serve_long(torch, arch: str, prefix: str, batch: int, prompt: int,
             and float(logits.abs().max()) <= capped, f"{name} decode logits")
     _cuda.reset_launches()
     model.decode_step(cache, tok, prompt + new - 1)
-    step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg.n_layers)
+    step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg)
     # the logits' cost per iteration: the sliced fp32 product against the
     # embedding, at the scheduler's 8 lanes
     h = torch.randn((LANES, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
@@ -3170,9 +3240,10 @@ def check_whisper_kernels(torch, timer):
 def check_fixed_smoke(torch, arch: str, **over):
     """Phase 3, the models served through the fixed loop only: whisper
     (2 encoder and 2 decoder layers, 24 frames a clip), paligemma (2
-    layers, 8 patches an image) and recurrentgemma (5 layers: one group
-    of (rglru, rglru, local) and the (rglru, rglru) tail, window 16;
-    ``over`` its bf16 ``param_dtype``), each smoke config at bf16 compute
+    layers, 8 patches an image), recurrentgemma (5 layers: one group of
+    (rglru, rglru, local) and the (rglru, rglru) tail, window 16; ``over``
+    its bf16 ``param_dtype``) and xlstm (7 mLSTM blocks and 1 sLSTM
+    block; a 16-token prompt, one chunk), each smoke config at bf16 compute
     and bf16 projection weights as the full model has them, card against
     CPU, weights varied as in phase 3, through ``generate_with_status``
     (its fall-through to the fixed loop), bf16 and int8: the card's
@@ -3343,8 +3414,8 @@ def serve_whisper(torch):
         require(bool(torch.isfinite(logits).all()), f"{name} decode logits")
         _cuda.reset_launches()
         served.decode_step(cache, tok, WH_PROMPT + WH_NEW - 2)
-        step_launches = decode_launches(name, dict(_cuda.LAUNCHES),
-                                        cfg.n_layers, int8, encdec=True)
+        step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg,
+                                        int8)
         report = dict(
             params=sum(p.numel() for p in model.parameters()),
             init_s=init_s, weights_gb=weights_gb, batch=WH_BATCH,
@@ -3788,8 +3859,7 @@ def serve_llama4(torch):
     require(bool(torch.isfinite(logits).all()), f"{name} decode logits")
     _cuda.reset_launches()
     model.decode_step(cache, tok, L4_PROMPT + L4_NEW - 1)
-    step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg.n_layers,
-                                    moe=True)
+    step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg)
     out[name] = dict(
         layers=cfg.n_layers, params=cfg.param_count(), init_s=init_s,
         weights_gb=weights_gb, batch=L4_BATCH, prompt=L4_PROMPT, new=L4_NEW,
@@ -3928,8 +3998,8 @@ def serve_paligemma(torch):
         require(bool(torch.isfinite(logits).all()), f"{name} decode logits")
         _cuda.reset_launches()
         served.decode_step(cache, tok, PG_S + PG_NEW - 2)
-        step_launches = decode_launches(name, dict(_cuda.LAUNCHES),
-                                        cfg.n_layers, int8)
+        step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg,
+                                        int8)
         require(step_launches.get("flash_decode:hd256") == cfg.n_layers,
                 f"{name}: K5 hd 256 launches {step_launches}")
         report = dict(
@@ -4181,8 +4251,7 @@ def serve_recurrentgemma(torch, rglru_plain):
                     f"{name} {key} decode logits")
             _cuda.reset_launches()
             served.decode_step(cache, tok, s + new - 2)
-            step = decode_launches(name, dict(_cuda.LAUNCHES), cfg.n_layers,
-                                   int8)
+            step = decode_launches(name, dict(_cuda.LAUNCHES), cfg, int8)
             gemm = "int8_matmul" if int8 else "matmul"
             want = {gemm: 3 * cfg.n_layers + 2 * n_local, "flash_decode": 0}
             got = {k_: step.get(k_, 0) for k_ in want}
@@ -4203,6 +4272,423 @@ def serve_recurrentgemma(torch, rglru_plain):
         gc.collect()
         torch.cuda.empty_cache()
     out["recurrentgemma_plain"] = rglru_plain
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_xlstm_kernels(torch, timer, cupti):
+    """Phase 2, xlstm: the row-norm kernel at both widths the xlstm path
+    gives it: N = 1024 (the entry norm, each next norm and the sLSTM's
+    inner norm: 28 of a decode step's 49 launches, and every stream norm
+    of the prefill) and N = 2048 (the mLSTM's inner norm, a width no
+    earlier model gives it).  At each width, bitwise its ordered mirror
+    (``ref.rmsnorm_rows_ref``) and within one bf16 ulp of each row's scale
+    of ``rms_normalize``, at decode's 8 rows and the 8 x 2048 prefill's
+    16384; timed at both beside its plain version and ``F.rms_norm`` (one
+    PyTorch call of the same function, its weight the rounded ``1 +
+    scale``).  The CUPTI times go to ``cupti``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.epilogue import rms_normalize
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    bf = torch.bfloat16
+    out = {}
+    for n, what in ((XL_D, "the stream's norms and the sLSTM's inner norm"),
+                    (XL_W, "the mLSTM's inner norm")):
+        nscale = torch.randn(n, generator=gen, device="cuda") * 0.1
+        w1 = (1.0 + nscale).to(bf)
+        errs, abs_errs, at = [], [], {}
+        for m in (XL_BATCH, XL_BATCH * XL_PROMPT):
+            x = torch.randn((m, n), generator=gen, device="cuda").to(bf)
+            got = ops.rmsnorm(x, nscale)
+            require(torch.equal(got, ref.rmsnorm_rows_ref(x, nscale, 1e-6)),
+                    f"rmsnorm [{m}, {n}] is not bitwise its ordered mirror")
+            want = rms_normalize(x, nscale, 1e-6)
+            errs.append(row_err(got, want))
+            abs_errs.append(max_err(got, want))
+            # the CUPTI pass calls these after the loop: bind this width's
+            at[m] = row_timing(
+                timer, cupti, lambda x=x, s=nscale: ops.rmsnorm(x, s),
+                lambda x=x, s=nscale: rms_normalize(x, s, 1e-6),
+                2 * 2 * x.numel() + 4 * n,
+                (lambda x=x, w=w1: F.rms_norm(x, (x.shape[-1],), w, 1e-6))
+                if hasattr(F, "rms_norm") else None)
+        err = max(errs)
+        require(err <= eps_bf16,
+                f"rmsnorm N={n}: a row is off by {err:.3e}")
+        row = dict(
+            work=f"rmsnorm rows [{XL_BATCH}, {n}] bf16, {what} at decode, "
+                 f"one warp a row (bitwise its ordered mirror, also at "
+                 f"[{XL_BATCH * XL_PROMPT}, {n}], the 8 x 2048 prefill, "
+                 f"which 'rows' also times)",
+            max_abs_err=max(abs_errs), max_row_err=err, tol=eps_bf16,
+            **at[XL_BATCH], rows={str(m): v for m, v in at.items()})
+        also_into(cupti, at[XL_BATCH], row)
+        print(f"  xlstm rmsnorm N={n} " + json.dumps(row), flush=True)
+        out[f"k1_rmsnorm_xlstm_n{n}"] = row
+    return out
+
+
+def xlstm_rows(torch, timer, cupti):
+    """The xLSTM mixers' plain-torch parts at full width (no kernel of the
+    reference's: library products and elementwise launches), their time
+    beside the least time their bytes or operations take: ``kernel_ms``
+    (CUPTI, from the ``cupti`` pass) is the device time, ``wall_ms`` the
+    host's (which sets the time of these loops), ``ms`` the event timer's
+    (behind its spin, which covers the host only up to CUDA's queue of
+    about a thousand launches: an sLSTM prefill's 40 thousand run at the
+    host's rate, so there ``ms`` is not a device time); the mLSTM's chunk loop
+    alone over [8, 2048] (32 chunks of 64, 4 heads of 512: its fp32
+    products at the fp32 peak), one mLSTM call (``mlstm_apply``) and one
+    sLSTM call (``slstm_apply``: the fp32 input map, the token loop over
+    2048 positions, the output) at the 8 x 2048 prefill and at a decode
+    step of 8 rows.  A call's bound: its weights and activations in and
+    out once (the state too at decode), or its bf16 products at the bf16
+    peak plus its fp32 products at the fp32 peak, the larger."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import full_fp32
+
+    cfg = get_config(XL_ARCH)
+    bf, f32, dev = torch.bfloat16, torch.float32, torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    d, w, nh = cfg.d_model, XL_W, cfg.n_heads
+    hd, L = w // nh, xlstm.CHUNK
+    b, s = XL_BATCH, XL_PROMPT
+    mixers = {"mlstm": xlstm.MLSTM(cfg, bf, dev),
+              "slstm": xlstm.SLSTM(cfg, bf, dev)}
+    with torch.no_grad():
+        for mix in mixers.values():
+            for name, p in mix.named_parameters():
+                if name == "b_f":
+                    p.copy_(torch.linspace(3.0, 6.0, p.shape[0]))
+                elif p.dim() == 1:
+                    p.zero_()
+                else:
+                    scale = 0.05 if name == "r" else p.shape[-2] ** -0.5
+                    p.copy_(torch.randn(p.shape, generator=gen,
+                                        device="cuda") * scale)
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    out = {}
+    # a loop's device time is stable over a few calls, and each traced call
+    # of the sLSTM's prefill holds 40 thousand kernels
+    traced = dict(skip="bitwise_not", reps=2)
+    # the chunk loop alone
+    q, k, v = (rand(b, s, nh, hd, dtype=bf) for _ in range(3))
+    logi = rand(b, s, nh)
+    logf = xlstm.log_sigmoid(3.0 + rand(b, s, nh))
+
+    def chunks():
+        with full_fp32():
+            carry = (torch.zeros((b, nh, hd, hd), device=dev),
+                     torch.zeros((b, nh, hd), device=dev),
+                     torch.zeros((b, nh), device=dev))
+            for t in range(0, s, L):
+                sl = slice(t, t + L)
+                carry, _ = xlstm.mlstm_chunk(carry, q[:, sl], k[:, sl],
+                                             v[:, sl], logf[:, sl],
+                                             logi[:, sl])
+    # per chunk and (lane, head): q k^T, the scores' and the weights'
+    # products with v and k (L x L x hd each), q C and the C update
+    # (L x hd x hd each)
+    chunk_flops = b * nh * (s // L) * (3 * 2 * L * L * hd + 2 * 2 * L * hd * hd)
+    t_b, by = bound(3 * q.numel() * 2 + b * s * w * 4 + 2 * logi.numel() * 4,
+                    chunk_flops, FP32_FLOPS_PER_S)
+    out["mlstm_chunk_loop"] = dict(
+        shape=f"q/k/v [{b}, {s}, {nh}, {hd}] bf16, chunks of {L}",
+        ms=timer(chunks, reps=2), wall_ms=timer.wall(chunks, reps=2),
+        bound_ms=t_b, bound_by=by, fp32_gflop=chunk_flops / 1e9)
+    cupti.append(([out["mlstm_chunk_loop"]], "kernel_ms", chunks, traced))
+
+    def state_bytes(kind, rows):
+        cache = (xlstm.mlstm_cache(cfg, rows, bf, dev) if kind == "mlstm"
+                 else xlstm.slstm_cache(cfg, rows, dev))
+        return cache, sum(t.nbytes for t in cache.values())
+
+    for kind, rows, m, decode in (("mlstm", b, s, False),
+                                  ("mlstm", b, 1, True),
+                                  ("slstm", b, s, False),
+                                  ("slstm", b, 1, True)):
+        mix = mixers[kind]
+        apply = xlstm.mlstm_apply if kind == "mlstm" else xlstm.slstm_apply
+        x = rand(rows, m, d, dtype=bf)
+        cache, st_bytes = state_bytes(kind, rows)
+        tokens = rows * m
+        weights = sum(p.nbytes for p in mix.parameters())
+        # weights and x in, y out, the state out (and in at decode)
+        nbytes = weights + 2 * tokens * d * 2 + st_bytes * (2 if decode else 1)
+        if kind == "mlstm":
+            bf16_flops = 2 * tokens * (2 * d * w + 3 * w * w + w * d)
+            fp32_flops = 2 * tokens * w * 2 * nh + (
+                2 * 2 * rows * nh * hd * hd if decode
+                else chunk_flops * rows // b)
+        else:
+            bf16_flops = 2 * tokens * d * d
+            fp32_flops = 2 * tokens * d * 4 * d + 2 * tokens * 4 * d * d // nh
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (bf16_flops / BF16_FLOPS_PER_S
+                 + fp32_flops / FP32_FLOPS_PER_S) * 1e3
+
+        def call(x=x, cache=cache, apply=apply, mix=mix, decode=decode):
+            apply(mix, x, cfg, bf, cache, decode)
+        reps = 3 if decode else 1
+        row = out[f"{kind}_{'decode' if decode else 'prefill'}"] = dict(
+            shape=f"x [{rows}, {m}, {d}] bf16",
+            ms=timer(call, reps=reps), wall_ms=timer.wall(call, reps=reps),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        cupti.append(([row], "kernel_ms", call, traced))
+    print("  xlstm plain " + json.dumps(out), flush=True)
+    return out
+
+
+def xlstm_witness(torch, model, toks):
+    """Teacher-forced decode against prefill: a prefill of all but the
+    last XL_WIT_STEPS tokens of ``toks``, then a decode step fed each of
+    them, against the last logits of a prefill of ``toks`` (its length a
+    multiple of 64, ROADMAP F10) and of ``toks`` with its last token
+    changed.  Returns each lane's worst distance over its logit scale, and
+    the decode's and the prefill's last logits."""
+    cfg = model.cfg
+    s = toks.shape[1] - XL_WIT_STEPS
+    logits, cache = model.prefill(toks[:, :s], toks.shape[1])
+    for i in range(XL_WIT_STEPS):
+        logits, cache = model.decode_step(cache, toks[:, s + i:s + i + 1],
+                                          s + i)
+    del cache
+    want, _ = model.prefill(toks)
+    other = toks.clone()
+    other[:, -1] = (other[:, -1] + 1) % cfg.vocab
+    off, _ = model.prefill(other)
+    return (dict(layers=cfg.n_layers, position=toks.shape[1] - 1,
+                 err=rel_rows(logits, want),
+                 other_token=rel_rows(logits, off)), logits, want)
+
+
+def plain_norms_at_fp32(torch):
+    """A context in which the row norms of an fp32-compute model on the
+    card run their plain version (``rms_normalize``): the row-norm kernel
+    takes bf16 rows only, and an fp32 row would make it raise.  Only the
+    fp32 witness runs in it; a bf16 row there fails the script."""
+    import contextlib
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.epilogue import rms_normalize
+
+    def plain(x, scale, eps):
+        require(x.dtype == torch.float32,
+                f"a {x.dtype} row norm in the fp32 witness")
+        return rms_normalize(x, scale, eps)
+
+    @contextlib.contextmanager
+    def swapped():
+        kernel, ops.rmsnorm_cuda = ops.rmsnorm_cuda, plain
+        try:
+            yield
+        finally:
+            ops.rmsnorm_cuda = kernel
+    return swapped()
+
+
+def serve_xlstm(torch, xlstm_plain):
+    """Phase 11: xlstm-350m at full width and all 24 layers (21 mLSTM
+    blocks, width 2048 in 4 heads of 512, and 3 sLSTM blocks of 4 heads of
+    256; d_model 1024, vocab 50304, no FFN; the projections bf16, the maps
+    the reference multiplies at fp32 and the embedding fp32: 1.07 GB),
+    random weights from SEED, built after the models of the phases before
+    it are gone.  At the init scales the decode-vs-prefill witness
+    (``xlstm_witness``): a prefill of 8 x 2048, 64 decode steps fed the
+    next tokens (each mixer's state advanced from the chunkwise form's by
+    the step), against a prefill of the 2112 tokens; on one period of the
+    pattern (the first 8 layers) within WITNESS_TOL, and the same
+    witness at fp32 compute on the same weights (its row norms their
+    plain version, which ``plain_norms_at_fp32`` lets stand in: the
+    kernel takes bf16 only) within XL_WITNESS_TOL32, a changed last token
+    farther than 4x WITNESS_TOL.  At all 24 layers the fp32 witness
+    XL_PRECISION_GAIN below the bf16 one, and the bf16 decode's distance
+    from the fp32 prefill within 4x the bf16 prefill's own (ROADMAP's
+    consistency-budget rule), a changed token farther than 4x each
+    decode's distance from its prefill.  Then, on weights varied as in
+    phase 3,
+    ``generate_with_status`` (the engine falls through to the fixed loop:
+    a recurrent state has no pages) bf16 on 8 x 2048 with 32 new tokens
+    and on 2 x 8192 with 16, and the int8 copy (it quantizes nothing:
+    every weight is a mixer's) on 8 x 2048, its tokens bitwise the bf16
+    run's; the launch counts set to 0 just before each path: every status
+    ok, no scheduler built, the row-norm kernel launched, one decode
+    iteration's launches exact (``decode_launches``: 49 row norms and
+    nothing else).  The prefill (the time to first token) and the decode
+    step are timed at each shape, and the peak printed (above what the
+    phases before left allocated, ``base_gb``)."""
+    import dataclasses
+    import gc
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # what the phases before left allocated (phase 2's plain rows keep
+    # their inputs for the CUPTI pass): the peaks below are above it
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(XL_ARCH)
+    kinds = [cfg.kind(i) for i in range(cfg.n_layers)]
+    require((cfg.n_layers, kinds.count("mlstm"), kinds.count("slstm"),
+             cfg.d_model, cfg.n_heads, cfg.d_ff)
+            == (24, 21, 3, XL_D, XL_H, 0), f"{cfg}")
+    shapes = {"batch8": (XL_BATCH, XL_PROMPT, XL_NEW),
+              "long": (XL_LONG_BATCH, XL_LONG_PROMPT, XL_LONG_NEW)}
+    toks = {key: torch.randint(0, cfg.vocab, (b, s), generator=(
+        torch.Generator().manual_seed(SEED + i)))
+        for i, (key, (b, s, _)) in enumerate(shapes.items())}
+    wit_toks = torch.randint(0, cfg.vocab,
+                             (XL_BATCH, XL_PROMPT + XL_WIT_STEPS),
+                             generator=torch.Generator().manual_seed(SEED + 2))
+    t0 = time.perf_counter()
+    def at_fp32(model):
+        """The witness of ``model``'s weights at fp32 compute, and its
+        prefill's last logits."""
+        m32 = Model(dataclasses.replace(model.cfg, compute_dtype="float32"))
+        m32.load_state_dict(model.state_dict())
+        with plain_norms_at_fp32(torch):
+            w, _, pre = xlstm_witness(torch, m32, wit_toks)
+        del m32
+        torch.cuda.empty_cache()
+        return w, pre
+
+    period = Model(dataclasses.replace(cfg, n_layers=XL_WIT_LAYERS)
+                   ).init_weights(SEED)
+    w8, _, _ = xlstm_witness(torch, period, wit_toks)
+    w8_32, _ = at_fp32(period)
+    del period
+    torch.cuda.empty_cache()
+    model = Model(cfg).init_weights(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(p.nbytes for p in model.parameters()) / 1e9
+    w24, dec16, pre16 = xlstm_witness(torch, model, wit_toks)
+    w32, pre32 = at_fp32(model)
+    w24.update(decode_from_fp32=rel_rows(dec16, pre32),
+               prefill_from_fp32=rel_rows(pre16, pre32))
+    out = {"xlstm_witness": dict(
+        period=dict(w8, tol=WITNESS_TOL),
+        period_fp32=dict(w8_32, tol=XL_WITNESS_TOL32),
+        full=w24, full_fp32=dict(w32, precision_gain=XL_PRECISION_GAIN),
+        seconds=time.perf_counter() - t0)}
+    print("xlstm witness: " + json.dumps(out), flush=True)
+    for w, tol, what in ((w8, WITNESS_TOL, "bf16"),
+                         (w8_32, XL_WITNESS_TOL32, "fp32")):
+        require(w["err"] <= tol,
+                f"xlstm ({XL_WIT_LAYERS} layers, {what}) decode is off its "
+                f"prefill by {w['err']:.3e} of the logit scale")
+        require(w["other_token"] > 4 * WITNESS_TOL,
+                f"the xlstm witness cannot tell a changed token apart: {w}")
+    # all 24 layers: rounding noise shrinks with the stream's precision, a
+    # fault in the decode step or the chunkwise form does not
+    require(w32["err"] * XL_PRECISION_GAIN <= w24["err"],
+            f"xlstm's decode at fp32 is off its prefill by {w32['err']:.3e} "
+            f"of the logit scale, not {XL_PRECISION_GAIN}x below bf16's "
+            f"{w24['err']:.3e}")
+    # the bf16 decode's distance from the fp32 prefill within 4x the bf16
+    # prefill's own (ROADMAP's consistency-budget rule)
+    require(w24["decode_from_fp32"] <= 4 * w24["prefill_from_fp32"],
+            f"xlstm's bf16 decode is off the fp32 prefill by more than 4x "
+            f"the bf16 prefill's own distance: {w24}")
+    for w in (w24, w32):
+        require(w["other_token"] > 4 * w["err"],
+                f"the xlstm witness cannot tell a changed token apart: {w}")
+    print("xlstm witness: " + json.dumps(out), flush=True)
+    vary(torch, model, SEED)
+    bf16_tokens = None
+    for int8 in (False, True):
+        name = "xlstm_fixed_int8" if int8 else "xlstm_fixed"
+        served = model.quantize_params_for_serving() if int8 else model
+        runs_at = {"batch8": shapes["batch8"]} if int8 else shapes
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        runs = {}
+        for key, (b, s, new) in runs_at.items():
+            # the int8 copy is served as it is (the quantize is idempotent)
+            engine = ServeEngine(served, ServeConfig(max_new_tokens=new,
+                                                     int8=int8))
+            t = time.perf_counter()
+            res = engine.generate_with_status({"tokens": toks[key]})
+            torch.cuda.synchronize()
+            runs[key] = (res, time.perf_counter() - t)
+            require(engine._sched is None and not engine._shim_cache,
+                    f"{name}: generate_with_status built a scheduler")
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        missing = [key for key in PATH_KERNELS[name]
+                   if variant_launches(launches, key) <= 0]
+        require(not missing, f"{name}: never launched {missing}: "
+                             f"{launches}")
+        report = dict(params=cfg.param_count(),
+                      params_held=sum(p.numel() for p in model.parameters()),
+                      init_s=init_s, weights_gb=weights_gb, int8=int8,
+                      launches=launches, peak_gb=(peak - base) / 1e9,
+                      base_gb=base / 1e9)
+        for key, (b, s, new) in runs_at.items():
+            res, gen_s = runs[key]
+            require(res.tokens.shape == (b, new),
+                    f"{name} {key} tokens {res.tokens.shape}")
+            require(all(st == "ok" for st in res.status),
+                    f"{name} {key} statuses {res.status}")
+            if key == "batch8":
+                if int8:
+                    require(np.array_equal(res.tokens, bf16_tokens),
+                            f"{name}: the int8 copy's tokens "
+                            f"{res.tokens.tolist()} are not the bf16 "
+                            f"run's {bf16_tokens.tolist()}")
+                else:
+                    bf16_tokens = res.tokens
+            # the prefill (the time to first token) and the decode step
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = served.prefill(toks[key], s + new)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+            require(bool(torch.isfinite(logits).all())
+                    and logits.shape == (b, cfg.padded_vocab()),
+                    f"{name} {key} prefill logits")
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(new - 2):
+                logits, cache = served.decode_step(cache, tok, s + i)
+                tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t) / (new - 2) * 1e3
+            require(bool(torch.isfinite(logits).all()),
+                    f"{name} {key} decode logits")
+            _cuda.reset_launches()
+            served.decode_step(cache, tok, s + new - 2)
+            step = decode_launches(name, dict(_cuda.LAUNCHES), cfg)
+            report[key] = dict(
+                batch=b, prompt=s, new=new, ttft_ms=prefill_s * 1e3,
+                decode_ms_per_step=dec_ms, generate_s=gen_s,
+                tokens_per_s=b * new / gen_s, statuses=list(res.status),
+                launches_per_decode_step=step,
+                distinct_tokens=[len(set(lane.tolist()))
+                                 for lane in res.tokens],
+                tokens=res.tokens[:, :16].tolist())
+            del cache, logits
+        print(f"serve {name}: " + json.dumps(report), flush=True)
+        out[name] = report
+        del engine, served
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["xlstm_plain"] = xlstm_plain
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4691,6 +5177,12 @@ SOURCES = {
         "flash_attention:local+hd256",
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:331"),
+    # xlstm-350m: the row-norm kernel at the stream's N = 1024 and the
+    # mLSTM's N = 2048
+    "k1_rmsnorm_xlstm_n1024": ("rmsnorm", "src/repro_torch/csrc/matmul.cu",
+                               "src/repro/kernels/matmul.py:180"),
+    "k1_rmsnorm_xlstm_n2048": ("rmsnorm", "src/repro_torch/csrc/matmul.cu",
+                               "src/repro/kernels/matmul.py:180"),
 }
 
 
@@ -4738,6 +5230,15 @@ LAUNCH_NOTES = {
     "k4_flash_prefill_recurrentgemma": "every flash_attention:local+hd256 "
                                        "launch: gemma3's local layers' and "
                                        "recurrentgemma's",
+    "k1_rmsnorm": "every rmsnorm launch, at every width (xlstm's at N = "
+                  "1024 and 2048 among them)",
+    "k1_rmsnorm_xlstm_n1024": "every rmsnorm launch, at every width: "
+                              "xlstm's at N = 1024 (the stream's norms and "
+                              "the sLSTM's inner norm) and 2048 and the "
+                              "other paths'",
+    "k1_rmsnorm_xlstm_n2048": "every rmsnorm launch, at every width: "
+                              "xlstm's at N = 1024 and 2048 (the mLSTM's "
+                              "inner norm) and the other paths'",
 }
 
 
@@ -4794,6 +5295,8 @@ def main() -> int:
     kernels.update(check_paligemma_kernels(torch, timer))
     kernels.update(check_recurrentgemma_kernels(torch, timer))
     rglru_plain = rglru_rows(torch, timer)
+    kernels.update(check_xlstm_kernels(torch, timer, cupti))
+    xlstm_plain = xlstm_rows(torch, timer, cupti)
     t0 = time.perf_counter()
     sampler = check_sampler(torch, timer)
     print(f"sampler ({time.perf_counter() - t0:.1f} s): "
@@ -4811,7 +5314,8 @@ def main() -> int:
         smoke_local = check_local_smoke(torch, arch, **over)
         print(f"smoke {arch}: " + json.dumps(smoke_local), flush=True)
     for arch, over in (("whisper-small", {}), (PG_ARCH, {}),
-                       (RG_ARCH, {"param_dtype": "bfloat16"})):
+                       (RG_ARCH, {"param_dtype": "bfloat16"}),
+                       (XL_ARCH, {})):
         print(f"smoke {arch}: "
               + json.dumps(check_fixed_smoke(torch, arch, **over)),
               flush=True)
@@ -4834,8 +5338,12 @@ def main() -> int:
     marks.append(("paligemma", time.perf_counter()))
     serve.update(serve_recurrentgemma(torch, rglru_plain))
     marks.append(("recurrentgemma", time.perf_counter()))
+    serve.update(serve_xlstm(torch, xlstm_plain))
+    marks.append(("xlstm", time.perf_counter()))
     cupti_pass(torch, cupti)
     marks.append(("cupti", time.perf_counter()))
+    print("xlstm plain, with CUPTI kernel times: " + json.dumps(xlstm_plain),
+          flush=True)
     print("phase times: " + ", ".join(
         f"{name} {t - t_prev:.1f} s" for (name, t), (_, t_prev)
         in zip(marks, [(None, t_start)] + marks[:-1])), flush=True)

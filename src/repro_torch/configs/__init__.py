@@ -6,7 +6,7 @@ from typing import List
 from repro_torch.configs import (gemma2_27b, gemma3_12b, granite_3_8b,
                                  internlm2_1_8b, llama4_scout_17b_a16e,
                                  paligemma_3b, recurrentgemma_9b,
-                                 whisper_small)
+                                 whisper_small, xlstm_350m)
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
@@ -18,6 +18,7 @@ _MODULES = {
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
     "paligemma-3b": paligemma_3b,
     "recurrentgemma-9b": recurrentgemma_9b,
+    "xlstm-350m": xlstm_350m,
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -1,7 +1,7 @@
 """Architecture configuration schema (the dense decoders, the MoE decoder,
-the encoder-decoder, the prefix-LM and the RG-LRU hybrid the port serves).  A copy of the
-JAX package's ``ArchConfig`` fields that the serving path reads; the port
-never imports that package."""
+the encoder-decoder, the prefix-LM, the RG-LRU hybrid and xLSTM the port
+serves).  A copy of the JAX package's ``ArchConfig`` fields that the
+serving path reads; the port never imports that package."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,7 +22,8 @@ class ArchConfig:
     head_dim: Optional[int] = None
     # cycled over layers: 'global', 'local' (sliding window) or 'chunked'
     # (llama4: causal within chunks of ``window`` positions) attention, or
-    # the 'rglru' recurrent mixer (recurrentgemma)
+    # a recurrent mixer: 'rglru' (recurrentgemma), 'mlstm' or 'slstm'
+    # (xlstm)
     block_pattern: Tuple[str, ...] = ("global",)
     window: int = 1024           # local/chunked attention window
     attn_softcap: Optional[float] = None   # gemma2 attention logit softcap
@@ -95,17 +96,26 @@ class ArchConfig:
         encoder for ``encdec``, by the reference's count (whose decoder
         blocks leave out the cross-attention and its norm; an MoE block's
         FFN is its experts, router and shared expert; an RG-LRU mixer's
-        two [w, w] gates and its decay count ``3 * w``, ROADMAP F8)."""
-        d = self.d_model
+        two [w, w] gates and its decay count ``3 * w``, ROADMAP F8; an
+        mLSTM's three [2d, 2d] q/k/v count ``3 (2d)^2 / 4`` and its block
+        one norm, an sLSTM leaves out its ``out`` [d, d], ROADMAP F9)."""
+        d, cw = self.d_model, self.conv_width
         attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
         if self.moe:
             mlp = (self.n_experts + self.moe_shared_expert) * mlp \
                 + d * self.n_experts
         w = self.lru_width or d
-        mix = 3 * d * w + self.conv_width * w + 3 * w
+        block = {
+            "rglru": 3 * d * w + cw * w + 3 * w + mlp + 2 * d,
+            # the mLSTM's w is 2d
+            "mlstm": (2 * d * 2 * d + 3 * (2 * d) ** 2 // 4 + 2 * d * d
+                      + cw * 2 * d + 4 * 2 * d + d),
+            "slstm": (4 * d * d + 4 * d + 4 * d * d // max(1, self.n_heads)
+                      + mlp + 2 * d),
+        }
         total = self.padded_vocab() * d + d + sum(
-            (mix if self.kind(i) == "rglru" else attn) + mlp + 2 * d
+            block.get(self.kind(i), attn + mlp + 2 * d)
             for i in range(self.n_layers))
         if self.encdec:
             total += self.n_enc_layers * (attn + d + 2 * d * self.d_ff

@@ -22,13 +22,21 @@ encoder, ``encoder/blocks`` stacked over its ``n_enc_layers`` and
 xyz layout), which keep their names under ``blocks.<i>.ffn``.  An RG-LRU
 block (recurrentgemma) holds ``mix/{in_x, in_g, conv, w_a, w_i, lam,
 out}`` in place of ``attn``, in its groups and in its 2-block tail, which
-keep their names under ``blocks.<i>.mix``.  Loading the result into a
-``Model`` casts each leaf once to its parameter's dtype (the mixer's
-gates, bf16 in the reference's tree, widen exactly to the port's fp32).
+keep their names under ``blocks.<i>.mix``.  An xLSTM block (xlstm-350m:
+three groups of seven mLSTM blocks and one sLSTM block, no tail) holds
+``ln1`` and ``mix`` alone, no ``ln2`` and no ``ffn``: an mLSTM's ``mix/
+{up_x, up_g, conv, wq, wk, wv, w_i, w_f, b_i, b_f, norm, down}``, an
+sLSTM's ``mix/{w_in, r, bias, norm, out}``.  Loading the result into a
+``Model`` casts each leaf once to its parameter's dtype (the RG-LRU's
+gates and the sLSTM's ``w_in``, ``param_dtype`` in the reference's tree,
+widen exactly to the port's fp32; the xLSTM mixers' projections of a
+float32 config round once to the compute dtype, as the reference's
+``astype`` at use does).
 
 ``to_jax_params`` is the inverse: a ``state_dict`` back to the reference's
 tree (the groups restacked, the MLP weights in the xyz layout ``[1, K,
-N]``, the RG-LRU gates back at the config's ``param_dtype``) with numpy
+N]``, the widened mixer weights, ``models.lm.WIDENED``, back at the
+config's ``param_dtype``) with numpy
 leaves, for ``checkpoint.CheckpointManager``; a bf16
 tensor becomes its 2-byte words (``checkpoint.manager.BF16_WORDS``), which
 ``from_jax_params`` reads back.
@@ -43,6 +51,7 @@ import torch
 from repro_torch.checkpoint.manager import BF16_WORDS, host_copy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.maxeva_matmul import unshard_weight_xyz
+from repro_torch.models.lm import WIDENED
 
 
 _MLP = ("gate", "up", "down")
@@ -77,7 +86,7 @@ def _block(sd: Dict[str, torch.Tensor], p: str, blk: Dict[str, Any],
         sd[p + "mix." + name] = leaf(w)
     for name, w in blk.get("xattn", {}).items():
         sd[p + "xattn." + name] = leaf(w)
-    for name, w in blk["ffn"].items():
+    for name, w in blk.get("ffn", {}).items():
         if name in _MLP:
             sd[p + "ffn." + name] = unshard_weight_xyz(leaf(w),
                                                        1).contiguous()
@@ -106,19 +115,16 @@ def from_jax_params(cfg: ArchConfig, params: Dict[str, Any]
     return sd
 
 
-# the RG-LRU gates the port holds at fp32 (``models.rglru``)
-_WIDENED = ("w_a", "w_i")
-
-
 def _block_tree(sd: Dict[str, torch.Tensor], p: str,
-                param_dtype: torch.dtype) -> Dict[str, Any]:
-    """The reference block of the port's keys under prefix ``p``."""
+                param_dtype: torch.dtype, kind: str = "") -> Dict[str, Any]:
+    """The reference block (of kind ``kind``) of the port's keys under
+    prefix ``p``."""
     blk: Dict[str, Any] = {}
     for key, t in sd.items():
         if not key.startswith(p):
             continue
         *path, name = key[len(p):].split(".")
-        if path == ["mix"] and name in _WIDENED:
+        if path == ["mix"] and name in WIDENED.get(kind, ()):
             t = t.to(param_dtype)
         w = host_copy(t)
         if path == ["ffn"] and name in _MLP:
@@ -148,11 +154,12 @@ def to_jax_params(cfg: ArchConfig, state_dict: Dict[str, torch.Tensor]
                             "final_norm": host_copy(sd["final_norm"])}
     if cfg.n_groups > 0:
         tree["groups"] = {f"b{i}": _stack([
-            _block_tree(sd, f"blocks.{g * period + i}.", pdt)
-            for g in range(cfg.n_groups)]) for i in range(period)}
+            _block_tree(sd, f"blocks.{g * period + i}.", pdt, kind)
+            for g in range(cfg.n_groups)])
+            for i, kind in enumerate(cfg.block_pattern)}
     tree["tail"] = {f"t{i}": _block_tree(
-        sd, f"blocks.{cfg.n_groups * period + i}.", pdt)
-        for i in range(len(cfg.tail_blocks))}
+        sd, f"blocks.{cfg.n_groups * period + i}.", pdt, kind)
+        for i, kind in enumerate(cfg.tail_blocks)}
     if cfg.encdec:
         tree["encoder"] = {
             "blocks": _stack([_block_tree(sd, f"encoder.blocks.{i}.", pdt)

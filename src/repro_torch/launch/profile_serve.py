@@ -24,6 +24,9 @@ after the bf16 ones on the model quantized in place,
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch recurrentgemma-9b --batch 2 --prompt-len 4160 \
         --out profile_serve_recurrentgemma.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch xlstm-350m --batch 8 --prompt-len 2048 \
+        --out profile_serve_xlstm.json
 
 Prints, for each window (fixed prefill, fixed decode step, and per engine
 a scheduler iteration that prefills one chunk on every lane and one that
@@ -31,9 +34,11 @@ only decodes): the host wall time (synchronized, profiler off), the device
 busy time (sum of kernel times from a profiled run of the same calls from
 the same starting state; one stream, so kernels do not overlap), the idle
 share, and the kernels by device time.  whisper-small (an
-encoder-decoder), paligemma-3b (a prefix-LM) and recurrentgemma-9b (RG-LRU
-states), served by the fixed loop only, have the fixed windows, bf16 and
-int8: whisper's prefill window
+encoder-decoder), paligemma-3b (a prefix-LM), recurrentgemma-9b (RG-LRU
+states) and xlstm-350m (mLSTM and sLSTM states; ``--prompt-len`` below 64
+or a multiple of 64), served by the fixed loop only, have the fixed
+windows, bf16 and int8 (xlstm's int8 copy quantizes nothing: its windows
+are the bf16 ones, and are not run twice): whisper's prefill window
 holds the encoder over the batch's clips (``launch.serve.make_frames``),
 and its decode step recomputes the cross-attention K/V from the held
 encoder output; paligemma's prompt is its images' patches
@@ -56,6 +61,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels.quantize import QuantizedWeight
 from repro_torch.launch.serve import (geometry, int8_fits, make_frames,
                                       make_patches, with_layers)
 from repro_torch.models.lm import Model
@@ -91,8 +97,10 @@ def _window(fn, reps: int, setup):
     wall_us = (time.perf_counter() - t) * 1e6 / reps
     setup()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's activity alone: the kernel times need no host events, and
+    # a long prompt's window (xlstm's 2 x 8192: about a million launches)
+    # would not finish its host-side trace in ten minutes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -198,9 +206,11 @@ def main(argv=None):
               "lanes": geom["n_lanes"], "sched_prompt": SCHED_PROMPT,
               "fixed": _fixed(model, cfg, args)}
     if not model.supports_paged_serving:
-        # the fixed loop only: its windows on the int8 copy too
-        report["fixed_int8"] = _fixed(model.quantize_params_for_serving(),
-                                      cfg, args)
+        # the fixed loop only: its windows on the int8 copy too, where the
+        # copy quantizes anything
+        q8 = model.quantize_params_for_serving()
+        if any(isinstance(m, QuantizedWeight) for m in q8.modules()):
+            report["fixed_int8"] = _fixed(q8, cfg, args)
     else:
         report["scheduler_bf16"] = _scheduler(model, cfg, args, False)
         torch.cuda.empty_cache()

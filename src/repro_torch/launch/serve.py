@@ -23,6 +23,9 @@ or continuous batching over the paged KV cache (``--requests N``).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b [--batch 2 --prompt-len 4160] [--int8] \
         [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+        [--batch 8 --prompt-len 2048 --max-new 32] [--int8] \
+        [--smoke --device cpu]
 
 Drills (the reference's flags): lane 1 gets NaN logits at step 2 and is
 quarantined while its peers finish, the first call fails once and is
@@ -63,7 +66,11 @@ stubbed SigLIP tower) in front of ``--prompt-len`` minus
 ``generate_with_status`` falls through to it, and ``--requests`` is
 refused; so is recurrentgemma-9b (26 RG-LRU blocks, whose recurrent state
 has no pages, and 12 local-attention blocks; 18.8 GB of weights at bf16,
-20.6 GB as the port holds them, the mixers' gates at fp32).
+20.6 GB as the port holds them, the mixers' gates at fp32), and so is
+xlstm-350m (21 mLSTM and 3 sLSTM blocks, 1.07 GB as the port holds them;
+its ``--prompt-len`` must be below 64 or a multiple of 64, the
+reference's chunkwise prefill, ROADMAP F10; its int8 copy quantizes
+nothing, every weight being a recurrent mixer's).
 llama4-scout-17b-a16e (MoE, 3 chunked layers to 1 global,
 window 8192) is 211 GB in bf16 at its 48 layers: ``--layers N`` serves
 its first N at full width (``dataclasses.replace(cfg, n_layers=N)``; 8
@@ -83,7 +90,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.quantize import QuantizedWeight
-from repro_torch.models.lm import Block, Model
+from repro_torch.models.lm import Block, Model, check_prefill_len
 from repro_torch.robust import (FaultPlan, LogitFault, StallFault,
                                 generate_with_retry)
 from repro_torch.serve.api import Request, SamplingParams
@@ -235,7 +242,7 @@ def int8_peak_bytes(cfg, fp32_fallback: bool = False) -> int:
     and, with ``fp32_fallback``, every block's int8 copy beside it; without
     it the release path's float model plus the largest block's int8 copy
     (blocks differ: an RG-LRU block's copy is its MLP alone, its mixer
-    shared).  A block's int8 copy is its ``QuantizedWeight``s (int8 values
+    shared; an xLSTM block's is empty).  A block's int8 copy is its ``QuantizedWeight``s (int8 values
     and f32 column scales); what it shares is not counted twice."""
     model = Model(cfg, device="meta")
     copies = [_nbytes(b for m in Block.quantized(blk, cfg).modules()
@@ -368,6 +375,10 @@ def main(argv=None):
         raise SystemExit(f"{cfg.name}: --prompt-len counts its "
                          f"{cfg.prefix_tokens} patches and at least one "
                          f"text token, got {args.prompt_len}")
+    try:
+        check_prefill_len(cfg, text_len)
+    except ValueError as e:
+        raise SystemExit(f"{cfg.name}: --prompt-len: {e}") from None
     model = Model(cfg, device=device).init_weights(args.seed)
     if args.int8 and not args.fp32_fallback:
         # the bf16 projections go block by block as the int8 copy is built

@@ -3,6 +3,7 @@ embedding gather and the MaxEVA MLP, gated (SwiGLU) or plain GELU (single
 device; bf16 or int8 weights)."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional
@@ -55,16 +56,23 @@ def sinusoid(start: int, length: int, d_model: int, dtype: torch.dtype,
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None].to(dtype)
 
 
-def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of fp32 operands in full fp32 on every device: TF32 off
-    for the call, as XLA's fp32 einsum on the CPU is full fp32 (the MoE's
-    router, the RG-LRU's gates)."""
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 products in full fp32 on every device inside the block: TF32
+    off, as XLA's fp32 einsum on the CPU is full fp32."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return torch.matmul(a, b)
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of fp32 operands in full fp32 (``full_fp32``): the MoE's
+    router, the RG-LRU's gates, the xLSTM mixers' gate and input maps."""
+    with full_fp32():
+        return torch.matmul(a, b)
 
 
 def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor,

@@ -1,8 +1,9 @@
 """The GQA decoder (global, sliding-window or chunked attention + gated
 MLP or routed MoE, tied embeddings), whisper's encoder-decoder,
-paligemma's patch prefix and recurrentgemma's RG-LRU blocks: parameters,
-forward in ``prefill``, ``decode`` and ``paged`` modes, the dense KV cache
-and the paged KV pools, and the int8 serving copy.
+paligemma's patch prefix, recurrentgemma's RG-LRU blocks and xLSTM's
+blocks: parameters, forward in ``prefill``, ``decode`` and ``paged``
+modes, the dense KV cache and the paged KV pools, and the int8 serving
+copy.
 
 Layer i's attention kind is ``cfg.block_pattern[i % period]`` (gemma2
 alternates 'local' and 'global'); its RoPE theta is ``rope_theta``, or
@@ -53,10 +54,21 @@ refuses such a model (``supports_paged_serving`` false), and its int8
 copy leaves the mixer at its float weights (the reference's pass touches
 ``/attn/`` and ``/ffn/`` only).
 
-whisper's and paligemma's configs keep the reference's float32
+xlstm (the 'mlstm' and 'slstm' kinds, ``d_ff`` 0, the reference's
+``lm.py:252-261, 308-312``): such a block is ``ln1`` and the mixer
+(``models.xlstm``) alone, with no ``ln2`` and no FFN, so there is no down
+GEMM to fold into: the residual add runs in the compute dtype and the
+NEXT norm (the next ``ln1``, or ``final_norm``) as a standalone rmsnorm.
+Its cache entry is the mixer's state (the mLSTM's ``{"C", "n", "m",
+"conv"}``, the sLSTM's ``{"c", "n", "m", "h"}``), written by the prefill
+and replaced by each decode step as an RG-LRU's is.  Every weight is the
+mixer's, so the int8 copy quantizes nothing and shares every leaf.
+
+whisper's, paligemma's and xlstm's configs keep the reference's float32
 ``param_dtype`` (its training master copy); the port serves their
 projection weights at the compute dtype (bf16 on the card, cast once when
-the model is built or loaded), the embedding and norm scales at fp32.
+the model is built or loaded), the embedding and norm scales (and the
+xLSTM mixers' fp32 maps) at fp32.
 Other float32 configs (internlm2-1.8b, the smoke configs) keep float32
 weights, so that their int8 copies are the reference's bit for bit.
 """
@@ -71,7 +83,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.quantize import quantize_weight_colwise
-from repro_torch.kernels.ref import PAGED_KINDS, check_kind
+from repro_torch.kernels.ref import PAGED_KINDS
 from repro_torch.models.attention import (Attention, CrossAttention,
                                           attention_apply,
                                           cross_attention_apply)
@@ -81,6 +93,20 @@ from repro_torch.models.loss import vocab_parallel_logits
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.rglru import (RGLRU, lru_log_init, rglru_apply,
                                       rglru_cache)
+from repro_torch.models import xlstm
+
+# the recurrent mixers: a block of such a kind holds ``mix`` in place of
+# ``attn``, and its cache entry is the mixer's state; each kind's module,
+# its apply and its zeroed state (cfg, batch, compute dtype, device)
+MIXERS = {"rglru": (RGLRU, rglru_apply, rglru_cache),
+          "mlstm": (xlstm.MLSTM, xlstm.mlstm_apply, xlstm.mlstm_cache),
+          "slstm": (xlstm.SLSTM, xlstm.slstm_apply,
+                    lambda cfg, batch, cd, dev: xlstm.slstm_cache(cfg, batch,
+                                                                  dev))}
+# the mixers' weights the port holds at fp32 where the reference holds them
+# at ``param_dtype`` and widens them at use: drawn at ``param_dtype``,
+# written back at it (``convert.to_jax_params``)
+WIDENED = {"rglru": ("w_a", "w_i"), "slstm": ("w_in",)}
 
 
 # the paged serving cache: one {"kp", "vp"} pair of page pools a layer
@@ -89,7 +115,9 @@ Pools = List[Dict[str, torch.Tensor]]
 
 class Cache(list):
     """The dense cache: one dict per decoder layer, ``{"k", "v"}`` for an
-    attention layer or an RG-LRU layer's state ``{"h", "conv"}``, and for
+    attention layer or a recurrent layer's state (an RG-LRU's ``{"h",
+    "conv"}``, an mLSTM's ``{"C", "n", "m", "conv"}``, an sLSTM's ``{"c",
+    "n", "m", "h"}``), and for
     whisper the encoder output [B, F, D] in the compute dtype
     (``enc_out``; the reference's cache entry, ``lm.py:669-672``)."""
     enc_out: Optional[torch.Tensor] = None
@@ -104,6 +132,14 @@ class Cache(list):
         out = Cache(dict(layer) for layer in self)
         out.enc_out = self.enc_out
         return out
+
+
+def check_prefill_len(cfg: ArchConfig, s: int) -> None:
+    """Raise ValueError where ``cfg``'s prefill cannot take ``s`` tokens:
+    a model with mLSTM blocks takes fewer than 64 or a multiple of 64
+    (``xlstm.prefill_chunk``, ROADMAP F10)."""
+    if "mlstm" in cfg.block_pattern:
+        xlstm.prefill_chunk(s)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -144,35 +180,38 @@ def _norm(cfg: ArchConfig, device) -> nn.Parameter:
 
 class Block(nn.Module):
     """A decoder block of kind ``kind``: an attention block holds ``attn``,
-    an 'rglru' block the RG-LRU mixer ``mix``; whisper's (``cfg.encdec``)
-    also holds the cross-attention and its norm ``lnx``, llama4's
-    (``cfg.moe``) an MoE as its FFN."""
+    a recurrent block (``MIXERS``) the mixer ``mix``; whisper's
+    (``cfg.encdec``) also holds the cross-attention and its norm ``lnx``,
+    llama4's (``cfg.moe``) an MoE as its FFN.  With ``d_ff`` 0 (xlstm) a
+    block has no ``ln2`` and no FFN."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, kind: str):
         super().__init__()
         self.ln1 = _norm(cfg, device)
-        if kind == "rglru":
-            self.mix = RGLRU(cfg, dtype, device)
+        if kind in MIXERS:
+            self.mix = MIXERS[kind][0](cfg, dtype, device)
         else:
             self.attn = Attention(cfg, dtype, device)
         if cfg.encdec:
             self.lnx = _norm(cfg, device)
             self.xattn = CrossAttention(cfg, dtype, device)
-        self.ln2 = _norm(cfg, device)
-        self.ffn = (MoE if cfg.moe else MLP)(cfg, dtype, device)
+        if cfg.d_ff > 0:
+            self.ln2 = _norm(cfg, device)
+            self.ffn = (MoE if cfg.moe else MLP)(cfg, dtype, device)
 
     @classmethod
     def quantized(cls, blk: "Block", cfg: ArchConfig) -> "Block":
         """The int8 serving copy of ``blk``: the packed ``wqkv``, ``wo``
         and the MLP's projections quantized column-wise; the norm scales,
         whisper's cross-attention, llama4's MoE (router, experts and
-        shared expert) and recurrentgemma's RG-LRU mixer shared (the
-        reference's pass skips ``xattn``, an MoE's ``ffn`` and every
-        mixer, ``lm.py:194-208``)."""
+        shared expert) and every recurrent mixer shared (the reference's
+        pass skips ``xattn``, an MoE's ``ffn`` and every mixer,
+        ``lm.py:194-208``).  An xLSTM block (a mixer and no FFN) has no
+        leaf to quantize: its copy shares everything."""
         q = cls.__new__(cls)
         nn.Module.__init__(q)
-        q.ln1, q.ln2 = blk.ln1, blk.ln2
+        q.ln1 = blk.ln1
         if cfg.encdec:
             q.lnx, q.xattn = blk.lnx, blk.xattn
         qw = quantize_weight_colwise
@@ -181,8 +220,10 @@ class Block(nn.Module):
         else:
             q.attn = Attention(cfg, None, None, weights={
                 "wqkv": qw(blk.attn.wqkv), "wo": qw(blk.attn.wo)})
-        q.ffn = blk.ffn if cfg.moe else MLP(cfg, None, None, weights={
-            name: qw(getattr(blk.ffn, name)) for name in blk.ffn.names})
+        if cfg.d_ff > 0:
+            q.ln2 = blk.ln2
+            q.ffn = blk.ffn if cfg.moe else MLP(cfg, None, None, weights={
+                name: qw(getattr(blk.ffn, name)) for name in blk.ffn.names})
         return q
 
 
@@ -215,8 +256,11 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         for kind in cfg.block_pattern:
-            if kind != "rglru":
-                check_kind(kind, PAGED_KINDS)
+            if kind not in PAGED_KINDS and kind not in MIXERS:
+                raise NotImplementedError(
+                    f"{cfg.name}: block kind {kind!r} is not ported; the "
+                    f"port serves the attention kinds {PAGED_KINDS} and the "
+                    f"recurrent mixers {tuple(MIXERS)}")
         if not cfg.tie_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves models with tied embeddings")
@@ -226,11 +270,12 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.compute_dtype = _dtype(cfg.compute_dtype)
         dt = _dtype(cfg.param_dtype)
-        # whisper's and paligemma's float32 param_dtype is the reference's
-        # training master copy; served, their projection weights are held
-        # at the compute dtype, so no GEMM casts them at use
+        # whisper's, paligemma's and xlstm's float32 param_dtype is the
+        # reference's training master copy; served, their projection
+        # weights are held at the compute dtype, so no GEMM casts them at
+        # use
         proj = (self.compute_dtype if cfg.encdec or cfg.prefix_tokens
-                else dt)
+                or "mlstm" in cfg.block_pattern else dt)
         self.embed = nn.Parameter(
             torch.empty(cfg.padded_vocab(), cfg.d_model, dtype=dt,
                         device=self.device), requires_grad=False)
@@ -244,27 +289,43 @@ class Model(nn.Module):
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Model":
         """Seeded init with the reference's schema and scales: norm scales
-        zero, the embedding N(0, 1/d), every other weight N(0, 1/fan_in),
-        the fan-in the second-to-last dim (``param.py:142-145``: an expert
-        stack [E, D, F] takes D); an RG-LRU mixer's ``lam`` its
-        ``lru_log`` init, and its gates, held at fp32, drawn at the
-        config's ``param_dtype`` as the reference's are.  Drawn by
+        and biases zero, the embedding N(0, 1/d), every other weight N(0,
+        1/fan_in), the fan-in the second-to-last dim (``param.py:142-145``:
+        an expert stack [E, D, F] takes D, a causal conv [cw, W] its width
+        cw); an RG-LRU mixer's ``lam`` its ``lru_log`` init, an mLSTM's
+        forget bias ``b_f`` ``linspace(3, 6, n_heads)`` and an sLSTM's
+        recurrent map ``r`` N(0, 0.05^2) (its ``scale`` overrides the
+        fan-in, ``param.py:143-145``); the weights held at fp32 where the
+        reference holds them at ``param_dtype`` (``WIDENED``) drawn at
+        ``param_dtype`` as the reference's are.  Drawn by
         ``torch.Generator`` on the model's device, so it does not reproduce
         the JAX package's bits (``convert.from_jax_params`` carries those
         across)."""
+        cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        pdt = _dtype(self.cfg.param_dtype)
+        pdt = _dtype(cfg.param_dtype)
         for name, p in self.named_parameters():
-            if name.endswith(".mix.lam"):
+            parts = name.split(".")
+            leaf = parts[-1]
+            # blocks.<i>.mix.<leaf>: a recurrent mixer's weight
+            mix = parts[0] == "blocks" and parts[2] == "mix"
+            kind = cfg.kind(int(parts[1])) if mix else None
+            if mix and kind == "rglru" and leaf == "lam":
                 p.copy_(lru_log_init(p.shape, gen, self.device))
+                continue
+            if mix and kind == "mlstm" and leaf == "b_f":
+                p.copy_(torch.linspace(3.0, 6.0, p.shape[0],
+                                       dtype=torch.float32))
                 continue
             if p.dim() == 1:
                 p.zero_()
                 continue
-            fan_in = self.cfg.d_model if name == "embed" else p.shape[-2]
+            fan_in = cfg.d_model if name == "embed" else p.shape[-2]
+            scale = (0.05 if mix and kind == "slstm" and leaf == "r"
+                     else 1.0 / math.sqrt(fan_in))
             w = torch.randn(p.shape, generator=gen, device=self.device,
-                            dtype=torch.float32).mul_(1.0 / math.sqrt(fan_in))
-            if name.endswith((".mix.w_a", ".mix.w_i")):
+                            dtype=torch.float32).mul_(scale)
+            if mix and leaf in WIDENED.get(kind, ()):
                 w = w.to(pdt)
             p.copy_(w)
         return self
@@ -331,15 +392,15 @@ class Model(nn.Module):
         """Zeroed dense K/V caches in bf16, one dict per layer (the
         reference's ``cache_defs``): [B, max_len, KV, hd] for a global
         layer, a ring buffer of min(window, max_len) slots for a local or
-        chunked one; an RG-LRU layer's zeroed state (``rglru_cache``, its
-        conv context in the compute dtype, which the prefill writes)."""
-        cfg = self.cfg
-        kw = dict(dtype=torch.bfloat16, device=self.device)
+        chunked one; a recurrent layer's zeroed state (``rglru_cache``,
+        ``xlstm.mlstm_cache``, ``xlstm.slstm_cache``; a conv context in
+        the compute dtype), which the prefill writes."""
+        cfg, cd, dev = self.cfg, self.compute_dtype, self.device
+        kw = dict(dtype=torch.bfloat16, device=dev)
         out = Cache()
         for i in range(cfg.n_layers):
-            if cfg.kind(i) == "rglru":
-                out.append(rglru_cache(cfg, batch, self.compute_dtype,
-                                       self.device))
+            if cfg.kind(i) in MIXERS:
+                out.append(MIXERS[cfg.kind(i)][2](cfg, batch, cd, dev))
                 continue
             slots = (min(cfg.window, max_len)
                      if cfg.kind(i) in ("local", "chunked") else max_len)
@@ -373,13 +434,13 @@ class Model(nn.Module):
     def _block(self, blk: Block, kind: str, h, xn, next_scale, *, positions,
                cache, pos, page_table, enc_out=None):
         cfg, cd = self.cfg, self.compute_dtype
-        if kind == "rglru":
+        if kind in MIXERS:
             if page_table is not None:
                 raise NotImplementedError(
-                    f"{cfg.name}: an RG-LRU state has no pages; serve it "
-                    f"through the fixed loop")
-            out = rglru_apply(blk.mix, xn, cfg, cd, cache,
-                              decode=pos is not None)
+                    f"{cfg.name}: a recurrent ({kind}) state has no pages; "
+                    f"serve it through the fixed loop")
+            out = MIXERS[kind][1](blk.mix, xn, cfg, cd, cache,
+                                  decode=pos is not None)
         else:
             out = attention_apply(blk.attn, xn, cfg, cd, kind=kind,
                                   theta=self._theta(kind),
@@ -392,6 +453,10 @@ class Model(nn.Module):
             xx = rmsnorm(h, blk.lnx, cfg.norm_eps)
             h = h + cross_attention_apply(blk.xattn, xx, enc_out, cfg, cd,
                                           decode=pos is not None)
+        if cfg.d_ff == 0:
+            # an xLSTM block has no FFN: the next norm runs standalone
+            # (lm.py:308-312)
+            return h, rmsnorm(h, next_scale, cfg.norm_eps)
         xn2 = rmsnorm(h, blk.ln2, cfg.norm_eps)
         if cfg.moe:
             # the routed path: no GEMM epilogue to fold into, so the
@@ -481,9 +546,12 @@ class Model(nn.Module):
         in the cache (``Cache.enc_out``) for the decode steps.  paligemma
         takes its images' patch embeddings ``patches`` [B, P, D], P =
         ``prefix_tokens``: the prompt is P + S positions long, and the
-        first decode step is at position P + S."""
+        first decode step is at position P + S.  A model with mLSTM
+        blocks takes S below 64 or a multiple of 64 (ROADMAP F10) and
+        raises ValueError on other lengths before it computes anything."""
         cfg = self.cfg
         b, s = tokens.shape
+        check_prefill_len(cfg, s)
         p = cfg.prefix_tokens
         if p:
             if patches is None or tuple(patches.shape) != (b, p, cfg.d_model):

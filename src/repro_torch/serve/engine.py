@@ -11,8 +11,9 @@ cache behind ``submit()/step()/collect()``, and the fixed-batch loop.
 ``generate()`` / ``generate_with_status()`` are shims over a cached
 fixed-geometry scheduler, as in the reference, whose greedy tokens equal
 the fixed loop's; a model the scheduler cannot serve (whisper's
-encoder-decoder, paligemma's prefix-LM, recurrentgemma's RG-LRU states,
-``Model.supports_paged_serving``) falls through to the fixed loop, which hands the batch's ``frames`` or
+encoder-decoder, paligemma's prefix-LM, recurrentgemma's and xlstm's
+recurrent states, ``Model.supports_paged_serving``) falls through to the
+fixed loop, which hands the batch's ``frames`` or
 ``patches`` to its prefill, and its ``submit()`` raises.  With
 ``ServeConfig(int8=True)`` the engine serves the model's int8 copy
 (``Model.quantize_params_for_serving``); a saturation

@@ -582,7 +582,8 @@ def test_fp32_fallback_step_leaves_the_state(fp32):
 def test_not_pageable_refusals(fp32):
     """Not pageable, as the reference's ``_paged_ok``: ``new_paged_cache``
     raises (the reference's ``paged_cache_defs`` too), ``submit`` raises,
-    a paged forward raises, and ``mlstm``/``slstm`` blocks stay refused."""
+    a paged forward raises, and a block kind the port does not serve is
+    refused with its name."""
     tm = fp32.tm
     assert not tm.supports_paged_serving
     assert not fp32.jm.supports_paged_serving
@@ -597,11 +598,10 @@ def test_not_pageable_refusals(fp32):
         tm.forward(torch.zeros((1, 1), dtype=torch.long), cache=[{}] * 5,
                    positions=torch.zeros((1, 1), dtype=torch.int32),
                    page_table=torch.zeros((1, 1), dtype=torch.int32))
-    for kind in ("mlstm", "slstm"):
-        cfg = dataclasses.replace(get_config(ARCH, smoke=True),
-                                  block_pattern=(kind,))
-        with pytest.raises(NotImplementedError, match=kind):
-            Model(cfg, device="meta")
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True),
+                              block_pattern=("rglru", "mamba"))
+    with pytest.raises(NotImplementedError, match="'mamba'"):
+        Model(cfg, device="meta")
 
 
 # ---------------------------------------------------------------------------
