@@ -214,6 +214,26 @@ line):
    times the mixers' plain parts (``xlstm_rows``: an mLSTM call and an
    sLSTM call at 8 x 2048 and at decode, the chunk loop alone); phase 3
    its smoke config card against CPU, bf16 and int8.
+12. serve: grok-1-314b at full width (d_model 6144, 48 q heads over 8 of
+   128, 8 experts of 32768 routed top-2, vocab 131072) cut to 6 of its 64
+   layers (60.65 GB of bf16 weights), random weights from SEED
+   (``serve_grok``).  First its routing, dispatch and combine card against
+   CPU on the same routed inputs at its width (``moe_card_vs_cpu``:
+   identical, the combine bitwise although CUDA's ``index_add_`` sums with
+   atomics).  At the init scales the MoE witness on 2 x 4160 tokens and
+   the int8 witness on 8 x 512, each held on the lanes no entry of which
+   was dropped; then, on varied weights, the fixed loop (batch 2, prompt
+   4160, 16 tokens; K4 and K5 at G = 6, K1) and the scheduler (8
+   requests, request 0 a 4160-token prompt; K6 decode and chunk at G = 6,
+   K1), each bf16 and on the attention-only int8 copy (K2 and K3 for
+   ``wqkv`` and ``wo``, the MoE shared): statuses ok, every variant
+   launched, one decode iteration's launches exact, request 0 alone
+   bitwise amid churn, the peak under 80 GB, and a fixed decode step's
+   CUPTI device time and idle share beside the bytes bound of its weights
+   read once.  Phase 2 holds K4, K5 and K6 at G = 6, K1 at its qkv and o
+   at M = 8, 512 and 8320, the row norm at N = 6144 and K2 and K3 on the
+   int8 copy's projections at M = 8 (``check_grok_kernels``); phase 3 its
+   smoke config card against CPU (``check_local_smoke``).
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -319,6 +339,21 @@ XL_WIT_STEPS = 64
 # precision.  And the bf16 decode's distance from the fp32 prefill is
 # held to 4x the bf16 prefill's own.
 XL_WIT_LAYERS, XL_WITNESS_TOL32, XL_PRECISION_GAIN = 8, 1e-4, 20
+# grok-1-314b (src/repro_torch/configs/grok_1_314b.py): 48 q heads over 8
+# kv heads of 128 (G = 6), d_model 6144, 8 experts of d_ff 32768 routed
+# top-2, vocab 131072; phase 12 serves 6 of its 64 layers at full width
+# (60.65 GB of bf16 weights; 7 leave no room for a prefill's expert
+# transients): the fixed loop's batch, prompt (2 x 4160 tokens give each
+# expert 2600 slots) and new tokens; the scheduler's requests, request 0's
+# prompt and budget, and the pages of a lane (launch.serve.GROK_GEOMETRY's
+# 4192 positions over 16-slot pages); the witness decodes 8 steps past a
+# 4160-token prompt, the int8 witness prefills 8 lanes of 512 tokens
+GK_ARCH = "grok-1-314b"
+GK_H, GK_KV, GK_HD, GK_D, GK_FF = 48, 8, 128, 6144, 32768
+GK_LAYERS = 6
+GK_BATCH, GK_PROMPT, GK_NEW = 2, 4160, 16
+GK_REQ, GK_LONG, GK_LONG_NEW, GK_PAGES = 8, 4160, 32, 262
+GK_WIT_NEW, GK_WIT8_LANES, GK_WIT8_PROMPT = 8, 8, 512
 # kernels each driven path must launch (the counts are read per path)
 # (a variant's launches are counted under "<kernel>:<variant>"; a row pass
 # in a GEMM's store phase is its variant "norm" or "quantize")
@@ -415,6 +450,16 @@ PATH_KERNELS = {
     # torch, and its int8 copy quantizes nothing
     "xlstm_fixed": ("rmsnorm",),
     "xlstm_fixed_int8": ("rmsnorm",),
+    # grok: K4 and K5 (or K6) global at G = 6, K1 (or K2 fed by K3) for
+    # wqkv and wo only, the row norm standalone (the MoE's batched
+    # products are library calls, as the reference's einsums)
+    "grok_fixed": ("matmul", "rmsnorm", "flash_attention", "flash_decode"),
+    "grok_fixed_int8": ("int8_matmul", "quantize", "rmsnorm",
+                        "flash_attention", "flash_decode"),
+    "grok_scheduler": ("matmul", "rmsnorm", "paged_decode",
+                       "paged_decode:chunk"),
+    "grok_scheduler_int8": ("int8_matmul", "quantize", "rmsnorm",
+                            "paged_decode", "paged_decode:chunk"),
 }
 
 
@@ -426,21 +471,22 @@ def decode_launches(name, counts, cfg, int8: bool = False) -> dict:
     the served model's config.  An encoder-decoder (whisper) adds each block's ``lnx`` (2 layers + 1
     row-norm launches), a K5 'full' launch a layer beside the global one,
     and its up GEMM is the gelu variant (``matmul:gelu``, or under int8
-    ``int8_matmul:gelu+quantize``).  An MoE model (llama4) has no down
+    ``int8_matmul:gelu+quantize``).  An MoE model (llama4, grok) has no down
     GEMM to fold into: each layer's ``ln2`` and its next norm after the
     MoE are row-norm launches (2 layers + 1), and no norm tail runs;
     under int8 only its ``wqkv`` and ``wo`` are K2 launches, each fed by
     K3 (2 layers of each, no K1, no tail).  An int8 up GEMM wider than
     the store phase's row pass takes (d_ff above ``matmul.NORM_MAX_N``,
     gemma2's 36864) quantizes in K3's row kernel, one launch a layer, and
-    has no tail.  A model of recurrent mixers and no FFN (d_ff 0, xlstm)
-    launches the row-norm kernel alone: each layer's inner norm and next
+    has no tail; an MoE's experts (grok's d_ff 32768) are no int8 GEMM.
+    A model of recurrent mixers and no FFN (d_ff 0, xlstm) launches the
+    row-norm kernel alone: each layer's inner norm and next
     norm and the entry norm (2 layers + 1).  Raises on a miss; returns
     the counts."""
     from repro_torch.kernels.matmul import NORM_MAX_N
 
     layers, encdec, moe = cfg.n_layers, cfg.encdec, cfg.moe
-    wide_ff = int8 and cfg.d_ff > NORM_MAX_N
+    wide_ff = int8 and not moe and cfg.d_ff > NORM_MAX_N
     if cfg.d_ff == 0:
         want = {"rmsnorm": 2 * layers + 1}
         others = {k: n for k, n in counts.items() if n and k != "rmsnorm"}
@@ -1971,19 +2017,20 @@ def int8_witness(torch, model, toks, q8=None, first=None, **inputs):
     """``q8`` (default: ``model``'s int8 copy) against ``first``
     (default: ``first_logits`` of ``model``, taken before a releasing
     build).  An MoE model's int8 copy is held on the lanes where neither
-    prefill dropped a token (ROADMAP F6) and whose last token the router
-    sent to the same expert in every layer in both (at init scales the
-    router's logits lie close, and int8 noise may flip a token to another
-    expert, which moves that token's logits by the whole expert output);
-    one such lane is needed."""
+    prefill dropped a token's entry (ROADMAP F6) and whose last token the
+    router sent to the same experts, in the same order, in every layer in
+    both (at init scales the router's logits lie close, and int8 noise may
+    flip a token to another expert, which moves that token's logits by the
+    whole expert output); one such lane is needed."""
     from repro_torch.models import moe
     q8 = q8 or model.quantize_params_for_serving()
     routes = []
     route = moe.router_probs
+    k = model.cfg.top_k
 
-    def recorded(x, router):   # each MoE call's last token's expert
+    def recorded(x, router):   # each MoE call's last token's experts
         probs = route(x, router)
-        routes.append(torch.argmax(probs, -1).reshape(toks.shape[0], -1)[
+        routes.append(moe.top_k(probs, k)[1].reshape(toks.shape[0], -1, k)[
             :, -1].cpu())
         return probs
     if model.cfg.moe:
@@ -2000,7 +2047,8 @@ def int8_witness(torch, model, toks, q8=None, first=None, **inputs):
     if model.cfg.moe:
         drop = torch.stack([(~k).sum(dim=1) for k in q8.moe_kept],
                            dim=1).cpu()
-        same = torch.stack([a == b for a, b in zip(bf16_routes, routes)],
+        same = torch.stack([(a == b).all(dim=-1)
+                            for a, b in zip(bf16_routes, routes)],
                            dim=1).all(dim=1)
         held = [b for b in held if int(first["dropped"][b].sum()) == 0
                 and int(drop[b].sum()) == 0 and bool(same[b])]
@@ -2701,12 +2749,13 @@ def paged_forced(torch, model, toks, picks, chunk):
 
 
 def check_local_smoke(torch, arch: str, **over):
-    """Phase 3, the models with local layers: the whole path on a smoke
-    config (``arch``'s, fields replaced by ``over``, bf16 parameters:
-    gemma2-27b-smoke's 4 layers alternating local and global, window 16,
-    softcaps; gemma3-12b-smoke's 6 layers, 5 local to 1 global, window
-    16, dual theta, at ``head_dim=256``) with prompts of 40 tokens, longer
-    than the window; card against CPU.
+    """Phase 3, the models with local layers and the MoE models: the whole
+    path on a smoke config (``arch``'s, fields replaced by ``over``, bf16
+    parameters: gemma2-27b-smoke's 4 layers alternating local and global,
+    window 16, softcaps; gemma3-12b-smoke's 6 layers, 5 local to 1 global,
+    window 16, dual theta, at ``head_dim=256``; llama4's chunked layers;
+    grok-1-smoke's 2 global layers, 4 experts top-2) with prompts of 40
+    tokens, longer than the window; card against CPU.
 
     The scheduler (K6 local and global): greedy tokens
     through ``ServeEngine.generate`` on both, and the same math
@@ -2736,7 +2785,8 @@ def check_local_smoke(torch, arch: str, **over):
                   device="cpu")
     ref32.load_state_dict(cpu.state_dict())
     plen, steps = 40, 8
-    require(plen > cfg.window, "the smoke prompts must pass the window")
+    require(plen > cfg.window or set(cfg.block_pattern) == {"global"},
+            "the smoke prompts must pass the window")
     toks = torch.randint(0, cfg.vocab, (BATCH, plen),
                          generator=torch.Generator().manual_seed(SEED + 1))
     scfg = ServeConfig(max_new_tokens=steps)
@@ -2842,7 +2892,8 @@ def scheduler_run(torch, eng, reqs, name: str, reset_peak: bool = True,
     launched (``variant_launches``: a bare kernel name counts its
     launches with no variant on), one decode iteration's launches exact
     (``decode_launches``: int8, an MoE, an up GEMM wider than the store
-    phase's row pass).  Prints and returns the report, ``extra`` in it."""
+    phase's row pass), the peak under the card's 80 GB.  Prints and
+    returns the report, ``extra`` in it."""
     import numpy as np
     from repro_torch.kernels import _cuda
     from repro_torch.launch.serve import serve_requests
@@ -2869,6 +2920,7 @@ def scheduler_run(torch, eng, reqs, name: str, reset_peak: bool = True,
                if variant_launches(launches, key) <= 0]
     require(not missing, f"{name}: never launched {missing}: {launches}")
     decode_launches(name, run["decode_launches"] or {}, cfg, model.int8)
+    require(peak < 80e9, f"{name}: peak {peak / 1e9:.2f} GB")
     ttft = np.array([run["ttft_s"][r.id] for r in reqs])
     report = dict(
         requests=len(reqs), **extra,
@@ -3469,6 +3521,17 @@ def serve_whisper(torch):
 # MoE FFN, G = 5
 # ---------------------------------------------------------------------------
 
+def by_kv_head(torch, q, k, v, **var):
+    """The plain K4 one kv head (and its G q heads) at a time: the whole
+    score tensor of a long prefill with many heads would take tens of
+    GB."""
+    from repro_torch.kernels import ref
+    g = q.shape[2] // k.shape[2]
+    return torch.cat([ref.flash_attention_ref(
+        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1],
+        **var) for j in range(k.shape[2])], dim=2)
+
+
 def check_llama4_kernels(torch, timer):
     """Phase 2, llama4: the new variants against their plain versions at
     the shapes the driven paths give them, each row within 2 bf16 ulps of
@@ -3486,7 +3549,7 @@ def check_llama4_kernels(torch, timer):
     (``chunk_contracts``; q tiles of 25, 25 and 14 positions at G = 5); K1
     at llama4's two projections, the packed qkv [5120, 7168] and wo [5120,
     5120], at M = 8 and 512, beside ``torch.matmul``."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         chunk_tiles, head_groups, paged_decode_launch,
         paged_flash_decode_tiled, paged_tile_partials)
@@ -3504,13 +3567,6 @@ def check_llama4_kernels(torch, timer):
     def rand(*shape, scale=1.0, dtype=bf):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 ).to(dtype)
-
-    def by_kv_head(q, k, v, **var):
-        """The plain K4 one kv head (and its G q heads) at a time."""
-        g = q.shape[2] // k.shape[2]
-        return torch.cat([ref.flash_attention_ref(
-            q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1],
-            **var) for j in range(k.shape[2])], dim=2)
 
     results = {}
     # K4 'chunked' at the fixed loop's prefill, and 'prefix'
@@ -3538,7 +3594,7 @@ def check_llama4_kernels(torch, timer):
         q, k, v = rand(bb, ss, hh, dd), rand(bb, ss, kvh, dd), rand(
             bb, ss, kvh, dd)
         got = ops.flash_attention(q, k, v, **var)
-        want = by_kv_head(q, k, v, **var)
+        want = by_kv_head(torch, q, k, v, **var)
         err, abs_err = row_err(got, want), max_err(got, want)
         del got, want
         require(err <= tol, f"{name}: a row is off by {err:.3e} of its "
@@ -3551,7 +3607,7 @@ def check_llama4_kernels(torch, timer):
                      reps=3),
             wrapper_ms=timer.wall(
                 lambda var=var: ops.flash_attention(q, k, v, **var), reps=3),
-            plain_ms=timer(lambda var=var: by_kv_head(q, k, v, **var),
+            plain_ms=timer(lambda var=var: by_kv_head(torch, q, k, v, **var),
                            reps=1),
             bound_ms=t_b, bound_by=by,
             library_ms=sdpa_ms(torch, timer, q, k, v, attn_mask=mask),
@@ -3713,19 +3769,20 @@ def check_paligemma_kernels(torch, timer):
 
 
 def moe_witness(torch, model, toks, new: int):
-    """Phase 8's witness at the reference's init scales: the fixed loop's
-    decode step at position prompt + new - 2 (past the 8192 chunk: the
-    chunked layers' ring has wrapped and attends chunk 1 only) against the
-    last logits of a prefill over the same tokens (K4 chunked across the
-    boundary).  The MoE drops a token past its expert's capacity, which
-    depends on the call's token count, so the two prefills (the decode's
-    and the comparison's) may drop different tokens, and a dropped token
-    changes the lane from there on.  Per lane and layer it reports the
-    tokens dropped in each prefill; it holds a lane to WITNESS_TOL only
-    where none of its tokens was dropped in either (the lanes are then
-    independent), and needs one such lane.  The same step against a
-    prefill whose last token was changed must differ by more than 4x the
-    tolerance there."""
+    """The MoE models' witness at the reference's init scales (phases 8
+    and 12): the fixed loop's decode step at position prompt + new - 2
+    (llama4's past the 8192 chunk: the chunked layers' ring has wrapped
+    and attends chunk 1 only) against the last logits of a prefill over
+    the same tokens (K4; llama4's chunked across the boundary).  The MoE
+    drops an entry past its expert's capacity, which depends on the call's
+    token count, so the two prefills (the decode's and the comparison's)
+    may drop different entries, and a dropped entry changes the lane from
+    there on.  Per lane and layer it reports the tokens with a dropped
+    entry in each prefill (``Model.moe_kept``: all k of a token's entries
+    kept); it holds a lane to WITNESS_TOL only where no token of it lost
+    an entry in either (the lanes are then independent), and needs one
+    such lane.  The same step against a prefill whose last token was
+    changed must differ by more than 4x the tolerance there."""
     cfg = model.cfg
     prompt = toks.shape[1]
 
@@ -3786,10 +3843,8 @@ def serve_llama4(torch):
     import gc
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _cuda
     from repro_torch.launch.serve import (NEW_RANGE, PROMPT_RANGE, geometry,
-                                          make_requests, serve_requests,
-                                          with_layers)
+                                          make_requests, with_layers)
     from repro_torch.models.lm import Model
     from repro_torch.serve.api import Request, SamplingParams
     from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -3812,18 +3867,43 @@ def serve_llama4(torch):
     out["llama4_int8_witness"] = int8_witness(torch, model, wit8)
     print("llama4 witness: " + json.dumps(out), flush=True)
     vary(torch, model, SEED)
-
-    def launched(name, launches):
-        missing = [key for key in PATH_KERNELS[name]
-                   if variant_launches(launches, key) <= 0]
-        require(not missing, f"{name}: never launched {missing}: "
-                             f"{launches}")
-
-    # the fixed loop
-    name = "llama4_fixed"
     toks = torch.randint(0, cfg.vocab, (L4_BATCH, L4_PROMPT),
                          generator=torch.Generator().manual_seed(SEED + 1))
-    engine = ServeEngine(model, ServeConfig(max_new_tokens=L4_NEW))
+    out["llama4_fixed"] = moe_fixed_run(
+        torch, ServeEngine(model, ServeConfig(max_new_tokens=L4_NEW)), toks,
+        L4_NEW, "llama4_fixed", layers=cfg.n_layers,
+        params=cfg.param_count(), init_s=init_s, weights_gb=weights_gb)
+    torch.cuda.empty_cache()
+    geom = geometry(L4_ARCH)
+    require((geom["n_lanes"], geom["page_size"], geom["prefill_chunk"],
+             geom["max_seq_len"] // geom["page_size"])
+            == (LANES, PAGE, CHUNK, L4_PAGES), f"{L4_ARCH} geometry {geom}")
+    reqs = make_requests(cfg.vocab, L4_REQ, SEED, PROMPT_RANGE, NEW_RANGE)
+    reqs[0] = Request(id=0, tokens=np.random.default_rng(SEED).integers(
+        0, cfg.vocab, L4_LONG), sampling=SamplingParams(
+        max_new_tokens=L4_LONG_NEW))
+    out.update(moe_scheduler_runs(torch, model, reqs, geom, "llama4"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_fixed_run(torch, engine, toks, new, name, **extra):
+    """One driven fixed-loop path of an MoE model (phases 8 and 12) on
+    ``engine``'s model (bf16, or its int8 copy): the launch counts and the
+    peak set to 0 just before ``generate_with_status_fixed`` of ``toks``,
+    ``new`` tokens a lane; every status ok, every kernel of
+    ``PATH_KERNELS[name]`` launched, the peak under the card's 80 GB.
+    Then, timed on their own, one prefill (the TTFT; each layer's count of
+    tokens with a dropped entry) and ``new - 1`` decode steps, and one
+    more step's launches counted exactly (``decode_launches``, the MoE's
+    standalone norms).  Prints and returns the report, ``extra`` in it."""
+    from repro_torch.kernels import _cuda
+
+    served = engine.model
+    cfg = served.cfg
+    batch, prompt = toks.shape
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3834,64 +3914,69 @@ def serve_llama4(torch):
     gen_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    require(res.tokens.shape == (L4_BATCH, L4_NEW),
-            f"{name} tokens {res.tokens.shape}")
+    require(res.tokens.shape == (batch, new), f"{name} tokens "
+                                              f"{res.tokens.shape}")
     require(all(st == "ok" for st in res.status),
             f"{name} statuses {res.status}")
-    launched(name, launches)
+    missing = [key for key in PATH_KERNELS[name]
+               if variant_launches(launches, key) <= 0]
+    require(not missing, f"{name}: never launched {missing}: {launches}")
+    require(peak < 80e9, f"{name}: peak {peak / 1e9:.2f} GB")
     torch.cuda.synchronize()
     t = time.perf_counter()
-    logits, cache = model.prefill(toks, L4_PROMPT + L4_NEW)
+    logits, cache = served.prefill(toks, prompt + new)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
-    prefill_dropped = [int((~k).sum()) for k in model.moe_kept]
+    prefill_dropped = [int((~k).sum()) for k in served.moe_kept]
     require(bool(torch.isfinite(logits).all())
-            and logits.shape == (L4_BATCH, cfg.padded_vocab()),
+            and logits.shape == (batch, cfg.padded_vocab()),
             f"{name} prefill logits")
     tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for i in range(L4_NEW - 1):
-        logits, cache = model.decode_step(cache, tok, L4_PROMPT + i)
+    for i in range(new - 1):
+        logits, cache = served.decode_step(cache, tok, prompt + i)
         tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
     torch.cuda.synchronize()
-    dec_ms = (time.perf_counter() - t) / (L4_NEW - 1) * 1e3
+    dec_ms = (time.perf_counter() - t) / (new - 1) * 1e3
     require(bool(torch.isfinite(logits).all()), f"{name} decode logits")
     _cuda.reset_launches()
-    model.decode_step(cache, tok, L4_PROMPT + L4_NEW - 1)
-    step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg)
-    out[name] = dict(
-        layers=cfg.n_layers, params=cfg.param_count(), init_s=init_s,
-        weights_gb=weights_gb, batch=L4_BATCH, prompt=L4_PROMPT, new=L4_NEW,
+    served.decode_step(cache, tok, prompt + new - 1)
+    step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg,
+                                    served.int8)
+    report = dict(
+        **extra, batch=batch, prompt=prompt, new=new,
         ttft_ms=prefill_s * 1e3, decode_ms_per_step=dec_ms,
-        generate_s=gen_s, tokens_per_s=L4_BATCH * L4_NEW / gen_s,
+        generate_s=gen_s, tokens_per_s=batch * new / gen_s,
         statuses=list(res.status), launches=launches,
         launches_per_decode_step=step_launches, peak_gb=peak / 1e9,
         prefill_tokens_dropped_per_layer=prefill_dropped,
         distinct_tokens=[len(set(lane.tolist())) for lane in res.tokens],
         tokens=res.tokens.tolist())
-    del engine, cache, logits
-    torch.cuda.empty_cache()
-    print(f"serve {name}: " + json.dumps(out[name]), flush=True)
+    print(f"serve {name}: " + json.dumps(report), flush=True)
+    return report
 
-    # the scheduler, bf16 then on the attention-only int8 copy: request 0
-    # alone (also the warm-up), then amid churn
-    geom = geometry(L4_ARCH)
-    require((geom["n_lanes"], geom["page_size"], geom["prefill_chunk"],
-             geom["max_seq_len"] // geom["page_size"])
-            == (LANES, PAGE, CHUNK, L4_PAGES), f"{L4_ARCH} geometry {geom}")
-    reqs = make_requests(cfg.vocab, L4_REQ, SEED, PROMPT_RANGE, NEW_RANGE)
-    reqs[0] = Request(id=0, tokens=np.random.default_rng(SEED).integers(
-        0, cfg.vocab, L4_LONG), sampling=SamplingParams(
-        max_new_tokens=L4_LONG_NEW))
+
+def moe_scheduler_runs(torch, model, reqs, geom, prefix, **extra):
+    """The scheduler paths of an MoE model (phases 8 and 12), bf16 and then
+    on the attention-only int8 copy (``wqkv`` and ``wo`` K2 with K3, the
+    MoE shared): request 0 alone (also the warm-up), then ``reqs`` amid
+    churn (``scheduler_run``, ``extra`` in its report), request 0's tokens
+    bitwise the same (its entries sort first within every expert at any
+    k, so no neighbour takes its capacity: ROADMAP F6)."""
+    import gc
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    out = {}
     for int8 in (False, True):
-        name = "llama4_scheduler_int8" if int8 else "llama4_scheduler"
+        name = f"{prefix}_scheduler" + ("_int8" if int8 else "")
         t0 = time.perf_counter()
         eng = ServeEngine(model, ServeConfig(int8=int8, **geom))
         alone = serve_requests(eng, reqs[:1])["outputs"][0]
         torch.cuda.synchronize()
         out[name] = scheduler_run(
-            torch, eng, reqs, name, int8=int8, **geom,
+            torch, eng, reqs, name, int8=int8, **geom, **extra,
             alone_s=time.perf_counter() - t0,
             int8_copy_gb=sum(b.nbytes for blk in eng.model.blocks
                              for b in blk.attn.buffers()) / 1e9)
@@ -3902,9 +3987,6 @@ def serve_llama4(torch):
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
     return out
 
 
@@ -4701,6 +4783,440 @@ def serve_xlstm(torch, xlstm_plain):
 
 # the sampler row's shapes: the scheduler's lanes at granite's vocab and
 # at gemma3's
+def check_grok_kernels(torch, timer, cupti):
+    """Phase 2, grok-1: the kernels at the shapes its driven paths give
+    them, G = 6 (48 q heads over 8 of 128) new to K4-K6's tiling.  K4
+    global over the fixed loop's 2 x 4160 prefill (its plain version a kv
+    head at a time) beside SDPA causal; K5 at the fixed loop's decode (a
+    4176-slot cache, ``k5_row``: bitwise across split counts, partials
+    within 1e-5) beside SDPA; K6 at the scheduler's geometry (8 lanes, 262
+    pages of 16 a lane, one lane idle): decode within 2 bf16 ulps with its
+    partials within 1e-5, every lane bitwise K5 over its history, and the
+    S = 64 chunk body (q tiles of 21, 21, 21 and 1 positions x 6 heads)
+    with ``chunk_contracts``; K1 at its two projections, the packed qkv
+    [6144, 8192] and wo [6144, 6144], at M = 8, 512 and 8320 beside
+    ``torch.matmul``; the row norm at N = 6144 (``ln2`` and the norm after
+    the MoE, standalone) bitwise its ordered mirror at 8 and 8320 rows
+    beside ``F.rms_norm``; on the int8 copy's ``wqkv`` and ``wo`` at M =
+    8, K3 bitwise its plain version and K2 (fp32 out bitwise, bf16 within
+    one ulp) beside ``torch._int_mm``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.epilogue import Epilogue, rms_normalize
+    from repro_torch.kernels.flash_attention import (
+        chunk_tiles, head_groups, paged_decode_launch,
+        paged_flash_decode_tiled, paged_tile_partials)
+    from repro_torch.kernels.quantize import quantize_weight_colwise
+
+    eps_bf16 = float(torch.finfo(torch.bfloat16).eps)
+    tol = 2 * eps_bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    bf = torch.bfloat16
+    H, KV, hd, D = GK_H, GK_KV, GK_HD, GK_D
+    G = H // KV
+    require(head_groups(G) == (1, G) and chunk_tiles(CHUNK, G) == (21, 4),
+            f"G = {G}: head_groups {head_groups(G)}, chunk_tiles "
+            f"{chunk_tiles(CHUNK, G)}")
+
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    results = {}
+    # K4 global at the fixed loop's prefill
+    b, s = GK_BATCH, GK_PROMPT
+    q, k, v = rand(b, s, H, hd), rand(b, s, KV, hd), rand(b, s, KV, hd)
+    got = ops.flash_attention(q, k, v)
+    want = by_kv_head(torch, q, k, v)
+    err, abs_err = row_err(got, want), max_err(got, want)
+    del got, want
+    require(err <= tol, f"K4 grok: a row is off by {err:.3e} of its scale")
+    t_b, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                    4 * b * H * hd * s * (s + 1) / 2)
+    results["k4_flash_prefill_grok"] = dict(
+        work=f"global prefill B={b} S={s} H={H} KV={KV} hd={hd} (G = {G}; "
+             f"the plain version a kv head at a time)",
+        max_abs_err=abs_err, max_row_err=err, tol=tol,
+        ms=timer(lambda: ops.flash_attention(q, k, v), reps=3),
+        wrapper_ms=timer.wall(lambda: ops.flash_attention(q, k, v), reps=3),
+        plain_ms=timer(lambda: by_kv_head(torch, q, k, v), reps=1),
+        bound_ms=t_b, bound_by=by,
+        library_ms=sdpa_ms(torch, timer, q, k, v, is_causal=True),
+        library_note="SDPA causal (sdpa_ms)")
+    print("  k4 grok " + json.dumps(results["k4_flash_prefill_grok"]),
+          flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # K5 at the fixed loop's decode, its cache at the last step
+    results["k5_flash_decode_grok"] = k5_row(
+        torch, timer, rand, b, GK_PROMPT + GK_NEW, GK_PROMPT + GK_NEW - 2,
+        KV, G, hd, None, 1.0, "grok-1's fixed loop (G = 6)")
+
+    # K6 at the scheduler's geometry, decode and chunk
+    L, ps, P = LANES, PAGE, GK_PAGES
+    n_pages = L * P
+    kp, vp = rand(n_pages + 1, ps, KV, hd), rand(n_pages + 1, ps, KV, hd)
+    lane_pos = torch.tensor([0, 31, 100, 1023, 2100, 4160, 4191, -1],
+                            dtype=torch.int32)
+    table = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        SEED)).reshape(L, P).to(torch.int32)
+    for lane in range(L):
+        table[lane, max(int(lane_pos[lane]), 0) // ps + 1:] = -1
+    table = table.cuda()
+    posd = lane_pos.cuda()[:, None].contiguous()
+    q = rand(L, 1, KV, G, hd)
+    rows, n_tiles = L * KV, P * ps // 32
+    got = ops.paged_flash_decode(q, kp, vp, table, posd)
+    require(bool((got[L - 1] == 0).all()), "K6 grok: the idle lane is not "
+                                           "0.0")
+    want = paged_flash_decode_tiled(q, kp, vp, table, posd)
+    dec_err, dec_abs = row_err(got, want), max_err(got, want)
+    out, ws = paged_decode_launch(q, kp, vp, table, posd)
+    require(torch.equal(out, got), "K6 grok: two launches differ")
+    p_err = record_err(torch, ws, paged_tile_partials(q, kp, vp, table,
+                                                      posd),
+                       rows, n_tiles, G, hd)
+    del out, ws, want
+    lanes_equal_k5(torch, got, q, kp, vp, table, lane_pos, "K6 grok")
+    qc = rand(L, CHUNK, KV, G, hd)
+    pc = lane_pos.clamp(min=0)[:, None] - CHUNK + 1 + torch.arange(CHUNK)[
+        None]
+    pc = torch.where((pc >= 0) & (lane_pos[:, None] >= 0), pc, -1)
+    pc[2, -7:] = -1      # a final chunk's padded tail
+    pc = pc.to(torch.int32).cuda().contiguous()
+    chunk = chunk_contracts(torch, qc, kp, vp, table, pc, 5)
+    chunk_want = paged_flash_decode_tiled(qc, kp, vp, table, pc)
+    chunk_err, chunk_abs = row_err(chunk, chunk_want), max_err(chunk,
+                                                               chunk_want)
+    del chunk, chunk_want
+    require(p_err <= 1e-5 and max(dec_err, chunk_err) <= tol,
+            f"K6 grok: decode {dec_err:.3e} (partials {p_err:.3e}), chunk "
+            f"{chunk_err:.3e}")
+    where = (f"L={L} KV={KV} G={G} hd={hd} page_size={ps} P={P} "
+             f"({n_tiles} tiles), positions {lane_pos.tolist()}")
+    lib_note = "no one PyTorch call attends through a page table"
+    dec = dict(
+        work=f"paged decode global {where}; the idle lane 0.0, each lane "
+             f"bitwise K5",
+        max_abs_err=dec_abs, max_row_err=dec_err, tol=tol,
+        partials_row_err=p_err, partials_tol=1e-5,
+        ms=timer(lambda: ops.paged_flash_decode(q, kp, vp, table, posd)),
+        wrapper_ms=timer.wall(lambda: ops.paged_flash_decode(
+            q, kp, vp, table, posd)),
+        plain_ms=timer(lambda: paged_flash_decode_tiled(
+            q, kp, vp, table, posd), reps=3),
+        library_ms=None, library_note=lib_note)
+    dec["bound_ms"], dec["bound_by"] = k6_bound(q, table, posd, KV, 0)
+    chk = dict(
+        work=f"paged prefill chunk S={CHUNK} global {where}, each lane's "
+             f"chunk ending at its position (a padded tail), q tiles of "
+             f"21, 21, 21 and 1 positions x 6 heads; deterministic, idle "
+             f"rows 0.0, a lane unmoved by its neighbours",
+        max_abs_err=chunk_abs, max_row_err=chunk_err, tol=tol,
+        ms=timer(lambda: ops.paged_flash_decode(qc, kp, vp, table, pc),
+                 reps=3),
+        wrapper_ms=timer.wall(lambda: ops.paged_flash_decode(
+            qc, kp, vp, table, pc), reps=3),
+        plain_ms=timer(lambda: paged_flash_decode_tiled(
+            qc, kp, vp, table, pc), reps=1),
+        library_ms=None, library_note=lib_note)
+    chk["bound_ms"], chk["bound_by"] = k6_bound(qc, table, pc, KV, 0)
+    results["k6_paged_decode_grok"] = dec
+    results["k6_paged_decode_chunk_grok"] = chk
+    print("  k6 grok " + json.dumps([dec, chk]), flush=True)
+    del kp, vp, q, qc
+    torch.cuda.empty_cache()
+
+    # K1 at grok's two projections (its FFN is the MoE's batched products)
+    shapes = []
+    for m in (LANES, LANES * CHUNK, GK_BATCH * GK_PROMPT):
+        shapes += k1_rows(torch, timer, rand, "grok", m, D,
+                          (H + 2 * KV) * hd, H * hd, GK_FF, tol,
+                          names=("qkv", "o"))
+    for m, where in ((LANES, "decode"), (LANES * CHUNK, "a scheduler chunk"),
+                     (GK_BATCH * GK_PROMPT, "the fixed loop's prefill")):
+        results[f"k1_matmul_grok_m{m}"] = dict(
+            k1_sum(shapes, "grok", m,
+                   f"grok-1's qkv [{D}, {(H + 2 * KV) * hd}] and o "
+                   f"[{H * hd}, {D}] at {where} (M={m})", tol),
+            shapes=[r for r in shapes
+                    if r["shape"].split()[1] == f"M={m}"])
+    torch.cuda.empty_cache()
+
+    # the row norm at N = 6144: ln2 and the norm after the MoE
+    nscale = rand(D, scale=0.1, dtype=torch.float32)
+    w1 = (1.0 + nscale).to(bf)
+    errs, abs_errs, at = [], [], {}
+    for m in (LANES, GK_BATCH * GK_PROMPT):
+        x = rand(m, D)
+        got = ops.rmsnorm(x, nscale)
+        require(torch.equal(got, ref.rmsnorm_rows_ref(x, nscale, 1e-6)),
+                f"rmsnorm [{m}, {D}] is not bitwise its ordered mirror")
+        want = rms_normalize(x, nscale, 1e-6)
+        errs.append(row_err(got, want))
+        abs_errs.append(max_err(got, want))
+        at[m] = row_timing(
+            timer, cupti, lambda x=x: ops.rmsnorm(x, nscale),
+            lambda x=x: rms_normalize(x, nscale, 1e-6),
+            2 * 2 * x.numel() + 4 * D,
+            (lambda x=x: F.rms_norm(x, (D,), w1, 1e-6))
+            if hasattr(F, "rms_norm") else None)
+    require(max(errs) <= eps_bf16,
+            f"rmsnorm N={D}: a row is off by {max(errs):.3e}")
+    row = dict(
+        work=f"rmsnorm rows [{LANES}, {D}] bf16, ln2 and the norm after the "
+             f"MoE at decode, one warp a row (bitwise its ordered mirror, "
+             f"also at [{GK_BATCH * GK_PROMPT}, {D}], the fixed prefill, "
+             f"which 'rows' also times)",
+        max_abs_err=max(abs_errs), max_row_err=max(errs), tol=eps_bf16,
+        **at[LANES], rows={str(m): v for m, v in at.items()})
+    also_into(cupti, at[LANES], row)
+    results["k1_rmsnorm_grok_n6144"] = row
+    print("  grok rmsnorm " + json.dumps(row), flush=True)
+
+    # K3 and K2 on the int8 copy's wqkv and wo at decode
+    x = rand(LANES, D)
+    qx, sx = ops.quantize_rowwise(x)
+    wq, wsx = ref.quantize_rowwise_ref(x)
+    require(torch.equal(qx, wq) and torch.equal(sx, wsx),
+            f"K3 [{LANES}, {D}] is not bitwise its plain version")
+    k3 = row_timing(timer, cupti, lambda: ops.quantize_rowwise(x),
+                    lambda: ref.quantize_rowwise_ref(x),
+                    2 * x.numel() + x.numel() + 4 * LANES)
+    results["k3_quantize_grok"] = dict(
+        work=f"rowwise quantize of the normed stream [{LANES}, {D}] bf16 "
+             f"(the int8 copy's wqkv and wo inputs at decode), bitwise its "
+             f"plain version",
+        max_abs_err=0.0, max_row_err=0.0, tol=0.0, **k3)
+    also_into(cupti, k3, results["k3_quantize_grok"])
+    k2 = []
+    for name, (kk, nn) in (("qkv", (D, (H + 2 * KV) * hd)),
+                           ("o", (H * hd, D))):
+        qw = quantize_weight_colwise(rand(kk, nn, scale=kk ** -0.5))
+        qb, sb = qw.as_matrix()
+        qa, sa = ops.quantize_rowwise(rand(LANES, kk))
+        require(torch.equal(ops.int8_matmul(qa, sa, qb, sb),
+                            ref.int8_matmul_ref(qa, sa, qb, sb)),
+                f"K2 grok {name}: fp32 out is not bitwise")
+        ep = Epilogue(out_dtype=bf)
+        got = ops.int8_matmul(qa, sa, qb, sb, epilogue=ep)
+        want = ref.int8_matmul_ref(qa, sa, qb, sb, ep)
+        err, abs_err = row_err(got, want), max_err(got, want)
+        require(err <= eps_bf16, f"K2 grok {name}: a row is off by "
+                                 f"{err:.3e}")
+        lib, form = _int_mm_ms(torch, timer, qa, qb)
+        if lib is None:      # _int_mm refuses M <= 16: rows padded to 32
+            pad = torch.zeros((32, kk), dtype=torch.int8, device="cuda")
+            pad[:LANES] = qa
+            lib, form = _int_mm_ms(torch, timer, pad, qb)
+        nbytes = LANES * kk + kk * nn + 4 * (LANES + nn) + 2 * LANES * nn
+        t_b, by = bound(nbytes, 2 * LANES * kk * nn, INT8_OPS_PER_S)
+        k2.append(dict(
+            shape=f"{name} M={LANES} K={kk} N={nn}", max_abs_err=abs_err,
+            max_row_err=err,
+            ms=timer(lambda: ops.int8_matmul(qa, sa, qb, sb, epilogue=ep)),
+            wrapper_ms=timer.wall(lambda: ops.int8_matmul(
+                qa, sa, qb, sb, epilogue=ep)),
+            plain_ms=timer(lambda: ref.int8_matmul_ref(qa, sa, qb, sb, ep)),
+            bound_ms=t_b, bound_by=by, library_ms=lib, library_form=form))
+        print("  k2 grok " + json.dumps(k2[-1]), flush=True)
+    results["k2_int8_matmul_grok"] = dict(
+        work=f"the int8 copy's wqkv [{D}, {(H + 2 * KV) * hd}] and wo "
+             f"[{H * hd}, {D}] at decode (M={LANES}), bf16 out; fp32 out "
+             f"bitwise",
+        max_abs_err=max(r["max_abs_err"] for r in k2),
+        max_row_err=max(r["max_row_err"] for r in k2), tol=eps_bf16,
+        ms=sum(r["ms"] for r in k2),
+        wrapper_ms=sum(r["wrapper_ms"] for r in k2),
+        plain_ms=sum(r["plain_ms"] for r in k2),
+        bound_ms=sum(r["bound_ms"] for r in k2),
+        bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in k2)
+                  else "operations"),
+        library_ms=sum(r["library_ms"] for r in k2),
+        library_note="torch._int_mm (cuBLASLt int8, no epilogue) on the "
+                     "rows zero-padded to 32 (it refuses M <= 16), the "
+                     "faster operand form",
+        shapes=k2)
+    return results
+
+
+def moe_card_vs_cpu(torch):
+    """Phase 12: grok-1's routing, dispatch and combine (plain torch, no
+    kernel of the reference's) on the card against the same functions on
+    the CPU, on the same routed inputs at its width: the fixed prefill's
+    8320 tokens over 8 experts of 2600 slots, the router's probabilities
+    drawn with a bias that overflows some experts and with exact ties in
+    some rows.  ``top_k`` (ties included), the gates, ``dispatch``'s
+    sorted tokens, slots, kept flags and gates are identical, and the
+    combine of the same bf16 expert outputs is bitwise: CUDA's
+    ``index_add_`` sums with atomics, and at k = 2 a token's row is 0.0
+    plus at most two contributions, which no order changes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(GK_ARCH)
+    n, e, k, d = GK_BATCH * GK_PROMPT, cfg.n_experts, cfg.top_k, cfg.d_model
+    gen = torch.Generator().manual_seed(SEED + 12)
+    logits = (2.0 * torch.randn((n, e), generator=gen)
+              + torch.linspace(-0.6, 0.6, e))
+    probs = torch.softmax(logits, dim=-1)
+    probs[:64, 3] = probs[:64, 5]            # exact ties
+    probs[64:96, 1] = probs[64:96].amax(dim=-1)
+    cap = moe.capacity(n, cfg)
+    ye = torch.randn((e * cap, d), generator=gen).to(torch.bfloat16)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p, y = probs.to(dev), ye.to(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gates, expert = moe.top_k(p, k)
+        gates = gates / gates.sum(dim=-1, keepdim=True)
+        st, dest, keep, sg = moe.dispatch(expert, e, cap, gates)
+        comb = moe.combine(y, st, dest, sg, keep, n)
+        torch.cuda.synchronize()
+        out[dev] = dict(ms=(time.perf_counter() - t) * 1e3,
+                        t=[x.cpu() for x in (expert, gates, st, dest, keep,
+                                             sg, comb)])
+    names = ("experts", "gates", "st", "dest", "keep", "sorted gates",
+             "combine")
+    for name, a, b in zip(names, out["cpu"]["t"], out["cuda"]["t"]):
+        require(a.dtype == b.dtype and torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b),
+            f"grok MoE {name}: the card's differ from the CPU's")
+    keep = out["cpu"]["t"][4]
+    per_token = torch.zeros(n, dtype=torch.int64).index_add_(
+        0, out["cpu"]["t"][2], keep.long())
+    w = dict(tokens=n, experts=e, top_k=k, capacity=cap,
+             entries_dropped=int((~keep).sum()),
+             tokens_one_entry_kept=int((per_token == 1).sum()),
+             tokens_none_kept=int((per_token == 0).sum()),
+             tied_rows=96, identical=list(names),
+             card_ms=out["cuda"]["ms"], cpu_ms=out["cpu"]["ms"])
+    require(w["tokens_one_entry_kept"] > 0,
+            f"the grok MoE check drops no single entry: {w}")
+    print("grok moe card vs cpu: " + json.dumps(w), flush=True)
+    return w
+
+
+def serve_grok(torch):
+    """Phase 12: grok-1 at full width (d_model 6144, 48 q heads over 8 of
+    128, 8 experts of 32768 top-2, vocab 131072), 6 of its 64 layers
+    (60.65 GB of bf16 weights), random weights from SEED, built after the
+    models of the phases before it are gone.  First the MoE's routing,
+    dispatch and combine card against CPU (``moe_card_vs_cpu``).  At the
+    init scales the MoE witness (``moe_witness``: 2 x 4160 tokens and 8
+    decode steps, held on the lanes no entry of which either prefill
+    dropped) and the int8 copy's first logits against the bf16 model's on
+    8 lanes of 512 tokens (``int8_witness``: held where no entry dropped
+    and the last token's two experts are the same in every layer).  Then,
+    on weights varied as in phase 3, each path with the launch counts set
+    to 0 just before it, bf16 and on the attention-only int8 copy (K2 and
+    K3 for ``wqkv`` and ``wo``, the MoE shared): the fixed loop
+    (``generate_with_status_fixed``, batch 2, prompt 4160, 16 tokens; K4
+    and K5 at G = 6, K1; its decode step's device time in a CUPTI trace,
+    beside the bytes bound of the weights read once) and the scheduler (8
+    requests on 8 lanes, request 0 a 4160-token prompt with 32 new tokens;
+    K6 decode and chunk at G = 6, K1).  Every status ok, every variant of
+    ``PATH_KERNELS`` launched, one decode iteration's launches exact
+    (``decode_launches``, the MoE's standalone norms), request 0 served
+    alone first emits bitwise the tokens it emits amid churn (its entries
+    sort first within every expert at k = 2 too: ROADMAP F6), and the peak
+    under the card's 80 GB."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (NEW_RANGE, PROMPT_RANGE, geometry,
+                                          make_requests, with_layers)
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.api import Request, SamplingParams
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"grok_moe_card_vs_cpu": moe_card_vs_cpu(torch)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = with_layers(get_config(GK_ARCH), GK_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(cfg).init_weights(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.nbytes for t in model.state_dict().values())
+    # a decode step reads every weight once: each expert computes its
+    # capacity's slots (8 at least) whatever the tokens routed to it
+    step_bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"grok: {cfg.n_layers} of 64 layers, {weight_bytes / 1e9:.3f} GB "
+          f"of weights on the card ({base_gb:.3f} GB left by the phases "
+          f"before), built in {init_s:.2f} s; a decode step's bytes bound "
+          f"{step_bound_ms:.2f} ms", flush=True)
+    wit = torch.randint(0, cfg.vocab, (GK_BATCH, GK_PROMPT),
+                        generator=torch.Generator().manual_seed(SEED))
+    out["grok_witness"] = moe_witness(torch, model, wit, GK_WIT_NEW)
+    wit8 = torch.randint(0, cfg.vocab, (GK_WIT8_LANES, GK_WIT8_PROMPT),
+                         generator=torch.Generator().manual_seed(SEED + 2))
+    out["grok_int8_witness"] = int8_witness(torch, model, wit8)
+    print("grok witness: " + json.dumps(out), flush=True)
+    vary(torch, model, SEED)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    # the fixed loop, bf16 then on the attention-only int8 copy
+    toks = torch.randint(0, cfg.vocab, (GK_BATCH, GK_PROMPT),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    for int8 in (False, True):
+        name = "grok_fixed_int8" if int8 else "grok_fixed"
+        out[name] = moe_fixed_run(
+            torch, ServeEngine(model, ServeConfig(max_new_tokens=GK_NEW,
+                                                  int8=int8)),
+            toks, GK_NEW, name, layers=cfg.n_layers,
+            params=cfg.param_count(), init_s=init_s,
+            weights_gb=weight_bytes / 1e9, decode_bound_ms=step_bound_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    geom = geometry(GK_ARCH)
+    require((geom["n_lanes"], geom["page_size"], geom["prefill_chunk"],
+             geom["max_seq_len"] // geom["page_size"])
+            == (LANES, PAGE, CHUNK, GK_PAGES), f"{GK_ARCH} geometry {geom}")
+    reqs = make_requests(cfg.vocab, GK_REQ, SEED, PROMPT_RANGE, NEW_RANGE)
+    reqs[0] = Request(id=0, tokens=np.random.default_rng(SEED).integers(
+        0, cfg.vocab, GK_LONG), sampling=SamplingParams(
+        max_new_tokens=GK_LONG_NEW))
+    out.update(moe_scheduler_runs(torch, model, reqs, geom, "grok",
+                                  decode_bound_ms=step_bound_ms))
+
+    # one fixed decode step's device time (its kernels' CUPTI durations in
+    # a trace) against its wall time above: the idle share; traced after
+    # every timed path, as the last phase's traces are
+    for name in ("grok_fixed", "grok_fixed_int8"):
+        served = (model.quantize_params_for_serving()
+                  if name.endswith("int8") else model)
+        logits, cache = served.prefill(toks, GK_PROMPT + GK_NEW)
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        busy = kernel_ms(torch, flush, lambda: served.decode_step(
+            cache, tok, GK_PROMPT), reps=4, skip="bitwise_not")
+        r = out[name]
+        r["decode_device_ms"] = busy
+        r["decode_idle_share"] = (None if busy is None
+                                  else 1.0 - busy / r["decode_ms_per_step"])
+        del served, cache, logits
+    del model, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {name: {key: out[name].get(key) for key in (
+        "ttft_ms", "ttft_ms_request_0", "decode_ms_per_step",
+        "decode_device_ms", "decode_idle_share", "decode_ms_per_iter",
+        "tokens_per_s", "peak_gb", "decode_bound_ms")}
+        for name in ("grok_fixed", "grok_fixed_int8", "grok_scheduler",
+                     "grok_scheduler_int8")}
+    print("grok summary (6 of 64 layers): " + json.dumps(summary),
+          flush=True)
+    return out
+
+
 SAMPLER_VOCABS = (49155, 262144)
 SAMPLE_TEMP = 0.8
 
@@ -5183,6 +5699,32 @@ SOURCES = {
                                "src/repro/kernels/matmul.py:180"),
     "k1_rmsnorm_xlstm_n2048": ("rmsnorm", "src/repro_torch/csrc/matmul.cu",
                                "src/repro/kernels/matmul.py:180"),
+    # grok-1: its widths in K1, K2 and K3, the row norm at N = 6144, and
+    # G = 6 in K4, K5 and K6
+    "k1_matmul_grok_m8": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                          "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_grok_m512": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                            "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_grok_m8320": ("matmul", "src/repro_torch/csrc/matmul.cu",
+                             "src/repro/kernels/matmul.py:293"),
+    "k1_rmsnorm_grok_n6144": ("rmsnorm", "src/repro_torch/csrc/matmul.cu",
+                              "src/repro/kernels/matmul.py:180"),
+    "k2_int8_matmul_grok": ("int8_matmul", "src/repro_torch/csrc/matmul.cu",
+                            "src/repro/kernels/matmul.py:293"),
+    "k3_quantize_grok": ("quantize", "src/repro_torch/csrc/matmul.cu",
+                         "src/repro/kernels/quantize.py:131"),
+    "k4_flash_prefill_grok": ("flash_attention",
+                              "src/repro_torch/csrc/flash_attention.cu",
+                              "src/repro/kernels/flash_attention.py:331"),
+    "k5_flash_decode_grok": ("flash_decode",
+                             "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:447"),
+    "k6_paged_decode_grok": ("paged_decode",
+                             "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:563"),
+    "k6_paged_decode_chunk_grok": ("paged_decode:chunk",
+                                   "src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:563"),
 }
 
 
@@ -5239,6 +5781,18 @@ LAUNCH_NOTES = {
     "k1_rmsnorm_xlstm_n2048": "every rmsnorm launch, at every width: "
                               "xlstm's at N = 1024 and 2048 (the mLSTM's "
                               "inner norm) and the other paths'",
+    "k1_rmsnorm_grok_n6144": "every rmsnorm launch, at every width: grok's "
+                             "at N = 6144 and the other paths'",
+    "k4_flash_prefill_grok": "every flash_attention launch with no "
+                             "variant: grok's and the other paths'",
+    "k5_flash_decode_grok": "every flash_decode launch with no variant: "
+                            "grok's and the other paths'",
+    "k6_paged_decode_grok": "every paged_decode launch with no variant: "
+                            "grok's and the other paths'",
+    "k6_paged_decode_chunk_grok": "every paged_decode:chunk launch: grok's "
+                                  "and the other paths'",
+    "k3_quantize_grok": "every quantize launch: grok's int8 paths' and the "
+                        "other paths'",
 }
 
 
@@ -5297,6 +5851,7 @@ def main() -> int:
     rglru_plain = rglru_rows(torch, timer)
     kernels.update(check_xlstm_kernels(torch, timer, cupti))
     xlstm_plain = xlstm_rows(torch, timer, cupti)
+    kernels.update(check_grok_kernels(torch, timer, cupti))
     t0 = time.perf_counter()
     sampler = check_sampler(torch, timer)
     print(f"sampler ({time.perf_counter() - t0:.1f} s): "
@@ -5310,7 +5865,7 @@ def main() -> int:
     smoke = check_smoke_path(torch)
     print("smoke: " + json.dumps(smoke), flush=True)
     for arch, over in (("gemma2-27b", {}), ("gemma3-12b", {"head_dim": 256}),
-                       (L4_ARCH, {})):
+                       (L4_ARCH, {}), (GK_ARCH, {})):
         smoke_local = check_local_smoke(torch, arch, **over)
         print(f"smoke {arch}: " + json.dumps(smoke_local), flush=True)
     for arch, over in (("whisper-small", {}), (PG_ARCH, {}),
@@ -5340,6 +5895,8 @@ def main() -> int:
     marks.append(("recurrentgemma", time.perf_counter()))
     serve.update(serve_xlstm(torch, xlstm_plain))
     marks.append(("xlstm", time.perf_counter()))
+    serve.update(serve_grok(torch))
+    marks.append(("grok", time.perf_counter()))
     cupti_pass(torch, cupti)
     marks.append(("cupti", time.perf_counter()))
     print("xlstm plain, with CUPTI kernel times: " + json.dumps(xlstm_plain),

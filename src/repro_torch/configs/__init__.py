@@ -4,9 +4,10 @@ from __future__ import annotations
 from typing import List
 
 from repro_torch.configs import (gemma2_27b, gemma3_12b, granite_3_8b,
-                                 internlm2_1_8b, llama4_scout_17b_a16e,
-                                 paligemma_3b, recurrentgemma_9b,
-                                 whisper_small, xlstm_350m)
+                                 grok_1_314b, internlm2_1_8b,
+                                 llama4_scout_17b_a16e, paligemma_3b,
+                                 recurrentgemma_9b, whisper_small,
+                                 xlstm_350m)
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
@@ -19,6 +20,7 @@ _MODULES = {
     "paligemma-3b": paligemma_3b,
     "recurrentgemma-9b": recurrentgemma_9b,
     "xlstm-350m": xlstm_350m,
+    "grok-1-314b": grok_1_314b,
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

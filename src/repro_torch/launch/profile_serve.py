@@ -27,13 +27,17 @@ after the bf16 ones on the model quantized in place,
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch xlstm-350m --batch 8 --prompt-len 2048 \
         --out profile_serve_xlstm.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch grok-1-314b --layers 6 --batch 2 --prompt-len 4160 \
+        --out profile_serve_grok.json
 
 Prints, for each window (fixed prefill, fixed decode step, and per engine
 a scheduler iteration that prefills one chunk on every lane and one that
 only decodes): the host wall time (synchronized, profiler off), the device
 busy time (sum of kernel times from a profiled run of the same calls from
 the same starting state; one stream, so kernels do not overlap), the idle
-share, and the kernels by device time.  whisper-small (an
+share, and the kernels by device time.  The fixed windows run on the int8
+copy too wherever it fits beside the model.  whisper-small (an
 encoder-decoder), paligemma-3b (a prefix-LM), recurrentgemma-9b (RG-LRU
 states) and xlstm-350m (mLSTM and sLSTM states; ``--prompt-len`` below 64
 or a multiple of 64), served by the fixed loop only, have the fixed
@@ -43,9 +47,9 @@ holds the encoder over the batch's clips (``launch.serve.make_frames``),
 and its decode step recomputes the cross-attention K/V from the held
 encoder output; paligemma's prompt is its images' patches
 (``launch.serve.make_patches``) and ``--prompt-len`` minus them text
-tokens.  llama4-scout (``--layers`` cuts its depth) has the fixed and
-the scheduler windows, its int8 copy the attention's only.  Needs the
-card: the timings are device metrics.
+tokens.  llama4-scout and grok-1 (``--layers`` cuts their depth) have
+the fixed and the scheduler windows, their int8 copies the attention's
+only.  Needs the card: the timings are device metrics.
 """
 from __future__ import annotations
 
@@ -205,13 +209,15 @@ def main(argv=None):
               "prompt_len": args.prompt_len,
               "lanes": geom["n_lanes"], "sched_prompt": SCHED_PROMPT,
               "fixed": _fixed(model, cfg, args)}
-    if not model.supports_paged_serving:
-        # the fixed loop only: its windows on the int8 copy too, where the
-        # copy quantizes anything
+    if int8_fits(cfg, model.device, fp32_fallback=True):
+        # the fixed windows on the int8 copy beside the model too, where
+        # the copy quantizes anything
         q8 = model.quantize_params_for_serving()
         if any(isinstance(m, QuantizedWeight) for m in q8.modules()):
             report["fixed_int8"] = _fixed(q8, cfg, args)
-    else:
+        del q8
+        torch.cuda.empty_cache()
+    if model.supports_paged_serving:
         report["scheduler_bf16"] = _scheduler(model, cfg, args, False)
         torch.cuda.empty_cache()
         if not int8_fits(cfg, model.device, fp32_fallback=True):

@@ -26,6 +26,9 @@ or continuous batching over the paged KV cache (``--requests N``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
         [--batch 8 --prompt-len 2048 --max-new 32] [--int8] \
         [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \
+        --layers 6 [--batch 2 --prompt-len 4160] [--requests 8] [--int8] \
+        [--smoke --device cpu]
 
 Drills (the reference's flags): lane 1 gets NaN logits at step 2 and is
 quarantined while its peers finish, the first call fails once and is
@@ -74,7 +77,10 @@ nothing, every weight being a recurrent mixer's).
 llama4-scout-17b-a16e (MoE, 3 chunked layers to 1 global,
 window 8192) is 211 GB in bf16 at its 48 layers: ``--layers N`` serves
 its first N at full width (``dataclasses.replace(cfg, n_layers=N)``; 8
-layers are 37.3 GB).
+layers are 37.3 GB).  grok-1-314b (MoE, 8 experts top-2, 64 global
+layers) is 631 GB: ``--layers 6`` serves 60.65 GB of it at full width,
+and 7 layers leave no room for a prefill's expert transients; its int8
+copy quantizes ``wqkv`` and ``wo`` (0.53 GB), its experts stay bf16.
 """
 from __future__ import annotations
 
@@ -183,6 +189,9 @@ GEMMA3_GEOMETRY = dict(GEMMA2_GEOMETRY)
 # decoding past its 8192-position chunk), a pool of 1024 pages shared by
 # them (0.54 GB over 8 layers at its 8 kv heads of 128)
 LLAMA4_GEOMETRY = dict(GEOMETRY, max_seq_len=8224, n_pages=1024)
+# grok-1: gemma2's lanes and shared pool (0.2 GB over 6 layers at its 8 kv
+# heads of 128), so request 0 takes the fixed loop's 4160-token prompt
+GROK_GEOMETRY = dict(GEMMA2_GEOMETRY)
 PROMPT_RANGE, NEW_RANGE = (32, 448), (16, 32)
 
 
@@ -198,6 +207,8 @@ def geometry(arch: str, smoke: bool = False) -> dict:
         return GEMMA3_GEOMETRY
     if arch.startswith("llama4"):
         return LLAMA4_GEOMETRY
+    if arch.startswith("grok"):
+        return GROK_GEOMETRY
     return GEOMETRY
 
 

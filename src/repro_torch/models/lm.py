@@ -15,13 +15,14 @@ every block's down GEMM folds the residual add and the NEXT block's
 ``ln1`` (the last block's folds ``final_norm``) into its epilogue, while
 ``ln2`` stays a standalone rmsnorm.  ``final_softcap`` caps the logits.
 
-llama4 (``cfg.moe``, the reference's ``lm.py:291-297``): each block's FFN
-is the routed MoE (``models.moe``), which has no GEMM epilogue to fold
-into, so after ``ln2`` and the MoE the residual add runs in the compute
-dtype and the NEXT norm as a standalone rmsnorm.  Its 'chunked' layers
-keep a dense ring cache of ``min(window, max_len)`` slots, as local ones
-do.  Each forward keeps the MoE layers' ``kept`` masks (which tokens kept
-their expert) in ``Model.moe_kept``.
+llama4 and grok-1 (``cfg.moe``, the reference's ``lm.py:291-297``): each
+block's FFN is the routed MoE (``models.moe``, top-1 with a shared expert
+or top-2), which has no GEMM epilogue to fold into, so after ``ln2`` and
+the MoE the residual add runs in the compute dtype and the NEXT norm as a
+standalone rmsnorm.  llama4's 'chunked' layers keep a dense ring cache of
+``min(window, max_len)`` slots, as local ones do.  Each forward keeps the
+MoE layers' ``kept`` masks (which tokens kept all their experts) in
+``Model.moe_kept``.
 
 Whisper (``cfg.encdec``, the reference's ``lm.py:272-287, 356-385``): an
 encoder of ``n_enc_layers`` blocks over the (stubbed) frame embeddings
@@ -182,7 +183,7 @@ class Block(nn.Module):
     """A decoder block of kind ``kind``: an attention block holds ``attn``,
     a recurrent block (``MIXERS``) the mixer ``mix``; whisper's
     (``cfg.encdec``) also holds the cross-attention and its norm ``lnx``,
-    llama4's (``cfg.moe``) an MoE as its FFN.  With ``d_ff`` 0 (xlstm) a
+    an MoE model's (``cfg.moe``) an MoE as its FFN.  With ``d_ff`` 0 (xlstm) a
     block has no ``ln2`` and no FFN."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
@@ -204,7 +205,7 @@ class Block(nn.Module):
     def quantized(cls, blk: "Block", cfg: ArchConfig) -> "Block":
         """The int8 serving copy of ``blk``: the packed ``wqkv``, ``wo``
         and the MLP's projections quantized column-wise; the norm scales,
-        whisper's cross-attention, llama4's MoE (router, experts and
+        whisper's cross-attention, an MoE (router, experts and any
         shared expert) and every recurrent mixer shared (the reference's
         pass skips ``xattn``, an MoE's ``ffn`` and every mixer,
         ``lm.py:194-208``).  An xLSTM block (a mixer and no FFN) has no

@@ -16,11 +16,11 @@ flow queue -> lane -> retired while every model call keeps its shape:
     independent of its neighbours (rows of every GEMM and norm are
     independent, and the paged attention masks other lanes' pages), so a
     request's tokens are the same alone or amid churn.  An MoE model
-    (llama4) shares each expert's capacity among every token of a call,
-    idle lanes' padding included, and drops the tokens that sort past it,
-    as the reference does (ROADMAP F6): a lane's tokens then depend on the
-    lanes before it, and only lane 0's tokens, which sort first within
-    every expert, never do.
+    (llama4 at top-1, grok-1 at top-2) shares each expert's capacity among
+    every token of a call, idle lanes' padding included, and drops the
+    entries that sort past it, as the reference does (ROADMAP F6): a
+    lane's tokens then depend on the lanes before it, and only lane 0's,
+    whose entries sort first within every expert at any k, never do.
   * pick: one pick with the health probes (finite, absmax, int8
     saturation) over all lanes, each lane with its request's sampling
     (greedy, or temperature sampling from the request's own key stream
