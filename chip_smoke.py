@@ -234,6 +234,30 @@ line):
    at M = 8, 512 and 8320, the row norm at N = 6144 and K2 and K3 on the
    int8 copy's projections at M = 8 (``check_grok_kernels``); phase 3 its
    smoke config card against CPU (``check_local_smoke``).
+13. serve: internlm2-1.8b at full width and all 24 layers from its float32
+   masters, no ``param_dtype`` override (``serve_internlm2``): the
+   entry points serve the projections' bf16 copy (K1 takes bf16 x bf16),
+   the int8 copy quantized from the fp32 values.  At the init scales the
+   decode and int8 witnesses, then on varied weights the fixed loop and
+   the scheduler, bf16 and int8, each path's kernels launched, one decode
+   iteration's launches exact, the fixed decode step beside its bytes
+   bound.
+14. train: internlm2-1.8b at full width and depth, fp32 masters and fp32
+   AdamW moments, per-block remat, 8 x 4096 tokens a step in the config's
+   2 microbatches (``train_internlm2``): ``Trainer.run`` for 4 steps of
+   the synthetic stream with its checkpoint, every kernel of the training
+   path launched (K1 and its fp32 store, the row norm, K4 with its
+   log-sum-exp, K4's backward), loss and grad norm finite; a step more
+   from the state in memory and again from the restored checkpoint,
+   bitwise equal; 5 steps on one repeated batch, the loss falling at each;
+   step ms, tokens/s, the model-FLOP share of 989 TFLOP/s and the peak
+   (under 80 GB) printed.  Phase 2 holds K4's log-sum-exp output (its
+   first output bitwise K4's), K4's backward at this microbatch and at
+   the smoke config's shape against the plain backward at fp32, and K1's
+   fp32 store at the weight gradients' shapes (``check_train_kernels``);
+   phase 3 the smoke config's 3 train steps card against CPU
+   (``check_train_smoke``) and the full-width 2-layer model's loss and
+   every gradient card against CPU (``check_train_width``).
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -460,6 +484,27 @@ PATH_KERNELS = {
                        "paged_decode:chunk"),
     "grok_scheduler_int8": ("int8_matmul", "quantize", "rmsnorm",
                             "paged_decode", "paged_decode:chunk"),
+    # internlm2 (C3): granite's kernels, from the fp32 masters' bf16 copy
+    # (and the int8 copy quantized from the fp32 values)
+    "internlm2_fixed": ("matmul", "matmul:norm", "rmsnorm",
+                        "flash_attention", "flash_decode"),
+    "internlm2_fixed_int8": ("int8_matmul", "int8_matmul:norm",
+                             "int8_matmul:quantize", "int8_quantize",
+                             "quantize", "rmsnorm", "flash_attention",
+                             "flash_decode"),
+    "internlm2_scheduler_bf16": ("matmul", "matmul:norm", "rmsnorm",
+                                 "paged_decode", "paged_decode:chunk"),
+    "internlm2_scheduler_int8": ("int8_matmul", "int8_matmul:norm",
+                                 "int8_matmul:quantize", "int8_quantize",
+                                 "quantize", "rmsnorm", "paged_decode",
+                                 "paged_decode:chunk"),
+    # training internlm2 (phase 14): K1 forward and its gradient GEMMs
+    # (dA at bf16, dB in the fp32 store, the gate's input recomputed in
+    # it), the row norm (the entry norm and each ln2: the down GEMM's norm
+    # is its row kernel at M >= 64), K4 with its log-sum-exp, K4's
+    # backward
+    "internlm2_train": ("matmul", "matmul:f32", "rmsnorm",
+                        "flash_attention:lse", "flash_attention_bwd"),
 }
 
 
@@ -2067,12 +2112,13 @@ def int8_witness(torch, model, toks, q8=None, first=None, **inputs):
     return w
 
 
-def serve_scheduler(torch, model, int8: bool):
+def serve_scheduler(torch, model, int8: bool, name: str = None):
     """Continuous batching on the full model: N_REQ requests submitted at
     once to ServeEngine.submit/step, prompt lengths and budgets drawn from
     SEED, lanes admitting and retiring during the run.  Request 0 first
     runs alone on the same scheduler (also the warm-up); amid the churn it
-    must emit bitwise the same tokens."""
+    must emit bitwise the same tokens.  ``name``: the path's key in
+    ``PATH_KERNELS`` (default granite's)."""
     import numpy as np
     from repro_torch.kernels import _cuda
     from repro_torch.launch.serve import (GEOMETRY, NEW_RANGE, PROMPT_RANGE,
@@ -2083,7 +2129,7 @@ def serve_scheduler(torch, model, int8: bool):
              GEOMETRY["prefill_chunk"]) == (LANES, PAGE, CHUNK),
             f"the kernel phase's shapes {LANES, PAGE, CHUNK} are not the "
             f"scheduler's {GEOMETRY}")
-    name = "scheduler_int8" if int8 else "scheduler_bf16"
+    name = name or ("scheduler_int8" if int8 else "scheduler_bf16")
     eng = ServeEngine(model, ServeConfig(int8=int8, **GEOMETRY))
     reqs = make_requests(model.cfg.vocab, N_REQ, SEED, PROMPT_RANGE,
                          NEW_RANGE)
@@ -5522,6 +5568,580 @@ def checkpoint_round_trip(torch, model, batch, want_tokens, new):
     return dict(leaves=len(flatten(tree)), gb=gb, tokens_bitwise=True,
                 skipped=name, **secs)
 
+# ---------------------------------------------------------------------------
+# internlm2-1.8b: served at bf16 from its fp32 masters (C3), and trained
+# ---------------------------------------------------------------------------
+
+# internlm2-1.8b (src/repro_torch/configs/internlm2_1_8b.py): 16 q heads
+# over 8 kv heads of 128 (G = 2), d_model 2048, d_ff 8192, vocab 92544,
+# 24 layers, float32 parameters (the master copy) served and trained at
+# bf16 compute
+IL_ARCH = "internlm2-1.8b"
+IL_H, IL_KV, IL_HD, IL_D, IL_FF = 16, 8, 128, 2048, 8192
+# training at full width and depth: 8 x 4096 tokens a step in the config's
+# 2 microbatches of 4 x 4096; the Trainer's run and its checkpoint, the
+# resumed steps and the repeated batch's steps; AdamW at a constant lr
+TR_BATCH, TR_SEQ = 8, 4096
+TR_STEPS, TR_RESUMED, TR_REPEAT, TR_LR = 4, 1, 5, 1e-3
+# the loss on one repeated batch of random tokens must fall at every one
+# of TR_REPEAT steps, and by this much in all (nats; it falls 0.10-0.11
+# over the 4 updates between the first and the last step's loss on an
+# NVIDIA H100 80GB HBM3 at 700.00 W)
+TR_REPEAT_DROP = 0.05
+# the smoke config's card-vs-CPU steps, and the full-width 2-layer
+# gradients on one sequence of 512
+TR_SMOKE_BATCH, TR_SMOKE_SEQ, TR_SMOKE_STEPS = 4, 64, 3
+TR_WIDE_LAYERS, TR_WIDE_SEQ = 2, 512
+# K4's backward against its plain version at fp32 (from the same bf16
+# inputs, output and lse): the kernel rounds P and dS to bf16 for their
+# products, as the forward rounds P, and stores bf16; each row of dQ, dK
+# and dV within this share of its own scale (6.8e-3 measured at 4 x 4096)
+K4_BWD_TOL = 2e-2
+# K1's fp32 store against the fp32 product (TF32 off): two fp32 sums of
+# 16384 products in different orders; each row within this share of its
+# scale (2.8e-5 measured)
+K1_F32_TOL = 1e-4
+
+
+def train_kernel_row(torch, timer, fn, plain, got, want, tol, nbytes,
+                     flops, library, work, note=None):
+    """One kernels-line row: ``got`` against ``want`` (tuples of outputs,
+    each row within ``tol`` of its scale), the kernel's and the plain
+    version's device ms, the bound and the library call's ms."""
+    errs = [row_err(g, w) for g, w in zip(got, want)]
+    require(max(errs) <= tol, f"{work}: a row is off by {max(errs):.3e} of "
+                              f"its scale (tolerance {tol})")
+    t_b, by = bound(nbytes, flops)
+    row = dict(work=work, max_abs_err=max(max_err(g, w)
+                                          for g, w in zip(got, want)),
+               max_row_err=max(errs), tol=tol, ms=timer(fn),
+               wrapper_ms=timer.wall(fn), plain_ms=timer(plain, reps=3),
+               bound_ms=t_b, bound_by=by,
+               library_ms=library() if library else None)
+    if note:
+        row["library_note"] = note
+    return row
+
+
+def sdpa_bwd_ms(torch, timer, q, k, v, dout):
+    """The library yardstick of K4's backward: SDPA's causal backward on
+    the same values (``torch.autograd.grad`` of one forward, kept), the
+    faster of the kv heads grouped (``enable_gqa``) and repeated to H."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    do = dout.transpose(1, 2).contiguous()
+    best = None
+    for rep in (False, True):
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        if rep:
+            kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+        kt, vt = kt.requires_grad_(), vt.requires_grad_()
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=not rep)
+        ms = timer(lambda: torch.autograd.grad(o, (qt, kt, vt), do,
+                                               retain_graph=True), reps=3)
+        best = ms if best is None else min(best, ms)
+        del o
+    return best
+
+
+def plain_bwd(torch, q, k, v, out, lse, dout):
+    """The plain backward at fp32 from the bf16 values, one kv head (and
+    its G q heads) at a time (the [B, G, S, S] scores of one head group at
+    4 x 4096 are 0.5 GB a tensor)."""
+    from repro_torch.kernels import ref
+    g = q.shape[2] // k.shape[2]
+    f32 = torch.float32
+    parts = [ref.flash_attention_bwd_ref(
+        q[:, :, j * g:(j + 1) * g].to(f32), k[:, :, j:j + 1].to(f32),
+        v[:, :, j:j + 1].to(f32), out[:, :, j * g:(j + 1) * g].to(f32),
+        lse[:, j * g:(j + 1) * g], dout[:, :, j * g:(j + 1) * g].to(f32))
+        for j in range(k.shape[2])]
+    return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
+
+
+def plain_lse(torch, q, k, v):
+    from repro_torch.kernels import ref
+    g = q.shape[2] // k.shape[2]
+    return torch.cat([ref.flash_attention_lse_ref(
+        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1])[1]
+        for j in range(k.shape[2])], dim=1)
+
+
+def check_train_kernels(torch, timer):
+    """Phase 2, training: K4's log-sum-exp output (its first output
+    bitwise K4's), K4's backward at internlm2's microbatch (4 x 4096, 16 q
+    heads over 8, hd 128) and at the smoke config's training shape (4 x 64,
+    4 over 2, hd 16), each of dQ, dK and dV within ``K4_BWD_TOL`` of each
+    row's scale of the plain backward at fp32, and bitwise the same twice
+    (no atomics); K1's fp32 store at the weight gradients' shapes of the
+    up/gate and down GEMMs ([2048, 16384] x [16384, 8192] and [8192, 16384]
+    x [16384, 2048]) against the fp32 product (TF32 off)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda,
+                                                     flash_attention_lse_cuda)
+    from repro_torch.kernels.matmul import matmul_cuda
+    from repro_torch.kernels.epilogue import Epilogue
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(bf)
+
+    results = {}
+    b, s, h, kv, hd = TR_BATCH // 2, TR_SEQ, IL_H, IL_KV, IL_HD
+    q, k, v = rand(b, s, h, hd), rand(b, s, kv, hd), rand(b, s, kv, hd)
+    out0 = flash_attention_cuda(q, k, v)
+    out, lse = flash_attention_lse_cuda(q, k, v)
+    require(torch.equal(out, out0), "K4 with its lse output: the output is "
+                                    "not bitwise K4's")
+    want_lse = plain_lse(torch, q, k, v)
+    causal = 4 * b * h * hd * s * (s + 1) / 2
+    io = 2 * (2 * q.numel() + 2 * k.numel())
+    results["k4_flash_prefill_lse"] = train_kernel_row(
+        torch, timer, lambda: flash_attention_lse_cuda(q, k, v),
+        lambda: plain_lse(torch, q, k, v), (lse,), (want_lse,), 1e-5,
+        io + 4 * lse.numel(), causal,
+        lambda: sdpa_ms(torch, timer, q, k, v, is_causal=True),
+        f"causal prefill with its row log-sum-exp, internlm2-1.8b's "
+        f"training microbatch B={b} S={s} H={h} KV={kv} hd={hd}; the output "
+        f"bitwise K4's", "SDPA causal forward (sdpa_ms)")
+    del want_lse
+    for name, (b, s, h, kv, hd) in (
+            ("k4_flash_backward", (b, s, h, kv, hd)),
+            ("k4_flash_backward_smoke", (TR_SMOKE_BATCH, TR_SMOKE_SEQ, 4, 2,
+                                         16))):
+        q, k, v = rand(b, s, h, hd), rand(b, s, kv, hd), rand(b, s, kv, hd)
+        out, lse = flash_attention_lse_cuda(q, k, v)
+        dout = rand(b, s, h, hd)
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"{name}: two calls differ")
+        want = plain_bwd(torch, q, k, v, out, lse, dout)
+        causal = 4 * b * h * hd * s * (s + 1) / 2
+        results[name] = train_kernel_row(
+            torch, timer,
+            lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout:
+                flash_attention_bwd_cuda(q, k, v, out, lse, dout),
+            lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout:
+                plain_bwd(torch, q, k, v, out, lse, dout),
+            got, want, K4_BWD_TOL,
+            2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+            + 2 * (q.numel() + 2 * k.numel()), 2.5 * causal,
+            lambda q=q, k=k, v=v, dout=dout: sdpa_bwd_ms(torch, timer, q, k,
+                                                         v, dout),
+            f"causal attention backward (D, dK/dV, dQ: three launches) "
+            f"B={b} S={s} H={h} KV={kv} hd={hd}; dQ, dK, dV each within "
+            f"{K4_BWD_TOL} of each row's scale of the plain backward at "
+            f"fp32; bitwise the same twice; the bound counts the backward's "
+            f"five products (2.5x the causal forward's)",
+            "SDPA's causal backward (sdpa_bwd_ms)")
+        del got, again, want
+    f32 = Epilogue(out_dtype=torch.float32)
+    tokens = TR_BATCH // 2 * TR_SEQ   # a microbatch's rows
+    try:    # an fp32-out bf16 product in one call, where torch offers it
+        torch.mm(rand(8, 8), rand(8, 8), out_dtype=torch.float32)
+        mm_kw, mm_note = {"out_dtype": torch.float32}, \
+            "torch.mm to fp32 (out_dtype)"
+    except TypeError:
+        mm_kw, mm_note = {}, "torch.mm to bf16 (this torch has no out_dtype)"
+    for name, (m, kk, n) in (("k1_matmul_f32_up", (IL_D, tokens, IL_FF)),
+                             ("k1_matmul_f32_down", (IL_FF, tokens, IL_D))):
+        a, bb = rand(m, kk), rand(kk, n)
+        got = matmul_cuda(a, bb, f32)
+        want = ref.matmul_ref(a, bb)
+
+        results[name] = train_kernel_row(
+            torch, timer, lambda a=a, bb=bb: matmul_cuda(a, bb, f32),
+            lambda a=a, bb=bb: ref.matmul_ref(a, bb), (got,), (want,),
+            K1_F32_TOL,
+            2 * (a.numel() + bb.numel()) + 4 * m * n, 2 * m * n * kk,
+            lambda a=a, bb=bb: timer(lambda: torch.mm(a, bb, **mm_kw)),
+            f"K1's fp32 store, a weight gradient's A^T dC: [{m}, {kk}] x "
+            f"[{kk}, {n}] -> fp32 (internlm2-1.8b's "
+            f"{'up/gate' if n == IL_FF else 'down'} GEMM at a 4 x 4096 "
+            f"microbatch); each row within {K1_F32_TOL} of its scale of the "
+            f"fp32 product (TF32 off)", mm_note)
+        del a, bb, got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def train_steps(torch, model, batches, opt_cfg):
+    """``len(batches)`` train steps from ``model``'s weights: the losses
+    and grad norms, and each parameter's update (p - p0) on the CPU."""
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train.step import make_train_step
+    params = model.train_params()
+    p0 = {k: p.detach().clone() for k, p in params.items()}
+    state = init_opt_state(params, opt_cfg)
+    step = make_train_step(model, opt_cfg)
+    hist = []
+    for b in batches:
+        params, state, m = step(params, state, {k: v.to(model.device)
+                                                for k, v in b.items()})
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+    return hist, {k: (params[k].detach() - p0[k]).cpu().double()
+                  for k in params}
+
+
+def synthetic_batches(torch, vocab, batch, seq, steps, seed):
+    """The first ``steps`` batches of the synthetic stream (the
+    pipeline's, on the CPU)."""
+    from repro_torch.data import (DataConfig, SyntheticTokenSource,
+                                  TokenPipeline)
+    pipe = TokenPipeline(SyntheticTokenSource(vocab, seed),
+                         DataConfig(batch, seq, seed))
+    out = [next(pipe)[1] for _ in range(steps)]
+    pipe.close()
+    return out
+
+
+def check_train_smoke(torch):
+    """Phase 3, training: the internlm2 smoke config (fp32 masters, bf16
+    compute, per-block remat) takes TR_SMOKE_STEPS AdamW steps on the card
+    (K1, its fp32 store, the row norm, K4 and its backward) and on the CPU
+    (their plain versions) from the same weights and batches; an fp32-
+    compute CPU run on the same weights is the anchor.  The card's losses
+    and grad norms lie within 4x the CPU bf16 run's own distance from the
+    anchor, and the mean of |card update - CPU update| / lr within 4x the
+    CPU bf16 run's own mean distance from the anchor's updates (ROADMAP's
+    consistency budget)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.lm import Model
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config(IL_ARCH, smoke=True)
+    cpu = Model(cfg, device="cpu").init_weights(SEED)
+    sd = cpu.state_dict()
+    card = Model(cfg)
+    card.load_state_dict(sd)
+    ref32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                  device="cpu")
+    ref32.load_state_dict(sd)
+    batches = synthetic_batches(torch, cfg.vocab, TR_SMOKE_BATCH,
+                                TR_SMOKE_SEQ, TR_SMOKE_STEPS, SEED)
+    opt = AdamWConfig(lr=TR_LR)
+    _cuda.reset_launches()
+    runs = {name: train_steps(torch, m, batches, opt)
+            for name, m in (("card", card), ("cpu", cpu), ("cpu32", ref32))}
+    launches = dict(_cuda.LAUNCHES)
+    for key in ("matmul", "matmul:f32", "rmsnorm", "flash_attention:lse",
+                "flash_attention_bwd"):
+        require(launches.get(key, 0) > 0,
+                f"smoke training never launched {key}: {launches}")
+
+    def dist(a, b, i):
+        return max(abs(x[i] - y[i]) / abs(y[i]) for x, y in zip(a, b))
+
+    def upd(a, b):
+        return float(sum((a[k] - b[k]).abs().sum() for k in a)
+                     / sum(v.numel() for v in a.values())) / TR_LR
+    (hc, dc), (hp, dp), (h3, d3) = runs["card"], runs["cpu"], runs["cpu32"]
+    out = dict(losses={n: [x[0] for x in r[0]] for n, r in runs.items()},
+               grad_norms={n: [x[1] for x in r[0]] for n, r in runs.items()},
+               loss_err=dist(hc, h3, 0), loss_noise=dist(hp, h3, 0),
+               gnorm_err=dist(hc, h3, 1), gnorm_noise=dist(hp, h3, 1),
+               update_err=upd(dc, d3), update_noise=upd(dp, d3),
+               update_card_cpu=upd(dc, dp), launches=launches)
+    for key in ("loss", "gnorm", "update"):
+        require(out[f"{key}_err"] <= 4 * out[f"{key}_noise"],
+                f"smoke training: the card's {key} is {out[key + '_err']:.3e} "
+                f"from the fp32 anchor, over 4x the CPU's "
+                f"{out[key + '_noise']:.3e}")
+    return out
+
+
+def check_train_width(torch):
+    """Phase 3, training at full width: internlm2-1.8b cut to
+    TR_WIDE_LAYERS layers, one sequence of TR_WIDE_SEQ tokens, the loss and
+    every leaf's gradient on the card against the same model's CPU run at
+    bf16 and an fp32-compute CPU anchor: for each leaf, max|card - anchor|
+    over the anchor's scale within 4x the CPU bf16 run's own (the backward
+    kernels at real widths: K4's backward at hd 128, G = 2, K1's gradient
+    GEMMs at d 2048 and d_ff 8192)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import full_fp32
+    from repro_torch.models.lm import Model
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(IL_ARCH), n_layers=TR_WIDE_LAYERS)
+    cpu = Model(cfg, device="cpu").init_weights(SEED)
+    sd = cpu.state_dict()
+    card = Model(cfg)
+    card.load_state_dict(sd)
+    ref32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                  device="cpu")
+    ref32.load_state_dict(sd)
+    (batch,) = synthetic_batches(torch, cfg.vocab, 1, TR_WIDE_SEQ, 1, SEED)
+    res = {}
+    for name, m in (("card", card), ("cpu", cpu), ("cpu32", ref32)):
+        with full_fp32():
+            loss, grads = loss_and_grads(m, m.train_params(), {
+                k: v.to(m.device) for k, v in batch.items()})
+        res[name] = (float(loss), {k: g.detach().cpu().double()
+                                   for k, g in grads.items()})
+    worst = []
+    for key, w in res["cpu32"][1].items():
+        scale = max(float(w.abs().max()), 1e-30)
+        err = float((res["card"][1][key] - w).abs().max()) / scale
+        noise = float((res["cpu"][1][key] - w).abs().max()) / scale
+        worst.append((err / max(noise, 1e-30), key, err, noise))
+    worst.sort(reverse=True)
+    l3 = res["cpu32"][0]
+    out = dict(loss={n: r[0] for n, r in res.items()},
+               loss_err=abs(res["card"][0] - l3) / abs(l3),
+               loss_noise=abs(res["cpu"][0] - l3) / abs(l3),
+               leaves=len(worst),
+               worst_leaves=[dict(leaf=k, err=e, noise=n, ratio=r)
+                             for r, k, e, n in worst[:4]])
+    require(out["loss_err"] <= 4 * out["loss_noise"],
+            f"full-width training loss: {out}")
+    require(worst[0][0] <= 4, f"full-width gradients: a leaf is over 4x "
+                              f"the CPU's distance from the anchor: {out}")
+    return out
+
+
+def serve_internlm2(torch):
+    """Phase 13, the fault C3 repaired: internlm2-1.8b at full width and
+    depth from its float32 masters, no ``param_dtype`` override: the
+    entry points serve a bf16 copy of the projections (``served_blocks``;
+    K1 takes bf16 x bf16), the int8 copy is quantized from the fp32
+    values.  At init scales the decode witness and the int8 witness, then
+    on varied weights the fixed loop bf16 and int8 (``BATCH`` x
+    ``PROMPT``, ``NEW`` tokens) and the scheduler bf16 and int8 (phase 4's
+    requests), each path's kernels launched and one decode iteration's
+    launches counted exactly; the fixed decode step's ms beside its bytes
+    bound (the bf16 projections, the fp32 embedding the logits read, the
+    K/V)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = get_config(IL_ARCH)
+    require(cfg.param_dtype == "float32", "internlm2's masters are fp32")
+    model = Model(cfg).init_weights(SEED)
+    toks = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                         generator=torch.Generator().manual_seed(SEED + 13))
+    witness = decode_witness(torch, model, toks)
+    witness8 = int8_witness(torch, model, toks)
+    vary(torch, model, SEED)
+    out = {}
+    for int8 in (False, True):
+        name = "internlm2_fixed_int8" if int8 else "internlm2_fixed"
+        engine = ServeEngine(model, ServeConfig(max_new_tokens=NEW,
+                                                int8=int8))
+        engine.generate_with_status_fixed({"tokens": toks})    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = engine.generate_with_status_fixed({"tokens": toks})
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        require(all(st == "ok" for st in res.status), f"{name}: statuses "
+                                                      f"{res.status}")
+        require(all(launches.get(k, 0) > 0 for k in PATH_KERNELS[name]),
+                f"{name}: a kernel never launched: {launches}")
+        require(all(len(set(lane.tolist())) > 1 for lane in res.tokens),
+                f"{name}: a lane repeats one token: {res.tokens.tolist()}")
+        served = engine.model
+        logits, cache = served.prefill(toks, PROMPT + NEW)
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(NEW - 1):
+            logits, cache = served.decode_step(cache, tok, PROMPT + i)
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None]
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t) / (NEW - 1) * 1e3
+        _cuda.reset_launches()
+        served.decode_step(cache, tok, PROMPT + NEW - 1)
+        step_launches = decode_launches(name, dict(_cuda.LAUNCHES), cfg,
+                                        int8)
+        proj = sum(w.numel() for w in model._projections())
+        kv_bytes = 2 * cfg.n_layers * BATCH * (PROMPT + NEW) * cfg.kv_dim * 2
+        wbytes = proj * (1 if int8 else 2) + 4 * cfg.padded_vocab() * cfg.d_model
+        out[name] = dict(generate_s=gen_s, tokens_per_s=BATCH * NEW / gen_s,
+                         decode_ms_per_step=dec_ms,
+                         decode_bound_ms=(wbytes + kv_bytes)
+                         / HBM_BYTES_PER_S * 1e3,
+                         peak_bytes=torch.cuda.max_memory_allocated(),
+                         launches=launches,
+                         launches_per_decode_step=step_launches,
+                         tokens=res.tokens.tolist())
+        del engine, cache, logits, served
+        torch.cuda.empty_cache()
+        print(f"serve {name}: " + json.dumps(out[name]), flush=True)
+    out["internlm2_fixed"].update(witness=witness, int8_witness=witness8)
+    print("internlm2 witnesses: " + json.dumps(
+        dict(witness=witness, tol=WITNESS_TOL, int8_witness=witness8)),
+        flush=True)
+    for int8 in (False, True):
+        name = ("internlm2_scheduler_int8" if int8
+                else "internlm2_scheduler_bf16")
+        r = serve_scheduler(torch, model, int8, name=name)
+        print(f"serve {name}: " + json.dumps(
+            {k: v for k, v in r.items() if k != "tokens_all"}), flush=True)
+        out[name] = r
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_flops_per_token(cfg, seq: int) -> float:
+    """The model's FLOPs a trained token (forward and backward, 3x the
+    forward; remat's recomputation not counted): twice the multiply-adds
+    of every projection and of the logits against the padded vocabulary,
+    and the causal attention's two products over (seq + 1) / 2 keys on
+    average."""
+    proj = (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * cfg.d_model
+            + 3 * cfg.d_model * cfg.d_ff)
+    fwd = (2 * (cfg.n_layers * proj + cfg.d_model * cfg.padded_vocab())
+           + cfg.n_layers * 4 * cfg.q_dim * (seq + 1) / 2)
+    return 3 * fwd
+
+
+def train_internlm2(torch):
+    """Phase 14, training: internlm2-1.8b at full width and depth (24
+    layers; fp32 masters and fp32 moments, per-block remat, the config's 2
+    microbatches of 4 x 4096).  ``Trainer.run`` takes TR_STEPS steps of the
+    synthetic stream with the launch counts set to 0 just before and read
+    just after (every kernel of the training path launched), and writes
+    its checkpoint at the end; loss and grad norm finite every step.  Then
+    the uninterrupted run goes on TR_RESUMED steps from its state in
+    memory, the checkpoint is restored (``Trainer.restore``) and the same
+    steps run again: the losses, grad norms and parameters bitwise the
+    uninterrupted run's (every kernel of the step is deterministic, and the
+    embedding's gradient sums its rows in a fixed order).  Then TR_REPEAT
+    steps on one repeated batch: the loss must fall at every step, by
+    TR_REPEAT_DROP in all.
+    Step ms, tokens/s, the model-FLOP share of 989 TFLOP/s and the peak
+    bytes are printed."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenSource, TokenPipeline
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.lm import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(IL_ARCH)
+    require((cfg.microbatches, cfg.remat, cfg.opt_state_mode) ==
+            (2, "full", "fp32"), f"internlm2's training settings {cfg}")
+    model = Model(cfg)
+    ckdir = tempfile.mkdtemp(prefix="internlm2_ckpt_")
+    dcfg = DataConfig(TR_BATCH, TR_SEQ, SEED)
+    src = SyntheticTokenSource(cfg.vocab, SEED)
+
+    def pipes(start):
+        return TokenPipeline(src, dcfg, "cuda", cfg, start_step=start)
+
+    opt_cfg = AdamWConfig(lr=TR_LR, state_mode=cfg.opt_state_mode)
+    trainer = Trainer(model, opt_cfg, TrainerConfig(
+        steps=TR_STEPS, ckpt_every=TR_STEPS, ckpt_dir=ckdir, keep=1,
+        log_every=1), pipes)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        params, opt = trainer.run(SEED)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        mets = trainer.metrics
+        require([m["step"] for m in mets] == list(range(TR_STEPS)),
+                f"trainer steps {[m['step'] for m in mets]}")
+        require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                    for m in mets), f"non-finite training metrics {mets}")
+        require(all(launches.get(k, 0) > 0
+                    for k in PATH_KERNELS["internlm2_train"]),
+                f"internlm2_train: a kernel never launched: {launches}")
+        require(trainer.ckpt.latest_step() == TR_STEPS, "no checkpoint")
+        step_s = sorted(m["dt"] for m in mets[1:])[len(mets[1:]) // 2]
+        tokens = TR_BATCH * TR_SEQ
+        flops = model_flops_per_token(cfg, TR_SEQ) * tokens
+        print(f"  trainer: {TR_STEPS} steps in {run_s:.1f} s (its "
+              f"checkpoint included), step ms {step_s * 1e3:.1f}, peak "
+              f"{peak / 1e9:.2f} GB, metrics {json.dumps(mets)}", flush=True)
+
+        # resume equal to uninterrupted
+        def go_on(params, opt):
+            it = pipes(TR_STEPS)
+            hist = []
+            for _ in range(TR_RESUMED):
+                _, batch = next(it)
+                params, opt, m = trainer.step_fn(params, opt, batch)
+                hist.append((float(m["loss"]), float(m["grad_norm"])))
+            it.close()
+            return params, opt, hist
+        params, opt, hist_a = go_on(params, opt)
+        want = {k: p.detach().clone() for k, p in params.items()}
+        del params, opt
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        start, params, opt = trainer.restore()
+        restore_s = time.perf_counter() - t0
+        require(start == TR_STEPS, f"restored step {start}")
+        params, opt, hist_b = go_on(params, opt)
+        diff = max(float((params[k].detach() - want[k]).abs().max())
+                   for k in want)
+        print(f"  resumed: restore {restore_s:.1f} s, steps {hist_b} "
+              f"against {hist_a}, params off by {diff}", flush=True)
+        require(hist_a == hist_b and diff == 0.0,
+                f"resumed steps {hist_b} (params off by {diff}) != "
+                f"uninterrupted {hist_a}")
+        del want
+
+        # one repeated batch: the loss falls
+        it = pipes(TR_STEPS + TR_RESUMED)
+        _, batch = next(it)
+        it.close()
+        rep = []
+        for _ in range(TR_REPEAT):
+            params, opt, m = trainer.step_fn(params, opt, batch)
+            rep.append(float(m["loss"]))
+        require(all(b < a for a, b in zip(rep, rep[1:]))
+                and rep[-1] < rep[0] - TR_REPEAT_DROP,
+                f"the loss on one repeated batch {rep} did not fall at "
+                f"every step, by {TR_REPEAT_DROP} in all")
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        require(peak < 80e9, f"training peak {peak / 1e9:.2f} GB")
+        return dict(
+            params=sum(p.numel() for p in params.values()),
+            steps=[{k: m[k] for k in ("step", "loss", "grad_norm", "dt")}
+                   for m in mets],
+            run_s=run_s, step_ms=step_s * 1e3,
+            tokens_per_s=tokens / step_s,
+            model_tflops_per_step=flops / 1e12,
+            model_flop_share=flops / step_s / BF16_FLOPS_PER_S,
+            peak_gb=peak / 1e9, launches=launches,
+            resumed=dict(steps=hist_b, bitwise=True, restore_s=restore_s),
+            repeated_batch_losses=rep,
+            phase_s=time.perf_counter() - t_phase)
+    finally:
+        trainer.ckpt.wait()
+        shutil.rmtree(ckdir, ignore_errors=True)
+        del trainer, model
+        torch.cuda.empty_cache()
+
+
 SOURCES = {
     "k1_matmul": ("matmul", "src/repro_torch/csrc/matmul.cu",
                   "src/repro/kernels/matmul.py:293"),
@@ -5725,6 +6345,21 @@ SOURCES = {
     "k6_paged_decode_chunk_grok": ("paged_decode:chunk",
                                    "src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:563"),
+    # training: K4's log-sum-exp output, K4's backward (the port's own:
+    # the reference differentiates its attention by XLA), K1's fp32 store
+    "k4_flash_prefill_lse": ("flash_attention:lse",
+                             "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:331"),
+    "k4_flash_backward": ("flash_attention_bwd",
+                          "src/repro_torch/csrc/flash_backward.cu",
+                          "src/repro/kernels/flash_attention.py:331"),
+    "k4_flash_backward_smoke": ("flash_attention_bwd",
+                                "src/repro_torch/csrc/flash_backward.cu",
+                                "src/repro/kernels/flash_attention.py:331"),
+    "k1_matmul_f32_up": ("matmul:f32", "src/repro_torch/csrc/matmul.cu",
+                         "src/repro/kernels/matmul.py:293"),
+    "k1_matmul_f32_down": ("matmul:f32", "src/repro_torch/csrc/matmul.cu",
+                           "src/repro/kernels/matmul.py:293"),
 }
 
 
@@ -5793,7 +6428,24 @@ LAUNCH_NOTES = {
                                   "and the other paths'",
     "k3_quantize_grok": "every quantize launch: grok's int8 paths' and the "
                         "other paths'",
+    "k4_flash_backward": "every flash_attention_bwd launch of the training "
+                         "path (phase 14, internlm2 at 4 x 4096)",
+    "k4_flash_backward_smoke": "every flash_attention_bwd launch of phase "
+                               "3's smoke training on the card, at this "
+                               "row's shape (its counts set to 0 just "
+                               "before it)",
+    "k1_matmul_f32_up": "every matmul:f32 launch of the training path: the "
+                        "weight gradients of all seven GEMMs and the up "
+                        "GEMM's recomputed gate input",
+    "k1_matmul_f32_down": "every matmul:f32 launch of the training path: "
+                          "the weight gradients of all seven GEMMs and the "
+                          "up GEMM's recomputed gate input",
 }
+
+
+# rows whose shape runs on a path of its own, outside PATH_KERNELS (phase
+# 3's smoke training): their launches are that path's alone
+OWN_PATH = {"k4_flash_backward_smoke": "train_smoke"}
 
 
 def variant_launches(counts, counter):
@@ -5853,6 +6505,9 @@ def main() -> int:
     xlstm_plain = xlstm_rows(torch, timer, cupti)
     kernels.update(check_grok_kernels(torch, timer, cupti))
     t0 = time.perf_counter()
+    kernels.update(check_train_kernels(torch, timer))
+    print(f"training kernels ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     sampler = check_sampler(torch, timer)
     print(f"sampler ({time.perf_counter() - t0:.1f} s): "
           + json.dumps(sampler), flush=True)
@@ -5874,6 +6529,12 @@ def main() -> int:
         print(f"smoke {arch}: "
               + json.dumps(check_fixed_smoke(torch, arch, **over)),
               flush=True)
+    t0 = time.perf_counter()
+    smoke_train = check_train_smoke(torch)
+    print("smoke training: " + json.dumps(smoke_train), flush=True)
+    print("full-width 2-layer gradients: "
+          + json.dumps(check_train_width(torch)), flush=True)
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
     marks.append(("smoke", time.perf_counter()))
     serve = serve_full(torch)
     serve["addertree"] = addertree_path(torch)
@@ -5897,6 +6558,12 @@ def main() -> int:
     marks.append(("xlstm", time.perf_counter()))
     serve.update(serve_grok(torch))
     marks.append(("grok", time.perf_counter()))
+    serve.update(serve_internlm2(torch))
+    marks.append(("internlm2", time.perf_counter()))
+    train = train_internlm2(torch)
+    serve["internlm2_train"] = {"launches": train["launches"]}
+    print("train internlm2: " + json.dumps(train), flush=True)
+    marks.append(("train", time.perf_counter()))
     cupti_pass(torch, cupti)
     marks.append(("cupti", time.perf_counter()))
     print("xlstm plain, with CUPTI kernel times: " + json.dumps(xlstm_plain),
@@ -5908,13 +6575,16 @@ def main() -> int:
         if "floor_ms" in k:
             k["floor_kernel_ms"] = floor["kernel_ms"]
 
+    own = {"train_smoke": smoke_train["launches"]}
     line = []
     for name, (counter, source, replaces) in SOURCES.items():
         k = kernels[name]
         # launches on the driven paths (each path's counts were set to 0
         # just before it) of this row's variant only
-        launches = {path: variant_launches(serve[path]["launches"], counter)
-                    for path in PATH_KERNELS}
+        paths = ({OWN_PATH[name]: own[OWN_PATH[name]]} if name in OWN_PATH
+                 else {path: serve[path]["launches"] for path in PATH_KERNELS})
+        launches = {path: variant_launches(counts, counter)
+                    for path, counts in paths.items()}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": sum(launches.values()),

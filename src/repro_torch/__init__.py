@@ -1,10 +1,13 @@
-"""PyTorch/CUDA port of the MaxEVA serving stack for NVIDIA Hopper.
+"""PyTorch/CUDA port of the MaxEVA serving and training stack for NVIDIA
+Hopper.
 
 Plain tensor code is PyTorch; every TPU kernel on the serving path is a
 hand-written CUDA C++ kernel under ``csrc/``, built with ``nvcc`` for
-``sm_90a`` at first CUDA use.  Entry points run on the card unless the
-caller passes ``device="cpu"``; each kernel wrapper picks its kernel or
-its plain PyTorch version by the device of the tensor it is given.
+``sm_90a`` at first CUDA use, and so is the training path's backward of
+the attention (``csrc/flash_backward.cu``).  Entry points run on the
+card unless the caller passes ``device="cpu"``; each kernel wrapper picks
+its kernel or its plain PyTorch version by the device of the tensor it is
+given.
 """
 from __future__ import annotations
 

@@ -17,8 +17,9 @@ Layout per step::
     steps only.
   * Asynchronous, with loud failures: the leaves are copied to the host on
     the caller's thread (the writer thread never reads a CUDA tensor), a
-    background thread serializes them, and its failure is raised again at
-    the next ``wait()`` or ``save()``.
+    background thread serializes them (IO_THREADS leaves at a time, as
+    restore reads them), and its failure is raised again at the next
+    ``wait()`` or ``save()``.
   * Integrity: a crc32 of each leaf's bytes, its shape and dtype in the
     manifest, checked at restore; a mismatch raises
     ``CheckpointCorruptionError`` naming the parameter.  ``restore(...,
@@ -49,12 +50,16 @@ import re
 import shutil
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 BF16_WORDS = np.dtype("V2")
+# leaves are written and read on this many threads at once (file I/O,
+# fsync and crc32 release the GIL)
+IO_THREADS = min(8, os.cpu_count() or 1)
 _KEY = re.compile(r"\[('(?:[^'\\]|\\.)*'|-?\d+)\]")
 
 
@@ -70,13 +75,18 @@ class CheckpointCorruptionError(IOError):
         self.reason = reason
 
 
-# -- trees: nested dicts of leaves, flattened in sorted-key order -------------
+# -- trees: nested dicts (and tuples) of leaves, flattened in the reference's
+# order: dicts by sorted key, tuples by index ------------------------------
 
 def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """``(path, leaf)`` pairs in the reference's flatten order."""
+    """``(path, leaf)`` pairs in the reference's flatten order (a tuple's
+    entries by index, as the trainer's ``(params, opt)``)."""
     if isinstance(tree, dict):
         return [item for k in sorted(tree)
                 for item in flatten(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, tuple):
+        return [item for i, t in enumerate(tree)
+                for item in flatten(t, f"{prefix}[{i}]")]
     return [(prefix, tree)]
 
 
@@ -86,12 +96,26 @@ def treedef_str(tree: Any) -> str:
         if isinstance(t, dict):
             return "{" + ", ".join(f"{k!r}: {walk(t[k])}"
                                    for k in sorted(t)) + "}"
+        if isinstance(t, tuple):
+            inner = ", ".join(walk(x) for x in t)
+            return f"({inner},)" if len(t) == 1 else f"({inner})"
         return "*"
     return f"PyTreeDef({walk(tree)})"
 
 
-def unflatten(paths: List[str], leaves: List[Any]) -> dict:
-    """Nested dicts from ``flatten``'s paths."""
+def _tuples(node: Any) -> Any:
+    """Nodes keyed 0..n-1 by integers (a tuple's paths) back to tuples."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _tuples(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node) \
+            and sorted(node) == list(range(len(node))):
+        return tuple(node[i] for i in range(len(node)))
+    return node
+
+
+def unflatten(paths: List[str], leaves: List[Any]) -> Any:
+    """Nested dicts (and tuples) from ``flatten``'s paths."""
     out: dict = {}
     for path, leaf in zip(paths, leaves):
         keys = [ast.literal_eval(k) for k in _KEY.findall(path)]
@@ -99,7 +123,7 @@ def unflatten(paths: List[str], leaves: List[Any]) -> dict:
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = leaf
-    return out
+    return _tuples(out)
 
 
 def host_copy(x: Any) -> np.ndarray:
@@ -120,12 +144,26 @@ def _dtype_name(arr: np.ndarray) -> str:
     return "bfloat16" if arr.dtype == BF16_WORDS else str(arr.dtype)
 
 
+def _io_map(fn, items) -> list:
+    """``[fn(x) for x in items]`` on IO_THREADS threads; the first failure
+    in ``items``' order is raised once every call has ended."""
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        futures = [pool.submit(fn, x) for x in items]
+    return [f.result() for f in futures]
+
+
 def _fsync_dir(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
         os.fsync(fd)
     finally:
         os.close(fd)
+
+
+def _crc32(arr: np.ndarray) -> int:
+    """crc32 of a leaf's bytes in C order (read in place where the array
+    is contiguous: the bytes ``tobytes`` would copy)."""
+    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
 
 
 def _write_leaf(path: str, arr: np.ndarray) -> None:
@@ -227,17 +265,18 @@ class CheckpointManager:
             final = os.path.join(self.dir, f"step_{step:08d}")
             try:
                 os.makedirs(tmp, exist_ok=True)
-                manifest = {"step": step, "treedef": treedef, "leaves": []}
-                for i, arr in enumerate(host):
-                    _write_leaf(os.path.join(tmp, f"arr_{i}.npy"), arr)
-                    manifest["leaves"].append({
-                        "file": f"arr_{i}.npy",
-                        "param": paths[i],
-                        "shape": list(arr.shape),
-                        "dtype": _dtype_name(arr),
-                        "crc32": zlib.crc32(
-                            np.ascontiguousarray(arr).tobytes()),
-                    })
+
+                def put(i):
+                    _write_leaf(os.path.join(tmp, f"arr_{i}.npy"), host[i])
+                    return _crc32(host[i])
+                crcs = _io_map(put, range(len(host)))
+                manifest = {"step": step, "treedef": treedef, "leaves": [{
+                    "file": f"arr_{i}.npy",
+                    "param": paths[i],
+                    "shape": list(arr.shape),
+                    "dtype": _dtype_name(arr),
+                    "crc32": crc,
+                } for i, (arr, crc) in enumerate(zip(host, crcs))]}
                 mpath = os.path.join(tmp, "manifest.json")
                 with open(mpath, "w") as f:
                     json.dump(manifest, f)
@@ -362,7 +401,8 @@ class CheckpointManager:
                 f"unreadable manifest ({type(e).__name__}: {e})") from e
         metas = manifest["leaves"]
         tree = unflatten([m["param"] for m in metas],
-                         [self._load_leaf(d, m, step) for m in metas])
+                         _io_map(lambda m: self._load_leaf(d, m, step),
+                                 metas))
         if cfg is not None:
             tree = pack_legacy(tree, cfg)
         if like is None:
@@ -392,7 +432,7 @@ class CheckpointManager:
                 f"shape/dtype mismatch: manifest says "
                 f"{meta['shape']}/{meta['dtype']}, file holds "
                 f"{list(arr.shape)}/{_dtype_name(arr)}")
-        crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
+        crc = _crc32(arr)
         if crc != meta["crc32"]:
             raise CheckpointCorruptionError(
                 step, name,

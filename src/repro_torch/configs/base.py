@@ -1,7 +1,7 @@
 """Architecture configuration schema (the dense decoders, the MoE decoder,
 the encoder-decoder, the prefix-LM, the RG-LRU hybrid and xLSTM the port
 serves).  A copy of the JAX package's ``ArchConfig`` fields that the
-serving path reads; the port never imports that package."""
+serving and training paths read; the port never imports that package."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,6 +58,13 @@ class ArchConfig:
     # (``models.lm.Model``), the embedding and norm scales at float32
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # training (the reference's base.py:64-72): AdamW's moments at fp32 or
+    # int8, per-block rematerialization ('none' | 'full'), the gradient-
+    # accumulation microbatches of a step and their accumulator's dtype
+    opt_state_mode: str = "fp32"
+    remat: str = "full"
+    microbatches: int = 1
+    grad_accum_dtype: str = "float32"
 
     @property
     def hd(self) -> int:

@@ -18,6 +18,7 @@ FULL = ArchConfig(
     final_softcap=30.0,
     gated_mlp=True,
     param_dtype="bfloat16",
+    microbatches=8,
 )
 
 SMOKE = ArchConfig(

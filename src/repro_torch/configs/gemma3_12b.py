@@ -19,6 +19,7 @@ FULL = ArchConfig(
     rope_theta_global=1_000_000.0,
     gated_mlp=True,
     param_dtype="bfloat16",
+    microbatches=4,
 )
 
 SMOKE = ArchConfig(

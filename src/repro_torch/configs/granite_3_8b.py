@@ -15,6 +15,7 @@ FULL = ArchConfig(
     block_pattern=("global",),
     gated_mlp=True,
     param_dtype="bfloat16",
+    microbatches=4,
 )
 
 SMOKE = ArchConfig(

@@ -1,11 +1,9 @@
 """grok-1-314b [moe]: 64L d_model=6144 48H (GQA kv=8) d_ff=32768
 vocab=131072, MoE 8 experts top-2. [hf:xai-org/grok-1]
 
-The reference's FULL and SMOKE field for field (its ``opt_state_mode``,
-``fsdp_params``, ``skip_shapes``, ``microbatches`` and
-``grad_accum_dtype`` are training and sharding settings the port has no
-field for).  At bf16 a layer is 9.84 GB (its experts 9.66 GB) and all 64
-are 631 GB: on one card the port serves FULL cut in depth only
+The reference's FULL and SMOKE field for field (its ``fsdp_params`` and
+``skip_shapes`` are settings the port has no field for).  At bf16 a
+layer is 9.84 GB (its experts 9.66 GB) and all 64 are 631 GB: on one card the port serves FULL cut in depth only
 (``dataclasses.replace(FULL, n_layers=6)``, ``launch.serve --layers 6``,
 60.65 GB), full width otherwise."""
 from repro_torch.configs.base import ArchConfig
@@ -26,6 +24,9 @@ FULL = ArchConfig(
     top_k=2,
     gated_mlp=True,
     param_dtype="bfloat16",
+    opt_state_mode="int8",
+    microbatches=8,
+    grad_accum_dtype="bfloat16",
 )
 
 SMOKE = ArchConfig(

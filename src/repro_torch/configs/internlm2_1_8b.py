@@ -14,6 +14,7 @@ FULL = ArchConfig(
     vocab=92544,
     block_pattern=("global",),
     gated_mlp=True,
+    microbatches=2,
 )
 
 SMOKE = ArchConfig(

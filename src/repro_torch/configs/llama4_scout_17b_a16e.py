@@ -2,8 +2,8 @@
 MoE 16 experts top-1 + shared expert, early fusion, iRoPE-style 3:1
 chunked:global attention. [hf:meta-llama/Llama-4-Scout-17B-16E]
 
-The reference's FULL and SMOKE field for field (its ``fsdp_params`` and
-``microbatches`` are training settings the port has no field for).  On
+The reference's FULL and SMOKE field for field (its ``fsdp_params`` is a
+sharding setting the port has no field for).  On
 one card the port serves FULL cut in depth only
 (``dataclasses.replace(FULL, n_layers=8)``, ``launch.serve --layers``):
 two whole periods of the pattern at full width."""
@@ -27,6 +27,7 @@ FULL = ArchConfig(
     moe_shared_expert=True,
     gated_mlp=True,
     param_dtype="bfloat16",
+    microbatches=8,
 )
 
 SMOKE = ArchConfig(

@@ -1,9 +1,8 @@
 """paligemma-3b [vlm]: 18L d_model=2048 8H (GQA kv=1) d_ff=16384
 vocab=257216 — SigLIP + gemma backbone. [arXiv:2407.07726]
 
-The reference's FULL and SMOKE field for field (its ``skip_shapes``,
-``microbatches`` and ``seq_shard_activations`` are training settings the
-port has no field for).  The SigLIP tower is a stub: the model takes
+The reference's FULL and SMOKE field for field (its ``skip_shapes`` and
+``seq_shard_activations`` are settings the port has no field for).  The SigLIP tower is a stub: the model takes
 precomputed patch embeddings [B, prefix_tokens, d_model] in front of the
 text tokens.  Its block pattern is ``("global",)``, so the backbone
 attends to the patches causally, as the reference does.  ``param_dtype``
@@ -25,6 +24,7 @@ FULL = ArchConfig(
     block_pattern=("global",),
     prefix_tokens=256,
     gated_mlp=True,
+    microbatches=2,
 )
 
 SMOKE = ArchConfig(

@@ -2,9 +2,9 @@
 vocab=256000 — RG-LRU + local attention, 2 recurrent : 1 attention.
 [arXiv:2402.19427]
 
-The reference's FULL and SMOKE field for field (its ``fsdp_params``,
-``microbatches`` and ``seq_shard_activations`` are training settings the
-port has no field for).  38 layers with a period-3 pattern: 12 groups of
+The reference's FULL and SMOKE field for field (its ``fsdp_params`` and
+``seq_shard_activations`` are sharding settings the port has no field
+for).  38 layers with a period-3 pattern: 12 groups of
 (rglru, rglru, local) and a 2-block (rglru, rglru) tail, 26 RG-LRU mixers
 (``models.rglru``) and 12 local-attention blocks, 16 q heads over one kv
 head of 256 (G = 16).  ``param_count`` is the reference's reckoning,
@@ -29,6 +29,7 @@ FULL = ArchConfig(
     conv_width=4,
     gated_mlp=True,
     param_dtype="bfloat16",
+    microbatches=4,
 )
 
 SMOKE = ArchConfig(

@@ -25,6 +25,7 @@ FULL = ArchConfig(
     enc_frames=1500,
     gated_mlp=False,       # whisper uses plain GELU MLPs
     tie_embeddings=True,
+    microbatches=2,
 )
 
 SMOKE = ArchConfig(

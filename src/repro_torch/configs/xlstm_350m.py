@@ -1,9 +1,8 @@
 """xlstm-350m [ssm]: 24L d_model=1024 4H d_ff=0 vocab=50304 — mLSTM and
 sLSTM blocks, 7:1. [arXiv:2405.04517]
 
-The reference's FULL and SMOKE field for field (its ``microbatches`` and
-``seq_shard_activations`` are training settings the port has no field
-for).  24 layers with a period-8 pattern: three groups of seven mLSTM
+The reference's FULL and SMOKE field for field (its ``seq_shard_activations``
+is a sharding setting the port has no field for).  24 layers with a period-8 pattern: three groups of seven mLSTM
 blocks and one sLSTM block, no tail.  ``d_ff`` is 0: an xLSTM block
 carries its own up and down projections and has no FFN and no ``ln2``.
 The mLSTM expands to ``w = 2 d`` (2048), so its head dim is ``2 d /
@@ -31,6 +30,7 @@ FULL = ArchConfig(
     vocab=50304,
     block_pattern=("mlstm",) * 7 + ("slstm",),
     gated_mlp=False,
+    microbatches=2,
 )
 
 SMOKE = ArchConfig(

@@ -40,6 +40,14 @@ config's ``param_dtype``) with numpy
 leaves, for ``checkpoint.CheckpointManager``; a bf16
 tensor becomes its 2-byte words (``checkpoint.manager.BF16_WORDS``), which
 ``from_jax_params`` reads back.
+
+``opt_to_jax`` and ``opt_from_jax`` carry AdamW's state (``optim.
+init_opt_state``: ``{"step", "m", "v"}``, one moment per parameter) the
+same way: each moment tree is laid out as the parameters are, and an
+int8 moment's ``{"q", "s"}`` (values [..., K, N], row scales [..., K, 1])
+is two such trees, so a stacked group's row scales are the per-layer ones
+stacked (the reference quantizes each stacked leaf's trailing rows, which
+are the layers' rows).
 """
 from __future__ import annotations
 
@@ -118,15 +126,16 @@ def from_jax_params(cfg: ArchConfig, params: Dict[str, Any]
 def _block_tree(sd: Dict[str, torch.Tensor], p: str,
                 param_dtype: torch.dtype, kind: str = "") -> Dict[str, Any]:
     """The reference block (of kind ``kind``) of the port's keys under
-    prefix ``p``."""
+    prefix ``p``, its leaves the tensors where they are (``_host`` or
+    ``_stack`` copies them to the host)."""
     blk: Dict[str, Any] = {}
     for key, t in sd.items():
         if not key.startswith(p):
             continue
         *path, name = key[len(p):].split(".")
+        w = t.detach()
         if path == ["mix"] and name in WIDENED.get(kind, ()):
-            t = t.to(param_dtype)
-        w = host_copy(t)
+            w = w.to(param_dtype)
         if path == ["ffn"] and name in _MLP:
             w = w[None]    # the single-device xyz layout [1, K, N]
         node = blk
@@ -136,11 +145,19 @@ def _block_tree(sd: Dict[str, torch.Tensor], p: str,
     return blk
 
 
+def _host(tree):
+    """A block tree's leaves copied to the host (``host_copy``)."""
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return host_copy(tree)
+
+
 def _stack(blocks):
-    """Stack same-structured block trees on a leading axis."""
+    """Stack same-structured block trees on a leading axis, each leaf on
+    its tensors' device and then copied to the host once."""
     if isinstance(blocks[0], dict):
         return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
-    return np.stack(blocks)
+    return host_copy(torch.stack(blocks))
 
 
 def to_jax_params(cfg: ArchConfig, state_dict: Dict[str, torch.Tensor]
@@ -157,8 +174,8 @@ def to_jax_params(cfg: ArchConfig, state_dict: Dict[str, torch.Tensor]
             _block_tree(sd, f"blocks.{g * period + i}.", pdt, kind)
             for g in range(cfg.n_groups)])
             for i, kind in enumerate(cfg.block_pattern)}
-    tree["tail"] = {f"t{i}": _block_tree(
-        sd, f"blocks.{cfg.n_groups * period + i}.", pdt, kind)
+    tree["tail"] = {f"t{i}": _host(_block_tree(
+        sd, f"blocks.{cfg.n_groups * period + i}.", pdt, kind))
         for i, kind in enumerate(cfg.tail_blocks)}
     if cfg.encdec:
         tree["encoder"] = {
@@ -166,3 +183,65 @@ def to_jax_params(cfg: ArchConfig, state_dict: Dict[str, torch.Tensor]
                               for i in range(cfg.n_enc_layers)]),
             "final_norm": host_copy(sd["encoder.final_norm"])}
     return tree
+
+
+def _is_q8(x: Any) -> bool:
+    return isinstance(x, dict) and set(x) == {"q", "s"}
+
+
+def _pick(tree: Any, key: str) -> Any:
+    if _is_q8(tree):
+        return tree[key]
+    return {k: _pick(v, key) for k, v in tree.items()}
+
+
+def _pair(q: Any, s: Any) -> Any:
+    if isinstance(q, dict):
+        return {k: _pair(q[k], s[k]) for k in q}
+    return {"q": q, "s": s}
+
+
+def _moments_to_jax(cfg: ArchConfig, moments: Dict[str, Any]) -> Any:
+    if all(_is_q8(m) for m in moments.values()):
+        return _pair(to_jax_params(cfg, {k: m["q"] for k, m in
+                                         moments.items()}),
+                     to_jax_params(cfg, {k: m["s"] for k, m in
+                                         moments.items()}))
+    if any(_is_q8(m) for m in moments.values()):
+        raise ValueError("a moment tree mixing int8 and fp32 leaves")
+    return to_jax_params(cfg, moments)
+
+
+def _moments_from_jax(cfg: ArchConfig, tree: Any) -> Dict[str, Any]:
+    leaves = []
+
+    def walk(t):
+        if _is_q8(t) or not isinstance(t, dict):
+            leaves.append(t)
+        else:
+            for v in t.values():
+                walk(v)
+    walk(tree)
+    if all(_is_q8(x) for x in leaves):
+        q = from_jax_params(cfg, _pick(tree, "q"))
+        sc = from_jax_params(cfg, _pick(tree, "s"))
+        return {k: {"q": q[k], "s": sc[k]} for k in q}
+    if any(_is_q8(x) for x in leaves):
+        raise ValueError("a moment tree mixing int8 and fp32 leaves")
+    return from_jax_params(cfg, tree)
+
+
+def opt_to_jax(cfg: ArchConfig, state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's AdamW state -> the reference's ``{"step", "m", "v"}``
+    tree with numpy leaves."""
+    return {"step": host_copy(state["step"]),
+            "m": _moments_to_jax(cfg, state["m"]),
+            "v": _moments_to_jax(cfg, state["v"])}
+
+
+def opt_from_jax(cfg: ArchConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's AdamW state (numpy leaves) -> the port's, CPU
+    tensors (``{"q", "s"}`` pairs for int8 moments)."""
+    return {"step": _tensor(tree["step"]),
+            "m": _moments_from_jax(cfg, tree["m"]),
+            "v": _moments_from_jax(cfg, tree["v"])}

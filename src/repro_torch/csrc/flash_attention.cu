@@ -311,7 +311,8 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                bf16* __restrict__ out, int Sq, int Skv, int H, int KV,
-               int n_qt, float scale, Mask mask, float softcap) {
+               int n_qt, float scale, Mask mask, float softcap,
+               float* __restrict__ lse) {
   using L = PrefillLayout<HD>;
   constexpr int SPAN = L::SPAN, COLS = SPAN / 2, BKV = L::BKV;
   constexpr int KV_STAGES = L::STAGES;
@@ -450,6 +451,11 @@ prefill_kernel(const __grid_constant__ CUtensorMap map_q,
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
                                 o[4 * j + 2 * r + 1] * inv);
+    // the row's log-sum-exp of its scaled scores (every thread of the
+    // quad holds the reduced m and l), the backward's second input
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((size_t)b * H + h) * Sq + row] =
+          m_run[r] + logf(fmaxf(l_run[r], 1e-30f));
   }
 }
 
@@ -1064,7 +1070,8 @@ decode_kernel(Rows kv, const bf16* __restrict__ q, float* __restrict__ ws,
 template <int HD>
 int launch_prefill(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Skv, int H, int KV, float scale,
-                   Mask mask, float softcap, cudaStream_t st) {
+                   Mask mask, float softcap, cudaStream_t st,
+                   float* lse) {
   using L = PrefillLayout<HD>;
   // q [B, Sq, H * HD] and k, v [B, Skv, KV * HD] as 3-D maps, so a box
   // past a sequence's end is zero-filled rather than read from the next
@@ -1099,11 +1106,11 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out,
   if (softcap > 0.0f)
     prefill_kernel<HD, true><<<grid, PREFILL_THREADS, L::SMEM, st>>>(
         mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KV, n_qt, scale,
-        mask, softcap);
+        mask, softcap, lse);
   else
     prefill_kernel<HD, false><<<grid, PREFILL_THREADS, L::SMEM, st>>>(
         mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KV, n_qt, scale,
-        mask, softcap);
+        mask, softcap, lse);
   return (int)cudaGetLastError();
 }
 
@@ -1216,6 +1223,24 @@ bool mask_ok(const Mask& m, int kinds) {
 constexpr int PAGED_MASKS =
     (1 << MASK_GLOBAL) | (1 << MASK_LOCAL) | (1 << MASK_CHUNKED);
 
+// K4 and K4 with its lse output (lse null: none)
+int k4_dispatch(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Sq, int Skv, int H, int KV, int hd,
+                float scale, int mask_kind, int window, int prefix_len,
+                float softcap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Mask mask{mask_kind, window, prefix_len};
+  if (!mask_ok(mask, 0x1f)) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+#define K4_CASE(HD)                                                        \
+    case HD: return launch_prefill<HD>(q, k, v, out, B, Sq, Skv, H, KV,    \
+                                       scale, mask, softcap, st, lse);
+    K4_CASE(16) K4_CASE(32) K4_CASE(64) K4_CASE(128) K4_CASE(256)
+#undef K4_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // K4: mask_kind is a MaskKind; window for 'local' and 'chunked' (else 0),
@@ -1225,17 +1250,23 @@ extern "C" int k4_flash_prefill(const void* q, const void* k, const void* v,
                                 int KV, int hd, float scale, int mask_kind,
                                 int window, int prefix_len, float softcap,
                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Mask mask{mask_kind, window, prefix_len};
-  if (!mask_ok(mask, 0x1f)) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-#define K4_CASE(HD)                                                        \
-    case HD: return launch_prefill<HD>(q, k, v, out, B, Sq, Skv, H, KV,    \
-                                       scale, mask, softcap, st);
-    K4_CASE(16) K4_CASE(32) K4_CASE(64) K4_CASE(128) K4_CASE(256)
-#undef K4_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return k4_dispatch(q, k, v, out, nullptr, B, Sq, Skv, H, KV, hd, scale,
+                     mask_kind, window, prefix_len, softcap, stream);
+}
+
+// K4 with its second output: lse [B, H, Sq] fp32, each query row's
+// log-sum-exp of its scaled (softcapped) scores, for the backward; the
+// first output is k4_flash_prefill's, bit for bit.
+extern "C" int k4_flash_prefill_lse(const void* q, const void* k,
+                                    const void* v, void* out, void* lse,
+                                    int B, int Sq, int Skv, int H, int KV,
+                                    int hd, float scale, int mask_kind,
+                                    int window, int prefix_len,
+                                    float softcap, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return k4_dispatch(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H,
+                     KV, hd, scale, mask_kind, window, prefix_len, softcap,
+                     stream);
 }
 
 // K5: partials and fold in one launch.  A kv head's G * rep query heads

@@ -537,7 +537,8 @@ k1_ops_kernel(const __grid_constant__ CUtensorMap map_a,
               const __grid_constant__ CUtensorMap map_out,
               const __grid_constant__ CUtensorMap map_gate,
               const __grid_constant__ CUtensorMap map_res, int M, int N,
-              int K, int epi_flags, int has_residual) {
+              int K, int epi_flags, int has_residual,
+              float* __restrict__ out_f32) {
   using L = OpsLayout<BN>;
   using E = OpsEpilogue<BN>;
   constexpr int STAGES = L::STAGES;
@@ -620,6 +621,24 @@ k1_ops_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   wgmma_wait<0>();
   fence_regs(acc);
+
+  if (out_f32 != nullptr) {
+    // the fp32 store (the weight gradients): the accumulator uncast, no
+    // epilogue stage, from the registers; fragment 4 j + 2 h + c holds
+    // row r0 + 8 h, column c0 + 8 j + c
+    const int r0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+    const int c0 = n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, c = c0 + 8 * j;
+        if (r < M && c < N)
+          *reinterpret_cast<float2*>(out_f32 + (size_t)r * N + c) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    return;
+  }
 
   // epilogue through shared memory: once both warpgroups are done with
   // the ring, it holds the output tile, and the gate and residual tiles,
@@ -712,7 +731,8 @@ k1_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
                 float* __restrict__ partial, int* __restrict__ counters,
                 bf16* __restrict__ out, const bf16* __restrict__ residual,
                 const bf16* __restrict__ operand2, const RowTail tail, int M,
-                int N, int K, int splits, int epi_flags) {
+                int N, int K, int splits, int epi_flags,
+                float* __restrict__ out_f32) {
   using L = DecLayout<NR>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -806,6 +826,8 @@ k1_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
           const float x = acc[c][4 * j + 2 * h + e];
           if (splits > 1)
             partial[(size_t)split * M * N + o] = x;
+          else if (out_f32)
+            out_f32[o] = x;
           else
             out[o] = __float2bfloat16(
                 k1_epilogue<GELU>(x, residual, operand2, o, epi_flags));
@@ -847,10 +869,14 @@ k1_bytes_kernel(const __grid_constant__ CUtensorMap map_w,
       }
 #pragma unroll
       for (int u = 0; u < FE; ++u)
-        if (base + 128 * u < count)
-          out[o[u]] = __float2bfloat16(
-              k1_epilogue<GELU>(x[u], residual, operand2, o[u],
-                                epi_flags));
+        if (base + 128 * u < count) {
+          if (out_f32)
+            out_f32[o[u]] = x[u];
+          else
+            out[o[u]] = __float2bfloat16(
+                k1_epilogue<GELU>(x[u], residual, operand2, o[u],
+                                  epi_flags));
+        }
     }
     if (threadIdx.x == 0) counters[blockIdx.x] = 0;
   }
@@ -877,7 +903,7 @@ int set_smem(F* kernel, int bytes) {
 template <int NR, bool GELU>
 int launch_bytes(const bf16* A, const bf16* B, float* partial, int* counters,
                  bf16* C, const bf16* R, const bf16* G, const RowTail& tail,
-                 int M, int N, int K, int splits, int epi_flags,
+                 int M, int N, int K, int splits, int epi_flags, float* OF,
                  cudaStream_t st) {
   CUtensorMap map_w, map_x;
   int e = make_map_2d(&map_w, B, K, N, DEC_BK, 64);
@@ -894,16 +920,18 @@ int launch_bytes(const bf16* A, const bf16* B, float* partial, int* counters,
   k1_bytes_kernel<NR, GELU>
       <<<grid, DEC_THREADS, DecLayout<NR>::SMEM, st>>>(
       map_w, map_x, partial, counters, C, R, G, tail, M, N, K, splits,
-      epi_flags);
+      epi_flags, OF);
   return (int)cudaGetLastError();
 }
 
 template <int BN, bool GELU>
 int launch_ops(const bf16* A, const bf16* B, bf16* C, const bf16* R,
-               const bf16* G, int M, int N, int K, int epi_flags,
+               const bf16* G, int M, int N, int K, int epi_flags, float* OF,
                cudaStream_t st) {
   // the output, gate and residual tiles move as [128 x 64] boxes; an
-  // absent operand's map is the output's, never read
+  // absent operand's map is the output's, never read (an fp32 store's
+  // output map spans its buffer and is never used)
+  if (C == nullptr) C = reinterpret_cast<bf16*>(OF);
   CUtensorMap map_a, map_b, map_out, map_gate, map_res;
   int e = make_map_2d(&map_a, A, M, K, OPS_BM, OPS_BK);
   if (!e) e = make_map_2d(&map_b, B, K, N, OPS_BK, 64);
@@ -922,7 +950,7 @@ int launch_ops(const bf16* A, const bf16* B, bf16* C, const bf16* R,
   const int tiles = ((M + OPS_BM - 1) / OPS_BM) * ((N + BN - 1) / BN);
   k1_ops_kernel<BN, GELU><<<tiles, OPS_THREADS, OpsLayout<BN>::SMEM, st>>>(
       map_a, map_b, map_out, map_gate, map_res, M, N, K, epi_flags,
-      R != nullptr);
+      R != nullptr, OF);
   return (int)cudaGetLastError();
 }
 
@@ -1452,31 +1480,31 @@ template <bool GELU>
 int k1_launch(const bf16* A, const bf16* B, float* P, int* cnt, bf16* C,
               const bf16* R, const bf16* G, const RowTail& tail, int M,
               int N, int K, int splits, int tile_n, int epi_flags,
-              cudaStream_t st) {
+              cudaStream_t st, float* OF = nullptr) {
   if (M >= 64) {
     if (splits != 1) return (int)cudaErrorInvalidValue;
     switch (tile_n) {
       case 128: return launch_ops<128, GELU>(A, B, C, R, G, M, N, K,
-                                             epi_flags, st);
+                                             epi_flags, OF, st);
       case 192: return launch_ops<192, GELU>(A, B, C, R, G, M, N, K,
-                                             epi_flags, st);
+                                             epi_flags, OF, st);
       case 256: return launch_ops<256, GELU>(A, B, C, R, G, M, N, K,
-                                             epi_flags, st);
+                                             epi_flags, OF, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (tile_n != DEC_BN) return (int)cudaErrorInvalidValue;
   if (M <= 8)
     return launch_bytes<8, GELU>(A, B, P, cnt, C, R, G, tail, M, N, K,
-                                 splits, epi_flags, st);
+                                 splits, epi_flags, OF, st);
   if (M <= 16)
     return launch_bytes<16, GELU>(A, B, P, cnt, C, R, G, tail, M, N, K,
-                                  splits, epi_flags, st);
+                                  splits, epi_flags, OF, st);
   if (M <= 32)
     return launch_bytes<32, GELU>(A, B, P, cnt, C, R, G, tail, M, N, K,
-                                  splits, epi_flags, st);
+                                  splits, epi_flags, OF, st);
   return launch_bytes<64, GELU>(A, B, P, cnt, C, R, G, tail, M, N, K,
-                                splits, epi_flags, st);
+                                splits, epi_flags, OF, st);
 }
 
 // M >= 64: the operations regime, 128 x tile_n output tiles (tile_n 128,
@@ -1515,6 +1543,26 @@ extern "C" int k1_matmul(const void* a, const void* b, void* out,
                                tile_n, epi_flags, st)
              : k1_launch<false>(A, B, P, cnt, C, R, G, tail, M, N, K, splits,
                                 tile_n, epi_flags, st);
+}
+
+// K1's fp32 store: out [M, N] fp32 = A @ B, the accumulator uncast with
+// no epilogue stage (the weight gradients' products); the regimes, tiles,
+// splits, workspace and counters as k1_matmul's, so every element sums
+// its products in the order k1_matmul's does.
+extern "C" int k1_matmul_f32(const void* a, const void* b, void* out,
+                             void* workspace, void* counters, int M, int N,
+                             int K, int splits, int tile_n, void* stream) {
+  float* P = static_cast<float*>(workspace);
+  int* cnt = static_cast<int*>(counters);
+  if (out == nullptr || splits < 1 ||
+      (splits > 1 && (P == nullptr || cnt == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const RowTail tail{nullptr, nullptr, nullptr, nullptr, 0.0f};
+  return k1_launch<false>(static_cast<const bf16*>(a),
+                          static_cast<const bf16*>(b), P, cnt, nullptr,
+                          nullptr, nullptr, tail, M, N, K, splits, tile_n, 0,
+                          static_cast<cudaStream_t>(stream),
+                          static_cast<float*>(out));
 }
 
 // the rmsnorm of M rows of N bf16 values (N % 8 == 0) with an fp32 [N]

@@ -23,7 +23,10 @@ and its decode body never does.
 A row pass fused into a GEMM's store phase is no launch of its own: it
 counts as the GEMM's variant (``matmul:norm``, ``int8_matmul:norm``,
 ``int8_matmul:quantize``), while ``rmsnorm``, ``quantize`` and
-``int8_quantize`` count the row kernels' own launches.
+``int8_quantize`` count the row kernels' own launches.  The training
+path's kernels count as K1's fp32 store ``matmul:f32``, K4 with its
+log-sum-exp output ``flash_attention:lse``, and K4's backward (one call,
+three launches: ``csrc/flash_backward.cu``) ``flash_attention_bwd``.
 """
 from __future__ import annotations
 
@@ -52,6 +55,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # gelu), eps, stream
         "k1_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _F, _P],
+        # a, b, out (fp32), workspace, counters, M, N, K, splits, tile_n,
+        # stream: K1's fp32 store (the weight gradients)
+        "k1_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         # x, scale, out, M, N, eps, stream
         "k1_rmsnorm_rows": [_P, _P, _P, _I, _I, _F, _P],
         # a, b ([N, K]), a_scale, b_scale, out_f32, out_bf16, residual,
@@ -69,6 +75,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # (flash_attention.MASK_CODES), window, prefix_len, softcap, stream
         "k4_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                              _I, _I, _F, _P],
+        # q, k, v, out, lse, then as k4_flash_prefill
+        "k4_flash_prefill_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _F, _I, _I, _I, _F, _P],
         # q, k, v, ws, out, counters, B, KV, rep, G, hd, cache_len, pos,
         # n_tiles, n_splits, scale, softcap, stream
         "k5_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -83,6 +92,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "k6_paged_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _I, _F, _I, _I, _F, _P],
     },
+    "flash_backward": {
+        # q, k, v, out, dout, lse, dq, dk, dv, ws, B, S, H, KV, hd, scale,
+        # mask kind, softcap, stream
+        "k4_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _F, _I, _F, _P],
+    },
     "addertree": {
         # partials, out, S, n, in_kind, out_kind, stream
         "k7_addertree": [_P, _P, _I, ctypes.c_longlong, _I, _I, _P],
@@ -93,7 +108,7 @@ LAUNCHES: Dict[str, int] = {"matmul": 0, "rmsnorm": 0,
                             "int8_matmul": 0, "int8_quantize": 0,
                             "quantize": 0, "flash_attention": 0,
                             "flash_decode": 0, "paged_decode": 0,
-                            "addertree": 0}
+                            "addertree": 0, "flash_attention_bwd": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -185,16 +185,10 @@ def mask_args(kind: str, window: int = 0, prefix_len: int = 0,
             int(prefix_len) if kind == "prefix" else 0)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, kind: str = "global", window: int = 0,
-                         prefix_len: int = 0,
-                         softcap: Optional[float] = None) -> torch.Tensor:
-    """K4: causal online-softmax prefill ('local': the last ``window``
-    keys of each query only; 'chunked': the keys of its own chunk of
-    ``window``; 'prefix': also every key before ``prefix_len``; 'full':
-    every key, Skv free of Sq), scores softcapped when ``softcap`` is set.
-    q [B, Sq, H, hd], k/v [B, Skv, KV, hd] bf16 contiguous, KV | H ->
-    [B, Sq, H, hd] bf16."""
+def _k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
+        window: int, prefix_len: int, softcap: Optional[float],
+        with_lse: bool):
+    """K4's checks and launch; ``(out, lse or None)``."""
     b, sq, n_h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     code, win, plen = mask_args(kind, window, prefix_len)
@@ -205,17 +199,92 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _cuda.check(k, "k", torch.bfloat16, (b, skv, n_kv, hd))
     _cuda.check(v, "v", torch.bfloat16, (b, skv, n_kv, hd))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, n_h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if q.numel() == 0:
-        return out
+        return out, lse
     _cuda.count("flash_attention", local=kind == "local",
                 full=kind == "full", chunked=kind == "chunked",
                 prefix=kind == "prefix", softcap=bool(softcap),
-                hd256=hd == 256)
-    _cuda.launch("flash_attention", "k4_flash_prefill", q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, n_h,
-                 n_kv, hd, hd ** -0.5, code, win, plen,
-                 float(softcap or 0.0))
-    return out
+                hd256=hd == 256, lse=with_lse)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    args = (b, sq, skv, n_h, n_kv, hd, hd ** -0.5, code, win, plen,
+            float(softcap or 0.0))
+    if with_lse:
+        _cuda.launch("flash_attention", "k4_flash_prefill_lse", *ptrs,
+                     lse.data_ptr(), *args)
+    else:
+        _cuda.launch("flash_attention", "k4_flash_prefill", *ptrs, *args)
+    return out, lse
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, kind: str = "global", window: int = 0,
+                         prefix_len: int = 0,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """K4: causal online-softmax prefill ('local': the last ``window``
+    keys of each query only; 'chunked': the keys of its own chunk of
+    ``window``; 'prefix': also every key before ``prefix_len``; 'full':
+    every key, Skv free of Sq), scores softcapped when ``softcap`` is set.
+    q [B, Sq, H, hd], k/v [B, Skv, KV, hd] bf16 contiguous, KV | H ->
+    [B, Sq, H, hd] bf16."""
+    return _k4(q, k, v, kind, window, prefix_len, softcap, False)[0]
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, kind: str = "global",
+                             window: int = 0, prefix_len: int = 0,
+                             softcap: Optional[float] = None):
+    """K4 with its second output: ``(out, lse)``, ``out`` bitwise
+    ``flash_attention_cuda``'s and ``lse`` [B, H, Sq] fp32 each query row's
+    log-sum-exp of its scaled (softcapped) scores, which the backward
+    reads (``k4_flash_prefill_lse``, counted under the ``lse`` variant)."""
+    return _k4(q, k, v, kind, window, prefix_len, softcap, True)
+
+
+# the kinds and head dims K4's backward takes ('global' at 16 to 128, no
+# softcap): the dense decoder's training path
+BWD_KINDS, BWD_HEAD_DIMS = ("global",), (16, 32, 64, 128)
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, kind: str = "global",
+                             window: int = 0, prefix_len: int = 0,
+                             softcap: Optional[float] = None):
+    """K4's backward (``csrc/flash_backward.cu``): ``(dq, dk, dv)`` of the
+    causal prefill from q, k, v, its output ``out``, its ``lse`` (``flash_
+    attention_lse_cuda``) and the output's gradient ``dout``, all bf16 but
+    ``lse``; one call (three launches: the row dots D, then dK/dV, then dQ),
+    counted once as ``flash_attention_bwd``.  Takes the 'global' kind at
+    head dims 16 to 128 with no softcap and Sq == Skv; the other kinds,
+    the softcap and other head dims raise (their backward is a later
+    slice)."""
+    b, s, n_h, hd = q.shape
+    n_kv = k.shape[2]
+    check_kind(kind, BWD_KINDS)
+    if softcap:
+        raise NotImplementedError(
+            "K4's backward takes no softcap yet (gemma2's training slice)")
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"K4's backward takes head_dim in {BWD_HEAD_DIMS}, "
+                         f"got {hd}")
+    if n_h % n_kv:
+        raise ValueError(f"{n_h} q heads do not group over {n_kv} kv heads")
+    for t, what in ((q, "q"), (out, "out"), (dout, "dout")):
+        _cuda.check(t, what, torch.bfloat16, (b, s, n_h, hd))
+    _cuda.check(k, "k", torch.bfloat16, (b, s, n_kv, hd))
+    _cuda.check(v, "v", torch.bfloat16, (b, s, n_kv, hd))
+    _cuda.check(lse, "lse", torch.float32, (b, n_h, s))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    ws = torch.empty((b, n_h, s), dtype=torch.float32, device=q.device)
+    _cuda.count("flash_attention_bwd")
+    _cuda.launch("flash_backward", "k4_flash_backward", q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 ws.data_ptr(), b, s, n_h, n_kv, hd, hd ** -0.5,
+                 MASK_CODES[kind], 0.0)
+    return dq, dk, dv
 
 
 def default_splits(rows: int, n_tiles: int, sms: int) -> int:

@@ -277,9 +277,13 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
                 norm_scale: Optional[torch.Tensor] = None):
     """``epilogue(a @ b)`` through the K1 kernel.  a [M, K], b [K, N], both
     bf16 and contiguous, K and N multiples of 8.  Returns ``[M, N]`` bf16
-    (``ep.out_dtype`` must be bf16), or ``(value, normed)`` under
+    (``ep.out_dtype`` bf16), or ``(value, normed)`` under
     ``norm='rmsnorm'``: one launch where the plan has the row tail, else
-    the GEMM and the row-norm kernel."""
+    the GEMM and the row-norm kernel.  With ``ep.out_dtype`` float32 and no
+    other stage it is K1's fp32 store (``k1_matmul_f32``, counted as
+    ``matmul:f32``): the accumulator written uncast, in the order
+    ``k1_matmul`` sums it (the training path's weight gradients and its
+    recomputed gate input)."""
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError(f"the K1 kernel takes bf16 x bf16, got "
                         f"{a.dtype} x {b.dtype}")
@@ -299,8 +303,13 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
             f"the K1 kernel implements the cast, activation='gelu', "
             f"gate='silu', residual and rmsnorm stages; {ep} needs a later "
             f"slice")
+    if ep.out_dtype == torch.float32:
+        if not ep.is_identity:
+            raise NotImplementedError(
+                f"K1's fp32 store takes no epilogue stage, got {ep}")
+        return _matmul_f32(a, b)
     if ep.out_dtype != torch.bfloat16:
-        raise TypeError(f"the K1 kernel stores bf16, got out_dtype "
+        raise TypeError(f"the K1 kernel stores bf16 or fp32, got out_dtype "
                         f"{ep.out_dtype}")
     flags = _epilogue_operands(ep, m, n, residual, operand2, norm_scale)
     norm = ep.norm == "rmsnorm"
@@ -326,6 +335,26 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue, *,
         if normed is None:
             normed = rmsnorm_cuda(out, norm_scale, ep.norm_eps)
         return out, normed
+    return out
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1's fp32 store of ``a @ b`` (checked by ``matmul_cuda``): the plan,
+    split and workspace of the bf16 store, no epilogue."""
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m and n:
+        plan = _device_plan(m, n, k, a.device.index)
+        ws = counters = None
+        if plan.splits > 1:
+            ws, counters = (t.data_ptr() for t in split_scratch(
+                a.device, plan.splits * m * n,
+                plan.arrival_counters(m, n, False)))
+        _cuda.count("matmul", f32=True)
+        _cuda.launch("matmul", "k1_matmul_f32", a.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), ws, counters, m, n, k, plan.splits,
+                     plan.cols)
     return out
 
 

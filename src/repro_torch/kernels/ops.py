@@ -1,4 +1,4 @@
-"""Dispatch over the serving kernels, by the device of the tensors.
+"""Dispatch over the kernels, by the device of the tensors.
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain PyTorch version.  There is no mode
@@ -15,7 +15,9 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.addertree import addertree_cuda
 from repro_torch.kernels.epilogue import Epilogue, rms_normalize
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda,
+                                                 flash_attention_lse_cuda,
                                                  flash_decode_cuda,
                                                  flash_decode_tiled,
                                                  paged_flash_decode_cuda,
@@ -128,6 +130,37 @@ def flash_attention(q, k, v, *, kind: str = "global", window: int = 0,
                                     prefix_len=prefix_len, softcap=softcap)
     return ref.flash_attention_ref(q, k, v, kind=kind, window=window,
                                    prefix_len=prefix_len, softcap=softcap)
+
+
+def flash_attention_lse(q, k, v, *, kind: str = "global", window: int = 0,
+                        prefix_len: int = 0, softcap: Optional[float] = None):
+    """``flash_attention``'s output and each query row's log-sum-exp
+    [B, H, Sq] fp32 (the training forward, which keeps it for the
+    backward): K4's second output on the card."""
+    ref.check_kind(kind)
+    if q.is_cuda:
+        return flash_attention_lse_cuda(q, k, v, kind=kind, window=window,
+                                        prefix_len=prefix_len,
+                                        softcap=softcap)
+    return ref.flash_attention_lse_ref(q, k, v, kind=kind, window=window,
+                                       prefix_len=prefix_len,
+                                       softcap=softcap)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, kind: str = "global",
+                        window: int = 0, prefix_len: int = 0,
+                        softcap: Optional[float] = None):
+    """``(dq, dk, dv)`` of the prefill attention from its inputs, output,
+    log-sum-exp and output gradient: K4's backward on the card, the plain
+    recomputing backward (``ref.flash_attention_bwd_ref``) on the CPU."""
+    ref.check_kind(kind)
+    if q.is_cuda:
+        return flash_attention_bwd_cuda(q, k, v, out, lse, dout, kind=kind,
+                                        window=window, prefix_len=prefix_len,
+                                        softcap=softcap)
+    return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, kind=kind,
+                                       window=window, prefix_len=prefix_len,
+                                       softcap=softcap)
 
 
 def flash_decode(q, k_cache, v_cache, pos: int, *, kind: str = "global",

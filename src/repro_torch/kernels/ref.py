@@ -24,7 +24,9 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = A @ B with fp32 (f64) accumulation; mixed inputs promote the
     way ``jnp.dot`` does (a bf16 activation against fp32 weights runs an
-    fp32 product)."""
+    fp32 product).  With ``out_dtype`` None (or float32) the accumulator
+    is stored uncast: the plain version of K1's fp32 store, which the
+    weight gradients take."""
     acc = accum_dtype(a.dtype, b.dtype)
     out = torch.matmul(a.to(acc), b.to(acc))
     return out.to(out_dtype or acc)
@@ -175,6 +177,79 @@ def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, kind: str,
     return mask & (kpos >= 0)
 
 
+def _grouped_scores(q, k, kind, window, prefix_len, softcap):
+    """The scaled, softcapped scores of q [B, Sq, H, hd] against k [B, Skv,
+    KV, hd] at the accumulator width, grouped [B, KV, G, Sq, Skv] (q head
+    h reads kv head h // G, never repeated), and the mask."""
+    b, sq, n_h, hd = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    acc = accum_dtype(q.dtype)
+    qg = q.reshape(b, sq, n_kv, n_h // n_kv, hd).to(acc)
+    s = torch.einsum("bqkgd,bKkd->bkgqK", qg, k.to(acc))
+    s = softcap_scores(s * hd ** -0.5, softcap)
+    mask = attention_mask(torch.arange(sq, device=q.device),
+                          torch.arange(skv, device=q.device), kind, window,
+                          prefix_len)
+    return s, mask
+
+
+def flash_attention_lse_ref(q, k, v, *, kind: str = "global",
+                            window: int = 0, prefix_len: int = 0,
+                            softcap: Optional[float] = None):
+    """``(flash_attention_ref(...), lse)``: the output and each query
+    row's log-sum-exp of its attended scores, [B, H, Sq] at the
+    accumulator width (natural log; what K4 writes as its second output
+    and its backward reads)."""
+    b, sq, n_h, hd = q.shape
+    s, mask = _grouped_scores(q, k, kind, window, prefix_len, softcap)
+    s = s.masked_fill(~mask, _NEG_REF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~mask, 0.0)
+    l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bkgqK,bKkd->bkgqd", p, v.to(p.dtype)) / l
+    lse = (m + torch.log(l))[..., 0].reshape(b, n_h, sq)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, n_h, hd).to(
+        q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *,
+                            kind: str = "global", window: int = 0,
+                            prefix_len: int = 0,
+                            softcap: Optional[float] = None):
+    """The attention backward in the recomputing form, the plain version
+    of K4's backward: from q, k, v, the output, its row log-sum-exp ``lse``
+    [B, H, Sq] and the output's gradient ``dout`` [B, Sq, H, hd],
+
+        P = exp(S - lse) (masked keys 0), D = rowsum(dout * out),
+        dV = P^T dout, dS = P * (dout V^T - D)  (times 1 - (S / c)^2
+        under a softcap c), dQ = dS K / sqrt(hd), dK = dS^T Q / sqrt(hd),
+
+    GQA's dK and dV summed over each kv head's G query heads, at the
+    accumulator width (f64 stays f64), cast to the inputs' dtypes."""
+    b, sq, n_h, hd = q.shape
+    n_kv = k.shape[2]
+    g = n_h // n_kv
+    acc = accum_dtype(q.dtype)
+    s, mask = _grouped_scores(q, k, kind, window, prefix_len, softcap)
+    lse_g = lse.to(acc).reshape(b, n_kv, g, sq, 1)
+    p = torch.exp(s.masked_fill(~mask, _NEG_REF) - lse_g).masked_fill(
+        ~mask, 0.0)
+    dog = dout.reshape(b, sq, n_kv, g, hd).to(acc)
+    og = out.reshape(b, sq, n_kv, g, hd).to(acc)
+    dv = torch.einsum("bkgqK,bqkgd->bKkd", p, dog)
+    dp = torch.einsum("bqkgd,bKkd->bkgqK", dog, v.to(acc))
+    d = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - d)
+    if softcap:
+        c = torch.tensor(softcap, dtype=acc, device=q.device)
+        ds = ds * (1.0 - torch.square(s / c))
+    qg = q.reshape(b, sq, n_kv, g, hd).to(acc)
+    dq = torch.einsum("bkgqK,bKkd->bqkgd", ds, k.to(acc)) * hd ** -0.5
+    dk = torch.einsum("bkgqK,bqkgd->bKkd", ds, qg) * hd ** -0.5
+    return (dq.reshape(b, sq, n_h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, kind: str = "global", window: int = 0,
                         prefix_len: int = 0,
@@ -187,21 +262,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softcapped before the mask.  q [B, Sq, H, hd]; k/v [B, Skv, KV, hd]
     with KV | H: q head h reads kv head h // (H // KV) — grouped in the
     einsum, never repeated."""
-    b, sq, n_h, hd = q.shape
-    skv, n_kv = k.shape[1], k.shape[2]
-    acc = accum_dtype(q.dtype)
-    qg = q.reshape(b, sq, n_kv, n_h // n_kv, hd).to(acc)
-    s = torch.einsum("bqkgd,bKkd->bkgqK", qg, k.to(acc))
-    s = softcap_scores(s * hd ** -0.5, softcap)
-    mask = attention_mask(torch.arange(sq, device=q.device),
-                          torch.arange(skv, device=q.device), kind, window,
-                          prefix_len)
-    s = s.masked_fill(~mask, _NEG_REF)
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m).masked_fill(~mask, 0.0)
-    out = torch.einsum("bkgqK,bKkd->bkgqd", p, v.to(acc))
-    out = out / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, n_h, hd).to(q.dtype)
+    return flash_attention_lse_ref(q, k, v, kind=kind, window=window,
+                                   prefix_len=prefix_len,
+                                   softcap=softcap)[0]
 
 
 def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,

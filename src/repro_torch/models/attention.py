@@ -15,7 +15,9 @@ A local or chunked layer's dense cache is a ring buffer of ``min(window,
 max_len)`` slots (position p at slot p % W), decoded by
 ``decode_attention_ring``, plain torch as the reference's einsum path is
 plain XLA (``attention.py:405-441``); its paged lanes keep their full
-history and K6 masks by position."""
+history and K6 masks by position.  ``attention_train`` is the training
+forward: the same products through ``kernels.autograd`` (K1 and K4 with
+their backwards) on the master weights, with no cache."""
 from __future__ import annotations
 
 import math
@@ -25,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import autograd as ag
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.quantize import QuantizedWeight
 from repro_torch.kernels.ref import accum_dtype, softcap_scores
@@ -94,8 +97,15 @@ def project_qkv(attn: Attention, x: torch.Tensor, cfg: ArchConfig,
     on the activation output.  Returns un-roped q [B,S,H,hd],
     k/v [B,S,KV,hd]."""
     b, s, _ = x.shape
-    y = kops.matmul(x.reshape(b * s, -1), _weight(attn.wqkv, compute_dtype),
-                    out_dtype=compute_dtype).reshape(b, s, -1)
+    return split_qkv(kops.matmul(
+        x.reshape(b * s, -1), _weight(attn.wqkv, compute_dtype),
+        out_dtype=compute_dtype).reshape(b, s, -1), cfg)
+
+
+def split_qkv(y: torch.Tensor, cfg: ArchConfig):
+    """The packed QKV GEMM's output [B, S, q_dim + 2 kv_dim] split into
+    un-roped q [B,S,H,hd] and k/v [B,S,KV,hd] (strided views)."""
+    b, s, _ = y.shape
     q, k, v = split_packed_columns(y, qkv_sizes(cfg), qkv_packing(cfg))
     return (q.reshape(b, s, cfg.n_heads, cfg.hd),
             k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
@@ -290,3 +300,23 @@ def cross_attention_apply(xattn: CrossAttention, x: torch.Tensor,
                                    softcap=cfg.attn_softcap)
     out = out.reshape(b * s, cfg.q_dim).to(cd)
     return kops.matmul(out, xattn.wo.to(cd), out_dtype=cd).reshape(b, s, -1)
+
+
+def attention_train(wqkv: torch.Tensor, wo: torch.Tensor, x: torch.Tensor,
+                    cfg: ArchConfig, compute_dtype: torch.dtype, *,
+                    kind: str, theta: float,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """``attention_apply``'s prefill with gradients and no cache: the packed
+    QKV GEMM, RoPE, K4 over the grouped K/V and the out projection, the
+    GEMMs on the master weights ``wqkv``/``wo`` (cast to the compute dtype
+    inside ``kernels.autograd.matmul``)."""
+    b, s, _ = x.shape
+    cd = compute_dtype
+    q, k, v = split_qkv(ag.matmul(x.reshape(b * s, -1), wqkv, out_dtype=cd
+                                  ).reshape(b, s, -1), cfg)
+    q, k = rope(q, positions, theta), rope(k, positions, theta)
+    v = v.contiguous()
+    out = ag.flash_attention(q, k, v, kind=kind, window=cfg.window,
+                             softcap=cfg.attn_softcap)
+    out = out.reshape(b * s, cfg.q_dim).to(cd)
+    return ag.matmul(out, wo, out_dtype=cd).reshape(b, s, -1)

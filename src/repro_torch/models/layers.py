@@ -1,6 +1,8 @@
 """Shared layers: rmsnorm, RoPE, whisper's sinusoidal positions, the
 embedding gather and the MaxEVA MLP, gated (SwiGLU) or plain GELU (single
-device; bf16 or int8 weights)."""
+device; bf16 or int8 weights), and the MLP's training forward
+(``mlp_train``: the same GEMMs and epilogues through ``kernels.autograd``,
+on the fp32 master weights)."""
 from __future__ import annotations
 
 import contextlib
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.core.maxeva_matmul import (XYZConfig, xyz_matmul,
                                             xyz_matmul_replicated_out)
+from repro_torch.kernels import autograd as ag
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.quantize import QuantizedWeight
@@ -82,6 +85,20 @@ def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor,
     return table[ids].to(compute_dtype)
 
 
+def up_epilogue(gated: bool, **kw) -> Epilogue:
+    """The up GEMM's epilogue: ``silu(g) * u`` from the gate GEMM's raw g
+    (``operand2``; gated) or ``gelu(u)`` (plain), with ``kw``'s store."""
+    return (Epilogue(gate="silu", **kw) if gated
+            else Epilogue(activation="gelu", **kw))
+
+
+def next_norm_fold(norm_eps: float, compute_dtype: torch.dtype) -> Epilogue:
+    """The down GEMM's epilogue in a decoder block: the residual add and the
+    NEXT norm, returning ``(value, normed)``."""
+    return Epilogue(residual=True, norm="rmsnorm", norm_eps=norm_eps,
+                    out_dtype=compute_dtype)
+
+
 def _mlp_apply_int8(params: Dict[str, QuantizedWeight], x: torch.Tensor,
                     compute_dtype: torch.dtype, residual: torch.Tensor,
                     norm_scale: torch.Tensor, norm_eps: float = 1e-6,
@@ -97,21 +114,14 @@ def _mlp_apply_int8(params: Dict[str, QuantizedWeight], x: torch.Tensor,
     rmsnorm(h_new, norm_scale))``."""
     lead = x.shape[:-1]
     qx, sx = kops.quantize_rowwise(x.reshape(-1, x.shape[-1]))
-    if gated:
-        g = kops.int8_matmul(qx, sx, *params["gate"].as_matrix(),
-                             out_dtype=compute_dtype)
-        qh, sh = kops.int8_matmul(qx, sx, *params["up"].as_matrix(),
-                                  epilogue=Epilogue(gate="silu",
-                                                    quantize=True),
-                                  operand2=g)
-    else:
-        qh, sh = kops.int8_matmul(qx, sx, *params["up"].as_matrix(),
-                                  epilogue=Epilogue(activation="gelu",
-                                                    quantize=True))
-    fold = Epilogue(residual=True, norm="rmsnorm", norm_eps=norm_eps,
-                    out_dtype=compute_dtype)
+    g = (kops.int8_matmul(qx, sx, *params["gate"].as_matrix(),
+                          out_dtype=compute_dtype) if gated else None)
+    qh, sh = kops.int8_matmul(qx, sx, *params["up"].as_matrix(),
+                              epilogue=up_epilogue(gated, quantize=True),
+                              operand2=g)
     val, xn = kops.int8_matmul(
-        qh, sh, *params["down"].as_matrix(), epilogue=fold,
+        qh, sh, *params["down"].as_matrix(),
+        epilogue=next_norm_fold(norm_eps, compute_dtype),
         residual=residual.reshape(-1, residual.shape[-1]),
         norm_scale=norm_scale)
     return val.reshape(*lead, -1), xn.reshape(*lead, -1)
@@ -137,19 +147,35 @@ def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
                                norm_scale, norm_eps, gated)
     cd = compute_dtype
     up_cfg = XYZConfig(out_dtype=cd)
-    if gated:
-        g = xyz_matmul(x, params["gate"], cfg=up_cfg)
-        h = xyz_matmul(x, params["up"], cfg=dataclasses.replace(
-            up_cfg, epilogue=Epilogue(gate="silu", out_dtype=cd)),
-            operand2=g)
-    else:
-        h = xyz_matmul(x, params["up"], cfg=dataclasses.replace(
-            up_cfg, epilogue=Epilogue(activation="gelu", out_dtype=cd)))
+    g = xyz_matmul(x, params["gate"], cfg=up_cfg) if gated else None
+    h = xyz_matmul(x, params["up"], cfg=dataclasses.replace(
+        up_cfg, epilogue=up_epilogue(gated, out_dtype=cd)), operand2=g)
     if norm_scale is None:
         return xyz_matmul_replicated_out(h, params["down"],
                                          cfg=XYZConfig(out_dtype=cd))
-    fold = Epilogue(residual=True, norm="rmsnorm", norm_eps=norm_eps,
-                    out_dtype=cd)
     return xyz_matmul_replicated_out(
-        h, params["down"], cfg=XYZConfig(out_dtype=cd, epilogue=fold),
+        h, params["down"], cfg=XYZConfig(
+            out_dtype=cd, epilogue=next_norm_fold(norm_eps, cd)),
         residual=residual, norm_scale=norm_scale)
+
+
+def mlp_train(params: Dict[str, torch.Tensor], x: torch.Tensor,
+              compute_dtype: torch.dtype, residual: torch.Tensor,
+              norm_scale: torch.Tensor, norm_eps: float = 1e-6,
+              gated: bool = True):
+    """``mlp_apply``'s decoder-block form with gradients: the gate GEMM,
+    the up GEMM with its ``silu(g) * u`` epilogue (or ``gelu(u)``), and the
+    down GEMM folding the residual and the NEXT norm, each through
+    ``kernels.autograd.matmul`` on the master weights (cast to the compute
+    dtype inside).  Returns ``(h_new, rmsnorm(h_new, norm_scale))``."""
+    cd = compute_dtype
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    g = ag.matmul(x2, params["gate"], out_dtype=cd) if gated else None
+    h = ag.matmul(x2, params["up"], out_dtype=cd,
+                  epilogue=up_epilogue(gated, out_dtype=cd), operand2=g)
+    val, xn = ag.matmul(h, params["down"], out_dtype=cd,
+                        epilogue=next_norm_fold(norm_eps, cd),
+                        residual=residual.reshape(-1, residual.shape[-1]),
+                        norm_scale=norm_scale)
+    return val.reshape(*lead, -1), xn.reshape(*lead, -1)

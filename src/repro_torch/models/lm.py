@@ -66,31 +66,53 @@ and replaced by each decode step as an RG-LRU's is.  Every weight is the
 mixer's, so the int8 copy quantizes nothing and shares every leaf.
 
 whisper's, paligemma's and xlstm's configs keep the reference's float32
-``param_dtype`` (its training master copy); the port serves their
+``param_dtype`` (its training master copy); the port holds their
 projection weights at the compute dtype (bf16 on the card, cast once when
 the model is built or loaded), the embedding and norm scales (and the
 xLSTM mixers' fp32 maps) at fp32.
 Other float32 configs (internlm2-1.8b, the smoke configs) keep float32
-weights, so that their int8 copies are the reference's bit for bit.
+projections as the master copy, so that their int8 copies are quantized
+from the reference's values bit for bit and training updates them; the
+serving entry points run ``served_blocks``, a copy of the blocks whose
+``wqkv``, ``wo`` and MLP projections are cast once to the compute dtype
+(K1 multiplies bf16 x bf16), made at the first serving call and made
+again only after a projection weight changes.
+
+Training (``loss``, the reference's ``lm.py:508-521``) is a functional
+forward over a dict of the parameters (``train_params``: the fp32 masters,
+which autograd differentiates), with no cache and no K/V writes: each
+weight is cast to the compute dtype at its use inside the autograd
+Functions of ``kernels.autograd`` (K1 with its epilogues, the row norm,
+K4), and each block is rematerialized in the backward when ``cfg.remat
+== 'full'`` (``torch.utils.checkpoint``).  The loss is
+``models.loss.vocab_parallel_xent`` against the tied embedding, with
+paligemma's prefix targets ignored and an MoE's ``0.01 * aux /
+n_layers`` added.  The recurrent mixers and whisper's encoder have no
+training forward yet (they raise).
 """
 from __future__ import annotations
 
+import functools
 import math
+import types
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import autograd as ag
 from repro_torch.kernels.quantize import quantize_weight_colwise
 from repro_torch.kernels.ref import PAGED_KINDS
 from repro_torch.models.attention import (Attention, CrossAttention,
-                                          attention_apply,
+                                          attention_apply, attention_train,
                                           cross_attention_apply)
-from repro_torch.models.layers import (mlp_apply, rmsnorm, sinusoid,
-                                       vocab_parallel_embed)
-from repro_torch.models.loss import vocab_parallel_logits
+from repro_torch.models.layers import (mlp_apply, mlp_train, rmsnorm,
+                                       sinusoid, vocab_parallel_embed)
+from repro_torch.models.loss import (vocab_parallel_logits,
+                                     vocab_parallel_xent)
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.rglru import (RGLRU, lru_log_init, rglru_apply,
                                       rglru_cache)
@@ -147,6 +169,18 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def check_trainable(cfg: ArchConfig) -> None:
+    """Refuse a model the training forward does not cover: the recurrent
+    mixers and whisper's encoder-decoder (a later training slice)."""
+    untrained = [k for k in cfg.block_pattern if k in MIXERS] \
+        + (["encoder-decoder"] if cfg.encdec else [])
+    if untrained:
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains attention decoders (dense or "
+            f"MoE, with or without a patch prefix); {untrained} have no "
+            f"training forward yet")
+
+
 def _mlp_names(cfg: ArchConfig) -> Tuple[str, ...]:
     return ("gate", "up", "down") if cfg.gated_mlp else ("up", "down")
 
@@ -200,6 +234,32 @@ class Block(nn.Module):
         if cfg.d_ff > 0:
             self.ln2 = _norm(cfg, device)
             self.ffn = (MoE if cfg.moe else MLP)(cfg, dtype, device)
+
+    @classmethod
+    def cast(cls, blk: "Block", cfg: ArchConfig,
+             dtype: torch.dtype) -> "Block":
+        """The serving copy of ``blk`` at ``dtype``: the packed ``wqkv``,
+        ``wo`` and the MLP's projections cast once; everything else (norm
+        scales, an MoE, a recurrent mixer, whisper's cross-attention)
+        shared."""
+        c = cls.__new__(cls)
+        nn.Module.__init__(c)
+        for name, child in blk.named_children():
+            setattr(c, name, child)
+        c.ln1 = blk.ln1
+        if hasattr(blk, "ln2"):
+            c.ln2 = blk.ln2
+        if cfg.encdec:
+            c.lnx = blk.lnx
+        if hasattr(blk, "attn"):
+            c.attn = Attention(cfg, None, None, weights={
+                name: getattr(blk.attn, name).detach().to(dtype)
+                for name in ("wqkv", "wo")})
+        if cfg.d_ff > 0 and not cfg.moe:
+            c.ffn = MLP(cfg, None, None, weights={
+                name: getattr(blk.ffn, name).detach().to(dtype)
+                for name in blk.ffn.names})
+        return c
 
     @classmethod
     def quantized(cls, blk: "Block", cfg: ArchConfig) -> "Block":
@@ -286,6 +346,13 @@ class Model(nn.Module):
             for i in range(cfg.n_layers))
         if cfg.encdec:
             self.encoder = Encoder(cfg, proj, self.device)
+        # float projections wider than the compute dtype are served from a
+        # cast copy (``served_blocks``)
+        self._cast_to = (self.compute_dtype
+                         if proj.is_floating_point and proj != self.compute_dtype
+                         and self.compute_dtype.itemsize < proj.itemsize
+                         else None)
+        self._served: Optional[Tuple[tuple, List[Block]]] = None
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Model":
@@ -367,6 +434,31 @@ class Model(nn.Module):
         if self.cfg.encdec:
             q.encoder = self.encoder
         return q
+
+    def _projections(self):
+        for blk in self.blocks:
+            if hasattr(blk, "attn"):
+                yield blk.attn.wqkv
+                yield blk.attn.wo
+            if isinstance(getattr(blk, "ffn", None), MLP):
+                yield from blk.ffn.params().values()
+
+    def served_blocks(self) -> List[Block]:
+        """The blocks the serving entry points run: ``self.blocks``, or,
+        where the float projections are wider than the compute dtype
+        (internlm2-1.8b and the smoke configs: float32 masters, bf16
+        compute), ``Block.cast`` copies at the compute dtype.  The copy is
+        made once and kept while no projection weight changes (each
+        weight's identity and version counter), so a step reads the
+        weights at the compute dtype and casts nothing."""
+        if self.int8 or getattr(self, "_cast_to", None) is None:
+            return list(self.blocks)
+        key = tuple((id(w), w._version) for w in self._projections())
+        if self._served is None or self._served[0] != key:
+            self._served = None     # the old copy goes before the new one
+            self._served = (key, [Block.cast(b, self.cfg, self._cast_to)
+                                  for b in self.blocks])
+        return self._served[1]
 
     @property
     def supports_paged_serving(self) -> bool:
@@ -523,16 +615,113 @@ class Model(nn.Module):
             positions = (torch.arange(h.shape[1], device=h.device)
                          if pos is None
                          else torch.tensor([pos], device=h.device))
-        xn = rmsnorm(h, self.blocks[0].ln1, cfg.norm_eps)
+        blocks = self.served_blocks()
+        xn = rmsnorm(h, blocks[0].ln1, cfg.norm_eps)
         self.moe_kept = []
-        for i, blk in enumerate(self.blocks):
-            nxt = (self.blocks[i + 1].ln1 if i + 1 < len(self.blocks)
+        for i, blk in enumerate(blocks):
+            nxt = (blocks[i + 1].ln1 if i + 1 < len(blocks)
                    else self.final_norm)
             h, xn = self._block(blk, cfg.kind(i), h, xn, nxt,
                                 positions=positions,
                                 cache=cache[i], pos=pos,
                                 page_table=page_table, enc_out=enc_out)
         return xn  # the last block's fold produced rmsnorm(h, final_norm)
+
+    # -- training -------------------------------------------------------------------
+
+    def train_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters as the training step takes them (the reference's
+        ``init_params`` tree, by the port's names): each tensor of the
+        model, sharing its storage and version counter, as a leaf that
+        requires grad, at its own dtype (the fp32 masters of a float32
+        config).  An optimizer step that updates them in place updates the
+        model, and ``served_blocks`` casts them again."""
+        check_trainable(self.cfg)
+        if self.int8:
+            raise ValueError("the int8 serving copy is not trained")
+        return {name: p.detach().requires_grad_(True)
+                for name, p in self.named_parameters()}
+
+    def _train_block(self, params: Dict[str, torch.Tensor], i: int,
+                     positions: torch.Tensor, h: torch.Tensor,
+                     xn: torch.Tensor, next_scale: torch.Tensor):
+        """Block ``i`` of the training forward: ``(h, rmsnorm(h,
+        next_scale), aux)``, the serving block's arithmetic with gradients
+        (``attention_train``, ``mlp_train``; an MoE's ``moe_apply`` and the
+        standalone norm after it)."""
+        cfg, cd = self.cfg, self.compute_dtype
+        kind, p = cfg.kind(i), f"blocks.{i}."
+        h = h + attention_train(params[p + "attn.wqkv"],
+                                params[p + "attn.wo"], xn, cfg, cd,
+                                kind=kind, theta=self._theta(kind),
+                                positions=positions)
+        xn2 = ag.rmsnorm(h, params[p + "ln2"], cfg.norm_eps)
+        if cfg.moe:
+            ffn = types.SimpleNamespace(**{
+                k[len(p) + 4:]: v for k, v in params.items()
+                if k.startswith(p + "ffn.")})
+            y = moe_apply(ffn, xn2, cfg, cd)
+            h = h + y.out
+            return h, ag.rmsnorm(h, next_scale, cfg.norm_eps), y.aux
+        h, xn = mlp_train({n: params[p + "ffn." + n] for n in
+                           _mlp_names(cfg)}, xn2, cd, residual=h,
+                          norm_scale=next_scale, norm_eps=cfg.norm_eps,
+                          gated=cfg.gated_mlp)
+        return h, xn, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def train_forward(self, params: Dict[str, torch.Tensor],
+                      tokens: torch.Tensor,
+                      patches: Optional[torch.Tensor] = None):
+        """The training forward (the reference's ``forward(mode='train')``):
+        tokens [B, S] (and paligemma's patches [B, P, D] in front) ->
+        ``(rmsnorm(h, final_norm) [B, P + S, D], aux)``, ``aux`` the sum of
+        the MoE layers' load-balancing losses.  No cache, no K/V writes;
+        under ``cfg.remat == 'full'`` each block is recomputed in the
+        backward (``torch.utils.checkpoint``), so a block's activations
+        live only while its gradient is taken."""
+        cfg, cd = self.cfg, self.compute_dtype
+        check_trainable(cfg)
+        dev = self.device
+        h = ag.embed(params["embed"], tokens.to(dev), cd)
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=dev)
+        if cfg.prefix_tokens:
+            h = torch.cat([patches.to(dev).to(cd), h], dim=1)
+        positions = torch.arange(h.shape[1], device=dev)
+        xn = ag.rmsnorm(h, params["blocks.0.ln1"], cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(cfg.n_layers):
+            nxt = (params[f"blocks.{i + 1}.ln1"] if i + 1 < cfg.n_layers
+                   else params["final_norm"])
+            block = functools.partial(self._train_block, params, i,
+                                      positions)
+            if cfg.remat == "full":
+                h, xn, a = checkpoint(block, h, xn, nxt, use_reentrant=False)
+            else:
+                h, xn, a = block(h, xn, nxt)
+            aux = aux + a
+        return xn, aux
+
+    def loss(self, params: Dict[str, torch.Tensor],
+             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The training loss of a batch (``tokens``, ``targets`` [B, S], and
+        paligemma's ``patches``), the reference's ``Model.loss``: the mean
+        NLL of the targets against the tied embedding
+        (``vocab_parallel_xent``, the final softcap), paligemma's patch
+        positions ignored (targets -1), plus ``0.01 * aux / n_layers`` for
+        an MoE."""
+        cfg = self.cfg
+        h, aux = self.train_forward(params, batch["tokens"],
+                                    batch.get("patches"))
+        targets = batch["targets"].to(self.device)
+        if cfg.prefix_tokens:
+            ignore = torch.full((targets.shape[0], cfg.prefix_tokens), -1,
+                                dtype=targets.dtype, device=self.device)
+            targets = torch.cat([ignore, targets], dim=1)
+        nll = vocab_parallel_xent(h, params["embed"], targets,
+                                  final_softcap=cfg.final_softcap)
+        if cfg.moe:
+            nll = nll + 0.01 * aux / cfg.n_layers
+        return nll
 
     # -- entry points -------------------------------------------------------------
 

@@ -18,6 +18,7 @@ import filecmp
 import json
 import os
 import threading
+import time
 import warnings
 
 import jax
@@ -183,6 +184,29 @@ def test_bitflipped_leaf_caught_by_checksum(tmp_path):
     with pytest.raises(CheckpointCorruptionError) as ei:
         mgr.restore(1, _tree())
     assert ei.value.param == name and "crc32 mismatch" in ei.value.reason
+
+
+def test_restore_names_the_first_corrupted_leaf_in_order(tmp_path,
+                                                         monkeypatch):
+    """Leaves are read on IO_THREADS threads at once: of two corrupted
+    leaves the error names the first in flatten order, although the other
+    leaf's read fails first."""
+    monkeypatch.setattr(cm, "IO_THREADS", 2)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, _tree(), blocking=True)
+    bitflip_leaf(str(tmp_path), 1, leaf=1, seed=7)
+    name = truncate_leaf(str(tmp_path), 1, leaf=0)
+    real = CheckpointManager._load_leaf
+
+    def slow_first(self, d, meta, step):
+        if meta["file"] == "arr_0.npy":
+            time.sleep(0.2)
+        return real(self, d, meta, step)
+    monkeypatch.setattr(CheckpointManager, "_load_leaf", slow_first)
+    with pytest.raises(CheckpointCorruptionError) as ei:
+        mgr.restore(1, _tree())
+    assert ei.value.param == name == "['w']['a']"
+    assert "unreadable leaf file" in ei.value.reason
 
 
 def test_truncated_manifest_is_structured_corruption(tmp_path):

@@ -312,8 +312,8 @@ def test_one_launch_per_decode():
     beside K6's prefill-chunk body, and no partials-only or combine
     launcher or count is left."""
     fns = set(_cuda.SIGNATURES["flash_attention"])
-    assert fns == {"k4_flash_prefill", "k5_flash_decode", "k6_paged_decode",
-                   "k6_paged_chunk"}
+    assert fns == {"k4_flash_prefill", "k4_flash_prefill_lse",
+                   "k5_flash_decode", "k6_paged_decode", "k6_paged_chunk"}
     assert not {"decode_combine", "decode_partials",
                 "paged_partials"} & set(_cuda.LAUNCHES)
     src = (_cuda.CSRC / "flash_attention.cu").read_text()
