@@ -5597,6 +5597,16 @@ TR_WIDE_LAYERS, TR_WIDE_SEQ = 2, 512
 # products, as the forward rounds P, and stores bf16; each row of dQ, dK
 # and dV within this share of its own scale (6.8e-3 measured at 4 x 4096)
 K4_BWD_TOL = 2e-2
+# K4's backward at the shapes the training rows miss: head dims 32 and 64,
+# S a multiple of no tile (2 x 1000), G = 1 (4 q heads over 4) and G = 4 (8
+# over 2); each a few ms of phase 2
+K4_BWD_ROWS = (
+    ("k4_flash_backward_hd32", (2, 1024, 8, 4, 32)),
+    ("k4_flash_backward_hd64", (2, 1024, 8, 4, 64)),
+    ("k4_flash_backward_ragged", (2, 1000, 16, 8, 128)),
+    ("k4_flash_backward_g1", (2, 1024, 4, 4, 128)),
+    ("k4_flash_backward_g4", (2, 1024, 8, 2, 128)),
+)
 # K1's fp32 store against the fp32 product (TF32 off): two fp32 sums of
 # 16384 products in different orders; each row within this share of its
 # scale (2.8e-5 measured)
@@ -5673,10 +5683,11 @@ def plain_lse(torch, q, k, v):
 def check_train_kernels(torch, timer):
     """Phase 2, training: K4's log-sum-exp output (its first output
     bitwise K4's), K4's backward at internlm2's microbatch (4 x 4096, 16 q
-    heads over 8, hd 128) and at the smoke config's training shape (4 x 64,
-    4 over 2, hd 16), each of dQ, dK and dV within ``K4_BWD_TOL`` of each
-    row's scale of the plain backward at fp32, and bitwise the same twice
-    (no atomics); K1's fp32 store at the weight gradients' shapes of the
+    heads over 8, hd 128), at the smoke config's training shape (4 x 64,
+    4 over 2, hd 16) and at ``K4_BWD_ROWS`` (hd 32 and 64, a ragged S, G =
+    1 and 4), each of dQ, dK and dV within ``K4_BWD_TOL`` of each row's
+    scale of the plain backward at fp32, and bitwise the same twice (no
+    atomics); K1's fp32 store at the weight gradients' shapes of the
     up/gate and down GEMMs ([2048, 16384] x [16384, 8192] and [8192, 16384]
     x [16384, 2048]) against the fp32 product (TF32 off)."""
     from repro_torch.kernels import ref
@@ -5715,7 +5726,7 @@ def check_train_kernels(torch, timer):
     for name, (b, s, h, kv, hd) in (
             ("k4_flash_backward", (b, s, h, kv, hd)),
             ("k4_flash_backward_smoke", (TR_SMOKE_BATCH, TR_SMOKE_SEQ, 4, 2,
-                                         16))):
+                                         16)), *K4_BWD_ROWS):
         q, k, v = rand(b, s, h, hd), rand(b, s, kv, hd), rand(b, s, kv, hd)
         out, lse = flash_attention_lse_cuda(q, k, v)
         dout = rand(b, s, h, hd)
@@ -5736,7 +5747,9 @@ def check_train_kernels(torch, timer):
             + 2 * (q.numel() + 2 * k.numel()), 2.5 * causal,
             lambda q=q, k=k, v=v, dout=dout: sdpa_bwd_ms(torch, timer, q, k,
                                                          v, dout),
-            f"causal attention backward (D, dK/dV, dQ: three launches) "
+            f"causal attention backward (D and lse log2(e) rows, then the "
+            f"dK/dV and dQ passes on wgmma fed by a TMA ring: three "
+            f"launches) "
             f"B={b} S={s} H={h} KV={kv} hd={hd}; dQ, dK, dV each within "
             f"{K4_BWD_TOL} of each row's scale of the plain backward at "
             f"fp32; bitwise the same twice; the bound counts the backward's "
@@ -6356,6 +6369,9 @@ SOURCES = {
     "k4_flash_backward_smoke": ("flash_attention_bwd",
                                 "src/repro_torch/csrc/flash_backward.cu",
                                 "src/repro/kernels/flash_attention.py:331"),
+    **{name: ("flash_attention_bwd", "src/repro_torch/csrc/flash_backward.cu",
+              "src/repro/kernels/flash_attention.py:331")
+       for name, _ in K4_BWD_ROWS},
     "k1_matmul_f32_up": ("matmul:f32", "src/repro_torch/csrc/matmul.cu",
                          "src/repro/kernels/matmul.py:293"),
     "k1_matmul_f32_down": ("matmul:f32", "src/repro_torch/csrc/matmul.cu",
@@ -6434,6 +6450,9 @@ LAUNCH_NOTES = {
                                "3's smoke training on the card, at this "
                                "row's shape (its counts set to 0 just "
                                "before it)",
+    **{name: "every flash_attention_bwd launch of the training path "
+             "(phase 14, internlm2 at 4 x 4096); this row's shape is held "
+             "in phase 2 only" for name, _ in K4_BWD_ROWS},
     "k1_matmul_f32_up": "every matmul:f32 launch of the training path: the "
                         "weight gradients of all seven GEMMs and the up "
                         "GEMM's recomputed gate input",

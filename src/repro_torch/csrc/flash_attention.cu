@@ -43,7 +43,8 @@
 // 'prefix' kind (the reference's prefix-LM mask, reached only through
 // ops.flash_attention) adds every key before `prefix_len`, so the loop
 // runs to max(diagonal, prefix end).  Every kind is one interval of keys a
-// query position attends (struct Mask), one mask code at run time: the
+// query position attends (struct Mask, attention_mask.cuh, which K4's
+// backward shares), one mask code at run time: the
 // interval bounds the loop, decides which tiles are edges, and masks
 // those only.
 //
@@ -98,6 +99,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_mask.cuh"
 #include "hopper.cuh"
 
 using namespace hopper;
@@ -140,37 +142,6 @@ struct PrefillLayout {
   static_assert(STAGES >= 2, "the K/V ring needs two stages to overlap");
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE +
                               (1 + 2 * STAGES) * 8;
-};
-
-// The attention kinds (kernels/flash_attention.py's MASK_CODES, the
-// reference's attention_mask_ref, src/repro/kernels/ref.py:140-157).
-enum MaskKind : int {
-  MASK_GLOBAL = 0,   // causal
-  MASK_LOCAL = 1,    // causal, the last `window` positions
-  MASK_FULL = 2,     // every key (whisper)
-  MASK_CHUNKED = 3,  // causal, the query's own chunk of `window` positions
-  MASK_PREFIX = 4,   // causal, or a key before `prefix_len`
-};
-
-// The keys query position p >= 0 attends are one interval [lo(p), hi(p)]
-// (with the keys' end, and K6's page mask, on top) under every kind:
-// global [0, p], local [p - window + 1, p], chunked [p / window * window,
-// p], prefix [0, max(p, prefix_len - 1)], full [0, KEY_MAX].  Both bounds
-// are nondecreasing in p, so a tile is interior for a range of rows when
-// it lies in [lo(last row), hi(first row)].
-constexpr int KEY_MAX = 0x3fffffff;
-struct Mask {
-  int kind, window, prefix_len;
-  __device__ __forceinline__ int lo(int p) const {
-    return kind == MASK_LOCAL     ? p - window + 1
-           : kind == MASK_CHUNKED ? p / window * window
-                                  : 0;
-  }
-  __device__ __forceinline__ int hi(int p) const {
-    return kind == MASK_FULL     ? KEY_MAX
-           : kind == MASK_PREFIX ? max(p, prefix_len - 1)
-                                 : p;
-  }
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1210,16 +1181,6 @@ int launch_decode_hd(const Rows& kv, int hd, const void* q, void* ws,
   }
 }
 
-// A mask the kernels take: a known kind, a window >= 1 where the kind has
-// one, a prefix length >= 0, and the kinds each kernel serves (`kinds`,
-// a bit per MaskKind).
-bool mask_ok(const Mask& m, int kinds) {
-  if (m.kind < 0 || m.kind > MASK_PREFIX || !((kinds >> m.kind) & 1))
-    return false;
-  const bool windowed = m.kind == MASK_LOCAL || m.kind == MASK_CHUNKED;
-  return (windowed ? m.window >= 1 : m.window == 0) && m.prefix_len >= 0 &&
-         (m.kind == MASK_PREFIX || m.prefix_len == 0);
-}
 constexpr int PAGED_MASKS =
     (1 << MASK_GLOBAL) | (1 << MASK_LOCAL) | (1 << MASK_CHUNKED);
 

@@ -1,7 +1,7 @@
 // Building blocks of the Hopper kernels (sm_90a): per-thread cp.async
-// copies, mbarrier rings, 2-D to 4-D TMA tile loads, wgmma shared-memory
-// descriptors and the wgmma.mma_async products (bf16 -> fp32 and s8 ->
-// s32), plus the host-side tensor-map encoder.
+// copies, mbarrier rings, 2-D to 4-D TMA tile loads and 1-D bulk copies,
+// wgmma shared-memory descriptors and the wgmma.mma_async products (bf16
+// -> fp32 and s8 -> s32), plus the host-side tensor-map encoder.
 //
 // Shared-memory tiles are written by TMA with a 32/64/128-byte swizzle
 // whose span equals the tile's row (its inner box) in bytes, and read by
@@ -227,6 +227,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory at `src` (16-byte
+// aligned) -> dst, with no tensor map; completes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

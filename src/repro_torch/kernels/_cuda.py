@@ -26,7 +26,8 @@ counts as the GEMM's variant (``matmul:norm``, ``int8_matmul:norm``,
 ``int8_quantize`` count the row kernels' own launches.  The training
 path's kernels count as K1's fp32 store ``matmul:f32``, K4 with its
 log-sum-exp output ``flash_attention:lse``, and K4's backward (one call,
-three launches: ``csrc/flash_backward.cu``) ``flash_attention_bwd``.
+three launches, the row dots and the dK/dV and dQ passes:
+``csrc/flash_backward.cu``) ``flash_attention_bwd``.
 """
 from __future__ import annotations
 

@@ -245,6 +245,9 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
 # the kinds and head dims K4's backward takes ('global' at 16 to 128, no
 # softcap): the dense decoder's training path
 BWD_KINDS, BWD_HEAD_DIMS = ("global",), (16, 32, 64, 128)
+# its workspace's rows (D and lse log2(e) a query) are padded with 0 to a
+# multiple of this, the dQ pass's q tile (csrc/flash_backward.cu's ROW_PAD)
+BWD_ROW_PAD = 128
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, kind: str = "global",
@@ -253,8 +256,9 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, kind: str = "global",
     """K4's backward (``csrc/flash_backward.cu``): ``(dq, dk, dv)`` of the
     causal prefill from q, k, v, its output ``out``, its ``lse`` (``flash_
     attention_lse_cuda``) and the output's gradient ``dout``, all bf16 but
-    ``lse``; one call (three launches: the row dots D, then dK/dV, then dQ),
-    counted once as ``flash_attention_bwd``.  Takes the 'global' kind at
+    ``lse``; one call (three launches: the row dots D beside lse log2(e),
+    then dK/dV, then dQ, both passes wgmma fed by a TMA ring), counted once
+    as ``flash_attention_bwd``.  Takes the 'global' kind at
     head dims 16 to 128 with no softcap and Sq == Skv; the other kinds,
     the softcap and other head dims raise (their backward is a later
     slice)."""
@@ -277,7 +281,9 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, kind: str = "global",
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    ws = torch.empty((b, n_h, s), dtype=torch.float32, device=q.device)
+    s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
+    ws = torch.empty((2, b, n_h, s_pad), dtype=torch.float32,
+                     device=q.device)
     _cuda.count("flash_attention_bwd")
     _cuda.launch("flash_backward", "k4_flash_backward", q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),

@@ -10,11 +10,13 @@ kernels' plain versions against autograd and the reference, on the CPU.
   1e-5 of each gradient's scale (fp32 sums in other orders).
 * ``ref.flash_attention_lse_ref`` and ``ref.flash_attention_bwd_ref`` (the
   plain versions of K4's log-sum-exp output and of K4's backward) at every
-  kind and with the softcap.
+  kind and with the softcap, and the yardstick at the kernel's own kind
+  for G = 1 and 4, head dims 32 and 64 and a ragged S.
 * ``models.loss.vocab_parallel_xent`` against the reference's, with the
   softcap and ignored targets.
 * The CUDA wrappers' launch arguments (the launch intercepted): K1's fp32
-  store, K4 with its log-sum-exp, K4's backward and its refusals.
+  store, K4 with its log-sum-exp, K4's backward (its workspace padded to
+  ``BWD_ROW_PAD`` rows) and its refusals.
 """
 import jax
 import jax.numpy as jnp
@@ -235,6 +237,23 @@ def test_flash_full_kind_backward_with_ragged_keys():
         assert _rel(got, want.grad) < 1e-10
 
 
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_flash_backward_ref_at_the_kernel_rows(hd, g):
+    """The yardstick of K4's backward kernel at the kinds of shapes
+    ``chip_smoke.py`` holds the kernel to beside internlm2's: 'global', G =
+    1 (4 q heads over 4) and G = 4 (4 over 1), head dims 32 and 64, and S =
+    72, a multiple of no kernel tile.  ``ref.flash_attention_bwd_ref``
+    against autograd of ``ref.flash_attention_ref`` at f64."""
+    q, k, v, c = _qkv(2, 72, 4, 4 // g, hd, F64, seed=7)
+    out, lse = ref.flash_attention_lse_ref(q, k, v)
+    dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, c)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    (ref.flash_attention_ref(qa, ka, va) * c).sum().backward()
+    for got, want in ((dq, qa), (dk, ka), (dv, va)):
+        assert _rel(got, want.grad) < 1e-10
+
+
 @pytest.mark.parametrize("case", [dict(kind="global"),
                                   dict(kind="local", window=6),
                                   dict(kind="global", softcap=5.0)],
@@ -387,6 +406,22 @@ def test_k4_backward_launch(intercepted, hd):
     assert len(args) + 1 == len(_cuda.SIGNATURES[lib][fn])
     assert args[10:] == (4, 4096, 16, 8, hd, hd ** -0.5, 0, 0.0)
     assert _cuda.LAUNCHES["flash_attention_bwd"] == 1
+
+
+def test_k4_backward_workspace_rows_are_padded(intercepted, monkeypatch):
+    """At a ragged S (1000, G = 4, hd 64) the launch arguments are the
+    shape's, and the workspace holds the D and lse log2(e) rows padded
+    to ``BWD_ROW_PAD`` (1024), which the kernel copies in whole runs of 64
+    and 128 rows."""
+    made = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, **kw: made.append(a[0]) or empty(*a, **kw))
+    q, k = _bf(2, 1000, 8, 64), _bf(2, 1000, 2, 64)
+    tfa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(2, 8, 1000), q)
+    ((lib, fn, args),) = intercepted
+    assert args[10:] == (2, 1000, 8, 2, 64, 64 ** -0.5, 0, 0.0)
+    assert made == [(2, 2, 8, 1024)]
 
 
 @pytest.mark.parametrize("kw,exc", [
