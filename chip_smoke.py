@@ -244,10 +244,11 @@ line):
    bound.
 14. train: internlm2-1.8b at full width and depth, fp32 masters and fp32
    AdamW moments, per-block remat, 8 x 4096 tokens a step in the config's
-   2 microbatches (``train_internlm2``): ``Trainer.run`` for 4 steps of
+   2 microbatches (``train_model``): ``Trainer.run`` for 4 steps of
    the synthetic stream with its checkpoint, every kernel of the training
    path launched (K1 and its fp32 store, the row norm, K4 with its
-   log-sum-exp, K4's backward), loss and grad norm finite; a step more
+   log-sum-exp, K4's backward once a layer and microbatch), loss and grad
+   norm finite; a step more
    from the state in memory and again from the restored checkpoint,
    bitwise equal; 5 steps on one repeated batch, the loss falling at each;
    step ms, tokens/s, the model-FLOP share of 989 TFLOP/s and the peak
@@ -258,6 +259,27 @@ line):
    phase 3 the smoke config's 3 train steps card against CPU
    (``check_train_smoke``) and the full-width 2-layer model's loss and
    every gradient card against CPU (``check_train_width``).
+15. train: gemma3-12b at full width, one period of its pattern (6
+   layers: 5 'local' at window 1024, 1 'global'; hd 256, 16 q heads over
+   8), bf16 parameters and fp32 moments, per-block remat, 8 x 4096 tokens
+   a step in the config's 4 microbatches (``train_model``, no
+   checkpoint): ``Trainer.run`` for 2 steps of the synthetic stream, every
+   kernel of the path launched (K4 and its backward in their 'local' and
+   global hd-256 variants), K4's backward exactly layers x microbatches x
+   steps times, loss and grad norm finite; 4 steps on one repeated batch
+   at lr 1e-4, the loss falling at each; step ms, tokens/s, the model-FLOP share and
+   the peak (under 80 GB) printed.
+16. train: gemma2-27b at full width, one period (2 layers: 'local' at
+   window 4096 and 'global', attention softcap 50, final softcap 30; hd
+   128, 32 q heads over 16), the same steps in the config's 8
+   microbatches of 1 x 4096: K4 and its backward in their softcapped
+   variants.  For phases 15 and 16, phase 2 holds K4's backward and its
+   log-sum-exp output at their layers' shapes, and the backward at the
+   next training slices' (recurrentgemma's local layers, paligemma,
+   llama4's chunks, whisper's encoder, the prefix kind;
+   ``check_train_kind_rows``), and phase 3 their smoke configs' train
+   steps and their first two layers' gradients at full width, card
+   against CPU.
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -265,6 +287,7 @@ again, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -505,6 +528,20 @@ PATH_KERNELS = {
     # backward
     "internlm2_train": ("matmul", "matmul:f32", "rmsnorm",
                         "flash_attention:lse", "flash_attention_bwd"),
+    # training gemma3-12b (phase 15) and gemma2-27b (phase 16): the same
+    # kernels, K4 and its backward in each layer kind's variant (gemma3's
+    # local and global layers at hd 256; gemma2's local and global layers
+    # softcapped)
+    "gemma3_train": ("matmul", "matmul:f32", "rmsnorm",
+                     "flash_attention:local+hd256+lse",
+                     "flash_attention:hd256+lse",
+                     "flash_attention_bwd:local+hd256",
+                     "flash_attention_bwd:hd256"),
+    "gemma2_train": ("matmul", "matmul:f32", "rmsnorm",
+                     "flash_attention:local+softcap+lse",
+                     "flash_attention:softcap+lse",
+                     "flash_attention_bwd:local+softcap",
+                     "flash_attention_bwd:softcap"),
 }
 
 
@@ -5607,6 +5644,53 @@ K4_BWD_ROWS = (
     ("k4_flash_backward_g1", (2, 1024, 4, 4, 128)),
     ("k4_flash_backward_g4", (2, 1024, 8, 2, 128)),
 )
+# K4's backward at the attention kinds the models train and the next
+# training slices will: gemma3's microbatch (2 x 4096, 16 q heads over 8,
+# hd 256) at its local (W 1024) and global layers, gemma2's (1 x 4096, 32
+# over 16, hd 128, softcap 50) at its local (W 4096) and global layers,
+# recurrentgemma's local layers (16 over 1, hd 256, W 2048), paligemma's
+# (8 x 512, 8 over 1, hd 256), llama4's chunks (40 over 8, hd 128, chunks
+# of 1000, so that they cut inside tiles), whisper's encoder ('full', 8 x
+# 1500, 12 over 12, hd 64), the prefix kind at hd 256, and gemma2's global
+# layer again with its scores at the cap (K4_BWD_Q_SCALE): (name, (B, S,
+# H, KV, hd), mask), each held and timed as K4_BWD_ROWS, beside SDPA's
+# backward where one call computes the same function (no SDPA call caps
+# its scores)
+K4_BWD_KIND_ROWS = (
+    ("k4_flash_backward_gemma3_local", (2, 4096, 16, 8, 256),
+     dict(kind="local", window=1024)),
+    ("k4_flash_backward_gemma3_global", (2, 4096, 16, 8, 256),
+     dict(kind="global")),
+    ("k4_flash_backward_gemma2_local", (1, 4096, 32, 16, 128),
+     dict(kind="local", window=4096, softcap=50.0)),
+    ("k4_flash_backward_gemma2_global", (1, 4096, 32, 16, 128),
+     dict(kind="global", softcap=50.0)),
+    ("k4_flash_backward_recurrentgemma", (2, 4096, 16, 1, 256),
+     dict(kind="local", window=2048)),
+    ("k4_flash_backward_paligemma", (8, 512, 8, 1, 256), dict(kind="global")),
+    ("k4_flash_backward_llama4_chunked", (1, 4096, 40, 8, 128),
+     dict(kind="chunked", window=1000)),
+    ("k4_flash_backward_whisper_full", (8, 1500, 12, 12, 64),
+     dict(kind="full")),
+    ("k4_flash_backward_prefix_hd256", (2, 1024, 8, 1, 256),
+     dict(kind="prefix", prefix_len=300)),
+    ("k4_flash_backward_gemma2_capped", (1, 4096, 32, 16, 128),
+     dict(kind="global", softcap=50.0)),
+)
+# q's factor at these rows (1 elsewhere): with q, k and v standard normal
+# the scaled scores are about N(0, 1), where a softcap of 50 changes P by
+# under 1%, and a backward that skips the cap's derivative reads 1.7e-2
+# of a row's scale, inside K4_BWD_TOL; q times 10 puts the scores at the
+# cap (|score| up to about 50), where that fault reads 1.9 and P taken
+# from the uncapped score 9.9e7, the kernel 7.7e-3 (``launch/bwd_ab.py
+# --plant`` at this shape on an NVIDIA H100 80GB HBM3 at 700.00 W)
+K4_BWD_Q_SCALE = {"k4_flash_backward_gemma2_capped": 10.0}
+# the training forward's K4 with its log-sum-exp at these of them (the
+# kinds phases 15 and 16 train), held to the plain lse as internlm2's is
+K4_LSE_KIND_ROWS = ("gemma3_local", "gemma3_global", "gemma2_local",
+                    "gemma2_global")
+
+
 # K1's fp32 store against the fp32 product (TF32 off): two fp32 sums of
 # 16384 products in different orders; each row within this share of its
 # scale (2.8e-5 measured)
@@ -5619,12 +5703,13 @@ def train_kernel_row(torch, timer, fn, plain, got, want, tol, nbytes,
     each row within ``tol`` of its scale), the kernel's and the plain
     version's device ms, the bound and the library call's ms."""
     errs = [row_err(g, w) for g, w in zip(got, want)]
-    require(max(errs) <= tol, f"{work}: a row is off by {max(errs):.3e} of "
-                              f"its scale (tolerance {tol})")
+    worst = max(errs, key=lambda e: math.inf if math.isnan(e) else e)
+    require(worst <= tol, f"{work}: a row is off by {worst:.3e} of its "
+                          f"scale (tolerance {tol})")
     t_b, by = bound(nbytes, flops)
     row = dict(work=work, max_abs_err=max(max_err(g, w)
                                           for g, w in zip(got, want)),
-               max_row_err=max(errs), tol=tol, ms=timer(fn),
+               max_row_err=worst, tol=tol, ms=timer(fn),
                wrapper_ms=timer.wall(fn), plain_ms=timer(plain, reps=3),
                bound_ms=t_b, bound_by=by,
                library_ms=library() if library else None)
@@ -5633,51 +5718,101 @@ def train_kernel_row(torch, timer, fn, plain, got, want, tol, nbytes,
     return row
 
 
-def sdpa_bwd_ms(torch, timer, q, k, v, dout):
-    """The library yardstick of K4's backward: SDPA's causal backward on
-    the same values (``torch.autograd.grad`` of one forward, kept), the
-    faster of the kv heads grouped (``enable_gqa``) and repeated to H."""
-    import torch.nn.functional as F
-    g = q.shape[2] // k.shape[2]
-    qt = q.transpose(1, 2).contiguous().requires_grad_()
-    do = dout.transpose(1, 2).contiguous()
-    best = None
-    for rep in (False, True):
-        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
-        if rep:
-            kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
-        kt, vt = kt.requires_grad_(), vt.requires_grad_()
-        with torch.enable_grad():
-            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=not rep)
-        ms = timer(lambda: torch.autograd.grad(o, (qt, kt, vt), do,
-                                               retain_graph=True), reps=3)
-        best = ms if best is None else min(best, ms)
-        del o
-    return best
-
-
-def plain_bwd(torch, q, k, v, out, lse, dout):
-    """The plain backward at fp32 from the bf16 values, one kv head (and
-    its G q heads) at a time (the [B, G, S, S] scores of one head group at
-    4 x 4096 are 0.5 GB a tensor)."""
-    from repro_torch.kernels import ref
-    g = q.shape[2] // k.shape[2]
-    f32 = torch.float32
-    parts = [ref.flash_attention_bwd_ref(
-        q[:, :, j * g:(j + 1) * g].to(f32), k[:, :, j:j + 1].to(f32),
-        v[:, :, j:j + 1].to(f32), out[:, :, j * g:(j + 1) * g].to(f32),
-        lse[:, j * g:(j + 1) * g], dout[:, :, j * g:(j + 1) * g].to(f32))
-        for j in range(k.shape[2])]
-    return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
-
-
-def plain_lse(torch, q, k, v):
+def plain_lse(torch, q, k, v, **mask):
     from repro_torch.kernels import ref
     g = q.shape[2] // k.shape[2]
     return torch.cat([ref.flash_attention_lse_ref(
-        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1])[1]
+        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1],
+        **mask)[1]
         for j in range(k.shape[2])], dim=1)
+
+
+def check_train_kind_rows(torch, timer):
+    """Phase 2, training at every kind: K4's backward at
+    ``K4_BWD_KIND_ROWS`` (gemma3's and gemma2's layers, the next slices'
+    shapes), each of dQ, dK and dV within ``K4_BWD_TOL`` of each row's
+    scale of the plain backward at fp32 and bitwise the same twice, and
+    K4's log-sum-exp output at ``K4_LSE_KIND_ROWS`` within 1e-5 of each
+    row's scale of the plain one.  The bound counts the backward's five
+    products (the forward's two) over the pairs the mask keeps
+    (``ref.live_keys``); SDPA's backward (forward) with the
+    kind's mask is the yardstick, none under a softcap."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_lse_cuda)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref_by_kv_head,
+                                         live_keys)
+    from repro_torch.launch.bwd_ab import sdpa_bwd_ms, sdpa_mask_kw
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(bf)
+
+    results = {}
+    for name, (b, s, h, kv, hd), mask in K4_BWD_KIND_ROWS:
+        tag = name[len("k4_flash_backward_"):]
+        what = (f"B={b} S={s} H={h} KV={kv} hd={hd} "
+                + " ".join(f"{key}={val}" for key, val in mask.items())
+                + (f" q x {K4_BWD_Q_SCALE[name]} (scores at the cap)"
+                   if name in K4_BWD_Q_SCALE else ""))
+        q = rand(b, s, h, hd, scale=K4_BWD_Q_SCALE.get(name, 1.0))
+        k, v = rand(b, s, kv, hd), rand(b, s, kv, hd)
+        out, lse = flash_attention_lse_cuda(q, k, v, **mask)
+        dout = rand(b, s, h, hd)
+        sdpa_kw = sdpa_mask_kw(s, "cuda", **mask)
+        pairs = b * h * s * live_keys(mask["kind"], s, mask.get("window", 0),
+                                      mask.get("prefix_len", 0))
+        io = 2 * (2 * q.numel() + 2 * k.numel())
+        if tag in K4_LSE_KIND_ROWS:
+            want_lse = plain_lse(torch, q, k, v, **mask)
+            results["k4_flash_prefill_lse_" + tag] = train_kernel_row(
+                torch, timer,
+                lambda q=q, k=k, v=v, mask=mask:
+                    flash_attention_lse_cuda(q, k, v, **mask),
+                lambda q=q, k=k, v=v, mask=mask:
+                    plain_lse(torch, q, k, v, **mask),
+                (lse,), (want_lse,), 1e-5, io + 4 * lse.numel(),
+                4 * hd * pairs,
+                None if sdpa_kw is None else
+                (lambda q=q, k=k, v=v, kw=sdpa_kw:
+                    sdpa_ms(torch, timer, q, k, v, **kw)),
+                f"prefill with its row log-sum-exp, the training forward's "
+                f"K4 at {what}; the lse within 1e-5 of each row's scale of "
+                f"the plain one",
+                "SDPA forward with the kind's mask (sdpa_ms)"
+                if sdpa_kw is not None else
+                "none: no SDPA call caps its scores")
+            del want_lse
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **mask)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **mask)
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"{name}: two calls differ")
+        want = flash_attention_bwd_ref_by_kv_head(q, k, v, out, lse, dout,
+                                                  **mask)
+        results[name] = train_kernel_row(
+            torch, timer,
+            lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout, mask=mask:
+                flash_attention_bwd_cuda(q, k, v, out, lse, dout, **mask),
+            lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout, mask=mask:
+                flash_attention_bwd_ref_by_kv_head(q, k, v, out, lse, dout,
+                                                   **mask),
+            got, want, K4_BWD_TOL,
+            2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+            + 2 * (q.numel() + 2 * k.numel()), 10 * hd * pairs,
+            None if sdpa_kw is None else
+            (lambda q=q, k=k, v=v, dout=dout, kw=sdpa_kw:
+                sdpa_bwd_ms(q, k, v, dout, lambda f: timer(f, reps=3), kw)),
+            f"attention backward (three launches) {what}; dQ, dK, dV each "
+            f"within {K4_BWD_TOL} of each row's scale of the plain backward "
+            f"at fp32; bitwise the same twice; the bound counts the "
+            f"backward's five products over the {pairs:.0f} (query, key) "
+            f"pairs the mask keeps",
+            "SDPA's backward with the kind's mask (sdpa_bwd_ms)"
+            if sdpa_kw is not None else "none: no SDPA call caps its scores")
+        del got, again, want, q, k, v, out, lse, dout
+        torch.cuda.empty_cache()
+    return results
 
 
 def check_train_kernels(torch, timer):
@@ -5696,6 +5831,7 @@ def check_train_kernels(torch, timer):
                                                      flash_attention_lse_cuda)
     from repro_torch.kernels.matmul import matmul_cuda
     from repro_torch.kernels.epilogue import Epilogue
+    from repro_torch.launch.bwd_ab import sdpa_bwd_ms
 
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
@@ -5734,19 +5870,22 @@ def check_train_kernels(torch, timer):
         again = flash_attention_bwd_cuda(q, k, v, out, lse, dout)
         require(all(torch.equal(x, y) for x, y in zip(got, again)),
                 f"{name}: two calls differ")
-        want = plain_bwd(torch, q, k, v, out, lse, dout)
+        want = ref.flash_attention_bwd_ref_by_kv_head(q, k, v, out, lse,
+                                                      dout)
         causal = 4 * b * h * hd * s * (s + 1) / 2
         results[name] = train_kernel_row(
             torch, timer,
             lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout:
                 flash_attention_bwd_cuda(q, k, v, out, lse, dout),
             lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout:
-                plain_bwd(torch, q, k, v, out, lse, dout),
+                ref.flash_attention_bwd_ref_by_kv_head(q, k, v, out, lse,
+                                                       dout),
             got, want, K4_BWD_TOL,
             2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
             + 2 * (q.numel() + 2 * k.numel()), 2.5 * causal,
-            lambda q=q, k=k, v=v, dout=dout: sdpa_bwd_ms(torch, timer, q, k,
-                                                         v, dout),
+            lambda q=q, k=k, v=v, dout=dout: sdpa_bwd_ms(
+                q, k, v, dout, lambda f: timer(f, reps=3),
+                {"is_causal": True}),
             f"causal attention backward (D and lse log2(e) rows, then the "
             f"dK/dV and dQ passes on wgmma fed by a TMA ring: three "
             f"launches) "
@@ -5816,12 +5955,30 @@ def synthetic_batches(torch, vocab, batch, seq, steps, seed):
     return out
 
 
-def check_train_smoke(torch):
-    """Phase 3, training: the internlm2 smoke config (fp32 masters, bf16
+# phase 3's other smoke configs and the launch keys each must show: gemma2
+# (local and global layers, both softcapped) and gemma3 (5 local to 1
+# global, at the smoke config's hd 16)
+TRAIN_SMOKE_KEYS = {
+    IL_ARCH: ("matmul", "matmul:f32", "rmsnorm", "flash_attention:lse",
+              "flash_attention_bwd"),
+    "gemma2-27b": ("matmul", "matmul:f32", "rmsnorm",
+                   "flash_attention:local+softcap+lse",
+                   "flash_attention:softcap+lse",
+                   "flash_attention_bwd:local+softcap",
+                   "flash_attention_bwd:softcap"),
+    "gemma3-12b": ("matmul", "matmul:f32", "rmsnorm",
+                   "flash_attention:local+lse", "flash_attention:lse",
+                   "flash_attention_bwd:local", "flash_attention_bwd"),
+}
+
+
+def check_train_smoke(torch, arch: str = IL_ARCH):
+    """Phase 3, training: ``arch``'s smoke config (fp32 masters, bf16
     compute, per-block remat) takes TR_SMOKE_STEPS AdamW steps on the card
-    (K1, its fp32 store, the row norm, K4 and its backward) and on the CPU
-    (their plain versions) from the same weights and batches; an fp32-
-    compute CPU run on the same weights is the anchor.  The card's losses
+    (K1, its fp32 store, the row norm, K4 and its backward: every launch
+    key of ``TRAIN_SMOKE_KEYS[arch]``) and on the CPU (their plain
+    versions) from the same weights and batches; an fp32-compute CPU run
+    on the same weights is the anchor.  The card's losses
     and grad norms lie within 4x the CPU bf16 run's own distance from the
     anchor, and the mean of |card update - CPU update| / lr within 4x the
     CPU bf16 run's own mean distance from the anchor's updates (ROADMAP's
@@ -5832,7 +5989,7 @@ def check_train_smoke(torch):
     from repro_torch.models.lm import Model
     from repro_torch.optim import AdamWConfig
 
-    cfg = get_config(IL_ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     cpu = Model(cfg, device="cpu").init_weights(SEED)
     sd = cpu.state_dict()
     card = Model(cfg)
@@ -5847,10 +6004,9 @@ def check_train_smoke(torch):
     runs = {name: train_steps(torch, m, batches, opt)
             for name, m in (("card", card), ("cpu", cpu), ("cpu32", ref32))}
     launches = dict(_cuda.LAUNCHES)
-    for key in ("matmul", "matmul:f32", "rmsnorm", "flash_attention:lse",
-                "flash_attention_bwd"):
+    for key in TRAIN_SMOKE_KEYS[arch]:
         require(launches.get(key, 0) > 0,
-                f"smoke training never launched {key}: {launches}")
+                f"{arch} smoke training never launched {key}: {launches}")
 
     def dist(a, b, i):
         return max(abs(x[i] - y[i]) / abs(y[i]) for x, y in zip(a, b))
@@ -5867,47 +6023,56 @@ def check_train_smoke(torch):
                update_card_cpu=upd(dc, dp), launches=launches)
     for key in ("loss", "gnorm", "update"):
         require(out[f"{key}_err"] <= 4 * out[f"{key}_noise"],
-                f"smoke training: the card's {key} is {out[key + '_err']:.3e} "
+                f"{arch} smoke training: the card's {key} is "
+                f"{out[key + '_err']:.3e} "
                 f"from the fp32 anchor, over 4x the CPU's "
                 f"{out[key + '_noise']:.3e}")
     return out
 
 
-def check_train_width(torch):
-    """Phase 3, training at full width: internlm2-1.8b cut to
-    TR_WIDE_LAYERS layers, one sequence of TR_WIDE_SEQ tokens, the loss and
-    every leaf's gradient on the card against the same model's CPU run at
-    bf16 and an fp32-compute CPU anchor: for each leaf, max|card - anchor|
-    over the anchor's scale within 4x the CPU bf16 run's own (the backward
-    kernels at real widths: K4's backward at hd 128, G = 2, K1's gradient
-    GEMMs at d 2048 and d_ff 8192)."""
+def check_train_width(torch, arch: str = IL_ARCH):
+    """Phase 3, training at full width: ``arch`` cut to TR_WIDE_LAYERS
+    layers, one sequence of TR_WIDE_SEQ tokens, the loss and every leaf's
+    gradient on the card against the same model's CPU run at bf16 and an
+    fp32-compute CPU anchor: for each leaf, max|card - anchor| over the
+    anchor's scale within 4x the CPU bf16 run's own (the backward kernels
+    at real widths: internlm2's K4 backward at hd 128, G = 2, and K1's
+    gradient GEMMs at d 2048 and d_ff 8192; gemma2's first two layers,
+    local and global, softcapped, at hd 128 and d 4608; gemma3's first
+    two, both local, at hd 256 and d 3840; at 512 tokens no window cuts).
+    The weights are drawn on the card and copied to the CPU models, and
+    the gradients compared leaf by leaf on the card at fp32: drawing 2.3
+    B weights on the host and comparing them there at f64 were a large
+    share of the check at gemma2's width."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.layers import full_fp32
     from repro_torch.models.lm import Model
     from repro_torch.train.step import loss_and_grads
 
-    cfg = dataclasses.replace(get_config(IL_ARCH), n_layers=TR_WIDE_LAYERS)
-    cpu = Model(cfg, device="cpu").init_weights(SEED)
-    sd = cpu.state_dict()
-    card = Model(cfg)
-    card.load_state_dict(sd)
+    cfg = dataclasses.replace(get_config(arch), n_layers=TR_WIDE_LAYERS)
+    card = Model(cfg).init_weights(SEED)
+    sd = {k: v.cpu() for k, v in card.state_dict().items()}
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(sd)
     ref32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
                   device="cpu")
     ref32.load_state_dict(sd)
+    del sd
     (batch,) = synthetic_batches(torch, cfg.vocab, 1, TR_WIDE_SEQ, 1, SEED)
     res = {}
     for name, m in (("card", card), ("cpu", cpu), ("cpu32", ref32)):
         with full_fp32():
             loss, grads = loss_and_grads(m, m.train_params(), {
                 k: v.to(m.device) for k, v in batch.items()})
-        res[name] = (float(loss), {k: g.detach().cpu().double()
-                                   for k, g in grads.items()})
+        res[name] = (float(loss), {k: g.detach() for k, g in grads.items()})
     worst = []
     for key, w in res["cpu32"][1].items():
+        w = w.to("cuda", torch.float32)
         scale = max(float(w.abs().max()), 1e-30)
-        err = float((res["card"][1][key] - w).abs().max()) / scale
-        noise = float((res["cpu"][1][key] - w).abs().max()) / scale
+        err = float((res["card"][1][key].float() - w).abs().max()) / scale
+        noise = float((res["cpu"][1][key].to("cuda", torch.float32) - w)
+                      .abs().max()) / scale
         worst.append((err / max(noise, 1e-30), key, err, noise))
     worst.sort(reverse=True)
     l3 = res["cpu32"][0]
@@ -5918,9 +6083,9 @@ def check_train_width(torch):
                worst_leaves=[dict(leaf=k, err=e, noise=n, ratio=r)
                              for r, k, e, n in worst[:4]])
     require(out["loss_err"] <= 4 * out["loss_noise"],
-            f"full-width training loss: {out}")
-    require(worst[0][0] <= 4, f"full-width gradients: a leaf is over 4x "
-                              f"the CPU's distance from the anchor: {out}")
+            f"{arch} full-width training loss: {out}")
+    require(worst[0][0] <= 4, f"{arch} full-width gradients: a leaf is over "
+                              f"4x the CPU's distance from the anchor: {out}")
     return out
 
 
@@ -6017,32 +6182,60 @@ def model_flops_per_token(cfg, seq: int) -> float:
     """The model's FLOPs a trained token (forward and backward, 3x the
     forward; remat's recomputation not counted): twice the multiply-adds
     of every projection and of the logits against the padded vocabulary,
-    and the causal attention's two products over (seq + 1) / 2 keys on
-    average."""
+    and each layer's attention, two products over the keys its kind lets a
+    query attend on average at ``seq`` (``live_keys``: (seq + 1) / 2 for a
+    causal layer, about the window for a 'local' one)."""
+    from repro_torch.kernels.ref import live_keys
+    mlp = (3 if cfg.gated_mlp else 2) * cfg.d_model * cfg.d_ff
     proj = (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * cfg.d_model
-            + 3 * cfg.d_model * cfg.d_ff)
+            + mlp)
+    keys = sum(live_keys(cfg.kind(i), seq, cfg.window)
+               for i in range(cfg.n_layers))
     fwd = (2 * (cfg.n_layers * proj + cfg.d_model * cfg.padded_vocab())
-           + cfg.n_layers * 4 * cfg.q_dim * (seq + 1) / 2)
+           + 4 * cfg.q_dim * keys)
     return 3 * fwd
 
 
-def train_internlm2(torch):
-    """Phase 14, training: internlm2-1.8b at full width and depth (24
-    layers; fp32 masters and fp32 moments, per-block remat, the config's 2
-    microbatches of 4 x 4096).  ``Trainer.run`` takes TR_STEPS steps of the
-    synthetic stream with the launch counts set to 0 just before and read
-    just after (every kernel of the training path launched), and writes
-    its checkpoint at the end; loss and grad norm finite every step.  Then
-    the uninterrupted run goes on TR_RESUMED steps from its state in
+# gemma3-12b (phase 15) and gemma2-27b (phase 16) trained at full width,
+# cut to one period of their layer pattern (6 and 2 layers): the config's
+# step of 8 x 4096 tokens in its microbatches (4 and 8), bf16 parameters
+# and fp32 moments, per-block remat; TR_GEMMA_STEPS steps of the synthetic
+# stream through ``Trainer.run`` (no checkpoint: phase 14 holds the round
+# trip), then TR_GEMMA_REPEAT steps on one repeated batch at
+# TR_GEMMA_REPEAT_LR: two steps from their init both models are still in
+# the transient of their first steps (26-35 nats down to 10-12), where
+# AdamW's lr-sized steps at 1e-3 or 3e-4 made gemma2's loss on the
+# repeated batch rise at its second step (1e-3: 10.396, 10.924, 10.380,
+# 10.462), and the plain backward in K4's place rises alike (10.395,
+# 10.924, 10.380, 10.462: ``launch/repeat_lr.py``), so the optimizer, not
+# the kernel, makes it; at 1e-4 it falls at every step (10.40, 10.17,
+# 9.71, 8.80; gemma3 11.42, 10.45, 9.95, 9.67 on an NVIDIA H100 80GB HBM3
+# at 700.00 W)
+GEMMA_TRAIN = (("gemma3-12b", "gemma3_train", 6),
+               ("gemma2-27b", "gemma2_train", 2))
+TR_GEMMA_STEPS, TR_GEMMA_REPEAT, TR_GEMMA_REPEAT_LR = 2, 4, 1e-4
+
+
+def train_model(torch, arch: str, name: str, layers=None, steps=TR_STEPS,
+                resumed=TR_RESUMED, repeat=TR_REPEAT, repeat_lr=TR_LR):
+    """One training phase at full width: ``arch``'s config (cut to
+    ``layers`` layers where given), a step of TR_BATCH x TR_SEQ tokens in
+    the config's microbatches, AdamW at a constant lr.  ``Trainer.run``
+    takes ``steps`` steps of the synthetic stream with the launch counts
+    set to 0 just before and read just after: every kernel of
+    ``PATH_KERNELS[name]`` launched, K4's backward exactly once a layer
+    and microbatch of each step; loss and grad norm finite every step.
+    With ``resumed`` steps (phase 14) it writes its checkpoint at the end,
+    the uninterrupted run goes on ``resumed`` steps from its state in
     memory, the checkpoint is restored (``Trainer.restore``) and the same
     steps run again: the losses, grad norms and parameters bitwise the
-    uninterrupted run's (every kernel of the step is deterministic, and the
-    embedding's gradient sums its rows in a fixed order).  Then TR_REPEAT
-    steps on one repeated batch: the loss must fall at every step, by
-    TR_REPEAT_DROP in all.
-    Step ms, tokens/s, the model-FLOP share of 989 TFLOP/s and the peak
-    bytes are printed."""
-    import math
+    uninterrupted run's (every kernel of the step is deterministic, and
+    the embedding's gradient sums its rows in a fixed order).  Then
+    ``repeat`` steps on one repeated batch at lr ``repeat_lr`` (the same
+    moments): the loss must fall at every step, by TR_REPEAT_DROP in all.
+    Step ms, tokens/s, the model-FLOP share of 989 TFLOP/s, the peak bytes
+    (under 80 GB) and the phase's seconds are returned."""
+    import dataclasses
     import shutil
     import tempfile
     from repro_torch.configs import get_config
@@ -6050,14 +6243,18 @@ def train_internlm2(torch):
     from repro_torch.kernels import _cuda
     from repro_torch.models.lm import Model
     from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import make_train_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     t_phase = time.perf_counter()
-    cfg = get_config(IL_ARCH)
-    require((cfg.microbatches, cfg.remat, cfg.opt_state_mode) ==
-            (2, "full", "fp32"), f"internlm2's training settings {cfg}")
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    require((cfg.remat, cfg.opt_state_mode) == ("full", "fp32")
+            and TR_BATCH % cfg.microbatches == 0,
+            f"{name}: training settings {cfg}")
     model = Model(cfg)
-    ckdir = tempfile.mkdtemp(prefix="internlm2_ckpt_")
+    ckdir = tempfile.mkdtemp(prefix=f"{name}_ckpt_")
     dcfg = DataConfig(TR_BATCH, TR_SEQ, SEED)
     src = SyntheticTokenSource(cfg.vocab, SEED)
 
@@ -6066,8 +6263,8 @@ def train_internlm2(torch):
 
     opt_cfg = AdamWConfig(lr=TR_LR, state_mode=cfg.opt_state_mode)
     trainer = Trainer(model, opt_cfg, TrainerConfig(
-        steps=TR_STEPS, ckpt_every=TR_STEPS, ckpt_dir=ckdir, keep=1,
-        log_every=1), pipes)
+        steps=steps, ckpt_every=steps if resumed else 0, ckpt_dir=ckdir,
+        keep=1, log_every=1), pipes)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -6079,75 +6276,83 @@ def train_internlm2(torch):
         launches = dict(_cuda.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         mets = trainer.metrics
-        require([m["step"] for m in mets] == list(range(TR_STEPS)),
-                f"trainer steps {[m['step'] for m in mets]}")
+        require([m["step"] for m in mets] == list(range(steps)),
+                f"{name}: trainer steps {[m['step'] for m in mets]}")
         require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
-                    for m in mets), f"non-finite training metrics {mets}")
-        require(all(launches.get(k, 0) > 0
-                    for k in PATH_KERNELS["internlm2_train"]),
-                f"internlm2_train: a kernel never launched: {launches}")
-        require(trainer.ckpt.latest_step() == TR_STEPS, "no checkpoint")
+                    for m in mets), f"{name}: non-finite metrics {mets}")
+        require(all(launches.get(k, 0) > 0 for k in PATH_KERNELS[name]),
+                f"{name}: a kernel never launched: {launches}")
+        bwd = cfg.n_layers * cfg.microbatches * steps
+        require(launches.get("flash_attention_bwd") == bwd,
+                f"{name}: {launches.get('flash_attention_bwd')} launches of "
+                f"K4's backward, not {bwd} (layers x microbatches x steps)")
         step_s = sorted(m["dt"] for m in mets[1:])[len(mets[1:]) // 2]
         tokens = TR_BATCH * TR_SEQ
         flops = model_flops_per_token(cfg, TR_SEQ) * tokens
-        print(f"  trainer: {TR_STEPS} steps in {run_s:.1f} s (its "
-              f"checkpoint included), step ms {step_s * 1e3:.1f}, peak "
-              f"{peak / 1e9:.2f} GB, metrics {json.dumps(mets)}", flush=True)
+        print(f"  {name} trainer: {steps} steps in {run_s:.1f} s, step ms "
+              f"{step_s * 1e3:.1f}, peak {peak / 1e9:.2f} GB, metrics "
+              f"{json.dumps(mets)}", flush=True)
+        out = dict(params=sum(p.numel() for p in params.values()),
+                   layers=cfg.n_layers, microbatches=cfg.microbatches,
+                   steps=[{k: m[k] for k in ("step", "loss", "grad_norm",
+                                             "dt")} for m in mets],
+                   run_s=run_s, step_ms=step_s * 1e3,
+                   tokens_per_s=tokens / step_s,
+                   model_tflops_per_step=flops / 1e12,
+                   model_flop_share=flops / step_s / BF16_FLOPS_PER_S,
+                   launches=launches)
 
-        # resume equal to uninterrupted
-        def go_on(params, opt):
-            it = pipes(TR_STEPS)
-            hist = []
-            for _ in range(TR_RESUMED):
-                _, batch = next(it)
-                params, opt, m = trainer.step_fn(params, opt, batch)
-                hist.append((float(m["loss"]), float(m["grad_norm"])))
-            it.close()
-            return params, opt, hist
-        params, opt, hist_a = go_on(params, opt)
-        want = {k: p.detach().clone() for k, p in params.items()}
-        del params, opt
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        start, params, opt = trainer.restore()
-        restore_s = time.perf_counter() - t0
-        require(start == TR_STEPS, f"restored step {start}")
-        params, opt, hist_b = go_on(params, opt)
-        diff = max(float((params[k].detach() - want[k]).abs().max())
-                   for k in want)
-        print(f"  resumed: restore {restore_s:.1f} s, steps {hist_b} "
-              f"against {hist_a}, params off by {diff}", flush=True)
-        require(hist_a == hist_b and diff == 0.0,
-                f"resumed steps {hist_b} (params off by {diff}) != "
-                f"uninterrupted {hist_a}")
-        del want
+        if resumed:     # resume equal to uninterrupted
+            require(trainer.ckpt.latest_step() == steps, "no checkpoint")
+
+            def go_on(params, opt):
+                it = pipes(steps)
+                hist = []
+                for _ in range(resumed):
+                    _, batch = next(it)
+                    params, opt, m = trainer.step_fn(params, opt, batch)
+                    hist.append((float(m["loss"]), float(m["grad_norm"])))
+                it.close()
+                return params, opt, hist
+            params, opt, hist_a = go_on(params, opt)
+            want = {k: p.detach().clone() for k, p in params.items()}
+            del params, opt
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            start, params, opt = trainer.restore()
+            restore_s = time.perf_counter() - t0
+            require(start == steps, f"restored step {start}")
+            params, opt, hist_b = go_on(params, opt)
+            diff = max(float((params[k].detach() - want[k]).abs().max())
+                       for k in want)
+            print(f"  resumed: restore {restore_s:.1f} s, steps {hist_b} "
+                  f"against {hist_a}, params off by {diff}", flush=True)
+            require(hist_a == hist_b and diff == 0.0,
+                    f"resumed steps {hist_b} (params off by {diff}) != "
+                    f"uninterrupted {hist_a}")
+            del want
+            out["resumed"] = dict(steps=hist_b, bitwise=True,
+                                  restore_s=restore_s)
 
         # one repeated batch: the loss falls
-        it = pipes(TR_STEPS + TR_RESUMED)
+        it = pipes(steps + resumed)
         _, batch = next(it)
         it.close()
+        step_fn = make_train_step(model, AdamWConfig(
+            lr=repeat_lr, state_mode=cfg.opt_state_mode))
         rep = []
-        for _ in range(TR_REPEAT):
-            params, opt, m = trainer.step_fn(params, opt, batch)
+        for _ in range(repeat):
+            params, opt, m = step_fn(params, opt, batch)
             rep.append(float(m["loss"]))
         require(all(b < a for a, b in zip(rep, rep[1:]))
                 and rep[-1] < rep[0] - TR_REPEAT_DROP,
-                f"the loss on one repeated batch {rep} did not fall at "
-                f"every step, by {TR_REPEAT_DROP} in all")
+                f"{name}: the loss on one repeated batch {rep} did not fall "
+                f"at every step, by {TR_REPEAT_DROP} in all")
         peak = max(peak, torch.cuda.max_memory_allocated())
-        require(peak < 80e9, f"training peak {peak / 1e9:.2f} GB")
-        return dict(
-            params=sum(p.numel() for p in params.values()),
-            steps=[{k: m[k] for k in ("step", "loss", "grad_norm", "dt")}
-                   for m in mets],
-            run_s=run_s, step_ms=step_s * 1e3,
-            tokens_per_s=tokens / step_s,
-            model_tflops_per_step=flops / 1e12,
-            model_flop_share=flops / step_s / BF16_FLOPS_PER_S,
-            peak_gb=peak / 1e9, launches=launches,
-            resumed=dict(steps=hist_b, bitwise=True, restore_s=restore_s),
-            repeated_batch_losses=rep,
-            phase_s=time.perf_counter() - t_phase)
+        require(peak < 80e9, f"{name}: training peak {peak / 1e9:.2f} GB")
+        out.update(peak_gb=peak / 1e9, repeated_batch_losses=rep,
+                   phase_s=time.perf_counter() - t_phase)
+        return out
     finally:
         trainer.ckpt.wait()
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -6379,6 +6584,28 @@ SOURCES = {
 }
 
 
+def kind_row_sources():
+    """The ``SOURCES`` entries of training at every kind: K4's backward
+    at each row of ``K4_BWD_KIND_ROWS`` and the training forward's K4 with
+    its lse at gemma's kinds, each counted under the variant key its
+    wrapper counts (``k4_variants``, ``_cuda.variant_key``)."""
+    from repro_torch.kernels._cuda import variant_key
+    from repro_torch.kernels.flash_attention import k4_variants
+    out = {}
+    for name, shape, mask in K4_BWD_KIND_ROWS:
+        on = k4_variants(mask["kind"], mask.get("softcap"), shape[4])
+        out[name] = (variant_key("flash_attention_bwd", **on),
+                     "src/repro_torch/csrc/flash_backward.cu",
+                     "src/repro/kernels/flash_attention.py:331")
+        tag = name[len("k4_flash_backward_"):]
+        if tag in K4_LSE_KIND_ROWS:
+            out["k4_flash_prefill_lse_" + tag] = (
+                variant_key("flash_attention", **on, lse=True),
+                "src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:331")
+    return out
+
+
 # numbers of some rows, carried into the kernels line: the row passes'
 # CUPTI kernel times, their times at 8 and 512 rows, the launch floor, and
 # a tail's cost beside the GEMM alone and the two launches it replaces;
@@ -6453,12 +6680,34 @@ LAUNCH_NOTES = {
     **{name: "every flash_attention_bwd launch of the training path "
              "(phase 14, internlm2 at 4 x 4096); this row's shape is held "
              "in phase 2 only" for name, _ in K4_BWD_ROWS},
-    "k1_matmul_f32_up": "every matmul:f32 launch of the training path: the "
-                        "weight gradients of all seven GEMMs and the up "
-                        "GEMM's recomputed gate input",
-    "k1_matmul_f32_down": "every matmul:f32 launch of the training path: "
-                          "the weight gradients of all seven GEMMs and the "
-                          "up GEMM's recomputed gate input",
+    "k1_matmul_f32_up": "every matmul:f32 launch of the training paths "
+                        "(internlm2, gemma3, gemma2): the weight gradients "
+                        "of all seven GEMMs and the up GEMM's recomputed "
+                        "gate input",
+    "k1_matmul_f32_down": "every matmul:f32 launch of the training paths "
+                          "(internlm2, gemma3, gemma2): the weight "
+                          "gradients of all seven GEMMs and the up GEMM's "
+                          "recomputed gate input",
+    "k4_flash_backward_recurrentgemma": "every flash_attention_bwd:"
+                                        "local+hd256 launch: gemma3's local "
+                                        "layers' (phase 15); this row's "
+                                        "shape (recurrentgemma's local "
+                                        "layers, G = 16) is held in phase 2 "
+                                        "only until its training slice",
+    "k4_flash_backward_paligemma": "every flash_attention_bwd:hd256 launch: "
+                                   "gemma3's global layers' (phase 15); "
+                                   "this row's shape (paligemma, G = 8) is "
+                                   "held in phase 2 only until its training "
+                                   "slice",
+    "k4_flash_backward_llama4_chunked": "no path trains a chunked layer yet "
+                                        "(llama4's training slice): held in "
+                                        "phase 2 only",
+    "k4_flash_backward_whisper_full": "no path trains a 'full' layer yet "
+                                      "(whisper's training slice): held in "
+                                      "phase 2 only",
+    "k4_flash_backward_prefix_hd256": "no model trains the 'prefix' kind "
+                                      "(the reference's neither): held in "
+                                      "phase 2 only",
 }
 
 
@@ -6527,6 +6776,10 @@ def main() -> int:
     kernels.update(check_train_kernels(torch, timer))
     print(f"training kernels ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    kernels.update(check_train_kind_rows(torch, timer))
+    print(f"training kernels at every kind ({time.perf_counter() - t0:.1f} "
+          f"s)", flush=True)
+    t0 = time.perf_counter()
     sampler = check_sampler(torch, timer)
     print(f"sampler ({time.perf_counter() - t0:.1f} s): "
           + json.dumps(sampler), flush=True)
@@ -6554,6 +6807,13 @@ def main() -> int:
     print("full-width 2-layer gradients: "
           + json.dumps(check_train_width(torch)), flush=True)
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for arch, _, _ in GEMMA_TRAIN:
+        t0 = time.perf_counter()
+        print(f"smoke training {arch}: "
+              + json.dumps(check_train_smoke(torch, arch)), flush=True)
+        print(f"full-width 2-layer gradients {arch}: "
+              + json.dumps(check_train_width(torch, arch)), flush=True)
+        print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
     marks.append(("smoke", time.perf_counter()))
     serve = serve_full(torch)
     serve["addertree"] = addertree_path(torch)
@@ -6579,10 +6839,19 @@ def main() -> int:
     marks.append(("grok", time.perf_counter()))
     serve.update(serve_internlm2(torch))
     marks.append(("internlm2", time.perf_counter()))
-    train = train_internlm2(torch)
+    train = train_model(torch, IL_ARCH, "internlm2_train")
     serve["internlm2_train"] = {"launches": train["launches"]}
     print("train internlm2: " + json.dumps(train), flush=True)
     marks.append(("train", time.perf_counter()))
+    for arch, name, layers in GEMMA_TRAIN:     # phases 15 and 16
+        train = train_model(torch, arch, name, layers=layers,
+                            steps=TR_GEMMA_STEPS, resumed=0,
+                            repeat=TR_GEMMA_REPEAT,
+                            repeat_lr=TR_GEMMA_REPEAT_LR)
+        serve[name] = {"launches": train["launches"]}
+        print(f"train {arch} ({train['phase_s']:.1f} s): "
+              + json.dumps(train), flush=True)
+        marks.append((name, time.perf_counter()))
     cupti_pass(torch, cupti)
     marks.append(("cupti", time.perf_counter()))
     print("xlstm plain, with CUPTI kernel times: " + json.dumps(xlstm_plain),
@@ -6595,6 +6864,7 @@ def main() -> int:
             k["floor_kernel_ms"] = floor["kernel_ms"]
 
     own = {"train_smoke": smoke_train["launches"]}
+    SOURCES.update(kind_row_sources())
     line = []
     for name, (counter, source, replaces) in SOURCES.items():
         k = kernels[name]

@@ -100,6 +100,7 @@
 #include <stdint.h>
 
 #include "attention_mask.cuh"
+#include "attention_softcap.cuh"
 #include "hopper.cuh"
 
 using namespace hopper;
@@ -147,22 +148,6 @@ struct PrefillLayout {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// softcap * tanh(x / softcap).  The division is IEEE-rounded without the
-// division routine: with r = RN(1 / softcap) rounded once per thread, q0 =
-// RN(x r) and the exact residual x - softcap q0 (an fma), RN(q0 + residual
-// r) is the correctly rounded x / softcap for every x of normal magnitude
-// (Markstein's theorem), in three FMA-pipe instructions.  tanh(y) = 1 - 2
-// / (exp(2 y) + 1) with the fast exp and division (absolute error about
-// 1e-7, far inside the bf16 rounding of P).  The softcap is on every
-// score, and tanhf and the division routine would triple the special-
-// function work of the tile.
-__device__ __forceinline__ float softcap_score(float x, float softcap,
-                                               float rcp) {
-  const float q0 = __fmul_rn(x, rcp);
-  const float y = fmaf(fmaf(-softcap, q0, x), rcp, q0);
-  return softcap * (1.0f - __fdividef(2.0f, __expf(2.0f * y) + 1.0f));
 }
 
 // S [64 x BKV] = Q_wg [64 x HD] . K^T for warpgroup wg, both operands

@@ -95,9 +95,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "flash_backward": {
         # q, k, v, out, dout, lse, dq, dk, dv, ws, B, S, H, KV, hd, scale,
-        # mask kind, softcap, stream
+        # mask kind, window, prefix_len, softcap, stream
         "k4_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _F, _I, _F, _P],
+                              _I, _I, _I, _F, _I, _I, _I, _F, _P],
     },
     "addertree": {
         # partials, out, S, n, in_kind, out_kind, stream
@@ -123,10 +123,17 @@ def count(name: str, **variants: bool) -> None:
     """One launch of kernel ``name``; where variants are on, also one of
     ``"<name>:<variant>+..."`` (in the order given)."""
     LAUNCHES[name] += 1
-    on = [v for v, flag in variants.items() if flag]
-    if on:
-        key = f"{name}:{'+'.join(on)}"
+    key = variant_key(name, **variants)
+    if key != name:
         LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+
+
+def variant_key(name: str, **variants: bool) -> str:
+    """The key ``count`` adds one to beside ``name`` for these variants:
+    ``"<name>:<variant>+..."`` of those on, in the order given, or
+    ``name`` itself where none is on."""
+    on = [v for v, flag in variants.items() if flag]
+    return f"{name}:{'+'.join(on)}" if on else name
 
 
 def _nvcc() -> str:

@@ -18,7 +18,8 @@ kernels by hand, so that the card's backward runs on kernels too:
 * ``rmsnorm``: the standalone row norm (``k1_rmsnorm_rows``); its backward
   is plain torch, as the reference has no kernel for it.
 * ``flash_attention``: K4, which keeps q, k, v, its output and its row
-  log-sum-exp; the backward is K4's backward kernel.
+  log-sum-exp; the backward is K4's backward kernel, in the forward's
+  kind (its window and prefix length) and softcap, at Sq == Skv.
 * ``embed``: the embedding gather, whose backward sums each row's
   gradients in token order (a stable sort, then one segment sum per
   row, no atomics), so a recomputed or repeated step is bitwise the same

@@ -185,6 +185,15 @@ def mask_args(kind: str, window: int = 0, prefix_len: int = 0,
             int(prefix_len) if kind == "prefix" else 0)
 
 
+def k4_variants(kind: str, softcap: Optional[float], hd: int) -> dict:
+    """The launch-count variants (``_cuda.count``'s keywords, in their
+    order) of K4 and of its backward under ``kind``, ``softcap`` and head
+    dim ``hd``; K4's training forward adds ``lse``."""
+    return dict(local=kind == "local", full=kind == "full",
+                chunked=kind == "chunked", prefix=kind == "prefix",
+                softcap=bool(softcap), hd256=hd == 256)
+
+
 def _k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
         window: int, prefix_len: int, softcap: Optional[float],
         with_lse: bool):
@@ -203,10 +212,8 @@ def _k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
            if with_lse else None)
     if q.numel() == 0:
         return out, lse
-    _cuda.count("flash_attention", local=kind == "local",
-                full=kind == "full", chunked=kind == "chunked",
-                prefix=kind == "prefix", softcap=bool(softcap),
-                hd256=hd == 256, lse=with_lse)
+    _cuda.count("flash_attention", **k4_variants(kind, softcap, hd),
+                lse=with_lse)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     args = (b, sq, skv, n_h, n_kv, hd, hd ** -0.5, code, win, plen,
             float(softcap or 0.0))
@@ -242,11 +249,10 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
     return _k4(q, k, v, kind, window, prefix_len, softcap, True)
 
 
-# the kinds and head dims K4's backward takes ('global' at 16 to 128, no
-# softcap): the dense decoder's training path
-BWD_KINDS, BWD_HEAD_DIMS = ("global",), (16, 32, 64, 128)
-# its workspace's rows (D and lse log2(e) a query) are padded with 0 to a
-# multiple of this, the dQ pass's q tile (csrc/flash_backward.cu's ROW_PAD)
+# K4's backward takes every kind and head dim of the forward, with or
+# without the softcap, at Sq == Skv; its workspace's rows (D and lse
+# log2(e) a query) are padded with 0 to a multiple of this, the dQ pass's
+# widest q tile (csrc/flash_backward.cu's ROW_PAD)
 BWD_ROW_PAD = 128
 
 
@@ -254,23 +260,27 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, kind: str = "global",
                              window: int = 0, prefix_len: int = 0,
                              softcap: Optional[float] = None):
     """K4's backward (``csrc/flash_backward.cu``): ``(dq, dk, dv)`` of the
-    causal prefill from q, k, v, its output ``out``, its ``lse`` (``flash_
+    prefill from q, k, v, its output ``out``, its ``lse`` (``flash_
     attention_lse_cuda``) and the output's gradient ``dout``, all bf16 but
     ``lse``; one call (three launches: the row dots D beside lse log2(e),
     then dK/dV, then dQ, both passes wgmma fed by a TMA ring), counted once
-    as ``flash_attention_bwd``.  Takes the 'global' kind at
-    head dims 16 to 128 with no softcap and Sq == Skv; the other kinds,
-    the softcap and other head dims raise (their backward is a later
-    slice)."""
+    as ``flash_attention_bwd`` and under its variants as the forward is
+    (``local``, ``full``, ``chunked``, ``prefix``, ``softcap``, ``hd256``).
+    Takes every kind (``mask_args``: the window of 'local' and 'chunked',
+    the prefix length of 'prefix') at head dims 16 to 256 with or without
+    the softcap, at Sq == Skv; 'full' at Skv != Sq (cross-attention)
+    raises."""
     b, s, n_h, hd = q.shape
-    n_kv = k.shape[2]
-    check_kind(kind, BWD_KINDS)
-    if softcap:
+    n_kv, skv = k.shape[2], k.shape[1]
+    code, win, plen = mask_args(kind, window, prefix_len)
+    if skv != s:
         raise NotImplementedError(
-            "K4's backward takes no softcap yet (gemma2's training slice)")
-    if hd not in BWD_HEAD_DIMS:
-        raise ValueError(f"K4's backward takes head_dim in {BWD_HEAD_DIMS}, "
-                         f"got {hd}")
+            f"K4's backward takes Skv == Sq (got {skv} keys for {s} "
+            f"queries): cross-attention's backward is whisper's training "
+            f"slice")
+    _check_head_dim(hd)
+    if softcap is not None and softcap < 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
     if n_h % n_kv:
         raise ValueError(f"{n_h} q heads do not group over {n_kv} kv heads")
     for t, what in ((q, "q"), (out, "out"), (dout, "dout")):
@@ -284,12 +294,12 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, kind: str = "global",
     s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
     ws = torch.empty((2, b, n_h, s_pad), dtype=torch.float32,
                      device=q.device)
-    _cuda.count("flash_attention_bwd")
+    _cuda.count("flash_attention_bwd", **k4_variants(kind, softcap, hd))
     _cuda.launch("flash_backward", "k4_flash_backward", q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 ws.data_ptr(), b, s, n_h, n_kv, hd, hd ** -0.5,
-                 MASK_CODES[kind], 0.0)
+                 ws.data_ptr(), b, s, n_h, n_kv, hd, hd ** -0.5, code, win,
+                 plen, float(softcap or 0.0))
     return dq, dk, dv
 
 

@@ -177,6 +177,28 @@ def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, kind: str,
     return mask & (kpos >= 0)
 
 
+def live_keys(kind: str, seq: int, window: int = 0,
+              prefix_len: int = 0) -> float:
+    """The keys a query attends on average over a sequence of ``seq``
+    positions under ``kind`` (``attention_mask``'s semantics at Sq == Skv
+    == ``seq``): (seq + 1) / 2 causal, seq for 'full', the window's and
+    the chunk's share for 'local' and 'chunked', the prefix's for
+    'prefix'."""
+    check_kind(kind)
+    if kind == "full":
+        return float(seq)
+    if kind == "local":
+        w = min(window, seq)
+        return (w * (w + 1) / 2 + (seq - w) * w) / seq
+    if kind == "chunked":
+        n, r = divmod(seq, window)
+        return (n * window * (window + 1) / 2 + r * (r + 1) / 2) / seq
+    if kind == "prefix":
+        p = min(prefix_len, seq)
+        return (p * p + (seq * (seq + 1) - p * (p + 1)) / 2) / seq
+    return (seq + 1) / 2
+
+
 def _grouped_scores(q, k, kind, window, prefix_len, softcap):
     """The scaled, softcapped scores of q [B, Sq, H, hd] against k [B, Skv,
     KV, hd] at the accumulator width, grouped [B, KV, G, Sq, Skv] (q head
@@ -248,6 +270,22 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *,
     dk = torch.einsum("bkgqK,bqkgd->bKkd", ds, qg) * hd ** -0.5
     return (dq.reshape(b, sq, n_h, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_attention_bwd_ref_by_kv_head(q, k, v, out, lse, dout, **mask):
+    """``flash_attention_bwd_ref`` at fp32 from any input dtype, one kv
+    head (and its G q heads) at a time, its fp32 results concatenated: the
+    same function with the [B, G, Sq, Skv] scores of one head group live
+    at a time (0.5 GB a tensor at 4 x 4096 and G = 2)."""
+    g = q.shape[2] // k.shape[2]
+    f32 = torch.float32
+    parts = [flash_attention_bwd_ref(
+        q[:, :, j * g:(j + 1) * g].to(f32), k[:, :, j:j + 1].to(f32),
+        v[:, :, j:j + 1].to(f32), out[:, :, j * g:(j + 1) * g].to(f32),
+        lse[:, j * g:(j + 1) * g], dout[:, :, j * g:(j + 1) * g].to(f32),
+        **mask)
+        for j in range(k.shape[2])]
+    return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,29 +2,41 @@
 on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.bwd_ab \\
-        [--against NAME=CSRC_DIR ...] [--shapes B,S,H,KV,HD ...] \\
-        [--out bwd_ab.json]
+        [--against NAME=CSRC_DIR ...] [--plant FAULT ...] \\
+        [--shapes B,S,H,KV,HD[,kind=K][,window=W][,prefix_len=P]
+                  [,softcap=C][,qscale=A] ...] [--out bwd_ab.json]
 
 Builds this checkout's kernel (through ``kernels._cuda``) and, for each
 ``--against``, the ``flash_backward.cu`` of another ``csrc`` directory
 (a ``git archive`` of the parent, or an edited copy of this one, under
-``build/``) with nvcc into ``build/exp/<NAME>/``.  Every build takes the
-same launch arguments.  At each
-shape, each build's (dq, dk, dv) must be within ``TOL`` of each row's
-scale of the plain backward at fp32 (``kernels/ref.py``, one kv head at a
-time) and bitwise the same over two calls; then each build's device time
-is taken in turns (first to last, then last to first), beside SDPA's
-causal backward and the bound (the backward's five products at 989
-TFLOP/s).  The time is CUDA events around each of 10 calls, each after an
-L2 flush, behind a spin kernel (``launch/k1_widths.py``'s timer).  Prints
-ptxas's registers and spills of each build.  Needs the card.
+``build/``) with nvcc into ``build/exp/<NAME>/``, and for each
+``--plant``, this checkout's sources with one of ``FAULTS`` planted (a
+copy under ``$TMPDIR``, removed once built): a check that cannot tell
+such a build from this one is too loose.  Every build must take this
+checkout's launch arguments (``_cuda.SIGNATURES``).  A shape may name an
+attention kind, its window or prefix length, a softcap and a factor on q
+(default 'global', none, 1: q, k and v are standard normal, so the
+scaled scores are about N(0, 1) and a softcap of 50 barely bends them;
+q times 10 puts them at the cap).  At each shape, each build's (dq, dk,
+dv) must be within ``TOL`` of each row's scale of the plain backward at
+fp32 (``ref.flash_attention_bwd_ref_by_kv_head``) and bitwise the same
+over two calls; then each build's device time is taken in turns (first
+to last, then last to first), beside SDPA's backward (an ``attn_mask``
+for a window, a chunk or a prefix; none with a softcap) and the bound
+(the backward's five products over the live pairs at 989 TFLOP/s).  The
+time is CUDA events around each of 10 calls, each after an L2 flush,
+behind a spin kernel (``launch/k1_widths.py``'s timer).  Prints ptxas's
+registers and spills of each build.  Needs the card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import math
+import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
@@ -42,6 +54,15 @@ SHAPES = ((4, 4096, 16, 8, 128), (4, 64, 4, 2, 16), (2, 1024, 8, 4, 32),
 TOL = 2e-2
 BF16_FLOPS_PER_S = 989e12
 EXP = _cuda.BUILD_DIR.parent / "exp"
+# faults a check of the softcap's backward must catch: (the line of
+# flash_backward.cu as it is, the line planted in its place)
+FAULTS = {
+    # dS without the cap's derivative 1 - t^2
+    "no_cap_derivative": ("    d = 1.0f - t * t;", "    d = 1.0f;"),
+    # P from the uncapped score, against the forward's capped lse
+    "uncapped_p": ("    p = exp2f(fmaf(cap.softcap * t, LOG2E, -lse2));",
+                   "    p = exp2f(fmaf(s, cap.scale2, -lse2));"),
+}
 
 
 def _build(name: str, csrc: Path):
@@ -52,6 +73,21 @@ def _build(name: str, csrc: Path):
            str(csrc / "flash_backward.cu")]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _planted(fault: str) -> Path:
+    """A copy of this checkout's ``csrc`` with ``FAULTS[fault]`` planted,
+    in a new directory under ``$TMPDIR``."""
+    line, planted = FAULTS[fault]
+    out = Path(tempfile.mkdtemp(prefix=f"bwd_ab_{fault}_")) / "csrc"
+    shutil.copytree(_cuda.CSRC, out)
+    src = out / "flash_backward.cu"
+    text = src.read_text()
+    if text.count(line + "\n") != 1:
+        raise SystemExit(f"--plant {fault}: the line {line.strip()!r} is "
+                         f"not in flash_backward.cu once")
+    src.write_text(text.replace(line + "\n", planted + "\n"))
+    return out
 
 
 def _use(lib) -> None:
@@ -66,41 +102,75 @@ def _row_err(got, want) -> float:
                   / w.abs().amax(-1).clamp(min=1e-3)).max())
 
 
-def _plain(q, k, v, out, lse, dout):
-    g = q.shape[2] // k.shape[2]
-    f = torch.float32
-    parts = [ref.flash_attention_bwd_ref(
-        q[:, :, j * g:(j + 1) * g].to(f), k[:, :, j:j + 1].to(f),
-        v[:, :, j:j + 1].to(f), out[:, :, j * g:(j + 1) * g].to(f),
-        lse[:, j * g:(j + 1) * g], dout[:, :, j * g:(j + 1) * g].to(f))
-        for j in range(k.shape[2])]
-    return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
+def sdpa_mask_kw(s: int, device, kind: str = "global", window: int = 0,
+                 prefix_len: int = 0, softcap=None):
+    """SDPA's arguments for K4's function at Sq == Skv = ``s`` under a mask
+    kind: ``is_causal`` for 'global', none for 'full', the kind's boolean
+    ``attn_mask`` otherwise; None under a softcap (no SDPA call caps its
+    scores, so there is no library yardstick)."""
+    if softcap:
+        return None
+    if kind == "global":
+        return {"is_causal": True}
+    if kind == "full":
+        return {}
+    pos = torch.arange(s, device=device)
+    return {"attn_mask": ref.attention_mask(pos, pos, kind, window,
+                                            prefix_len)}
 
 
-def _sdpa_bwd(q, k, v, dout, ms):
+def sdpa_bwd_ms(q, k, v, dout, ms, kw):
+    """The library yardstick of K4's backward: the device ms (``ms`` times
+    one call) of SDPA's backward on the same values with ``sdpa_mask_kw``'s
+    arguments (``torch.autograd.grad`` of one forward, kept), the faster
+    of the kv heads grouped (``enable_gqa``) and repeated to H."""
     import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).contiguous().requires_grad_()
-    kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (k, v))
-    with torch.enable_grad():
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                           enable_gqa=True)
     do = dout.transpose(1, 2).contiguous()
-    return ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do,
-                                          retain_graph=True))
+    best = None
+    for rep in (False, True):
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        if rep:
+            kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+        kt, vt = kt.requires_grad_(), vt.requires_grad_()
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=not rep,
+                                               **kw)
+        t = ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do,
+                                           retain_graph=True))
+        best = t if best is None else min(best, t)
+        del o
+    return best
+
+
+def _spec(text: str):
+    """"B,S,H,KV,HD[,key=value ...]" -> ((B, S, H, KV, HD), kwargs: the
+    mask's and ``qscale``)."""
+    parts = text.split(",")
+    mask = {}
+    for kv in parts[5:]:
+        key, val = kv.split("=")
+        mask[key] = val if key == "kind" else (
+            float(val) if key in ("softcap", "qscale") else int(val))
+    return tuple(int(x) for x in parts[:5]), mask
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", action="append", default=[],
                     help="NAME=CSRC_DIR: another checkout's csrc")
+    ap.add_argument("--plant", action="append", default=[],
+                    choices=sorted(FAULTS),
+                    help="a build of this checkout with this fault planted")
     ap.add_argument("--shapes", nargs="*", default=None,
                     help="B,S,H,KV,HD (default: SHAPES)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bwd_ab: no CUDA device")
-    shapes = ([tuple(int(x) for x in s.split(",")) for s in args.shapes]
-              if args.shapes else SHAPES)
+    shapes = ([_spec(s) for s in args.shapes] if args.shapes
+              else [(s, {}) for s in SHAPES])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
@@ -111,11 +181,16 @@ def main() -> int:
     for spec in args.against:
         name, path = spec.split("=", 1)
         pending[name] = _build(name, Path(path))
+    planted = {fault: _planted(fault) for fault in args.plant}
+    for fault, csrc in planted.items():
+        pending[fault] = _build(fault, csrc)
     libs = {"this": _cuda.lib("flash_backward")}
     print("ptxas this: " + "; ".join(_cuda.ptxas_report(
         _cuda._target("flash_backward"))), flush=True)
     for name, (so, proc) in pending.items():
         log, _ = proc.communicate()
+        if name in planted:
+            shutil.rmtree(planted[name].parent)
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         print(f"ptxas {name}: " + "; ".join(
@@ -136,34 +211,45 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(27)
     rows = []
-    for b, s, h, kv, hd in shapes:
-        def rand(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(
-                torch.bfloat16)
-        q, k, v, dout = (rand(b, s, h, hd), rand(b, s, kv, hd),
-                         rand(b, s, kv, hd), rand(b, s, h, hd))
-        out, lse = flash_attention_lse_cuda(q, k, v)
-        want = _plain(q, k, v, out, lse, dout)
-        row = {"shape": [b, s, h, kv, hd]}
+    for (b, s, h, kv, hd), spec in shapes:
+        mask = {key: val for key, val in spec.items() if key != "qscale"}
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(torch.bfloat16)
+        q, k, v, dout = (rand(b, s, h, hd, scale=spec.get("qscale", 1.0)),
+                         rand(b, s, kv, hd), rand(b, s, kv, hd),
+                         rand(b, s, h, hd))
+        out, lse = flash_attention_lse_cuda(q, k, v, **mask)
+        want = ref.flash_attention_bwd_ref_by_kv_head(q, k, v, out, lse, dout,
+                                                      **mask)
+        row = {"shape": [b, s, h, kv, hd], "mask": spec}
         for name, lib in libs.items():
             _use(lib)
-            got = flash_attention_bwd_cuda(q, k, v, out, lse, dout)
-            again = flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+            got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **mask)
+            again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **mask)
             torch.cuda.synchronize()
             row[name] = {
-                "row_err": max(_row_err(g, w) for g, w in zip(got, want)),
+                "row_err": max((_row_err(g, w) for g, w in zip(got, want)),
+                               key=lambda e: math.inf if math.isnan(e)
+                               else e),    # a NaN is the worst
                 "bitwise_twice": all(torch.equal(x, y)
                                      for x, y in zip(got, again))}
         del want
         order = list(libs) + list(libs)[::-1]
         for name in order:
             _use(libs[name])
-            t = ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout))
+            t = ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                    **mask))
             row[name].setdefault("ms", []).append(t)
         _use(libs["this"])
-        causal = 4 * b * h * hd * s * (s + 1) / 2
-        row["bound_ms"] = 2.5 * causal / BF16_FLOPS_PER_S * 1e3
-        row["sdpa_bwd_ms"] = _sdpa_bwd(q, k, v, dout, ms)
+        pairs = b * h * s * ref.live_keys(mask.get("kind", "global"), s,
+                                          mask.get("window", 0),
+                                          mask.get("prefix_len", 0))
+        row["bound_ms"] = 10 * hd * pairs / BF16_FLOPS_PER_S * 1e3
+        kw = sdpa_mask_kw(s, q.device, **mask)
+        row["sdpa_bwd_ms"] = None if kw is None else sdpa_bwd_ms(
+            q, k, v, dout, ms, kw)
         print(json.dumps(row), flush=True)
         rows.append(row)
     ok = all(r[n]["row_err"] <= TOL and r[n]["bitwise_twice"]

@@ -39,7 +39,7 @@ log = logging.getLogger("repro_torch.trainer")
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
-    ckpt_every: int = 50
+    ckpt_every: int = 50    # 0: no checkpoint is written
     ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
     keep: int = 3
     max_retries: int = 2
@@ -147,7 +147,8 @@ class Trainer:
                 if step % tcfg.log_every == 0:
                     log.info("step %d loss %.4f (%.3fs)", step, loss, dt)
                 step += 1
-                if step % tcfg.ckpt_every == 0 or step == tcfg.steps:
+                if tcfg.ckpt_every and (step % tcfg.ckpt_every == 0
+                                        or step == tcfg.steps):
                     self.save(step, params, opt)
             except RuntimeError as e:
                 retries += 1

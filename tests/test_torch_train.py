@@ -3,11 +3,13 @@ CPU (the reference in its ``xla`` kernel mode, its step under
 ``jax.jit`` as its trainer runs it).
 
 * ``Model.loss`` and its gradients for granite and internlm2, an MoE
-  (grok-1's smoke config: the ``0.01 * aux / n_layers`` term) and
-  paligemma (its prefix's targets ignored), fp32 compute: the loss within
-  1e-5 relative, every gradient leaf within 1e-4 of its scale.
+  (grok-1's smoke config: the ``0.01 * aux / n_layers`` term),
+  paligemma (its prefix's targets ignored), gemma2 (local and global
+  layers, the attention and final softcaps) and gemma3 (5 local to 1
+  global, two RoPE thetas), fp32 compute: the loss within 1e-5 relative,
+  every gradient leaf within 1e-4 of its scale.
 * The train step (AdamW, clipping, bias corrections, weight decay) after
-  1 and 3 steps for granite and internlm2 at fp32: losses and grad norms
+  1 and 3 steps for granite, internlm2, gemma2 and gemma3 at fp32: losses and grad norms
   within 1e-5 relative, and the parameters compared on their update (p -
   p0) relative to lr: at most 0.1% of the entries off by more than 1e-3
   lr (Adam's step-1 update is +-lr wherever |g| >> eps, so only entries
@@ -145,7 +147,8 @@ def _torch_batch(batch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "internlm2-1.8b",
-                                  "grok-1-314b", "paligemma-3b"])
+                                  "grok-1-314b", "paligemma-3b",
+                                  "gemma2-27b", "gemma3-12b"])
 def test_loss_and_grads_match_the_reference(arch):
     jm, params, tm = _pair(arch, "float32")
     (batch,) = _batches(jm.cfg, n=1)
@@ -227,7 +230,8 @@ def _port_steps(tm, batches, opt_cfg=None):
     return hist, snaps
 
 
-@pytest.fixture(scope="module", params=["granite-3-8b", "internlm2-1.8b"])
+@pytest.fixture(scope="module", params=["granite-3-8b", "internlm2-1.8b",
+                                        "gemma2-27b", "gemma3-12b"])
 def fp32_runs(request):
     jm, params, tm = _pair(request.param, "float32")
     p0 = {k: v.clone() for k, v in tm.state_dict().items()}
@@ -558,6 +562,16 @@ def test_trainer_loss_decreases(tmp_path):
     losses = [m["loss"] for m in tr.metrics]
     assert np.mean(losses[-5:]) < np.mean(losses[:5])
     assert all(np.isfinite(losses))
+
+
+def test_trainer_without_checkpoints_writes_none(tmp_path):
+    """``ckpt_every=0`` (the card's training phases past the first, whose
+    state is tens of GB): the steps run and no checkpoint is written."""
+    tr = _trainer(tmp_path, steps=3, ckpt_every=0)
+    tr.run(0)
+    assert [m["step"] for m in tr.metrics] == [0, 1, 2]
+    assert tr.ckpt.latest_step() is None
+    assert not list(tmp_path.iterdir())
 
 
 def test_trainer_recovers_from_an_injected_failure(tmp_path):

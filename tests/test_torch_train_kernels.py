@@ -12,11 +12,18 @@ kernels' plain versions against autograd and the reference, on the CPU.
   plain versions of K4's log-sum-exp output and of K4's backward) at every
   kind and with the softcap, and the yardstick at the kernel's own kind
   for G = 1 and 4, head dims 32 and 64 and a ragged S.
+* ``ref.flash_attention_bwd_ref`` at head dim 256 against ``jax.grad`` of
+  the reference's oracle ``repro.kernels.ref.flash_attention_ref`` for
+  'local', 'chunked', 'prefix', 'full' and 'local' with the softcap, at G
+  = 1, 2 and 8: fp32, each gradient within 1e-5 of its scale (fp32 sums in
+  other orders).
 * ``models.loss.vocab_parallel_xent`` against the reference's, with the
   softcap and ignored targets.
 * The CUDA wrappers' launch arguments (the launch intercepted): K1's fp32
   store, K4 with its log-sum-exp, K4's backward (its workspace padded to
-  ``BWD_ROW_PAD`` rows) and its refusals.
+  ``BWD_ROW_PAD`` rows; each kind's mask code, window and prefix length,
+  the softcap, head dim 256, and the variant each launch counts under)
+  and its refusals.
 """
 import jax
 import jax.numpy as jnp
@@ -276,6 +283,141 @@ def test_flash_function_matches_jax_grad_of_the_reference_scan(case):
         assert _rel(got.grad, np.asarray(want)) < 1e-5
 
 
+HD256_CASES = [
+    dict(kind="local", window=5),
+    dict(kind="chunked", window=8),
+    dict(kind="prefix", prefix_len=7),
+    dict(kind="full"),
+    dict(kind="local", window=6, softcap=2.5),
+]
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("case", HD256_CASES,
+                         ids=lambda c: "-".join(f"{k}{v}" for k, v in
+                                                c.items()))
+def test_flash_backward_ref_at_hd256_matches_jax_grad(case, g):
+    """The plain backward (K4's backward's yardstick on the card) at head
+    dim 256, 20 positions, 8 q heads over 8 // G, from its own log-sum-exp
+    forward, against ``jax.grad`` of the reference's attention oracle at
+    fp32: each gradient within 1e-5 of its scale (fp32 sums in other
+    orders)."""
+    q, k, v, c = _qkv(1, 20, 8, 8 // g, 256, torch.float32, seed=8 + g)
+    out, lse = ref.flash_attention_lse_ref(q, k, v, **case)
+    got = ref.flash_attention_bwd_ref(q, k, v, out, lse, c, **case)
+
+    def f(q, k, v):
+        o = jref.flash_attention_ref(q, k, v, **case)
+        return jnp.sum(o * jnp.asarray(c.numpy()))
+    want = jax.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    for name, a, w in zip("qkv", got, want):
+        assert _rel(a, np.asarray(w)) < 1e-5, name
+
+
+@pytest.mark.parametrize("kind,window,prefix_len", [
+    ("global", 0, 0), ("full", 0, 0), ("local", 7, 0), ("local", 40, 0),
+    ("chunked", 7, 0), ("chunked", 30, 0), ("prefix", 0, 9),
+    ("prefix", 0, 40)])
+def test_live_keys_counts_the_masks_keys(kind, window, prefix_len):
+    """``ref.live_keys`` (the operations bound's and the model-FLOP
+    count's keys a query) is the mean over 30 queries of the keys
+    ``ref.attention_mask`` keeps, a window or prefix longer than S
+    included."""
+    pos = torch.arange(30)
+    mask = ref.attention_mask(pos, pos, kind, window, prefix_len)
+    want = float(mask.sum()) / 30
+    assert ref.live_keys(kind, 30, window, prefix_len) == pytest.approx(
+        want, rel=1e-12)
+
+
+@pytest.mark.parametrize("case", [dict(kind="global"),
+                                  dict(kind="local", window=5, softcap=3.0)],
+                         ids=["global", "local-softcap"])
+def test_flash_backward_ref_by_kv_head_is_the_plain_backward(case):
+    """The plain backward one kv head at a time (``chip_smoke.py``'s and
+    ``launch/bwd_ab.py``'s yardstick of K4's backward) from bf16 values
+    is the whole plain backward at fp32, and fp32 itself: 8 q heads over
+    2, 24 positions."""
+    q, k, v, c = _qkv(2, 24, 8, 2, 32, torch.float32, seed=9)
+    q, k, v, c = (t.to(torch.bfloat16) for t in (q, k, v, c))
+    out, lse = ref.flash_attention_lse_ref(q, k, v, **case)
+    got = ref.flash_attention_bwd_ref_by_kv_head(q, k, v, out, lse, c,
+                                                 **case)
+    want = ref.flash_attention_bwd_ref(
+        *(t.float() for t in (q, k, v, out)), lse, c.float(), **case)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, w, rtol=1e-6, atol=1e-6)
+
+
+def _causal_capped_bwd(q, k, v, out, lse, dout, softcap, fault):
+    """The plain causal backward under a softcap at fp32, one kv head,
+    with one of the faults ``launch/bwd_ab.py --plant`` plants into the
+    kernel: dS without the cap's derivative, or P from the uncapped
+    score against the capped lse."""
+    hd, s = q.shape[-1], q.shape[1]
+    raw = torch.einsum("bqhd,bkd->bhqk", q, k[:, :, 0]) * hd ** -0.5
+    t = torch.tanh(raw / softcap)
+    mask = torch.ones(s, s, dtype=torch.bool).tril()
+    score = raw if fault == "uncapped_p" else softcap * t
+    p = torch.exp(score - lse[..., None]).masked_fill(~mask, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkd", p, dout)[:, :, None]
+    dp = torch.einsum("bqhd,bkd->bhqk", dout, v[:, :, 0])
+    ds = p * (dp - (dout * out).sum(-1).transpose(1, 2)[..., None])
+    if fault != "no_cap_derivative":
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhqk,bkd->bqhd", ds, k[:, :, 0]) * hd ** -0.5
+    dk = torch.einsum("bhqk,bqhd->bkd", ds, q)[:, :, None] * hd ** -0.5
+    return dq, dk, dv
+
+
+def _worst_row_err(got, want):
+    return max(float(((g - w).abs().amax(-1)
+                      / w.abs().amax(-1).clamp(min=1e-3)).max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("fault", [None, "no_cap_derivative", "uncapped_p"])
+def test_softcap_faults_show_only_with_scores_at_the_cap(fault):
+    """Why ``chip_smoke.py``'s capped row scales q by 10: at gemma2's
+    softcap of 50 and head dim 128 (256 positions, 4 q heads over 1),
+    standard normal q and k give scores of about N(0, 1), where a
+    backward without the cap's derivative stays within K4_BWD_TOL (2e-2)
+    of each row's scale of the plain one; with q times 10 the scores
+    reach the cap and either fault is off by more than 0.5.  Without a
+    fault this backward is ``ref.flash_attention_bwd_ref``."""
+    for qscale in (1.0, 10.0):
+        q, k, v, c = _qkv(1, 256, 4, 1, 128, torch.float32, seed=10)
+        q = q * qscale
+        out, lse = ref.flash_attention_lse_ref(q, k, v, softcap=50.0)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, c,
+                                           softcap=50.0)
+        err = _worst_row_err(
+            _causal_capped_bwd(q, k, v, out, lse, c, 50.0, fault), want)
+        if fault is None:
+            assert err < 1e-5
+        elif qscale == 10.0:
+            assert err > 0.5
+        elif fault == "no_cap_derivative":
+            assert err < 2e-2
+
+
+def test_variant_keys_are_what_the_wrappers_count(intercepted):
+    """``_cuda.variant_key`` of ``k4_variants`` names the key the
+    backward's launch adds one to (``chip_smoke.py`` reads each kernels
+    row's launches under it), and the bare name where no variant is on."""
+    q, k = _bf(1, 64, 2, 256), _bf(1, 64, 1, 256)
+    tfa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 2, 64), q,
+                                 kind="local", window=16, softcap=50.0)
+    key = _cuda.variant_key("flash_attention_bwd",
+                            **tfa.k4_variants("local", 50.0, 256))
+    assert key == "flash_attention_bwd:local+softcap+hd256"
+    assert _cuda.LAUNCHES[key] == 1
+    assert _cuda.variant_key("flash_attention_bwd", **tfa.k4_variants(
+        "global", None, 128)) == "flash_attention_bwd"
+
+
 def test_lse_is_the_log_sum_exp_of_the_attended_scores():
     q, k, v, _ = _qkv(1, 9, 2, 1, 8, F64, seed=7)
     out, lse = ref.flash_attention_lse_ref(q, k, v, kind="local", window=3,
@@ -404,8 +546,41 @@ def test_k4_backward_launch(intercepted, hd):
     ((lib, fn, args),) = intercepted
     assert (lib, fn) == ("flash_backward", "k4_flash_backward")
     assert len(args) + 1 == len(_cuda.SIGNATURES[lib][fn])
-    assert args[10:] == (4, 4096, 16, 8, hd, hd ** -0.5, 0, 0.0)
+    assert args[10:] == (4, 4096, 16, 8, hd, hd ** -0.5, 0, 0, 0, 0.0)
     assert _cuda.LAUNCHES["flash_attention_bwd"] == 1
+    assert not [key for key in _cuda.LAUNCHES
+                if key.startswith("flash_attention_bwd:")]
+
+
+@pytest.mark.parametrize("kw,args,variant", [
+    (dict(kind="local", window=16), (1, 16, 0, 0.0), "local"),
+    (dict(kind="full"), (2, 0, 0, 0.0), "full"),
+    (dict(softcap=50.0), (0, 0, 0, 50.0), "softcap"),
+    (dict(hd=256), (0, 0, 0, 0.0), "hd256"),
+    (dict(kind="chunked", window=24), (3, 24, 0, 0.0), "chunked"),
+    (dict(kind="prefix", prefix_len=40), (4, 0, 40, 0.0), "prefix"),
+    (dict(kind="local", window=4096, softcap=50.0), (1, 4096, 0, 50.0),
+     "local+softcap"),
+    (dict(kind="local", window=1024, hd=256), (1, 1024, 0, 0.0),
+     "local+hd256"),
+], ids=["local", "full", "softcap", "hd256", "chunked", "prefix",
+        "local-softcap", "local-hd256"])
+def test_k4_backward_launches_each_kind(intercepted, kw, args, variant):
+    """Each kind, the softcap and head dim 256 launch the kernel with the
+    kind's mask code, its window and prefix length (``mask_args``: 0 where
+    the kind has none) and the softcap, each counted under its variant as
+    the forward counts its own ('global' with a window passes window 0:
+    the model hands every layer its config's window)."""
+    hd = kw.pop("hd", 128)
+    q, k = _bf(1, 64, 2, hd), _bf(1, 64, 1, hd)
+    tfa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 2, 64), q, **kw)
+    ((lib, fn, got),) = intercepted
+    assert (lib, fn) == ("flash_backward", "k4_flash_backward")
+    assert len(got) + 1 == len(_cuda.SIGNATURES[lib][fn])
+    assert got[10:16] == (1, 64, 2, 1, hd, hd ** -0.5)
+    assert got[16:] == args
+    assert _cuda.LAUNCHES["flash_attention_bwd"] == 1
+    assert _cuda.LAUNCHES[f"flash_attention_bwd:{variant}"] == 1
 
 
 def test_k4_backward_workspace_rows_are_padded(intercepted, monkeypatch):
@@ -420,22 +595,37 @@ def test_k4_backward_workspace_rows_are_padded(intercepted, monkeypatch):
     q, k = _bf(2, 1000, 8, 64), _bf(2, 1000, 2, 64)
     tfa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(2, 8, 1000), q)
     ((lib, fn, args),) = intercepted
-    assert args[10:] == (2, 1000, 8, 2, 64, 64 ** -0.5, 0, 0.0)
+    assert args[10:] == (2, 1000, 8, 2, 64, 64 ** -0.5, 0, 0, 0, 0.0)
     assert made == [(2, 2, 8, 1024)]
 
 
-@pytest.mark.parametrize("kw,exc", [
-    (dict(kind="local", window=16), NotImplementedError),
-    (dict(kind="full"), NotImplementedError),
-    (dict(softcap=50.0), NotImplementedError),
-    (dict(hd=256), ValueError),
+def test_k4_backward_global_ignores_the_window(intercepted):
+    """'global' with the config's window (gemma's global layers) launches
+    with window 0, as the forward does."""
+    q, k = _bf(1, 64, 2, 256), _bf(1, 64, 1, 256)
+    tfa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 2, 64), q,
+                                 kind="global", window=1024)
+    ((_, _, got),) = intercepted
+    assert got[16:] == (0, 0, 0, 0.0)
+    assert _cuda.LAUNCHES["flash_attention_bwd:hd256"] == 1
+
+
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(kind="full", skv=96), NotImplementedError, "Skv == Sq"),
+    (dict(hd=96), ValueError, "head_dim"),
+    (dict(kind="local", window=0), ValueError, "window"),
+    (dict(kind="sliding"), NotImplementedError, "not ported"),
+    (dict(softcap=-1.0), ValueError, "softcap"),
 ])
-def test_k4_backward_refuses_what_it_does_not_take(intercepted, kw, exc):
-    """The backward kernel takes 'global' at head dims 16 to 128 with no
-    softcap; the rest raises with the reason and launches nothing."""
-    hd = kw.pop("hd", 128)
-    q, k = _bf(1, 64, 2, hd), _bf(1, 64, 1, hd)
-    with pytest.raises(exc):
+def test_k4_backward_refuses_what_it_does_not_take(intercepted, kw, exc,
+                                                   match):
+    """The backward kernel takes every kind at Sq == Skv and head dims 16
+    to 256: 'full' over other keys (cross-attention, whisper's training
+    slice), another head dim, a window below 1, an unknown kind and a
+    negative softcap raise with the reason and launch nothing."""
+    hd, skv = kw.pop("hd", 128), kw.pop("skv", 64)
+    q, k = _bf(1, 64, 2, hd), _bf(1, skv, 1, hd)
+    with pytest.raises(exc, match=match):
         tfa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 2, 64), q,
                                      **kw)
     assert not intercepted
