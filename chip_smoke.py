@@ -195,7 +195,9 @@ line):
    parts (``rglru_rows``: the scan, the fp32 gates, a mixer call); phase
    3 its smoke config card against CPU, bf16 and int8.
 11. serve: full-width xlstm-350m, all 24 layers (21 mLSTM blocks of head
-   dim 512 and 3 sLSTM blocks, no FFN; 1.07 GB), random weights from SEED
+   dim 512 and 3 sLSTM blocks, no FFN; 1.87 GB of fp32 masters since PR
+   29, served from a 0.80 GB bf16 copy of the projections), random
+   weights from SEED
    (``serve_xlstm``).  At the init scales the decode-vs-prefill witness:
    a prefill of 8 x 2048, 64 decode steps, against a prefill of the same
    2112 tokens (a multiple of 64, as the chunkwise prefill requires,
@@ -275,11 +277,36 @@ line):
    microbatches of 1 x 4096: K4 and its backward in their softcapped
    variants.  For phases 15 and 16, phase 2 holds K4's backward and its
    log-sum-exp output at their layers' shapes, and the backward at the
-   next training slices' (recurrentgemma's local layers, paligemma,
-   llama4's chunks, whisper's encoder, the prefix kind;
-   ``check_train_kind_rows``), and phase 3 their smoke configs' train
-   steps and their first two layers' gradients at full width, card
-   against CPU.
+   next training slices' (paligemma, llama4's chunks, whisper's encoder,
+   the prefix kind; ``check_train_kind_rows``), and phase 3 their smoke
+   configs' train steps and their first two layers' gradients at full
+   width, card against CPU.
+17. train: recurrentgemma-9b at full width, one period of its pattern (3
+   layers: two RG-LRU blocks and one 'local' block at window 2048, 16 q
+   heads over 1 kv head of 256; 1.71 B parameters, bf16 leaves, the
+   gates ``w_a``/``w_i`` among them, widened at use), the same steps in
+   the config's 4 microbatches of 2 x 4096 (``train_model``): the RG-LRU's projections, conv, fp32 gates
+   and scan under autograd (library products and plain torch, as the
+   reference's are outside Pallas), K1 and its gradient GEMMs in the
+   local layer and every MLP, the row norm, K4 'local' at hd 256 with its
+   lse and its backward, once a microbatch and step (the local layer
+   only).  10.31 GFLOP a token (``model_flops_per_token``).
+18. train: xlstm-350m at full width, one period (8 layers: 7 mLSTM
+   blocks, 1 sLSTM block; 0.19 B parameters, fp32 masters), the same
+   steps in the config's 2 microbatches of 4 x 4096: the mLSTM's
+   chunkwise form and the sLSTM's token loop under autograd, the row
+   norm (and its backward) the one kernel, no K4 launch; 1.245 GFLOP a
+   token.  Phases 17 and 18 take 2 steps on the repeated batch
+   (``TR_RECURRENT_REPEAT``).  For them phase 2 holds K4's backward and its lse
+   output at recurrentgemma's local layer (2 x 4096, G = 16, hd 256, W
+   2048; ``check_train_kind_rows``) and the row norm at xlstm's widths
+   (``check_xlstm_kernels``), and phase 3 both smoke configs' train
+   steps (recurrentgemma at bf16 ``param_dtype``, xlstm at 128 tokens:
+   two mLSTM chunks, and at lr 1e-4, ``TR_SMOKE_LR``), their gradients
+   at full width, every leaf, card against CPU (recurrentgemma's first
+   period, one mLSTM block and the sLSTM block of xlstm), and the
+   training row norm's gradients at xlstm's widths against f64
+   (``check_train_norm``).
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -542,6 +569,17 @@ PATH_KERNELS = {
                      "flash_attention:softcap+lse",
                      "flash_attention_bwd:local+softcap",
                      "flash_attention_bwd:softcap"),
+    # training recurrentgemma-9b (phase 17): K1 and its gradient GEMMs in
+    # the local layer and every MLP, the row norm, K4 'local' at hd 256
+    # with its lse and its backward in the local layer (G = 16); the
+    # RG-LRU mixers are library products and plain torch under autograd
+    "recurrentgemma_train": ("matmul", "matmul:f32", "rmsnorm",
+                             "flash_attention:local+hd256+lse",
+                             "flash_attention_bwd:local+hd256"),
+    # training xlstm-350m (phase 18): the row norm alone (the entry norm,
+    # each mixer's inner norm, each next norm, with their backward in
+    # plain torch); the mixers are library products and plain torch
+    "xlstm_train": ("rmsnorm",),
 }
 
 
@@ -4307,7 +4345,8 @@ def serve_recurrentgemma(torch, rglru_plain):
     """Phase 10: recurrentgemma-9b at full width and all 38 layers (26
     RG-LRU blocks, 12 local-attention blocks of 16 q heads over 1 kv head
     of 256, window 2048; d_model 4096, d_ff 12288, vocab 256000; bf16
-    weights, the mixers' gates and decays at fp32: 20.5 GB), random
+    weights, the mixers' decays at fp32: 18.8 GB, and the served copy's
+    gates widened to fp32 once, 3.5 GB), random
     weights from SEED, built after the models of the phases before it are
     gone.  At the init scales three witnesses: the fixed loop's decode
     step at position 4174 after a prefill of 2 x 4160 (the ring wrapped,
@@ -4664,8 +4703,9 @@ def plain_norms_at_fp32(torch):
 def serve_xlstm(torch, xlstm_plain):
     """Phase 11: xlstm-350m at full width and all 24 layers (21 mLSTM
     blocks, width 2048 in 4 heads of 512, and 3 sLSTM blocks of 4 heads of
-    256; d_model 1024, vocab 50304, no FFN; the projections bf16, the maps
-    the reference multiplies at fp32 and the embedding fp32: 1.07 GB),
+    256; d_model 1024, vocab 50304, no FFN; every weight an fp32 master,
+    1.87 GB, the projections and convs served from their 0.80 GB bf16
+    copy),
     random weights from SEED, built after the models of the phases before
     it are gone.  At the init scales the decode-vs-prefill witness
     (``xlstm_witness``): a prefill of 8 x 2048, 64 decode steps fed the
@@ -5629,6 +5669,42 @@ TR_REPEAT_DROP = 0.05
 # gradients on one sequence of 512
 TR_SMOKE_BATCH, TR_SMOKE_SEQ, TR_SMOKE_STEPS = 4, 64, 3
 TR_WIDE_LAYERS, TR_WIDE_SEQ = 2, 512
+
+# the recurrent families' phase 3 checks: xlstm's smoke steps at 128
+# positions (two mLSTM chunks carry state); the full-width gradients on
+# recurrentgemma's first period (rglru, rglru, local), so that K4's
+# backward runs at G = 16 and hd 256, and on one mLSTM block and the
+# sLSTM block of xlstm.  Through xlstm's whole period of 8 blocks the
+# CPU's own bf16 gradients lay 0.70-1.01 of each leaf's scale from the
+# fp32 anchor (the embedding, the mLSTMs' wq, up_x and inner norm), so
+# 4x that bounded nothing; through the two blocks the worst leaf's is
+# 0.34 of its scale (the embedding; the mLSTM's w_i 0.32) and the inner
+# norms' 0.015 and 0.0057 (on an NVIDIA H100 80GB HBM3's host; the
+# check prints each leaf's)
+TR_SMOKE_SEQS = {XL_ARCH: 128}
+TR_WIDE_CUTS = {RG_ARCH: {"n_layers": 3},
+                XL_ARCH: {"n_layers": 2, "block_pattern": ("mlstm", "slstm")}}
+# whatever the CPU's own noise, no leaf's error in the full-width check
+# may reach this share of its scale (the worst leaf's error read about
+# 0.01 for the attention families, 0.34 for xlstm's two blocks and at
+# least 1.36 through its 8-block period, whose noise let 4x pass; NVIDIA
+# H100 80GB HBM3, 700.00 W)
+TR_WIDE_CAP = 0.5
+# the smoke configs' weights in phase 3: recurrentgemma's bf16 leaves, as
+# its serving smoke and its full config have them (the gates the port
+# holds at bf16, as the reference does, and widens at use)
+TR_SMOKE_OVER = {RG_ARCH: {"param_dtype": "bfloat16"}}
+# xlstm's smoke steps at the gemma phases' lr: at TR_LR its grad norm
+# spikes from step to step (the fp32 CPU anchor's own rose at step 2 and
+# fell back at step 3, the card's and the CPU bf16 run's spiked at other
+# steps), so the 4x rule there compared the dynamics' spikes, not
+# rounding; at 1e-4 the three runs move together
+TR_SMOKE_LR = {XL_ARCH: 1e-4}
+# a leaf of fewer entries than this (xlstm's gate biases, one entry a
+# head) is one draw of the rounding noise, not a distribution: the
+# full-width check pools such leaves into one vector before its 4x rule
+# (tests/test_torch_train_mixers.py's bf16 test says why on the CPU)
+TR_POOL_BELOW = 64
 # K4's backward against its plain version at fp32 (from the same bf16
 # inputs, output and lse): the kernel rounds P and dS to bf16 for their
 # products, as the forward rounds P, and stores bf16; each row of dQ, dK
@@ -5688,7 +5764,7 @@ K4_BWD_Q_SCALE = {"k4_flash_backward_gemma2_capped": 10.0}
 # the training forward's K4 with its log-sum-exp at these of them (the
 # kinds phases 15 and 16 train), held to the plain lse as internlm2's is
 K4_LSE_KIND_ROWS = ("gemma3_local", "gemma3_global", "gemma2_local",
-                    "gemma2_global")
+                    "gemma2_global", "recurrentgemma")
 
 
 # K1's fp32 store against the fp32 product (TF32 off): two fp32 sums of
@@ -5969,16 +6045,24 @@ TRAIN_SMOKE_KEYS = {
     "gemma3-12b": ("matmul", "matmul:f32", "rmsnorm",
                    "flash_attention:local+lse", "flash_attention:lse",
                    "flash_attention_bwd:local", "flash_attention_bwd"),
+    # recurrentgemma's one local layer (hd 16 in the smoke config) and its
+    # MLPs; xlstm's row norms alone
+    RG_ARCH: ("matmul", "matmul:f32", "rmsnorm", "flash_attention:local+lse",
+              "flash_attention_bwd:local"),
+    XL_ARCH: ("rmsnorm",),
 }
 
 
 def check_train_smoke(torch, arch: str = IL_ARCH):
-    """Phase 3, training: ``arch``'s smoke config (fp32 masters, bf16
-    compute, per-block remat) takes TR_SMOKE_STEPS AdamW steps on the card
-    (K1, its fp32 store, the row norm, K4 and its backward: every launch
-    key of ``TRAIN_SMOKE_KEYS[arch]``) and on the CPU (their plain
-    versions) from the same weights and batches; an fp32-compute CPU run
-    on the same weights is the anchor.  The card's losses
+    """Phase 3, training: ``arch``'s smoke config (fp32 masters, or
+    recurrentgemma's bf16 leaves, ``TR_SMOKE_OVER``; bf16 compute,
+    per-block remat) takes TR_SMOKE_STEPS AdamW steps at TR_LR (xlstm's
+    ``TR_SMOKE_LR``) of TR_SMOKE_BATCH x TR_SMOKE_SEQ tokens (xlstm's
+    ``TR_SMOKE_SEQS``) on the card (K1, its
+    fp32 store, the row norm, K4 and its backward: every launch key of
+    ``TRAIN_SMOKE_KEYS[arch]``) and on the CPU (their plain versions) from
+    the same weights and batches; an fp32-compute CPU run on the same
+    weights is the anchor.  The card's losses
     and grad norms lie within 4x the CPU bf16 run's own distance from the
     anchor, and the mean of |card update - CPU update| / lr within 4x the
     CPU bf16 run's own mean distance from the anchor's updates (ROADMAP's
@@ -5989,7 +6073,8 @@ def check_train_smoke(torch, arch: str = IL_ARCH):
     from repro_torch.models.lm import Model
     from repro_torch.optim import AdamWConfig
 
-    cfg = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              **TR_SMOKE_OVER.get(arch, {}))
     cpu = Model(cfg, device="cpu").init_weights(SEED)
     sd = cpu.state_dict()
     card = Model(cfg)
@@ -5998,8 +6083,10 @@ def check_train_smoke(torch, arch: str = IL_ARCH):
                   device="cpu")
     ref32.load_state_dict(sd)
     batches = synthetic_batches(torch, cfg.vocab, TR_SMOKE_BATCH,
-                                TR_SMOKE_SEQ, TR_SMOKE_STEPS, SEED)
-    opt = AdamWConfig(lr=TR_LR)
+                                TR_SMOKE_SEQS.get(arch, TR_SMOKE_SEQ),
+                                TR_SMOKE_STEPS, SEED)
+    lr = TR_SMOKE_LR.get(arch, TR_LR)
+    opt = AdamWConfig(lr=lr)
     _cuda.reset_launches()
     runs = {name: train_steps(torch, m, batches, opt)
             for name, m in (("card", card), ("cpu", cpu), ("cpu32", ref32))}
@@ -6013,7 +6100,7 @@ def check_train_smoke(torch, arch: str = IL_ARCH):
 
     def upd(a, b):
         return float(sum((a[k] - b[k]).abs().sum() for k in a)
-                     / sum(v.numel() for v in a.values())) / TR_LR
+                     / sum(v.numel() for v in a.values())) / lr
     (hc, dc), (hp, dp), (h3, d3) = runs["card"], runs["cpu"], runs["cpu32"]
     out = dict(losses={n: [x[0] for x in r[0]] for n, r in runs.items()},
                grad_norms={n: [x[1] for x in r[0]] for n, r in runs.items()},
@@ -6032,14 +6119,21 @@ def check_train_smoke(torch, arch: str = IL_ARCH):
 
 def check_train_width(torch, arch: str = IL_ARCH):
     """Phase 3, training at full width: ``arch`` cut to TR_WIDE_LAYERS
-    layers, one sequence of TR_WIDE_SEQ tokens, the loss and every leaf's
+    layers (``TR_WIDE_CUTS``: a recurrent family's cut of its pattern),
+    one sequence of TR_WIDE_SEQ tokens, the loss and every leaf's
     gradient on the card against the same model's CPU run at bf16 and an
     fp32-compute CPU anchor: for each leaf, max|card - anchor| over the
-    anchor's scale within 4x the CPU bf16 run's own (the backward kernels
+    anchor's scale within 4x the CPU bf16 run's own and under
+    TR_WIDE_CAP, the leaves of fewer
+    than TR_POOL_BELOW entries pooled into one (the backward kernels
     at real widths: internlm2's K4 backward at hd 128, G = 2, and K1's
     gradient GEMMs at d 2048 and d_ff 8192; gemma2's first two layers,
     local and global, softcapped, at hd 128 and d 4608; gemma3's first
-    two, both local, at hd 256 and d 3840; at 512 tokens no window cuts).
+    two, both local, at hd 256 and d 3840; recurrentgemma's (rglru,
+    rglru, local) at d 4096, hd 256 and G = 16, the RG-LRU's leaves
+    included; one mLSTM block and the sLSTM block of xlstm at d 1024; at
+    this length no window cuts).  Each leaf's error and noise are
+    returned.
     The weights are drawn on the card and copied to the CPU models, and
     the gradients compared leaf by leaf on the card at fp32: drawing 2.3
     B weights on the host and comparing them there at f64 were a large
@@ -6050,7 +6144,8 @@ def check_train_width(torch, arch: str = IL_ARCH):
     from repro_torch.models.lm import Model
     from repro_torch.train.step import loss_and_grads
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=TR_WIDE_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), **TR_WIDE_CUTS.get(
+        arch, {"n_layers": TR_WIDE_LAYERS}))
     card = Model(cfg).init_weights(SEED)
     sd = {k: v.cpu() for k, v in card.state_dict().items()}
     cpu = Model(cfg, device="cpu")
@@ -6066,12 +6161,20 @@ def check_train_width(torch, arch: str = IL_ARCH):
             loss, grads = loss_and_grads(m, m.train_params(), {
                 k: v.to(m.device) for k, v in batch.items()})
         res[name] = (float(loss), {k: g.detach() for k, g in grads.items()})
+    def pooled(grads):     # the leaves of TR_POOL_BELOW entries or more,
+        few = [k for k, g in grads.items() if g.numel() < TR_POOL_BELOW]
+        out = {k: g for k, g in grads.items() if k not in few}
+        if few:            # and the smaller ones as one vector
+            out["+".join(few)] = torch.cat([grads[k].reshape(-1).to(
+                "cuda", torch.float32) for k in few])
+        return out
+    card_g, cpu_g = pooled(res["card"][1]), pooled(res["cpu"][1])
     worst = []
-    for key, w in res["cpu32"][1].items():
+    for key, w in pooled(res["cpu32"][1]).items():
         w = w.to("cuda", torch.float32)
         scale = max(float(w.abs().max()), 1e-30)
-        err = float((res["card"][1][key].float() - w).abs().max()) / scale
-        noise = float((res["cpu"][1][key].to("cuda", torch.float32) - w)
+        err = float((card_g[key].float() - w).abs().max()) / scale
+        noise = float((cpu_g[key].to("cuda", torch.float32) - w)
                       .abs().max()) / scale
         worst.append((err / max(noise, 1e-30), key, err, noise))
     worst.sort(reverse=True)
@@ -6081,11 +6184,62 @@ def check_train_width(torch, arch: str = IL_ARCH):
                loss_noise=abs(res["cpu"][0] - l3) / abs(l3),
                leaves=len(worst),
                worst_leaves=[dict(leaf=k, err=e, noise=n, ratio=r)
-                             for r, k, e, n in worst[:4]])
+                             for r, k, e, n in worst[:4]],
+               err_noise={k: [e, n] for _, k, e, n in worst})
     require(out["loss_err"] <= 4 * out["loss_noise"],
             f"{arch} full-width training loss: {out}")
     require(worst[0][0] <= 4, f"{arch} full-width gradients: a leaf is over "
                               f"4x the CPU's distance from the anchor: {out}")
+    require(max(e for _, _, e, _ in worst) < TR_WIDE_CAP,
+            f"{arch} full-width gradients: a leaf's error reaches "
+            f"{TR_WIDE_CAP} of its scale: {out}")
+    return out
+
+
+def check_train_norm(torch):
+    """Phase 3, the training row norm (``kernels.autograd.rmsnorm``: the
+    row-norm kernel's forward, its backward at fp32) at the widths of
+    xlstm's inner norms, N = XL_W (the mLSTM's) and XL_D (the sLSTM's and
+    the stream's), on one phase-18 microbatch's rows (4 x 4096) of bf16
+    values and gradients: the output bitwise the kernel's ordered mirror,
+    the value's bf16 gradient within one bf16 ulp of its scale, and the
+    scale's fp32 gradient (a sum over the rows) within K1_F32_TOL of its
+    scale, of autograd's through the plain norm at f64 on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autograd as ag, ref
+    from repro_torch.kernels.epilogue import rms_normalize
+
+    bf, f64 = torch.bfloat16, torch.float64
+    eps_bf16 = float(torch.finfo(bf).eps)
+    rows = TR_BATCH // get_config(XL_ARCH).microbatches * TR_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    out = {}
+    for n in (XL_W, XL_D):
+        x = torch.randn((rows, n), generator=gen, device="cuda").to(bf)
+        scale = torch.randn(n, generator=gen, device="cuda") * 0.1
+        dy = torch.randn((rows, n), generator=gen, device="cuda").to(bf)
+        xg, sg = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        y = ag.rmsnorm(xg, sg, 1e-6)
+        dx, ds = torch.autograd.grad(y, (xg, sg), dy)
+        require(torch.equal(y.detach(), ref.rmsnorm_rows_ref(x, scale, 1e-6)),
+                f"training rmsnorm [{rows}, {n}]: the output is not bitwise "
+                f"the ordered mirror")
+        x64 = x.cpu().to(f64).requires_grad_()
+        s64 = scale.cpu().to(f64).requires_grad_()
+        wx, ws = torch.autograd.grad(rms_normalize(x64, s64, 1e-6, f64),
+                                     (x64, s64), dy.cpu().to(f64))
+        errs = {}
+        for key, got, want in (("dx", dx, wx), ("dscale", ds, ws)):
+            require(got.dtype == (bf if key == "dx" else torch.float32),
+                    f"training rmsnorm [{rows}, {n}]: {key} is {got.dtype}")
+            errs[key] = float((got.cpu().to(f64) - want).abs().max()
+                              / want.abs().max())
+        out[f"N={n}"] = errs
+        require(errs["dx"] <= eps_bf16 and errs["dscale"] <= K1_F32_TOL,
+                f"training rmsnorm [{rows}, {n}]: gradients {errs} over "
+                f"{eps_bf16} (dx) or {K1_F32_TOL} (dscale) of their scale")
+        del x, dy, xg, sg, y, dx, ds, x64, s64, wx, ws
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6181,19 +6335,44 @@ def serve_internlm2(torch):
 def model_flops_per_token(cfg, seq: int) -> float:
     """The model's FLOPs a trained token (forward and backward, 3x the
     forward; remat's recomputation not counted): twice the multiply-adds
-    of every projection and of the logits against the padded vocabulary,
-    and each layer's attention, two products over the keys its kind lets a
-    query attend on average at ``seq`` (``live_keys``: (seq + 1) / 2 for a
-    causal layer, about the window for a 'local' one)."""
+    of every product and of the logits against the padded vocabulary.
+    An attention layer: its projections, and its attention's two products
+    over the keys its kind lets a query attend on average at ``seq``
+    (``live_keys``: (seq + 1) / 2 for a causal layer, about the window for
+    a 'local' one).  An RG-LRU: ``in_x``, ``in_g`` and ``out`` (3 d w) and
+    its two fp32 gates (2 w^2).  An mLSTM (w = 2 d, H heads of hd = w / H,
+    chunks of L = min(64, seq)): ``up_x``, ``up_g``, ``down`` (3 d w),
+    ``wq``, ``wk``, ``wv`` (3 w^2), the gate maps (2 w H), the chunk's
+    intra-chunk scores, numerator and normalizer (3 L w: every (t, s) pair
+    of the chunk, as the einsums form them) and its inter-chunk products,
+    q against the carried C and the carry's update (2 w hd).  An sLSTM:
+    ``w_in`` (4 d^2), its block-diagonal ``r`` (4 d^2 / H) and ``out``
+    (d^2).  Each block's MLP where ``d_ff`` > 0.  At TR_SEQ: internlm2
+    11.41 GFLOP a token, gemma3's 6 layers 14.43, gemma2's 2 14.07,
+    recurrentgemma's 3 (rglru, rglru, local) 10.31 (6.29 of them the
+    logits), xlstm's 8 (7 mLSTM, 1 sLSTM) 1.245."""
     from repro_torch.kernels.ref import live_keys
-    mlp = (3 if cfg.gated_mlp else 2) * cfg.d_model * cfg.d_ff
-    proj = (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * cfg.d_model
-            + mlp)
-    keys = sum(live_keys(cfg.kind(i), seq, cfg.window)
-               for i in range(cfg.n_layers))
-    fwd = (2 * (cfg.n_layers * proj + cfg.d_model * cfg.padded_vocab())
-           + 4 * cfg.q_dim * keys)
-    return 3 * fwd
+    from repro_torch.models.xlstm import prefill_chunk
+    d = cfg.d_model
+    mlp = (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
+    macs = d * cfg.padded_vocab()
+    attn_flops = 0.0
+    for i in range(cfg.n_layers):
+        kind = cfg.kind(i)
+        if kind == "rglru":
+            w = cfg.lru_width or d
+            macs += 3 * d * w + 2 * w * w
+        elif kind == "mlstm":
+            w, nh = 2 * d, cfg.n_heads
+            macs += (3 * d * w + 3 * w * w + 2 * w * nh
+                     + 3 * prefill_chunk(seq) * w + 2 * w * (w // nh))
+        elif kind == "slstm":
+            macs += 4 * d * d + 4 * d * d // cfg.n_heads + d * d
+        else:
+            macs += d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+            attn_flops += 4 * cfg.q_dim * live_keys(kind, seq, cfg.window)
+        macs += mlp
+    return 3 * (2 * macs + attn_flops)
 
 
 # gemma3-12b (phase 15) and gemma2-27b (phase 16) trained at full width,
@@ -6214,6 +6393,22 @@ def model_flops_per_token(cfg, seq: int) -> float:
 GEMMA_TRAIN = (("gemma3-12b", "gemma3_train", 6),
                ("gemma2-27b", "gemma2_train", 2))
 TR_GEMMA_STEPS, TR_GEMMA_REPEAT, TR_GEMMA_REPEAT_LR = 2, 4, 1e-4
+# recurrentgemma-9b (phase 17) and xlstm-350m (phase 18) trained at full
+# width, cut to one period of their pattern: recurrentgemma's (rglru,
+# rglru, local), 3 of 38 layers (1.71 B parameters, the 1.05 B embedding
+# among them; bf16 leaves, its gates among them), and
+# xlstm's 7 mLSTM blocks and 1 sLSTM block, 8 of 24 (0.19 B, fp32
+# masters; the cut bounds the sLSTM token loop's host time, not memory);
+# the gemma phases' steps and repeated-batch lr, the config's
+# microbatches (4 and 2)
+RECURRENT_TRAIN = ((RG_ARCH, "recurrentgemma_train", 3),
+                   (XL_ARCH, "xlstm_train", 8))
+# the repeated-batch steps of phases 17 and 18, lowered from
+# TR_GEMMA_REPEAT: the script ran 1060-1135 s of its 1200 s limit with 4
+# and 3 of them (a step 6.9 and 34-40 s; NVIDIA H100 80GB HBM3, 700.00
+# W), and both losses fall at every step (by 0.30 and 0.066 at the
+# first)
+TR_RECURRENT_REPEAT = 2
 
 
 def train_model(torch, arch: str, name: str, layers=None, steps=TR_STEPS,
@@ -6223,8 +6418,9 @@ def train_model(torch, arch: str, name: str, layers=None, steps=TR_STEPS,
     the config's microbatches, AdamW at a constant lr.  ``Trainer.run``
     takes ``steps`` steps of the synthetic stream with the launch counts
     set to 0 just before and read just after: every kernel of
-    ``PATH_KERNELS[name]`` launched, K4's backward exactly once a layer
-    and microbatch of each step; loss and grad norm finite every step.
+    ``PATH_KERNELS[name]`` launched, K4's backward exactly once an
+    attention layer and microbatch of each step (never for a model of
+    recurrent mixers only); loss and grad norm finite every step.
     With ``resumed`` steps (phase 14) it writes its checkpoint at the end,
     the uninterrupted run goes on ``resumed`` steps from its state in
     memory, the checkpoint is restored (``Trainer.restore``) and the same
@@ -6241,7 +6437,7 @@ def train_model(torch, arch: str, name: str, layers=None, steps=TR_STEPS,
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticTokenSource, TokenPipeline
     from repro_torch.kernels import _cuda
-    from repro_torch.models.lm import Model
+    from repro_torch.models.lm import MIXERS, Model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.step import make_train_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -6282,10 +6478,12 @@ def train_model(torch, arch: str, name: str, layers=None, steps=TR_STEPS,
                     for m in mets), f"{name}: non-finite metrics {mets}")
         require(all(launches.get(k, 0) > 0 for k in PATH_KERNELS[name]),
                 f"{name}: a kernel never launched: {launches}")
-        bwd = cfg.n_layers * cfg.microbatches * steps
-        require(launches.get("flash_attention_bwd") == bwd,
+        attn = sum(cfg.kind(i) not in MIXERS for i in range(cfg.n_layers))
+        bwd = attn * cfg.microbatches * steps
+        require(launches.get("flash_attention_bwd", 0) == bwd,
                 f"{name}: {launches.get('flash_attention_bwd')} launches of "
-                f"K4's backward, not {bwd} (layers x microbatches x steps)")
+                f"K4's backward, not {bwd} (attention layers x microbatches "
+                f"x steps)")
         step_s = sorted(m["dt"] for m in mets[1:])[len(mets[1:]) // 2]
         tokens = TR_BATCH * TR_SEQ
         flops = model_flops_per_token(cfg, TR_SEQ) * tokens
@@ -6681,19 +6879,31 @@ LAUNCH_NOTES = {
              "(phase 14, internlm2 at 4 x 4096); this row's shape is held "
              "in phase 2 only" for name, _ in K4_BWD_ROWS},
     "k1_matmul_f32_up": "every matmul:f32 launch of the training paths "
-                        "(internlm2, gemma3, gemma2): the weight gradients "
-                        "of all seven GEMMs and the up GEMM's recomputed "
-                        "gate input",
+                        "(internlm2, gemma3, gemma2, recurrentgemma): the "
+                        "weight gradients of all seven GEMMs (recurrentgemma"
+                        "'s local layer and MLPs) and the up GEMM's "
+                        "recomputed gate input",
     "k1_matmul_f32_down": "every matmul:f32 launch of the training paths "
-                          "(internlm2, gemma3, gemma2): the weight "
-                          "gradients of all seven GEMMs and the up GEMM's "
-                          "recomputed gate input",
-    "k4_flash_backward_recurrentgemma": "every flash_attention_bwd:"
-                                        "local+hd256 launch: gemma3's local "
-                                        "layers' (phase 15); this row's "
-                                        "shape (recurrentgemma's local "
-                                        "layers, G = 16) is held in phase 2 "
-                                        "only until its training slice",
+                          "(internlm2, gemma3, gemma2, recurrentgemma): the "
+                          "weight gradients of all seven GEMMs "
+                          "(recurrentgemma's local layer and MLPs) and the "
+                          "up GEMM's recomputed gate input",
+    "k4_flash_backward_gemma3_local": "the flash_attention_bwd:local+hd256 "
+                                      "launches of gemma3's training path "
+                                      "(phase 15) alone; recurrentgemma's "
+                                      "are its own row's",
+    "k4_flash_prefill_lse_gemma3_local": "the flash_attention:local+hd256"
+                                         "+lse launches of gemma3's "
+                                         "training path (phase 15) alone",
+    "k4_flash_backward_recurrentgemma": "the flash_attention_bwd:local+hd256 "
+                                        "launches of recurrentgemma's "
+                                        "training path (phase 17), at this "
+                                        "row's shape: its local layer, 2 x "
+                                        "4096 a microbatch, G = 16",
+    "k4_flash_prefill_lse_recurrentgemma": "the flash_attention:local+hd256"
+                                           "+lse launches of recurrentgemma"
+                                           "'s training path (phase 17), at "
+                                           "this row's shape",
     "k4_flash_backward_paligemma": "every flash_attention_bwd:hd256 launch: "
                                    "gemma3's global layers' (phase 15); "
                                    "this row's shape (paligemma, G = 8) is "
@@ -6711,9 +6921,15 @@ LAUNCH_NOTES = {
 }
 
 
-# rows whose shape runs on a path of its own, outside PATH_KERNELS (phase
-# 3's smoke training): their launches are that path's alone
-OWN_PATH = {"k4_flash_backward_smoke": "train_smoke"}
+# rows whose launches are one path's alone: a shape that runs on a path
+# outside PATH_KERNELS (phase 3's smoke training), and the variants two
+# training paths share at their own shapes (K4 and its backward 'local'
+# at hd 256: gemma3's local layers, recurrentgemma's)
+OWN_PATH = {"k4_flash_backward_smoke": "train_smoke",
+            "k4_flash_backward_gemma3_local": "gemma3_train",
+            "k4_flash_prefill_lse_gemma3_local": "gemma3_train",
+            "k4_flash_backward_recurrentgemma": "recurrentgemma_train",
+            "k4_flash_prefill_lse_recurrentgemma": "recurrentgemma_train"}
 
 
 def variant_launches(counts, counter):
@@ -6807,12 +7023,15 @@ def main() -> int:
     print("full-width 2-layer gradients: "
           + json.dumps(check_train_width(torch)), flush=True)
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
-    for arch, _, _ in GEMMA_TRAIN:
+    for arch, _, _ in GEMMA_TRAIN + RECURRENT_TRAIN:
         t0 = time.perf_counter()
         print(f"smoke training {arch}: "
               + json.dumps(check_train_smoke(torch, arch)), flush=True)
-        print(f"full-width 2-layer gradients {arch}: "
+        print(f"full-width gradients {arch}: "
               + json.dumps(check_train_width(torch, arch)), flush=True)
+        if arch == XL_ARCH:
+            print("training row norm at xlstm's widths: "
+                  + json.dumps(check_train_norm(torch)), flush=True)
         print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
     marks.append(("smoke", time.perf_counter()))
     serve = serve_full(torch)
@@ -6843,10 +7062,12 @@ def main() -> int:
     serve["internlm2_train"] = {"launches": train["launches"]}
     print("train internlm2: " + json.dumps(train), flush=True)
     marks.append(("train", time.perf_counter()))
-    for arch, name, layers in GEMMA_TRAIN:     # phases 15 and 16
+    for arch, name, layers in GEMMA_TRAIN + RECURRENT_TRAIN:  # phases 15-18
         train = train_model(torch, arch, name, layers=layers,
                             steps=TR_GEMMA_STEPS, resumed=0,
-                            repeat=TR_GEMMA_REPEAT,
+                            repeat=(TR_RECURRENT_REPEAT
+                                    if (arch, name, layers) in RECURRENT_TRAIN
+                                    else TR_GEMMA_REPEAT),
                             repeat_lr=TR_GEMMA_REPEAT_LR)
         serve[name] = {"launches": train["launches"]}
         print(f"train {arch} ({train['phase_s']:.1f} s): "
@@ -6863,7 +7084,8 @@ def main() -> int:
         if "floor_ms" in k:
             k["floor_kernel_ms"] = floor["kernel_ms"]
 
-    own = {"train_smoke": smoke_train["launches"]}
+    runs = {"train_smoke": smoke_train, **serve}
+    own = {path: runs[path]["launches"] for path in set(OWN_PATH.values())}
     SOURCES.update(kind_row_sources())
     line = []
     for name, (counter, source, replaces) in SOURCES.items():

@@ -12,10 +12,10 @@ reads); the sLSTM runs at ``w = d`` with four heads of 256.
 ``param_count`` is the reference's reckoning, which counts an mLSTM's
 q/k/v as ``3 w^2 / 4`` where it holds three dense [w, w] matrices, and
 leaves out the sLSTM's ``out`` [d, d]: 265.8 M where the model holds
-467.3 M (ROADMAP F9).  ``param_dtype`` stays the reference's float32;
-the port holds the mixers' projections at the compute dtype and the
-weights the reference multiplies at fp32 at fp32 (``models.xlstm``), and
-states byte counts from its tensors."""
+467.3 M (ROADMAP F9).  ``param_dtype`` stays the reference's float32,
+its training master: the port holds every weight at fp32 (the
+projections' bf16 serving copy is ``Model.served_blocks``'), and states
+byte counts from its tensors."""
 from repro_torch.configs.base import ArchConfig
 
 FULL = ArchConfig(

@@ -27,16 +27,13 @@ three groups of seven mLSTM blocks and one sLSTM block, no tail) holds
 ``ln1`` and ``mix`` alone, no ``ln2`` and no ``ffn``: an mLSTM's ``mix/
 {up_x, up_g, conv, wq, wk, wv, w_i, w_f, b_i, b_f, norm, down}``, an
 sLSTM's ``mix/{w_in, r, bias, norm, out}``.  Loading the result into a
-``Model`` casts each leaf once to its parameter's dtype (the RG-LRU's
-gates and the sLSTM's ``w_in``, ``param_dtype`` in the reference's tree,
-widen exactly to the port's fp32; the xLSTM mixers' projections of a
-float32 config round once to the compute dtype, as the reference's
-``astype`` at use does).
+``Model`` casts each leaf once to its parameter's dtype (every mixer
+weight is held at the reference's dtype; xlstm's float32 projections
+stay the fp32 masters, which the serving copy casts).
 
 ``to_jax_params`` is the inverse: a ``state_dict`` back to the reference's
 tree (the groups restacked, the MLP weights in the xyz layout ``[1, K,
-N]``, the widened mixer weights, ``models.lm.WIDENED``, back at the
-config's ``param_dtype``) with numpy
+N]``) with numpy
 leaves, for ``checkpoint.CheckpointManager``; a bf16
 tensor becomes its 2-byte words (``checkpoint.manager.BF16_WORDS``), which
 ``from_jax_params`` reads back.
@@ -59,7 +56,6 @@ import torch
 from repro_torch.checkpoint.manager import BF16_WORDS, host_copy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.maxeva_matmul import unshard_weight_xyz
-from repro_torch.models.lm import WIDENED
 
 
 _MLP = ("gate", "up", "down")
@@ -123,19 +119,16 @@ def from_jax_params(cfg: ArchConfig, params: Dict[str, Any]
     return sd
 
 
-def _block_tree(sd: Dict[str, torch.Tensor], p: str,
-                param_dtype: torch.dtype, kind: str = "") -> Dict[str, Any]:
-    """The reference block (of kind ``kind``) of the port's keys under
-    prefix ``p``, its leaves the tensors where they are (``_host`` or
-    ``_stack`` copies them to the host)."""
+def _block_tree(sd: Dict[str, torch.Tensor], p: str) -> Dict[str, Any]:
+    """The reference block of the port's keys under prefix ``p``, its
+    leaves the tensors where they are (``_host`` or ``_stack`` copies them
+    to the host)."""
     blk: Dict[str, Any] = {}
     for key, t in sd.items():
         if not key.startswith(p):
             continue
         *path, name = key[len(p):].split(".")
         w = t.detach()
-        if path == ["mix"] and name in WIDENED.get(kind, ()):
-            w = w.to(param_dtype)
         if path == ["ffn"] and name in _MLP:
             w = w[None]    # the single-device xyz layout [1, K, N]
         node = blk
@@ -166,20 +159,19 @@ def to_jax_params(cfg: ArchConfig, state_dict: Dict[str, torch.Tensor]
     leaves (the inverse of ``from_jax_params``)."""
     sd = state_dict
     period = cfg.pattern_period
-    pdt = getattr(torch, cfg.param_dtype)
     tree: Dict[str, Any] = {"embed": host_copy(sd["embed"]),
                             "final_norm": host_copy(sd["final_norm"])}
     if cfg.n_groups > 0:
         tree["groups"] = {f"b{i}": _stack([
-            _block_tree(sd, f"blocks.{g * period + i}.", pdt, kind)
+            _block_tree(sd, f"blocks.{g * period + i}.")
             for g in range(cfg.n_groups)])
-            for i, kind in enumerate(cfg.block_pattern)}
+            for i in range(period)}
     tree["tail"] = {f"t{i}": _host(_block_tree(
-        sd, f"blocks.{cfg.n_groups * period + i}.", pdt, kind))
-        for i, kind in enumerate(cfg.tail_blocks)}
+        sd, f"blocks.{cfg.n_groups * period + i}."))
+        for i in range(len(cfg.tail_blocks))}
     if cfg.encdec:
         tree["encoder"] = {
-            "blocks": _stack([_block_tree(sd, f"encoder.blocks.{i}.", pdt)
+            "blocks": _stack([_block_tree(sd, f"encoder.blocks.{i}.")
                               for i in range(cfg.n_enc_layers)]),
             "final_norm": host_copy(sd["encoder.final_norm"])}
     return tree

@@ -106,13 +106,15 @@ def quantize_colwise(x: torch.Tensor):
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """Row rmsnorm over the last axis (fp32 math, ``sum / n``,
-    ``(1 + scale)``), cast back to ``x.dtype``.  On the card this is the
+    """Row rmsnorm over the last axis (fp32 math, f64 for f64 rows, ``sum
+    / n``, ``(1 + scale)``), cast back to ``x.dtype``.  On the card this is the
     K1 row-norm kernel, the same routine that completes the fused down
     GEMM's normed output."""
     if x.is_cuda:
         return rmsnorm_cuda(x.reshape(-1, x.shape[-1]), scale,
                             eps).reshape(x.shape)
+    if x.dtype == torch.float64:    # an f64 run: the tests' exact anchor
+        return rms_normalize(x, scale, eps, torch.float64)
     return rms_normalize(x, scale, eps)
 
 

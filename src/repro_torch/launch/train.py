@@ -4,7 +4,10 @@
         --smoke --steps 50 --batch 8 --seq 128 --device cpu
 
 Runs on the card unless ``--device cpu``; ``--smoke`` selects the reduced
-config.  The reference's flags, the mesh ones included: one device is the
+config.  Every decoder family trains (attention, MoE, patch prefix, the
+recurrent mixers: ``--arch recurrentgemma-9b`` or ``xlstm-350m``, whose
+mLSTM takes ``--seq`` below 64 or a multiple of it); whisper's
+encoder-decoder is refused.  The reference's flags, the mesh ones included: one device is the
 only mesh the port trains on (``--data-mesh`` 0 or 1, ``--model-mesh``
 1; more is the multi-device slice's).  The AdamW moments follow the
 config's ``opt_state_mode``, the learning rate a warmup-cosine schedule.
@@ -19,7 +22,7 @@ import tempfile
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, SyntheticTokenSource, TokenPipeline
-from repro_torch.models.lm import Model
+from repro_torch.models.lm import Model, check_prefill_len
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -52,6 +55,10 @@ def main(argv=None):
                         format="%(asctime)s %(name)s %(message)s")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    try:
+        check_prefill_len(cfg, args.seq)
+    except ValueError as e:
+        ap.error(str(e))
     model = Model(cfg, device=device)
     n = sum(p.numel() for p in model.parameters())
     print(f"arch={cfg.name} params={n:,} device={device}")

@@ -65,18 +65,23 @@ Its cache entry is the mixer's state (the mLSTM's ``{"C", "n", "m",
 and replaced by each decode step as an RG-LRU's is.  Every weight is the
 mixer's, so the int8 copy quantizes nothing and shares every leaf.
 
-whisper's, paligemma's and xlstm's configs keep the reference's float32
+whisper's and paligemma's configs keep the reference's float32
 ``param_dtype`` (its training master copy); the port holds their
 projection weights at the compute dtype (bf16 on the card, cast once when
-the model is built or loaded), the embedding and norm scales (and the
-xLSTM mixers' fp32 maps) at fp32.
-Other float32 configs (internlm2-1.8b, the smoke configs) keep float32
-projections as the master copy, so that their int8 copies are quantized
-from the reference's values bit for bit and training updates them; the
-serving entry points run ``served_blocks``, a copy of the blocks whose
-``wqkv``, ``wo`` and MLP projections are cast once to the compute dtype
-(K1 multiplies bf16 x bf16), made at the first serving call and made
-again only after a projection weight changes.
+the model is built or loaded), the embedding and norm scales at fp32.
+Other float32 configs (internlm2-1.8b, xlstm-350m, the smoke configs)
+keep float32 projections as the master copy, so that their int8 copies
+are quantized from the reference's values bit for bit and training
+updates them; the serving entry points run ``served_blocks``, a copy of
+the blocks whose ``wqkv``, ``wo``, MLP projections and recurrent mixers'
+compute-dtype weights (``COMPUTE_WEIGHTS``: their projections and conv)
+are cast once to the compute dtype (every GEMM multiplies bf16 x bf16),
+made at the first serving call and made again only after such a weight
+changes.  A mixer holds the weights it multiplies at fp32 (``WIDENED``:
+the RG-LRU's gates, the sLSTM's input map) at ``param_dtype``, as the
+reference does, and the same copy widens them once where that is
+narrower (recurrentgemma-9b's bf16).  The int8 copy holds each mixer as
+the served copy does.
 
 Training (``loss``, the reference's ``lm.py:508-521``) is a functional
 forward over a dict of the parameters (``train_params``: the fp32 masters,
@@ -87,8 +92,15 @@ K4), and each block is rematerialized in the backward when ``cfg.remat
 == 'full'`` (``torch.utils.checkpoint``).  The loss is
 ``models.loss.vocab_parallel_xent`` against the tied embedding, with
 paligemma's prefix targets ignored and an MoE's ``0.01 * aux /
-n_layers`` added.  The recurrent mixers and whisper's encoder have no
-training forward yet (they raise).
+n_layers`` added.  A recurrent mixer's block is ``h + mixer(xn)`` with
+no cache (the reference's ``lm.py:259-265``), its library products and
+plain torch under autograd, then the MLP with its fold
+(recurrentgemma), or with ``d_ff`` 0 the next norm standalone (xlstm,
+``lm.py:305-309``).  A mixer's weights that it multiplies at fp32 but
+holds at a narrower ``param_dtype`` (``WIDENED``: recurrentgemma's bf16
+gates) are widened at use, as the reference's are, so their gradients
+and updates round to that dtype as the reference's do.  Whisper's
+encoder has no training forward yet (it raises).
 """
 from __future__ import annotations
 
@@ -126,10 +138,6 @@ MIXERS = {"rglru": (RGLRU, rglru_apply, rglru_cache),
           "slstm": (xlstm.SLSTM, xlstm.slstm_apply,
                     lambda cfg, batch, cd, dev: xlstm.slstm_cache(cfg, batch,
                                                                   dev))}
-# the mixers' weights the port holds at fp32 where the reference holds them
-# at ``param_dtype`` and widens them at use: drawn at ``param_dtype``,
-# written back at it (``convert.to_jax_params``)
-WIDENED = {"rglru": ("w_a", "w_i"), "slstm": ("w_in",)}
 
 
 # the paged serving cache: one {"kp", "vp"} pair of page pools a layer
@@ -170,15 +178,13 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """Refuse a model the training forward does not cover: the recurrent
-    mixers and whisper's encoder-decoder (a later training slice)."""
-    untrained = [k for k in cfg.block_pattern if k in MIXERS] \
-        + (["encoder-decoder"] if cfg.encdec else [])
-    if untrained:
+    """Refuse a model the training forward does not cover: whisper's
+    encoder-decoder (a later training slice)."""
+    if cfg.encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains attention decoders (dense or "
-            f"MoE, with or without a patch prefix); {untrained} have no "
-            f"training forward yet")
+            f"{cfg.name}: the port trains decoders (attention, dense or "
+            f"MoE, with or without a patch prefix, and the recurrent "
+            f"mixers); the encoder-decoder has no training forward yet")
 
 
 def _mlp_names(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -206,6 +212,36 @@ class MLP(nn.Module):
 
     def params(self) -> Dict[str, torch.Tensor]:
         return {name: getattr(self, name) for name in self.names}
+
+
+def _mixer_casts(mix: nn.Module, dtype: torch.dtype
+                 ) -> Dict[str, torch.dtype]:
+    """The weights of a recurrent mixer that its serving copy at ``dtype``
+    casts, each with its serving dtype: the compute-dtype weights
+    (``COMPUTE_WEIGHTS``) wider than ``dtype``, and the weights it
+    multiplies at fp32 (``WIDENED``) held narrower."""
+    f32 = torch.float32
+    out = {n: dtype for n in mix.COMPUTE_WEIGHTS
+           if getattr(mix, n).dtype.itemsize > dtype.itemsize}
+    out.update({n: f32 for n in mix.WIDENED
+                if getattr(mix, n).dtype.itemsize < f32.itemsize})
+    return out
+
+
+def _cast_mixer(mix: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A recurrent mixer's serving copy at ``dtype``: the weights of
+    ``_mixer_casts`` cast once, the others shared; the mixer itself where
+    none is cast."""
+    casts = _mixer_casts(mix, dtype)
+    if not casts:
+        return mix
+    c = type(mix).__new__(type(mix))
+    nn.Module.__init__(c)
+    for name, p in mix.named_parameters(recurse=False):
+        setattr(c, name, nn.Parameter(p.detach().to(casts[name]),
+                                      requires_grad=False)
+                if name in casts else p)
+    return c
 
 
 def _norm(cfg: ArchConfig, device) -> nn.Parameter:
@@ -239,9 +275,9 @@ class Block(nn.Module):
     def cast(cls, blk: "Block", cfg: ArchConfig,
              dtype: torch.dtype) -> "Block":
         """The serving copy of ``blk`` at ``dtype``: the packed ``wqkv``,
-        ``wo`` and the MLP's projections cast once; everything else (norm
-        scales, an MoE, a recurrent mixer, whisper's cross-attention)
-        shared."""
+        ``wo`` and the MLP's projections cast once, and a recurrent
+        mixer's ``_cast_mixer`` copy; everything else (norm scales, an
+        MoE, the mixers' fp32 maps, whisper's cross-attention) shared."""
         c = cls.__new__(cls)
         nn.Module.__init__(c)
         for name, child in blk.named_children():
@@ -251,25 +287,33 @@ class Block(nn.Module):
             c.ln2 = blk.ln2
         if cfg.encdec:
             c.lnx = blk.lnx
+        def narrow(w):     # a float master wider than ``dtype``, cast
+            w = w.detach()
+            return w.to(dtype) if w.dtype.itemsize > dtype.itemsize else w
         if hasattr(blk, "attn"):
             c.attn = Attention(cfg, None, None, weights={
-                name: getattr(blk.attn, name).detach().to(dtype)
+                name: narrow(getattr(blk.attn, name))
                 for name in ("wqkv", "wo")})
+        else:
+            c.mix = _cast_mixer(blk.mix, dtype)
         if cfg.d_ff > 0 and not cfg.moe:
             c.ffn = MLP(cfg, None, None, weights={
-                name: getattr(blk.ffn, name).detach().to(dtype)
+                name: narrow(getattr(blk.ffn, name))
                 for name in blk.ffn.names})
         return c
 
     @classmethod
-    def quantized(cls, blk: "Block", cfg: ArchConfig) -> "Block":
+    def quantized(cls, blk: "Block", cfg: ArchConfig,
+                  mix: Optional[nn.Module] = None) -> "Block":
         """The int8 serving copy of ``blk``: the packed ``wqkv``, ``wo``
         and the MLP's projections quantized column-wise; the norm scales,
         whisper's cross-attention, an MoE (router, experts and any
         shared expert) and every recurrent mixer shared (the reference's
         pass skips ``xattn``, an MoE's ``ffn`` and every mixer,
-        ``lm.py:194-208``).  An xLSTM block (a mixer and no FFN) has no
-        leaf to quantize: its copy shares everything."""
+        ``lm.py:194-208``): ``blk``'s mixer, or ``mix`` where given (its
+        copy at the compute dtype, ``_cast_mixer``).  An xLSTM block (a
+        mixer and no FFN) has no leaf to quantize: its copy shares
+        everything."""
         q = cls.__new__(cls)
         nn.Module.__init__(q)
         q.ln1 = blk.ln1
@@ -277,7 +321,7 @@ class Block(nn.Module):
             q.lnx, q.xattn = blk.lnx, blk.xattn
         qw = quantize_weight_colwise
         if hasattr(blk, "mix"):
-            q.mix = blk.mix
+            q.mix = blk.mix if mix is None else mix
         else:
             q.attn = Attention(cfg, None, None, weights={
                 "wqkv": qw(blk.attn.wqkv), "wo": qw(blk.attn.wo)})
@@ -331,12 +375,11 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.compute_dtype = _dtype(cfg.compute_dtype)
         dt = _dtype(cfg.param_dtype)
-        # whisper's, paligemma's and xlstm's float32 param_dtype is the
-        # reference's training master copy; served, their projection
-        # weights are held at the compute dtype, so no GEMM casts them at
-        # use
+        # whisper's and paligemma's float32 param_dtype is the reference's
+        # training master copy; served, their projection weights are held
+        # at the compute dtype, so no GEMM casts them at use
         proj = (self.compute_dtype if cfg.encdec or cfg.prefix_tokens
-                or "mlstm" in cfg.block_pattern else dt)
+                else dt)
         self.embed = nn.Parameter(
             torch.empty(cfg.padded_vocab(), cfg.d_model, dtype=dt,
                         device=self.device), requires_grad=False)
@@ -346,12 +389,13 @@ class Model(nn.Module):
             for i in range(cfg.n_layers))
         if cfg.encdec:
             self.encoder = Encoder(cfg, proj, self.device)
-        # float projections wider than the compute dtype are served from a
+        # float projections wider than the compute dtype, and a mixer's
+        # weights multiplied at fp32 but held narrower, are served from a
         # cast copy (``served_blocks``)
-        self._cast_to = (self.compute_dtype
-                         if proj.is_floating_point and proj != self.compute_dtype
-                         and self.compute_dtype.itemsize < proj.itemsize
-                         else None)
+        cd = self.compute_dtype
+        self._cast_to = (cd if cd.itemsize < proj.itemsize or any(
+            _mixer_casts(b.mix, cd) for b in self.blocks if hasattr(b, "mix"))
+            else None)
         self._served: Optional[Tuple[tuple, List[Block]]] = None
 
     @torch.no_grad()
@@ -363,15 +407,13 @@ class Model(nn.Module):
         cw); an RG-LRU mixer's ``lam`` its ``lru_log`` init, an mLSTM's
         forget bias ``b_f`` ``linspace(3, 6, n_heads)`` and an sLSTM's
         recurrent map ``r`` N(0, 0.05^2) (its ``scale`` overrides the
-        fan-in, ``param.py:143-145``); the weights held at fp32 where the
-        reference holds them at ``param_dtype`` (``WIDENED``) drawn at
-        ``param_dtype`` as the reference's are.  Drawn by
+        fan-in, ``param.py:143-145``); each drawn at fp32 and rounded to
+        its parameter's dtype.  Drawn by
         ``torch.Generator`` on the model's device, so it does not reproduce
         the JAX package's bits (``convert.from_jax_params`` carries those
         across)."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        pdt = _dtype(cfg.param_dtype)
         for name, p in self.named_parameters():
             parts = name.split(".")
             leaf = parts[-1]
@@ -393,8 +435,6 @@ class Model(nn.Module):
                      else 1.0 / math.sqrt(fan_in))
             w = torch.randn(p.shape, generator=gen, device=self.device,
                             dtype=torch.float32).mul_(scale)
-            if mix and leaf in WIDENED.get(kind, ()):
-                w = w.to(pdt)
             p.copy_(w)
         return self
 
@@ -419,9 +459,14 @@ class Model(nn.Module):
         one: nothing serves the float weights afterwards."""
         if self.int8:
             return self
+        # a recurrent mixer serves its compute-dtype copy (``_cast_mixer``)
+        mixes = [_cast_mixer(b.mix, self.compute_dtype)
+                 if hasattr(b, "mix") else None for b in self.blocks]
         if release:
+            self._served = None
             for i in range(len(self.blocks)):
-                self.blocks[i] = Block.quantized(self.blocks[i], self.cfg)
+                self.blocks[i] = Block.quantized(self.blocks[i], self.cfg,
+                                                 mixes[i])
             self.int8 = True
             return self
         q = Model.__new__(Model)
@@ -429,8 +474,8 @@ class Model(nn.Module):
         q.cfg, q.int8, q.device = self.cfg, True, self.device
         q.compute_dtype = self.compute_dtype
         q.embed, q.final_norm = self.embed, self.final_norm
-        q.blocks = nn.ModuleList(Block.quantized(b, self.cfg)
-                                 for b in self.blocks)
+        q.blocks = nn.ModuleList(Block.quantized(b, self.cfg, m)
+                                 for b, m in zip(self.blocks, mixes))
         if self.cfg.encdec:
             q.encoder = self.encoder
         return q
@@ -440,17 +485,22 @@ class Model(nn.Module):
             if hasattr(blk, "attn"):
                 yield blk.attn.wqkv
                 yield blk.attn.wo
+            else:
+                for name in blk.mix.COMPUTE_WEIGHTS + blk.mix.WIDENED:
+                    yield getattr(blk.mix, name)
             if isinstance(getattr(blk, "ffn", None), MLP):
                 yield from blk.ffn.params().values()
 
     def served_blocks(self) -> List[Block]:
         """The blocks the serving entry points run: ``self.blocks``, or,
         where the float projections are wider than the compute dtype
-        (internlm2-1.8b and the smoke configs: float32 masters, bf16
-        compute), ``Block.cast`` copies at the compute dtype.  The copy is
-        made once and kept while no projection weight changes (each
-        weight's identity and version counter), so a step reads the
-        weights at the compute dtype and casts nothing."""
+        (internlm2-1.8b, xlstm-350m and the smoke configs: float32
+        masters, bf16 compute) or a mixer holds weights it multiplies at
+        fp32 narrower (recurrentgemma-9b's bf16 gates), ``Block.cast``
+        copies at the compute dtype.  The copy is made once and kept while
+        no projection weight changes (each weight's identity and version
+        counter), so a step reads the weights at the dtypes it multiplies
+        them at and casts nothing."""
         if self.int8 or getattr(self, "_cast_to", None) is None:
             return list(self.blocks)
         key = tuple((id(w), w._version) for w in self._projections())
@@ -642,19 +692,38 @@ class Model(nn.Module):
         return {name: p.detach().requires_grad_(True)
                 for name, p in self.named_parameters()}
 
+    def _mixer_train(self, params: Dict[str, torch.Tensor], i: int,
+                     xn: torch.Tensor) -> torch.Tensor:
+        """Block ``i``'s recurrent mixer on the normed stream with
+        gradients: its apply with no cache (the reference's
+        ``mode="train"``) on its parameters' leaves."""
+        p = f"blocks.{i}.mix."
+        mix = types.SimpleNamespace(**{
+            k[len(p):]: v for k, v in params.items() if k.startswith(p)})
+        return MIXERS[self.cfg.kind(i)][1](mix, xn, self.cfg,
+                                           self.compute_dtype, None, False)
+
     def _train_block(self, params: Dict[str, torch.Tensor], i: int,
                      positions: torch.Tensor, h: torch.Tensor,
                      xn: torch.Tensor, next_scale: torch.Tensor):
         """Block ``i`` of the training forward: ``(h, rmsnorm(h,
         next_scale), aux)``, the serving block's arithmetic with gradients
-        (``attention_train``, ``mlp_train``; an MoE's ``moe_apply`` and the
-        standalone norm after it)."""
+        (``attention_train`` or a recurrent mixer, ``mlp_train``; an MoE's
+        ``moe_apply`` and the standalone norm after it; with ``d_ff`` 0 the
+        standalone norm alone)."""
         cfg, cd = self.cfg, self.compute_dtype
         kind, p = cfg.kind(i), f"blocks.{i}."
-        h = h + attention_train(params[p + "attn.wqkv"],
-                                params[p + "attn.wo"], xn, cfg, cd,
-                                kind=kind, theta=self._theta(kind),
-                                positions=positions)
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        if kind in MIXERS:
+            h = h + self._mixer_train(params, i, xn)
+        else:
+            h = h + attention_train(params[p + "attn.wqkv"],
+                                    params[p + "attn.wo"], xn, cfg, cd,
+                                    kind=kind, theta=self._theta(kind),
+                                    positions=positions)
+        if cfg.d_ff == 0:
+            # an xLSTM block has no FFN: the next norm runs standalone
+            return h, ag.rmsnorm(h, next_scale, cfg.norm_eps), zero
         xn2 = ag.rmsnorm(h, params[p + "ln2"], cfg.norm_eps)
         if cfg.moe:
             ffn = types.SimpleNamespace(**{
@@ -667,7 +736,7 @@ class Model(nn.Module):
                            _mlp_names(cfg)}, xn2, cd, residual=h,
                           norm_scale=next_scale, norm_eps=cfg.norm_eps,
                           gated=cfg.gated_mlp)
-        return h, xn, torch.zeros((), dtype=torch.float32, device=h.device)
+        return h, xn, zero
 
     def train_forward(self, params: Dict[str, torch.Tensor],
                       tokens: torch.Tensor,

@@ -37,20 +37,21 @@ def vocab_parallel_logits(h: torch.Tensor, head: torch.Tensor,
 def _chunk_nll(hc: torch.Tensor, head: torch.Tensor, tgt: torch.Tensor,
                final_softcap: Optional[float]):
     """(sum of the kept tokens' NLL, their count) of one chunk: fp32 logits
-    [B, C, Vp] (TF32 off), the final softcap, the log-sum-exp with the max
-    held out of the gradient, targets < 0 ignored."""
+    [B, C, Vp] (TF32 off; f64 for an f64 ``hc``), the final softcap, the
+    log-sum-exp with the max held out of the gradient, targets < 0
+    ignored."""
     vocab = head.shape[0]
+    lt = torch.promote_types(hc.dtype, torch.float32)
     with full_fp32():
-        logits = torch.matmul(hc.to(torch.float32),
-                              head.to(torch.float32).t())
+        logits = torch.matmul(hc.to(lt), head.to(lt).t())
     logits = softcap_scores(logits, final_softcap)
     mx = torch.amax(logits.detach(), dim=-1)
     se = torch.sum(torch.exp(logits - mx[..., None]), dim=-1)
     lse = mx + torch.log(se)
     ok = (tgt >= 0) & (tgt < vocab)
     tl = torch.gather(logits, -1, torch.clamp(tgt, 0, vocab - 1).long()
-                      [..., None])[..., 0] * ok.to(torch.float32)
-    w = (tgt >= 0).to(torch.float32)
+                      [..., None])[..., 0] * ok.to(lt)
+    w = (tgt >= 0).to(lt)
     return torch.sum((lse - tl) * w), torch.sum(w)
 
 
@@ -63,12 +64,14 @@ def vocab_parallel_xent(h: torch.Tensor, head: torch.Tensor,
     against every row of the (padded) ``head`` [Vp, D], in chunks of
     ``min(chunk, S)`` positions (S a multiple of it), each chunk's logits
     recomputed in the backward (``torch.utils.checkpoint``), so the [B, S,
-    Vp] logits never exist; the chunks' sums are added in order."""
+    Vp] logits never exist; the chunks' sums are added in order (f64 for
+    an f64 ``h``)."""
     s = h.shape[1]
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
-    nll = torch.zeros((), dtype=torch.float32, device=h.device)
-    w = torch.zeros((), dtype=torch.float32, device=h.device)
+    lt = torch.promote_types(h.dtype, torch.float32)
+    nll = torch.zeros((), dtype=lt, device=h.device)
+    w = torch.zeros((), dtype=lt, device=h.device)
     for c0 in range(0, s, chunk):
         cn, cw = checkpoint(_chunk_nll, h[:, c0:c0 + chunk], head,
                             targets[:, c0:c0 + chunk], final_softcap,

@@ -18,9 +18,13 @@ results:
   order.  On the smoke config the mixer's bf16 output is then bitwise the
   reference's, its fp32 output within 2e-7 of its scale;
 - the gates ``w_a``/``w_i`` multiplied at fp32, full fp32 on every device
-  (``layers.fp32_matmul``).  The mixer holds them at fp32: a bf16 weight
-  widens exactly, so this changes no bit and spares each call the cast
-  (1.75 GB written and read again a decode step at full width);
+  (``layers.fp32_matmul``).  The mixer holds them at the block's dtype,
+  the reference's ``param_dtype`` (``WIDENED``), and widens them at use
+  as the reference does, so that training rounds their gradients and
+  updates as the reference's bf16 leaves take them; the serving copy
+  (``lm._cast_mixer``) holds them widened once, which changes no bit and
+  spares each call the cast (1.75 GB written and read again a decode
+  step at full width);
 - ``softplus`` as ``logaddexp(x, 0)`` (``jax.nn.softplus``; torch's own
   returns ``x`` above 20);
 - the prefill scan over the affine maps ``h -> a h + b`` in
@@ -35,7 +39,11 @@ The cache of a layer is ``{"h": fp32 [B, W], "conv": [B, cw - 1, W]}``
 in the compute dtype (the reference's ``rglru_cache_defs``): the prefill
 writes the state after its last token, a decode step replaces both
 entries (new tensors, so a caller's shallow copy of the dict keeps the
-state it had: ``lm.Cache.fork``).
+state it had: ``lm.Cache.fork``).  Training (no cache, the reference's
+``mode="train"``) runs the prefill's arithmetic under autograd and writes
+no state.  Its one tie rule is the floor of the gated input's scale:
+``torch.maximum`` splits a tie's gradient evenly, as ``jnp.maximum``
+does (``torch.clamp`` would pass it whole).
 """
 from __future__ import annotations
 
@@ -53,19 +61,23 @@ _C = 8.0
 
 class RGLRU(nn.Module):
     """The reference's ``rglru_defs``: ``in_x``/``in_g [D, W]``, ``conv
-    [cw, W]``, ``out [W, D]`` at ``dtype``, the gates ``w_a``/``w_i [W,
-    W]`` and ``lam [W]`` at fp32."""
+    [cw, W]``, ``out [W, D]`` and the gates ``w_a``/``w_i [W, W]`` at
+    ``dtype``, ``lam [W]`` at fp32."""
+
+    # the weights held at the block's dtype and used at the compute dtype
+    COMPUTE_WEIGHTS = ("in_x", "in_g", "conv", "out")
+    # the weights held at the block's dtype and used at fp32
+    WIDENED = ("w_a", "w_i")
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
         d, w = cfg.d_model, cfg.lru_width or cfg.d_model
-        f32 = torch.float32
-        shapes = {"in_x": ((d, w), dtype), "in_g": ((d, w), dtype),
-                  "conv": ((cfg.conv_width, w), dtype),
-                  "w_a": ((w, w), f32), "w_i": ((w, w), f32),
-                  "lam": ((w,), f32), "out": ((w, d), dtype)}
-        for name, (shape, dt) in shapes.items():
+        shapes = {"in_x": (d, w), "in_g": (d, w), "conv": (cfg.conv_width, w),
+                  "w_a": (w, w), "w_i": (w, w), "lam": (w,), "out": (w, d)}
+        for name, shape in shapes.items():
+            dt = (dtype if name in self.COMPUTE_WEIGHTS + self.WIDENED
+                  else torch.float32)
             setattr(self, name, nn.Parameter(
                 torch.empty(shape, dtype=dt, device=device),
                 requires_grad=False))
@@ -119,13 +131,14 @@ def gates(mix: RGLRU, xc: torch.Tensor
     """The decay ``a`` and the gated input ``b`` [B, S, W] at fp32 from the
     conv'd branch (the reference's ``_gates``)."""
     x32 = xc.to(torch.float32)
-    r = torch.sigmoid(fp32_matmul(x32, mix.w_a))
-    i = torch.sigmoid(fp32_matmul(x32, mix.w_i))
+    r = torch.sigmoid(fp32_matmul(x32, mix.w_a.to(torch.float32)))
+    i = torch.sigmoid(fp32_matmul(x32, mix.w_i.to(torch.float32)))
     sp = torch.logaddexp(mix.lam, torch.zeros((), dtype=torch.float32,
                                               device=mix.lam.device))
     log_a = (-_C * sp) * r
     a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+    floor = torch.full((), 1e-12, dtype=torch.float32, device=xc.device)
+    b = torch.sqrt(torch.maximum(1.0 - torch.exp(2.0 * log_a), floor)) \
         * (i * x32)
     return a, b
 
@@ -156,13 +169,17 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_apply(mix: RGLRU, x: torch.Tensor, cfg: ArchConfig,
-                compute_dtype: torch.dtype, cache: Dict[str, torch.Tensor],
+                compute_dtype: torch.dtype,
+                cache: Optional[Dict[str, torch.Tensor]],
                 decode: bool) -> torch.Tensor:
     """The mixer on the normed stream x [B, S, D] -> [B, S, D] in the
     compute dtype (the reference's ``rglru_apply``).  Prefill (``decode``
     False) scans from a zero state and writes the state after the last
     position into ``cache``; a decode step (S = 1) reads the state and
-    replaces it with the updated one."""
+    replaces it with the updated one.  With ``cache`` None (training) the
+    prefill's arithmetic writes nothing.  ``mix`` is the module or any
+    object with its weights as attributes (training: the parameters'
+    leaves)."""
     cd = compute_dtype
     xb = torch.matmul(x, mix.in_x.to(cd))
     gb = torch.matmul(x, mix.in_g.to(cd))
@@ -175,8 +192,10 @@ def rglru_apply(mix: RGLRU, x: torch.Tensor, cfg: ArchConfig,
         h = h[:, None]
     else:
         h = linear_scan(a, b)
-        cache["h"] = h[:, -1].clone()
-    cache["conv"] = conv_state
+        if cache is not None:
+            cache["h"] = h[:, -1].clone()
+    if cache is not None:
+        cache["conv"] = conv_state
     g = F.gelu(gb.to(torch.float32), approximate="tanh").to(cd)
     return torch.matmul(h.to(cd) * g, mix.out.to(cd))
 

@@ -12,9 +12,9 @@ mLSTM, per head (state C [hd, hd], n [hd], stabilizer m):
 
 The reference computes both mixers outside Pallas (``jnp.einsum``,
 ``lax.scan``), so the port's products are library products, as the
-RG-LRU's are, and its one kernel on this path is the row norm
-(``layers.rmsnorm``) of each mixer's inner norm.  What each step asks
-for:
+RG-LRU's are, and its one kernel on this path is the row norm of each
+mixer's inner norm (``kernels.autograd.rmsnorm``: the row-norm kernel,
+with its backward in training).  What each step asks for:
 
 - the projections (``up_x``, ``up_g``, ``wq``, ``wk``, ``wv``, ``down``,
   the sLSTM's ``out``) and the causal conv (``rglru.causal_conv``, shared
@@ -22,7 +22,9 @@ for:
 - everything of the recurrences at fp32 in full fp32 (``layers.
   full_fp32``: TF32 off): the gate maps ``w_i``/``w_f`` (N = n_heads),
   the sLSTM's input map ``w_in`` and its block-diagonal recurrent map
-  ``r``, and every product of the chunk and the step;
+  ``r``, and every product of the chunk and the step (``rec_dtype``: f64
+  in an f64 run, which the tests take as their exact anchor; the
+  reference keeps fp32 there);
 - the mLSTM's head dim ``2 d / n_heads`` (its width is ``2 d``), not
   ``cfg.hd``;
 - ``log_sigmoid(x) = -logaddexp(-x, 0)`` (``jax.nn.log_sigmoid``; torch's
@@ -34,7 +36,8 @@ for:
   (ROADMAP F10; ``prefill_chunk`` refuses other lengths);
 - the sLSTM's scan one token at a time (a Python loop over S, its gate
   pre-activations laid out [S, heads, B, 4, W / heads] once, so that a
-  step is one batched product with ``r`` and one add before the gates).
+  step is one batched product with ``r`` and one add before the gates;
+  in training one autograd node, ``_SLSTMScan``).
 
 The cache of a layer is the state after its last token: the mLSTM's
 ``{"C" [B, H, hd, hd], "n" [B, H, hd], "m" [B, H]}`` at fp32 and its
@@ -44,17 +47,27 @@ sLSTM's ``{"c", "n", "m", "h"}`` [B, d] at fp32 (the reference's
 tensors, not views of the prefill's activations); a decode step replaces
 each entry with a new tensor, so a shallow copy of the dict keeps the
 state it had (``lm.Cache.fork``).
+
+Training (no cache, the reference's ``mode="train"``) runs the prefill's
+arithmetic under autograd and writes no state.  Its ties split their
+gradients as the reference's do: the row max is ``amax`` (even shares
+among equal entries, as ``jnp.max``), and ``torch.maximum`` halves a
+tie's gradient as ``jnp.maximum`` does.  The sLSTM's first token from the
+zero state ties ``max(n, 1)`` wherever ``logi >= logf`` (``n = exp(logi -
+m) = 1`` exactly); that tie's share reaches no input, since ``m = logi``
+there gives ``n`` a zero derivative.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import fp32_matmul, full_fp32, rmsnorm
+from repro_torch.kernels.autograd import rmsnorm
+from repro_torch.models.layers import fp32_matmul, full_fp32
 from repro_torch.models.rglru import causal_conv
 
 _NEG = -1e30
@@ -64,12 +77,14 @@ CHUNK = 64
 _EPS = 1e-6
 
 
-def _params(module: nn.Module, shapes: Dict[str, tuple], fp32: tuple,
+def _params(module: nn.Module, shapes: Dict[str, tuple],
             dtype: torch.dtype, device) -> None:
-    """``shapes``' parameters at ``dtype``, those named in ``fp32`` (the
-    weights the reference multiplies at fp32) at fp32."""
+    """``shapes``' parameters: the module's ``COMPUTE_WEIGHTS`` and
+    ``WIDENED`` at ``dtype``, the others (the weights the reference holds
+    and multiplies at fp32) at fp32."""
     for name, shape in shapes.items():
-        dt = torch.float32 if name in fp32 else dtype
+        dt = (dtype if name in module.COMPUTE_WEIGHTS + module.WIDENED
+              else torch.float32)
         setattr(module, name, nn.Parameter(
             torch.empty(shape, dtype=dt, device=device),
             requires_grad=False))
@@ -81,6 +96,11 @@ class MLSTM(nn.Module):
     ``dtype``; the gate maps ``w_i``/``w_f [2D, H]``, their biases ``b_i``/
     ``b_f [H]`` and the inner norm's scale ``norm [2D]`` at fp32."""
 
+    # the weights held at the block's dtype and used at the compute dtype
+    COMPUTE_WEIGHTS = ("up_x", "up_g", "conv", "wq", "wk", "wv", "down")
+    # the weights held at the block's dtype and used at fp32
+    WIDENED = ()
+
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
         super().__init__()
         d, nh = cfg.d_model, cfg.n_heads
@@ -89,23 +109,30 @@ class MLSTM(nn.Module):
                        "conv": (cfg.conv_width, w), "wq": (w, w),
                        "wk": (w, w), "wv": (w, w), "w_i": (w, nh),
                        "w_f": (w, nh), "b_i": (nh,), "b_f": (nh,),
-                       "norm": (w,), "down": (w, d)},
-                ("w_i", "w_f", "b_i", "b_f", "norm"), dtype, device)
+                       "norm": (w,), "down": (w, d)}, dtype, device)
 
 
 class SLSTM(nn.Module):
     """The reference's ``slstm_defs``: the input map ``w_in [D, 4D]`` (z,
-    i, f, o), the block-diagonal recurrent map ``r [4, H, D/H, D/H]``,
-    ``bias [4D]`` and ``norm [D]`` at fp32 (``w_in`` is a ``param_dtype``
-    weight in the reference, widened at use: ``lm.WIDENED``); ``out [D,
-    D]`` at ``dtype``."""
+    i, f, o) and ``out [D, D]`` at ``dtype`` (``w_in`` is a
+    ``param_dtype`` weight in the reference, widened at use); the
+    block-diagonal recurrent map ``r [4, H, D/H, D/H]``, ``bias [4D]`` and
+    ``norm [D]`` at fp32."""
+
+    COMPUTE_WEIGHTS = ("out",)
+    WIDENED = ("w_in",)
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
         super().__init__()
         d, nh = cfg.d_model, cfg.n_heads
         _params(self, {"w_in": (d, 4 * d), "r": (4, nh, d // nh, d // nh),
                        "bias": (4 * d,), "norm": (d,), "out": (d, d)},
-                ("w_in", "r", "bias", "norm"), dtype, device)
+                dtype, device)
+
+
+def rec_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    """The recurrences' dtype: fp32, or f64 in an f64 run."""
+    return torch.promote_types(compute_dtype, torch.float32)
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -138,11 +165,12 @@ def mlstm_chunk(carry: Carry, qc, kc, vc, logf, logi
                 ) -> Tuple[Carry, torch.Tensor]:
     """One chunk of the chunkwise form (the reference's ``_mlstm_chunk``).
     qc/kc/vc [B, L, H, hd]; logf/logi [B, L, H] fp32; carry = (C [B, H,
-    hd, hd], n [B, H, hd], m [B, H]) at fp32.  Returns the carry at the
-    chunk's end and h [B, L, H, hd] fp32.  Call under ``full_fp32``."""
+    hd, hd], n [B, H, hd], m [B, H]) at fp32 (``rec_dtype``).  Returns
+    the carry at the chunk's end and h [B, L, H, hd] at fp32.  Call under
+    ``full_fp32``."""
     C, n, m = carry
     L, hd = qc.shape[1], qc.shape[3]
-    f32 = torch.float32
+    f32 = logf.dtype
     qc, kc, vc = qc.to(f32), kc.to(f32), vc.to(f32)
     kc = kc * hd ** -0.5
     Fc = torch.cumsum(logf, dim=1)                          # [B, L, H]
@@ -182,7 +210,7 @@ def mlstm_step(carry: Carry, q, k, v, logf, logi
     logf/logi [B, H] fp32.  Returns the new carry and h [B, H, hd] fp32.
     Call under ``full_fp32``."""
     C, n, m = carry
-    f32 = torch.float32
+    f32 = logf.dtype
     q, k, v = q.to(f32), k.to(f32), v.to(f32)
     k = k * k.shape[-1] ** -0.5
     m_new = torch.maximum(logf + m, logi)
@@ -198,14 +226,17 @@ def mlstm_step(carry: Carry, q, k, v, logf, logi
 
 
 def mlstm_apply(mix: MLSTM, x: torch.Tensor, cfg: ArchConfig,
-                compute_dtype: torch.dtype, cache: Dict[str, torch.Tensor],
+                compute_dtype: torch.dtype,
+                cache: Optional[Dict[str, torch.Tensor]],
                 decode: bool) -> torch.Tensor:
     """The mLSTM on the normed stream x [B, S, D] -> [B, S, D] in the
     compute dtype (the reference's ``mlstm_apply``).  Prefill (``decode``
     False) runs the chunkwise form from a zero state (``m = 0``) and
     writes the state after the last position into ``cache``; a decode
-    step (S = 1) reads the state and replaces it."""
-    cd, f32 = compute_dtype, torch.float32
+    step (S = 1) reads the state and replaces it.  With ``cache`` None
+    (training) the prefill's arithmetic writes nothing.  ``mix`` is the
+    module or any object with its weights as attributes."""
+    cd, f32 = compute_dtype, rec_dtype(compute_dtype)
     b, s, _ = x.shape
     nh = cfg.n_heads
     chunk = None if decode else prefill_chunk(s)
@@ -244,8 +275,10 @@ def mlstm_apply(mix: MLSTM, x: torch.Tensor, cfg: ArchConfig,
                 hs.append(hc.to(cd))
             h = torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]
     del q, k, v
-    cache["C"], cache["n"], cache["m"] = carry
-    cache["conv"] = conv_state
+    if cache is not None:
+        cache["C"], cache["n"], cache["m"] = carry
+        cache["conv"] = conv_state
+    del carry, conv_state
     hflat = rmsnorm(h.reshape(b, s, w).to(cd), mix.norm, _EPS)
     out = hflat * F.silu(gb.to(f32)).to(cd)
     return torch.matmul(out, mix.down.to(cd))
@@ -269,41 +302,164 @@ def mlstm_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype,
 # sLSTM
 # ---------------------------------------------------------------------------
 
-def slstm_step(r_cat: torch.Tensor, carry, xz_t: torch.Tensor):
-    """One token (the reference's ``_slstm_step``), its tensors by head:
-    carry = (c, n, m, h) each [H, B, W/H] fp32; ``xz_t`` [H, B, 4, W/H]
-    the token's input map and bias (z, i, f, o); ``r_cat`` [H, W/H,
-    4 W/H], the recurrent map's four blocks side by side.  Returns the new
-    carry.  Call under ``full_fp32``."""
+def _step_parts(r_cat: torch.Tensor, carry, xz_t: torch.Tensor,
+                zero: torch.Tensor, one: torch.Tensor):
+    """``slstm_step``'s new carry and the values its backward reads: the
+    gates z, o, iw, fw, log f, its pre-activation, logf + m and log i."""
     c, n, m, h = carry
     nh, b, y = h.shape
     pre = xz_t + torch.bmm(h, r_cat).view(nh, b, 4, y)
-    z = torch.tanh(pre[:, :, 0])
-    logi = pre[:, :, 1]
-    logf = log_sigmoid(pre[:, :, 2])
-    o = torch.sigmoid(pre[:, :, 3])
-    m_new = torch.maximum(logf + m, logi)
+    # one view each (one node for the backward, not four)
+    z, logi, f_pre, o = pre.unbind(2)
+    z = torch.tanh(z)
+    logf = -torch.logaddexp(-f_pre, zero)       # log_sigmoid
+    o = torch.sigmoid(o)
+    logf_m = logf + m
+    m_new = torch.maximum(logf_m, logi)
     iw = torch.exp(logi - m_new)
-    fw = torch.exp(logf + m - m_new)
+    fw = torch.exp(logf_m - m_new)
     c = fw * c + iw * z
     n = fw * n + iw
-    h = o * c / torch.maximum(n, torch.ones((), dtype=n.dtype,
-                                            device=n.device))
-    return c, n, m_new, h
+    h = o * c / torch.maximum(n, one)
+    return (c, n, m_new, h), (z, o, iw, fw, logf, f_pre, logf_m, logi)
+
+
+def slstm_step(r_cat: torch.Tensor, carry, xz_t: torch.Tensor,
+               zero: torch.Tensor, one: torch.Tensor):
+    """One token (the reference's ``_slstm_step``), its tensors by head:
+    carry = (c, n, m, h) each [H, B, W/H] fp32; ``xz_t`` [H, B, 4, W/H]
+    the token's input map and bias (z, i, f, o); ``r_cat`` [H, W/H,
+    4 W/H], the recurrent map's four blocks side by side; ``zero`` and
+    ``one`` 0-d constants of the carry's dtype and device (made once a
+    call, not once a token).  Returns the new carry.  Call under
+    ``full_fp32``."""
+    return _step_parts(r_cat, carry, xz_t, zero, one)[0]
+
+
+def slstm_scan(r_cat: torch.Tensor, carry, xz: torch.Tensor):
+    """The token loop from ``carry`` over xz [S, H, B, 4, W/H]: (the
+    stack of each token's h [S, H, B, W/H], the carry after the last)."""
+    one = torch.ones((), dtype=xz.dtype, device=xz.device)
+    zero = torch.zeros((), dtype=xz.dtype, device=xz.device)
+    hs = []
+    with full_fp32():
+        # the tokens' slices as one op (one backward node, where indexing
+        # xz token by token would give each token's gradient a zeroed
+        # [S, ...])
+        for xz_t in xz.unbind(0):
+            carry = slstm_step(r_cat, carry, xz_t, zero, one)
+            hs.append(carry[3])
+    return torch.stack(hs), carry
+
+
+def _tie_share(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``maximum(a, b)``'s share of its gradient for ``a``: 1 where a > b,
+    half at a tie (``jnp.maximum`` and ``torch.maximum`` split it), else
+    0."""
+    return (a > b).to(a.dtype) + 0.5 * (a == b).to(a.dtype)
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """Training's scan from the zero state as one autograd node.  Its
+    forward runs the loop recording nothing (under per-block remat twice,
+    the block's forward and its recomputation) and keeps each token's
+    carry and gates; its backward walks the tokens back by hand, the
+    derivative of each op of ``_step_parts`` as autograd forms it
+    (``tanh``'s ``1 - z^2``, ``sigmoid``'s ``(1 - o) o``, log_sigmoid's
+    ``exp(log f - f)``, the ties of both maxima split in half), then ``r``'s
+    gradient in one product over every token.  Recorded op by op, the loop
+    ran its ops three times over (twice inside the remat block's
+    checkpoint, once more to be differentiated) and as many backward
+    nodes, each paying the host's dispatch: a training step of xlstm was
+    host-bound."""
+
+    @staticmethod
+    def forward(ctx, r_cat, xz):
+        carry = _zero_carry(xz)
+        one = torch.ones((), dtype=xz.dtype, device=xz.device)
+        zero = torch.zeros((), dtype=xz.dtype, device=xz.device)
+        carries, parts = [carry], []
+        with full_fp32():
+            for xz_t in xz.unbind(0):
+                carry, saved = _step_parts(r_cat, carry, xz_t, zero, one)
+                carries.append(carry)
+                parts.append(saved)
+        # [S + 1, H, B, W/H] each: the carry before the first token and
+        # after each; [S, H, B, W/H] each: the gates
+        seq = [torch.stack(t) for t in zip(*carries)]
+        gates = [torch.stack(t) for t in zip(*parts)]
+        ctx.save_for_backward(r_cat, *seq, *gates)
+        return seq[3][1:]
+
+    @staticmethod
+    def backward(ctx, dh):
+        r_cat, c, n, m, h, *gates = ctx.saved_tensors
+        z, o, iw, fw, logf, f_pre, logf_m, logi = gates
+        s, nh, b, y = dh.shape
+        one = torch.ones((), dtype=dh.dtype, device=dh.device)
+        r_t = r_cat.transpose(1, 2)
+        gh_next = gc_next = gn_next = gm_next = torch.zeros_like(dh[0])
+        dpre = [None] * s
+        with full_fp32():
+            for t in range(s - 1, -1, -1):
+                gh = dh[t] + gh_next
+                den = torch.maximum(n[t + 1], one)
+                # h = (o c) / den
+                g_oc = gh / den
+                go = g_oc * c[t + 1]
+                gc = gc_next + g_oc * o[t]
+                gn = gn_next + (-g_oc * h[t + 1]) * _tie_share(n[t + 1], one)
+                # c = fw c' + iw z, n = fw n' + iw
+                gfw = gc * c[t] + gn * n[t]
+                giw = gc * z[t] + gn
+                gz = gc * iw[t]
+                gc_next, gn_next = gc * fw[t], gn * fw[t]
+                # fw = exp(logf_m - m), iw = exp(logi - m), m = max(logf_m,
+                # logi)
+                ef, ei = gfw * fw[t], giw * iw[t]
+                gm = gm_next - ef - ei
+                share = _tie_share(logf_m[t], logi[t])
+                g_logf_m = ef + gm * share
+                g_logi = ei + gm * (1.0 - share)
+                gm_next = g_logf_m           # logf_m = log f + m'
+                g_f = g_logf_m * torch.exp(logf[t] - f_pre[t])
+                g_z = gz * (1.0 - z[t] * z[t])
+                g_o = go * (1.0 - o[t]) * o[t]
+                g = torch.stack([g_z, g_logi, g_f, g_o], dim=2)
+                dpre[t] = g
+                gh_next = torch.bmm(g.view(nh, b, 4 * y), r_t)
+            dxz = torch.stack(dpre)                     # [S, H, B, 4, y]
+            # r's gradient over every token at once: h' [H, S B, y] against
+            # dpre [H, S B, 4 y]
+            h_prev = h[:-1].transpose(0, 1).reshape(nh, s * b, y)
+            dr = torch.bmm(h_prev.transpose(1, 2),
+                           dxz.transpose(0, 1).reshape(nh, s * b, 4 * y))
+        return dr, dxz
+
+
+def _zero_carry(xz: torch.Tensor):
+    """The zero state (c, n, m, h), each [H, B, W/H], of a scan over
+    xz [S, H, B, 4, W/H]."""
+    _, nh, b, _, y = xz.shape
+    return tuple(torch.zeros((nh, b, y), dtype=xz.dtype, device=xz.device)
+                 for _ in range(4))
 
 
 def slstm_apply(mix: SLSTM, x: torch.Tensor, cfg: ArchConfig,
-                compute_dtype: torch.dtype, cache: Dict[str, torch.Tensor],
+                compute_dtype: torch.dtype,
+                cache: Optional[Dict[str, torch.Tensor]],
                 decode: bool) -> torch.Tensor:
     """The sLSTM on the normed stream x [B, S, D] -> [B, S, D] in the
     compute dtype (the reference's ``slstm_apply``).  Prefill scans the S
     positions one at a time from a zero state and writes the state after
-    the last into ``cache``; a decode step reads and replaces it."""
-    cd, f32 = compute_dtype, torch.float32
+    the last into ``cache``; a decode step reads and replaces it.  With
+    ``cache`` None (training) the prefill's arithmetic writes nothing, and
+    the scan is one autograd node (``_SLSTMScan``)."""
+    cd, f32 = compute_dtype, rec_dtype(compute_dtype)
     b, s, w = x.shape
     nh = mix.r.shape[1]
     y = w // nh
-    xz = fp32_matmul(x.to(f32), mix.w_in) + mix.bias         # [B, S, 4W]
+    xz = fp32_matmul(x.to(f32), mix.w_in.to(f32)) + mix.bias  # [B, S, 4W]
     # [S, H, B, 4, W/H]: one token's slice is one add's operand
     xz = xz.view(b, s, 4, nh, y).permute(1, 3, 0, 2, 4).contiguous()
     r_cat = mix.r.permute(1, 2, 0, 3).reshape(nh, y, 4 * y)
@@ -311,20 +467,17 @@ def slstm_apply(mix: SLSTM, x: torch.Tensor, cfg: ArchConfig,
     def by_head(t):                                          # [B, W] ->
         return t.view(b, nh, y).transpose(0, 1).contiguous()
 
-    if decode:
-        carry = tuple(by_head(cache[k]) for k in ("c", "n", "m", "h"))
+    if cache is None:
+        hs = _SLSTMScan.apply(r_cat, xz)
     else:
-        carry = tuple(torch.zeros((nh, b, y), dtype=f32, device=x.device)
-                      for _ in range(4))
-    hs = []
-    with full_fp32():
-        for t in range(s):
-            carry = slstm_step(r_cat, carry, xz[t])
-            hs.append(carry[3])
+        carry = (tuple(by_head(cache[k]) for k in ("c", "n", "m", "h"))
+                 if decode else _zero_carry(xz))
+        hs, carry = slstm_scan(r_cat, carry, xz)
+        for key, t in zip(("c", "n", "m", "h"), carry):
+            cache[key] = t.transpose(0, 1).reshape(b, w)
+        del carry
     del xz
-    for key, t in zip(("c", "n", "m", "h"), carry):
-        cache[key] = t.transpose(0, 1).reshape(b, w)
-    h = torch.stack(hs).permute(2, 0, 1, 3).reshape(b, s, w)
+    h = hs.permute(2, 0, 1, 3).reshape(b, s, w)
     h = rmsnorm(h.to(cd), mix.norm, _EPS)
     return torch.matmul(h, mix.out.to(cd))
 

@@ -104,7 +104,8 @@ def test_param_count_is_the_references_f8():
     w] gates and ``lam`` [w], so it says 8.52 B where the model holds 9.40
     B, 26 x 2 (w^2 - w) fewer.  The port copies the reckoning and states bytes from its
     tensors: 38 layers at full width, 12 of them local attention (16 q
-    heads over one kv head of 256, window 2048), the gates at fp32."""
+    heads over one kv head of 256, window 2048), the gates at bf16 as the
+    reference holds them (the served copy widens them to fp32)."""
     cfg = get_config(ARCH)
     model = Model(cfg, device="meta")
     held = sum(p.numel() for p in model.parameters())
@@ -119,11 +120,11 @@ def test_param_count_is_the_references_f8():
     assert (cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.window) == (256, 16, 1,
                                                                   2048)
     blk = model.blocks[0]
-    assert not hasattr(blk, "attn") and blk.mix.w_a.dtype == torch.float32
+    assert not hasattr(blk, "attn") and blk.mix.w_a.dtype == torch.bfloat16
     assert blk.mix.in_x.dtype == torch.bfloat16
     assert blk.mix.lam.dtype == torch.float32
     assert model.blocks[2].attn.wqkv.dtype == torch.bfloat16
-    assert sum(p.nbytes for p in model.parameters()) == 20_537_851_904
+    assert sum(p.nbytes for p in model.parameters()) == 18_793_021_440
 
 
 # ---------------------------------------------------------------------------
@@ -240,12 +241,13 @@ def _tokens(cfg, seed=1, s=PROMPT):
 # ---------------------------------------------------------------------------
 
 def test_convert_round_trip(params, bf16):
-    """The reference's tree into the port (the gates widened to fp32,
-    ``lam`` fp32, the rest bf16) and back (``to_jax_params``, the gates at
-    bf16 again): every leaf equal, the group and the 2-block tail in
-    their places."""
+    """The reference's tree into the port (``lam`` fp32, the rest, the
+    gates among them, bf16; the served copy holds the gates widened to
+    fp32) and back (``to_jax_params``): every leaf equal, the group and
+    the 2-block tail in their places."""
     cfg, tm = bf16.cfg, bf16.tm
-    assert tm.blocks[0].mix.w_a.dtype == torch.float32
+    assert tm.blocks[0].mix.w_a.dtype == torch.bfloat16
+    assert tm.served_blocks()[0].mix.w_a.dtype == torch.float32
     assert tm.blocks[0].mix.in_x.dtype == torch.bfloat16
     assert tm.blocks[4].mix.lam.dtype == torch.float32
     back = to_jax_params(cfg, tm.state_dict())
@@ -261,7 +263,8 @@ def test_convert_round_trip(params, bf16):
     for key, t in sd.items():
         assert torch.equal(again[key].to(t.dtype), t), key
     np.testing.assert_array_equal(
-        sd["blocks.3.mix.w_i"].numpy(), params["tail"]["t0"]["mix"]["w_i"])
+        sd["blocks.3.mix.w_i"].float().numpy(),
+        np.asarray(params["tail"]["t0"]["mix"]["w_i"], np.float32))
     np.testing.assert_array_equal(
         sd["blocks.1.mix.lam"].numpy(),
         params["groups"]["b1"]["mix"]["lam"][0])

@@ -13,8 +13,8 @@ plain version), a checkpoint round trip and the launcher.
 Tolerances, each with its reason:
 
 * Both sides hold the same parameters, every weight rounded to a
-  bf16-representable value (the port holds the projections at the
-  compute dtype, the reference at fp32 and casts them at use: the same
+  bf16-representable value (both hold fp32 masters; the reference casts
+  the projections at use, the port's served copy once: the same
   numbers).
 * The mixers at fp32 compute, each output and state within a bound of
   its scale: the sLSTM 1e-6 (its fp32 products, XLA's dot on the CPU
@@ -133,10 +133,11 @@ def test_param_count_is_the_references_f9(smoke, counted, held):
 
 def test_full_width_bytes():
     """24 layers at full width: 21 mLSTM blocks (hd 2d / 4 = 512) and 3
-    sLSTM blocks, no FFN, no ``ln2``.  The mixers' projections at bf16
-    (37.8 MB an mLSTM block), the fp32 maps at fp32 (an sLSTM block's
-    ``w_in`` and ``r``), the fp32 embedding: 1.070 GB held, 88.5 MB of
-    state a lane (the mLSTM's ``C`` 4.19 MB a layer)."""
+    sLSTM blocks, no FFN, no ``ln2``.  Every weight at fp32, the
+    reference's float32 ``param_dtype`` (its training master: 75.6 MB an
+    mLSTM block, the served copy casts the projections to bf16), the fp32
+    embedding: 1.869 GB held, 88.5 MB of state a lane (the mLSTM's ``C``
+    4.19 MB a layer)."""
     cfg = get_config(ARCH)
     model = Model(cfg, device="meta")
     kinds = [cfg.kind(i) for i in range(cfg.n_layers)]
@@ -144,17 +145,17 @@ def test_full_width_bytes():
     assert kinds[7::8] == ["slstm"] * 3 and cfg.tail_blocks == ()
     m, s = model.blocks[0], model.blocks[7]
     assert not hasattr(m, "ln2") and not hasattr(m, "ffn")
-    assert m.mix.wq.dtype == m.mix.up_x.dtype == torch.bfloat16
+    assert m.mix.wq.dtype == m.mix.up_x.dtype == torch.float32
     assert m.mix.w_i.dtype == m.mix.norm.dtype == torch.float32
     assert s.mix.w_in.dtype == s.mix.r.dtype == torch.float32
-    assert s.mix.out.dtype == torch.bfloat16
+    assert s.mix.out.dtype == torch.float32
     assert model.embed.dtype == torch.float32
 
     def nbytes(mod):
         return sum(p.nbytes for p in mod.parameters())
-    assert nbytes(m) == 37_842_976 and nbytes(s) == 23_093_248
+    assert nbytes(m) == 75_608_096 and nbytes(s) == 25_190_400
     assert model.embed.nbytes == 206_045_184
-    assert nbytes(model) == 1_070_031_520
+    assert nbytes(model) == 1_869_390_496
     state = model.new_cache(1, 1)
     per_lane = sum(t.nbytes for layer in state for t in layer.values())
     assert state[0]["C"].shape == (1, 4, 512, 512)
@@ -217,8 +218,8 @@ def model_params():
 class Pair:
     """The reference (one jit of prefill and one of decode) and the port
     on the same parameters at one compute dtype (the config's float32
-    ``param_dtype``: the reference casts its projections at use, the port
-    holds them at the compute dtype)."""
+    ``param_dtype``: the reference casts its projections at use, the
+    port's served copy holds them at the compute dtype)."""
 
     def __init__(self, tree, compute):
         over = dict(compute_dtype=compute)
@@ -277,12 +278,14 @@ def _tokens(cfg, seed=1, s=PROMPT):
 # ---------------------------------------------------------------------------
 
 def test_convert_round_trip(model_params, bf16):
-    """The reference's tree into the port (the projections rounded once to
-    bf16, the maps the reference multiplies at fp32 at fp32) and back
-    (``to_jax_params``): the same structure, three groups of the pattern
-    with no ``ln2``, no ``ffn`` and no tail, every value equal."""
+    """The reference's tree into the port (every leaf at fp32, the
+    reference's float32 masters; the served copy holds the projections at
+    bf16) and back (``to_jax_params``): the same structure, three groups of
+    the pattern with no ``ln2``, no ``ffn`` and no tail, every value
+    equal."""
     cfg, tm = bf16.cfg, bf16.tm
-    assert tm.blocks[0].mix.wq.dtype == torch.bfloat16
+    assert tm.blocks[0].mix.wq.dtype == torch.float32
+    assert tm.served_blocks()[0].mix.wq.dtype == torch.bfloat16
     assert tm.blocks[7].mix.w_in.dtype == torch.float32
     back = to_jax_params(cfg, tm.state_dict())
     params = model_params
@@ -305,8 +308,8 @@ def test_convert_round_trip(model_params, bf16):
 def test_init_follows_the_reference_schema():
     """``init_weights``: ``b_f`` is ``linspace(3, 6, n_heads)``, ``b_i``,
     the biases and the norms zero, ``r`` N(0, 0.05^2) whatever its fan-in,
-    the conv's fan-in its width, the widened ``w_in`` drawn at
-    ``param_dtype`` (here bf16)."""
+    the conv's fan-in its width, ``w_in`` (widened at use) held at
+    ``param_dtype`` (here bf16), as the reference holds it."""
     cfg = dataclasses.replace(get_config(ARCH, smoke=True),
                               param_dtype="bfloat16")
     model = Model(cfg, device="cpu").init_weights(0)
@@ -316,8 +319,8 @@ def test_init_follows_the_reference_schema():
         assert not t.any()
     assert abs(float(s.r.std()) - 0.05) < 0.005
     assert abs(float(m.conv.float().std()) - 0.5) < 0.05
-    assert torch.equal(s.w_in, s.w_in.to(torch.bfloat16).float())
-    assert s.w_in.dtype == torch.float32
+    assert s.w_in.dtype == torch.bfloat16
+    assert s.r.dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -867,15 +870,15 @@ def test_served_path_launches_row_norms_only(forced_norms, int8):
 # ---------------------------------------------------------------------------
 
 def test_checkpoint_round_trip(bf16, tmp_path):
-    """The port's model saved in the reference's format (the projections
-    as bf16 leaves, 2-byte words, F7; the fp32 maps at fp32) and served by
-    ``ServeEngine.from_checkpoint``: the restored model's logits bitwise
-    the saved model's."""
+    """The port's model saved in the reference's format (every leaf at
+    fp32, the reference's float32 masters, so no bf16 words, F7) and
+    served by ``ServeEngine.from_checkpoint``: the restored model's logits
+    bitwise the saved model's."""
     cfg, tm = bf16.cfg, bf16.tm
     CheckpointManager(str(tmp_path)).save(
         2, to_jax_params(cfg, tm.state_dict()), blocking=True)
     text = (tmp_path / "step_00000002" / "manifest.json").read_text()
-    assert "bfloat16" in text and "float32" in text
+    assert "bfloat16" not in text and "float32" in text
     eng = ServeEngine.from_checkpoint(Model(cfg, device="cpu"),
                                       str(tmp_path))
     toks = torch.from_numpy(_tokens(cfg))
