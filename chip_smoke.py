@@ -121,7 +121,8 @@ line):
    its smoke config at ``head_dim=256`` card against CPU.
 7. whisper: after gemma3's model is freed, full-width whisper-small (12
    encoder and 12 decoder layers, d_model 768, 12 heads of 64, the plain
-   GELU MLP of 3072, bf16 projection weights) from seed 0
+   GELU MLP of 3072, fp32 masters served from their bf16 copy, the
+   encoder's and the cross-attention's among them) from seed 0
    (``serve_whisper``): at init scales a decode-vs-prefill witness
    (``long_witness`` with the frames) and the int8 copy's first logits
    against the bf16 model's; then, on varied weights, ``generate_with_status`` (the
@@ -169,7 +170,8 @@ line):
    config card against CPU (``check_local_smoke``).
 9. paligemma: after llama4's model is freed, full-width paligemma-3b (18
    layers, d_model 2048, 8 q heads over 1 kv head of 256, d_ff 16384,
-   vocab 257216; fp32 embedding, bf16 projections) from seed 0
+   vocab 257216; fp32 masters, the projections served from their bf16
+   copy) from seed 0
    (``serve_paligemma``): 8 images' 256 patch embeddings drawn from the
    seed in front of 256 text tokens.  At init scales the decode-vs-prefill
    witness over the prefix and the int8 copy's first logits against the
@@ -268,7 +270,7 @@ line):
    checkpoint): ``Trainer.run`` for 2 steps of the synthetic stream, every
    kernel of the path launched (K4 and its backward in their 'local' and
    global hd-256 variants), K4's backward exactly layers x microbatches x
-   steps times, loss and grad norm finite; 4 steps on one repeated batch
+   steps times, loss and grad norm finite; 2 steps on one repeated batch
    at lr 1e-4, the loss falling at each; step ms, tokens/s, the model-FLOP share and
    the peak (under 80 GB) printed.
 16. train: gemma2-27b at full width, one period (2 layers: 'local' at
@@ -296,8 +298,7 @@ line):
    steps in the config's 2 microbatches of 4 x 4096: the mLSTM's
    chunkwise form and the sLSTM's token loop under autograd, the row
    norm (and its backward) the one kernel, no K4 launch; 1.245 GFLOP a
-   token.  Phases 17 and 18 take 2 steps on the repeated batch
-   (``TR_RECURRENT_REPEAT``).  For them phase 2 holds K4's backward and its lse
+   token.  For them phase 2 holds K4's backward and its lse
    output at recurrentgemma's local layer (2 x 4096, G = 16, hd 256, W
    2048; ``check_train_kind_rows``) and the row norm at xlstm's widths
    (``check_xlstm_kernels``), and phase 3 both smoke configs' train
@@ -307,6 +308,28 @@ line):
    period, one mLSTM block and the sLSTM block of xlstm), and the
    training row norm's gradients at xlstm's widths against f64
    (``check_train_norm``).
+19. train: whisper-small at full width and depth (12 encoder and 12
+   decoder layers, 0.24 B fp32 masters), 8 clips a step of 4096 decoder
+   tokens over 1500 frames each, in the config's 2 microbatches: the
+   encoder (each block rematerialized), the decoder's causal
+   self-attention and its cross-attention, 'full' over the 1500 frames
+   from 4096 tokens (K4 and its backward at Skv != Sq), K1 with gelu and
+   its gradient GEMMs, the row norm; K4's backward exactly (12 + 2 x 12)
+   x microbatches x steps times, 'full' (12 + 12) x microbatches x steps;
+   1.505 GFLOP a decoder token (the encoder's frames and the cross
+   products counted, ``model_flops_per_token``).
+20. train: paligemma-3b at full width, ``PG_TRAIN_LAYERS`` of its 18
+   layers (the reckoning beside the constant), 256 patches and 3840 tokens
+   a sequence, 8 a step in the config's 2 microbatches: K4 'global' at hd
+   256 and G = 8 with its lse and its backward, K1, the row norm.  For
+   phases 19 and 20 phase 2 holds K4's backward 'full' at Skv != Sq
+   (4 x 4096 over 1500, 8 x 64 over 1500, 2 x 1000 over 37) and its lse
+   output at the first, and the backward and lse at paligemma's
+   microbatch (``check_train_kind_rows``); phase 3 both smoke configs'
+   train steps, and full-width gradients through one encoder block and
+   one decoder block of whisper (512 tokens over 1500 frames) and
+   paligemma's first two layers, card against CPU.  Phases 15-18 and 20
+   take 2 steps on the repeated batch, phase 19 4.
 
 Then one JSON line listing every ported kernel and variant, the card line
 again, and last ``{"ok": true, "device": {...}}``.
@@ -580,6 +603,19 @@ PATH_KERNELS = {
     # each mixer's inner norm, each next norm, with their backward in
     # plain torch); the mixers are library products and plain torch
     "xlstm_train": ("rmsnorm",),
+    # training whisper-small (phase 19): K1 and its gradient GEMMs (the
+    # gelu up GEMMs of the encoder and the decoder), the row norm, K4 with
+    # its lse and its backward, causal in the decoder's self-attention and
+    # 'full' in the encoder and the cross-attention (Skv != Sq); the cross
+    # q and K/V products are library products, as the reference's einsums
+    "whisper_train": ("matmul", "matmul:gelu", "matmul:f32", "rmsnorm",
+                      "flash_attention:lse", "flash_attention:full+lse",
+                      "flash_attention_bwd", "flash_attention_bwd:full"),
+    # training paligemma-3b (phase 20): K1 and its gradient GEMMs, the row
+    # norm, K4 'global' at hd 256 and G = 8 with its lse and its backward
+    "paligemma_train": ("matmul", "matmul:f32", "rmsnorm",
+                        "flash_attention:hd256+lse",
+                        "flash_attention_bwd:hd256"),
 }
 
 
@@ -3260,6 +3296,7 @@ def serve_released_int8(torch, model, prefix, toks, first, reqs):
 # whisper-small (src/repro_torch/configs/whisper_small.py): 12 heads of 64
 # (G = 1), d_model 768, d_ff 3072; phase 7 serves 8 clips of 1500 frames
 # with a 64-token prompt and 64 greedy tokens (position 128 of its 448)
+WH_ARCH = "whisper-small"
 WH_H, WH_HD, WH_D, WH_FF, WH_FRAMES = 12, 64, 768, 3072, 1500
 WH_BATCH, WH_PROMPT, WH_NEW = 8, 64, 64
 
@@ -3417,7 +3454,8 @@ def check_fixed_smoke(torch, arch: str, **over):
     (rglru, rglru, local) and the (rglru, rglru) tail, window 16; ``over``
     its bf16 ``param_dtype``) and xlstm (7 mLSTM blocks and 1 sLSTM
     block; a 16-token prompt, one chunk), each smoke config at bf16 compute
-    and bf16 projection weights as the full model has them, card against
+    and at its full config's weights (fp32 masters, served from their
+    bf16 copy; recurrentgemma's bf16 leaves), card against
     CPU, weights varied as in phase 3, through ``generate_with_status``
     (its fall-through to the fixed loop), bf16 and int8: the card's
     teacher-forced logits (prefill with the frames or the patches, then
@@ -3504,7 +3542,8 @@ def check_fixed_smoke(torch, arch: str, **over):
 
 def serve_whisper(torch):
     """Phase 7: full-width whisper-small (12 encoder and 12 decoder layers,
-    bf16 projection weights, random weights from SEED), built after the
+    fp32 masters served from their bf16 copy, random weights from SEED),
+    built after the
     models of the phases before it are gone.  At the init scales the
     decode-vs-prefill witness (``long_witness`` with the frames) and the
     int8 copy's first logits against the bf16 model's (``int8_witness``).
@@ -3526,7 +3565,7 @@ def serve_whisper(torch):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("whisper-small")
+    cfg = get_config(WH_ARCH)
     t0 = time.perf_counter()
     model = Model(cfg).init_weights(SEED)
     torch.cuda.synchronize()
@@ -4113,8 +4152,9 @@ def moe_scheduler_runs(torch, model, reqs, geom, prefix, **extra):
 
 def serve_paligemma(torch):
     """Phase 9: full-width paligemma-3b (18 layers, d_model 2048, 8 q heads
-    over 1 kv head of 256, d_ff 16384, vocab 257216; the fp32 embedding
-    and bf16 projection weights), random weights from SEED, built after
+    over 1 kv head of 256, d_ff 16384, vocab 257216; fp32 masters, the
+    projections served from their bf16 copy), random weights from SEED,
+    built after
     the models of the phases before it are gone.  Its input is 8 images'
     256 patch embeddings drawn N(0, 1) from SEED (the stubbed SigLIP
     tower, ``launch.serve.make_patches``) in front of 256 text tokens.  At
@@ -5658,6 +5698,9 @@ IL_H, IL_KV, IL_HD, IL_D, IL_FF = 16, 8, 128, 2048, 8192
 # training at full width and depth: 8 x 4096 tokens a step in the config's
 # 2 microbatches of 4 x 4096; the Trainer's run and its checkpoint, the
 # resumed steps and the repeated batch's steps; AdamW at a constant lr
+# (cut to 12 of its 24 layers, the loss on the repeated batch rose at its
+# third step, 9.514, 8.753, 9.356: at lr 1e-3 the smaller model is still
+# in its first steps' transient; NVIDIA H100 80GB HBM3, 700.00 W)
 TR_BATCH, TR_SEQ = 8, 4096
 TR_STEPS, TR_RESUMED, TR_REPEAT, TR_LR = 4, 1, 5, 1e-3
 # the loss on one repeated batch of random tokens must fall at every one
@@ -5680,10 +5723,14 @@ TR_WIDE_LAYERS, TR_WIDE_SEQ = 2, 512
 # 4x that bounded nothing; through the two blocks the worst leaf's is
 # 0.34 of its scale (the embedding; the mLSTM's w_i 0.32) and the inner
 # norms' 0.015 and 0.0057 (on an NVIDIA H100 80GB HBM3's host; the
-# check prints each leaf's)
+# check prints each leaf's); whisper's through one encoder block and one
+# decoder block, its 512 tokens over the config's 1500 frames (K4's
+# backward 'full' at Skv != Sq and hd 64 at full width); paligemma's
+# first two layers at 512 positions (256 patches, 256 tokens)
 TR_SMOKE_SEQS = {XL_ARCH: 128}
 TR_WIDE_CUTS = {RG_ARCH: {"n_layers": 3},
-                XL_ARCH: {"n_layers": 2, "block_pattern": ("mlstm", "slstm")}}
+                XL_ARCH: {"n_layers": 2, "block_pattern": ("mlstm", "slstm")},
+                WH_ARCH: {"n_layers": 1, "n_enc_layers": 1}}
 # whatever the CPU's own noise, no leaf's error in the full-width check
 # may reach this share of its scale (the worst leaf's error read about
 # 0.01 for the attention families, 0.34 for xlstm's two blocks and at
@@ -5728,10 +5775,14 @@ K4_BWD_ROWS = (
 # (8 x 512, 8 over 1, hd 256), llama4's chunks (40 over 8, hd 128, chunks
 # of 1000, so that they cut inside tiles), whisper's encoder ('full', 8 x
 # 1500, 12 over 12, hd 64), the prefix kind at hd 256, and gemma2's global
-# layer again with its scores at the cap (K4_BWD_Q_SCALE): (name, (B, S,
-# H, KV, hd), mask), each held and timed as K4_BWD_ROWS, beside SDPA's
-# backward where one call computes the same function (no SDPA call caps
-# its scores)
+# layer again with its scores at the cap (K4_BWD_Q_SCALE), then the
+# shapes phases 19 and 20 train: paligemma's microbatch (4 x 4096, 8 over
+# 1, hd 256) and whisper's cross-attention, 'full' over Skv != Sq keys (a
+# training microbatch's 4 x 4096 decoder tokens over 1500 frames; the
+# serving prefill's 64 over 1500; a ragged 1000 over 37), 12 over 12 at
+# hd 64: (name, (B, S, H, KV, hd[, Skv]), mask), each held and timed as
+# K4_BWD_ROWS, beside SDPA's backward where one call computes the same
+# function (no SDPA call caps its scores)
 K4_BWD_KIND_ROWS = (
     ("k4_flash_backward_gemma3_local", (2, 4096, 16, 8, 256),
      dict(kind="local", window=1024)),
@@ -5752,6 +5803,14 @@ K4_BWD_KIND_ROWS = (
      dict(kind="prefix", prefix_len=300)),
     ("k4_flash_backward_gemma2_capped", (1, 4096, 32, 16, 128),
      dict(kind="global", softcap=50.0)),
+    ("k4_flash_backward_paligemma_train", (4, 4096, 8, 1, 256),
+     dict(kind="global")),
+    ("k4_flash_backward_whisper_cross_train", (4, 4096, 12, 12, 64, 1500),
+     dict(kind="full")),
+    ("k4_flash_backward_whisper_cross_prefill", (8, 64, 12, 12, 64, 1500),
+     dict(kind="full")),
+    ("k4_flash_backward_whisper_cross_ragged", (2, 1000, 12, 12, 64, 37),
+     dict(kind="full")),
 )
 # q's factor at these rows (1 elsewhere): with q, k and v standard normal
 # the scaled scores are about N(0, 1), where a softcap of 50 changes P by
@@ -5762,9 +5821,11 @@ K4_BWD_KIND_ROWS = (
 # --plant`` at this shape on an NVIDIA H100 80GB HBM3 at 700.00 W)
 K4_BWD_Q_SCALE = {"k4_flash_backward_gemma2_capped": 10.0}
 # the training forward's K4 with its log-sum-exp at these of them (the
-# kinds phases 15 and 16 train), held to the plain lse as internlm2's is
+# kinds phases 15-17, 19 and 20 train), held to the plain lse as
+# internlm2's is
 K4_LSE_KIND_ROWS = ("gemma3_local", "gemma3_global", "gemma2_local",
-                    "gemma2_global", "recurrentgemma")
+                    "gemma2_global", "recurrentgemma", "paligemma_train",
+                    "whisper_cross_train")
 
 
 # K1's fp32 store against the fp32 product (TF32 off): two fp32 sums of
@@ -5809,10 +5870,12 @@ def check_train_kind_rows(torch, timer):
     shapes), each of dQ, dK and dV within ``K4_BWD_TOL`` of each row's
     scale of the plain backward at fp32 and bitwise the same twice, and
     K4's log-sum-exp output at ``K4_LSE_KIND_ROWS`` within 1e-5 of each
-    row's scale of the plain one.  The bound counts the backward's five
-    products (the forward's two) over the pairs the mask keeps
-    (``ref.live_keys``); SDPA's backward (forward) with the
-    kind's mask is the yardstick, none under a softcap."""
+    row's scale of the plain one.  A row of 'full' may take Skv != Sq
+    keys (whisper's cross-attention).  The bound counts the backward's
+    five products (the forward's two) over the pairs the mask keeps
+    (``ref.live_keys``; every one of the Skv keys under 'full'); SDPA's
+    backward (forward) with the kind's mask is the yardstick, none under a
+    softcap."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_lse_cuda)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref_by_kv_head,
@@ -5826,19 +5889,22 @@ def check_train_kind_rows(torch, timer):
                 ).to(bf)
 
     results = {}
-    for name, (b, s, h, kv, hd), mask in K4_BWD_KIND_ROWS:
+    for name, (b, s, h, kv, hd, *keys), mask in K4_BWD_KIND_ROWS:
         tag = name[len("k4_flash_backward_"):]
+        skv = keys[0] if keys else s
         what = (f"B={b} S={s} H={h} KV={kv} hd={hd} "
+                + (f"Skv={skv} " if skv != s else "")
                 + " ".join(f"{key}={val}" for key, val in mask.items())
                 + (f" q x {K4_BWD_Q_SCALE[name]} (scores at the cap)"
                    if name in K4_BWD_Q_SCALE else ""))
         q = rand(b, s, h, hd, scale=K4_BWD_Q_SCALE.get(name, 1.0))
-        k, v = rand(b, s, kv, hd), rand(b, s, kv, hd)
+        k, v = rand(b, skv, kv, hd), rand(b, skv, kv, hd)
         out, lse = flash_attention_lse_cuda(q, k, v, **mask)
         dout = rand(b, s, h, hd)
         sdpa_kw = sdpa_mask_kw(s, "cuda", **mask)
-        pairs = b * h * s * live_keys(mask["kind"], s, mask.get("window", 0),
-                                      mask.get("prefix_len", 0))
+        pairs = b * h * s * (skv if mask["kind"] == "full" else live_keys(
+            mask["kind"], s, mask.get("window", 0),
+            mask.get("prefix_len", 0)))
         io = 2 * (2 * q.numel() + 2 * k.numel())
         if tag in K4_LSE_KIND_ROWS:
             want_lse = plain_lse(torch, q, k, v, **mask)
@@ -6019,13 +6085,13 @@ def train_steps(torch, model, batches, opt_cfg):
                   for k in params}
 
 
-def synthetic_batches(torch, vocab, batch, seq, steps, seed):
+def synthetic_batches(torch, cfg, batch, seq, steps, seed):
     """The first ``steps`` batches of the synthetic stream (the
-    pipeline's, on the CPU)."""
+    pipeline's, on the CPU), with ``cfg``'s patches or frames."""
     from repro_torch.data import (DataConfig, SyntheticTokenSource,
                                   TokenPipeline)
-    pipe = TokenPipeline(SyntheticTokenSource(vocab, seed),
-                         DataConfig(batch, seq, seed))
+    pipe = TokenPipeline(SyntheticTokenSource(cfg.vocab, seed),
+                         DataConfig(batch, seq, seed), "cpu", cfg)
     out = [next(pipe)[1] for _ in range(steps)]
     pipe.close()
     return out
@@ -6046,10 +6112,19 @@ TRAIN_SMOKE_KEYS = {
                    "flash_attention:local+lse", "flash_attention:lse",
                    "flash_attention_bwd:local", "flash_attention_bwd"),
     # recurrentgemma's one local layer (hd 16 in the smoke config) and its
-    # MLPs; xlstm's row norms alone
+    # MLPs; xlstm's row norms alone; paligemma's global layers over the
+    # patches and the text (hd 16 in the smoke config)
+    PG_ARCH: ("matmul", "matmul:f32", "rmsnorm", "flash_attention:lse",
+              "flash_attention_bwd"),
     RG_ARCH: ("matmul", "matmul:f32", "rmsnorm", "flash_attention:local+lse",
               "flash_attention_bwd:local"),
     XL_ARCH: ("rmsnorm",),
+    # whisper: the encoder's 'full' layers (24 frames), the decoder's
+    # causal ones and its cross-attention, 'full' over 24 frames from 64
+    # tokens (K4's backward at Skv != Sq, hd 16), the gelu MLPs
+    WH_ARCH: ("matmul", "matmul:gelu", "matmul:f32", "rmsnorm",
+              "flash_attention:lse", "flash_attention:full+lse",
+              "flash_attention_bwd", "flash_attention_bwd:full"),
 }
 
 
@@ -6082,7 +6157,7 @@ def check_train_smoke(torch, arch: str = IL_ARCH):
     ref32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
                   device="cpu")
     ref32.load_state_dict(sd)
-    batches = synthetic_batches(torch, cfg.vocab, TR_SMOKE_BATCH,
+    batches = synthetic_batches(torch, cfg, TR_SMOKE_BATCH,
                                 TR_SMOKE_SEQS.get(arch, TR_SMOKE_SEQ),
                                 TR_SMOKE_STEPS, SEED)
     lr = TR_SMOKE_LR.get(arch, TR_LR)
@@ -6131,8 +6206,11 @@ def check_train_width(torch, arch: str = IL_ARCH):
     local and global, softcapped, at hd 128 and d 4608; gemma3's first
     two, both local, at hd 256 and d 3840; recurrentgemma's (rglru,
     rglru, local) at d 4096, hd 256 and G = 16, the RG-LRU's leaves
-    included; one mLSTM block and the sLSTM block of xlstm at d 1024; at
-    this length no window cuts).  Each leaf's error and noise are
+    included; one mLSTM block and the sLSTM block of xlstm at d 1024;
+    one encoder block and one decoder block of whisper, its tokens over
+    the config's 1500 frames (K4's backward 'full' at Skv != Sq, hd 64);
+    paligemma's first two layers, 256 patches and 256 tokens (hd 256, G =
+    8); at this length no window cuts).  Each leaf's error and noise are
     returned.
     The weights are drawn on the card and copied to the CPU models, and
     the gradients compared leaf by leaf on the card at fp32: drawing 2.3
@@ -6154,7 +6232,7 @@ def check_train_width(torch, arch: str = IL_ARCH):
                   device="cpu")
     ref32.load_state_dict(sd)
     del sd
-    (batch,) = synthetic_batches(torch, cfg.vocab, 1, TR_WIDE_SEQ, 1, SEED)
+    (batch,) = synthetic_batches(torch, cfg, 1, TR_WIDE_SEQ, 1, SEED)
     res = {}
     for name, m in (("card", card), ("cpu", cpu), ("cpu32", ref32)):
         with full_fp32():
@@ -6347,10 +6425,17 @@ def model_flops_per_token(cfg, seq: int) -> float:
     of the chunk, as the einsums form them) and its inter-chunk products,
     q against the carried C and the carry's update (2 w hd).  An sLSTM:
     ``w_in`` (4 d^2), its block-diagonal ``r`` (4 d^2 / H) and ``out``
-    (d^2).  Each block's MLP where ``d_ff`` > 0.  At TR_SEQ: internlm2
-    11.41 GFLOP a token, gemma3's 6 layers 14.43, gemma2's 2 14.07,
-    recurrentgemma's 3 (rglru, rglru, local) 10.31 (6.29 of them the
-    logits), xlstm's 8 (7 mLSTM, 1 sLSTM) 1.245."""
+    (d^2).  Each block's MLP where ``d_ff`` > 0.  An encoder-decoder
+    (whisper) adds each decoder layer's cross-attention, its q and out
+    projections (2 d q_dim) and its two products over the F frames, and,
+    spread over a clip's ``seq`` decoder tokens, the encoder's F frames
+    (each layer's projections, MLP and 'full' attention over F) and each
+    decoder layer's K/V products of the F frames (2 d kv_dim).  At TR_SEQ:
+    internlm2 11.41 GFLOP a token, gemma3's 6 layers 14.43, gemma2's 2
+    14.07, recurrentgemma's 3 (rglru, rglru, local) 10.31 (6.29 of them the
+    logits), xlstm's 8 (7 mLSTM, 1 sLSTM) 1.245, whisper's 12 + 12 1.505
+    (0.278 of them the encoder's frames), paligemma's 18 15.96 a position
+    (its patches are positions of the sequence)."""
     from repro_torch.kernels.ref import live_keys
     from repro_torch.models.xlstm import prefill_chunk
     d = cfg.d_model
@@ -6371,7 +6456,17 @@ def model_flops_per_token(cfg, seq: int) -> float:
         else:
             macs += d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
             attn_flops += 4 * cfg.q_dim * live_keys(kind, seq, cfg.window)
+        if cfg.encdec:      # the cross-attention's q and out, over F keys
+            macs += 2 * d * cfg.q_dim
+            attn_flops += 4 * cfg.q_dim * cfg.enc_frames
         macs += mlp
+    if cfg.encdec:          # a clip's encoder and cross K/V, per token
+        f = cfg.enc_frames
+        enc = cfg.n_enc_layers * (d * (cfg.q_dim + 2 * cfg.kv_dim)
+                                  + cfg.q_dim * d + mlp)
+        frame = (2 * (enc + cfg.n_layers * 2 * d * cfg.kv_dim)
+                 + cfg.n_enc_layers * 4 * cfg.q_dim * f)
+        attn_flops += f * frame / seq
     return 3 * (2 * macs + attn_flops)
 
 
@@ -6380,7 +6475,7 @@ def model_flops_per_token(cfg, seq: int) -> float:
 # step of 8 x 4096 tokens in its microbatches (4 and 8), bf16 parameters
 # and fp32 moments, per-block remat; TR_GEMMA_STEPS steps of the synthetic
 # stream through ``Trainer.run`` (no checkpoint: phase 14 holds the round
-# trip), then TR_GEMMA_REPEAT steps on one repeated batch at
+# trip), then a few steps (the tuple's last entry) on one repeated batch at
 # TR_GEMMA_REPEAT_LR: two steps from their init both models are still in
 # the transient of their first steps (26-35 nats down to 10-12), where
 # AdamW's lr-sized steps at 1e-3 or 3e-4 made gemma2's loss on the
@@ -6389,10 +6484,14 @@ def model_flops_per_token(cfg, seq: int) -> float:
 # 10.924, 10.380, 10.462: ``launch/repeat_lr.py``), so the optimizer, not
 # the kernel, makes it; at 1e-4 it falls at every step (10.40, 10.17,
 # 9.71, 8.80; gemma3 11.42, 10.45, 9.95, 9.67 on an NVIDIA H100 80GB HBM3
-# at 700.00 W)
-GEMMA_TRAIN = (("gemma3-12b", "gemma3_train", 6),
-               ("gemma2-27b", "gemma2_train", 2))
-TR_GEMMA_STEPS, TR_GEMMA_REPEAT, TR_GEMMA_REPEAT_LR = 2, 4, 1e-4
+# at 700.00 W).  Each training phase's tuple ends with its repeated-batch
+# steps: 2 (lowered from 4 for the script's time, phases 19 and 20 added;
+# the loss falls by more than TR_REPEAT_DROP at the first step: gemma3
+# 0.97, gemma2 0.23), and whisper's 4 (its loss fell 0.037 at the first
+# step and 0.118 over four, NVIDIA H100 80GB HBM3, 700.00 W)
+GEMMA_TRAIN = (("gemma3-12b", "gemma3_train", 6, 2),
+               ("gemma2-27b", "gemma2_train", 2, 2))
+TR_GEMMA_STEPS, TR_GEMMA_REPEAT_LR = 2, 1e-4
 # recurrentgemma-9b (phase 17) and xlstm-350m (phase 18) trained at full
 # width, cut to one period of their pattern: recurrentgemma's (rglru,
 # rglru, local), 3 of 38 layers (1.71 B parameters, the 1.05 B embedding
@@ -6400,15 +6499,25 @@ TR_GEMMA_STEPS, TR_GEMMA_REPEAT, TR_GEMMA_REPEAT_LR = 2, 4, 1e-4
 # xlstm's 7 mLSTM blocks and 1 sLSTM block, 8 of 24 (0.19 B, fp32
 # masters; the cut bounds the sLSTM token loop's host time, not memory);
 # the gemma phases' steps and repeated-batch lr, the config's
-# microbatches (4 and 2)
-RECURRENT_TRAIN = ((RG_ARCH, "recurrentgemma_train", 3),
-                   (XL_ARCH, "xlstm_train", 8))
-# the repeated-batch steps of phases 17 and 18, lowered from
-# TR_GEMMA_REPEAT: the script ran 1060-1135 s of its 1200 s limit with 4
-# and 3 of them (a step 6.9 and 34-40 s; NVIDIA H100 80GB HBM3, 700.00
-# W), and both losses fall at every step (by 0.30 and 0.066 at the
-# first)
-TR_RECURRENT_REPEAT = 2
+# microbatches (4 and 2); both losses fall at every repeated step (by
+# 0.30 and 0.066 at the first)
+RECURRENT_TRAIN = ((RG_ARCH, "recurrentgemma_train", 3, 2),
+                   (XL_ARCH, "xlstm_train", 8, 2))
+# whisper-small (phase 19) trained at full width and depth (12 encoder and
+# 12 decoder layers, 0.24 B fp32 masters), 8 x 4096 decoder tokens a step
+# over 1500 frames a clip in the config's 2 microbatches, and paligemma-3b
+# (phase 20) at full width, PG_TRAIN_LAYERS of its 18 layers (256 patches
+# and 3840 tokens a sequence, 2 microbatches of 4 x 4096): the deepest
+# cut whose reckoning, plus the 10-15 GB gemma's phases ran over theirs,
+# stays under 72 GB.  The reckoning: 20 bytes a parameter (the fp32
+# master, its two moments, the gradient accumulator and one microbatch's
+# gradients, all live at the end of each backward; 50.2 GB at 2.51 B)
+# and a logits chunk's fp32 logits and their gradient (4 x 512 positions
+# x 257280, 4.2 GB): 54.4 GB at all 18 layers, so no layer is cut.  The
+# gemma phases' steps and repeated-batch lr
+PG_TRAIN_LAYERS = 18
+ENCDEC_TRAIN = ((WH_ARCH, "whisper_train", None, 4),
+                (PG_ARCH, "paligemma_train", PG_TRAIN_LAYERS, 2))
 
 
 def train_model(torch, arch: str, name: str, layers=None, steps=TR_STEPS,
@@ -6420,7 +6529,9 @@ def train_model(torch, arch: str, name: str, layers=None, steps=TR_STEPS,
     set to 0 just before and read just after: every kernel of
     ``PATH_KERNELS[name]`` launched, K4's backward exactly once an
     attention layer and microbatch of each step (never for a model of
-    recurrent mixers only); loss and grad norm finite every step.
+    recurrent mixers only; whisper's: each encoder layer, and each decoder
+    layer twice, its self- and its cross-attention, the 'full' ones under
+    their variant); loss and grad norm finite every step.
     With ``resumed`` steps (phase 14) it writes its checkpoint at the end,
     the uninterrupted run goes on ``resumed`` steps from its state in
     memory, the checkpoint is restored (``Trainer.restore``) and the same
@@ -6479,11 +6590,16 @@ def train_model(torch, arch: str, name: str, layers=None, steps=TR_STEPS,
         require(all(launches.get(k, 0) > 0 for k in PATH_KERNELS[name]),
                 f"{name}: a kernel never launched: {launches}")
         attn = sum(cfg.kind(i) not in MIXERS for i in range(cfg.n_layers))
-        bwd = attn * cfg.microbatches * steps
-        require(launches.get("flash_attention_bwd", 0) == bwd,
+        full = cfg.n_enc_layers + cfg.n_layers if cfg.encdec else 0
+        bwd = (attn + full) * cfg.microbatches * steps
+        require(launches.get("flash_attention_bwd", 0) == bwd
+                and launches.get("flash_attention_bwd:full", 0)
+                == full * cfg.microbatches * steps,
                 f"{name}: {launches.get('flash_attention_bwd')} launches of "
-                f"K4's backward, not {bwd} (attention layers x microbatches "
-                f"x steps)")
+                f"K4's backward ({launches.get('flash_attention_bwd:full')} "
+                f"'full'), not {bwd} (attention layers, whisper's encoder "
+                f"and cross-attention layers among them, x microbatches x "
+                f"steps)")
         step_s = sorted(m["dt"] for m in mets[1:])[len(mets[1:]) // 2]
         tokens = TR_BATCH * TR_SEQ
         flops = model_flops_per_token(cfg, TR_SEQ) * tokens
@@ -6905,16 +7021,44 @@ LAUNCH_NOTES = {
                                            "'s training path (phase 17), at "
                                            "this row's shape",
     "k4_flash_backward_paligemma": "every flash_attention_bwd:hd256 launch: "
-                                   "gemma3's global layers' (phase 15); "
-                                   "this row's shape (paligemma, G = 8) is "
-                                   "held in phase 2 only until its training "
-                                   "slice",
+                                   "gemma3's global layers' (phase 15) and "
+                                   "paligemma's (phase 20, at the "
+                                   "paligemma_train row's shape); this "
+                                   "row's shape (8 x 512) is held in phase "
+                                   "2 only",
+    "k4_flash_backward_paligemma_train": "the flash_attention_bwd:hd256 "
+                                         "launches of paligemma's training "
+                                         "path (phase 20) alone, at this "
+                                         "row's shape",
+    "k4_flash_prefill_lse_paligemma_train": "the flash_attention:hd256+lse "
+                                            "launches of paligemma's "
+                                            "training path (phase 20) alone, "
+                                            "at this row's shape (remat's "
+                                            "recompute among them)",
+    "k4_flash_backward_gemma3_global": "the flash_attention_bwd:hd256 "
+                                       "launches of gemma3's training path "
+                                       "(phase 15) alone; paligemma's are "
+                                       "its own row's",
+    "k4_flash_prefill_lse_gemma3_global": "the flash_attention:hd256+lse "
+                                          "launches of gemma3's training "
+                                          "path (phase 15) alone",
     "k4_flash_backward_llama4_chunked": "no path trains a chunked layer yet "
                                         "(llama4's training slice): held in "
                                         "phase 2 only",
-    "k4_flash_backward_whisper_full": "no path trains a 'full' layer yet "
-                                      "(whisper's training slice): held in "
-                                      "phase 2 only",
+    **{name: "every flash_attention_bwd:full launch of whisper's training "
+             "path (phase 19): its 12 encoder layers' (Sq = Skv = 1500, 4 "
+             "clips a microbatch) and its 12 cross-attention layers' (4 x "
+             "4096 decoder tokens over 1500 frames)"
+       for name in ("k4_flash_backward_whisper_full",
+                    "k4_flash_backward_whisper_cross_train",
+                    "k4_flash_backward_whisper_cross_prefill",
+                    "k4_flash_backward_whisper_cross_ragged")},
+    "k4_flash_prefill_lse_whisper_cross_train": "every flash_attention:full"
+                                                "+lse launch of whisper's "
+                                                "training path (phase 19): "
+                                                "its encoder's and its "
+                                                "cross-attention's, remat's "
+                                                "recompute among them",
     "k4_flash_backward_prefix_hd256": "no model trains the 'prefix' kind "
                                       "(the reference's neither): held in "
                                       "phase 2 only",
@@ -6924,12 +7068,17 @@ LAUNCH_NOTES = {
 # rows whose launches are one path's alone: a shape that runs on a path
 # outside PATH_KERNELS (phase 3's smoke training), and the variants two
 # training paths share at their own shapes (K4 and its backward 'local'
-# at hd 256: gemma3's local layers, recurrentgemma's)
+# at hd 256: gemma3's local layers, recurrentgemma's; global at hd 256:
+# gemma3's global layers, paligemma's)
 OWN_PATH = {"k4_flash_backward_smoke": "train_smoke",
             "k4_flash_backward_gemma3_local": "gemma3_train",
             "k4_flash_prefill_lse_gemma3_local": "gemma3_train",
             "k4_flash_backward_recurrentgemma": "recurrentgemma_train",
-            "k4_flash_prefill_lse_recurrentgemma": "recurrentgemma_train"}
+            "k4_flash_prefill_lse_recurrentgemma": "recurrentgemma_train",
+            "k4_flash_backward_gemma3_global": "gemma3_train",
+            "k4_flash_prefill_lse_gemma3_global": "gemma3_train",
+            "k4_flash_backward_paligemma_train": "paligemma_train",
+            "k4_flash_prefill_lse_paligemma_train": "paligemma_train"}
 
 
 def variant_launches(counts, counter):
@@ -7011,7 +7160,7 @@ def main() -> int:
                        (L4_ARCH, {}), (GK_ARCH, {})):
         smoke_local = check_local_smoke(torch, arch, **over)
         print(f"smoke {arch}: " + json.dumps(smoke_local), flush=True)
-    for arch, over in (("whisper-small", {}), (PG_ARCH, {}),
+    for arch, over in ((WH_ARCH, {}), (PG_ARCH, {}),
                        (RG_ARCH, {"param_dtype": "bfloat16"}),
                        (XL_ARCH, {})):
         print(f"smoke {arch}: "
@@ -7023,7 +7172,7 @@ def main() -> int:
     print("full-width 2-layer gradients: "
           + json.dumps(check_train_width(torch)), flush=True)
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
-    for arch, _, _ in GEMMA_TRAIN + RECURRENT_TRAIN:
+    for arch, *_ in GEMMA_TRAIN + RECURRENT_TRAIN + ENCDEC_TRAIN:
         t0 = time.perf_counter()
         print(f"smoke training {arch}: "
               + json.dumps(check_train_smoke(torch, arch)), flush=True)
@@ -7062,12 +7211,11 @@ def main() -> int:
     serve["internlm2_train"] = {"launches": train["launches"]}
     print("train internlm2: " + json.dumps(train), flush=True)
     marks.append(("train", time.perf_counter()))
-    for arch, name, layers in GEMMA_TRAIN + RECURRENT_TRAIN:  # phases 15-18
+    # phases 15-20
+    for arch, name, layers, repeat in (GEMMA_TRAIN + RECURRENT_TRAIN
+                                       + ENCDEC_TRAIN):
         train = train_model(torch, arch, name, layers=layers,
-                            steps=TR_GEMMA_STEPS, resumed=0,
-                            repeat=(TR_RECURRENT_REPEAT
-                                    if (arch, name, layers) in RECURRENT_TRAIN
-                                    else TR_GEMMA_REPEAT),
+                            steps=TR_GEMMA_STEPS, resumed=0, repeat=repeat,
                             repeat_lr=TR_GEMMA_REPEAT_LR)
         serve[name] = {"launches": train["launches"]}
         print(f"train {arch} ({train['phase_s']:.1f} s): "

@@ -53,9 +53,9 @@ class ArchConfig:
     conv_width: int = 4
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
-    # whisper's and paligemma's float32 is the reference's training master
-    # copy: the port serves their projection weights at the compute dtype
-    # (``models.lm.Model``), the embedding and norm scales at float32
+    # float32 is the reference's training master copy: the port holds every
+    # weight at it and serves the projections from a copy at the compute
+    # dtype (``models.lm.Model.served_blocks``)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # training (the reference's base.py:64-72): AdamW's moments at fp32 or

@@ -6,9 +6,9 @@ The reference's FULL and SMOKE field for field (its ``skip_shapes`` and
 precomputed patch embeddings [B, prefix_tokens, d_model] in front of the
 text tokens.  Its block pattern is ``("global",)``, so the backbone
 attends to the patches causally, as the reference does.  ``param_dtype``
-stays the reference's float32; the port holds the projection weights at
-the compute dtype, the embedding and norm scales at float32
-(``models.lm.Model``)."""
+stays the reference's float32: every weight is an fp32 master, which
+training updates, and serving reads the projections' copy at the compute
+dtype (``models.lm.Model.served_blocks``)."""
 from repro_torch.configs.base import ArchConfig
 
 FULL = ArchConfig(

@@ -5,8 +5,10 @@ The conv frontend is a stub: the encoder takes precomputed frame
 embeddings [B, 1500, d_model], 12 bidirectional layers over them; the
 decoder is 12 causal layers with cross-attention, sinusoidal positions
 (no RoPE) and a plain GELU MLP.  ``param_dtype`` stays the reference's
-float32; the port holds the projection weights at the compute dtype
-(``models.lm.Model``)."""
+float32: every weight is an fp32 master, which training updates, and
+serving reads the projections' copy at the compute dtype (the encoder's
+and the cross-attention's among them: ``models.lm.Model.served_blocks``,
+``served_encoder``)."""
 from repro_torch.configs.base import ArchConfig
 
 FULL = ArchConfig(

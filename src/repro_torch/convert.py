@@ -27,9 +27,10 @@ three groups of seven mLSTM blocks and one sLSTM block, no tail) holds
 ``ln1`` and ``mix`` alone, no ``ln2`` and no ``ffn``: an mLSTM's ``mix/
 {up_x, up_g, conv, wq, wk, wv, w_i, w_f, b_i, b_f, norm, down}``, an
 sLSTM's ``mix/{w_in, r, bias, norm, out}``.  Loading the result into a
-``Model`` casts each leaf once to its parameter's dtype (every mixer
-weight is held at the reference's dtype; xlstm's float32 projections
-stay the fp32 masters, which the serving copy casts).
+``Model`` casts each leaf once to its parameter's dtype, which is the
+reference's: a float32 config's leaves (whisper's encoder and
+cross-attention, paligemma's, xlstm's, internlm2's) stay the fp32
+masters bit for bit, which the serving copy casts.
 
 ``to_jax_params`` is the inverse: a ``state_dict`` back to the reference's
 tree (the groups restacked, the MLP weights in the xyz layout ``[1, K,

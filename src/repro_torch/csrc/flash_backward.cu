@@ -7,16 +7,16 @@
 // src/repro/kernels/flash_attention.py:331, is differentiated by XLA
 // through the plain attention); this is the port's own, held to
 // kernels/ref.py::flash_attention_bwd_ref.  Inputs: q, the forward's
-// output o and its gradient do [B, S, H, hd], k and v [B, S, KV, hd] (bf16,
-// KV | H), and the forward's row log-sum-exp lse [B, H, S] (fp32,
-// k4_flash_prefill_lse).  Three launches, no atomics: every output element
+// output o and its gradient do [B, Sq, H, hd], k and v [B, Skv, KV, hd]
+// (bf16, KV | H; Skv != Sq under 'full' only, cross-attention), and the
+// forward's row log-sum-exp lse [B, H, Sq] (fp32, k4_flash_prefill_lse).  Three launches, no atomics: every output element
 // is written once, by one block, after a fixed order of sums, so two calls
 // are bitwise equal.
 //
 //   1. rows: D = rowsum(do * o) at fp32 (one warp a row) and lse * log2(e),
 //      into a workspace [2][B * H][S_pad] whose rows are padded with 0 to a
 //      multiple of ROW_PAD, so the passes below copy whole 64- or 128-row
-//      runs of them with one bulk copy each and read 0 past S.
+//      runs of them with one bulk copy each and read 0 past Sq.
 //   2. dK/dV: one block per (128-key tile, kv head, batch; 64 keys at hd
 //      256), the longest key tiles (the first) first.  A producer
 //      warpgroup (its registers handed to the consumers by setmaxnreg)
@@ -30,7 +30,7 @@
 //      = P^T (dP^T - D) in registers on the accumulator fragments, round
 //      both to bf16 register A fragments and accumulate dV += P^T dO and dK
 //      += dS^T Q (wgmma with A in registers, dO and Q MN-major: the
-//      transpose bit).  dK is scaled once; rows >= S are never written.
+//      transpose bit).  dK is scaled once; rows >= Skv are never written.
 //   3. dQ: one block per (128-row q tile, q head, batch; 64 rows at hd
 //      256), the longest first: the producer loads Q, dO and their lse and
 //      D rows once and streams K and V tiles of the rows' keys; each
@@ -39,17 +39,21 @@
 //
 // Masks: every kind is Mask's interval (attention_mask.cuh): 'global',
 // 'local' and 'chunked' (with their window), 'prefix' (with its length)
-// and 'full' (Sq == Skv only: whisper's encoder).  The dQ pass bounds its
+// and 'full' (whisper's encoder, and at Skv != Sq its cross-attention:
+// the dK/dV grid runs over the Skv keys, the dQ grid and the workspace
+// rows over the Sq queries; every other kind takes Skv == Sq).  The dQ
+// pass bounds its
 // kv loop by [lo, hi] of its rows, as the forward does; the dK/dV pass
 // bounds its q loop by [qlo, qhi] of its keys.  A tile is masked only
 // where some pair of it is not live (an edge tile: the diagonal, the end
 // of the sequence, a window's or a chunk's edge, the prefix's end), found
 // from the interval of its first and last row or key, which both bounds
 // are nondecreasing in; a warpgroup skips the products of a tile none of
-// whose pairs is live (it still takes its turn on the ring).  Q, dO, K and
-// V rows past S
-// are zero-filled by the TMA box and their lse and D rows read 0, so such
-// a query would give p = exp2(0) = 1: the edge mask's `q < S` makes it 0.
+// whose pairs is live (it still takes its turn on the ring).  Q and dO rows
+// past Sq and K and V rows past Skv are zero-filled by the TMA box and the
+// lse and D rows past Sq read 0, so such a query would give p = exp2(0) =
+// 1: the edge masks make it 0, `q < Sq` in the dK/dV pass and `k < Skv` in
+// the dQ pass.
 //
 // The softcap (gemma2): each score is recapped with the forward's own
 // softcap_score (attention_softcap.cuh, the same reciprocal), so P =
@@ -328,20 +332,20 @@ __device__ __forceinline__ void store_rows(bf16* g, const float (&c)[N / 2],
 }
 
 // ws[0][b H + h][r] = sum_d do[b, r, h, d] * o[b, r, h, d] at fp32 and
-// ws[1][b H + h][r] = lse[b, h, r] * log2(e), both 0 for S <= r < S_pad; one
+// ws[1][b H + h][r] = lse[b, h, r] * log2(e), both 0 for Sq <= r < S_pad; one
 // warp a row: lane l sums the pairs at 2 l, 2 l + 64, ..., then the lanes
 // fold by shuffles
 __global__ void __launch_bounds__(256)
 rows_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
             const float* __restrict__ lse, float* __restrict__ ws, int B,
-            int S, int S_pad, int H, int hd) {
+            int Sq, int S_pad, int H, int hd) {
   const int n = B * H * S_pad;
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= n) return;
   const int r = row % S_pad, bh = row / S_pad, h = bh % H, b = bh / H;
   float s = 0.0f, l2 = 0.0f;
-  if (r < S) {  // a whole warp's row
-    const size_t base = (((size_t)b * S + r) * H + h) * hd;
+  if (r < Sq) {  // a whole warp's row
+    const size_t base = (((size_t)b * Sq + r) * H + h) * hd;
     for (int i = 2 * lane; i < hd; i += 64) {
       const float2 of = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(o + base + i));
@@ -353,7 +357,7 @@ rows_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 #pragma unroll
     for (int off = 16; off; off /= 2)
       s += __shfl_xor_sync(0xffffffffu, s, off);
-    l2 = lse[(size_t)bh * S + r] * LOG2E;
+    l2 = lse[(size_t)bh * Sq + r] * LOG2E;
   }
   if (lane == 0) {
     ws[row] = s;
@@ -368,8 +372,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap map_q,
            const __grid_constant__ CUtensorMap map_v,
            const __grid_constant__ CUtensorMap map_do,
            const float* __restrict__ ws, bf16* __restrict__ dk,
-           bf16* __restrict__ dv, int B, int S, int S_pad, int H, int KV,
-           Mask mask, const Cap cap) {
+           bf16* __restrict__ dv, int B, int Sq, int Skv, int S_pad, int H,
+           int KV, Mask mask, const Cap cap) {
   using L = DkvLayout<HD, SOFTCAP>;
   constexpr int SPAN = Rows<HD>::SPAN, COLS = Rows<HD>::COLS;
   constexpr int BQ = L::BQ, BKV = L::BKV, NS = L::STAGES, HDW = L::HDW;
@@ -390,7 +394,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   // the q tiles that attend a key of the block: from the first key's first
   // query to the last key's last one
   const int q_first = mask.qlo(kv0);
-  const int q_last = min(mask.qhi(min(kv0 + BKV, S) - 1), S - 1);
+  const int q_last = min(mask.qhi(min(kv0 + BKV, Skv) - 1), Sq - 1);
   const int qt_begin = q_first / BQ;
   const int n_qt = q_last >= q_first ? q_last / BQ + 1 - qt_begin : 0;
   const int n_iter = G * n_qt;  // head g's tiles, g ascending
@@ -454,7 +458,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int qcols = col0 / COLS * BQ * SPAN;
   const int r0 = kw0 + (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
-  // the queries of this thread's keys (none for a key past S), the
+  // the queries of this thread's keys (none for a key past Skv), the
   // queries every key of the warpgroup is attended by (a tile inside them
   // is interior), and those some key is
   int q_lo[2], q_hi[2];
@@ -462,13 +466,13 @@ dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int r = 0; r < 2; ++r) {
     const int key = r0 + 8 * r;
     q_lo[r] = mask.qlo(key);
-    q_hi[r] = key < S ? min(mask.qhi(key), S - 1) : -1;
+    q_hi[r] = key < Skv ? min(mask.qhi(key), Sq - 1) : -1;
   }
   const int all_lo = mask.qlo(kw0 + 63);
-  const int all_hi = kw0 + 63 < S ? min(mask.qhi(kw0), S - 1) : -1;
+  const int all_hi = kw0 + 63 < Skv ? min(mask.qhi(kw0), Sq - 1) : -1;
   const int any_lo = mask.qlo(kw0);
-  const int any_hi = kw0 < S ? min(mask.qhi(min(kw0 + 63, S - 1)), S - 1)
-                             : -1;
+  const int any_hi =
+      kw0 < Skv ? min(mask.qhi(min(kw0 + 63, Skv - 1)), Sq - 1) : -1;
   float dka[HDW / 2], dva[HDW / 2];
 #pragma unroll
   for (int i = 0; i < HDW / 2; ++i) dka[i] = dva[i] = 0.0f;
@@ -515,9 +519,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   const size_t stride = (size_t)KV * HD;
-  const size_t head = (size_t)b * S * stride + kvh * HD + col0;
-  store_rows<HDW>(dk + head, dka, r0, S, stride, cq, cap.scale);
-  store_rows<HDW>(dv + head, dva, r0, S, stride, cq, 1.0f);
+  const size_t head = (size_t)b * Skv * stride + kvh * HD + col0;
+  store_rows<HDW>(dk + head, dka, r0, Skv, stride, cq, cap.scale);
+  store_rows<HDW>(dv + head, dva, r0, Skv, stride, cq, 1.0f);
 }
 
 template <int HD, bool SOFTCAP>
@@ -526,8 +530,9 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
           const __grid_constant__ CUtensorMap map_k,
           const __grid_constant__ CUtensorMap map_v,
           const __grid_constant__ CUtensorMap map_do,
-          const float* __restrict__ ws, bf16* __restrict__ dq, int B, int S,
-          int S_pad, int H, int KV, int n_qt, Mask mask, const Cap cap) {
+          const float* __restrict__ ws, bf16* __restrict__ dq, int B, int Sq,
+          int Skv, int S_pad, int H, int KV, int n_qt, Mask mask,
+          const Cap cap) {
   using L = DqLayout<HD>;
   constexpr int SPAN = Rows<HD>::SPAN, COLS = Rows<HD>::COLS;
   constexpr int BQ = L::BQ, BKV = L::BKV, NS = L::STAGES;
@@ -546,7 +551,7 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int qt = n_qt - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV), q0 = qt * BQ;
   // no tile past the last row's keys, none before the first row's
-  const int kv_end = min(S, mask.hi(min(q0 + BQ, S) - 1) + 1);
+  const int kv_end = min(Skv, mask.hi(min(q0 + BQ, Sq) - 1) + 1);
   const int kv_begin = max(0, mask.lo(q0)) / BKV * BKV;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV
                                         : 0;
@@ -610,11 +615,12 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
   // the keys of this thread's rows, the keys every row of the warpgroup
   // attends (a tile inside them is interior), and those some row does
   const int key_lo[2] = {mask.lo(r0), mask.lo(r0 + 8)};
-  const int key_hi[2] = {min(mask.hi(r0), S - 1), min(mask.hi(r0 + 8), S - 1)};
-  const int all_lo = mask.lo(qw0 + 63), all_hi = min(mask.hi(qw0), S - 1);
+  const int key_hi[2] = {min(mask.hi(r0), Skv - 1),
+                         min(mask.hi(r0 + 8), Skv - 1)};
+  const int all_lo = mask.lo(qw0 + 63), all_hi = min(mask.hi(qw0), Skv - 1);
   const int any_lo = mask.lo(qw0);
-  const int any_hi = qw0 < S ? min(mask.hi(min(qw0 + 63, S - 1)), S - 1)
-                             : -1;
+  const int any_hi =
+      qw0 < Sq ? min(mask.hi(min(qw0 + 63, Sq - 1)), Skv - 1) : -1;
   float dqa[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.0f;
@@ -652,29 +658,30 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   const size_t stride = (size_t)H * HD;
-  store_rows<HD>(dq + (size_t)b * S * stride + h * HD, dqa, r0, S, stride,
+  store_rows<HD>(dq + (size_t)b * Sq * stride + h * HD, dqa, r0, Sq, stride,
                  cq, cap.scale);
 }
 
 template <int HD, bool SOFTCAP>
 int launch_backward(const bf16* Q, const bf16* K, const bf16* V,
                     const bf16* O, const bf16* dO, const float* L, bf16* dq,
-                    bf16* dk, bf16* dv, float* ws, int B, int S, int H,
-                    int KV, float scale, Mask mask, float softcap,
+                    bf16* dk, bf16* dv, float* ws, int B, int Sq, int Skv,
+                    int H, int KV, float scale, Mask mask, float softcap,
                     cudaStream_t st) {
   using Dkv = DkvLayout<HD, SOFTCAP>;
   using Dq = DqLayout<HD>;
-  // q, do [B, S, H * HD] and k, v [B, S, KV * HD] as 3-D maps of 64-row
+  // q, do [B, Sq, H * HD] and k, v [B, Skv, KV * HD] as 3-D maps of 64-row
   // boxes (a 128-row tile is two), so a box past a sequence's end is
   // zero-filled rather than read from the next
   CUtensorMap mq, mk, mv, mdo;
   const uint32_t box[3] = {Rows<HD>::COLS, BOX_ROWS, 1};
-  const uint64_t dims_q[3] = {(uint64_t)H * HD, (uint64_t)S, (uint64_t)B};
+  const uint64_t dims_q[3] = {(uint64_t)H * HD, (uint64_t)Sq, (uint64_t)B};
   const uint64_t strides_q[2] = {(uint64_t)H * HD * 2,
-                                 (uint64_t)S * H * HD * 2};
-  const uint64_t dims_kv[3] = {(uint64_t)KV * HD, (uint64_t)S, (uint64_t)B};
+                                 (uint64_t)Sq * H * HD * 2};
+  const uint64_t dims_kv[3] = {(uint64_t)KV * HD, (uint64_t)Skv,
+                               (uint64_t)B};
   const uint64_t strides_kv[2] = {(uint64_t)KV * HD * 2,
-                                  (uint64_t)S * KV * HD * 2};
+                                  (uint64_t)Skv * KV * HD * 2};
   constexpr int SPAN = Rows<HD>::SPAN;
   int e = make_map(&mq, Q, 3, dims_q, strides_q, box, SPAN);
   if (!e) e = make_map(&mdo, dO, 3, dims_q, strides_q, box, SPAN);
@@ -693,33 +700,35 @@ int launch_backward(const bf16* Q, const bf16* K, const bf16* V,
     if (e) return e;
     smem_set = 1;
   }
-  const int S_pad = (S + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
-  rows_kernel<<<(B * H * S_pad + 7) / 8, 256, 0, st>>>(O, dO, L, ws, B, S,
+  const int S_pad = (Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+  rows_kernel<<<(B * H * S_pad + 7) / 8, 256, 0, st>>>(O, dO, L, ws, B, Sq,
                                                        S_pad, H, HD);
-  const int n_kt = (S + Dkv::BKV - 1) / Dkv::BKV;
+  const int n_kt = (Skv + Dkv::BKV - 1) / Dkv::BKV;
   const Cap cap{scale, scale * LOG2E, softcap,
                 SOFTCAP ? 1.0f / softcap : 0.0f};
   dkv_kernel<HD, SOFTCAP><<<dim3(n_kt, KV, B), THREADS, Dkv::SMEM, st>>>(
-      mq, mk, mv, mdo, ws, dk, dv, B, S, S_pad, H, KV, mask, cap);
-  const int n_qt = (S + Dq::BQ - 1) / Dq::BQ;
+      mq, mk, mv, mdo, ws, dk, dv, B, Sq, Skv, S_pad, H, KV, mask, cap);
+  const int n_qt = (Sq + Dq::BQ - 1) / Dq::BQ;
   dq_kernel<HD, SOFTCAP><<<dim3(n_qt, H, B), Dq::THREADS, Dq::SMEM, st>>>(
-      mq, mk, mv, mdo, ws, dq, B, S, S_pad, H, KV, n_qt, mask, cap);
+      mq, mk, mv, mdo, ws, dq, B, Sq, Skv, S_pad, H, KV, n_qt, mask, cap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // K4's backward (every MaskKind with its window and prefix length, the
-// softcap when > 0, head dims 16 to 256; Sq == Skv == S): q, o, do, dq [B,
-// S, H, hd] and k, v, dk, dv [B, S, KV, hd] bf16, lse
-// [B, H, S] fp32 (k4_flash_prefill_lse's), ws [2, B, H, S_pad] fp32 scratch
-// for D and lse log2(e), S_pad = S rounded up to a multiple of 128
-// (kernels/flash_attention.py's BWD_ROW_PAD); three launches on `stream`.
+// softcap when > 0, head dims 16 to 256; Skv == Sq, or any Skv under
+// 'full'): q, o, do, dq [B, Sq, H, hd] and k, v, dk, dv [B, Skv, KV, hd]
+// bf16, lse [B, H, Sq] fp32 (k4_flash_prefill_lse's), ws [2, B, H, S_pad]
+// fp32 scratch for D and lse log2(e), S_pad = Sq rounded up to a multiple
+// of 128 (kernels/flash_attention.py's BWD_ROW_PAD); three launches on
+// `stream`.
 extern "C" int k4_flash_backward(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* lse, void* dq, void* dk,
-                                 void* dv, void* ws, int B, int S, int H,
-                                 int KV, int hd, float scale, int mask_kind,
+                                 void* dv, void* ws, int B, int Sq, int Skv,
+                                 int H, int KV, int hd, float scale,
+                                 int mask_kind,
                                  int window, int prefix_len, float softcap,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -727,7 +736,7 @@ extern "C" int k4_flash_backward(const void* q, const void* k, const void* v,
   const int kinds = 1 << MASK_GLOBAL | 1 << MASK_LOCAL | 1 << MASK_FULL |
                     1 << MASK_CHUNKED | 1 << MASK_PREFIX;
   if (!mask_ok(mask, kinds) || !(softcap >= 0.0f) || KV < 1 || H % KV ||
-      B < 1 || S < 1)
+      B < 1 || Sq < 1 || Skv < 1 || (Skv != Sq && mask_kind != MASK_FULL))
     return (int)cudaErrorInvalidValue;
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
@@ -744,11 +753,11 @@ extern "C" int k4_flash_backward(const void* q, const void* k, const void* v,
     case HD:                                                               \
       return softcap > 0.0f                                                \
                  ? launch_backward<HD, true>(Q, K, V, O, dO, L, DQ, DK, DV, \
-                                             W, B, S, H, KV, scale, mask,  \
-                                             softcap, st)                  \
+                                             W, B, Sq, Skv, H, KV, scale,  \
+                                             mask, softcap, st)            \
                  : launch_backward<HD, false>(Q, K, V, O, dO, L, DQ, DK,   \
-                                              DV, W, B, S, H, KV, scale,   \
-                                              mask, 0.0f, st);
+                                              DV, W, B, Sq, Skv, H, KV,    \
+                                              scale, mask, 0.0f, st);
     BWD_CASE(16) BWD_CASE(32) BWD_CASE(64) BWD_CASE(128) BWD_CASE(256)
 #undef BWD_CASE
     default: return (int)cudaErrorInvalidValue;

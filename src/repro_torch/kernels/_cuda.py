@@ -94,10 +94,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                            _I, _I, _F, _I, _I, _F, _P],
     },
     "flash_backward": {
-        # q, k, v, out, dout, lse, dq, dk, dv, ws, B, S, H, KV, hd, scale,
-        # mask kind, window, prefix_len, softcap, stream
+        # q, k, v, out, dout, lse, dq, dk, dv, ws, B, Sq, Skv, H, KV, hd,
+        # scale, mask kind, window, prefix_len, softcap, stream
         "k4_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _F, _I, _I, _I, _F, _P],
+                              _I, _I, _I, _I, _F, _I, _I, _I, _F, _P],
     },
     "addertree": {
         # partials, out, S, n, in_kind, out_kind, stream

@@ -12,14 +12,15 @@ kernels by hand, so that the card's backward runs on kernels too:
   outputs, differentiates the epilogue in plain torch at fp32 (it
   recomputes the gate's input ``u = a @ w`` with a K1 launch of the fp32
   store rather than keeping it), then launches ``dA = dC @ W^T`` (K1, the
-  activation's dtype) and ``dW = A^T @ dC`` (K1's fp32 store), ``dC``
-  rounded to the activation's dtype; the transposed operands are
-  contiguous copies.
+  activation's dtype) and ``dW = A^T @ dC`` (K1's fp32 store, the rows
+  padded with zeros to a multiple of 8), ``dC`` rounded to the
+  activation's dtype; the transposed operands are contiguous copies.
 * ``rmsnorm``: the standalone row norm (``k1_rmsnorm_rows``); its backward
   is plain torch, as the reference has no kernel for it.
 * ``flash_attention``: K4, which keeps q, k, v, its output and its row
   log-sum-exp; the backward is K4's backward kernel, in the forward's
-  kind (its window and prefix length) and softcap, at Sq == Skv.
+  kind (its window and prefix length) and softcap, at Sq == Skv, and
+  under 'full' at any Skv (whisper's cross-attention).
 * ``embed``: the embedding gather, whose backward sums each row's
   gradients in token order (a stable sort, then one segment sum per
   row, no atomics), so a recomputed or repeated step is bitwise the same
@@ -116,6 +117,12 @@ class _Matmul(torch.autograd.Function):
             da = kops.matmul(dc, w.to(a.dtype).t().contiguous(),
                              out_dtype=a.dtype)
         if ctx.needs_input_grad[1]:
+            # K1 takes K, here the rows, a multiple of 8 (16-byte rows): a
+            # batch of other rows (whisper's 1500 frames a clip) gets zero
+            # rows, which add nothing to the sums
+            pad = -a.shape[0] % 8
+            if pad:
+                a, dc = F.pad(a, (0, 0, 0, pad)), F.pad(dc, (0, 0, 0, pad))
             dw = kops.matmul(a.t().contiguous(), dc,
                              out_dtype=wide).to(w.dtype)
         if dscale is not None:

@@ -250,9 +250,10 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 # K4's backward takes every kind and head dim of the forward, with or
-# without the softcap, at Sq == Skv; its workspace's rows (D and lse
-# log2(e) a query) are padded with 0 to a multiple of this, the dQ pass's
-# widest q tile (csrc/flash_backward.cu's ROW_PAD)
+# without the softcap, at Skv == Sq, and 'full' at any Skv (cross-
+# attention); its workspace's rows (D and lse log2(e) a query) are padded
+# with 0 to a multiple of this, the dQ pass's widest q tile
+# (csrc/flash_backward.cu's ROW_PAD)
 BWD_ROW_PAD = 128
 
 
@@ -263,43 +264,43 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, kind: str = "global",
     prefill from q, k, v, its output ``out``, its ``lse`` (``flash_
     attention_lse_cuda``) and the output's gradient ``dout``, all bf16 but
     ``lse``; one call (three launches: the row dots D beside lse log2(e),
-    then dK/dV, then dQ, both passes wgmma fed by a TMA ring), counted once
-    as ``flash_attention_bwd`` and under its variants as the forward is
-    (``local``, ``full``, ``chunked``, ``prefix``, ``softcap``, ``hd256``).
-    Takes every kind (``mask_args``: the window of 'local' and 'chunked',
-    the prefix length of 'prefix') at head dims 16 to 256 with or without
-    the softcap, at Sq == Skv; 'full' at Skv != Sq (cross-attention)
-    raises."""
-    b, s, n_h, hd = q.shape
+    then dK/dV over the Skv keys, then dQ over the Sq queries, both passes
+    wgmma fed by a TMA ring), counted once as ``flash_attention_bwd`` and
+    under its variants as the forward is (``local``, ``full``,
+    ``chunked``, ``prefix``, ``softcap``, ``hd256``).  Takes every kind
+    (``mask_args``: the window of 'local' and 'chunked', the prefix length
+    of 'prefix') at head dims 16 to 256 with or without the softcap, at Skv
+    == Sq; 'full' also at Skv != Sq (whisper's cross-attention), where
+    every other kind raises."""
+    b, sq, n_h, hd = q.shape
     n_kv, skv = k.shape[2], k.shape[1]
     code, win, plen = mask_args(kind, window, prefix_len)
-    if skv != s:
+    if skv != sq and kind != "full":
         raise NotImplementedError(
-            f"K4's backward takes Skv == Sq (got {skv} keys for {s} "
-            f"queries): cross-attention's backward is whisper's training "
-            f"slice")
+            f"K4's backward takes Skv == Sq under {kind!r} (got {skv} keys "
+            f"for {sq} queries); only 'full' attends other keys")
     _check_head_dim(hd)
     if softcap is not None and softcap < 0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
     if n_h % n_kv:
         raise ValueError(f"{n_h} q heads do not group over {n_kv} kv heads")
     for t, what in ((q, "q"), (out, "out"), (dout, "dout")):
-        _cuda.check(t, what, torch.bfloat16, (b, s, n_h, hd))
-    _cuda.check(k, "k", torch.bfloat16, (b, s, n_kv, hd))
-    _cuda.check(v, "v", torch.bfloat16, (b, s, n_kv, hd))
-    _cuda.check(lse, "lse", torch.float32, (b, n_h, s))
+        _cuda.check(t, what, torch.bfloat16, (b, sq, n_h, hd))
+    _cuda.check(k, "k", torch.bfloat16, (b, skv, n_kv, hd))
+    _cuda.check(v, "v", torch.bfloat16, (b, skv, n_kv, hd))
+    _cuda.check(lse, "lse", torch.float32, (b, n_h, sq))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
+    s_pad = -(-sq // BWD_ROW_PAD) * BWD_ROW_PAD
     ws = torch.empty((2, b, n_h, s_pad), dtype=torch.float32,
                      device=q.device)
     _cuda.count("flash_attention_bwd", **k4_variants(kind, softcap, hd))
     _cuda.launch("flash_backward", "k4_flash_backward", q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 ws.data_ptr(), b, s, n_h, n_kv, hd, hd ** -0.5, code, win,
-                 plen, float(softcap or 0.0))
+                 ws.data_ptr(), b, sq, skv, n_h, n_kv, hd, hd ** -0.5, code,
+                 win, plen, float(softcap or 0.0))
     return dq, dk, dv
 
 

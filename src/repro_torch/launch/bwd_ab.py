@@ -4,7 +4,7 @@ on the card.
     PYTHONPATH=src python -m repro_torch.launch.bwd_ab \\
         [--against NAME=CSRC_DIR ...] [--plant FAULT ...] \\
         [--shapes B,S,H,KV,HD[,kind=K][,window=W][,prefix_len=P]
-                  [,softcap=C][,qscale=A] ...] [--out bwd_ab.json]
+                  [,softcap=C][,qscale=A][,skv=N] ...] [--out bwd_ab.json]
 
 Builds this checkout's kernel (through ``kernels._cuda``) and, for each
 ``--against``, the ``flash_backward.cu`` of another ``csrc`` directory
@@ -14,8 +14,10 @@ Builds this checkout's kernel (through ``kernels._cuda``) and, for each
 copy under ``$TMPDIR``, removed once built): a check that cannot tell
 such a build from this one is too loose.  Every build must take this
 checkout's launch arguments (``_cuda.SIGNATURES``).  A shape may name an
-attention kind, its window or prefix length, a softcap and a factor on q
-(default 'global', none, 1: q, k and v are standard normal, so the
+attention kind, its window or prefix length, a softcap, a factor on q and
+the keys' count ``skv`` ('full' only: S queries over ``skv`` keys, the
+cross-attention's shape) (default 'global', none, 1, S: q, k and v are
+standard normal, so the
 scaled scores are about N(0, 1) and a softcap of 50 barely bends them;
 q times 10 puts them at the cap).  At each shape, each build's (dq, dk,
 dv) must be within ``TOL`` of each row's scale of the plain backward at
@@ -47,7 +49,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
 from repro_torch.launch.k1_widths import _device_ms, _spin_cycles_per_ms
 
 # internlm2-1.8b's training microbatch, then the small rows chip_smoke.py
-# holds beside it (hd 16, 32, 64; S not a multiple of a tile; G = 1, 4)
+# holds beside it (hd 16, 32, 64; S not a multiple of a tile; G = 1, 4);
+# a shape's mask may take 'full' over another key count (``skv``)
 SHAPES = ((4, 4096, 16, 8, 128), (4, 64, 4, 2, 16), (2, 1024, 8, 4, 32),
           (2, 1024, 8, 4, 64), (2, 1000, 16, 8, 128), (2, 1024, 4, 4, 128),
           (2, 1024, 8, 2, 128))
@@ -146,7 +149,7 @@ def sdpa_bwd_ms(q, k, v, dout, ms, kw):
 
 def _spec(text: str):
     """"B,S,H,KV,HD[,key=value ...]" -> ((B, S, H, KV, HD), kwargs: the
-    mask's and ``qscale``)."""
+    mask's, ``qscale`` and ``skv``)."""
     parts = text.split(",")
     mask = {}
     for kv in parts[5:]:
@@ -212,18 +215,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(27)
     rows = []
     for (b, s, h, kv, hd), spec in shapes:
-        mask = {key: val for key, val in spec.items() if key != "qscale"}
+        mask = {key: val for key, val in spec.items()
+                if key not in ("qscale", "skv")}
+        skv = spec.get("skv", s)
 
         def rand(*shape, scale=1.0):
             return (torch.randn(shape, generator=gen, device="cuda")
                     * scale).to(torch.bfloat16)
         q, k, v, dout = (rand(b, s, h, hd, scale=spec.get("qscale", 1.0)),
-                         rand(b, s, kv, hd), rand(b, s, kv, hd),
+                         rand(b, skv, kv, hd), rand(b, skv, kv, hd),
                          rand(b, s, h, hd))
         out, lse = flash_attention_lse_cuda(q, k, v, **mask)
         want = ref.flash_attention_bwd_ref_by_kv_head(q, k, v, out, lse, dout,
                                                       **mask)
-        row = {"shape": [b, s, h, kv, hd], "mask": spec}
+        row = {"shape": [b, s, h, kv, hd, skv], "mask": spec}
         for name, lib in libs.items():
             _use(lib)
             got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **mask)
@@ -243,9 +248,10 @@ def main() -> int:
                                                     **mask))
             row[name].setdefault("ms", []).append(t)
         _use(libs["this"])
-        pairs = b * h * s * ref.live_keys(mask.get("kind", "global"), s,
-                                          mask.get("window", 0),
-                                          mask.get("prefix_len", 0))
+        pairs = b * h * s * (skv if mask.get("kind") == "full" else
+                             ref.live_keys(mask.get("kind", "global"), s,
+                                           mask.get("window", 0),
+                                           mask.get("prefix_len", 0)))
         row["bound_ms"] = 10 * hd * pairs / BF16_FLOPS_PER_S * 1e3
         kw = sdpa_mask_kw(s, q.device, **mask)
         row["sdpa_bwd_ms"] = None if kw is None else sdpa_bwd_ms(

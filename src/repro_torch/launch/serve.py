@@ -249,14 +249,16 @@ def _nbytes(tensors) -> int:
 def int8_peak_bytes(cfg, fp32_fallback: bool = False) -> int:
     """The weight bytes the int8 build of ``cfg`` holds at its peak,
     reckoned on the meta device (no memory is touched): the float model
-    (bf16 projections; the embedding and norm scales at their own dtype)
+    (every weight at its own dtype: bf16 projections, or a float32
+    config's fp32 masters)
     and, with ``fp32_fallback``, every block's int8 copy beside it; without
     it the release path's float model plus the largest block's int8 copy
     (blocks differ: an RG-LRU block's copy is its MLP alone, its mixer
     shared; an xLSTM block's is empty).  A block's int8 copy is its ``QuantizedWeight``s (int8 values
     and f32 column scales); what it shares is not counted twice."""
     model = Model(cfg, device="meta")
-    copies = [_nbytes(b for m in Block.quantized(blk, cfg).modules()
+    copies = [_nbytes(b for m in Block.quantized(
+                          blk, cfg, model.compute_dtype).modules()
                       if isinstance(m, QuantizedWeight) for b in m.buffers())
               for blk in model.blocks]
     return (_nbytes(model.state_dict().values())

@@ -4,10 +4,13 @@
         --smoke --steps 50 --batch 8 --seq 128 --device cpu
 
 Runs on the card unless ``--device cpu``; ``--smoke`` selects the reduced
-config.  Every decoder family trains (attention, MoE, patch prefix, the
-recurrent mixers: ``--arch recurrentgemma-9b`` or ``xlstm-350m``, whose
-mLSTM takes ``--seq`` below 64 or a multiple of it); whisper's
-encoder-decoder is refused.  The reference's flags, the mesh ones included: one device is the
+config.  Every family trains: the decoders (attention, MoE, patch prefix:
+``--arch paligemma-3b``, whose ``--seq`` counts the patches; the recurrent
+mixers: ``--arch recurrentgemma-9b`` or ``xlstm-350m``, whose mLSTM takes
+``--seq`` below 64 or a multiple of it) and whisper's encoder-decoder
+(``--arch whisper-small``: ``--seq`` decoder tokens over the config's
+frames, drawn from the seed by the data pipeline).  The reference's flags,
+the mesh ones included: one device is the
 only mesh the port trains on (``--data-mesh`` 0 or 1, ``--model-mesh``
 1; more is the multi-device slice's).  The AdamW moments follow the
 config's ``opt_state_mode``, the learning rate a warmup-cosine schedule.

@@ -15,9 +15,11 @@ A local or chunked layer's dense cache is a ring buffer of ``min(window,
 max_len)`` slots (position p at slot p % W), decoded by
 ``decode_attention_ring``, plain torch as the reference's einsum path is
 plain XLA (``attention.py:405-441``); its paged lanes keep their full
-history and K6 masks by position.  ``attention_train`` is the training
-forward: the same products through ``kernels.autograd`` (K1 and K4 with
-their backwards) on the master weights, with no cache."""
+history and K6 masks by position.  ``attention_train`` and
+``cross_attention_train`` are the training forwards: the same products
+through ``kernels.autograd`` (K1 and K4 with their backwards; the
+cross-attention's q and K/V products ``torch.matmul``) on the master
+weights, with no cache."""
 from __future__ import annotations
 
 import math
@@ -70,7 +72,8 @@ class CrossAttention(nn.Module):
     """Whisper's cross-attention, unpacked as in the reference
     (``lm.py:103-106``): ``wq [D, q_dim]`` reads the decoder stream,
     ``wk``/``wv [D, kv_dim]`` the encoder output, ``wo [q_dim, D]``.
-    Never quantized (the reference's int8 pass skips ``xattn``)."""
+    Never quantized (the reference's int8 pass skips ``xattn``); served
+    from its copy at the compute dtype (``lm._cast_xattn``)."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device):
@@ -284,14 +287,15 @@ def cross_attention_apply(xattn: CrossAttention, x: torch.Tensor,
     any kernel, as the reference's einsums are (``lm.py:276-281``,
     ``attention.py:619``); the attention is the 'full' kind: K4 over every
     frame at prefill, K5 with no position mask at decode (``decode``, S ==
-    1); ``wo`` goes through K1 (``attention.py:705``)."""
+    1); ``wo`` goes through K1 (``attention.py:705``).  The weights are
+    taken at the compute dtype (the served copy's), never cast here."""
     b, s, _ = x.shape
     f = enc_out.shape[1]
     n_kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     cd = compute_dtype
-    q = torch.matmul(x, xattn.wq.to(cd)).reshape(b, s, cfg.n_heads, hd)
-    ek = torch.matmul(enc_out, xattn.wk.to(cd)).reshape(b, f, n_kv, hd)
-    ev = torch.matmul(enc_out, xattn.wv.to(cd)).reshape(b, f, n_kv, hd)
+    q = torch.matmul(x, xattn.wq).reshape(b, s, cfg.n_heads, hd)
+    ek = torch.matmul(enc_out, xattn.wk).reshape(b, f, n_kv, hd)
+    ev = torch.matmul(enc_out, xattn.wv).reshape(b, f, n_kv, hd)
     if decode:
         out = kops.flash_decode(q.reshape(b, s, n_kv, g, hd), ek, ev, f - 1,
                                 kind="full", softcap=cfg.attn_softcap)
@@ -299,24 +303,52 @@ def cross_attention_apply(xattn: CrossAttention, x: torch.Tensor,
         out = kops.flash_attention(q, ek, ev, kind="full",
                                    softcap=cfg.attn_softcap)
     out = out.reshape(b * s, cfg.q_dim).to(cd)
-    return kops.matmul(out, xattn.wo.to(cd), out_dtype=cd).reshape(b, s, -1)
+    return kops.matmul(out, xattn.wo, out_dtype=cd).reshape(b, s, -1)
 
 
 def attention_train(wqkv: torch.Tensor, wo: torch.Tensor, x: torch.Tensor,
                     cfg: ArchConfig, compute_dtype: torch.dtype, *,
                     kind: str, theta: float,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: Optional[torch.Tensor],
+                    use_rope: bool = True) -> torch.Tensor:
     """``attention_apply``'s prefill with gradients and no cache: the packed
-    QKV GEMM, RoPE, K4 over the grouped K/V and the out projection, the
-    GEMMs on the master weights ``wqkv``/``wo`` (cast to the compute dtype
-    inside ``kernels.autograd.matmul``)."""
+    QKV GEMM, RoPE (``use_rope=False``: whisper, q and k unrotated), K4
+    over the grouped K/V and the out projection, the GEMMs on the master
+    weights ``wqkv``/``wo`` (cast to the compute dtype inside
+    ``kernels.autograd.matmul``)."""
     b, s, _ = x.shape
     cd = compute_dtype
     q, k, v = split_qkv(ag.matmul(x.reshape(b * s, -1), wqkv, out_dtype=cd
                                   ).reshape(b, s, -1), cfg)
-    q, k = rope(q, positions, theta), rope(k, positions, theta)
+    if use_rope:
+        q, k = rope(q, positions, theta), rope(k, positions, theta)
+    else:
+        # the packed split leaves strided views; the kernels take rows
+        q, k = q.contiguous(), k.contiguous()
     v = v.contiguous()
     out = ag.flash_attention(q, k, v, kind=kind, window=cfg.window,
+                             softcap=cfg.attn_softcap)
+    out = out.reshape(b * s, cfg.q_dim).to(cd)
+    return ag.matmul(out, wo, out_dtype=cd).reshape(b, s, -1)
+
+
+def cross_attention_train(wq: torch.Tensor, wk: torch.Tensor,
+                          wv: torch.Tensor, wo: torch.Tensor, x: torch.Tensor,
+                          enc_out: torch.Tensor, cfg: ArchConfig,
+                          compute_dtype: torch.dtype) -> torch.Tensor:
+    """``cross_attention_apply``'s prefill with gradients: q from the
+    decoder's normed stream x [B, S, D], K/V from the encoder output
+    ``enc_out`` [B, F, D], each a ``torch.matmul`` of the master weight
+    cast to the compute dtype under autograd (the reference's einsums,
+    ``lm.py:276-281``, outside any kernel); K4 'full' over the F frames
+    with its backward at F != S; ``wo`` through K1."""
+    b, s, _ = x.shape
+    f = enc_out.shape[1]
+    n_kv, hd, cd = cfg.n_kv_heads, cfg.hd, compute_dtype
+    q = torch.matmul(x, wq.to(cd)).reshape(b, s, cfg.n_heads, hd)
+    ek = torch.matmul(enc_out, wk.to(cd)).reshape(b, f, n_kv, hd)
+    ev = torch.matmul(enc_out, wv.to(cd)).reshape(b, f, n_kv, hd)
+    out = ag.flash_attention(q, ek, ev, kind="full",
                              softcap=cfg.attn_softcap)
     out = out.reshape(b * s, cfg.q_dim).to(cd)
     return ag.matmul(out, wo, out_dtype=cd).reshape(b, s, -1)

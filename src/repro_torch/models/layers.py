@@ -2,7 +2,8 @@
 embedding gather and the MaxEVA MLP, gated (SwiGLU) or plain GELU (single
 device; bf16 or int8 weights), and the MLP's training forward
 (``mlp_train``: the same GEMMs and epilogues through ``kernels.autograd``,
-on the fp32 master weights)."""
+on the fp32 master weights, with the fold or, in whisper's encoder,
+without it)."""
 from __future__ import annotations
 
 import contextlib
@@ -160,20 +161,25 @@ def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def mlp_train(params: Dict[str, torch.Tensor], x: torch.Tensor,
-              compute_dtype: torch.dtype, residual: torch.Tensor,
-              norm_scale: torch.Tensor, norm_eps: float = 1e-6,
-              gated: bool = True):
-    """``mlp_apply``'s decoder-block form with gradients: the gate GEMM,
-    the up GEMM with its ``silu(g) * u`` epilogue (or ``gelu(u)``), and the
-    down GEMM folding the residual and the NEXT norm, each through
-    ``kernels.autograd.matmul`` on the master weights (cast to the compute
-    dtype inside).  Returns ``(h_new, rmsnorm(h_new, norm_scale))``."""
+              compute_dtype: torch.dtype,
+              residual: Optional[torch.Tensor] = None,
+              norm_scale: Optional[torch.Tensor] = None,
+              norm_eps: float = 1e-6, gated: bool = True):
+    """``mlp_apply`` with gradients: the gate GEMM, the up GEMM with its
+    ``silu(g) * u`` epilogue (or ``gelu(u)``), and the down GEMM, each
+    through ``kernels.autograd.matmul`` on the master weights (cast to the
+    compute dtype inside).  With ``residual`` and ``norm_scale`` (a
+    decoder block) the down GEMM folds the residual and the NEXT norm and
+    the call returns ``(h_new, rmsnorm(h_new, norm_scale))``; without them
+    (whisper's encoder) it returns ``down(...)`` in the compute dtype."""
     cd = compute_dtype
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     g = ag.matmul(x2, params["gate"], out_dtype=cd) if gated else None
     h = ag.matmul(x2, params["up"], out_dtype=cd,
                   epilogue=up_epilogue(gated, out_dtype=cd), operand2=g)
+    if norm_scale is None:
+        return ag.matmul(h, params["down"], out_dtype=cd).reshape(*lead, -1)
     val, xn = ag.matmul(h, params["down"], out_dtype=cd,
                         epilogue=next_norm_fold(norm_eps, cd),
                         residual=residual.reshape(-1, residual.shape[-1]),

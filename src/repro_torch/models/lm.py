@@ -65,22 +65,21 @@ Its cache entry is the mixer's state (the mLSTM's ``{"C", "n", "m",
 and replaced by each decode step as an RG-LRU's is.  Every weight is the
 mixer's, so the int8 copy quantizes nothing and shares every leaf.
 
-whisper's and paligemma's configs keep the reference's float32
-``param_dtype`` (its training master copy); the port holds their
-projection weights at the compute dtype (bf16 on the card, cast once when
-the model is built or loaded), the embedding and norm scales at fp32.
-Other float32 configs (internlm2-1.8b, xlstm-350m, the smoke configs)
-keep float32 projections as the master copy, so that their int8 copies
-are quantized from the reference's values bit for bit and training
-updates them; the serving entry points run ``served_blocks``, a copy of
-the blocks whose ``wqkv``, ``wo``, MLP projections and recurrent mixers'
-compute-dtype weights (``COMPUTE_WEIGHTS``: their projections and conv)
-are cast once to the compute dtype (every GEMM multiplies bf16 x bf16),
-made at the first serving call and made again only after such a weight
-changes.  A mixer holds the weights it multiplies at fp32 (``WIDENED``:
-the RG-LRU's gates, the sLSTM's input map) at ``param_dtype``, as the
-reference does, and the same copy widens them once where that is
-narrower (recurrentgemma-9b's bf16).  The int8 copy holds each mixer as
+Every weight is held at the config's ``param_dtype``.  A float32 config
+(internlm2-1.8b, whisper-small, paligemma-3b, xlstm-350m, the smoke
+configs) keeps float32 projections as the master copy, the reference's,
+so that its int8 copy is quantized from the reference's values bit for
+bit and training updates them; the serving entry points run
+``served_blocks`` (and whisper's ``served_encoder``), a copy of the
+blocks whose ``wqkv``, ``wo``, MLP projections, cross-attention
+``wq``/``wk``/``wv``/``wo`` and recurrent mixers' compute-dtype weights
+(``COMPUTE_WEIGHTS``: their projections and conv) are cast once to the
+compute dtype (every product multiplies bf16 x bf16), made at the first
+serving call and made again only after such a weight changes.  A mixer
+holds the weights it multiplies at fp32 (``WIDENED``: the RG-LRU's gates,
+the sLSTM's input map) at ``param_dtype``, as the reference does, and the
+same copy widens them once where that is narrower (recurrentgemma-9b's
+bf16).  The int8 copy holds each mixer as
 the served copy does.
 
 Training (``loss``, the reference's ``lm.py:508-521``) is a functional
@@ -99,8 +98,14 @@ plain torch under autograd, then the MLP with its fold
 ``lm.py:305-309``).  A mixer's weights that it multiplies at fp32 but
 holds at a narrower ``param_dtype`` (``WIDENED``: recurrentgemma's bf16
 gates) are widened at use, as the reference's are, so their gradients
-and updates round to that dtype as the reference's do.  Whisper's
-encoder has no training forward yet (it raises).
+and updates round to that dtype as the reference's do.  Whisper's loss
+takes the batch's frames [B, F, D]: the encoder runs first, each of its
+blocks rematerialized in the backward whatever ``cfg.remat`` (the
+reference's ``jax.checkpoint`` of its encoder scan, ``lm.py:383``), and
+its output, computed once, feeds every decoder block's cross-attention
+(q and the K/V products of the encoder output ``torch.matmul`` under
+autograd, as the reference's einsums lie outside any kernel; K4 'full'
+over the F frames, whose backward takes Skv != Sq; ``wo`` through K1).
 """
 from __future__ import annotations
 
@@ -120,7 +125,8 @@ from repro_torch.kernels.quantize import quantize_weight_colwise
 from repro_torch.kernels.ref import PAGED_KINDS
 from repro_torch.models.attention import (Attention, CrossAttention,
                                           attention_apply, attention_train,
-                                          cross_attention_apply)
+                                          cross_attention_apply,
+                                          cross_attention_train)
 from repro_torch.models.layers import (mlp_apply, mlp_train, rmsnorm,
                                        sinusoid, vocab_parallel_embed)
 from repro_torch.models.loss import (vocab_parallel_logits,
@@ -177,16 +183,6 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Refuse a model the training forward does not cover: whisper's
-    encoder-decoder (a later training slice)."""
-    if cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains decoders (attention, dense or "
-            f"MoE, with or without a patch prefix, and the recurrent "
-            f"mixers); the encoder-decoder has no training forward yet")
-
-
 def _mlp_names(cfg: ArchConfig) -> Tuple[str, ...]:
     return ("gate", "up", "down") if cfg.gated_mlp else ("up", "down")
 
@@ -228,20 +224,54 @@ def _mixer_casts(mix: nn.Module, dtype: torch.dtype
     return out
 
 
-def _cast_mixer(mix: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """A recurrent mixer's serving copy at ``dtype``: the weights of
-    ``_mixer_casts`` cast once, the others shared; the mixer itself where
-    none is cast."""
-    casts = _mixer_casts(mix, dtype)
+def _cast_module(mod: nn.Module, casts: Dict[str, torch.dtype]
+                 ) -> nn.Module:
+    """A copy of ``mod`` whose parameters named in ``casts`` are cast once
+    to their dtypes, the others shared; ``mod`` itself where none is."""
     if not casts:
-        return mix
-    c = type(mix).__new__(type(mix))
+        return mod
+    c = type(mod).__new__(type(mod))
     nn.Module.__init__(c)
-    for name, p in mix.named_parameters(recurse=False):
+    for name, p in mod.named_parameters(recurse=False):
         setattr(c, name, nn.Parameter(p.detach().to(casts[name]),
                                       requires_grad=False)
                 if name in casts else p)
     return c
+
+
+def _cast_mixer(mix: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A recurrent mixer's serving copy at ``dtype``: the weights of
+    ``_mixer_casts`` cast once, the others shared; the mixer itself where
+    none is cast."""
+    return _cast_module(mix, _mixer_casts(mix, dtype))
+
+
+def _narrow(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float weight wider than ``dtype`` cast to it; else the weight."""
+    w = w.detach()
+    return w.to(dtype) if w.dtype.itemsize > dtype.itemsize else w
+
+
+def _cast_attn(attn: nn.Module, cfg: ArchConfig,
+               dtype: torch.dtype) -> nn.Module:
+    """The packed ``wqkv`` and ``wo`` cast once to ``dtype`` where wider."""
+    return Attention(cfg, None, None, weights={
+        name: _narrow(getattr(attn, name), dtype) for name in ("wqkv", "wo")})
+
+
+def _cast_mlp(ffn: nn.Module, cfg: ArchConfig,
+              dtype: torch.dtype) -> nn.Module:
+    """A dense MLP's projections cast once to ``dtype`` where wider."""
+    return MLP(cfg, None, None, weights={
+        name: _narrow(getattr(ffn, name), dtype) for name in ffn.names})
+
+
+def _cast_xattn(xattn: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Whisper's cross-attention at ``dtype``: ``wq``/``wk``/``wv``/``wo``
+    cast once where wider, so no serving call casts them."""
+    return _cast_module(xattn, {
+        name: dtype for name, p in xattn.named_parameters(recurse=False)
+        if p.dtype.itemsize > dtype.itemsize})
 
 
 def _norm(cfg: ArchConfig, device) -> nn.Parameter:
@@ -275,9 +305,9 @@ class Block(nn.Module):
     def cast(cls, blk: "Block", cfg: ArchConfig,
              dtype: torch.dtype) -> "Block":
         """The serving copy of ``blk`` at ``dtype``: the packed ``wqkv``,
-        ``wo`` and the MLP's projections cast once, and a recurrent
-        mixer's ``_cast_mixer`` copy; everything else (norm scales, an
-        MoE, the mixers' fp32 maps, whisper's cross-attention) shared."""
+        ``wo``, the MLP's projections and whisper's cross-attention cast
+        once, and a recurrent mixer's ``_cast_mixer`` copy; everything else
+        (norm scales, an MoE, the mixers' fp32 maps) shared."""
         c = cls.__new__(cls)
         nn.Module.__init__(c)
         for name, child in blk.named_children():
@@ -287,41 +317,35 @@ class Block(nn.Module):
             c.ln2 = blk.ln2
         if cfg.encdec:
             c.lnx = blk.lnx
-        def narrow(w):     # a float master wider than ``dtype``, cast
-            w = w.detach()
-            return w.to(dtype) if w.dtype.itemsize > dtype.itemsize else w
+            c.xattn = _cast_xattn(blk.xattn, dtype)
         if hasattr(blk, "attn"):
-            c.attn = Attention(cfg, None, None, weights={
-                name: narrow(getattr(blk.attn, name))
-                for name in ("wqkv", "wo")})
+            c.attn = _cast_attn(blk.attn, cfg, dtype)
         else:
             c.mix = _cast_mixer(blk.mix, dtype)
         if cfg.d_ff > 0 and not cfg.moe:
-            c.ffn = MLP(cfg, None, None, weights={
-                name: narrow(getattr(blk.ffn, name))
-                for name in blk.ffn.names})
+            c.ffn = _cast_mlp(blk.ffn, cfg, dtype)
         return c
 
     @classmethod
     def quantized(cls, blk: "Block", cfg: ArchConfig,
-                  mix: Optional[nn.Module] = None) -> "Block":
+                  dtype: torch.dtype) -> "Block":
         """The int8 serving copy of ``blk``: the packed ``wqkv``, ``wo``
-        and the MLP's projections quantized column-wise; the norm scales,
-        whisper's cross-attention, an MoE (router, experts and any
-        shared expert) and every recurrent mixer shared (the reference's
-        pass skips ``xattn``, an MoE's ``ffn`` and every mixer,
-        ``lm.py:194-208``): ``blk``'s mixer, or ``mix`` where given (its
-        copy at the compute dtype, ``_cast_mixer``).  An xLSTM block (a
-        mixer and no FFN) has no leaf to quantize: its copy shares
-        everything."""
+        and the MLP's projections quantized column-wise (from the float
+        masters); the norm scales and an MoE (router, experts and any
+        shared expert) shared; whisper's cross-attention and every
+        recurrent mixer left float (the reference's pass skips ``xattn``,
+        an MoE's ``ffn`` and every mixer, ``lm.py:194-208``) and held as
+        the served copy at ``dtype``, the compute dtype, holds them
+        (``_cast_xattn``, ``_cast_mixer``).  An xLSTM block (a mixer and
+        no FFN) has no leaf to quantize."""
         q = cls.__new__(cls)
         nn.Module.__init__(q)
         q.ln1 = blk.ln1
         if cfg.encdec:
-            q.lnx, q.xattn = blk.lnx, blk.xattn
+            q.lnx, q.xattn = blk.lnx, _cast_xattn(blk.xattn, dtype)
         qw = quantize_weight_colwise
         if hasattr(blk, "mix"):
-            q.mix = blk.mix if mix is None else mix
+            q.mix = _cast_mixer(blk.mix, dtype)
         else:
             q.attn = Attention(cfg, None, None, weights={
                 "wqkv": qw(blk.attn.wqkv), "wo": qw(blk.attn.wo)})
@@ -344,6 +368,18 @@ class EncoderBlock(nn.Module):
         self.ln2 = _norm(cfg, device)
         self.ffn = MLP(cfg, dtype, device)
 
+    @classmethod
+    def cast(cls, blk: "EncoderBlock", cfg: ArchConfig,
+             dtype: torch.dtype) -> "EncoderBlock":
+        """``blk`` with its ``wqkv``, ``wo`` and MLP projections cast once
+        to ``dtype`` where wider, its norm scales shared."""
+        c = cls.__new__(cls)
+        nn.Module.__init__(c)
+        c.ln1, c.ln2 = blk.ln1, blk.ln2
+        c.attn = _cast_attn(blk.attn, cfg, dtype)
+        c.ffn = _cast_mlp(blk.ffn, cfg, dtype)
+        return c
+
 
 class Encoder(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
@@ -352,6 +388,19 @@ class Encoder(nn.Module):
         self.blocks = nn.ModuleList(EncoderBlock(cfg, dtype, device)
                                     for _ in range(cfg.n_enc_layers))
         self.final_norm = _norm(cfg, device)
+
+    @classmethod
+    def cast(cls, enc: "Encoder", cfg: ArchConfig,
+             dtype: torch.dtype) -> "Encoder":
+        """The encoder's serving copy at ``dtype`` (``EncoderBlock.cast``
+        of each block), its final norm shared; never quantized (the
+        reference's int8 pass skips ``/encoder/``, ``lm.py:202``)."""
+        c = cls.__new__(cls)
+        nn.Module.__init__(c)
+        c.blocks = nn.ModuleList(EncoderBlock.cast(b, cfg, dtype)
+                                 for b in enc.blocks)
+        c.final_norm = enc.final_norm
+        return c
 
 
 class Model(nn.Module):
@@ -375,28 +424,24 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.compute_dtype = _dtype(cfg.compute_dtype)
         dt = _dtype(cfg.param_dtype)
-        # whisper's and paligemma's float32 param_dtype is the reference's
-        # training master copy; served, their projection weights are held
-        # at the compute dtype, so no GEMM casts them at use
-        proj = (self.compute_dtype if cfg.encdec or cfg.prefix_tokens
-                else dt)
         self.embed = nn.Parameter(
             torch.empty(cfg.padded_vocab(), cfg.d_model, dtype=dt,
                         device=self.device), requires_grad=False)
         self.final_norm = _norm(cfg, self.device)
         self.blocks = nn.ModuleList(
-            Block(cfg, proj, self.device, cfg.kind(i))
+            Block(cfg, dt, self.device, cfg.kind(i))
             for i in range(cfg.n_layers))
         if cfg.encdec:
-            self.encoder = Encoder(cfg, proj, self.device)
+            self.encoder = Encoder(cfg, dt, self.device)
         # float projections wider than the compute dtype, and a mixer's
         # weights multiplied at fp32 but held narrower, are served from a
         # cast copy (``served_blocks``)
         cd = self.compute_dtype
-        self._cast_to = (cd if cd.itemsize < proj.itemsize or any(
+        self._cast_to = (cd if cd.itemsize < dt.itemsize or any(
             _mixer_casts(b.mix, cd) for b in self.blocks if hasattr(b, "mix"))
             else None)
-        self._served: Optional[Tuple[tuple, List[Block]]] = None
+        self._served: Optional[Tuple[tuple, List[Block],
+                                     Optional[Encoder]]] = None
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Model":
@@ -446,10 +491,12 @@ class Model(nn.Module):
         transposed, [N, K], the K-major operand of K2's s8 wgmma; one f32
         scale per output column) and which shares this model's embedding
         and norm scales (the tied head keeps full precision for the
-        logits), whisper's encoder and cross-attention (the reference's
-        pass skips ``/encoder/`` and ``/xattn/``, ``lm.py:202``) and an
-        MoE model's FFN (only ``wqkv`` and ``wo`` are quantized,
-        ``lm.py:194-208``).  Idempotent: an int8 model returns itself.
+        logits) and an MoE model's FFN (only ``wqkv`` and ``wo`` are
+        quantized, ``lm.py:194-208``); whisper's encoder and
+        cross-attention stay float (the reference's pass skips
+        ``/encoder/`` and ``/xattn/``, ``lm.py:202``), held as the served
+        copy holds them (cast once to the compute dtype), as are the
+        recurrent mixers.  Idempotent: an int8 model returns itself.
 
         ``release``: quantize this model in place, block by block, each
         block's float projections dropped as soon as its int8 copy exists
@@ -459,14 +506,16 @@ class Model(nn.Module):
         one: nothing serves the float weights afterwards."""
         if self.int8:
             return self
-        # a recurrent mixer serves its compute-dtype copy (``_cast_mixer``)
-        mixes = [_cast_mixer(b.mix, self.compute_dtype)
-                 if hasattr(b, "mix") else None for b in self.blocks]
+        cd = self.compute_dtype
+        encoder = (Encoder.cast(self.encoder, self.cfg, cd)
+                   if self.cfg.encdec else None)
         if release:
             self._served = None
             for i in range(len(self.blocks)):
                 self.blocks[i] = Block.quantized(self.blocks[i], self.cfg,
-                                                 mixes[i])
+                                                 cd)
+            if encoder is not None:
+                self.encoder = encoder
             self.int8 = True
             return self
         q = Model.__new__(Model)
@@ -474,10 +523,10 @@ class Model(nn.Module):
         q.cfg, q.int8, q.device = self.cfg, True, self.device
         q.compute_dtype = self.compute_dtype
         q.embed, q.final_norm = self.embed, self.final_norm
-        q.blocks = nn.ModuleList(Block.quantized(b, self.cfg, m)
-                                 for b, m in zip(self.blocks, mixes))
-        if self.cfg.encdec:
-            q.encoder = self.encoder
+        q.blocks = nn.ModuleList(Block.quantized(b, self.cfg, cd)
+                                 for b in self.blocks)
+        if encoder is not None:
+            q.encoder = encoder
         return q
 
     def _projections(self):
@@ -490,25 +539,48 @@ class Model(nn.Module):
                     yield getattr(blk.mix, name)
             if isinstance(getattr(blk, "ffn", None), MLP):
                 yield from blk.ffn.params().values()
+            if hasattr(blk, "xattn"):
+                yield from blk.xattn.parameters()
+        for blk in (self.encoder.blocks if self.cfg.encdec else ()):
+            yield blk.attn.wqkv
+            yield blk.attn.wo
+            yield from blk.ffn.params().values()
+
+    def _served_copy(self):
+        """``(key, blocks, encoder)`` at the compute dtype, made once and
+        kept while no projection weight changes (each weight's identity
+        and version counter)."""
+        key = tuple((id(w), w._version) for w in self._projections())
+        if self._served is None or self._served[0] != key:
+            self._served = None     # the old copy goes before the new one
+            cfg, cd = self.cfg, self._cast_to
+            self._served = (key, [Block.cast(b, cfg, cd)
+                                  for b in self.blocks],
+                            Encoder.cast(self.encoder, cfg, cd)
+                            if cfg.encdec else None)
+        return self._served
 
     def served_blocks(self) -> List[Block]:
         """The blocks the serving entry points run: ``self.blocks``, or,
         where the float projections are wider than the compute dtype
-        (internlm2-1.8b, xlstm-350m and the smoke configs: float32
-        masters, bf16 compute) or a mixer holds weights it multiplies at
-        fp32 narrower (recurrentgemma-9b's bf16 gates), ``Block.cast``
-        copies at the compute dtype.  The copy is made once and kept while
-        no projection weight changes (each weight's identity and version
-        counter), so a step reads the weights at the dtypes it multiplies
-        them at and casts nothing."""
+        (internlm2-1.8b, whisper-small, paligemma-3b, xlstm-350m and the
+        smoke configs: float32 masters, bf16 compute) or a mixer holds
+        weights it multiplies at fp32 narrower (recurrentgemma-9b's bf16
+        gates), ``Block.cast`` copies at the compute dtype.  The copy is
+        made once and kept while no projection weight changes, so a step
+        reads the weights at the dtypes it multiplies them at and casts
+        nothing."""
         if self.int8 or getattr(self, "_cast_to", None) is None:
             return list(self.blocks)
-        key = tuple((id(w), w._version) for w in self._projections())
-        if self._served is None or self._served[0] != key:
-            self._served = None     # the old copy goes before the new one
-            self._served = (key, [Block.cast(b, self.cfg, self._cast_to)
-                                  for b in self.blocks])
-        return self._served[1]
+        return self._served_copy()[1]
+
+    def served_encoder(self) -> "Encoder":
+        """Whisper's encoder as ``encode`` runs it: ``self.encoder``, or
+        its ``Encoder.cast`` copy at the compute dtype where its
+        projections are wider, made and kept with ``served_blocks``'."""
+        if self.int8 or getattr(self, "_cast_to", None) is None:
+            return self.encoder
+        return self._served_copy()[2]
 
     @property
     def supports_paged_serving(self) -> bool:
@@ -625,7 +697,8 @@ class Model(nn.Module):
         h = frames.to(self.device).to(cd) + sinusoid(0, f, cfg.d_model, cd,
                                                       self.device)
         positions = torch.arange(f, device=self.device)
-        for blk in self.encoder.blocks:
+        encoder = self.served_encoder()
+        for blk in encoder.blocks:
             x = rmsnorm(h, blk.ln1, cfg.norm_eps)
             h = h + attention_apply(blk.attn, x, cfg, cd, kind="full",
                                     theta=cfg.rope_theta,
@@ -633,7 +706,7 @@ class Model(nn.Module):
                                     use_rope=False)
             x2 = rmsnorm(h, blk.ln2, cfg.norm_eps)
             h = h + mlp_apply(blk.ffn.params(), x2, cd, gated=cfg.gated_mlp)
-        return rmsnorm(h, self.encoder.final_norm, cfg.norm_eps)
+        return rmsnorm(h, encoder.final_norm, cfg.norm_eps)
 
     def forward(self, tokens: torch.Tensor, *, cache: Cache,
                 pos: Optional[int] = None,
@@ -686,7 +759,6 @@ class Model(nn.Module):
         requires grad, at its own dtype (the fp32 masters of a float32
         config).  An optimizer step that updates them in place updates the
         model, and ``served_blocks`` casts them again."""
-        check_trainable(self.cfg)
         if self.int8:
             raise ValueError("the int8 serving copy is not trained")
         return {name: p.detach().requires_grad_(True)
@@ -705,12 +777,14 @@ class Model(nn.Module):
 
     def _train_block(self, params: Dict[str, torch.Tensor], i: int,
                      positions: torch.Tensor, h: torch.Tensor,
-                     xn: torch.Tensor, next_scale: torch.Tensor):
+                     xn: torch.Tensor, next_scale: torch.Tensor,
+                     enc_out: Optional[torch.Tensor] = None):
         """Block ``i`` of the training forward: ``(h, rmsnorm(h,
         next_scale), aux)``, the serving block's arithmetic with gradients
-        (``attention_train`` or a recurrent mixer, ``mlp_train``; an MoE's
-        ``moe_apply`` and the standalone norm after it; with ``d_ff`` 0 the
-        standalone norm alone)."""
+        (``attention_train`` or a recurrent mixer, whisper's
+        ``cross_attention_train`` over ``enc_out`` after its standalone
+        ``lnx``, ``mlp_train``; an MoE's ``moe_apply`` and the standalone
+        norm after it; with ``d_ff`` 0 the standalone norm alone)."""
         cfg, cd = self.cfg, self.compute_dtype
         kind, p = cfg.kind(i), f"blocks.{i}."
         zero = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -720,7 +794,14 @@ class Model(nn.Module):
             h = h + attention_train(params[p + "attn.wqkv"],
                                     params[p + "attn.wo"], xn, cfg, cd,
                                     kind=kind, theta=self._theta(kind),
-                                    positions=positions)
+                                    positions=positions,
+                                    use_rope=not cfg.encdec)
+        if enc_out is not None:
+            # cross-attention, added outside any GEMM (lm.py:272-287)
+            xx = ag.rmsnorm(h, params[p + "lnx"], cfg.norm_eps)
+            h = h + cross_attention_train(
+                *(params[p + "xattn." + n] for n in ("wq", "wk", "wv", "wo")),
+                xx, enc_out, cfg, cd)
         if cfg.d_ff == 0:
             # an xLSTM block has no FFN: the next norm runs standalone
             return h, ag.rmsnorm(h, next_scale, cfg.norm_eps), zero
@@ -738,23 +819,67 @@ class Model(nn.Module):
                           gated=cfg.gated_mlp)
         return h, xn, zero
 
+    def _train_encoder_block(self, params: Dict[str, torch.Tensor], i: int,
+                             h: torch.Tensor) -> torch.Tensor:
+        """Encoder block ``i`` with gradients: ``encode``'s block (the
+        standalone ``ln1``, the 'full' self-attention with no RoPE, the
+        residual, the standalone ``ln2``, the plain GELU MLP with no fold,
+        the residual) through ``kernels.autograd``."""
+        cfg, cd = self.cfg, self.compute_dtype
+        p = f"encoder.blocks.{i}."
+        x = ag.rmsnorm(h, params[p + "ln1"], cfg.norm_eps)
+        h = h + attention_train(params[p + "attn.wqkv"], params[p + "attn.wo"],
+                                x, cfg, cd, kind="full", theta=cfg.rope_theta,
+                                positions=None, use_rope=False)
+        x2 = ag.rmsnorm(h, params[p + "ln2"], cfg.norm_eps)
+        return h + mlp_train({n: params[p + "ffn." + n]
+                              for n in _mlp_names(cfg)}, x2, cd,
+                             gated=cfg.gated_mlp)
+
+    def train_encode(self, params: Dict[str, torch.Tensor],
+                     frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder with gradients (the reference's ``_encode``,
+        ``lm.py:363-385``): frames [B, F, D] -> [B, F, D] in the compute
+        dtype, ``encode``'s arithmetic, each block recomputed in the
+        backward whatever ``cfg.remat`` (the reference's
+        ``jax.checkpoint(body)``)."""
+        cfg, cd, dev = self.cfg, self.compute_dtype, self.device
+        if frames is None or frames.dim() != 3 or \
+                frames.shape[2] != cfg.d_model:
+            raise ValueError(f"{cfg.name} trains from frames [B, F, "
+                             f"{cfg.d_model}]")
+        f = frames.shape[1]
+        h = frames.to(dev).to(cd) + sinusoid(0, f, cfg.d_model, cd, dev)
+        for i in range(cfg.n_enc_layers):
+            h = checkpoint(functools.partial(self._train_encoder_block,
+                                             params, i), h,
+                           use_reentrant=False)
+        return ag.rmsnorm(h, params["encoder.final_norm"], cfg.norm_eps)
+
     def train_forward(self, params: Dict[str, torch.Tensor],
                       tokens: torch.Tensor,
-                      patches: Optional[torch.Tensor] = None):
+                      patches: Optional[torch.Tensor] = None,
+                      frames: Optional[torch.Tensor] = None):
         """The training forward (the reference's ``forward(mode='train')``):
-        tokens [B, S] (and paligemma's patches [B, P, D] in front) ->
+        tokens [B, S] (and paligemma's patches [B, P, D] in front; whisper's
+        frames [B, F, D] through ``train_encode`` first) ->
         ``(rmsnorm(h, final_norm) [B, P + S, D], aux)``, ``aux`` the sum of
         the MoE layers' load-balancing losses.  No cache, no K/V writes;
         under ``cfg.remat == 'full'`` each block is recomputed in the
         backward (``torch.utils.checkpoint``), so a block's activations
-        live only while its gradient is taken."""
+        live only while its gradient is taken.  Whisper's encoder output is
+        computed once and held while every decoder block (and its
+        recomputation) reads it."""
         cfg, cd = self.cfg, self.compute_dtype
-        check_trainable(cfg)
         dev = self.device
+        enc_out = self.train_encode(params, frames) if cfg.encdec else None
         h = ag.embed(params["embed"], tokens.to(dev), cd)
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=dev)
         if cfg.prefix_tokens:
             h = torch.cat([patches.to(dev).to(cd), h], dim=1)
+        if cfg.encdec:
+            # sinusoidal positions from 0 (lm.py:356-360)
+            h = h + sinusoid(0, h.shape[1], cfg.d_model, cd, dev)
         positions = torch.arange(h.shape[1], device=dev)
         xn = ag.rmsnorm(h, params["blocks.0.ln1"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -762,7 +887,7 @@ class Model(nn.Module):
             nxt = (params[f"blocks.{i + 1}.ln1"] if i + 1 < cfg.n_layers
                    else params["final_norm"])
             block = functools.partial(self._train_block, params, i,
-                                      positions)
+                                      positions, enc_out=enc_out)
             if cfg.remat == "full":
                 h, xn, a = checkpoint(block, h, xn, nxt, use_reentrant=False)
             else:
@@ -773,14 +898,15 @@ class Model(nn.Module):
     def loss(self, params: Dict[str, torch.Tensor],
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The training loss of a batch (``tokens``, ``targets`` [B, S], and
-        paligemma's ``patches``), the reference's ``Model.loss``: the mean
+        paligemma's ``patches`` or whisper's ``frames``), the reference's
+        ``Model.loss``: the mean
         NLL of the targets against the tied embedding
         (``vocab_parallel_xent``, the final softcap), paligemma's patch
         positions ignored (targets -1), plus ``0.01 * aux / n_layers`` for
         an MoE."""
         cfg = self.cfg
         h, aux = self.train_forward(params, batch["tokens"],
-                                    batch.get("patches"))
+                                    batch.get("patches"), batch.get("frames"))
         targets = batch["targets"].to(self.device)
         if cfg.prefix_tokens:
             ignore = torch.full((targets.shape[0], cfg.prefix_tokens), -1,

@@ -325,18 +325,20 @@ def _int8_block_bytes(cfg) -> int:
     (LLAMA4, 8, True, True),
     ("paligemma-3b", None, True, True)])
 def test_int8_fits_arithmetic(arch, layers, fits_release, fits_fallback):
-    """``int8_peak_bytes`` from the shapes: the bf16 model (the embedding
-    at its own dtype, the norm scales at fp32) plus one block's int8 copy
-    on the releasing build, plus every block's under ``fp32_fallback``;
-    an 80 GB card holds the peak under 0.8 of itself.  gemma2-27b: 54.45
-    GB + 0.57 GB fits, 54.45 + 26.06 GB does not."""
+    """``int8_peak_bytes`` from the shapes: the float model (every weight
+    at its config's ``param_dtype``: bf16, or paligemma's fp32 masters;
+    the norm scales at fp32) plus one block's int8 copy on the releasing
+    build, plus every block's under ``fp32_fallback``; an 80 GB card holds
+    the peak under 0.8 of itself.  gemma2-27b: 54.45 GB + 0.57 GB fits,
+    54.45 + 26.06 GB does not."""
     cfg = tserve.with_layers(get_config(arch), layers)
     d, n = cfg.d_model, cfg.n_layers
-    embed = cfg.padded_vocab() * d * (4 if cfg.prefix_tokens else 2)
+    width = 4 if cfg.param_dtype == "float32" else 2
+    embed = cfg.padded_vocab() * d * width
     norms = 4 * d * (2 * n + 1)
-    float_bytes = embed + norms + 2 * (cfg.param_count()
-                                       - cfg.padded_vocab() * d
-                                       - d * (2 * n + 1))
+    float_bytes = embed + norms + width * (cfg.param_count()
+                                           - cfg.padded_vocab() * d
+                                           - d * (2 * n + 1))
     if cfg.moe:    # the router is fp32
         float_bytes += 2 * n * d * cfg.n_experts
     block = _int8_block_bytes(cfg)

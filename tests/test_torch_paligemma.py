@@ -9,9 +9,11 @@ versions).
 Tolerances, each with its reason:
 
 * Both sides hold the same parameters, the block weights rounded to
-  bf16-representable fp32 (the port keeps paligemma's projection weights
-  at the compute dtype, the reference at fp32; on rounded weights both
-  multiply the same numbers and only the order of summation differs).
+  bf16-representable fp32 (the port serves a bf16 copy of its fp32
+  masters at bf16 compute, the reference promotes its fp32 weights; on
+  rounded weights both multiply the same numbers and only the order of
+  summation differs; ``test_torch_train_encdec.py`` holds the unrounded
+  masters and the int8 copy quantized from them).
 * At fp32 compute the prefill logits are within 1e-4 of their scale; at
   bf16 compute within twice the reference's own bf16 rounding noise (its
   distance from the same prefill at fp32 compute), the rule of
@@ -81,19 +83,21 @@ def test_config_is_the_reference_copy(smoke):
 
 def test_full_width_weights_on_the_card():
     """18 layers at full width: 8 q heads over 1 kv head of 256 (G = 8),
-    the fp32 embedding (2.1 GB, read by the fp32 logits) and 3.96 GB of
-    bf16 projections, counted on the meta device; the int8 build fits."""
+    the fp32 embedding (2.1 GB, read by the fp32 logits) and 7.93 GB of
+    fp32 projections (the config's float32 masters; served from their
+    3.96 GB bf16 copy), counted on the meta device; the int8 build
+    fits."""
     cfg = get_config(ARCH)
     assert (cfg.n_layers, cfg.d_model, cfg.hd, cfg.n_heads // cfg.n_kv_heads,
             cfg.d_ff, cfg.prefix_tokens) == (18, 2048, 256, 8, 16384, 256)
     model = Model(cfg, device="meta")
     assert model.embed.dtype == torch.float32
-    assert model.blocks[0].attn.wqkv.dtype == torch.bfloat16
-    assert model.blocks[0].ffn.down.dtype == torch.bfloat16
+    assert model.blocks[0].attn.wqkv.dtype == torch.float32
+    assert model.blocks[0].ffn.down.dtype == torch.float32
     assert model.embed.nbytes == 2_107_637_760
     proj = sum(p.nbytes for n, p in model.named_parameters()
                if n.startswith("blocks.") and p.dim() == 2)
-    assert proj == 3_963_617_280
+    assert proj == 2 * 3_963_617_280
     assert tserve.int8_fits(cfg, torch.device("cuda"), total=80e9)
 
 
@@ -152,24 +156,24 @@ def _batch(cfg, seed=1):
 
 
 def test_convert_round_trip():
-    """The reference's tree into the port (the fp32 embedding and norm
-    scales as they are, the projections cast once to bf16) and back
-    (``to_jax_params``): every leaf equal."""
+    """The reference's tree into the port (every leaf as it is: the fp32
+    embedding, norm scales and projections, the masters) and back
+    (``to_jax_params``): every leaf equal, bit for bit."""
     jm, params, _ = _models(compute_dtype="bfloat16")
     cfg = get_config(ARCH, smoke=True)
     tm = Model(cfg, device="cpu")
     tm.load_state_dict(from_jax_params(cfg, jax.tree.map(np.asarray,
                                                          params)))
     assert tm.embed.dtype == torch.float32
-    assert tm.blocks[1].attn.wqkv.dtype == torch.bfloat16
+    assert tm.blocks[1].attn.wqkv.dtype == torch.float32
     back = from_jax_params(cfg, to_jax_params(cfg, tm.state_dict()))
     sd = tm.state_dict()
     assert sorted(back) == sorted(sd)
     for key, t in sd.items():
-        assert torch.equal(back[key].to(t.dtype), t), key
+        assert back[key].dtype == t.dtype and torch.equal(back[key], t), key
     grp = params["groups"]["b0"]
     np.testing.assert_array_equal(
-        sd["blocks.1.attn.wqkv"].float().numpy(),
+        sd["blocks.1.attn.wqkv"].numpy(),
         np.asarray(grp["attn"]["wqkv"][1]))
     np.testing.assert_array_equal(sd["embed"].numpy(),
                                   np.asarray(params["embed"]))
@@ -435,7 +439,7 @@ def forced_wrappers(intercepted, monkeypatch):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_served_path_hands_the_kernels_valid_tensors(forced_wrappers, int8):
-    """The smoke model (bf16 projection weights, as on the card) through
+    """The smoke model (its fp32 masters' bf16 copy, as on the card) through
     the prefill of 4 images' 8 patches and 8 text tokens (the GEMMs at 64
     rows) and one decode step, every kernel call through its wrapper.  One
     decode iteration's launches are the counts ``chip_smoke.py``'s

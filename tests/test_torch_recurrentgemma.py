@@ -751,7 +751,7 @@ def test_int8_peak_is_the_largest_real_block():
     model = Model(cfg, device="meta")
     copies = []
     for blk in model.blocks:
-        q = type(blk).quantized(blk, cfg)
+        q = type(blk).quantized(blk, cfg, model.compute_dtype)
         copies.append(sum(t.nbytes for m in q.modules()
                           if isinstance(m, QuantizedWeight)
                           for t in m.buffers()))

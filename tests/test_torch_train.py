@@ -5,8 +5,9 @@ CPU (the reference in its ``xla`` kernel mode, its step under
 * ``Model.loss`` and its gradients for granite and internlm2, an MoE
   (grok-1's smoke config: the ``0.01 * aux / n_layers`` term),
   paligemma (its prefix's targets ignored), gemma2 (local and global
-  layers, the attention and final softcaps) and gemma3 (5 local to 1
-  global, two RoPE thetas), fp32 compute: the loss within 1e-5 relative,
+  layers, the attention and final softcaps), gemma3 (5 local to 1
+  global, two RoPE thetas) and whisper (the encoder over the batch's
+  frames, the cross-attention), fp32 compute: the loss within 1e-5 relative,
   every gradient leaf within 1e-4 of its scale.
 * The train step (AdamW, clipping, bias corrections, weight decay) after
   1 and 3 steps for granite, internlm2, gemma2 and gemma3 at fp32: losses and grad norms
@@ -133,6 +134,10 @@ def _batches(cfg, n=STEPS, b=B, s=S, seed=0):
                 (b, cfg.prefix_tokens, cfg.d_model)).astype(np.float32)
             batch = {k: (v[:, :s - cfg.prefix_tokens] if k != "patches"
                          else v) for k, v in batch.items()}
+        if cfg.encdec:
+            rng = np.random.default_rng(200 + i)
+            batch["frames"] = rng.standard_normal(
+                (b, cfg.enc_frames, cfg.d_model)).astype(np.float32)
         out.append(batch)
     return out
 
@@ -148,7 +153,8 @@ def _torch_batch(batch):
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "internlm2-1.8b",
                                   "grok-1-314b", "paligemma-3b",
-                                  "gemma2-27b", "gemma3-12b"])
+                                  "gemma2-27b", "gemma3-12b",
+                                  "whisper-small"])
 def test_loss_and_grads_match_the_reference(arch):
     jm, params, tm = _pair(arch, "float32")
     (batch,) = _batches(jm.cfg, n=1)
@@ -178,13 +184,6 @@ def test_moe_aux_and_prefix_targets_reach_the_loss():
     loss = pm.loss(pm.train_params(), tb)
     tb["patches"] = tb["patches"] * 2
     assert float(pm.loss(pm.train_params(), tb)) != float(loss)
-
-
-@pytest.mark.parametrize("kind", ["whisper-small"])
-def test_untrained_families_refuse(kind):
-    m = Model(get_config(kind, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="training forward"):
-        m.train_params()
 
 
 def test_remat_recompute_is_bitwise_the_forward():

@@ -546,7 +546,7 @@ def test_k4_backward_launch(intercepted, hd):
     ((lib, fn, args),) = intercepted
     assert (lib, fn) == ("flash_backward", "k4_flash_backward")
     assert len(args) + 1 == len(_cuda.SIGNATURES[lib][fn])
-    assert args[10:] == (4, 4096, 16, 8, hd, hd ** -0.5, 0, 0, 0, 0.0)
+    assert args[10:] == (4, 4096, 4096, 16, 8, hd, hd ** -0.5, 0, 0, 0, 0.0)
     assert _cuda.LAUNCHES["flash_attention_bwd"] == 1
     assert not [key for key in _cuda.LAUNCHES
                 if key.startswith("flash_attention_bwd:")]
@@ -577,8 +577,8 @@ def test_k4_backward_launches_each_kind(intercepted, kw, args, variant):
     ((lib, fn, got),) = intercepted
     assert (lib, fn) == ("flash_backward", "k4_flash_backward")
     assert len(got) + 1 == len(_cuda.SIGNATURES[lib][fn])
-    assert got[10:16] == (1, 64, 2, 1, hd, hd ** -0.5)
-    assert got[16:] == args
+    assert got[10:17] == (1, 64, 64, 2, 1, hd, hd ** -0.5)
+    assert got[17:] == args
     assert _cuda.LAUNCHES["flash_attention_bwd"] == 1
     assert _cuda.LAUNCHES[f"flash_attention_bwd:{variant}"] == 1
 
@@ -595,7 +595,7 @@ def test_k4_backward_workspace_rows_are_padded(intercepted, monkeypatch):
     q, k = _bf(2, 1000, 8, 64), _bf(2, 1000, 2, 64)
     tfa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(2, 8, 1000), q)
     ((lib, fn, args),) = intercepted
-    assert args[10:] == (2, 1000, 8, 2, 64, 64 ** -0.5, 0, 0, 0, 0.0)
+    assert args[10:] == (2, 1000, 1000, 8, 2, 64, 64 ** -0.5, 0, 0, 0, 0.0)
     assert made == [(2, 2, 8, 1024)]
 
 
@@ -606,12 +606,12 @@ def test_k4_backward_global_ignores_the_window(intercepted):
     tfa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 2, 64), q,
                                  kind="global", window=1024)
     ((_, _, got),) = intercepted
-    assert got[16:] == (0, 0, 0, 0.0)
+    assert got[17:] == (0, 0, 0, 0.0)
     assert _cuda.LAUNCHES["flash_attention_bwd:hd256"] == 1
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(kind="full", skv=96), NotImplementedError, "Skv == Sq"),
+    (dict(kind="global", skv=96), NotImplementedError, "Skv == Sq"),
     (dict(hd=96), ValueError, "head_dim"),
     (dict(kind="local", window=0), ValueError, "window"),
     (dict(kind="sliding"), NotImplementedError, "not ported"),
@@ -620,9 +620,9 @@ def test_k4_backward_global_ignores_the_window(intercepted):
 def test_k4_backward_refuses_what_it_does_not_take(intercepted, kw, exc,
                                                    match):
     """The backward kernel takes every kind at Sq == Skv and head dims 16
-    to 256: 'full' over other keys (cross-attention, whisper's training
-    slice), another head dim, a window below 1, an unknown kind and a
-    negative softcap raise with the reason and launch nothing."""
+    to 256 ('full' over any keys): a causal kind over other keys, another
+    head dim, a window below 1, an unknown kind and a negative softcap
+    raise with the reason and launch nothing."""
     hd, skv = kw.pop("hd", 128), kw.pop("skv", 64)
     q, k = _bf(1, 64, 2, hd), _bf(1, skv, 1, hd)
     with pytest.raises(exc, match=match):

@@ -18,8 +18,8 @@ Tolerances, each with its reason:
   softmax against one softmax, or another tiling, then the bf16 cast),
   fp32 within 1e-5, the rule of ``test_torch_gemma3.py``.
 * The model: both sides hold the same parameters, the block weights
-  rounded to bf16-representable fp32 (the port keeps whisper's projection
-  weights at the compute dtype, the reference at fp32; on rounded weights
+  rounded to bf16-representable fp32 (the port serves a bf16 copy of its
+  fp32 masters at bf16 compute, the reference promotes them; on rounded weights
   both multiply the same numbers and only the order of summation
   differs).  At fp32 compute the prefill logits are within 1e-4 of their
   scale and the decode steps within twice the reference's own bf16
@@ -123,8 +123,9 @@ def test_full_width_weights_on_the_card():
     """Built on the meta device (no memory): 12 encoder and 12 decoder
     layers at d_model 768, 12 heads of 64, d_ff 3072, vocab 51865 padded
     to 51968, 0.24 B parameters (the reference's count leaves out the
-    cross-attention), the projection weights at bf16 (0.40 GB), the
-    embedding and the norm scales at fp32."""
+    cross-attention), the projection weights at fp32 (0.80 GB: the
+    config's float32 masters, served from their bf16 copy), the embedding
+    and the norm scales at fp32."""
     cfg = get_config(ARCH)
     model = Model(cfg, device="meta")
     assert (len(model.blocks), len(model.encoder.blocks)) == (12, 12)
@@ -139,9 +140,9 @@ def test_full_width_weights_on_the_card():
     assert total == cfg.param_count() + 12 * 4 * 768 * 768 + 768
     assert 0.23e9 < total < 0.25e9
     proj = {n: p for n, p in params.items() if p.dim() == 2 and n != "embed"}
-    assert all(p.dtype == torch.bfloat16 for p in proj.values())
-    # 0.40 GB of bf16 projections beside the 0.16 GB fp32 embedding
-    assert 0.39e9 < 2 * sum(p.numel() for p in proj.values()) < 0.40e9
+    assert all(p.dtype == torch.float32 for p in proj.values())
+    # 0.80 GB of fp32 projections beside the 0.16 GB fp32 embedding
+    assert 0.78e9 < 4 * sum(p.numel() for p in proj.values()) < 0.80e9
     assert params["embed"].dtype == torch.float32
     assert all(p.dtype == torch.float32 for n, p in params.items()
                if p.dim() == 1)
@@ -405,7 +406,7 @@ def forced_wrappers(intercepted, monkeypatch):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_served_path_hands_the_kernels_valid_tensors(forced_wrappers, int8):
-    """The smoke model at bf16 compute (bf16 projection weights, as on the
+    """The smoke model at bf16 compute (its masters' bf16 copy, as on the
     card) through prefill (4 clips of 24 frames: the encoder's GEMMs at 96
     rows, the operations regime; a 16-token prompt: the decoder's at 64)
     and one decode step, every kernel call through its wrapper: every
@@ -554,8 +555,8 @@ def test_fixed_loop_logits_match_reference():
 
 
 def test_unrounded_weights_witness():
-    """The port at bf16 compute holds bf16 projection weights; the
-    reference at bf16 compute multiplies the unrounded fp32 ones.  Their
+    """The port at bf16 compute serves a bf16 copy of its fp32 masters;
+    the reference at bf16 compute multiplies the unrounded fp32 ones.  Their
     prefill logits stay within 5% of the logit scale (printed)."""
     jm, params, _ = _models(compute_dtype="bfloat16", rounded=False)
     _, _, tm = _models(compute_dtype="bfloat16", rounded=False)
@@ -612,9 +613,11 @@ def _quantized_paths(module) -> list:
 
 def test_quantize_pass_coverage_and_skips():
     """The reference's ``test_int8_serving.py:140-158`` on the port: the
-    decoder's projections are quantized, the embedding, the norms, the
-    cross-attention and the encoder stay float and are shared; the pass
-    is idempotent; the quantized values equal the reference's."""
+    decoder's projections are quantized; the embedding and the norms are
+    shared; the cross-attention and the encoder stay float, held as the
+    served copy holds them (the fp32 masters cast once to the compute
+    dtype); the pass is idempotent; the quantized values equal the
+    reference's."""
     jm, params, tm = _models(compute_dtype="bfloat16")
     q = tm.quantize_params_for_serving()
     paths = _quantized_paths(q)
@@ -623,10 +626,19 @@ def test_quantize_pass_coverage_and_skips():
     assert any(p.endswith("ffn.up") for p in paths)
     assert any(p.endswith("ffn.down") for p in paths)
     assert not any("xattn" in p or "encoder" in p for p in paths)
-    assert q.encoder is tm.encoder and q.embed is tm.embed
-    assert q.final_norm is tm.final_norm
-    assert all(qb.xattn is b.xattn and qb.lnx is b.lnx
-               for qb, b in zip(q.blocks, tm.blocks))
+    assert q.embed is tm.embed and q.final_norm is tm.final_norm
+    assert q.encoder.final_norm is tm.encoder.final_norm
+    bf = torch.bfloat16
+    for qe, e in zip(q.encoder.blocks, tm.encoder.blocks):
+        assert qe.ln1 is e.ln1 and qe.ln2 is e.ln2
+        for w, want in ((qe.attn.wqkv, e.attn.wqkv), (qe.ffn.up, e.ffn.up)):
+            assert w.dtype == bf and torch.equal(w, want.to(bf))
+    for qb, b in zip(q.blocks, tm.blocks):
+        assert qb.lnx is b.lnx
+        for name in ("wq", "wk", "wv", "wo"):
+            w = getattr(qb.xattn, name)
+            assert w.dtype == bf and torch.equal(w, getattr(b.xattn,
+                                                            name).to(bf))
     assert q.quantize_params_for_serving() is q
     jq = jm.quantize_params_for_serving(params)["groups"]["b0"]
     for i, blk in enumerate(q.blocks):
